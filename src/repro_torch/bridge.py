@@ -1,0 +1,46 @@
+"""Carry weights across from the JAX package.
+
+Random initializers cannot match across frameworks, so a parity check
+builds parameters with ``repro.models.lm.init_lm``, turns them into numpy
+(``jax.tree.map(np.asarray, params)``) and hands the tree here.  The two
+packages share one layout, so the bridge is a name-by-name copy that
+raises on any missing, extra or mis-shaped leaf.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import lm
+
+
+def params_from_numpy(tree: Any, cfg: ModelConfig, device="cpu",
+                      dtype: torch.dtype = None) -> Any:
+    """The port's params from a numpy tree in the JAX layout, as leaf
+    tensors that require grad, in ``dtype`` (default: the config's)."""
+    dtype = dtype or lm.DTYPES[cfg.dtype]
+
+    def copy(expected, got, path):
+        if isinstance(expected, dict):
+            if not isinstance(got, dict) or set(got) != set(expected):
+                raise KeyError(f"{path or 'params'}: expected keys "
+                               f"{sorted(expected)}, got "
+                               f"{sorted(got) if isinstance(got, dict) else type(got).__name__}")
+            return {k: copy(expected[k], got[k], f"{path}.{k}")
+                    for k in expected}
+        if isinstance(expected, list):
+            if not isinstance(got, (list, tuple)) or len(got) != len(expected):
+                raise KeyError(f"{path}: expected a list of {len(expected)}")
+            return [copy(e, g, f"{path}[{i}]")
+                    for i, (e, g) in enumerate(zip(expected, got))]
+        arr = np.asarray(got)
+        if tuple(arr.shape) != tuple(expected):
+            raise ValueError(f"{path}: expected shape {tuple(expected)}, got "
+                             f"{tuple(arr.shape)}")
+        return torch.tensor(arr.astype(np.float32), dtype=dtype,
+                            device=device).requires_grad_(True)
+
+    return copy(lm.param_shapes(cfg), tree, "")

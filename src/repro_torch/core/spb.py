@@ -1,0 +1,138 @@
+"""Structured Partial Backpropagation: depth schedules and the weighted
+aggregation (the temporal half of ``repro/core/spb.py``).
+
+Paper semantics (k workers, L layers): worker j backprops only through the
+suffix of ceil(j*L/k) layers; the parameter server averages each layer's
+gradient over the workers that computed it.  Temporally, the suffix depth
+cycles over steps and layer block i receives i of k updates per cycle,
+which per-block scaling of the update turns back into the paper's
+weighted average.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Sequence, Tuple
+
+import torch
+
+from repro_torch.config import (ModelConfig, SPBConfig, combined_layer_groups,
+                                snap_depth, snap_depth_to_stages,
+                                total_layers)
+
+
+# ---------------------------------------------------------------------------
+# Depth schedules
+# ---------------------------------------------------------------------------
+
+def snapped_depths(cfg: ModelConfig, spb: SPBConfig) -> Tuple[int, ...]:
+    """The k suffix depths, snapped up to scan-unit boundaries (stage
+    boundaries when ``spb.pipeline_stages`` is set)."""
+    raw = spb.depths(total_layers(cfg))
+    if spb.pipeline_stages:
+        return tuple(snap_depth_to_stages(cfg, d, spb.pipeline_stages)
+                     for d in raw)
+    return tuple(snap_depth(cfg, d) for d in raw)
+
+
+def layer_contributors(cfg: ModelConfig, spb: SPBConfig) -> Tuple[int, ...]:
+    """contributors[l] = number of depth levels whose suffix covers layer l
+    (layer l, from the input, is covered by depth d iff l >= L - d)."""
+    L = total_layers(cfg)
+    depths = snapped_depths(cfg, spb)
+    return tuple(sum(1 for d in depths if l >= L - d) for l in range(L))
+
+
+@dataclasses.dataclass
+class TemporalSchedule:
+    """Cycles the k snapped depths over steps; supports warmup + rebalance."""
+    depths: Tuple[int, ...]
+    warmup_steps: int = 0
+    order: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if not self.order:
+            # interleave deep and shallow so gradient staleness of early
+            # layers is spread evenly through the cycle
+            idx = sorted(range(len(self.depths)),
+                         key=lambda i: (-self.depths[i], i))
+            inter: List[int] = []
+            lo, hi = 0, len(idx) - 1
+            while lo <= hi:
+                inter.append(idx[lo]); lo += 1
+                if lo <= hi:
+                    inter.append(idx[hi]); hi -= 1
+            self.order = tuple(inter)
+
+    @property
+    def k(self) -> int:
+        return len(self.depths)
+
+    def depth_at(self, step: int) -> int:
+        if step < self.warmup_steps:
+            return max(self.depths)
+        return self.depths[self.order[(step - self.warmup_steps) % self.k]]
+
+    def rebalance(self, slow_positions: Sequence[int]) -> "TemporalSchedule":
+        """Straggler mitigation: move the deepest (most expensive) cycle
+        positions away from positions observed to be slow."""
+        k = self.k
+        slow = {p % k for p in slow_positions}
+        by_cost = sorted(range(k), key=lambda i: -self.depths[i])
+        positions = sorted(range(k), key=lambda p: (p in slow))  # fast first
+        new_order = [0] * k
+        for lvl, pos in zip(by_cost, positions):
+            new_order[pos] = lvl
+        return dataclasses.replace(self, order=tuple(new_order))
+
+
+def make_schedule(cfg: ModelConfig, spb: SPBConfig) -> TemporalSchedule:
+    return TemporalSchedule(snapped_depths(cfg, spb), spb.warmup_steps)
+
+
+# ---------------------------------------------------------------------------
+# Weighted aggregation (the paper's PS-side weighted average)
+# ---------------------------------------------------------------------------
+
+def group_layer_scales(cfg: ModelConfig, spb: SPBConfig
+                       ) -> List[List[torch.Tensor]]:
+    """Per-group, per-unit-position f32 scale vectors of shape (count,):
+    k / contributors for layers with contributors > 0, else 0."""
+    contrib = layer_contributors(cfg, spb)
+    k = spb.k
+    out: List[List[torch.Tensor]] = []
+    off = 0
+    for unit, count in combined_layer_groups(cfg):
+        p = len(unit)
+        per_unit = []
+        for u in range(p):
+            idxs = [off + r * p + u for r in range(count)]
+            per_unit.append(torch.tensor(
+                [k / contrib[i] if contrib[i] > 0 else 0.0 for i in idxs],
+                dtype=torch.float32))
+        out.append(per_unit)
+        off += p * count
+    return out
+
+
+def _scale_rows(tree, s: torch.Tensor):
+    if isinstance(tree, dict):
+        return {k: _scale_rows(v, s) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return tree * s.to(tree.device, tree.dtype).reshape(
+        (-1,) + (1,) * (tree.dim() - 1))
+
+
+def scale_params_tree(params: Dict[str, Any], cfg: ModelConfig,
+                      spb: SPBConfig) -> Dict[str, Any]:
+    """Apply SPB weighted-average scaling to a gradient tree shaped like the
+    LM params (``None`` leaves stay ``None``)."""
+    if spb.mode == "off" or not spb.lr_rescale:
+        return params
+    if cfg.enc_layers:
+        raise NotImplementedError("encoder-decoder stacks are not ported")
+    out = dict(params)
+    out["groups"] = [[_scale_rows(up, s) for up, s in zip(gp, gs)]
+                     for gp, gs in zip(params["groups"],
+                                       group_layer_scales(cfg, spb))]
+    return out

@@ -1,0 +1,118 @@
+// Shared pieces of the flash-attention kernels for Hopper (sm_90a).
+//
+// Layout: every tensor is (B, heads, S, D) addressed through its batch,
+// head and sequence strides with a unit stride on D, so the public
+// (B, S, H, D) tensors are passed as transposed views without a copy.
+// lse and delta are contiguous (B, H, Sq) float32.
+//
+// Tiling: a block of NT = 256 threads owns a 64-row tile.  Thread t has
+// ty = t / 16 and tx = t % 16; in a 64 x 64 score tile it holds rows
+// ty + 16 i and columns tx + 16 j (i, j < 4), and in a 64 x D accumulator
+// rows ty + 16 i and columns tx + 16 n (n < D / 16).  The 16 threads that
+// share a row are the 16 lanes of one half-warp, so a row reduction is
+// four xor shuffles.  Shared-memory rows are padded to D + 1 and BK + 1
+// floats so that the 16 lanes reading 16 different rows at one column hit
+// 16 different banks.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace flash {
+
+constexpr int BQ = 64;      // q rows per tile
+constexpr int BK = 64;      // kv rows per tile
+constexpr int NT = 256;     // threads per block
+constexpr float NEG_INF = -1e30f;   // the Pallas kernels' masked score
+
+template <typename T> __device__ __forceinline__ float to_f32(T x);
+template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Half-warp reductions over the 16 lanes that share a tile row.
+__device__ __forceinline__ float row_max16(float v) {
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float row_sum16(float v) {
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// pair_mask of repro/kernels/flash_attention.py, plus the ragged edge.
+__device__ __forceinline__ bool pair_visible(int qpos, int kpos, int Sq, int Sk,
+                                             int causal, int window) {
+  return qpos < Sq && kpos < Sk && (!causal || kpos <= qpos) &&
+         (window <= 0 || kpos > qpos - window);
+}
+
+// tile_visible of repro/kernels/flash_attention.py turned into loop
+// bounds: the kv tiles [lo, hi) that hold a key visible to some q row in
+// [q_first, q_last].  Causal: a key is at most q_last.  Window: a key is
+// above q_first - window.
+__device__ __forceinline__ void kv_tile_range(int q_first, int q_last, int Sk, int causal,
+                                              int window, int* lo, int* hi) {
+  const int nk = (Sk + BK - 1) / BK;
+  *hi = causal ? min(nk, q_last / BK + 1) : nk;
+  *lo = window > 0 ? max(0, q_first - window + 1) / BK : 0;
+}
+
+// The q tiles [lo, hi) that hold a row seeing some key in [k_first, k_last].
+__device__ __forceinline__ void q_tile_range(int k_first, int k_last, int Sq, int causal,
+                                             int window, int* lo, int* hi) {
+  const int nq = (Sq + BQ - 1) / BQ;
+  *lo = causal ? min(nq, k_first / BQ) : 0;
+  *hi = window > 0 ? min(nq, (k_last + window - 1) / BQ + 1) : nq;
+}
+
+// Rows [row0, row0 + ROWS) of a (S, D) slice into shared memory as f32,
+// rows padded to D + 1; rows at or past nrows read as zero.
+template <typename T, int ROWS, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss, int row0,
+                                          int nrows) {
+  for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
+    const int r = idx / D, d = idx % D, row = row0 + r;
+    dst[r * (D + 1) + d] = row < nrows ? to_f32(src[(long long)row * ss + d]) : 0.f;
+  }
+}
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory.
+inline int set_smem(const void* kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+}  // namespace flash
+
+// dtype code 0 = float32, 1 = bfloat16; head_dim 16, 32, 64 or 128.
+#define FLASH_DISPATCH(DTYPE, DIM, FN, ...)                                    \
+  do {                                                                         \
+    if ((DTYPE) == 0) {                                                        \
+      switch (DIM) {                                                           \
+        case 16: return FN<float, 16>(__VA_ARGS__);                            \
+        case 32: return FN<float, 32>(__VA_ARGS__);                            \
+        case 64: return FN<float, 64>(__VA_ARGS__);                            \
+        case 128: return FN<float, 128>(__VA_ARGS__);                          \
+      }                                                                        \
+    } else if ((DTYPE) == 1) {                                                 \
+      switch (DIM) {                                                           \
+        case 16: return FN<__nv_bfloat16, 16>(__VA_ARGS__);                    \
+        case 32: return FN<__nv_bfloat16, 32>(__VA_ARGS__);                    \
+        case 64: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                    \
+        case 128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                  \
+      }                                                                        \
+    }                                                                          \
+    return (int)cudaErrorInvalidValue;                                         \
+  } while (0)
+
+extern "C" const char* flash_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,100 @@
+"""Build the CUDA sources in ``repro_torch/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` into
+``build/repro_torch/lib<name>-<digest>.so`` at the repository root (a
+git-ignored directory), where ``<digest>`` hashes the source, the shared
+headers and the flags: a changed source rebuilds, an unchanged one loads.
+The sources have a plain C interface (pointers, ints, the stream) and
+return ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception.  Builds happen at first use, never at import, and only from the
+sources in this package.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+            "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]:
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> float:
+    """Compile every named source whose library is missing, all ``nvcc``
+    processes at once; returns the seconds spent.  Raises with the
+    compiler's output if any build fails."""
+    t0 = time.perf_counter()
+    todo = [(n, _lib_path(n)) for n in names if not _lib_path(n).is_file()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failures = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}:\n{log.decode(errors='replace')}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return time.perf_counter() - t0
+
+
+def function(lib_name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry ``fn_name`` of ``lib<lib_name>``, building and loading
+    the library on first use."""
+    lib = _LIBS.get(lib_name)
+    if lib is None:
+        build([lib_name])
+        lib = ctypes.CDLL(str(_lib_path(lib_name)))
+        lib.flash_error_string.argtypes = [ctypes.c_int]
+        lib.flash_error_string.restype = ctypes.c_char_p
+        _LIBS[lib_name] = lib
+    fn = getattr(lib, fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(lib_name: str, code: int) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if code != 0:
+        msg = _LIBS[lib_name].flash_error_string(code).decode()
+        raise RuntimeError(f"{lib_name}: CUDA error {code} ({msg})")

@@ -1,0 +1,149 @@
+"""Flash-attention forward: the Hopper kernel's wrapper and its plain
+version (counterpart of ``repro/kernels/flash_attention.py``).
+
+The kernel (``csrc/flash_fwd.cu``) replaces the Pallas
+``_flash_fwd_kernel``: one block per (q tile, batch * head), an online
+softmax over the visible kv tiles, and ``lse = m + log l`` written only
+when asked for.  Its source note says what bounds it on the card.
+
+Dispatch: a CPU tensor takes :func:`fwd_plain`; a CUDA tensor launches the
+kernel or raises.  Nothing falls back to the plain version on the card.
+``fwd_kernel_layout.launches`` counts kernel launches.
+
+Masking follows the Pallas conventions: masked scores are ``NEG_INF``
+(-1e30), the row max starts at ``NEG_INF``, masked probabilities are 0 and
+the row sum is clamped at 1e-30, so a fully masked row yields 0 and
+``lse ~ -1e30``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def pair_mask(Sq: int, Sk: int, causal: bool, window: int, device,
+              q_start: int = 0, k_start: int = 0) -> torch.Tensor:
+    """(Sq, Sk) visibility of the (q, k) pairs of a tile whose first row
+    and column sit at ``q_start`` and ``k_start`` (Pallas ``pair_mask``)."""
+    qpos = q_start + torch.arange(Sq, device=device)[:, None]
+    kpos = k_start + torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def check_layout(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                 *others: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
+    """Validate kernel-layout operands: qt (B, H, Sq, D), kt/vt
+    (B, K, Sk, D), one dtype and device, unit stride on D.  Returns
+    (B, H, K, Sq, Sk, D)."""
+    if qt.dim() != 4 or kt.dim() != 4 or kt.shape != vt.shape:
+        raise ValueError(f"expected qt (B,H,Sq,D) and kt/vt (B,K,Sk,D), got "
+                         f"{tuple(qt.shape)}, {tuple(kt.shape)}, "
+                         f"{tuple(vt.shape)}")
+    B, H, Sq, D = qt.shape
+    K, Sk = kt.shape[1], kt.shape[2]
+    if kt.shape[0] != B or kt.shape[3] != D or K == 0 or H % K:
+        raise ValueError(f"incompatible q/k shapes {tuple(qt.shape)} "
+                         f"{tuple(kt.shape)}")
+    for t in (kt, vt) + others:
+        if t.dtype != qt.dtype or t.device != qt.device:
+            raise ValueError("attention operands must share dtype and device")
+    for t in (qt, kt, vt) + others:
+        if t.stride(-1) != 1:
+            raise ValueError("attention operands need a unit stride on D")
+    return B, H, K, Sq, Sk, D
+
+
+def kernel_dtype_code(qt: torch.Tensor, D: int) -> int:
+    """The kernels' dtype code; raises for what they do not take."""
+    if qt.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {qt.device}")
+    if qt.dtype not in _DTYPES or D not in _HEAD_DIMS:
+        raise ValueError(f"attention kernels take float32/bfloat16 with "
+                         f"head_dim in {_HEAD_DIMS}, got {qt.dtype}, D={D}")
+    return _DTYPES[qt.dtype]
+
+
+def strides(t: torch.Tensor):
+    """Batch, head and sequence strides of a kernel-layout tensor."""
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def empty_kernel_layout(B: int, heads: int, S: int, D: int, like: torch.Tensor
+                        ) -> torch.Tensor:
+    """(B, heads, S, D) output whose transpose to (B, S, heads, D) is
+    contiguous, so the public layout costs no copy."""
+    return torch.empty((B, S, heads, D), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def fwd_plain(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, *,
+              causal: bool = True, window: int = 0, with_lse: bool = False):
+    """Plain version of the forward kernel, f32 math on the whole score
+    matrix.  Returns ot (B, H, Sq, D) in qt's dtype, plus lse (B, H, Sq)
+    f32 when ``with_lse``."""
+    B, H, K, Sq, Sk, D = check_layout(qt, kt, vt)
+    G = H // K
+    q = qt.float().reshape(B, K, G, Sq, D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", q, kt.float()) / math.sqrt(D)
+    mask = pair_mask(Sq, Sk, causal, window, qt.device)
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
+    p = torch.exp(s - m).masked_fill(~mask, 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, vt.float()) / l
+    ot = o.reshape(B, H, Sq, D).to(qt.dtype)
+    if with_lse:
+        return ot, (m + torch.log(l))[..., 0].reshape(B, H, Sq)
+    return ot
+
+
+_FWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def fwd_kernel_layout(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      with_lse: bool = False):
+    """Forward in kernel layout.  qt: (B, H, Sq, D); kt, vt: (B, K, Sk, D).
+    Returns ot, or (ot, lse) when ``with_lse``."""
+    B, H, K, Sq, Sk, D = check_layout(qt, kt, vt)
+    if qt.device.type == "cpu":
+        return fwd_plain(qt, kt, vt, causal=causal, window=window,
+                         with_lse=with_lse)
+    dtype = kernel_dtype_code(qt, D)
+    ot = empty_kernel_layout(B, H, Sq, D, qt)
+    lse: Optional[torch.Tensor] = (
+        torch.empty((B, H, Sq), dtype=torch.float32, device=qt.device)
+        if with_lse else None)
+    fn = _build.function("flash_fwd", "flash_fwd", _FWD_ARGTYPES)
+    code = fn(dtype, D, qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+              ot.data_ptr(), lse.data_ptr() if lse is not None else None,
+              B, H, K, Sq, Sk, *strides(qt), *strides(kt), *strides(vt),
+              *strides(ot), int(causal), int(window), 1.0 / math.sqrt(D),
+              stream_of(qt))
+    _build.check("flash_fwd", code)
+    fwd_kernel_layout.launches += 1
+    return (ot, lse) if with_lse else ot
+
+
+fwd_kernel_layout.launches = 0

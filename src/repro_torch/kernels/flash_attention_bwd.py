@@ -1,0 +1,167 @@
+"""FlashAttention-2 backward: the three Hopper kernels' wrappers and their
+plain versions (counterpart of ``repro/kernels/flash_attention_bwd.py``).
+
+  * :func:`compute_delta` -- ``delta = rowsum(dO * O)`` (``csrc/flash_delta.cu``,
+    replaces ``_delta_kernel``);
+  * :func:`compute_dq` -- dQ over the visible kv tiles
+    (``csrc/flash_dq.cu``, replaces ``_dq_kernel``);
+  * :func:`compute_dkv` -- dK, dV per kv head, summed over the GQA group's
+    q heads and the visible q tiles and written once
+    (``csrc/flash_dkv.cu``, replaces ``_dkv_kernel``).
+
+All three recompute ``P = exp(S - lse)`` from the forward's logsumexp; no
+(Sq, Sk) matrix reaches device memory.  Dispatch as in the forward: a CPU
+tensor takes the plain version, a CUDA tensor launches the kernel or
+raises.  Each wrapper counts its launches in ``.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import (check_layout,
+                                                 empty_kernel_layout,
+                                                 kernel_dtype_code,
+                                                 pair_mask, stream_of,
+                                                 strides)
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (f32 math on the whole score matrix)
+# ---------------------------------------------------------------------------
+
+def delta_plain(ot: Tensor, dot_: Tensor) -> Tensor:
+    return (ot.float() * dot_.float()).sum(dim=-1)
+
+
+def _probs_and_ds(qt, kt, vt, dot_, lse, delta, causal, window):
+    """P and dS, (B, K, G, Sq, Sk) f32, with dS = P (dP - delta) * scale."""
+    B, H, K, Sq, Sk, D = check_layout(qt, kt, vt, dot_)
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    q = qt.float().reshape(B, K, G, Sq, D)
+    do = dot_.float().reshape(B, K, G, Sq, D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", q, kt.float()) * scale
+    mask = pair_mask(Sq, Sk, causal, window, qt.device)
+    p = torch.exp(s - lse.reshape(B, K, G, Sq, 1)).masked_fill(~mask, 0.0)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", do, vt.float())
+    ds = p * (dp - delta.reshape(B, K, G, Sq, 1)) * scale
+    return p, ds, q, do
+
+
+def dq_plain(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0) -> Tensor:
+    B, H, Sq, D = qt.shape
+    _, ds, _, _ = _probs_and_ds(qt, kt, vt, dot_, lse, delta, causal, window)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kt.float())
+    return dq.reshape(B, H, Sq, D).to(qt.dtype)
+
+
+def dkv_plain(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
+              ) -> Tuple[Tensor, Tensor]:
+    p, ds, q, do = _probs_and_ds(qt, kt, vt, dot_, lse, delta, causal, window)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, q)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, do)
+    return dk.to(kt.dtype), dv.to(vt.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_DELTA_ARGTYPES = [_I] + [_P] * 3 + [_I] * 4 + [_L] * 6 + [_P]
+_DQ_ARGTYPES = ([_I] * 2 + [_P] * 7 + [_I] * 5 + [_L] * 15 + [_I] * 2
+                + [ctypes.c_float, _P])
+_DKV_ARGTYPES = ([_I] * 2 + [_P] * 8 + [_I] * 5 + [_L] * 18 + [_I] * 2
+                 + [ctypes.c_float, _P])
+
+
+def _check_rows(lse: Tensor, delta: Tensor, B: int, H: int, Sq: int) -> None:
+    for t in (lse, delta):
+        if (t.shape != (B, H, Sq) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError("lse/delta must be contiguous (B, H, Sq) f32")
+
+
+def compute_delta(ot: Tensor, dot_: Tensor) -> Tensor:
+    """delta (B, H, Sq) f32 from ot, dot_ (B, H, Sq, D)."""
+    if ot.shape != dot_.shape or ot.dtype != dot_.dtype:
+        raise ValueError("ot and dot_ must match in shape and dtype")
+    if ot.stride(-1) != 1 or dot_.stride(-1) != 1:
+        raise ValueError("delta operands need a unit stride on D")
+    if ot.device.type == "cpu":
+        return delta_plain(ot, dot_)
+    B, H, Sq, D = ot.shape
+    dtype = kernel_dtype_code(ot, D)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=ot.device)
+    fn = _build.function("flash_delta", "flash_delta", _DELTA_ARGTYPES)
+    code = fn(dtype, ot.data_ptr(), dot_.data_ptr(), delta.data_ptr(), B, H,
+              Sq, D, *strides(ot), *strides(dot_), stream_of(ot))
+    _build.check("flash_delta", code)
+    compute_delta.launches += 1
+    return delta
+
+
+def compute_dq(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
+               ) -> Tensor:
+    """dq (B, H, Sq, D) in qt's dtype."""
+    B, H, K, Sq, Sk, D = check_layout(qt, kt, vt, dot_)
+    _check_rows(lse, delta, B, H, Sq)
+    if qt.device.type == "cpu":
+        return dq_plain(qt, kt, vt, dot_, lse, delta, causal=causal,
+                        window=window)
+    dtype = kernel_dtype_code(qt, D)
+    dq = empty_kernel_layout(B, H, Sq, D, qt)
+    fn = _build.function("flash_dq", "flash_dq", _DQ_ARGTYPES)
+    code = fn(dtype, D, qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+              dot_.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              dq.data_ptr(), B, H, K, Sq, Sk, *strides(qt), *strides(kt),
+              *strides(vt), *strides(dot_), *strides(dq), int(causal),
+              int(window), 1.0 / math.sqrt(D), stream_of(qt))
+    _build.check("flash_dq", code)
+    compute_dq.launches += 1
+    return dq
+
+
+def compute_dkv(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
+                ) -> Tuple[Tensor, Tensor]:
+    """(dk, dv), each (B, K, Sk, D) in kt's dtype."""
+    B, H, K, Sq, Sk, D = check_layout(qt, kt, vt, dot_)
+    _check_rows(lse, delta, B, H, Sq)
+    if qt.device.type == "cpu":
+        return dkv_plain(qt, kt, vt, dot_, lse, delta, causal=causal,
+                         window=window)
+    dtype = kernel_dtype_code(qt, D)
+    dk = empty_kernel_layout(B, K, Sk, D, kt)
+    dv = empty_kernel_layout(B, K, Sk, D, vt)
+    fn = _build.function("flash_dkv", "flash_dkv", _DKV_ARGTYPES)
+    code = fn(dtype, D, qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+              dot_.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              dk.data_ptr(), dv.data_ptr(), B, H, K, Sq, Sk, *strides(qt),
+              *strides(kt), *strides(vt), *strides(dot_), *strides(dk),
+              *strides(dv), int(causal), int(window), 1.0 / math.sqrt(D),
+              stream_of(qt))
+    _build.check("flash_dkv", code)
+    compute_dkv.launches += 1
+    return dk, dv
+
+
+compute_delta.launches = 0
+compute_dq.launches = 0
+compute_dkv.launches = 0
+
+
+def bwd_kernel_layout(qt, kt, vt, ot, lse, dot_, *, causal=True, window=0):
+    """Backward in kernel layout; returns (dqt, dkt, dvt)."""
+    delta = compute_delta(ot, dot_)
+    dq = compute_dq(qt, kt, vt, dot_, lse, delta, causal=causal,
+                    window=window)
+    dk, dv = compute_dkv(qt, kt, vt, dot_, lse, delta, causal=causal,
+                         window=window)
+    return dq, dk, dv

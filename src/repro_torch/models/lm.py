@@ -1,0 +1,202 @@
+"""LM assembly with SPB suffix splitting (the dense train path of
+``repro/models/lm.py``).
+
+Parameters keep the JAX package's stacked per-group layout:
+``params["groups"][g][u][name]`` carries a leading ``count`` dim, one row
+per repeat of the group's unit (``config.layer_groups``), so weights copy
+across packages name by name and the SPB boundary index means the same in
+both.
+
+The SPB suffix depth splits a group's stacked parameters at a unit
+boundary.  The frozen prefix runs under ``torch.no_grad()`` on a detached
+input -- the torch form of ``stop_gradient``: autograd records nothing
+for it, so no backward runs there and none of its activations are kept.
+The live rows are a slice ``t[q:]`` of the stacked leaf, so the leaf's
+gradient holds zeros in the frozen rows, as ``jax.grad`` returns.  The
+port keeps every live activation (the JAX ``REMAT="full"`` recomputes
+instead; it changes no numbers).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig, layer_groups
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_leaves
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    kinds = {k for unit, _ in layer_groups(cfg) for k in unit}
+    if cfg.enc_layers or cfg.frontend or cfg.moe is not None or \
+            kinds - {("attn", "dense"), ("local", "dense")}:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs dense attn/local decoder stacks "
+            f"only (got layer kinds {sorted(kinds)})")
+
+
+# ---------------------------------------------------------------------------
+# Layout and init
+# ---------------------------------------------------------------------------
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree's shapes, computed without allocating."""
+    _check_supported(cfg)
+    D, F = cfg.d_model, cfg.d_ff
+    layer = {"ln1": (D,), "mixer": {"wq": (D, cfg.q_dim),
+                                    "wk": (D, cfg.kv_dim),
+                                    "wv": (D, cfg.kv_dim),
+                                    "wo": (cfg.q_dim, D)}}
+    if F > 0:
+        layer["ln2"] = (D,)
+        layer["ffn"] = {"wg": (D, F), "wu": (D, F), "wd": (F, D)}
+
+    def stacked(tree, count):
+        if isinstance(tree, dict):
+            return {k: stacked(v, count) for k, v in tree.items()}
+        return (count,) + tree
+
+    embed = {"tok": (cfg.padded_vocab, D)}
+    if not cfg.tie_embeddings:
+        embed["unembed"] = (D, cfg.padded_vocab)
+    return {"embed": embed,
+            "groups": [[stacked(layer, count) for _ in unit]
+                       for unit, count in layer_groups(cfg)],
+            "final_norm": (D,)}
+
+
+def _init_leaf(gen: torch.Generator, name: str, shape, dtype, device):
+    """The JAX package's init rules: norms store scale - 1 (zeros), the
+    token table is N(0, 0.02), every projection (.., fan_in, fan_out) is a
+    normal truncated at +-2 and scaled by 1 / sqrt(fan_in)."""
+    if name.startswith("ln") or name == "final_norm":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if name == "tok":
+        t.normal_(0.0, 0.02, generator=gen)
+    else:
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        t.mul_(1.0 / math.sqrt(shape[-2]))
+    return t.to(dtype)
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+    """Random parameters drawn from ``gen`` (on ``gen``'s device).  The
+    layout equals ``repro.models.lm.init_lm``'s; the numbers differ."""
+    dtype = _dtype(cfg)
+
+    def init(tree, name):
+        if isinstance(tree, dict):
+            return {k: init(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [init(v, name) for v in tree]
+        return _init_leaf(gen, name, tree, dtype, device)
+
+    return init(param_shapes(cfg), "")
+
+
+# ---------------------------------------------------------------------------
+# Forward / loss (train path with SPB suffix splitting)
+# ---------------------------------------------------------------------------
+
+def _rows(tree, lo: int, hi: int):
+    return {k: _rows(v, lo, hi) if isinstance(v, dict) else v[lo:hi]
+            for k, v in tree.items()}
+
+
+def _unbind(tree, count: int):
+    """The per-layer trees of a stacked group, one ``unbind`` per leaf (a
+    single backward node per leaf gathers all the layers' gradients)."""
+    parts = {k: _unbind(v, count) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[r] for k, v in parts.items()} for r in range(count)]
+
+
+def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
+                 positions: Tensor) -> Tensor:
+    mixer, _ = kinds
+    h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
+    x = x + L.attention_fwd(up["mixer"], h, cfg, kind=mixer,
+                            positions=positions)
+    if cfg.d_ff > 0:
+        x = x + L.ffn_fwd(up["ffn"], L.rms_norm(x, up["ln2"], cfg.norm_eps))
+    return x
+
+
+def _run_group_train(x: Tensor, gparams, unit, cfg: ModelConfig,
+                     positions: Tensor) -> Tensor:
+    count = tree_leaves(gparams)[0].shape[0]
+    per_unit = [_unbind(up, count) for up in gparams]
+    for r in range(count):
+        for u in range(len(unit)):
+            x = _apply_layer(x, per_unit[u][r], unit[u], cfg, positions)
+    return x
+
+
+def _split_group(gparams, n_frozen_units: int):
+    frozen = [_rows(up, 0, n_frozen_units) for up in gparams]
+    live = [_rows(up, n_frozen_units, None) for up in gparams]
+    return frozen, live
+
+
+def _run_frozen(x: Tensor, gparams, unit, cfg, positions) -> Tensor:
+    with torch.no_grad():
+        return _run_group_train(x.detach(), gparams, unit, cfg, positions)
+
+
+def _run_stack(x: Tensor, groups, cfg: ModelConfig, positions: Tensor,
+               boundary: int) -> Tensor:
+    """Run all groups, freezing flat layers < boundary."""
+    off = 0
+    for (unit, count), gparams in zip(layer_groups(cfg), groups):
+        p = len(unit)
+        lo, hi = off, off + p * count
+        off = hi
+        if boundary >= hi:          # fully frozen group
+            x = _run_frozen(x, gparams, unit, cfg, positions)
+        elif boundary <= lo:        # fully differentiable
+            x = _run_group_train(x, gparams, unit, cfg, positions)
+        else:                       # split at a unit boundary
+            frozen, live = _split_group(gparams, (boundary - lo) // p)
+            x = _run_frozen(x, frozen, unit, cfg, positions)
+            x = _run_group_train(x, live, unit, cfg, positions)
+    return x
+
+
+def forward_train(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
+                  *, bwd_layers: Optional[int] = None
+                  ) -> Tuple[Tensor, Tensor]:
+    """Returns (logits, moe_aux).  ``bwd_layers`` = SPB suffix depth (None =
+    full backprop)."""
+    _check_supported(cfg)
+    tokens = batch["tokens"]
+    depth = cfg.num_layers if bwd_layers is None else bwd_layers
+    boundary = cfg.num_layers - depth
+    # below a frozen prefix the embedding lookup gets no gradient either
+    with torch.set_grad_enabled(torch.is_grad_enabled() and boundary == 0):
+        x = L.embed(params["embed"], tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_stack(x, params["groups"], cfg, positions, boundary)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = L.unembed(params["embed"], x, cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
+            bwd_layers: Optional[int] = None, aux_weight: float = 0.01
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    logits, aux = forward_train(params, batch, cfg, bwd_layers=bwd_layers)
+    xent = L.softmax_xent(logits, batch["labels"], valid_vocab=cfg.vocab_size)
+    loss = xent + aux_weight * aux
+    return loss, {"loss": loss, "xent": xent, "moe_aux": aux}

@@ -1,0 +1,117 @@
+"""Optimizers: SGD+momentum (the paper's setting) and AdamW, hand-rolled
+(the counterpart of ``repro/optim/optimizers.py``; ``torch.optim.AdamW``
+places its decay and eps differently).
+
+  * Global-norm gradient clipping, then the SPB per-block scaling
+    (``core/spb.py``).
+  * Mixed precision: low-precision params keep f32 master copies in the
+    optimizer state; all moments are f32.
+  * A ``None`` gradient (a parameter the SPB step froze whole) counts as a
+    zero gradient: its moments still decay and its weight decay still
+    applies, exactly as with the zeros ``jax.grad`` returns.
+
+Updates are in place: the moments, the master copies and the params are
+overwritten, and ``apply_updates`` returns the same objects.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig, SPBConfig, TrainConfig
+from repro_torch.core import spb as spb_lib
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def lr_at(tcfg: TrainConfig, step: int) -> float:
+    """Linear warmup then cosine decay to 10%."""
+    warm = min(1.0, (step + 1) / max(tcfg.warmup_steps, 1))
+    frac = min(max(step / max(tcfg.num_steps, 1), 0.0), 1.0)
+    return tcfg.learning_rate * warm * (0.55 + 0.45 * math.cos(math.pi * frac))
+
+
+def init_opt_state(params, tcfg: TrainConfig) -> Dict[str, Any]:
+    zeros = lambda p: tree_map(
+        lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device), p)
+    state: Dict[str, Any] = {}
+    if tcfg.optimizer == "adamw":
+        state["mu"] = zeros(params)
+        state["nu"] = zeros(params)
+    elif tcfg.optimizer == "sgdm":
+        state["mom"] = zeros(params)
+    else:
+        raise ValueError(tcfg.optimizer)
+    if any(t.dtype != torch.float32 for t in tree_leaves(params)):
+        state["master"] = tree_map(
+            lambda t: t.detach().to(torch.float32, copy=True), params)
+    return state
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares over all leaves; a ``None`` leaf adds an
+    explicit zero, so the sum rounds as it would with a zero gradient."""
+    leaves = tree_leaves(tree)
+    dev = next(g.device for g in leaves if g is not None)
+    zero = torch.zeros((), device=dev)
+    sq = [zero if g is None else g.float().square().sum() for g in leaves]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+@torch.no_grad()
+def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
+                  cfg: Optional[ModelConfig] = None,
+                  spb_cfg: Optional[SPBConfig] = None
+                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One optimizer step, in place.  ``grads`` matches ``params`` with
+    ``None`` for a parameter that got no gradient.  Returns (params,
+    opt_state, metrics)."""
+    gnorm = global_norm(grads)
+    if tcfg.grad_clip > 0:
+        clip = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                           max=1.0)
+        grads = tree_map(lambda g: None if g is None else g.float() * clip,
+                         grads)
+    else:
+        grads = tree_map(lambda g: None if g is None else g.float(), grads)
+
+    # SPB weighted-average / per-block LR scaling (paper §2)
+    if spb_cfg is not None and cfg is not None and spb_cfg.mode != "off":
+        grads = spb_lib.scale_params_tree(grads, cfg, spb_cfg)
+
+    lr = lr_at(tcfg, step)
+    master = opt_state.get("master", params)
+
+    if tcfg.optimizer == "adamw":
+        t = step + 1.0
+        b1, b2, eps, wd = tcfg.beta1, tcfg.beta2, tcfg.eps, tcfg.weight_decay
+        bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+
+        def adamw(p, m, mu, nu, g):
+            mu.mul_(b1)
+            nu.mul_(b2)
+            if g is not None:
+                mu.add_(g, alpha=1 - b1)
+                nu.add_(g * g, alpha=1 - b2)
+            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            m.sub_(lr * (upd + wd * m))
+            if m is not p:
+                p.copy_(m)
+
+        tree_map(adamw, params, master, opt_state["mu"], opt_state["nu"],
+                 grads)
+    else:  # sgdm (paper: SGD with momentum + 1e-4 weight decay)
+        def sgdm(p, m, mom, g):
+            mom.mul_(tcfg.momentum).add_(m, alpha=tcfg.weight_decay)
+            if g is not None:
+                mom.add_(g)
+            m.sub_(lr * mom)
+            if m is not p:
+                p.copy_(m)
+
+        tree_map(sgdm, params, master, opt_state["mom"], grads)
+
+    metrics = {"grad_norm": gnorm,
+               "lr": torch.tensor(lr, dtype=torch.float32)}
+    return params, opt_state, metrics

@@ -14,6 +14,8 @@ import types
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running multi-device test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one")
 
 
 try:

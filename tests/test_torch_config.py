@@ -1,0 +1,84 @@
+"""The port's config and SPB schedule code must equal the JAX package's:
+same fields, layer groups, snapping, depth cycles, rebalancing and
+per-block scales, for yi-6b at full and reduced size and cut depths."""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import config as jc
+from repro.configs import get_config as j_get, reduced_config as j_reduced
+from repro.core import spb as jspb
+from repro.models import lm as jlm
+from repro_torch import config as tc
+from repro_torch.configs import get_config as t_get, reduced_config as t_reduced
+from repro_torch.core import spb as tspb
+
+CFGS = [("full", None), ("full", 8), ("reduced", None), ("reduced", 1),
+        ("reduced", 3), ("reduced", 8)]
+
+
+def _pair(size, layers):
+    j, t = ((j_get("yi-6b"), t_get("yi-6b")) if size == "full"
+            else (j_reduced("yi-6b"), t_reduced("yi-6b")))
+    if layers:
+        j, t = j.scaled(num_layers=layers), t.scaled(num_layers=layers)
+    return j, t
+
+
+@pytest.mark.parametrize("size,layers", CFGS)
+def test_model_config_and_layer_groups_match(size, layers):
+    j, t = _pair(size, layers)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert (j.padded_vocab, j.q_dim, j.kv_dim) == \
+        (t.padded_vocab, t.q_dim, t.kv_dim)
+    assert jc.layer_groups(j) == tc.layer_groups(t)
+    assert jc.combined_layer_groups(j) == tc.combined_layer_groups(t)
+    L = jc.total_layers(j)
+    assert L == tc.total_layers(t)
+    assert [jc.snap_depth(j, d) for d in range(L + 2)] == \
+        [tc.snap_depth(t, d) for d in range(L + 2)]
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("size,layers", CFGS)
+def test_spb_schedules_match(size, layers, k):
+    j, t = _pair(size, layers)
+    js = jc.SPBConfig(mode="temporal", k=k, warmup_steps=1)
+    ts = tc.SPBConfig(mode="temporal", k=k, warmup_steps=1)
+    L = jc.total_layers(j)
+    assert js.depths(L) == ts.depths(L)
+    assert jspb.snapped_depths(j, js) == tspb.snapped_depths(t, ts)
+    assert jspb.layer_contributors(j, js) == tspb.layer_contributors(t, ts)
+    jsch, tsch = jspb.make_schedule(j, js), tspb.make_schedule(t, ts)
+    assert jsch.order == tsch.order
+    assert [jsch.depth_at(s) for s in range(3 * k + 2)] == \
+        [tsch.depth_at(s) for s in range(3 * k + 2)]
+    for slow in ([0], [1, 2], [k - 1, 2 * k]):
+        assert jsch.rebalance(slow).order == tsch.rebalance(slow).order
+    jscales = jspb.group_layer_scales(j, js)
+    tscales = tspb.group_layer_scales(t, ts)
+    assert len(jscales) == len(tscales)
+    for jg, tg in zip(jscales, tscales):
+        for a, b in zip(jg, tg):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("lr_rescale", [True, False])
+def test_scale_params_tree_matches(lr_rescale):
+    """The SPB weighted-average scaling of a gradient tree: the same
+    multiplications by the same f32 scales, so equal to the bit."""
+    j, t = _pair("reduced", None)
+    js = jc.SPBConfig(mode="temporal", k=4, lr_rescale=lr_rescale)
+    ts = tc.SPBConfig(mode="temporal", k=4, lr_rescale=lr_rescale)
+    shapes = jlm.param_shapes(j)
+    rng = np.random.default_rng(0)
+    tree = jax.tree.map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    want = jax.tree.map(np.asarray, jspb.scale_params_tree(tree, j, js))
+    got = tspb.scale_params_tree(
+        jax.tree.map(torch.from_numpy, tree), t, ts)
+    for w, g in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
+        np.testing.assert_array_equal(w, g.numpy())
