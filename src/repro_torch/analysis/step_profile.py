@@ -1,10 +1,11 @@
 """Where a full-width SPB step spends the card's time.
 
-    python -m repro_torch.analysis.step_profile [--layers 8] [--seq 2048]
+    python -m repro_torch.analysis.step_profile
 
-Runs the chip smoke's full-width configuration (yi-6b cut to ``--layers``
-layers, bf16, the hand-written attention kernels, temporal SPB k=4, batch
-2 x ``--seq``), warms up one depth cycle, then traces one step at each
+Runs the chip smoke's full-width configuration
+(``configs.full_width_config``: yi-6b cut to 8 layers, bf16, the
+hand-written attention kernels; temporal SPB k=4, batch 2 x 2048), warms
+up one depth cycle, then traces one step at each
 depth of the next cycle with ``torch.profiler``.  For each depth it prints
 the step's host time, the device's busy time (the union of kernel
 intervals in the trace), the idle share, and the kernel time by class:
@@ -14,8 +15,6 @@ Needs a card.
 """
 from __future__ import annotations
 
-import argparse
-import dataclasses
 import json
 import os
 import tempfile
@@ -56,23 +55,19 @@ def busy_us(kernels) -> float:
     return total
 
 
-def main(argv=None) -> None:
+def main() -> None:
     from repro_torch.config import SPBConfig, TrainConfig
-    from repro_torch.configs import get_config, make_batch
+    from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
+                                     full_width_config, make_batch)
     from repro_torch.engine.engine import SPBEngine
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=2048)
-    args = ap.parse_args(argv)
-
-    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=args.layers,
-                              use_pallas=True)
+    cfg = full_width_config()
     spb = SPBConfig(mode="temporal", k=4)
     eng = SPBEngine(cfg, TrainConfig(num_steps=2 * spb.k), spb,
                     device="cuda")
     eng.init_state(0)
-    batch = make_batch(cfg, 2, args.seq, seed=0, device="cuda")
+    batch = make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=0,
+                       device="cuda")
     for s in range(spb.k):                       # warm-up cycle
         eng.train_step(batch, s)
     torch.cuda.synchronize()

@@ -6,6 +6,7 @@ and until then :func:`get_config` raises ``KeyError`` for them.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from typing import Dict, Optional, Union
 
@@ -17,6 +18,13 @@ from repro_torch.device import resolve_device
 ARCHS: Dict[str, str] = {
     "yi-6b": "yi_6b",
 }
+
+# The full-width run on one 80 GB card (chip_smoke.py, analysis/step_profile):
+# yi-6b at its published widths, depth cut from 32 to 8 layers because the
+# bf16 weights + f32 AdamW state of 32 layers alone take 81 GB; batch 2 x 2048.
+FULL_WIDTH_LAYERS = 8
+FULL_WIDTH_BATCH = 2
+FULL_WIDTH_SEQ = 2048
 
 
 def _module(arch: str):
@@ -31,6 +39,13 @@ def get_config(arch: str) -> ModelConfig:
 
 def reduced_config(arch: str) -> ModelConfig:
     return _module(arch).REDUCED
+
+
+def full_width_config() -> ModelConfig:
+    """yi-6b cut to :data:`FULL_WIDTH_LAYERS` layers, on the hand-written
+    attention kernels."""
+    return dataclasses.replace(get_config("yi-6b"),
+                               num_layers=FULL_WIDTH_LAYERS, use_pallas=True)
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0, *,

@@ -8,9 +8,10 @@ delta, dq and dkv kernels.  When no gradient can be needed (grad mode off,
 or no input requires grad -- the SPB frozen prefix) the forward runs
 without ``lse`` and saves nothing.
 
-The kernels tile at 64 x 64 whatever ``q_block``/``kv_block`` say; the two
-are checked for the divisibility the JAX op asserts, so both packages take
-the same calls.
+The kernels tile at 64 x 64 and mask ragged edges, so ``q_block`` and
+``kv_block`` are accepted only to mirror the JAX op's signature and are
+ignored; the shape gate that picks this op lives in
+``models/layers._pallas_attention``.
 """
 from __future__ import annotations
 
@@ -48,10 +49,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_block: int = 128,
                     kv_block: int = 128) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Sk, K, D).  Returns (B, Sq, H, D)."""
-    Sq, Sk = q.shape[1], k.shape[1]
-    if Sq % min(q_block, Sq) or Sk % min(kv_block, Sk):
-        raise ValueError(f"sequence lengths {Sq}/{Sk} do not tile by "
-                         f"{q_block}/{kv_block}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window)

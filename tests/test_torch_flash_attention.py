@@ -124,11 +124,23 @@ def test_no_grad_call_saves_no_lse(monkeypatch):
     assert calls == [False, False, True]
 
 
-def test_untiled_call_raises():
-    q, k, v, _ = _inputs(1, 200, 200, 2, 2, 16)
-    with pytest.raises(ValueError, match="tile"):
-        ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
-                            q_block=128, kv_block=128)
+def test_ragged_call_matches_ref():
+    """Lengths that no block size tiles: the op takes them (the block
+    sizes only mirror the JAX signature) and its values and gradients
+    match the oracle's."""
+    q, k, v, ct = _inputs(1, 200, 200, 2, 2, 16)
+
+    def run(fn):
+        ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+        out = fn(*ts)
+        (out * torch.from_numpy(ct)).sum().backward()
+        return [out.detach().numpy()] + [t.grad.numpy() for t in ts]
+
+    got = run(lambda q, k, v: ops.flash_attention(
+        q, k, v, causal=True, q_block=128, kv_block=128))
+    want = run(lambda q, k, v: ref.attention_ref(q, k, v, causal=True))
+    for g, w, name in zip(got, want, ("o", "dq", "dk", "dv")):
+        np.testing.assert_allclose(g, w, **TOL, err_msg=name)
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
