@@ -6,18 +6,26 @@
 Phases, each printing a line; any failure exits non-zero:
   1. the device (nvidia-smi name and power limit, torch and CUDA versions);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds);
-  3. each kernel against its plain PyTorch version on the same inputs: at
-     the main-path shape (B 2, S 2048, H 32, K 4, D 128, causal, bf16), a
-     sliding-window case and a ragged Sq != Sk case, then the backward
-     kernels on the forward kernel's own outputs against the plain chain;
-     max errors against the stated tolerance, and the kernel's, the plain
-     version's and a library call's time at the main-path shape;
-  4. card against CPU: yi-6b-reduced in f32 with the kernels, 4 temporal
-     SPB steps from the same seeded weights as on the CPU plain path, with
-     the card run's launch counts checked against the steps' depths;
-  5. the slice at full width: SPBEngine on yi-6b cut to 8 layers, bf16,
-     temporal k=4, batch 2 x 2048, 8 steps, with the launch counts of
-     every kernel checked against the step's depth;
+  3. each attention kernel against its plain PyTorch version on the same
+     inputs: at the yi-6b main-path shape (B 2, S 2048, H 32, K 4, D 128,
+     causal, bf16), a sliding-window case and a ragged Sq != Sk case, then
+     the backward kernels on the forward kernel's own outputs against the
+     plain chain; max errors against the stated tolerance, and the
+     kernel's, the plain version's and a library call's time at the
+     main-path shape;
+  3b. the same for the SSD kernels: at the mamba2-2.7b main-path shape
+     (B 2, S 2048, H 80, P 64, N 128, chunk 256, bf16 x/B/C with B and C
+     broadcast over heads, f32 dA), an f32 reduced case and ragged cases,
+     then the backward kernel on the forward-with-residuals kernel's own
+     chunk states against the plain chain;
+  4. card against CPU: yi-6b-reduced and then mamba2-reduced in f32 with
+     the kernels, 4 temporal SPB steps from the same seeded weights as on
+     the CPU plain path, with the card run's launch counts checked against
+     the steps' depths;
+  5. each path at full width: SPBEngine on yi-6b cut to 8 layers, then on
+     mamba2-2.7b cut to 32, bf16, temporal k=4, batch 2 x 2048, 8 steps,
+     with the launch counts of every kernel checked against the step's
+     depth (the counts are zeroed before each path and read after it);
   6. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -48,6 +56,23 @@ CASES = {
     "ragged": dict(B=1, Sq=100, Sk=200, H=4, K=2, D=32, causal=False,
                    window=0, dtype="float32"),
 }
+# SSD cases: (B, S, H, P, N, chunk, dtype of x/B/C, B/C broadcast over
+# heads); dA is f32 -U(0.05, 2.0) as in tests/test_kernel_grads.py.  Every
+# SSD output is f32, held at that suite's measure: max|got - want| /
+# max(max|want|, 1) <= 1e-5.
+SSD_TOL = 1e-5
+SSD_MAIN = dict(B=2, S=2048, H=80, P=64, N=128, chunk=256, dtype="bfloat16",
+                grouped=True)
+SSD_CASES = {
+    "main": SSD_MAIN,
+    "reduced": dict(B=2, S=256, H=8, P=16, N=16, chunk=32, dtype="float32",
+                    grouped=False),
+    "ragged": dict(B=1, S=600, H=4, P=64, N=128, chunk=256, dtype="float32",
+                   grouped=True),
+    "short": dict(B=2, S=100, H=4, P=16, N=16, chunk=256, dtype="float32",
+                  grouped=False),
+}
+ARCHS = ("yi-6b", "mamba2-2.7b")
 KERNELS = {     # name: (source, TPU kernel it replaces)
     "flash_fwd": ("src/repro_torch/csrc/flash_fwd.cu",
                   "src/repro/kernels/flash_attention.py:58"),
@@ -57,6 +82,12 @@ KERNELS = {     # name: (source, TPU kernel it replaces)
                  "src/repro/kernels/flash_attention_bwd.py:99"),
     "flash_dkv": ("src/repro_torch/csrc/flash_dkv.cu",
                   "src/repro/kernels/flash_attention_bwd.py:140"),
+    "ssd_fwd": ("src/repro_torch/csrc/ssd_fwd.cu",
+                "src/repro/kernels/ssd.py:21"),
+    "ssd_fwd_res": ("src/repro_torch/csrc/ssd_fwd.cu",
+                    "src/repro/kernels/ssd_bwd.py:48"),
+    "ssd_bwd": ("src/repro_torch/csrc/ssd_bwd.cu",
+                "src/repro/kernels/ssd_bwd.py:129"),
 }
 
 
@@ -132,9 +163,13 @@ def counters():
     """The kernel wrappers, each with its launch count in ``.launches``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ssd, ssd_bwd
     return {"flash_fwd": fa.fwd_kernel_layout,
             "flash_delta": fab.compute_delta,
-            "flash_dq": fab.compute_dq, "flash_dkv": fab.compute_dkv}
+            "flash_dq": fab.compute_dq, "flash_dkv": fab.compute_dkv,
+            "ssd_fwd": ssd.ssd_fwd_kernel_layout,
+            "ssd_fwd_res": ssd_bwd.fwd_res_kernel_layout,
+            "ssd_bwd": ssd_bwd.bwd_kernel_layout}
 
 
 def zero_launches() -> None:
@@ -150,14 +185,34 @@ def launches_since(before: dict) -> dict:
     return {n: c - before[n] for n, c in launches_now().items()}
 
 
-def check_launches(phase: str, before: dict, depths, num_layers: int) -> dict:
-    """The launches since ``before`` against ``len(depths)`` steps at these
-    depths: the forward in every layer, each backward kernel in the step's
-    suffix only.  Returns them."""
+def expected_launches(cfg, depths) -> dict:
+    """Launches of ``len(depths)`` steps at these SPB depths, layer by
+    layer: an attention layer runs the flash forward always and the delta,
+    dq and dkv kernels when it is in the suffix; an SSD layer runs the
+    primal scan in the frozen prefix and the forward-with-residuals plus
+    the backward in the suffix."""
+    from repro_torch.config import layer_kinds
+    want = dict.fromkeys(counters(), 0)
+    kinds = layer_kinds(cfg)
+    for d in depths:
+        for i, (mixer, _) in enumerate(kinds):
+            live = i >= len(kinds) - d
+            if mixer == "ssd":
+                for n in (("ssd_fwd_res", "ssd_bwd") if live else ("ssd_fwd",)):
+                    want[n] += 1
+            else:
+                want["flash_fwd"] += 1
+                for n in ("flash_delta", "flash_dq", "flash_dkv") if live \
+                        else ():
+                    want[n] += 1
+    return want
+
+
+def check_launches(phase: str, before: dict, depths, cfg) -> dict:
+    """The launches since ``before`` against :func:`expected_launches`.
+    Returns them."""
     grew = launches_since(before)
-    want = {"flash_fwd": len(depths) * num_layers,
-            **{n: sum(depths) for n in ("flash_delta", "flash_dq",
-                                        "flash_dkv")}}
+    want = expected_launches(cfg, depths)
     if grew != want:
         raise AssertionError(f"{phase}: launches {grew} != {want}")
     return grew
@@ -248,7 +303,7 @@ def phase_kernels():
             torch.autograd.grad(out, (qg, kg, vg), gs)
 
         records["_sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
-        for name in KERNELS:
+        for name in runs:
             r = records[name]
             log(f"[kernels] main   {name:11s} ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -258,7 +313,110 @@ def phase_kernels():
     return records
 
 
-def phase_card_vs_cpu():
+def ssd_inputs(c: dict):
+    """Public-layout SSD operands on the card for one case: x (B,S,H,P),
+    dA (B,S,H) f32, b and c (B,S,H,N) (head-stride-0 views when
+    ``grouped``, as the main path passes them), dy, dstate; plus the
+    tensors b and c are views of."""
+    import torch
+    dt = getattr(torch, c["dtype"])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, S, H, P, N = (c[k] for k in ("B", "S", "H", "P", "N"))
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = mk(B, S, H, P).to(dt)
+    dA = -(torch.rand((B, S, H), generator=gen, device="cuda") * 1.95 + 0.05)
+    heads = 1 if c["grouped"] else H
+    b_src, c_src = mk(B, S, heads, N).to(dt), mk(B, S, heads, N).to(dt)
+    b, cm = b_src.expand(B, S, H, N), c_src.expand(B, S, H, N)
+    return x, dA, b, cm, mk(B, S, H, P), mk(B, H, P, N), (b_src, c_src)
+
+
+def check_rel(name: str, got, want) -> float:
+    """The SSD measure over matching f32 outputs; logs one line, returns
+    the max abs error."""
+    import torch
+    errs = []
+    for g, w in zip(got, want, strict=True):
+        if g.dtype != torch.float32 or not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: expected finite float32 outputs")
+        err = float((g - w).abs().max())
+        errs.append((err, err / max(float(w.abs().max()), 1.0)))
+    rel = max(e[1] for e in errs)
+    log(f"[kernels] {name:24s} max_abs_err={max(e[0] for e in errs):.3e} "
+        f"rel_err={rel:.3e} per_output=[{','.join(f'{e[1]:.2e}' for e in errs)}]"
+        f" tol={SSD_TOL} {'ok' if rel <= SSD_TOL else 'FAIL'}")
+    if not rel <= SSD_TOL:
+        raise AssertionError(f"{name}: rel_err {rel:.3e} > {SSD_TOL}")
+    return max(e[0] for e in errs)
+
+
+def phase_ssd_kernels():
+    """Phase 3b: the SSD kernels against their plain versions; timings and
+    bounds at the main-path shape.  Returns {name: record}."""
+    from repro_torch.kernels import ssd, ssd_bwd
+
+    records = {}
+    for case, c in SSD_CASES.items():
+        x, dA, b, cm, dy, dstate, srcs = ssd_inputs(c)
+        Q = c["chunk"]
+        _, _, cs_p = ssd_bwd.fwd_res_plain(x, dA, b, cm, chunk=Q)
+        bwd = (x, dA, b, cm, cs_p, dy, dstate)
+        runs = {    # name: (kernel wrapper, plain version), same inputs
+            "ssd_fwd": (
+                lambda: ssd.ssd_fwd_kernel_layout(x, dA, b, cm, chunk=Q),
+                lambda: ssd.ssd_fwd_plain(x, dA, b, cm, chunk=Q)),
+            "ssd_fwd_res": (
+                lambda: ssd_bwd.fwd_res_kernel_layout(x, dA, b, cm, chunk=Q),
+                lambda: ssd_bwd.fwd_res_plain(x, dA, b, cm, chunk=Q)),
+            "ssd_bwd": (
+                lambda: ssd_bwd.bwd_kernel_layout(*bwd, chunk=Q),
+                lambda: ssd_bwd.bwd_plain(*bwd, chunk=Q)),
+        }
+        for name, (kern, plain) in runs.items():
+            max_abs = check_rel(f"{case} {name}", kern(), plain())
+            if case == "main":
+                records[name] = {"max_abs_err": max_abs,
+                                 "ms": time_ms(kern, iters=5),
+                                 "plain_ms": time_ms(plain, iters=3, warmup=1),
+                                 "library_ms": None}
+        # the chain the main path runs: the backward kernel on the forward
+        # kernel's own chunk states, against the plain chain
+        y_k, st_k, cs_k = ssd_bwd.fwd_res_kernel_layout(x, dA, b, cm, chunk=Q)
+        check_rel(f"{case} fwd_res->bwd",
+                  ssd_bwd.bwd_kernel_layout(x, dA, b, cm, cs_k, dy, dstate,
+                                            chunk=Q),
+                  ssd_bwd.bwd_plain(*bwd, chunk=Q))
+        if case != "main":
+            continue
+        # bounds from this run's inputs: each input read once (B and C as
+        # the one group they broadcast), each output written once;
+        # operations over the causal pairs of each chunk
+        B, S, H, P, N = (c[k] for k in ("B", "S", "H", "P", "N"))
+        nc = -(-S // Q)
+        pairs = Q * (Q + 1) // 2 * nc * B * H
+        qpn = 2.0 * Q * P * N * nc * B * H          # one Q x P x N product
+        ins = nbytes(x, dA, *srcs)
+        grads = ssd_bwd.bwd_kernel_layout(*bwd, chunk=Q)
+        work = {
+            "ssd_fwd": (2.0 * pairs * (N + P) + 2 * qpn,
+                        ins + nbytes(y_k, st_k)),
+            "ssd_fwd_res": (2.0 * pairs * (N + P) + 2 * qpn,
+                            ins + nbytes(y_k, st_k, cs_k)),
+            "ssd_bwd": (2.0 * pairs * (3 * N + 2 * P) + 4 * qpn,
+                        ins + nbytes(cs_k, dy, dstate, *grads)),
+        }
+        for name, (flops, nb) in work.items():
+            records[name]["bound_ms"], records[name]["bound_by"] = bound(
+                flops, nb, c["dtype"])
+            r = records[name]
+            log(f"[kernels] main   {name:11s} ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                f"({r['bound_by']}) library_ms=None (no single PyTorch call "
+                f"computes the chunked scan)")
+    return records
+
+
+def phase_card_vs_cpu(arch: str):
     """Phase 4: the same 4 SPB steps on the card (kernels) and on the CPU
     (plain versions), from one set of seeded weights."""
     import torch
@@ -270,7 +428,7 @@ def phase_card_vs_cpu():
     from repro_torch.models import lm
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(reduced_config("yi-6b"), use_pallas=True)
+    cfg = dataclasses.replace(reduced_config(arch), use_pallas=True)
     tcfg, spb = TrainConfig(num_steps=4), SPBConfig(mode="temporal", k=4)
     params = lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
     losses = {}
@@ -286,20 +444,21 @@ def phase_card_vs_cpu():
                 eng.train_step(pipe.get_batch(s), s)["loss"]))
             depths.append(eng.last_depth)
         if dev == "cuda":       # the card run went through the kernels
-            grew = check_launches("card-vs-cpu", before, depths,
-                                  cfg.num_layers)
-            log(f"[card-vs-cpu] depths={depths} launches={grew}")
+            grew = check_launches(f"card-vs-cpu {arch}", before, depths, cfg)
+            log(f"[card-vs-cpu] {cfg.name} depths={depths} launches="
+                f"{ {n: c for n, c in grew.items() if c} }")
     for s, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
         rel = abs(a - b) / abs(b)
-        log(f"[card-vs-cpu] step={s} loss_cuda={a:.6f} loss_cpu={b:.6f} "
-            f"rel={rel:.2e} tol=1e-3")
+        log(f"[card-vs-cpu] {cfg.name} step={s} loss_cuda={a:.6f} "
+            f"loss_cpu={b:.6f} rel={rel:.2e} tol=1e-3")
         if not rel <= 1e-3:
-            raise AssertionError(f"card and CPU losses differ at step {s}")
+            raise AssertionError(f"{arch}: card and CPU losses differ at "
+                                 f"step {s}")
 
 
-def phase_full_width():
-    """Phase 5: the slice at full width; returns the main path's launch
-    counts per kernel."""
+def phase_full_width(arch: str) -> dict:
+    """Phase 5: one path at full width; returns its launch counts per
+    kernel, zeroed just before the run and read just after."""
     import torch
     from repro_torch.config import SPBConfig, TrainConfig
     from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
@@ -307,7 +466,7 @@ def phase_full_width():
     from repro_torch.engine.engine import SPBEngine
     from repro_torch.tree import tree_leaves
 
-    cfg = full_width_config()
+    cfg = full_width_config(arch)
     steps = 8
     eng = SPBEngine(cfg, TrainConfig(num_steps=steps),
                     SPBConfig(mode="temporal", k=4), device="cuda")
@@ -315,7 +474,7 @@ def phase_full_width():
     eng.init_state(0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(eng.state["params"]))
-    log(f"[full-width] yi-6b num_layers={cfg.num_layers} {cfg.dtype} "
+    log(f"[full-width] {arch} num_layers={cfg.num_layers} {cfg.dtype} "
         f"params={n_params} init_s={time.perf_counter() - t0:.2f}")
     batches = [make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=s,
                           device="cuda") for s in range(steps)]
@@ -330,13 +489,13 @@ def phase_full_width():
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         d = eng.last_depth
-        log(f"[full-width] step={s} depth={d} loss={loss:.4f} "
+        grew = check_launches(f"full-width {arch} step {s}", before, [d], cfg)
+        log(f"[full-width] {arch} step={s} depth={d} loss={loss:.4f} "
             f"gnorm={float(m['grad_norm']):.4f} step_ms={ms:.1f} "
             f"max_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
-            f"launches={launches_since(before)}")
+            f"launches={ {n: c for n, c in grew.items() if c} }")
         if not math.isfinite(loss):
-            raise AssertionError(f"loss not finite at step {s}")
-        check_launches(f"full-width step {s}", before, [d], cfg.num_layers)
+            raise AssertionError(f"{arch}: loss not finite at step {s}")
     return launches_now()
 
 
@@ -361,16 +520,27 @@ def main() -> int:
         f"(phase {time.perf_counter() - t0:.1f}s)")
 
     records = phase_kernels()
+    records.update(phase_ssd_kernels())
     torch.cuda.empty_cache()
-    phase_card_vs_cpu()
-    torch.cuda.empty_cache()
-    launches = phase_full_width()
+    for arch in ARCHS:
+        phase_card_vs_cpu(arch)
+        torch.cuda.empty_cache()
+    # each path's own launches: its kernels' counts from its own run
+    launches = {}
+    for arch in ARCHS:
+        grew = phase_full_width(arch)
+        launches.update({n: c for n, c in grew.items() if c})
+        torch.cuda.empty_cache()
+    idle = [n for n in KERNELS if not launches.get(n)]
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = records[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": launches.get(name, 0),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

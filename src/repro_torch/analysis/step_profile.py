@@ -2,16 +2,16 @@
 
     python -m repro_torch.analysis.step_profile
 
-Runs the chip smoke's full-width configuration
-(``configs.full_width_config``: yi-6b cut to 8 layers, bf16, the
-hand-written attention kernels; temporal SPB k=4, batch 2 x 2048), warms
-up one depth cycle, then traces one step at each
-depth of the next cycle with ``torch.profiler``.  For each depth it prints
-the step's host time, the device's busy time (the union of kernel
-intervals in the trace), the idle share, and the kernel time by class:
-the four attention kernels, matrix products, and everything else, with
-the largest kernels of the last class.
-Needs a card.
+Runs the chip smoke's full-width configurations one after the other
+(``configs.full_width_config``: yi-6b cut to 8 layers and mamba2-2.7b cut
+to 32, bf16, the hand-written kernels; temporal SPB k=4, batch
+2 x 2048).  For each it warms up one depth cycle, then traces one step at
+each depth of the next cycle with ``torch.profiler``.  For each depth it
+prints the step's host time, the device's busy time (the union of kernel
+intervals in the trace), the idle share, the peak memory, and the kernel
+time by class: the port's kernels (four attention, three SSD), matrix
+products, and everything else, with the largest kernels of the last
+class.  Needs a card.
 """
 from __future__ import annotations
 
@@ -23,13 +23,21 @@ from collections import defaultdict
 
 import torch
 
-CLASSES = (("flash_fwd", "fwd_kernel"), ("flash_delta", "delta_kernel"),
-           ("flash_dq", "dq_kernel"), ("flash_dkv", "dkv_kernel"))
+ARCHS = ("yi-6b", "mamba2-2.7b")
+# (class, substrings a kernel's name holds): the forward-with-residuals
+# SSD scan is the forward template instantiated with RES = true
+CLASSES = (("flash_fwd", ("flash::fwd_kernel",)),
+           ("flash_delta", ("flash::delta_kernel",)),
+           ("flash_dq", ("flash::dq_kernel",)),
+           ("flash_dkv", ("flash::dkv_kernel",)),
+           ("ssd_fwd_res", ("ssd::fwd_kernel", "true>")),
+           ("ssd_fwd", ("ssd::fwd_kernel",)),
+           ("ssd_bwd", ("ssd::bwd_kernel",)))
 
 
 def kernel_class(name: str) -> str:
-    for cls, key in CLASSES:
-        if f"flash::{key}" in name:
+    for cls, keys in CLASSES:
+        if all(k in name for k in keys):
             return cls
     low = name.lower()
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet")):
@@ -55,13 +63,13 @@ def busy_us(kernels) -> float:
     return total
 
 
-def main() -> None:
+def profile(arch: str) -> None:
     from repro_torch.config import SPBConfig, TrainConfig
     from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
                                      full_width_config, make_batch)
     from repro_torch.engine.engine import SPBEngine
 
-    cfg = full_width_config()
+    cfg = full_width_config(arch)
     spb = SPBConfig(mode="temporal", k=4)
     eng = SPBEngine(cfg, TrainConfig(num_steps=2 * spb.k), spb,
                     device="cuda")
@@ -76,6 +84,7 @@ def main() -> None:
             prof = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA])
+            torch.cuda.reset_peak_memory_stats()
             with prof:
                 t0 = time.perf_counter()
                 eng.train_step(batch, s)
@@ -94,12 +103,20 @@ def main() -> None:
             busy = busy_us(kernels)
             top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
             print(json.dumps({
+                "arch": arch, "num_layers": cfg.num_layers,
                 "depth": eng.last_depth, "step_ms": wall_us / 1e3,
                 "device_busy_ms": busy / 1e3,
                 "idle_share": 1.0 - busy / wall_us,
+                "max_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "kernel_ms": {k: v / 1e3 for k, v in sorted(by_class.items())},
                 "kernels": len(kernels),
                 "top_other_ms": {k: v / 1e3 for k, v in top}}), flush=True)
+
+
+def main() -> None:
+    for arch in ARCHS:
+        profile(arch)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -17,11 +17,11 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import lm
 
 
-def params_from_numpy(tree: Any, cfg: ModelConfig, device="cpu",
-                      dtype: torch.dtype = None) -> Any:
+def params_from_numpy(tree: Any, cfg: ModelConfig, device="cpu") -> Any:
     """The port's params from a numpy tree in the JAX layout, as leaf
-    tensors that require grad, in ``dtype`` (default: the config's)."""
-    dtype = dtype or lm.DTYPES[cfg.dtype]
+    tensors that require grad, each in the dtype that
+    :func:`lm.param_shapes` gives it (the f32 SSM leaves stay f32 in a
+    bf16 model)."""
 
     def copy(expected, got, path):
         if isinstance(expected, dict):
@@ -37,10 +37,10 @@ def params_from_numpy(tree: Any, cfg: ModelConfig, device="cpu",
             return [copy(e, g, f"{path}[{i}]")
                     for i, (e, g) in enumerate(zip(expected, got))]
         arr = np.asarray(got)
-        if tuple(arr.shape) != tuple(expected):
-            raise ValueError(f"{path}: expected shape {tuple(expected)}, got "
-                             f"{tuple(arr.shape)}")
-        return torch.tensor(arr.astype(np.float32), dtype=dtype,
+        if tuple(arr.shape) != tuple(expected.shape):
+            raise ValueError(f"{path}: expected shape "
+                             f"{tuple(expected.shape)}, got {tuple(arr.shape)}")
+        return torch.tensor(arr.astype(np.float32), dtype=expected.dtype,
                             device=device).requires_grad_(True)
 
     return copy(lm.param_shapes(cfg), tree, "")

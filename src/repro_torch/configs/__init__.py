@@ -17,12 +17,20 @@ from repro_torch.device import resolve_device
 
 ARCHS: Dict[str, str] = {
     "yi-6b": "yi_6b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
-# The full-width run on one 80 GB card (chip_smoke.py, analysis/step_profile):
-# yi-6b at its published widths, depth cut from 32 to 8 layers because the
-# bf16 weights + f32 AdamW state of 32 layers alone take 81 GB; batch 2 x 2048.
-FULL_WIDTH_LAYERS = 8
+# The full-width runs on one 80 GB card (chip_smoke.py, analysis/step_profile):
+# each arch at its published widths with its depth cut so that the bf16
+# weights + f32 AdamW state (about 23.4 bytes per parameter at the
+# optimizer's peak) leave room for the deepest step's activations.
+FULL_WIDTH_LAYERS: Dict[str, int] = {
+    # 32 layers: 5.80 B parameters, 81 GB of state alone.  8: 1.65 B.
+    "yi-6b": 8,
+    # 64 layers: 2.70 B parameters, ~63 GB at the optimizer's peak before
+    # any activation.  32: 1.42 B, ~33 GB, leaving room for 32 live layers.
+    "mamba2-2.7b": 32,
+}
 FULL_WIDTH_BATCH = 2
 FULL_WIDTH_SEQ = 2048
 
@@ -41,11 +49,12 @@ def reduced_config(arch: str) -> ModelConfig:
     return _module(arch).REDUCED
 
 
-def full_width_config() -> ModelConfig:
-    """yi-6b cut to :data:`FULL_WIDTH_LAYERS` layers, on the hand-written
-    attention kernels."""
-    return dataclasses.replace(get_config("yi-6b"),
-                               num_layers=FULL_WIDTH_LAYERS, use_pallas=True)
+def full_width_config(arch: str) -> ModelConfig:
+    """``arch`` at its published widths, cut to its
+    :data:`FULL_WIDTH_LAYERS` layers, on the hand-written kernels."""
+    return dataclasses.replace(get_config(arch),
+                               num_layers=FULL_WIDTH_LAYERS[arch],
+                               use_pallas=True)
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0, *,

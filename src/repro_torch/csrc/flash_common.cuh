@@ -15,27 +15,18 @@
 // 16 different banks.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "kernel_common.cuh"
 
 namespace flash {
+
+using common::from_f32;
+using common::set_smem;
+using common::to_f32;
 
 constexpr int BQ = 64;      // q rows per tile
 constexpr int BK = 64;      // kv rows per tile
 constexpr int NT = 256;     // threads per block
 constexpr float NEG_INF = -1e30f;   // the Pallas kernels' masked score
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Half-warp reductions over the 16 lanes that share a tile row.
 __device__ __forceinline__ float row_max16(float v) {
@@ -84,12 +75,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss
   }
 }
 
-// Opt a kernel in to more than 48 KB of dynamic shared memory.
-inline int set_smem(const void* kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
-}
-
 }  // namespace flash
 
 // dtype code 0 = float32, 1 = bfloat16; head_dim 16, 32, 64 or 128.
@@ -112,7 +97,3 @@ inline int set_smem(const void* kernel, size_t bytes) {
     }                                                                          \
     return (int)cudaErrorInvalidValue;                                         \
   } while (0)
-
-extern "C" const char* flash_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

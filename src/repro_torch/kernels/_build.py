@@ -6,8 +6,9 @@ git-ignored directory), where ``<digest>`` hashes the source, the shared
 headers and the flags: a changed source rebuilds, an unchanged one loads.
 The sources have a plain C interface (pointers, ints, the stream) and
 return ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception.  Builds happen at first use, never at import, and only from the
-sources in this package.
+exception, with the message of the ``kernel_error_string`` entry that every
+source gets from ``csrc/kernel_common.cuh``.  Builds happen at first use,
+never at import, and only from the sources in this package.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
+SOURCES = ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv", "ssd_fwd",
+           "ssd_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -84,8 +86,8 @@ def function(lib_name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPt
     if lib is None:
         build([lib_name])
         lib = ctypes.CDLL(str(_lib_path(lib_name)))
-        lib.flash_error_string.argtypes = [ctypes.c_int]
-        lib.flash_error_string.restype = ctypes.c_char_p
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
         _LIBS[lib_name] = lib
     fn = getattr(lib, fn_name)
     fn.argtypes = list(argtypes)
@@ -96,5 +98,5 @@ def function(lib_name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPt
 def check(lib_name: str, code: int) -> None:
     """Raise if a C entry returned a CUDA error code."""
     if code != 0:
-        msg = _LIBS[lib_name].flash_error_string(code).decode()
+        msg = _LIBS[lib_name].kernel_error_string(code).decode()
         raise RuntimeError(f"{lib_name}: CUDA error {code} ({msg})")

@@ -1,5 +1,7 @@
-"""Differentiable flash attention over the hand-written kernels
-(counterpart of ``repro/kernels/ops.py``'s flash-attention op).
+"""Differentiable ops over the hand-written kernels (counterpart of
+``repro/kernels/ops.py``): flash attention and the SSD scan.
+
+Flash attention:
 
 ``torch.autograd.Function`` takes the place of the JAX ``custom_vjp``: the
 forward launches the forward kernel with ``lse`` and saves the residuals as
@@ -19,6 +21,8 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
+from repro_torch.kernels import ssd as _ssd
+from repro_torch.kernels import ssd_bwd as _ssd_bwd
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:
@@ -54,3 +58,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _FlashAttention.apply(q, k, v, causal, window)
     return _t(fa.fwd_kernel_layout(_t(q), _t(k), _t(v), causal=causal,
                                    window=window))
+
+
+# ---------------------------------------------------------------------------
+# SSD (Mamba-2) chunked scan
+# ---------------------------------------------------------------------------
+
+class _SSD(torch.autograd.Function):
+    """The JAX ``custom_vjp`` of ``ops._ssd``: the forward runs the
+    forward-with-residuals kernel and keeps (x, dA, b, c, chunk_states);
+    the backward runs the backward kernel and casts each gradient to its
+    input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dA, b, c, chunk: int):
+        y, state, chunk_states = _ssd_bwd.fwd_res_kernel_layout(
+            x, dA, b, c, chunk=chunk)
+        ctx.save_for_backward(x, dA, b, c, chunk_states)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        # autograd materializes an unused output's gradient as zeros; dy
+        # may arrive broadcast (stride 0), the kernel reads unit-stride rows
+        x, dA, b, c, chunk_states = ctx.saved_tensors
+        dx, ddA, db, dc = _ssd_bwd.bwd_kernel_layout(
+            x, dA, b, c, chunk_states, dy.float().contiguous(),
+            dstate.float(), chunk=ctx.chunk)
+        return (dx.to(x.dtype), ddA.to(dA.dtype), db.to(b.dtype),
+                dc.to(c.dtype), None)
+
+
+def ssd(xdt: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
+        C: torch.Tensor, *, chunk: int = 128):
+    """Differentiable chunked SSD scan.  xdt: (B, S, H, P); dA: (B, S, H);
+    B_, C: (B, S, H, N), views with any strides (a head stride of 0
+    broadcasts one group over heads).  The chunk is ``min(chunk, S)``; a
+    ragged tail is a short last chunk, the JAX op's zero padding.  dA runs
+    in float32 (its gradient returns in its own dtype).
+    Returns (y: (B, S, H, P) f32, final_state: (B, H, P, N) f32).
+
+    Outside grad mode, or when no input requires grad (the SPB frozen
+    prefix), the primal forward kernel runs and nothing is kept."""
+    Q = min(chunk, xdt.shape[1])
+    dA = dA.float()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xdt, dA, B_, C)):
+        return _SSD.apply(xdt, dA, B_, C, Q)
+    return _ssd.ssd_fwd_kernel_layout(xdt, dA, B_, C, chunk=Q)

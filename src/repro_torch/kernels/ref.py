@@ -1,13 +1,15 @@
-"""Plain oracle for the attention kernels (counterpart of
-``repro/kernels/ref.py::attention_ref``).
+"""Plain oracles for the kernels (counterpart of ``repro/kernels/ref.py``:
+``attention_ref``, ``ssd_ref_with_state``, ``ssd_ref``).
 
-Deliberately naive -- it materializes the (Sq, Sk) score matrix -- so it
-is the semantic ground truth the kernel tests assert against at small
-shapes.
+Deliberately naive -- attention materializes the (Sq, Sk) score matrix,
+the SSD scan steps one position at a time -- so they are the semantic
+ground truth the tests assert against at small shapes.  Nothing on the
+card's path calls them.
 """
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -31,3 +33,29 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bkgqd", w, v.float())
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def ssd_ref_with_state(xdt: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
+                       C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSD recurrence in f32, differentiable by autograd.
+
+    xdt: (B, S, H, P) inputs pre-multiplied by dt; dA: (B, S, H) = dt * A
+    (negative); B_, C: (B, S, H, N).
+    h_t = exp(dA_t) * h_{t-1} + B_t^T xdt_t ;  y_t = C_t h_t
+    Returns (y: (B, S, H, P) f32, final state: (B, H, P, N) f32)."""
+    Bb, S, H, P = xdt.shape
+    N = B_.shape[-1]
+    x, a, b, c = (t.float() for t in (xdt, dA, B_, C))
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=xdt.device)
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(a[:, t])[..., None, None] + \
+            torch.einsum("bhn,bhp->bhpn", b[:, t], x[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", c[:, t], h))
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_ref(xdt: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
+            C: torch.Tensor) -> torch.Tensor:
+    """y of :func:`ssd_ref_with_state`."""
+    return ssd_ref_with_state(xdt, dA, B_, C)[0]

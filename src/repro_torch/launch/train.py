@@ -2,7 +2,9 @@
 
   python -m repro_torch.launch.train --arch yi-6b --reduced --steps 8 \\
       --spb-mode temporal --spb-k 4 --use-pallas            # on the card
-  python -m repro_torch.launch.train --steps 2 --device cpu    # plain path
+  python -m repro_torch.launch.train --arch mamba2-2.7b --use-pallas
+  python -m repro_torch.launch.train --arch mamba2-2.7b --reduced \\
+      --use-pallas --device cpu     # the kernels' plain versions on the CPU
 
 Prints the JAX driver's ``[train] step=... depth=... loss=...`` lines.
 Checkpointing, restarts and the pipeline/spatial modes are not ported yet.
@@ -39,8 +41,9 @@ def train(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--use-pallas", action="store_true",
-                    help="run attention through the hand-written kernels "
-                         "(their plain versions on the CPU)")
+                    help="run attention and the SSD scan through the "
+                         "hand-written kernels (their plain versions on the "
+                         "CPU)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)

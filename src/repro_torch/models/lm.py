@@ -1,5 +1,5 @@
-"""LM assembly with SPB suffix splitting (the dense train path of
-``repro/models/lm.py``).
+"""LM assembly with SPB suffix splitting (the train path of
+``repro/models/lm.py`` for dense attention and Mamba-2 SSD stacks).
 
 Parameters keep the JAX package's stacked per-group layout:
 ``params["groups"][g][u][name]`` carries a leading ``count`` dim, one row
@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.config import ModelConfig, layer_groups
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.tree import tree_leaves
 
 Tensor = torch.Tensor
@@ -40,51 +41,92 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = {k for unit, _ in layer_groups(cfg) for k in unit}
     if cfg.enc_layers or cfg.frontend or cfg.moe is not None or \
-            kinds - {("attn", "dense"), ("local", "dense")}:
+            kinds - {("attn", "dense"), ("local", "dense"), ("ssd", "dense")}:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attn/local decoder stacks "
-            f"only (got layer kinds {sorted(kinds)})")
+            f"{cfg.name}: the port runs dense attn/local and ssd decoder "
+            f"stacks only (got layer kinds {sorted(kinds)})")
 
 
 # ---------------------------------------------------------------------------
 # Layout and init
 # ---------------------------------------------------------------------------
 
+def _mixer_shapes(cfg: ModelConfig, mixer: str, dtype: torch.dtype):
+    """{name: (shape, dtype)} of one layer's mixer leaves."""
+    D = cfg.d_model
+    if mixer in ("attn", "local"):
+        return {"wq": ((D, cfg.q_dim), dtype), "wk": ((D, cfg.kv_dim), dtype),
+                "wv": ((D, cfg.kv_dim), dtype), "wo": ((cfg.q_dim, D), dtype)}
+    # ssd: repro/models/ssm.py::init_mamba2; A_log, D, dt_bias are f32 at
+    # any cfg.dtype
+    s = cfg.ssm
+    d_in = s.expand * D
+    H, GN = d_in // s.head_dim, s.n_groups * s.d_state
+    conv_dim = d_in + 2 * GN
+    f32 = torch.float32
+    return {"in_proj": ((D, 2 * d_in + 2 * GN + H), dtype),
+            "conv_w": ((s.d_conv, conv_dim), dtype),
+            "conv_b": ((conv_dim,), dtype),
+            "A_log": ((H,), f32), "D": ((H,), f32), "dt_bias": ((H,), f32),
+            "norm": ((d_in,), dtype),
+            "out_proj": ((d_in, D), dtype)}
+
+
 def param_shapes(cfg: ModelConfig) -> Params:
-    """The parameter tree's shapes, computed without allocating."""
+    """The parameter tree as meta tensors: each leaf's shape and dtype (the
+    counterpart of ``jax.eval_shape(init_lm)``), allocating nothing."""
     _check_supported(cfg)
     D, F = cfg.d_model, cfg.d_ff
-    layer = {"ln1": (D,), "mixer": {"wq": (D, cfg.q_dim),
-                                    "wk": (D, cfg.kv_dim),
-                                    "wv": (D, cfg.kv_dim),
-                                    "wo": (cfg.q_dim, D)}}
-    if F > 0:
-        layer["ln2"] = (D,)
-        layer["ffn"] = {"wg": (D, F), "wu": (D, F), "wd": (F, D)}
+    dtype = _dtype(cfg)
 
-    def stacked(tree, count):
-        if isinstance(tree, dict):
-            return {k: stacked(v, count) for k, v in tree.items()}
-        return (count,) + tree
+    def meta(shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="meta")
 
-    embed = {"tok": (cfg.padded_vocab, D)}
+    def layer(mixer, count):
+        out = {"ln1": meta((count, D)),
+               "mixer": {k: meta((count,) + shape, dt) for k, (shape, dt)
+                         in _mixer_shapes(cfg, mixer, dtype).items()}}
+        if F > 0:
+            out["ln2"] = meta((count, D))
+            out["ffn"] = {"wg": meta((count, D, F)), "wu": meta((count, D, F)),
+                          "wd": meta((count, F, D))}
+        return out
+
+    groups = [[layer(mixer, count) for mixer, _ in unit]
+              for unit, count in layer_groups(cfg)]
+    embed = {"tok": meta((cfg.padded_vocab, D))}
     if not cfg.tie_embeddings:
-        embed["unembed"] = (D, cfg.padded_vocab)
-    return {"embed": embed,
-            "groups": [[stacked(layer, count) for _ in unit]
-                       for unit, count in layer_groups(cfg)],
-            "final_norm": (D,)}
+        embed["unembed"] = meta((D, cfg.padded_vocab))
+    return {"embed": embed, "groups": groups, "final_norm": meta((D,))}
 
 
-def _init_leaf(gen: torch.Generator, name: str, shape, dtype, device):
-    """The JAX package's init rules: norms store scale - 1 (zeros), the
-    token table is N(0, 0.02), every projection (.., fan_in, fan_out) is a
-    normal truncated at +-2 and scaled by 1 / sqrt(fan_in)."""
-    if name.startswith("ln") or name == "final_norm":
+def _init_leaf(gen: torch.Generator, name: str, like: Tensor, device):
+    """The JAX package's init rules for the leaf ``name`` shaped as the
+    meta tensor ``like`` (a stacked leaf's rows are drawn as one):
+
+    - norms store scale - 1: zeros (``ln*``, ``final_norm``, the mixer's
+      ``norm``); ``conv_b`` zeros;
+    - the token table is N(0, 0.02); ``conv_w`` is N(0, 1) / sqrt(d_conv);
+    - ``A_log`` = log(linspace(1, 16, H)), ``D`` = ones, ``dt_bias`` =
+      log(expm1(dt)) with dt log-uniform in [1e-3, 1e-1];
+    - every projection (.., fan_in, fan_out) is a normal truncated at +-2
+      and scaled by 1 / sqrt(fan_in)."""
+    shape, dtype = like.shape, like.dtype
+    if name.startswith("ln") or name in ("final_norm", "norm", "conv_b"):
         return torch.zeros(shape, dtype=dtype, device=device)
+    if name == "D":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if name == "A_log":
+        a = torch.log(torch.linspace(1.0, 16.0, shape[-1], device=device))
+        return a.expand(shape).to(dtype).contiguous()
     t = torch.empty(shape, dtype=torch.float32, device=device)
     if name == "tok":
         t.normal_(0.0, 0.02, generator=gen)
+    elif name == "conv_w":
+        t.normal_(0.0, 1.0, generator=gen).mul_(1.0 / math.sqrt(shape[-2]))
+    elif name == "dt_bias":
+        t.uniform_(math.log(1e-3), math.log(1e-1), generator=gen)
+        t = torch.log(torch.expm1(torch.exp(t)))
     else:
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
         t.mul_(1.0 / math.sqrt(shape[-2]))
@@ -93,15 +135,15 @@ def _init_leaf(gen: torch.Generator, name: str, shape, dtype, device):
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     """Random parameters drawn from ``gen`` (on ``gen``'s device).  The
-    layout equals ``repro.models.lm.init_lm``'s; the numbers differ."""
-    dtype = _dtype(cfg)
+    layout and leaf dtypes equal ``repro.models.lm.init_lm``'s; the numbers
+    differ."""
 
     def init(tree, name):
         if isinstance(tree, dict):
             return {k: init(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [init(v, name) for v in tree]
-        return _init_leaf(gen, name, tree, dtype, device)
+        return _init_leaf(gen, name, tree, device)
 
     return init(param_shapes(cfg), "")
 
@@ -127,8 +169,11 @@ def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
                  positions: Tensor) -> Tensor:
     mixer, _ = kinds
     h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
-    x = x + L.attention_fwd(up["mixer"], h, cfg, kind=mixer,
-                            positions=positions)
+    if mixer == "ssd":
+        x = x + S.mamba2_fwd(up["mixer"], h, cfg)
+    else:
+        x = x + L.attention_fwd(up["mixer"], h, cfg, kind=mixer,
+                                positions=positions)
     if cfg.d_ff > 0:
         x = x + L.ffn_fwd(up["ffn"], L.rms_norm(x, up["ln2"], cfg.norm_eps))
     return x

@@ -82,3 +82,43 @@ def test_scale_params_tree_matches(lr_rescale):
         jax.tree.map(torch.from_numpy, tree), t, ts)
     for w, g in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
         np.testing.assert_array_equal(w, g.numpy())
+
+
+MAMBA2 = [("full", None), ("full", 32), ("reduced", None), ("reduced", 3)]
+
+
+def _mamba2_pair(size, layers):
+    j, t = ((j_get("mamba2-2.7b"), t_get("mamba2-2.7b")) if size == "full"
+            else (j_reduced("mamba2-2.7b"), t_reduced("mamba2-2.7b")))
+    if layers:
+        j, t = j.scaled(num_layers=layers), t.scaled(num_layers=layers)
+    return j, t
+
+
+@pytest.mark.parametrize("size,layers", MAMBA2)
+def test_mamba2_config_and_spb_schedules_match(size, layers):
+    j, t = _mamba2_pair(size, layers)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert jc.layer_groups(j) == tc.layer_groups(t)
+    L = jc.total_layers(j)
+    assert [jc.snap_depth(j, d) for d in range(L + 2)] == \
+        [tc.snap_depth(t, d) for d in range(L + 2)]
+    js, ts = jc.SPBConfig(mode="temporal", k=4), tc.SPBConfig(mode="temporal",
+                                                             k=4)
+    assert jspb.snapped_depths(j, js) == tspb.snapped_depths(t, ts)
+    jsch, tsch = jspb.make_schedule(j, js), tspb.make_schedule(t, ts)
+    assert [jsch.depth_at(s) for s in range(8)] == \
+        [tsch.depth_at(s) for s in range(8)]
+
+
+@pytest.mark.parametrize("arch,layers,cycle", [
+    ("yi-6b", 8, (8, 2, 6, 4)), ("mamba2-2.7b", 32, (32, 8, 24, 16))])
+def test_full_width_config_per_arch(arch, layers, cycle):
+    from repro_torch.configs import full_width_config
+    cfg = full_width_config(arch)
+    want = t_get(arch)
+    assert cfg.num_layers == layers and cfg.use_pallas
+    assert dataclasses.replace(cfg, num_layers=want.num_layers,
+                               use_pallas=False) == want
+    sch = tspb.make_schedule(cfg, tc.SPBConfig(mode="temporal", k=4))
+    assert tuple(sch.depth_at(s) for s in range(4)) == cycle

@@ -41,7 +41,9 @@ def test_importing_the_port_loads_no_jax():
 
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [SMOKE]
-    assert len(files) > 15
+    names = {p.relative_to(PORT).as_posix() for p in files[:-1]}
+    assert {"kernels/ssd.py", "kernels/ssd_bwd.py", "models/ssm.py",
+            "configs/mamba2_2_7b.py"} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -1,11 +1,13 @@
-"""The CUDA attention kernels against their plain versions on the card.
+"""The CUDA kernels (flash attention, SSD scan) against their plain
+versions on the card.
 
 Marked ``cuda``: skips without a card.  On the card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``
 Tolerances (atol, rtol) by the output's dtype: 1e-4, 1e-4 for an f32
 output (lse, delta, and every output of f32 inputs: f32 FMAs summed in
 another order); 5e-3, 2e-2 for a bf16 output (both sides round an f32
-result to bf16 at the end).
+result to bf16 at the end).  The SSD kernels' outputs are all f32: held at
+the JAX suite's measure, max|got - want| / max(max|want|, 1) <= 1e-5.
 """
 import pytest
 import torch
@@ -13,6 +15,8 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd
+from repro_torch.kernels import ssd_bwd
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-3, 2e-2)}
@@ -79,3 +83,65 @@ def test_autograd_on_the_card_matches_the_cpu(cuda):
         grads[str(dev)] = [t.grad.cpu() for t in ts]
     for a, b in zip(grads["cpu"], grads["cuda"]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / max(float(want.float().abs().max()), 1.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,grouped", [
+    (2, 64, 3, 16, 16, 32, False),      # reduced shape, divisible
+    (1, 100, 2, 16, 16, 32, True),      # ragged tail, B/C head stride 0
+    (1, 300, 2, 64, 128, 256, True),    # full-width shape, ragged
+    (1, 50, 2, 64, 128, 256, False),    # shorter than one chunk
+])
+def test_ssd_kernels_match_plain(cuda, dtype, B, S, H, P, N, chunk, grouped):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    x = mk(B, S, H, P).to(dtype)
+    dA = -(torch.rand((B, S, H), generator=gen, device=cuda) * 1.95 + 0.05)
+    if grouped:
+        b, c = (mk(B, S, 1, N).to(dtype).expand(B, S, H, N) for _ in "bc")
+    else:
+        b, c = mk(B, S, H, N).to(dtype), mk(B, S, H, N).to(dtype)
+    dy, dstate = mk(B, S, H, P), mk(B, H, P, N)
+    counts = (ssd.ssd_fwd_kernel_layout.launches,
+              ssd_bwd.fwd_res_kernel_layout.launches,
+              ssd_bwd.bwd_kernel_layout.launches)
+    y, state = ssd.ssd_fwd_kernel_layout(x, dA, b, c, chunk=chunk)
+    y2, state2, cs = ssd_bwd.fwd_res_kernel_layout(x, dA, b, c, chunk=chunk)
+    grads = ssd_bwd.bwd_kernel_layout(x, dA, b, c, cs, dy, dstate,
+                                      chunk=chunk)
+    torch.cuda.synchronize()
+    assert (ssd.ssd_fwd_kernel_layout.launches,
+            ssd_bwd.fwd_res_kernel_layout.launches,
+            ssd_bwd.bwd_kernel_layout.launches) == tuple(n + 1 for n in counts)
+    yp, sp, csp = ssd_bwd.fwd_res_plain(x, dA, b, c, chunk=chunk)
+    for got, want in ((y, yp), (state, sp), (y2, yp), (state2, sp),
+                      (cs, csp)):
+        assert got.dtype == torch.float32
+        assert _rel_err(got, want) <= 1e-5
+    want = ssd_bwd.bwd_plain(x, dA, b, c, csp, dy, dstate, chunk=chunk)
+    for got, w in zip(grads, want):
+        assert got.dtype == torch.float32 and got.shape == w.shape
+        assert _rel_err(got, w) <= 1e-5
+
+
+def test_ssd_autograd_on_the_card_matches_the_cpu(cuda):
+    gen = torch.Generator().manual_seed(2)
+    B, S, H, P, N = 2, 80, 4, 16, 16
+    x, b, c = (torch.randn(s, generator=gen) for s in
+               ((B, S, H, P), (B, S, H, N), (B, S, H, N)))
+    dA = -(torch.rand((B, S, H), generator=gen) * 1.95 + 0.05)
+    wy, ws = torch.randn(B, S, H, P), torch.randn(B, H, P, N)
+    grads = {}
+    for dev in ("cpu", cuda):
+        ts = [t.detach().to(dev).requires_grad_(True)
+              for t in (x, dA, b, c)]
+        y, st = ops.ssd(*ts, chunk=32)
+        ((y * wy.to(dev)).sum() + (st * ws.to(dev)).sum()).backward()
+        grads[str(dev)] = [t.grad.cpu() for t in ts]
+    for a, b_ in zip(grads["cpu"], grads["cuda"]):
+        assert _rel_err(b_, a) <= 1e-5

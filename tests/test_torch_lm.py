@@ -1,6 +1,7 @@
 """The port's LM on weights bridged from the JAX package: the bridge is a
 checked name-by-name copy, the logits match, and SPB partial backprop
-gives JAX's suffix gradients with a zero (or absent) prefix gradient.
+gives JAX's suffix gradients with a zero (or absent) prefix gradient,
+for yi-6b-reduced and for mamba2-reduced.
 
 Tolerance 2e-4: four f32 layers whose attention goes through the kernels'
 plain versions on one side and the Pallas kernels (interpret mode) on the
@@ -8,6 +9,7 @@ other, the repo's flash-attention tolerance."""
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -99,3 +101,102 @@ def test_suffix_grads_match_and_prefix_is_zero(setup, depth):
         for w, p in zip(jax.tree.leaves(jg[key]),
                         jax.tree.leaves(tp[key])):
             np.testing.assert_allclose(p.grad.numpy(), np.asarray(w), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# mamba2-reduced: the SSD stack, kernels on (their plain versions here)
+# ---------------------------------------------------------------------------
+
+# 1e-5 relative to the largest entry (max(.., 1)): four f32 SSD layers, the
+# same f32 math summed in another order (the SSD suite's tolerance).
+SSD_TOL = 1e-5
+
+
+def _rel_close(got, want, tol=SSD_TOL):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err = np.abs(got - want).max(initial=0.0) / max(np.abs(want).max(
+        initial=0.0), 1.0)
+    assert err <= tol, f"rel err {err:.3e} > {tol:g}"
+
+
+@pytest.fixture(scope="module")
+def mamba2():
+    jcfg = dataclasses.replace(j_reduced("mamba2-2.7b"), use_pallas=True)
+    tcfg = dataclasses.replace(t_reduced("mamba2-2.7b"), use_pallas=True)
+    params = jax.tree.map(np.asarray, jlm.init_lm(jax.random.key(0), jcfg))
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 48)).astype(np.int32)
+    labels = rng.integers(0, jcfg.vocab_size, (2, 48)).astype(np.int32)
+    return jcfg, tcfg, params, {"tokens": tokens, "labels": labels}
+
+
+def test_mamba2_leaf_dtypes_equal_jax_at_bf16():
+    """At bf16 the SSM's A_log, D and dt_bias stay f32, in the layout, in
+    the port's init and through the bridge."""
+    jcfg = j_reduced("mamba2-2.7b").scaled(dtype="bfloat16")
+    tcfg = t_reduced("mamba2-2.7b").scaled(dtype="bfloat16")
+    want = jax.eval_shape(lambda k: jlm.init_lm(k, jcfg), jax.random.key(0))
+    shapes = tlm.param_shapes(tcfg)
+    tdt = lambda t: str(t.dtype).removeprefix("torch.")
+    for w, s in zip(jax.tree.leaves(want), jax.tree.leaves(shapes)):
+        assert (tuple(w.shape), str(w.dtype)) == (tuple(s.shape), tdt(s))
+    init = tlm.init_lm(torch.Generator().manual_seed(0), tcfg)
+    for s, t in zip(jax.tree.leaves(shapes), jax.tree.leaves(init)):
+        assert (t.shape, t.dtype) == (s.shape, s.dtype)
+    mixer = want["groups"][0][0]["mixer"]
+    assert {k for k, v in mixer.items() if v.dtype == jnp.float32} == \
+        {"A_log", "D", "dt_bias"}
+    numpy_tree = jax.tree.map(
+        lambda s: np.zeros(s.shape, np.float32), want)
+    bridged = bridge.params_from_numpy(numpy_tree, tcfg)
+    for w, t in zip(jax.tree.leaves(want), jax.tree.leaves(bridged)):
+        assert tdt(t) == str(w.dtype)
+
+
+def test_mamba2_init_follows_jax_rules():
+    tcfg = t_reduced("mamba2-2.7b")
+    p = tlm.init_lm(torch.Generator().manual_seed(0), tcfg)
+    m = p["groups"][0][0]["mixer"]
+    H = m["A_log"].shape[-1]
+    torch.testing.assert_close(m["A_log"][0], torch.log(torch.linspace(
+        1.0, 16.0, H)))
+    assert bool((m["D"] == 1).all()) and bool((m["norm"] == 0).all())
+    assert bool((m["conv_b"] == 0).all())
+    dt = torch.nn.functional.softplus(m["dt_bias"])
+    assert float(dt.min()) >= 1e-3 * 0.999 and float(dt.max()) <= 0.1 * 1.001
+    assert abs(float(m["conv_w"].std()) * 2.0 - 1.0) < 0.1     # 1/sqrt(4)
+
+
+def test_mamba2_bridge_copies_every_leaf(mamba2):
+    _, tcfg, params, _ = mamba2
+    got = bridge.params_from_numpy(params, tcfg)
+    want_leaves, got_leaves = jax.tree.leaves(params), jax.tree.leaves(got)
+    assert len(got_leaves) == len(want_leaves) == 11
+    for w, g in zip(want_leaves, got_leaves):
+        np.testing.assert_array_equal(g.detach().numpy(), w)
+
+
+def test_mamba2_forward_train_logits_match(mamba2):
+    jcfg, tcfg, params, batch = mamba2
+    want, _ = jlm.forward_train(params, batch, jcfg)
+    got, _ = tlm.forward_train(bridge.params_from_numpy(params, tcfg),
+                               _tbatch(batch), tcfg)
+    _rel_close(got.detach().numpy(), want)
+
+
+@pytest.mark.parametrize("depth", jspb.snapped_depths(
+    j_reduced("mamba2-2.7b"), JSPB(mode="temporal", k=4)))
+def test_mamba2_suffix_grads_match_and_prefix_is_zero(mamba2, depth):
+    jcfg = mamba2[0]
+    jg, tp = _suffix_grads(mamba2, depth)
+    b = jcfg.num_layers - depth
+    for w, p in zip(jax.tree.leaves(jg["groups"]),
+                    jax.tree.leaves(tp["groups"])):
+        w = np.asarray(w)
+        g = np.zeros_like(w) if p.grad is None else p.grad.numpy()
+        assert np.abs(g[:b]).max(initial=0.0) == 0.0
+        _rel_close(g[b:], w[b:])
+    for key in ("embed", "final_norm"):
+        for w, p in zip(jax.tree.leaves(jg[key]), jax.tree.leaves(tp[key])):
+            got = np.zeros_like(w) if p.grad is None else p.grad.numpy()
+            _rel_close(got, w)

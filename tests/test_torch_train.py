@@ -3,7 +3,8 @@ SPBEngine on yi-6b-reduced (f32, kernels on, temporal SPB k=4, batch
 2 x 64) from bridged weights and the same Pipeline batches, 4 steps over
 depths 4, 1, 3, 2.  Metrics agree step by step to rtol 1e-4: the same f32
 arithmetic, summed in another order, compounded over four AdamW updates.
-Also the port's train driver, and its refusal to run on a missing card."""
+The same for mamba2-reduced (the SSD kernels' plain versions).  Also the
+port's train entry point, and its refusal to run on a missing card."""
 import dataclasses
 
 import jax
@@ -87,3 +88,49 @@ def test_entry_points_refuse_a_missing_card():
         train_mod.train(["--steps", "1", "--batch", "2", "--seq", "64"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SPBEngine(t_reduced("yi-6b"), TrainConfig())
+
+
+@pytest.fixture(scope="module")
+def jax_mamba2_run():
+    cfg = dataclasses.replace(j_reduced("mamba2-2.7b"), use_pallas=True)
+    eng = JEngine(cfg, JTrain(num_steps=STEPS), JSPB(mode="temporal", k=4))
+    eng.init_state(jax.random.key(0))
+    params = jax.tree.map(np.asarray, eng.state["params"])
+    pipe = JPipeline(cfg, 2, 64, seed=0)
+    history = []
+    for s in range(STEPS):
+        m = eng.train_step(pipe.get_batch(s), s)
+        history.append((eng.last_depth, {k: float(v) for k, v in m.items()}))
+    return params, history
+
+
+def test_mamba2_spb_engine_tracks_jax_step_by_step(jax_mamba2_run):
+    """mamba2-reduced (f32, SSD kernels on: their plain versions here),
+    temporal SPB k=4, batch 2 x 64: the same metrics as the JAX engine at
+    every step, at the yi-6b run's rtol of 1e-4."""
+    params, want = jax_mamba2_run
+    cfg = dataclasses.replace(t_reduced("mamba2-2.7b"), use_pallas=True)
+    tcfg = TrainConfig(num_steps=STEPS)
+    eng = SPBEngine(cfg, tcfg, SPBConfig(mode="temporal", k=4), device="cpu")
+    eng.attach_state(steps_lib.state_from_params(
+        bridge.params_from_numpy(params, cfg), tcfg))
+    pipe = Pipeline(cfg, 2, 64, seed=0)
+    depths = []
+    for s, (jdepth, jm) in enumerate(want):
+        m = eng.train_step(pipe.get_batch(s), s)
+        depths.append(eng.last_depth)
+        assert eng.last_depth == jdepth
+        for key in ("loss", "xent", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(m[key]), jm[key], rtol=1e-4,
+                                       err_msg=f"step {s} {key}")
+    assert depths == [4, 1, 3, 2]
+
+
+def test_mamba2_train_entry_point_runs_on_cpu(capsys):
+    history = train_mod.train(
+        ["--arch", "mamba2-2.7b", "--reduced", "--steps", "2", "--batch", "2",
+         "--seq", "40", "--spb-mode", "temporal", "--use-pallas", "--device",
+         "cpu", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert len(history) == 2 and all(np.isfinite(history))
+    assert "[train] step=    1 depth=   1 loss=" in out
