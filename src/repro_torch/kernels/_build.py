@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -100,3 +102,9 @@ def check(lib_name: str, code: int) -> None:
     if code != 0:
         msg = _LIBS[lib_name].kernel_error_string(code).decode()
         raise RuntimeError(f"{lib_name}: CUDA error {code} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``t``'s device, the last
+    argument of every C entry."""
+    return torch.cuda.current_stream(t.device).cuda_stream

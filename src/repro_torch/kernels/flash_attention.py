@@ -83,10 +83,6 @@ def strides(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def empty_kernel_layout(B: int, heads: int, S: int, D: int, like: torch.Tensor
                         ) -> torch.Tensor:
     """(B, heads, S, D) output whose transpose to (B, S, heads, D) is
@@ -140,7 +136,7 @@ def fwd_kernel_layout(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, *,
               ot.data_ptr(), lse.data_ptr() if lse is not None else None,
               B, H, K, Sq, Sk, *strides(qt), *strides(kt), *strides(vt),
               *strides(ot), int(causal), int(window), 1.0 / math.sqrt(D),
-              stream_of(qt))
+              _build.stream_of(qt))
     _build.check("flash_fwd", code)
     fwd_kernel_layout.launches += 1
     return (ot, lse) if with_lse else ot

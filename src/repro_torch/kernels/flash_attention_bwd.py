@@ -26,8 +26,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (check_layout,
                                                  empty_kernel_layout,
                                                  kernel_dtype_code,
-                                                 pair_mask, stream_of,
-                                                 strides)
+                                                 pair_mask, strides)
 
 Tensor = torch.Tensor
 
@@ -102,7 +101,7 @@ def compute_delta(ot: Tensor, dot_: Tensor) -> Tensor:
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=ot.device)
     fn = _build.function("flash_delta", "flash_delta", _DELTA_ARGTYPES)
     code = fn(dtype, ot.data_ptr(), dot_.data_ptr(), delta.data_ptr(), B, H,
-              Sq, D, *strides(ot), *strides(dot_), stream_of(ot))
+              Sq, D, *strides(ot), *strides(dot_), _build.stream_of(ot))
     _build.check("flash_delta", code)
     compute_delta.launches += 1
     return delta
@@ -123,7 +122,7 @@ def compute_dq(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
               dot_.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               dq.data_ptr(), B, H, K, Sq, Sk, *strides(qt), *strides(kt),
               *strides(vt), *strides(dot_), *strides(dq), int(causal),
-              int(window), 1.0 / math.sqrt(D), stream_of(qt))
+              int(window), 1.0 / math.sqrt(D), _build.stream_of(qt))
     _build.check("flash_dq", code)
     compute_dq.launches += 1
     return dq
@@ -146,7 +145,7 @@ def compute_dkv(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
               dk.data_ptr(), dv.data_ptr(), B, H, K, Sq, Sk, *strides(qt),
               *strides(kt), *strides(vt), *strides(dot_), *strides(dk),
               *strides(dv), int(causal), int(window), 1.0 / math.sqrt(D),
-              stream_of(qt))
+              _build.stream_of(qt))
     _build.check("flash_dkv", code)
     compute_dkv.launches += 1
     return dk, dv

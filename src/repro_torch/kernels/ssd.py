@@ -34,7 +34,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import stream_of
 
 Tensor = torch.Tensor
 
@@ -175,7 +174,7 @@ def launch_fwd(x: Tensor, dA: Tensor, b: Tensor, c: Tensor, chunk: int,
               c.data_ptr(), y.data_ptr(), state.data_ptr(),
               None if chunk_states is None else chunk_states.data_ptr(),
               Bb, S, H, chunk, *strides3(x), *strides3(dA), *strides3(b),
-              *strides3(c), *strides3(y), stream_of(x))
+              *strides3(c), *strides3(y), _build.stream_of(x))
     _build.check("ssd_fwd", code)
     return y, state
 

@@ -33,7 +33,6 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import stream_of
 from repro_torch.kernels.ssd import (chunk_csum, chunked, check_layout,
                                      decay_matrix, kernel_dtype_code,
                                      launch_fwd, n_chunks, ssd_fwd_plain,
@@ -162,7 +161,8 @@ def bwd_kernel_layout(x: Tensor, dA: Tensor, b: Tensor, c: Tensor,
               dstate.data_ptr(), dx.data_ptr(), ddA.data_ptr(), db.data_ptr(),
               dc.data_ptr(), Bb, S, H, chunk, *strides3(x), *strides3(dA),
               *strides3(b), *strides3(c), *strides3(dy), *strides3(dx),
-              *strides3(ddA), *strides3(db), *strides3(dc), stream_of(x))
+              *strides3(ddA), *strides3(db), *strides3(dc),
+              _build.stream_of(x))
     _build.check("ssd_bwd", code)
     bwd_kernel_layout.launches += 1
     return dx, ddA, db, dc

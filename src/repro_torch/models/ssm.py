@@ -2,9 +2,9 @@
 ``repro/models/ssm.py``).
 
 The scan runs the hand-written SSD kernels (``repro_torch.kernels.ops.ssd``)
-when ``cfg.use_pallas`` is set and the shapes are ones the kernels take;
-otherwise the plain chunked path :func:`_ssd_scan`, which keeps the JAX
-path's rounding points.  The large projections are ``torch.matmul``.
+when ``cfg.use_pallas`` is set (they raise on the card for a shape they do
+not take); otherwise the plain chunked path :func:`_ssd_scan`, which keeps
+the JAX path's rounding points.  The large projections are ``torch.matmul``.
 Prefill, decode and ``conv_step`` come with the serving slice.
 """
 from __future__ import annotations
@@ -16,7 +16,6 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels import ssd as ssd_kernels
 from repro_torch.models.layers import rms_norm
 
 Tensor = torch.Tensor
@@ -123,12 +122,10 @@ def _ssd_scan(xh: Tensor, dA: Tensor, Bm: Tensor, Cm: Tensor, state0: Tensor,
 
 def _use_pallas_ssd(cfg: ModelConfig, S: int, P: int, N: int) -> bool:
     """Route the train scan through the hand-written SSD kernels?  Opt-in
-    via ``cfg.use_pallas``, and only for (P, N) and chunks the kernels
-    take (the JAX gate's tiling test, for this card's kernels)."""
-    if not cfg.use_pallas:
-        return False
-    return (P, N) in ssd_kernels.SHAPES and \
-        min(cfg.ssm.chunk, S) <= ssd_kernels.MAX_CHUNK
+    via ``cfg.use_pallas``, as JAX's gate is off the TPU.  On the card a
+    (P, N), dtype or chunk the kernels do not take raises in the kernel
+    wrappers; on the CPU their plain versions take any shape."""
+    return cfg.use_pallas
 
 
 def mamba2_core(p: Params, x: Tensor, cfg: ModelConfig

@@ -129,6 +129,26 @@ def test_ssd_kernels_match_plain(cuda, dtype, B, S, H, P, N, chunk, grouped):
         assert _rel_err(got, w) <= 1e-5
 
 
+@pytest.mark.parametrize("P,N,chunk,dtype", [
+    (16, 32, 32, torch.float32),        # (P, N) not in ssd.SHAPES
+    (16, 16, 512, torch.float32),       # chunk above ssd.MAX_CHUNK
+    (16, 16, 32, torch.float16),        # x, b, c dtype
+])
+def test_ssd_kernels_refuse_other_shapes(cuda, P, N, chunk, dtype):
+    """No plain fallback on the card: what the kernels do not take
+    raises before anything launches."""
+    B, S, H = 1, 600, 2
+    x = torch.randn(B, S, H, P, device=cuda).to(dtype)
+    b, c = (torch.randn(B, S, H, N, device=cuda).to(dtype) for _ in "bc")
+    dA = -torch.rand(B, S, H, device=cuda)
+    n = ssd.ssd_fwd_kernel_layout.launches
+    with pytest.raises(ValueError, match="SSD kernels take"):
+        ssd.ssd_fwd_kernel_layout(x, dA, b, c, chunk=chunk)
+    with pytest.raises(ValueError, match="SSD kernels take"):
+        ops.ssd(x.requires_grad_(True), dA, b, c, chunk=chunk)
+    assert ssd.ssd_fwd_kernel_layout.launches == n
+
+
 def test_ssd_autograd_on_the_card_matches_the_cpu(cuda):
     gen = torch.Generator().manual_seed(2)
     B, S, H, P, N = 2, 80, 4, 16, 16

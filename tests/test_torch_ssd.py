@@ -23,6 +23,13 @@ from repro_torch.kernels import ssd
 from repro_torch.kernels import ssd_bwd
 
 F32_TOL, BF16_TOL = 1e-5, 2e-2
+# At the main path's chunk of 256 the port (csum and ddA's reverse sum
+# accumulated in float64, rounded once) and the Pallas kernels (float32
+# cumsum) differ by more than F32_TOL: measured up to 1.7e-5 at the
+# shapes of test_chunk_256_plain_matches_pallas_and_float64, with the
+# port within 7.7e-6 of a float64 oracle and Pallas within 1.0e-5.  The
+# bounds leave about 3x headroom.
+CHUNK256_TOL, TRUTH_TOL = 5e-5, 2e-5
 # (B, S, H, P, N, chunk): divisible, ragged tail, shorter than one chunk,
 # and the reduced model's (P, N, chunk)
 SHAPES = pytest.mark.parametrize("B,S,H,P,N,chunk", [
@@ -112,6 +119,61 @@ def test_backward_plain_matches_pallas(B, S, H, P, N, chunk):
         w = w[..., 0] if name == "ddA" else w
         assert tuple(g.shape) == w.shape, name
         _rel_close(g, w, F32_TOL)
+
+
+def _oracle64(x, dA, b, c, dy, dst, chunk):
+    """The sequential recurrence in float64: y, the final state, the state
+    entering each chunk, and by autograd the gradients of
+    <y, dy> + <state, dst> for x, dA, b, c."""
+    ts = [torch.from_numpy(t.astype(np.float64)).requires_grad_(True)
+          for t in (x, dA, b, c)]
+    X, A, Bm, Cm = ts
+    Bb, S, H, P = X.shape
+    h = torch.zeros((Bb, H, P, Bm.shape[-1]), dtype=torch.float64)
+    ys, states = [], []
+    for t in range(S):
+        if t % chunk == 0:
+            states.append(h.detach())
+        h = h * torch.exp(A[:, t])[..., None, None] + \
+            torch.einsum("bhn,bhp->bhpn", Bm[:, t], X[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cm[:, t], h))
+    y = torch.stack(ys, dim=1)
+    loss = (y * torch.from_numpy(dy.astype(np.float64))).sum() + \
+        (h * torch.from_numpy(dst.astype(np.float64))).sum()
+    return [y.detach(), h.detach(), torch.stack(states, dim=2)] + \
+        list(torch.autograd.grad(loss, ts))
+
+
+def _rel_err(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1.0)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,seed", [
+    (1, 600, 2, 8, 8, 0), (1, 600, 2, 16, 16, 1), (2, 520, 2, 8, 4, 2)])
+def test_chunk_256_plain_matches_pallas_and_float64(B, S, H, P, N, seed):
+    """The main path's chunk, ragged: every output of the plain versions
+    against the Pallas kernels and a float64 oracle (prints the gaps)."""
+    chunk = 256
+    x, dA, b, c, dy, dst = _inputs(B, S, H, P, N, seed=seed)
+    want = _pallas_run(B, S, H, P, N, chunk, x, dA, b, c, dy, dst)
+    pallas = [want["y"], want["state"], want["chunk_states"]] + \
+        [g[..., 0] if i == 1 else g for i, g in enumerate(want["grads"])]
+    T = torch.from_numpy
+    y, state, cs = ssd_bwd.fwd_res_plain(T(x), T(dA), T(b), T(c),
+                                         chunk=chunk)
+    got = [y, state, cs] + list(ssd_bwd.bwd_plain(
+        T(x), T(dA), T(b), T(c), cs, T(dy), T(dst), chunk=chunk))
+    truth = _oracle64(x, dA, b, c, dy, dst, chunk)
+    names = ("y", "state", "chunk_states", "dx", "ddA", "db", "dc")
+    for name, g, p, o in zip(names, got, pallas, truth):
+        assert np.isfinite(g.numpy()).all(), name
+        gap, err, p_err = _rel_err(g, p), _rel_err(g, o), _rel_err(p, o)
+        print(f"{name}: port-pallas {gap:.2e} port-float64 {err:.2e} "
+              f"pallas-float64 {p_err:.2e}")
+        assert gap <= CHUNK256_TOL, (name, gap)
+        assert err <= TRUTH_TOL, (name, err)
 
 
 def test_plain_versions_take_strided_views():

@@ -119,14 +119,16 @@ def test_mamba2_fwd_matches_jax(reduced_mixer, use_pallas, S):
         _rel_close(_np(gg), want_dp[name], F32_TOL)
 
 
-def test_kernel_gate_takes_only_the_kernels_shapes():
-    cfg = dataclasses.replace(t_reduced("mamba2-2.7b"), use_pallas=True)
-    assert tssm._use_pallas_ssd(cfg, 64, 16, 16)
-    assert tssm._use_pallas_ssd(cfg, 64, 64, 128)
-    assert not tssm._use_pallas_ssd(cfg, 64, 16, 32)
-    assert not tssm._use_pallas_ssd(
-        dataclasses.replace(cfg, use_pallas=False), 64, 16, 16)
-    big = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
-                                                           chunk=512))
-    assert tssm._use_pallas_ssd(big, 200, 16, 16)      # chunk = min(512, S)
-    assert not tssm._use_pallas_ssd(big, 600, 16, 16)
+@pytest.mark.parametrize("P,N,chunk,S", [
+    (16, 16, 16, 64), (64, 128, 256, 600), (16, 32, 16, 64),
+    (8, 8, 512, 600)])
+def test_kernel_gate_follows_use_pallas(P, N, chunk, S):
+    """As JAX's gate off the TPU: ``use_pallas`` alone decides, for any
+    shape; a shape the card's kernels do not take raises there instead
+    (tests/test_torch_kernels_cuda.py)."""
+    cfg = t_reduced("mamba2-2.7b")
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                           chunk=chunk))
+    for use_pallas in (False, True):
+        assert tssm._use_pallas_ssd(dataclasses.replace(
+            cfg, use_pallas=use_pallas), S, P, N) is use_pallas
