@@ -8,24 +8,30 @@ Phases, each printing a line; any failure exits non-zero:
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds);
   3. each attention kernel against its plain PyTorch version on the same
      inputs: at the yi-6b main-path shape (B 2, S 2048, H 32, K 4, D 128,
-     causal, bf16), a sliding-window case and a ragged Sq != Sk case, then
-     the backward kernels on the forward kernel's own outputs against the
-     plain chain; max errors against the stated tolerance, and the
-     kernel's, the plain version's and a library call's time at the
-     main-path shape;
+     causal, bf16), a sliding-window case and a ragged Sq != Sk case, at
+     the recurrentgemma-2b main-path shape (B 2, S 2048, H 10, K 1,
+     D 256, window 2048, bf16) and a case where that window bites
+     (S 4096), then the backward kernels on the forward kernel's own
+     outputs against the plain chain; max errors against the stated
+     tolerance, and the kernel's, the plain version's and a library
+     call's time at both main-path shapes;
   3b. the same for the SSD kernels: at the mamba2-2.7b main-path shape
      (B 2, S 2048, H 80, P 64, N 128, chunk 256, bf16 x/B/C with B and C
      broadcast over heads, f32 dA), an f32 reduced case and ragged cases,
      then the backward kernel on the forward-with-residuals kernel's own
      chunk states against the plain chain;
-  4. card against CPU: yi-6b-reduced and then mamba2-reduced in f32 with
-     the kernels, 4 temporal SPB steps from the same seeded weights as on
-     the CPU plain path, with the card run's launch counts checked against
-     the steps' depths;
-  5. each path at full width: SPBEngine on yi-6b cut to 8 layers, then on
-     mamba2-2.7b cut to 32, bf16, temporal k=4, batch 2 x 2048, 8 steps,
-     with the launch counts of every kernel checked against the step's
-     depth (the counts are zeroed before each path and read after it);
+  3c. the same for the RG-LRU kernels: at the recurrentgemma-2b main-path
+     shape (B 2, S 2048, W 2560, f32) and a ragged one (S 600, W 64), then
+     the backward kernel on the forward kernel's own output;
+  4. card against CPU: yi-6b-reduced, mamba2-reduced and then
+     recurrentgemma-reduced in f32 with the kernels, 4 temporal SPB steps
+     from the same seeded weights as on the CPU plain path, with the card
+     run's launch counts checked against the steps' depths;
+  5. each path at full width: SPBEngine on yi-6b cut to 8 layers, on
+     mamba2-2.7b cut to 32 and on recurrentgemma-2b cut to 12, bf16,
+     temporal k=4, batch 2 x 2048, 8 steps, with the launch counts of
+     every kernel checked against the step's depth (the counts are zeroed
+     before each path and read after it);
   6. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -49,18 +55,25 @@ PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": (5e-3, 2e-2), "float32": (1e-4, 1e-4)}
 MAIN = dict(B=2, Sq=2048, Sk=2048, H=32, K=4, D=128, causal=True, window=0,
             dtype="bfloat16")
+# recurrentgemma-2b's local attention: MQA, head_dim 256, window 2048
+# (which masks nothing more than causality at S 2048)
+RG_MAIN = dict(B=2, Sq=2048, Sk=2048, H=10, K=1, D=256, causal=True,
+               window=2048, dtype="bfloat16")
 CASES = {
     "main": MAIN,
     "window": dict(B=1, Sq=1024, Sk=1024, H=8, K=2, D=64, causal=True,
                    window=256, dtype="float32"),
     "ragged": dict(B=1, Sq=100, Sk=200, H=4, K=2, D=32, causal=False,
                    window=0, dtype="float32"),
+    "rg_main": RG_MAIN,
+    "rg_window": dict(RG_MAIN, B=1, Sq=4096, Sk=4096),
 }
+TIMED = {"main": "yi-6b", "rg_main": "recurrentgemma-2b"}   # case: arch
 # SSD cases: (B, S, H, P, N, chunk, dtype of x/B/C, B/C broadcast over
 # heads); dA is f32 -U(0.05, 2.0) as in tests/test_kernel_grads.py.  Every
-# SSD output is f32, held at that suite's measure: max|got - want| /
-# max(max|want|, 1) <= 1e-5.
-SSD_TOL = 1e-5
+# SSD and RG-LRU output is f32, held at that suite's measure:
+# max|got - want| / max(max|want|, 1) <= 1e-5.
+SCAN_TOL = 1e-5
 SSD_MAIN = dict(B=2, S=2048, H=80, P=64, N=128, chunk=256, dtype="bfloat16",
                 grouped=True)
 SSD_CASES = {
@@ -72,7 +85,13 @@ SSD_CASES = {
     "short": dict(B=2, S=100, H=4, P=16, N=16, chunk=256, dtype="float32",
                   grouped=False),
 }
-ARCHS = ("yi-6b", "mamba2-2.7b")
+# RG-LRU cases (B, S, W); a ~ U(0.1, 0.999), b ~ N(0, 1) as in
+# tests/test_kernel_grads.py
+RGLRU_CASES = {
+    "main": dict(B=2, S=2048, W=2560),
+    "ragged": dict(B=2, S=600, W=64),
+}
+ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
 KERNELS = {     # name: (source, TPU kernel it replaces)
     "flash_fwd": ("src/repro_torch/csrc/flash_fwd.cu",
                   "src/repro/kernels/flash_attention.py:58"),
@@ -88,6 +107,10 @@ KERNELS = {     # name: (source, TPU kernel it replaces)
                     "src/repro/kernels/ssd_bwd.py:48"),
     "ssd_bwd": ("src/repro_torch/csrc/ssd_bwd.cu",
                 "src/repro/kernels/ssd_bwd.py:129"),
+    "rglru_fwd": ("src/repro_torch/csrc/rglru.cu",
+                  "src/repro/kernels/rglru.py:24"),
+    "rglru_bwd": ("src/repro_torch/csrc/rglru.cu",
+                  "src/repro/kernels/rglru_bwd.py:27"),
 }
 
 
@@ -163,13 +186,15 @@ def counters():
     """The kernel wrappers, each with its launch count in ``.launches``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
-    from repro_torch.kernels import ssd, ssd_bwd
+    from repro_torch.kernels import rglru, rglru_bwd, ssd, ssd_bwd
     return {"flash_fwd": fa.fwd_kernel_layout,
             "flash_delta": fab.compute_delta,
             "flash_dq": fab.compute_dq, "flash_dkv": fab.compute_dkv,
             "ssd_fwd": ssd.ssd_fwd_kernel_layout,
             "ssd_fwd_res": ssd_bwd.fwd_res_kernel_layout,
-            "ssd_bwd": ssd_bwd.bwd_kernel_layout}
+            "ssd_bwd": ssd_bwd.bwd_kernel_layout,
+            "rglru_fwd": rglru.rglru_scan,
+            "rglru_bwd": rglru_bwd.bwd_kernel_layout}
 
 
 def zero_launches() -> None:
@@ -190,7 +215,8 @@ def expected_launches(cfg, depths) -> dict:
     layer: an attention layer runs the flash forward always and the delta,
     dq and dkv kernels when it is in the suffix; an SSD layer runs the
     primal scan in the frozen prefix and the forward-with-residuals plus
-    the backward in the suffix."""
+    the backward in the suffix; an RG-LRU layer runs the scan always and
+    the backward scan when it is in the suffix."""
     from repro_torch.config import layer_kinds
     want = dict.fromkeys(counters(), 0)
     kinds = layer_kinds(cfg)
@@ -198,13 +224,16 @@ def expected_launches(cfg, depths) -> dict:
         for i, (mixer, _) in enumerate(kinds):
             live = i >= len(kinds) - d
             if mixer == "ssd":
-                for n in (("ssd_fwd_res", "ssd_bwd") if live else ("ssd_fwd",)):
-                    want[n] += 1
+                names = ("ssd_fwd_res", "ssd_bwd") if live else ("ssd_fwd",)
+            elif mixer == "rglru":
+                names = ("rglru_fwd", "rglru_bwd") if live else ("rglru_fwd",)
+            elif mixer in ("attn", "local"):
+                names = ("flash_fwd",) + (("flash_delta", "flash_dq",
+                                           "flash_dkv") if live else ())
             else:
-                want["flash_fwd"] += 1
-                for n in ("flash_delta", "flash_dq", "flash_dkv") if live \
-                        else ():
-                    want[n] += 1
+                raise ValueError(f"no kernels known for mixer {mixer!r}")
+            for n in names:
+                want[n] += 1
     return want
 
 
@@ -219,14 +248,15 @@ def check_launches(phase: str, before: dict, depths, cfg) -> dict:
 
 
 def phase_kernels():
-    """Phase 3: every kernel against its plain version; timings at the
-    main-path shape.  Returns {name: record} for the kernels line."""
+    """Phase 3: every attention kernel against its plain version; timings
+    at each main-path shape.  Returns {case: {name: record}} for the
+    timed cases."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
 
-    records = {}
+    timed = {}
     for case, c in CASES.items():
         dt = getattr(torch, c["dtype"])
         gen = torch.Generator(device="cuda").manual_seed(1)
@@ -252,9 +282,10 @@ def phase_kernels():
             "flash_dkv": (lambda: fab.compute_dkv(*bwd, **kw),
                           lambda: fab.dkv_plain(*bwd, **kw)),
         }
+        records = {}
         for name, (kern, plain) in runs.items():
             max_abs = check_all(f"{case} {name}", kern(), plain())
-            if case == "main":
+            if case in TIMED:
                 records[name] = {"max_abs_err": max_abs,
                                  "ms": time_ms(kern, iters=5),
                                  "plain_ms": time_ms(plain, iters=3, warmup=1)}
@@ -266,10 +297,10 @@ def phase_kernels():
         check_all(f"{case} fwd->delta->dq,dkv", (dq_k, dk_k, dv_k),
                   (fab.dq_plain(*bwd, **kw), *fab.dkv_plain(*bwd, **kw)))
 
-        if case != "main":
+        if case not in TIMED:
             continue
         # bounds from this run's inputs: each input read once, each output
-        # written once; operations over the pairs the causal mask lets in
+        # written once; operations over the pairs the mask lets in
         pairs = int(fa.pair_mask(Sq, Sk, c["causal"], c["window"],
                                  "cpu").sum()) * B * H
         prod = 2.0 * D * pairs                        # one S x S x D product
@@ -283,9 +314,11 @@ def phase_kernels():
         for name, (flops, nb) in work.items():
             records[name]["bound_ms"], records[name]["bound_by"] = bound(
                 flops, nb, c["dtype"])
-        # library yardsticks, never called by the port: SDPA forward; the
-        # row dot product of O and dO (rounded to bf16 at the end, where the
-        # kernel keeps f32); SDPA forward + backward beside the four kernels
+        # library yardsticks, never called by the port: SDPA forward (its
+        # causal mask is the whole mask at these shapes); the row dot
+        # product of O and dO (rounded to bf16 at the end, where the kernel
+        # keeps f32); SDPA forward + backward beside the four kernels
+        assert c["causal"] and c["window"] in (0, Sq)
         qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True, enable_gqa=True)
@@ -305,12 +338,13 @@ def phase_kernels():
         records["_sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
         for name in runs:
             r = records[name]
-            log(f"[kernels] main   {name:11s} ms={r['ms']:.4f} "
+            log(f"[kernels] {case:7s} {name:11s} ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                 f"({r['bound_by']}) library_ms={r['library_ms']}")
-        log(f"[kernels] main   SDPA fwd+bwd ms="
+        log(f"[kernels] {case:7s} SDPA fwd+bwd ms="
             f"{records['_sdpa_fwd_bwd_ms']:.4f}")
-    return records
+        timed[case] = records
+    return timed
 
 
 def ssd_inputs(c: dict):
@@ -344,9 +378,9 @@ def check_rel(name: str, got, want) -> float:
     rel = max(e[1] for e in errs)
     log(f"[kernels] {name:24s} max_abs_err={max(e[0] for e in errs):.3e} "
         f"rel_err={rel:.3e} per_output=[{','.join(f'{e[1]:.2e}' for e in errs)}]"
-        f" tol={SSD_TOL} {'ok' if rel <= SSD_TOL else 'FAIL'}")
-    if not rel <= SSD_TOL:
-        raise AssertionError(f"{name}: rel_err {rel:.3e} > {SSD_TOL}")
+        f" tol={SCAN_TOL} {'ok' if rel <= SCAN_TOL else 'FAIL'}")
+    if not rel <= SCAN_TOL:
+        raise AssertionError(f"{name}: rel_err {rel:.3e} > {SCAN_TOL}")
     return max(e[0] for e in errs)
 
 
@@ -413,6 +447,56 @@ def phase_ssd_kernels():
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                 f"({r['bound_by']}) library_ms=None (no single PyTorch call "
                 f"computes the chunked scan)")
+    return records
+
+
+def phase_rglru_kernels():
+    """Phase 3c: the RG-LRU kernels against their plain versions; timings
+    and bounds at the main-path shape.  Returns {name: record}."""
+    import torch
+    from repro_torch.kernels import rglru, rglru_bwd
+
+    records = {}
+    for case, c in RGLRU_CASES.items():
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        shape = (c["B"], c["S"], c["W"])
+        a = torch.rand(shape, generator=gen, device="cuda") * 0.899 + 0.1
+        b, dy = (torch.randn(shape, generator=gen, device="cuda")
+                 for _ in "bd")
+        h_p = rglru.rglru_plain(a, b)
+        runs = {    # name: (kernel wrapper, plain version), same inputs
+            "rglru_fwd": (lambda: (rglru.rglru_scan(a, b),),
+                          lambda: (rglru.rglru_plain(a, b),)),
+            "rglru_bwd": (lambda: rglru_bwd.bwd_kernel_layout(a, h_p, dy),
+                          lambda: rglru_bwd.bwd_plain(a, h_p, dy)),
+        }
+        for name, (kern, plain) in runs.items():
+            max_abs = check_rel(f"{case} {name}", kern(), plain())
+            if case == "main":
+                records[name] = {"max_abs_err": max_abs,
+                                 "ms": time_ms(kern, iters=20),
+                                 "plain_ms": time_ms(plain, iters=3, warmup=1),
+                                 "library_ms": None}
+        # the chain the main path runs: the backward kernel on the forward
+        # kernel's own output, against the plain chain
+        h_k = rglru.rglru_scan(a, b)
+        grads = rglru_bwd.bwd_kernel_layout(a, h_k, dy)
+        check_rel(f"{case} fwd->bwd", grads, rglru_bwd.bwd_plain(a, h_p, dy))
+        if case != "main":
+            continue
+        # bounds from this run's inputs: each tensor read or written once;
+        # one multiply-add per channel and step (two in the backward)
+        n = a.numel()
+        work = {"rglru_fwd": (2.0 * n, nbytes(a, b, h_k)),
+                "rglru_bwd": (4.0 * n, nbytes(a, h_k, dy, *grads))}
+        for name, (flops, nb) in work.items():
+            records[name]["bound_ms"], records[name]["bound_by"] = bound(
+                flops, nb, "float32")
+            r = records[name]
+            log(f"[kernels] main   {name:11s} ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                f"({r['bound_by']}) library_ms=None (no single PyTorch call "
+                f"computes a linear recurrence)")
     return records
 
 
@@ -519,34 +603,43 @@ def main() -> int:
     log(f"[build] {len(_build.SOURCES)} kernels built in {secs:.1f}s "
         f"(phase {time.perf_counter() - t0:.1f}s)")
 
-    records = phase_kernels()
+    timed = phase_kernels()
+    records = dict(timed["main"])
     records.update(phase_ssd_kernels())
+    records.update(phase_rglru_kernels())
     torch.cuda.empty_cache()
     for arch in ARCHS:
         phase_card_vs_cpu(arch)
         torch.cuda.empty_cache()
     # each path's own launches: its kernels' counts from its own run
-    launches = {}
+    by_arch = {}
     for arch in ARCHS:
         grew = phase_full_width(arch)
-        launches.update({n: c for n, c in grew.items() if c})
+        by_arch[arch] = {n: c for n, c in grew.items() if c}
         torch.cuda.empty_cache()
-    idle = [n for n in KERNELS if not launches.get(n)]
+    launches = {n: sum(g.get(n, 0) for g in by_arch.values())
+                for n in KERNELS}
+    idle = [n for n in KERNELS if not launches[n]]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = records[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": launches.get(name, 0),
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "launches_by_arch": {a: g[name] for a, g in by_arch.items()
+                                      if name in g},
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        rg = timed["rg_main"].get(name)
+        if rg is not None:      # the flash kernels at recurrentgemma's shape
+            entry["at_recurrentgemma_2b"] = rg
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels,
-                    "sdpa_fwd_bwd_ms": records["_sdpa_fwd_bwd_ms"]}))
+                    "sdpa_fwd_bwd_ms": {TIMED[c]: t["_sdpa_fwd_bwd_ms"]
+                                        for c, t in timed.items()}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,15 +3,16 @@
     python -m repro_torch.analysis.step_profile
 
 Runs the chip smoke's full-width configurations one after the other
-(``configs.full_width_config``: yi-6b cut to 8 layers and mamba2-2.7b cut
-to 32, bf16, the hand-written kernels; temporal SPB k=4, batch
-2 x 2048).  For each it warms up one depth cycle, then traces one step at
-each depth of the next cycle with ``torch.profiler``.  For each depth it
-prints the step's host time, the device's busy time (the union of kernel
-intervals in the trace), the idle share, the peak memory, and the kernel
-time by class: the port's kernels (four attention, three SSD), matrix
-products, and everything else, with the largest kernels of the last
-class.  Needs a card.
+(``configs.full_width_config``: yi-6b cut to 8 layers, mamba2-2.7b cut
+to 32 and recurrentgemma-2b cut to 12, bf16, the hand-written kernels;
+temporal SPB k=4, batch 2 x 2048).  For each it warms up one depth
+cycle, then traces one step at each depth of the next cycle with
+``torch.profiler``.  For each depth it prints the step's host time, the
+device's busy time (the union of kernel intervals in the trace), the
+idle share, the peak memory, and the kernel time by class: the port's
+kernels (four attention, three SSD, two RG-LRU), matrix products, and
+everything else, with the largest kernels of the last class.  Needs a
+card.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from collections import defaultdict
 
 import torch
 
-ARCHS = ("yi-6b", "mamba2-2.7b")
+ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
 # (class, substrings a kernel's name holds): the forward-with-residuals
 # SSD scan is the forward template instantiated with RES = true
 CLASSES = (("flash_fwd", ("flash::fwd_kernel",)),
@@ -32,7 +33,9 @@ CLASSES = (("flash_fwd", ("flash::fwd_kernel",)),
            ("flash_dkv", ("flash::dkv_kernel",)),
            ("ssd_fwd_res", ("ssd::fwd_kernel", "true>")),
            ("ssd_fwd", ("ssd::fwd_kernel",)),
-           ("ssd_bwd", ("ssd::bwd_kernel",)))
+           ("ssd_bwd", ("ssd::bwd_kernel",)),
+           ("rglru_fwd", ("rglru::fwd_kernel",)),
+           ("rglru_bwd", ("rglru::bwd_kernel",)))
 
 
 def kernel_class(name: str) -> str:

@@ -18,6 +18,7 @@ from repro_torch.device import resolve_device
 ARCHS: Dict[str, str] = {
     "yi-6b": "yi_6b",
     "mamba2-2.7b": "mamba2_2_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 # The full-width runs on one 80 GB card (chip_smoke.py, analysis/step_profile):
@@ -30,6 +31,11 @@ FULL_WIDTH_LAYERS: Dict[str, int] = {
     # 64 layers: 2.70 B parameters, ~63 GB at the optimizer's peak before
     # any activation.  32: 1.42 B, ~33 GB, leaving room for 32 live layers.
     "mamba2-2.7b": 32,
+    # 26 layers: 2.89 B parameters, ~68 GB at the optimizer's peak.  12 are
+    # four whole (rglru, rglru, local) units, one layer group: 8 RG-LRU and
+    # 4 local-attention layers, 1.68 B parameters (655 M of them the tied
+    # 256k embedding), about yi-6b's 8 layers.  Depth cycle 12, 3, 9, 6.
+    "recurrentgemma-2b": 12,
 }
 FULL_WIDTH_BATCH = 2
 FULL_WIDTH_SEQ = 2048

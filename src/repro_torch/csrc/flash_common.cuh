@@ -13,7 +13,17 @@
 // four xor shuffles.  Shared-memory rows are padded to D + 1 and BK + 1
 // floats so that the 16 lanes reading 16 different rows at one column hit
 // 16 different banks.
+//
+// Head dim 256 (recurrentgemma-2b) takes bf16 only, and its Q/K/V/dO tiles
+// stay bf16 in shared memory (Smem below): as f32 the dq and dkv kernels
+// would need 279,808 and 296,960 bytes, above the 232,448 a block may opt
+// in to.  A bf16 row is padded by two elements, one 32-bit word, so the
+// word stride (D + 2) / 2 = 129 is odd and the 16 rows a half-warp reads
+// at one column still fall in 16 banks.  The score and accumulator tiles
+// stay f32 at every D.
 #pragma once
+
+#include <type_traits>
 
 #include "kernel_common.cuh"
 
@@ -27,6 +37,14 @@ constexpr int BQ = 64;      // q rows per tile
 constexpr int BK = 64;      // kv rows per tile
 constexpr int NT = 256;     // threads per block
 constexpr float NEG_INF = -1e30f;   // the Pallas kernels' masked score
+
+// The shared-memory type of the operand tiles and their padded row length:
+// f32 rows of D + 1 up to D 128, storage-dtype rows of D + 2 above.
+template <typename T, int D>
+struct Smem {
+  using type = typename std::conditional<(D > 128), T, float>::type;
+  static constexpr int LD = D + (sizeof(type) == 4 ? 1 : 2);
+};
 
 // Half-warp reductions over the 16 lanes that share a tile row.
 __device__ __forceinline__ float row_max16(float v) {
@@ -64,20 +82,21 @@ __device__ __forceinline__ void q_tile_range(int k_first, int k_last, int Sq, in
   *hi = window > 0 ? min(nq, (k_last + window - 1) / BQ + 1) : nq;
 }
 
-// Rows [row0, row0 + ROWS) of a (S, D) slice into shared memory as f32,
-// rows padded to D + 1; rows at or past nrows read as zero.
-template <typename T, int ROWS, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss, int row0,
+// Rows [row0, row0 + ROWS) of a (S, D) slice into shared memory as S,
+// rows padded to LD; rows at or past nrows read as zero.
+template <typename T, typename S, int ROWS, int D, int LD>
+__device__ __forceinline__ void load_tile(S* dst, const T* src, long long ss, int row0,
                                           int nrows) {
   for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
     const int r = idx / D, d = idx % D, row = row0 + r;
-    dst[r * (D + 1) + d] = row < nrows ? to_f32(src[(long long)row * ss + d]) : 0.f;
+    dst[r * LD + d] = from_f32<S>(row < nrows ? to_f32(src[(long long)row * ss + d]) : 0.f);
   }
 }
 
 }  // namespace flash
 
-// dtype code 0 = float32, 1 = bfloat16; head_dim 16, 32, 64 or 128.
+// dtype code 0 = float32, 1 = bfloat16; head_dim 16, 32, 64 or 128, and
+// 256 in bfloat16.
 #define FLASH_DISPATCH(DTYPE, DIM, FN, ...)                                    \
   do {                                                                         \
     if ((DTYPE) == 0) {                                                        \
@@ -93,6 +112,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss
         case 32: return FN<__nv_bfloat16, 32>(__VA_ARGS__);                    \
         case 64: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                    \
         case 128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                  \
+        case 256: return FN<__nv_bfloat16, 256>(__VA_ARGS__);                  \
       }                                                                        \
     }                                                                          \
     return (int)cudaErrorInvalidValue;                                         \

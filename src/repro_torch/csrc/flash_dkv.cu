@@ -13,6 +13,22 @@
 // main-path shape).  This first kernel runs them as f32 FMAs out of
 // shared memory (K, V, Q, dO tiles plus the P and dS tiles), far from
 // that bound; tensor-core products are the next step.
+//
+// Head dim 256 (bf16): the K, V, Q, dO tiles stay bf16 in shared memory
+// (flash_common.cuh), 165,888 bytes in all against 296,960 as f32.  The
+// dK and dV columns are split in two halves of 128 over a third grid
+// axis: each block recomputes the full-D scores and dP (two of its three
+// products) but keeps only 2 x 4 x 8 accumulators per thread, where the
+// whole row would be 2 x 4 x 16 = 128 f32 registers before any operand.
+// Every output element still has one owner.  The split also doubles the
+// grid, which MQA leaves small: at recurrentgemma-2b's shape (B 2, S 2048,
+// H 10, K 1) it is 32 x 2 x 2 = 128 blocks on 132 SMs instead of 64, each
+// looping over the 10 q heads of its kv head.  The causal triangle makes
+// the blocks unequal: the first kv tile sees all 32 q tiles, the last one.
+// The products take 85.9 GFLOP without the split (0.0869 ms at
+// 989 TFLOP/s); the split adds half of that again in recomputed scores.
+// nvcc -Xptxas -v (CUDA 12.8): 158 registers, no spill at D 256; 127-128
+// registers at D 128.
 #include "flash_common.cuh"
 
 namespace flash {
@@ -27,13 +43,15 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            long long dsb, long long dsh, long long dss, long long gksb, long long gksh,
            long long gkss, long long gvsb, long long gvsh, long long gvss, int causal,
            int window, float scale) {
-  constexpr int NJ = D / 16;
+  using ST = typename Smem<T, D>::type;
+  constexpr int DH = D > 128 ? 128 : D;   // dK/dV columns per block
+  constexpr int NJ = DH / 16, LD = Smem<T, D>::LD;
   extern __shared__ float smem[];
-  float* Ks = smem;                   // BK x (D + 1)
-  float* Vs = Ks + BK * (D + 1);      // BK x (D + 1)
-  float* Qs = Vs + BK * (D + 1);      // BQ x (D + 1)
-  float* dOs = Qs + BQ * (D + 1);     // BQ x (D + 1)
-  float* Ps = dOs + BQ * (D + 1);     // BQ x (BK + 1)
+  ST* Ks = reinterpret_cast<ST*>(smem);   // BK x LD
+  ST* Vs = Ks + BK * LD;                  // BK x LD
+  ST* Qs = Vs + BK * LD;                  // BQ x LD
+  ST* dOs = Qs + BQ * LD;                 // BQ x LD
+  float* Ps = reinterpret_cast<float*>(dOs + BQ * LD);  // BQ x (BK + 1)
   float* dSs = Ps + BQ * (BK + 1);    // BQ x (BK + 1)
   float* lse_s = dSs + BQ * (BK + 1); // BQ
   float* delta_s = lse_s + BQ;        // BQ
@@ -42,8 +60,9 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int K = H / G;
   const int k0 = blockIdx.x * BK;
   const int b = blockIdx.y / K, kh = blockIdx.y % K;
-  load_tile<T, BK, D>(Ks, k + b * ksb + kh * ksh, kss, k0, Sk);
-  load_tile<T, BK, D>(Vs, v + b * vsb + kh * vsh, vss, k0, Sk);
+  const int c0 = blockIdx.z * DH;         // this block's first dK/dV column
+  load_tile<T, ST, BK, D, LD>(Ks, k + b * ksb + kh * ksh, kss, k0, Sk);
+  load_tile<T, ST, BK, D, LD>(Vs, v + b * vsb + kh * vsh, vss, k0, Sk);
 
   float dk_acc[4][NJ], dv_acc[4][NJ];
 #pragma unroll
@@ -59,8 +78,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     for (int it = lo; it < hi; ++it) {
       const int q0 = it * BQ;
       __syncthreads();
-      load_tile<T, BQ, D>(Qs, q + b * qsb + h * qsh, qss, q0, Sq);
-      load_tile<T, BQ, D>(dOs, dout + b * dsb + h * dsh, dss, q0, Sq);
+      load_tile<T, ST, BQ, D, LD>(Qs, q + b * qsb + h * qsh, qss, q0, Sq);
+      load_tile<T, ST, BQ, D, LD>(dOs, dout + b * dsb + h * dsh, dss, q0, Sq);
       if (tid < BQ) {
         const int qpos = q0 + tid;
         lse_s[tid] = qpos < Sq ? lse[row0 + qpos] : 0.f;
@@ -79,13 +98,13 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
         float qr[4], dr[4], kc[4], vc[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          qr[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-          dr[i] = dOs[(ty + 16 * i) * (D + 1) + d];
+          qr[i] = to_f32(Qs[(ty + 16 * i) * LD + d]);
+          dr[i] = to_f32(dOs[(ty + 16 * i) * LD + d]);
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          kc[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-          vc[j] = Vs[(tx + 16 * j) * (D + 1) + d];
+          kc[j] = to_f32(Ks[(tx + 16 * j) * LD + d]);
+          vc[j] = to_f32(Vs[(tx + 16 * j) * LD + d]);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -109,7 +128,7 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       }
       __syncthreads();
 
-      // accumulators: kv rows ty + 16 i, columns tx + 16 n
+      // accumulators: kv rows ty + 16 i, columns c0 + tx + 16 n
 #pragma unroll 4
       for (int r = 0; r < BQ; ++r) {
         float pr[4], dsr[4], dov[NJ], qv[NJ];
@@ -120,8 +139,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
         }
 #pragma unroll
         for (int n = 0; n < NJ; ++n) {
-          dov[n] = dOs[r * (D + 1) + tx + 16 * n];
-          qv[n] = Qs[r * (D + 1) + tx + 16 * n];
+          dov[n] = to_f32(dOs[r * LD + c0 + tx + 16 * n]);
+          qv[n] = to_f32(Qs[r * LD + c0 + tx + 16 * n]);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -142,8 +161,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     if (kpos >= Sk) continue;
 #pragma unroll
     for (int n = 0; n < NJ; ++n) {
-      dkb[kpos * gkss + tx + 16 * n] = from_f32<T>(dk_acc[i][n]);
-      dvb[kpos * gvss + tx + 16 * n] = from_f32<T>(dv_acc[i][n]);
+      dkb[kpos * gkss + c0 + tx + 16 * n] = from_f32<T>(dk_acc[i][n]);
+      dvb[kpos * gvss + c0 + tx + 16 * n] = from_f32<T>(dv_acc[i][n]);
     }
   }
 }
@@ -156,12 +175,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                long long dsh, long long dss, long long gksb, long long gksh, long long gkss,
                long long gvsb, long long gvsh, long long gvss, int causal, int window,
                float scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((2 * BK + 2 * BQ) * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ);
+  using ST = typename Smem<T, D>::type;
+  const size_t smem = sizeof(ST) * (2 * BK + 2 * BQ) * Smem<T, D>::LD +
+                      sizeof(float) * (2 * BQ * (BK + 1) + 2 * BQ);
   const void* kern = (const void*)dkv_kernel<T, D>;
   int err = set_smem(kern, smem);
   if (err) return err;
-  dim3 grid((Sk + BK - 1) / BK, B * K);
+  dim3 grid((Sk + BK - 1) / BK, B * K, D > 128 ? D / 128 : 1);
   dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
       (const float*)delta, (T*)dk, (T*)dv, H, H / K, Sq, Sk, qsb, qsh, qss, ksb, ksh, kss, vsb,

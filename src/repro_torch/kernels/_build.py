@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv", "ssd_fwd",
-           "ssd_bwd")
+           "ssd_bwd", "rglru")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -28,7 +28,10 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+# head_dim -> the dtypes the kernels take there: at 256 (recurrentgemma-2b)
+# only bf16, whose operand tiles fit in shared memory (csrc/flash_common.cuh)
+_HEAD_DIMS = {16: tuple(_DTYPES), 32: tuple(_DTYPES), 64: tuple(_DTYPES),
+              128: tuple(_DTYPES), 256: (torch.bfloat16,)}
 
 
 def pair_mask(Sq: int, Sk: int, causal: bool, window: int, device,
@@ -72,9 +75,10 @@ def kernel_dtype_code(qt: torch.Tensor, D: int) -> int:
     """The kernels' dtype code; raises for what they do not take."""
     if qt.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {qt.device}")
-    if qt.dtype not in _DTYPES or D not in _HEAD_DIMS:
+    if qt.dtype not in _HEAD_DIMS.get(D, ()):
         raise ValueError(f"attention kernels take float32/bfloat16 with "
-                         f"head_dim in {_HEAD_DIMS}, got {qt.dtype}, D={D}")
+                         f"head_dim in (16, 32, 64, 128) and bfloat16 at "
+                         f"head_dim 256, got {qt.dtype}, D={D}")
     return _DTYPES[qt.dtype]
 
 

@@ -1,5 +1,6 @@
 """Differentiable ops over the hand-written kernels (counterpart of
-``repro/kernels/ops.py``): flash attention and the SSD scan.
+``repro/kernels/ops.py``): flash attention, the SSD scan and the RG-LRU
+recurrence.
 
 Flash attention:
 
@@ -12,8 +13,8 @@ without ``lse`` and saves nothing.
 
 The kernels tile at 64 x 64 and mask ragged edges, so ``q_block`` and
 ``kv_block`` are accepted only to mirror the JAX op's signature and are
-ignored; the shape gate that picks this op lives in
-``models/layers._pallas_attention``.
+ignored: on the card ``models/layers.attention_fwd`` always takes this op
+when ``cfg.use_pallas`` is set.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
+from repro_torch.kernels import rglru as _rglru
+from repro_torch.kernels import rglru_bwd as _rglru_bwd
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import ssd_bwd as _ssd_bwd
 
@@ -107,3 +110,40 @@ def ssd(xdt: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
             t.requires_grad for t in (xdt, dA, B_, C)):
         return _SSD.apply(xdt, dA, B_, C, Q)
     return _ssd.ssd_fwd_kernel_layout(xdt, dA, B_, C, chunk=Q)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin) linear recurrence
+# ---------------------------------------------------------------------------
+
+class _RGLRU(torch.autograd.Function):
+    """The JAX ``custom_vjp`` of ``ops._rglru``: the forward runs the scan
+    and keeps (a, h); the backward runs the reverse-scan kernel on h itself
+    (no shifted copy) and returns da, db in a's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _rglru.rglru_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        da, db = _rglru_bwd.bwd_kernel_layout(a, h, dh.float().contiguous())
+        return da.to(a.dtype), db.to(a.dtype)
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Differentiable RG-LRU scan h_t = a_t h_{t-1} + b_t.  a, b: (B, S, W)
+    (float32 on the card).  Returns h: (B, S, W) f32.  Any S works: the
+    kernels walk the whole sequence, so the JAX op's (a=1, b=0) padding to
+    a whole chunk, and its ``chunk`` and ``width_block``, have no
+    counterpart.
+
+    Outside grad mode, or when no input requires grad (the SPB frozen
+    prefix), the same scan kernel runs and nothing is kept."""
+    a, b = a.contiguous(), b.contiguous()
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _RGLRU.apply(a, b)
+    return _rglru.rglru_scan(a, b)

@@ -1,8 +1,8 @@
 """Plain oracles for the kernels (counterpart of ``repro/kernels/ref.py``:
-``attention_ref``, ``ssd_ref_with_state``, ``ssd_ref``).
+``attention_ref``, ``ssd_ref_with_state``, ``ssd_ref``, ``rglru_ref``).
 
 Deliberately naive -- attention materializes the (Sq, Sk) score matrix,
-the SSD scan steps one position at a time -- so they are the semantic
+the SSD and RG-LRU scans step one position at a time -- so they are the semantic
 ground truth the tests assert against at small shapes.  Nothing on the
 card's path calls them.
 """
@@ -59,3 +59,15 @@ def ssd_ref(xdt: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
             C: torch.Tensor) -> torch.Tensor:
     """y of :func:`ssd_ref_with_state`."""
     return ssd_ref_with_state(xdt, dA, B_, C)[0]
+
+
+def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sequential linear recurrence, differentiable by autograd.
+    a, b: (B, S, W); h_t = a_t * h_{t-1} + b_t in f32; returns h."""
+    a, b = a.float(), b.float()
+    h = torch.zeros_like(a[:, 0])
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)

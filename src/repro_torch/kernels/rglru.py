@@ -1,0 +1,76 @@
+"""RG-LRU linear recurrence, forward: the Hopper kernel's wrapper and its
+plain version (counterpart of ``repro/kernels/rglru.py``).
+
+    h_t = a_t * h_{t-1} + b_t,  h_{-1} = 0,  over (B, S, W) float32
+
+The kernel (``csrc/rglru.cu``, entry ``rglru_fwd``) replaces the Pallas
+``_rglru_kernel``: one thread per (b, w) channel walks the sequence with
+the carry in a register, so any S works and the Pallas ``chunk`` and
+``width_block`` have no counterpart (a sequential scan gives the same
+numbers however it is chunked).  Its source note says what bounds it.
+
+Dispatch: a CPU tensor takes :func:`rglru_plain`; a CUDA tensor launches
+the kernel or raises.  ``rglru_scan.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+Tensor = torch.Tensor
+
+
+def check_operands(*ts: Tensor) -> None:
+    """Same (B, S, W) shape and device, contiguous; on the card float32
+    (the kernels' only dtype)."""
+    first = ts[0]
+    if first.dim() != 3:
+        raise ValueError(f"expected (B, S, W) operands, got {tuple(first.shape)}")
+    for t in ts:
+        if t.shape != first.shape or t.device != first.device:
+            raise ValueError("RG-LRU operands must share shape and device")
+        if not t.is_contiguous():
+            raise ValueError("RG-LRU operands must be contiguous")
+    if first.device.type == "cuda":
+        if any(t.dtype != torch.float32 for t in ts):
+            raise ValueError(f"RG-LRU kernels take float32, got "
+                             f"{[str(t.dtype) for t in ts]}")
+    elif first.device.type != "cpu":
+        raise ValueError(f"no RG-LRU kernel for device {first.device}")
+
+
+def rglru_plain(a: Tensor, b: Tensor) -> Tensor:
+    """Plain version of the kernel: the same f32 recurrence, one step at a
+    time.  Returns h (B, S, W) f32."""
+    check_operands(a, b)
+    a, b = a.float(), b.float()
+    h = torch.empty_like(a)
+    hv = torch.zeros_like(a[:, 0])
+    for t in range(a.shape[1]):
+        hv = a[:, t] * hv + b[:, t]
+        h[:, t] = hv
+    return h
+
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def rglru_scan(a: Tensor, b: Tensor) -> Tensor:
+    """a, b: (B, S, W) f32, contiguous.  Returns h: (B, S, W) f32."""
+    check_operands(a, b)
+    if a.device.type == "cpu":
+        return rglru_plain(a, b)
+    B, S, W = a.shape
+    h = torch.empty_like(a)
+    fn = _build.function("rglru", "rglru_fwd", _ARGTYPES)
+    code = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, W,
+              _build.stream_of(a))
+    _build.check("rglru", code)
+    rglru_scan.launches += 1
+    return h
+
+
+rglru_scan.launches = 0

@@ -1,0 +1,65 @@
+"""RG-LRU linear recurrence, backward: the Hopper kernel's wrapper and its
+plain version (counterpart of ``repro/kernels/rglru_bwd.py``).
+
+    lam_t = dy_t + a_{t+1} * lam_{t+1}   (lam_S = 0)
+    db_t  = lam_t
+    da_t  = lam_t * h_{t-1}              (h_{-1} = 0)
+
+The kernel (``csrc/rglru.cu``, entry ``rglru_bwd``) replaces the Pallas
+``_rglru_bwd_kernel``: one thread per (b, w) channel walks the sequence
+backwards with lam in a register.  It takes the forward's output ``h``
+itself and reads ``h_{t-1}`` from it, where the JAX op hands its kernel a
+shifted copy ``y_prev``: the port never makes that copy.
+
+Dispatch: a CPU tensor takes :func:`bwd_plain`; a CUDA tensor launches the
+kernel or raises.  ``bwd_kernel_layout.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.rglru import check_operands
+
+Tensor = torch.Tensor
+
+
+def bwd_plain(a: Tensor, h: Tensor, dy: Tensor) -> Tuple[Tensor, Tensor]:
+    """Plain version of the kernel, one step at a time in f32.
+    Returns (da, db), each (B, S, W) f32."""
+    check_operands(a, h, dy)
+    a, h, dy = a.float(), h.float(), dy.float()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    carry = torch.zeros_like(a[:, 0])
+    for t in range(a.shape[1] - 1, -1, -1):
+        lam = dy[:, t] + carry
+        db[:, t] = lam
+        da[:, t] = lam * h[:, t - 1] if t > 0 else 0.0
+        carry = a[:, t] * lam
+    return da, db
+
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def bwd_kernel_layout(a: Tensor, h: Tensor, dy: Tensor
+                      ) -> Tuple[Tensor, Tensor]:
+    """a, h (the forward's output), dy: (B, S, W) f32, contiguous.
+    Returns (da, db): (B, S, W) f32."""
+    check_operands(a, h, dy)
+    if a.device.type == "cpu":
+        return bwd_plain(a, h, dy)
+    B, S, W = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    fn = _build.function("rglru", "rglru_bwd", _ARGTYPES)
+    code = fn(a.data_ptr(), h.data_ptr(), dy.data_ptr(), da.data_ptr(),
+              db.data_ptr(), B, S, W, _build.stream_of(a))
+    _build.check("rglru", code)
+    bwd_kernel_layout.launches += 1
+    return da, db
+
+
+bwd_kernel_layout.launches = 0

@@ -3,7 +3,8 @@
   python -m repro_torch.launch.train --arch yi-6b --reduced --steps 8 \\
       --spb-mode temporal --spb-k 4 --use-pallas            # on the card
   python -m repro_torch.launch.train --arch mamba2-2.7b --use-pallas
-  python -m repro_torch.launch.train --arch mamba2-2.7b --reduced \\
+  python -m repro_torch.launch.train --arch recurrentgemma-2b --use-pallas
+  python -m repro_torch.launch.train --arch recurrentgemma-2b --reduced \\
       --use-pallas --device cpu     # the kernels' plain versions on the CPU
 
 Prints the JAX driver's ``[train] step=... depth=... loss=...`` lines.
@@ -24,7 +25,8 @@ from repro_torch.engine.policies import make_policy
 
 def train(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--arch", default="yi-6b",
+                    help="yi-6b, mamba2-2.7b or recurrentgemma-2b")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--steps", type=int, default=50)
@@ -41,9 +43,9 @@ def train(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--use-pallas", action="store_true",
-                    help="run attention and the SSD scan through the "
-                         "hand-written kernels (their plain versions on the "
-                         "CPU)")
+                    help="run attention and the SSD and RG-LRU scans "
+                         "through the hand-written kernels (their plain "
+                         "versions on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)

@@ -4,8 +4,9 @@ attention and the loss (the dense subset of ``repro/models/layers.py``).
 Plain functions over parameter dictionaries of tensors, in the JAX
 package's layouts, so the two packages can be fed the same weights.
 Attention runs the hand-written kernels (``repro_torch.kernels.ops``)
-when ``cfg.use_pallas`` is set and the shapes tile; otherwise the plain
-blockwise path.  The large projections are ``torch.matmul``.
+when ``cfg.use_pallas`` is set: always on the card, and on the CPU when
+the shapes tile as the JAX gate demands; otherwise the plain blockwise
+path.  The large projections are ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -99,11 +100,17 @@ def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
 
 def _pallas_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                       window: int) -> Optional[Tensor]:
-    """The hand-written kernels when the shapes tile as the JAX package's
-    gate demands; None means fall back to :func:`blockwise_attention`."""
+    """The hand-written kernels, or None for :func:`blockwise_attention`.
+
+    A CUDA tensor always takes the kernels: they tile at 64 x 64 and mask
+    ragged edges, and raise for a shape or dtype they do not take.  A CPU
+    tensor keeps the JAX package's shape gate (S % min(128, S) == 0 and
+    whole GQA groups), so the CPU path takes the same branch as the
+    reference and agrees with it exactly."""
     Sq, Sk = q.shape[1], k.shape[1]
     qb, kb = min(128, Sq), min(128, Sk)
-    if Sq % qb or Sk % kb or q.shape[2] % k.shape[2]:
+    if q.device.type == "cpu" and (Sq % qb or Sk % kb
+                                   or q.shape[2] % k.shape[2]):
         return None
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                q_block=qb, kv_block=kb)

@@ -1,5 +1,6 @@
 """LM assembly with SPB suffix splitting (the train path of
-``repro/models/lm.py`` for dense attention and Mamba-2 SSD stacks).
+``repro/models/lm.py`` for dense attention, Mamba-2 SSD and Griffin
+RG-LRU + local-attention stacks).
 
 Parameters keep the JAX package's stacked per-group layout:
 ``params["groups"][g][u][name]`` carries a leading ``count`` dim, one row
@@ -41,10 +42,11 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = {k for unit, _ in layer_groups(cfg) for k in unit}
     if cfg.enc_layers or cfg.frontend or cfg.moe is not None or \
-            kinds - {("attn", "dense"), ("local", "dense"), ("ssd", "dense")}:
+            kinds - {("attn", "dense"), ("local", "dense"), ("ssd", "dense"),
+                     ("rglru", "dense")}:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attn/local and ssd decoder "
-            f"stacks only (got layer kinds {sorted(kinds)})")
+            f"{cfg.name}: the port runs dense attn/local, ssd and rglru "
+            f"decoder stacks only (got layer kinds {sorted(kinds)})")
 
 
 # ---------------------------------------------------------------------------
@@ -54,16 +56,26 @@ def _check_supported(cfg: ModelConfig) -> None:
 def _mixer_shapes(cfg: ModelConfig, mixer: str, dtype: torch.dtype):
     """{name: (shape, dtype)} of one layer's mixer leaves."""
     D = cfg.d_model
+    f32 = torch.float32
     if mixer in ("attn", "local"):
         return {"wq": ((D, cfg.q_dim), dtype), "wk": ((D, cfg.kv_dim), dtype),
                 "wv": ((D, cfg.kv_dim), dtype), "wo": ((cfg.q_dim, D), dtype)}
+    if mixer == "rglru":
+        # repro/models/ssm.py::init_rglru; lam, ba, bx are f32 at any
+        # cfg.dtype
+        lru = cfg.lru
+        W = lru.lru_width or D
+        return {"in_x": ((D, W), dtype), "in_z": ((D, W), dtype),
+                "conv_w": ((lru.d_conv, W), dtype), "conv_b": ((W,), dtype),
+                "lam": ((W,), f32), "wa": ((W, W), dtype), "ba": ((W,), f32),
+                "wx": ((W, W), dtype), "bx": ((W,), f32),
+                "out_proj": ((W, D), dtype)}
     # ssd: repro/models/ssm.py::init_mamba2; A_log, D, dt_bias are f32 at
     # any cfg.dtype
     s = cfg.ssm
     d_in = s.expand * D
     H, GN = d_in // s.head_dim, s.n_groups * s.d_state
     conv_dim = d_in + 2 * GN
-    f32 = torch.float32
     return {"in_proj": ((D, 2 * d_in + 2 * GN + H), dtype),
             "conv_w": ((s.d_conv, conv_dim), dtype),
             "conv_b": ((conv_dim,), dtype),
@@ -105,14 +117,16 @@ def _init_leaf(gen: torch.Generator, name: str, like: Tensor, device):
     meta tensor ``like`` (a stacked leaf's rows are drawn as one):
 
     - norms store scale - 1: zeros (``ln*``, ``final_norm``, the mixer's
-      ``norm``); ``conv_b`` zeros;
+      ``norm``); ``conv_b``, ``ba``, ``bx`` zeros;
     - the token table is N(0, 0.02); ``conv_w`` is N(0, 1) / sqrt(d_conv);
     - ``A_log`` = log(linspace(1, 16, H)), ``D`` = ones, ``dt_bias`` =
       log(expm1(dt)) with dt log-uniform in [1e-3, 1e-1];
+    - ``lam`` = log(u^2 / (1 - u^2)) with u uniform in [0.9, 0.999];
     - every projection (.., fan_in, fan_out) is a normal truncated at +-2
       and scaled by 1 / sqrt(fan_in)."""
     shape, dtype = like.shape, like.dtype
-    if name.startswith("ln") or name in ("final_norm", "norm", "conv_b"):
+    if name.startswith("ln") or name in ("final_norm", "norm", "conv_b",
+                                         "ba", "bx"):
         return torch.zeros(shape, dtype=dtype, device=device)
     if name == "D":
         return torch.ones(shape, dtype=dtype, device=device)
@@ -124,6 +138,9 @@ def _init_leaf(gen: torch.Generator, name: str, like: Tensor, device):
         t.normal_(0.0, 0.02, generator=gen)
     elif name == "conv_w":
         t.normal_(0.0, 1.0, generator=gen).mul_(1.0 / math.sqrt(shape[-2]))
+    elif name == "lam":
+        u = t.uniform_(0.9, 0.999, generator=gen)
+        t = torch.log(u ** 2 / (1 - u ** 2))
     elif name == "dt_bias":
         t.uniform_(math.log(1e-3), math.log(1e-1), generator=gen)
         t = torch.log(torch.expm1(torch.exp(t)))
@@ -171,6 +188,8 @@ def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
     h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
     if mixer == "ssd":
         x = x + S.mamba2_fwd(up["mixer"], h, cfg)
+    elif mixer == "rglru":
+        x = x + S.rglru_fwd(up["mixer"], h, cfg)
     else:
         x = x + L.attention_fwd(up["mixer"], h, cfg, kind=mixer,
                                 positions=positions)

@@ -1,11 +1,12 @@
-"""Mamba-2 (SSD) block of the port, train path (the Mamba-2 part of
-``repro/models/ssm.py``).
+"""Mamba-2 (SSD) and RG-LRU (Griffin) blocks of the port, train path (the
+train part of ``repro/models/ssm.py``).
 
-The scan runs the hand-written SSD kernels (``repro_torch.kernels.ops.ssd``)
-when ``cfg.use_pallas`` is set (they raise on the card for a shape they do
-not take); otherwise the plain chunked path :func:`_ssd_scan`, which keeps
-the JAX path's rounding points.  The large projections are ``torch.matmul``.
-Prefill, decode and ``conv_step`` come with the serving slice.
+Each scan runs its hand-written kernels (``repro_torch.kernels.ops.ssd``,
+``ops.rglru``) when ``cfg.use_pallas`` is set (they raise on the card for
+a shape or dtype they do not take); otherwise a plain chunked path
+(:func:`_ssd_scan`, :func:`_lru_scan`) that keeps the JAX path's rounding
+points.  The large projections are ``torch.matmul``.  Prefill, decode and
+``conv_step`` come with the serving slice.
 """
 from __future__ import annotations
 
@@ -166,4 +167,81 @@ def mamba2_core(p: Params, x: Tensor, cfg: ModelConfig
 
 def mamba2_fwd(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     out, _, _ = mamba2_core(p, x, cfg)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma recurrent block)
+# ---------------------------------------------------------------------------
+
+C_SCALE = 8.0   # Griffin's fixed c constant
+
+
+def _rglru_gates(p: Params, xw: Tensor) -> Tuple[Tensor, Tensor]:
+    """a_t and the gated input, f32.  xw: (..., W) post-conv branch
+    activations in f32; the gate products run in f32 (no TF32)."""
+    r = torch.sigmoid(xw @ p["wa"].to(xw.dtype) + p["ba"])
+    i = torch.sigmoid(xw @ p["wx"].to(xw.dtype) + p["bx"])
+    log_a = -C_SCALE * F.softplus(-p["lam"]) * r   # log sigmoid(lam)*c*r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6)) \
+        * (i * xw)
+    return a, gated
+
+
+def _lru_scan(a: Tensor, b: Tensor, h0: Tensor, chunk: int
+              ) -> Tuple[Tensor, Tensor]:
+    """Plain h_t = a_t h_{t-1} + b_t, chunk by chunk.  a, b: (B,S,W) f32;
+    h0: (B,W).  Within a chunk a Hillis-Steele doubling scan with the JAX
+    combine (a1 a2, a2 b1 + b2) gives every prefix at once; the carry
+    enters as h = A h_prev + Bv.  Returns (h (B,S,W), final state)."""
+    S = a.shape[1]
+    Q = min(chunk, S)
+    h, hs = h0, []
+    # a ragged tail is a short last chunk, which is what JAX's (a=1, b=0)
+    # padding of it computes
+    for q0 in range(0, S, Q):
+        A, Bv = a[:, q0:q0 + Q], b[:, q0:q0 + Q]
+        off = 1
+        while off < A.shape[1]:
+            A, Bv = (torch.cat([A[:, :off], A[:, off:] * A[:, :-off]], 1),
+                     torch.cat([Bv[:, :off], A[:, off:] * Bv[:, :-off]
+                                + Bv[:, off:]], 1))
+            off *= 2
+        hq = A * h[:, None] + Bv
+        h = hq[:, -1]
+        hs.append(hq)
+    return torch.cat(hs, dim=1), h
+
+
+def _use_pallas_rglru(cfg: ModelConfig) -> bool:
+    """Route the train scan through the hand-written RG-LRU kernels?
+    ``cfg.use_pallas`` alone, as JAX's gate off the TPU; on the card an
+    input the kernels do not take raises in their wrappers."""
+    return cfg.use_pallas
+
+
+def rglru_core(p: Params, x: Tensor, cfg: ModelConfig
+               ) -> Tuple[Tensor, Tensor, Tensor]:
+    """x: (B,S,D) -> (out, final state (B,W) f32, conv_tail)."""
+    lru = cfg.lru
+    B_, S, D = x.shape
+    W = lru.lru_width or D
+    z = F.gelu(x @ p["in_z"], approximate="tanh")   # jax.nn.gelu's default
+    xb = x @ p["in_x"]
+    xc = F.silu(causal_conv(xb, p["conv_w"], p["conv_b"]))
+    a, gated = _rglru_gates(p, xc.float())
+    if _use_pallas_rglru(cfg):
+        h = ops.rglru(a, gated)
+        hT = h[:, -1]
+    else:
+        h0 = torch.zeros((B_, W), dtype=torch.float32, device=x.device)
+        h, hT = _lru_scan(a, gated, h0, lru.block_width)
+    y = (h.to(x.dtype) * z) @ p["out_proj"]
+    conv_tail = xb[:, -(lru.d_conv - 1):]
+    return y, hT, conv_tail
+
+
+def rglru_fwd(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    out, _, _ = rglru_core(p, x, cfg)
     return out

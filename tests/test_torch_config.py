@@ -111,8 +111,58 @@ def test_mamba2_config_and_spb_schedules_match(size, layers):
         [tsch.depth_at(s) for s in range(8)]
 
 
+RECURRENTGEMMA = [("full", None), ("full", 12), ("reduced", None),
+                  ("reduced", 4)]
+
+
+@pytest.mark.parametrize("size,layers", RECURRENTGEMMA)
+def test_recurrentgemma_config_and_spb_schedules_match(size, layers):
+    """Griffin's (rglru, rglru, local) units: the same fields, layer
+    groups (a trailing short unit at 26 layers), snapping to whole units
+    and depth cycles as the JAX package."""
+    j, t = ((j_get("recurrentgemma-2b"), t_get("recurrentgemma-2b"))
+            if size == "full" else (j_reduced("recurrentgemma-2b"),
+                                    t_reduced("recurrentgemma-2b")))
+    if layers:
+        j, t = j.scaled(num_layers=layers), t.scaled(num_layers=layers)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert jc.layer_groups(j) == tc.layer_groups(t)
+    L = jc.total_layers(j)
+    assert [jc.snap_depth(j, d) for d in range(L + 2)] == \
+        [tc.snap_depth(t, d) for d in range(L + 2)]
+    js, ts = jc.SPBConfig(mode="temporal", k=4), tc.SPBConfig(mode="temporal",
+                                                             k=4)
+    assert jspb.snapped_depths(j, js) == tspb.snapped_depths(t, ts)
+    jsch, tsch = jspb.make_schedule(j, js), tspb.make_schedule(t, ts)
+    assert [jsch.depth_at(s) for s in range(8)] == \
+        [tsch.depth_at(s) for s in range(8)]
+
+
+def test_recurrentgemma_full_width_cut():
+    """12 layers are four whole units in one layer group: 8 RG-LRU and 4
+    local-attention layers, 1,683,192,320 parameters (655,360,000 of them
+    the tied embedding), depths snapped to 3, 6, 9, 12; the same count as
+    the JAX package's shapes."""
+    from repro_torch.configs import full_width_config
+    from repro_torch.models import lm as tlm
+    from repro_torch.tree import tree_leaves
+    cfg = full_width_config("recurrentgemma-2b")
+    unit = (("rglru", "dense"), ("rglru", "dense"), ("local", "dense"))
+    assert tc.layer_groups(cfg) == ((unit, 4),)
+    shapes = tlm.param_shapes(cfg)
+    assert sum(t.numel() for t in tree_leaves(shapes)) == 1_683_192_320
+    assert shapes["embed"]["tok"].numel() == 655_360_000
+    jshapes = jlm.param_shapes(j_get("recurrentgemma-2b").scaled(
+        num_layers=12))
+    assert sum(int(np.prod(s.shape)) for s in jax.tree.leaves(jshapes)) == \
+        1_683_192_320
+    ts = tc.SPBConfig(mode="temporal", k=4)
+    assert tspb.snapped_depths(cfg, ts) == (3, 6, 9, 12)
+
+
 @pytest.mark.parametrize("arch,layers,cycle", [
-    ("yi-6b", 8, (8, 2, 6, 4)), ("mamba2-2.7b", 32, (32, 8, 24, 16))])
+    ("yi-6b", 8, (8, 2, 6, 4)), ("mamba2-2.7b", 32, (32, 8, 24, 16)),
+    ("recurrentgemma-2b", 12, (12, 3, 9, 6))])
 def test_full_width_config_per_arch(arch, layers, cycle):
     from repro_torch.configs import full_width_config
     cfg = full_width_config(arch)

@@ -26,6 +26,7 @@ SHAPES = pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,window", [
     (2, 128, 128, 8, 1, 64, True, 0),      # MQA
     (1, 256, 256, 2, 2, 64, True, 64),     # sliding window
     (1, 128, 256, 2, 2, 32, False, 0),     # cross-shaped (Sq != Sk)
+    (1, 128, 128, 4, 1, 256, True, 48),    # recurrentgemma: D 256, MQA, window
 ])
 
 

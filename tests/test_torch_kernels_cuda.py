@@ -1,5 +1,5 @@
-"""The CUDA kernels (flash attention, SSD scan) against their plain
-versions on the card.
+"""The CUDA kernels (flash attention, SSD scan, RG-LRU scan) against their
+plain versions on the card.
 
 Marked ``cuda``: skips without a card.  On the card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``
@@ -7,7 +7,9 @@ Tolerances (atol, rtol) by the output's dtype: 1e-4, 1e-4 for an f32
 output (lse, delta, and every output of f32 inputs: f32 FMAs summed in
 another order); 5e-3, 2e-2 for a bf16 output (both sides round an f32
 result to bf16 at the end).  The SSD kernels' outputs are all f32: held at
-the JAX suite's measure, max|got - want| / max(max|want|, 1) <= 1e-5.
+the JAX suite's measure, max|got - want| / max(max|want|, 1) <= 1e-5, and
+so are the RG-LRU kernels' (f32 in, f32 out; one FMA where the plain
+version rounds a product and a sum).
 """
 import pytest
 import torch
@@ -15,6 +17,8 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru
+from repro_torch.kernels import rglru_bwd
 from repro_torch.kernels import ssd
 from repro_torch.kernels import ssd_bwd
 
@@ -165,3 +169,107 @@ def test_ssd_autograd_on_the_card_matches_the_cpu(cuda):
         grads[str(dev)] = [t.grad.cpu() for t in ts]
     for a, b_ in zip(grads["cpu"], grads["cuda"]):
         assert _rel_err(b_, a) <= 1e-5
+
+
+@pytest.mark.parametrize("B,S,H,window", [
+    (1, 256, 10, 64),       # recurrentgemma's MQA group, the window bites
+    (2, 200, 4, 2048),      # ragged, the window wider than S
+])
+def test_flash_kernels_at_head_dim_256(cuda, B, S, H, window):
+    """recurrentgemma-2b's local attention: D 256, one kv head, bf16."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    q, k, v, do = mk(B, S, H, 256), mk(B, S, 1, 256), mk(B, S, 1, 256), \
+        mk(B, S, H, 256)
+    qt, kt, vt, dot_ = (x.transpose(1, 2) for x in (q, k, v, do))
+    kw = dict(causal=True, window=window)
+    ot, lse = fa.fwd_kernel_layout(qt, kt, vt, with_lse=True, **kw)
+    ot_p, lse_p = fa.fwd_plain(qt, kt, vt, with_lse=True, **kw)
+    _close(ot, ot_p)
+    _close(lse, lse_p)
+    delta_p = fab.delta_plain(ot_p, dot_)
+    want = (fab.dq_plain(qt, kt, vt, dot_, lse_p, delta_p, **kw),
+            *fab.dkv_plain(qt, kt, vt, dot_, lse_p, delta_p, **kw))
+    got = (fab.compute_dq(qt, kt, vt, dot_, lse_p, delta_p, **kw),
+           *fab.compute_dkv(qt, kt, vt, dot_, lse_p, delta_p, **kw))
+    for g, w in zip(got, want):
+        _close(g, w)
+    for g, w in zip(fab.bwd_kernel_layout(qt, kt, vt, ot, lse, dot_, **kw),
+                    want):
+        _close(g, w)
+
+
+def test_flash_kernels_refuse_f32_at_head_dim_256(cuda):
+    q = torch.randn(1, 2, 64, 256, device=cuda)
+    n = fa.fwd_kernel_layout.launches
+    with pytest.raises(ValueError, match="bfloat16 at head_dim 256"):
+        fa.fwd_kernel_layout(q, q[:, :1], q[:, :1])
+    with pytest.raises(ValueError, match="attention kernels take"):
+        fa.fwd_kernel_layout(*(torch.randn(1, 2, 64, 96, device=cuda)
+                               .to(torch.bfloat16) for _ in "qkv"))
+    assert fa.fwd_kernel_layout.launches == n
+
+
+@pytest.mark.parametrize("B,S,W", [
+    (2, 64, 32), (2, 600, 64), (3, 17, 130), (1, 1, 5), (2, 2048, 2560)])
+def test_rglru_kernels_match_plain(cuda, B, S, W):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.rand((B, S, W), generator=gen, device=cuda) * 0.899 + 0.1
+    b, dy = (torch.randn((B, S, W), generator=gen, device=cuda)
+             for _ in "bd")
+    counts = (rglru.rglru_scan.launches, rglru_bwd.bwd_kernel_layout.launches)
+    h = rglru.rglru_scan(a, b)
+    da, db = rglru_bwd.bwd_kernel_layout(a, h, dy)
+    torch.cuda.synchronize()
+    assert (rglru.rglru_scan.launches,
+            rglru_bwd.bwd_kernel_layout.launches) == tuple(
+                n + 1 for n in counts)
+    h_p = rglru.rglru_plain(a, b)
+    assert h.dtype == torch.float32 and _rel_err(h, h_p) <= 1e-5
+    for got, want in zip((da, db), rglru_bwd.bwd_plain(a, h_p, dy)):
+        assert got.dtype == torch.float32 and _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_rglru_kernels_refuse_non_f32(cuda, dtype):
+    """No plain fallback on the card: a non-f32 input raises before
+    anything launches."""
+    a = torch.rand(2, 16, 8, device=cuda).to(dtype)
+    counts = (rglru.rglru_scan.launches, rglru_bwd.bwd_kernel_layout.launches)
+    with pytest.raises(ValueError, match="RG-LRU kernels take float32"):
+        rglru.rglru_scan(a, a)
+    with pytest.raises(ValueError, match="RG-LRU kernels take float32"):
+        ops.rglru(a.requires_grad_(True), a)
+    with pytest.raises(ValueError, match="RG-LRU kernels take float32"):
+        rglru_bwd.bwd_kernel_layout(a.float(), a.float(), a)
+    assert (rglru.rglru_scan.launches,
+            rglru_bwd.bwd_kernel_layout.launches) == counts
+
+
+def test_rglru_autograd_on_the_card_matches_the_cpu(cuda):
+    gen = torch.Generator().manual_seed(5)
+    a = torch.rand((2, 100, 48), generator=gen) * 0.899 + 0.1
+    b, w = (torch.randn((2, 100, 48), generator=gen) for _ in "bw")
+    grads = {}
+    for dev in ("cpu", cuda):
+        ts = [t.detach().to(dev).requires_grad_(True) for t in (a, b)]
+        (ops.rglru(*ts) * w.to(dev)).sum().backward()
+        grads[str(dev)] = [t.grad.cpu() for t in ts]
+    for x, y in zip(grads["cpu"], grads["cuda"]):
+        assert _rel_err(y, x) <= 1e-5
+
+
+def test_attention_gate_never_falls_back_on_the_card(cuda):
+    """A sequence the JAX shape gate would send to the blockwise path
+    (S 200) takes the kernels on the card and agrees with the CPU."""
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(6)
+    q, k = torch.randn(1, 200, 4, 16, generator=gen), \
+        torch.randn(1, 200, 2, 16, generator=gen)
+    n = fa.fwd_kernel_layout.launches
+    out = layers._pallas_attention(q.to(cuda), k.to(cuda), k.to(cuda),
+                                   causal=True, window=0)
+    assert out is not None and fa.fwd_kernel_layout.launches == n + 1
+    want = layers.blockwise_attention(q, k, k, causal=True)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)

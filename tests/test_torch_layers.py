@@ -130,17 +130,23 @@ def test_blockwise_attention_matches(window):
            (q, k, v), ct, tol=ATTN_TOL)
 
 
-def test_pallas_gate_falls_back_on_untiled_sequences(monkeypatch):
-    """As the JAX shape gate: S % min(128, S) != 0 takes the blockwise
-    path; a tiling S takes the kernels."""
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_pallas_gate_falls_back_on_untiled_sequences(monkeypatch, device):
+    """On the CPU, as the JAX shape gate: S % min(128, S) != 0 takes the
+    blockwise path, a tiling S the kernels' plain versions.  On the card
+    every S takes the kernels (they tile at 64 and mask ragged edges):
+    nothing there falls back to the plain path."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
     calls = []
     real = ops.flash_attention
     monkeypatch.setattr(ops, "flash_attention",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
     rng = np.random.default_rng(7)
     for S in (200, 256):
-        q = torch.from_numpy(_rand(rng, 1, S, 4, 16))
-        k = torch.from_numpy(_rand(rng, 1, S, 2, 16))
+        q = torch.from_numpy(_rand(rng, 1, S, 4, 16)).to(device)
+        k = torch.from_numpy(_rand(rng, 1, S, 2, 16)).to(device)
         out = TL._pallas_attention(q, k, k, causal=True, window=0)
-        assert (out is None) == (S == 200)
-    assert calls == [1]
+        assert (out is None) == (device == "cpu" and S == 200)
+    assert len(calls) == (1 if device == "cpu" else 2)

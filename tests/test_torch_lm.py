@@ -200,3 +200,92 @@ def test_mamba2_suffix_grads_match_and_prefix_is_zero(mamba2, depth):
         for w, p in zip(jax.tree.leaves(jg[key]), jax.tree.leaves(tp[key])):
             got = np.zeros_like(w) if p.grad is None else p.grad.numpy()
             _rel_close(got, w)
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma-reduced: (rglru, rglru, local) x 2, kernels on (their
+# plain versions here), at the SSD suite's 1e-5: f32 layers whose scans and
+# attention run the same math summed in another order
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def recurrentgemma():
+    jcfg = dataclasses.replace(j_reduced("recurrentgemma-2b"), use_pallas=True)
+    tcfg = dataclasses.replace(t_reduced("recurrentgemma-2b"), use_pallas=True)
+    params = jax.tree.map(np.asarray, jlm.init_lm(jax.random.key(3), jcfg))
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 64)).astype(np.int32)
+    labels = rng.integers(0, jcfg.vocab_size, (2, 64)).astype(np.int32)
+    return jcfg, tcfg, params, {"tokens": tokens, "labels": labels}
+
+
+def test_recurrentgemma_leaf_dtypes_equal_jax_at_bf16():
+    """At bf16 the RG-LRU's lam, ba and bx stay f32, in the layout, in the
+    port's init and through the bridge."""
+    jcfg = j_reduced("recurrentgemma-2b").scaled(dtype="bfloat16")
+    tcfg = t_reduced("recurrentgemma-2b").scaled(dtype="bfloat16")
+    want = jax.eval_shape(lambda k: jlm.init_lm(k, jcfg), jax.random.key(0))
+    shapes = tlm.param_shapes(tcfg)
+    tdt = lambda t: str(t.dtype).removeprefix("torch.")
+    for w, s in zip(jax.tree.leaves(want), jax.tree.leaves(shapes)):
+        assert (tuple(w.shape), str(w.dtype)) == (tuple(s.shape), tdt(s))
+    init = tlm.init_lm(torch.Generator().manual_seed(0), tcfg)
+    for s, t in zip(jax.tree.leaves(shapes), jax.tree.leaves(init)):
+        assert (t.shape, t.dtype) == (s.shape, s.dtype)
+    mixer = want["groups"][0][0]["mixer"]
+    assert {k for k, v in mixer.items() if v.dtype == jnp.float32} == \
+        {"lam", "ba", "bx"}
+    numpy_tree = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), want)
+    bridged = bridge.params_from_numpy(numpy_tree, tcfg)
+    for w, t in zip(jax.tree.leaves(want), jax.tree.leaves(bridged)):
+        assert tdt(t) == str(w.dtype)
+
+
+def test_recurrentgemma_init_follows_jax_rules():
+    tcfg = t_reduced("recurrentgemma-2b")
+    p = tlm.init_lm(torch.Generator().manual_seed(0), tcfg)
+    m = p["groups"][0][0]["mixer"]
+    u = torch.sqrt(torch.sigmoid(m["lam"]))     # lam = logit(u^2)
+    assert float(u.min()) >= 0.9 - 1e-6 and float(u.max()) <= 0.999 + 1e-6
+    for name in ("ba", "bx", "conv_b"):
+        assert bool((m[name] == 0).all())
+    assert abs(float(m["conv_w"].std()) * 2.0 - 1.0) < 0.1     # 1/sqrt(4)
+    assert abs(float(m["wa"].std()) * 8.0 - 0.88) < 0.1   # trunc N / sqrt(64)
+
+
+def test_recurrentgemma_bridge_copies_every_leaf(recurrentgemma):
+    _, tcfg, params, _ = recurrentgemma
+    got = bridge.params_from_numpy(params, tcfg)
+    want_leaves, got_leaves = jax.tree.leaves(params), jax.tree.leaves(got)
+    # one stacked group: tok + final_norm + 2 x 15 RG-LRU layer leaves
+    # (two norms, ten mixer, three FFN) + 9 local-attention layer leaves
+    assert len(got_leaves) == len(want_leaves) == 41
+    for w, g in zip(want_leaves, got_leaves):
+        np.testing.assert_array_equal(g.detach().numpy(), w)
+
+
+def test_recurrentgemma_forward_train_logits_match(recurrentgemma):
+    jcfg, tcfg, params, batch = recurrentgemma
+    want, _ = jlm.forward_train(params, batch, jcfg)
+    got, _ = tlm.forward_train(bridge.params_from_numpy(params, tcfg),
+                               _tbatch(batch), tcfg)
+    _rel_close(got.detach().numpy(), want)
+
+
+@pytest.mark.parametrize("depth", jspb.snapped_depths(
+    j_reduced("recurrentgemma-2b"), JSPB(mode="temporal", k=4)))
+def test_recurrentgemma_suffix_grads_match_and_prefix_is_zero(
+        recurrentgemma, depth):
+    jcfg = recurrentgemma[0]
+    jg, tp = _suffix_grads(recurrentgemma, depth)
+    b = (jcfg.num_layers - depth) // len(jcfg.pattern)   # frozen units
+    for w, p in zip(jax.tree.leaves(jg["groups"]),
+                    jax.tree.leaves(tp["groups"])):
+        w = np.asarray(w)
+        g = np.zeros_like(w) if p.grad is None else p.grad.numpy()
+        assert np.abs(g[:b]).max(initial=0.0) == 0.0
+        _rel_close(g[b:], w[b:])
+    for key in ("embed", "final_norm"):
+        for w, p in zip(jax.tree.leaves(jg[key]), jax.tree.leaves(tp[key])):
+            got = np.zeros_like(w) if p.grad is None else p.grad.numpy()
+            _rel_close(got, w)

@@ -132,3 +132,72 @@ def test_kernel_gate_follows_use_pallas(P, N, chunk, S):
     for use_pallas in (False, True):
         assert tssm._use_pallas_ssd(dataclasses.replace(
             cfg, use_pallas=use_pallas), S, P, N) is use_pallas
+
+# ---------------------------------------------------------------------------
+# RG-LRU (recurrentgemma-reduced)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,chunk", [(64, 16), (50, 16), (10, 32), (33, 4)])
+def test_lru_scan_matches_jax(S, chunk):
+    """The plain chunked scan (Hillis-Steele within a chunk) against JAX's
+    associative_scan chunks, from a nonzero state, ragged tails
+    included."""
+    rng = np.random.default_rng(S + chunk)
+    B, W = 2, 6
+    a = rng.uniform(0.1, 0.999, (B, S, W)).astype(np.float32)
+    b = rng.standard_normal((B, S, W)).astype(np.float32)
+    h0 = rng.standard_normal((B, W)).astype(np.float32)
+    jh, jT = jssm._lru_scan(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0),
+                            chunk)
+    th, tT = tssm._lru_scan(*(torch.from_numpy(t) for t in (a, b, h0)),
+                            chunk)
+    _rel_close(_np(th), jh, F32_TOL)
+    _rel_close(_np(tT), jT, F32_TOL)
+
+
+@pytest.fixture(scope="module")
+def rglru_params():
+    """recurrentgemma-reduced weights from JAX's init."""
+    jcfg = j_reduced("recurrentgemma-2b")
+    return jax.tree.map(np.asarray, jlm.init_lm(jax.random.key(2), jcfg))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("S", [64, 45])
+def test_rglru_fwd_matches_jax(rglru_params, use_pallas, S):
+    """The RG-LRU block (gelu-tanh gate, f32 gate products, the scan, h
+    rounded to x's dtype before the gate) and its gradients, kernels on
+    (their plain versions here; Pallas in interpret mode on the JAX side)
+    and off."""
+    jcfg = dataclasses.replace(j_reduced("recurrentgemma-2b"),
+                               use_pallas=use_pallas)
+    tcfg = dataclasses.replace(t_reduced("recurrentgemma-2b"),
+                               use_pallas=use_pallas)
+    assert tssm._use_pallas_rglru(tcfg) == use_pallas
+    tp = bridge.params_from_numpy(rglru_params, tcfg)
+    jp = jax.tree.map(lambda a: a[1], rglru_params["groups"][0][1]["mixer"])
+    pt = {k: v[1] for k, v in tp["groups"][0][1]["mixer"].items()}
+    rng = np.random.default_rng(S + 1)
+    x = rng.standard_normal((2, S, 64)).astype(np.float32)
+    g = rng.standard_normal((2, S, 64)).astype(np.float32)
+    want, vjp = jax.vjp(lambda p, x: jssm.rglru_fwd(p, x, jcfg), jp,
+                        jnp.asarray(x))
+    want_dp, want_dx = vjp(jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = tssm.rglru_fwd(pt, xt, tcfg)
+    _rel_close(_np(got), want, F32_TOL)
+    names = sorted(pt)
+    grads = torch.autograd.grad(got, [xt] + [pt[k] for k in names],
+                                torch.from_numpy(g))
+    _rel_close(_np(grads[0]), want_dx, F32_TOL)
+    for name, gg in zip(names, grads[1:]):
+        _rel_close(_np(gg), want_dp[name], F32_TOL)
+
+
+def test_rglru_gate_follows_use_pallas():
+    """``use_pallas`` alone picks the kernels, as JAX's gate off the TPU;
+    on the card an input they do not take raises in their wrappers."""
+    cfg = t_reduced("recurrentgemma-2b")
+    for use_pallas in (False, True):
+        assert tssm._use_pallas_rglru(dataclasses.replace(
+            cfg, use_pallas=use_pallas)) is use_pallas

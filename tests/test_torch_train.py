@@ -3,8 +3,10 @@ SPBEngine on yi-6b-reduced (f32, kernels on, temporal SPB k=4, batch
 2 x 64) from bridged weights and the same Pipeline batches, 4 steps over
 depths 4, 1, 3, 2.  Metrics agree step by step to rtol 1e-4: the same f32
 arithmetic, summed in another order, compounded over four AdamW updates.
-The same for mamba2-reduced (the SSD kernels' plain versions).  Also the
-port's train entry point, and its refusal to run on a missing card."""
+The same for mamba2-reduced (the SSD kernels' plain versions) and for
+recurrentgemma-reduced (the RG-LRU kernels' plain versions and flash at a
+window of 32 over 64 positions).  Also the port's train entry point, and
+its refusal to run on a missing card."""
 import dataclasses
 
 import jax
@@ -134,3 +136,50 @@ def test_mamba2_train_entry_point_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert len(history) == 2 and all(np.isfinite(history))
     assert "[train] step=    1 depth=   1 loss=" in out
+
+
+@pytest.fixture(scope="module")
+def jax_recurrentgemma_run():
+    cfg = dataclasses.replace(j_reduced("recurrentgemma-2b"), use_pallas=True)
+    eng = JEngine(cfg, JTrain(num_steps=STEPS), JSPB(mode="temporal", k=4))
+    eng.init_state(jax.random.key(0))
+    params = jax.tree.map(np.asarray, eng.state["params"])
+    pipe = JPipeline(cfg, 2, 64, seed=0)
+    history = []
+    for s in range(STEPS):
+        m = eng.train_step(pipe.get_batch(s), s)
+        history.append((eng.last_depth, {k: float(v) for k, v in m.items()}))
+    return params, history
+
+
+def test_recurrentgemma_spb_engine_tracks_jax_step_by_step(
+        jax_recurrentgemma_run):
+    """recurrentgemma-reduced (f32, kernels on), temporal SPB k=4 snapped
+    to whole (rglru, rglru, local) units, batch 2 x 64: the JAX engine's
+    metrics at every step, at rtol 1e-4."""
+    params, want = jax_recurrentgemma_run
+    cfg = dataclasses.replace(t_reduced("recurrentgemma-2b"), use_pallas=True)
+    tcfg = TrainConfig(num_steps=STEPS)
+    eng = SPBEngine(cfg, tcfg, SPBConfig(mode="temporal", k=4), device="cpu")
+    eng.attach_state(steps_lib.state_from_params(
+        bridge.params_from_numpy(params, cfg), tcfg))
+    pipe = Pipeline(cfg, 2, 64, seed=0)
+    depths = []
+    for s, (jdepth, jm) in enumerate(want):
+        m = eng.train_step(pipe.get_batch(s), s)
+        depths.append(eng.last_depth)
+        assert eng.last_depth == jdepth
+        for key in ("loss", "xent", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(m[key]), jm[key], rtol=1e-4,
+                                       err_msg=f"step {s} {key}")
+    assert depths == [6, 3, 6, 3]
+
+
+def test_recurrentgemma_train_entry_point_runs_on_cpu(capsys):
+    history = train_mod.train(
+        ["--arch", "recurrentgemma-2b", "--reduced", "--steps", "2",
+         "--batch", "2", "--seq", "40", "--spb-mode", "temporal",
+         "--use-pallas", "--device", "cpu", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert len(history) == 2 and all(np.isfinite(history))
+    assert "[train] step=    1 depth=   3 loss=" in out
