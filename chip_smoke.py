@@ -5,7 +5,10 @@
 
 Phases, each printing a line; any failure exits non-zero:
   1. the device (nvidia-smi name and power limit, torch and CUDA versions);
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds);
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds), print
+     each flash forward and dkv kernel's registers and spills (``nvcc
+     -Xptxas -v``) and count the tensor-core instructions (HGMMA, HMMA)
+     that ``cuobjdump -sass`` finds in those two libraries: none fails;
   3. each attention kernel against its plain PyTorch version on the same
      inputs: at the yi-6b main-path shape (B 2, S 2048, H 32, K 4, D 128,
      causal, bf16), a sliding-window case and a ragged Sq != Sk case, at
@@ -41,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -150,20 +154,22 @@ def nbytes(*ts) -> int:
 
 
 def check_close(name: str, got, want):
-    """(max abs error, max abs error over max |want|, tolerance); raises when
+    """(max abs error, max abs error over max |want|, tolerance, largest
+    share of the allowed error used); raises when
     |got - want| > atol + rtol * |want| with the tolerance of got's dtype."""
     import torch
     atol, rtol = tol = TOL[str(got.dtype).removeprefix("torch.")]
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    bad = err > atol + rtol * want.abs()
+    allowed = atol + rtol * want.abs()
+    bad = err > allowed
     max_abs = float(err.max())
     rel = max_abs / max(float(want.abs().max()), 1e-30)
     if not torch.isfinite(got).all() or bool(bad.any()):
         raise AssertionError(f"{name}: max_abs_err={max_abs:.3e} exceeds "
                              f"atol {atol} + rtol {rtol} * |want| "
                              f"({int(bad.sum())} elements)")
-    return max_abs, rel, tol
+    return max_abs, rel, tol, float((err / allowed).max())
 
 
 def check_all(name: str, got, want) -> float:
@@ -178,8 +184,59 @@ def check_all(name: str, got, want) -> float:
     each = ",".join(f"{e[0]:.3e}" for e in errs)
     log(f"[kernels] {name:24s} max_abs_err={max_abs:.3e} "
         f"max_rel_err={max(e[1] for e in errs):.3e} per_output=[{each}] "
-        f"tol={tols} ok")
+        f"tol={tols} used={max(e[3] for e in errs):.3f} of it, ok")
     return max_abs
+
+
+def _kernel_label(mangled: str) -> str:
+    """``fwd_wgmma_kernel<128>`` from a mangled ``flash::`` kernel name."""
+    m = re.match(r"_ZN5flash(\d+)", mangled)
+    if not m:
+        return mangled
+    name = mangled[m.end():m.end() + int(m.group(1))]
+    rest = mangled[m.end() + int(m.group(1)):]
+    args = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E", rest)
+    if not args:
+        return name
+    label = ["float" if f else "bf16" if bf else d for f, bf, d in
+             re.findall(r"(f)|(13__nv_bfloat16)|Li(\d+)E", args.group(1))]
+    return f"{name}<{','.join(label)}>"
+
+
+def phase_tensor_cores() -> dict:
+    """Phase 2's report on the flash forward and dkv libraries: each
+    kernel's registers and spills from the build log, and the number of
+    tensor-core instructions in the library's SASS.  Raises when either
+    library has none.  Returns {library: {"HGMMA": n, "HMMA": n}}."""
+    from repro_torch.kernels import _build
+    counts = {}
+    for lib in ("flash_fwd", "flash_dkv"):
+        fn = None
+        for line in _build.build_log(lib).splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(_Z\w+)", line)
+            if m:
+                fn, spills = _kernel_label(m.group(1)), ""
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn:
+                spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                log(f"[build] {lib:9s} {fn:28s} {m.group(1)} registers, "
+                    f"{spills}")
+        sass = subprocess.run(
+            [_build.nvcc_tool("cuobjdump"), "-sass",
+             str(_build.lib_path(lib))], check=True, capture_output=True,
+            text=True).stdout
+        counts[lib] = {op: len(re.findall(rf"\b{op}\b", sass))
+                       for op in ("HGMMA", "HMMA")}
+        log(f"[build] {lib} tensor-core instructions in SASS: "
+            f"{counts[lib]}")
+        if not sum(counts[lib].values()):
+            raise AssertionError(f"{lib}: no tensor-core instruction in "
+                                 f"its SASS")
+    return counts
 
 
 def counters():
@@ -247,6 +304,26 @@ def check_launches(phase: str, before: dict, depths, cfg) -> dict:
     return grew
 
 
+def sms() -> int:
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def dkv_by_split(bwd, kw, G: int) -> dict:
+    """compute_dkv's time with its q heads split over each divisor of G,
+    the planner (``dkv_head_splits``) replaced for the measurement."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    planner, out = fab.dkv_head_splits, {}
+    try:
+        for s in (d for d in range(1, G + 1) if G % d == 0):
+            fab.dkv_head_splits = lambda *_, s=s: s
+            out[s] = round(time_ms(lambda: fab.compute_dkv(*bwd, **kw),
+                                   iters=5), 4)
+    finally:
+        fab.dkv_head_splits = planner
+    return out
+
+
 def phase_kernels():
     """Phase 3: every attention kernel against its plain version; timings
     at each main-path shape.  Returns {case: {name: record}} for the
@@ -285,6 +362,10 @@ def phase_kernels():
         records = {}
         for name, (kern, plain) in runs.items():
             max_abs = check_all(f"{case} {name}", kern(), plain())
+            if name == "flash_dkv":     # one owner per element, no atomics
+                first, again = kern(), kern()
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    raise AssertionError(f"{case}: two dkv calls differ")
             if case in TIMED:
                 records[name] = {"max_abs_err": max_abs,
                                  "ms": time_ms(kern, iters=5),
@@ -317,7 +398,8 @@ def phase_kernels():
         # library yardsticks, never called by the port: SDPA forward (its
         # causal mask is the whole mask at these shapes); the row dot
         # product of O and dO (rounded to bf16 at the end, where the kernel
-        # keeps f32); SDPA forward + backward beside the four kernels
+        # keeps f32); SDPA's backward alone (dQ, dK and dV in one call)
+        # for dq and dkv; SDPA forward + backward beside the four kernels
         assert c["causal"] and c["window"] in (0, Sq)
         qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = lambda: F.scaled_dot_product_attention(
@@ -325,10 +407,15 @@ def phase_kernels():
         records["flash_fwd"]["library_ms"] = time_ms(sdpa)
         records["flash_delta"]["library_ms"] = time_ms(
             lambda: torch.linalg.vecdot(ot_p, dot_))
-        for name in ("flash_dq", "flash_dkv"):
-            records[name]["library_ms"] = None
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (qs, ks, vs))
         gs = do.transpose(1, 2)
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             enable_gqa=True)
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), gs, retain_graph=True))
+        for name in ("flash_dq", "flash_dkv"):
+            records[name]["library_ms"] = sdpa_bwd
+        del out
 
         def sdpa_fwd_bwd():
             out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
@@ -336,13 +423,19 @@ def phase_kernels():
             torch.autograd.grad(out, (qg, kg, vg), gs)
 
         records["_sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
+        records["_dkv_ms_by_split"] = dkv_by_split(bwd, kw, H // K)
         for name in runs:
             r = records[name]
             log(f"[kernels] {case:7s} {name:11s} ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-                f"({r['bound_by']}) library_ms={r['library_ms']}")
+                f"({r['bound_by']}) library_ms={r['library_ms']:.4f} "
+                f"x_bound={r['ms'] / r['bound_ms']:.2f} "
+                f"x_library={r['ms'] / r['library_ms']:.2f}")
         log(f"[kernels] {case:7s} SDPA fwd+bwd ms="
             f"{records['_sdpa_fwd_bwd_ms']:.4f}")
+        log(f"[kernels] {case:7s} flash_dkv ms by head split "
+            f"{records['_dkv_ms_by_split']} (the planner takes "
+            f"{fab.dkv_head_splits(B, K, H // K, Sk, D, sms())})")
         timed[case] = records
     return timed
 
@@ -445,8 +538,9 @@ def phase_ssd_kernels():
             r = records[name]
             log(f"[kernels] main   {name:11s} ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-                f"({r['bound_by']}) library_ms=None (no single PyTorch call "
-                f"computes the chunked scan)")
+                f"({r['bound_by']}) x_bound={r['ms'] / r['bound_ms']:.2f} "
+                f"library_ms=None (no single PyTorch call computes the "
+                f"chunked scan)")
     return records
 
 
@@ -495,8 +589,9 @@ def phase_rglru_kernels():
             r = records[name]
             log(f"[kernels] main   {name:11s} ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-                f"({r['bound_by']}) library_ms=None (no single PyTorch call "
-                f"computes a linear recurrence)")
+                f"({r['bound_by']}) x_bound={r['ms'] / r['bound_ms']:.2f} "
+                f"library_ms=None (no single PyTorch call computes a "
+                f"linear recurrence)")
     return records
 
 
@@ -602,6 +697,7 @@ def main() -> int:
     secs = _build.build()
     log(f"[build] {len(_build.SOURCES)} kernels built in {secs:.1f}s "
         f"(phase {time.perf_counter() - t0:.1f}s)")
+    tensor_cores = phase_tensor_cores()
 
     timed = phase_kernels()
     records = dict(timed["main"])
@@ -639,7 +735,11 @@ def main() -> int:
         kernels.append(entry)
     log(json.dumps({"kernels": kernels,
                     "sdpa_fwd_bwd_ms": {TIMED[c]: t["_sdpa_fwd_bwd_ms"]
-                                        for c, t in timed.items()}}))
+                                        for c, t in timed.items()},
+                    "dkv_ms_by_head_split": {
+                        TIMED[c]: t["_dkv_ms_by_split"]
+                        for c, t in timed.items()},
+                    "tensor_core_sass": tensor_cores}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

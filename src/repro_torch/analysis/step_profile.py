@@ -26,11 +26,13 @@ import torch
 
 ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
 # (class, substrings a kernel's name holds): the forward-with-residuals
-# SSD scan is the forward template instantiated with RES = true
-CLASSES = (("flash_fwd", ("flash::fwd_kernel",)),
+# SSD scan is the forward template instantiated with RES = true; the flash
+# forward and dkv classes take their f32 and bf16 (wgmma) kernels, and
+# dkv also the reduction pass of its head split
+CLASSES = (("flash_fwd", ("flash::fwd_",)),
            ("flash_delta", ("flash::delta_kernel",)),
            ("flash_dq", ("flash::dq_kernel",)),
-           ("flash_dkv", ("flash::dkv_kernel",)),
+           ("flash_dkv", ("flash::dkv_",)),
            ("ssd_fwd_res", ("ssd::fwd_kernel", "true>")),
            ("ssd_fwd", ("ssd::fwd_kernel",)),
            ("ssd_bwd", ("ssd::bwd_kernel",)),

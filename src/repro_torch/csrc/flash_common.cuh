@@ -14,10 +14,11 @@
 // floats so that the 16 lanes reading 16 different rows at one column hit
 // 16 different banks.
 //
-// Head dim 256 (recurrentgemma-2b) takes bf16 only, and its Q/K/V/dO tiles
-// stay bf16 in shared memory (Smem below): as f32 the dq and dkv kernels
-// would need 279,808 and 296,960 bytes, above the 232,448 a block may opt
-// in to.  A bf16 row is padded by two elements, one 32-bit word, so the
+// These FMA kernels serve every dtype of dq and the f32 forward and dkv;
+// the bf16 forward and dkv run on the tensor cores (wgmma.cuh).  Head dim
+// 256 (recurrentgemma-2b) takes bf16 only, and dq's Q/K/V/dO tiles stay
+// bf16 in shared memory (Smem below): as f32 they would need 279,808
+// bytes, above the 232,448 a block may opt in to.  A bf16 row is padded by two elements, one 32-bit word, so the
 // word stride (D + 2) / 2 = 129 is odd and the 16 rows a half-warp reads
 // at one column still fall in 16 banks.  The score and accumulator tiles
 // stay f32 at every D.
@@ -37,6 +38,11 @@ constexpr int BQ = 64;      // q rows per tile
 constexpr int BK = 64;      // kv rows per tile
 constexpr int NT = 256;     // threads per block
 constexpr float NEG_INF = -1e30f;   // the Pallas kernels' masked score
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+#define MINUS_INF __int_as_float((int)0xff800000)   // -inf, a masked score inside a tile
+
+using bf16 = __nv_bfloat16;
 
 // The shared-memory type of the operand tiles and their padded row length:
 // f32 rows of D + 1 up to D 128, storage-dtype rows of D + 2 above.
@@ -117,3 +123,21 @@ __device__ __forceinline__ void load_tile(S* dst, const T* src, long long ss, in
     }                                                                          \
     return (int)cudaErrorInvalidValue;                                         \
   } while (0)
+
+// The same dispatch for one dtype: FN<float, D> (f32 kernels, D up to
+// 128) and FN<D> (bf16 tensor-core kernels, D up to 256).
+#define FLASH_DISPATCH_F32(DIM, FN, ...)                                       \
+  switch (DIM) {                                                               \
+    case 16: return FN<float, 16>(__VA_ARGS__);                                \
+    case 32: return FN<float, 32>(__VA_ARGS__);                                \
+    case 64: return FN<float, 64>(__VA_ARGS__);                                \
+    case 128: return FN<float, 128>(__VA_ARGS__);                              \
+  }
+#define FLASH_DISPATCH_BF16(DIM, FN, ...)                                      \
+  switch (DIM) {                                                               \
+    case 16: return FN<16>(__VA_ARGS__);                                       \
+    case 32: return FN<32>(__VA_ARGS__);                                       \
+    case 64: return FN<64>(__VA_ARGS__);                                       \
+    case 128: return FN<128>(__VA_ARGS__);                                     \
+    case 256: return FN<256>(__VA_ARGS__);                                     \
+  }

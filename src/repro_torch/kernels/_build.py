@@ -8,7 +8,9 @@ The sources have a plain C interface (pointers, ints, the stream) and
 return ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception, with the message of the ``kernel_error_string`` entry that every
 source gets from ``csrc/kernel_common.cuh``.  Builds happen at first use,
-never at import, and only from the sources in this package.
+never at import, and only from the sources in this package.  The
+compiler's output (``-Xptxas -v``: each kernel's registers, spills and
+static shared memory) is kept beside the library, :func:`build_log`.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv", "ssd_fwd",
            "ssd_bwd", "rglru")
 
@@ -43,7 +45,8 @@ def _nvcc() -> str:
                        "cannot be built")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """The library ``csrc/<name>.cu`` builds into."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
@@ -56,7 +59,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
     processes at once; returns the seconds spent.  Raises with the
     compiler's output if any build fails."""
     t0 = time.perf_counter()
-    todo = [(n, _lib_path(n)) for n in names if not _lib_path(n).is_file()]
+    todo = [(n, lib_path(n)) for n in names if not lib_path(n).is_file()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,9 +79,21 @@ def build(names: Iterable[str] = SOURCES) -> float:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            out.with_suffix(".log").write_bytes(log)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed when it built ``csrc/<name>.cu``."""
+    log = lib_path(name).with_suffix(".log")
+    return log.read_text(errors="replace") if log.is_file() else ""
+
+
+def nvcc_tool(tool: str) -> str:
+    """A program of the CUDA toolkit beside ``nvcc`` (e.g. cuobjdump)."""
+    return str(Path(_nvcc()).parent / tool)
 
 
 def function(lib_name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
@@ -87,7 +102,7 @@ def function(lib_name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPt
     lib = _LIBS.get(lib_name)
     if lib is None:
         build([lib_name])
-        lib = ctypes.CDLL(str(_lib_path(lib_name)))
+        lib = ctypes.CDLL(str(lib_path(lib_name)))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _LIBS[lib_name] = lib

@@ -4,7 +4,8 @@ version (counterpart of ``repro/kernels/flash_attention.py``).
 The kernel (``csrc/flash_fwd.cu``) replaces the Pallas
 ``_flash_fwd_kernel``: one block per (q tile, batch * head), an online
 softmax over the visible kv tiles, and ``lse = m + log l`` written only
-when asked for.  Its source note says what bounds it on the card.
+when asked for.  bf16 runs its products on the tensor cores (wgmma),
+f32 as f32 FMAs.  Its source note says what bounds it on the card.
 
 Dispatch: a CPU tensor takes :func:`fwd_plain`; a CUDA tensor launches the
 kernel or raises.  Nothing falls back to the plain version on the card.
@@ -82,6 +83,17 @@ def kernel_dtype_code(qt: torch.Tensor, D: int) -> int:
     return _DTYPES[qt.dtype]
 
 
+def check_aligned(*ts: torch.Tensor) -> None:
+    """The bf16 tensor-core kernels copy 16-byte chunks: each operand's
+    data must start 16-byte aligned and its batch, head and sequence
+    strides be multiples of 8 elements.  Raises otherwise."""
+    for t in ts:
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError("bf16 attention operands need 16-byte aligned "
+                             "data and batch/head/sequence strides that are "
+                             "multiples of 8")
+
+
 def strides(t: torch.Tensor):
     """Batch, head and sequence strides of a kernel-layout tensor."""
     return t.stride(0), t.stride(1), t.stride(2)
@@ -131,6 +143,8 @@ def fwd_kernel_layout(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, *,
         return fwd_plain(qt, kt, vt, causal=causal, window=window,
                          with_lse=with_lse)
     dtype = kernel_dtype_code(qt, D)
+    if qt.dtype == torch.bfloat16:
+        check_aligned(qt, kt, vt)
     ot = empty_kernel_layout(B, H, Sq, D, qt)
     lse: Optional[torch.Tensor] = (
         torch.empty((B, H, Sq), dtype=torch.float32, device=qt.device)

@@ -7,7 +7,10 @@ plain versions (counterpart of ``repro/kernels/flash_attention_bwd.py``).
     (``csrc/flash_dq.cu``, replaces ``_dq_kernel``);
   * :func:`compute_dkv` -- dK, dV per kv head, summed over the GQA group's
     q heads and the visible q tiles and written once
-    (``csrc/flash_dkv.cu``, replaces ``_dkv_kernel``).
+    (``csrc/flash_dkv.cu``, replaces ``_dkv_kernel``; in bf16 on the
+    tensor cores, its q heads split over :func:`dkv_head_splits` blocks
+    whose f32 partial sums a second kernel adds in a fixed order, in the
+    same call).
 
 All three recompute ``P = exp(S - lse)`` from the forward's logsumexp; no
 (Sq, Sk) matrix reaches device memory.  Dispatch as in the forward: a CPU
@@ -23,7 +26,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import (check_layout,
+from repro_torch.kernels.flash_attention import (check_aligned, check_layout,
                                                  empty_kernel_layout,
                                                  kernel_dtype_code,
                                                  pair_mask, strides)
@@ -77,8 +80,30 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DELTA_ARGTYPES = [_I] + [_P] * 3 + [_I] * 4 + [_L] * 6 + [_P]
 _DQ_ARGTYPES = ([_I] * 2 + [_P] * 7 + [_I] * 5 + [_L] * 15 + [_I] * 2
                 + [ctypes.c_float, _P])
-_DKV_ARGTYPES = ([_I] * 2 + [_P] * 8 + [_I] * 5 + [_L] * 18 + [_I] * 2
+_DKV_ARGTYPES = ([_I] * 2 + [_P] * 9 + [_I] * 6 + [_L] * 18 + [_I] * 2
                  + [ctypes.c_float, _P])
+
+
+def dkv_head_splits(B: int, K: int, G: int, Sk: int, D: int, sms: int
+                    ) -> int:
+    """Over how many blocks the bf16 dkv kernel splits each GQA group's
+    ``G`` q heads.
+
+    A block walks a pair of 64-row kv tiles (j and nk - 1 - j, equal work
+    under causality) for its share of the heads, so the grid holds
+    ``ceil(nk / 2) * B * K * splits`` blocks of ``G / splits`` heads each;
+    ``sms`` SMs hold one block each at D 256 and two below.  The cost of
+    a split is the head-walks on the busiest slot,
+    ``ceil(blocks / slots) * G / splits``.  A split above 1 costs f32
+    scratch of ``splits * 2 * B * K * Sk * D`` and a reduction pass, so
+    this takes the smallest divisor of ``G`` whose cost is within a
+    quarter of the least."""
+    pairs = (-(-Sk // 64) + 1) // 2
+    slots = sms * (1 if D > 128 else 2)
+    divisors = [s for s in range(1, G + 1) if G % s == 0]
+    cost = {s: -(-(pairs * B * K * s) // slots) * (G // s) for s in divisors}
+    least = min(cost.values())
+    return next(s for s in divisors if cost[s] <= 1.25 * least)
 
 
 def _check_rows(lse: Tensor, delta: Tensor, B: int, H: int, Sq: int) -> None:
@@ -139,10 +164,21 @@ def compute_dkv(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
     dtype = kernel_dtype_code(qt, D)
     dk = empty_kernel_layout(B, K, Sk, D, kt)
     dv = empty_kernel_layout(B, K, Sk, D, vt)
+    splits, part = 1, None
+    if qt.dtype == torch.bfloat16:
+        check_aligned(qt, kt, vt, dot_)
+        splits = dkv_head_splits(
+            B, K, H // K, Sk, D,
+            torch.cuda.get_device_properties(qt.device).multi_processor_count)
+        if splits > 1:      # f32 partial sums, reduced inside the call
+            part = torch.empty((splits, 2, B, K, Sk, D), dtype=torch.float32,
+                               device=qt.device)
     fn = _build.function("flash_dkv", "flash_dkv", _DKV_ARGTYPES)
     code = fn(dtype, D, qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
               dot_.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-              dk.data_ptr(), dv.data_ptr(), B, H, K, Sq, Sk, *strides(qt),
+              dk.data_ptr(), dv.data_ptr(),
+              part.data_ptr() if part is not None else None, splits,
+              B, H, K, Sq, Sk, *strides(qt),
               *strides(kt), *strides(vt), *strides(dot_), *strides(dk),
               *strides(dv), int(causal), int(window), 1.0 / math.sqrt(D),
               _build.stream_of(qt))

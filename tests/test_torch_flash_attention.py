@@ -158,3 +158,27 @@ def test_wrappers_never_fall_back_off_the_cpu():
         fab.compute_dq(qt, kt, kt, qt, lse, lse)
     with pytest.raises(ValueError, match="device"):
         fab.compute_dkv(qt, kt, kt, qt, lse, lse)
+
+
+@pytest.mark.parametrize("B,K,G,Sk,D,want", [
+    (2, 4, 8, 2048, 128, 2),    # yi-6b: 16 kv-tile pairs x 8 = 128 blocks, 264 slots
+    (2, 1, 10, 2048, 256, 10),  # recurrentgemma-2b: 32 blocks on 132 SMs
+    (1, 1, 1, 2048, 256, 1),    # one q head: nothing to split
+    (16, 8, 4, 4096, 128, 1),   # the grid fills the card without a split
+])
+def test_dkv_head_splits(B, K, G, Sk, D, want):
+    """The bf16 dkv kernel's head split: a divisor of G, above 1 only
+    where it cuts the busiest SM's work by more than a quarter."""
+    splits = fab.dkv_head_splits(B, K, G, Sk, D, sms=132)
+    assert splits == want and G % splits == 0
+
+
+def test_check_aligned_refuses_what_the_copies_cannot_take():
+    """The bf16 tensor-core kernels copy 16-byte chunks."""
+    buf = torch.zeros(1 + 2 * 64 * 4 * 64, dtype=torch.bfloat16)
+    fa.check_aligned(buf[:-1].view(2, 64, 4, 64).transpose(1, 2))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.check_aligned(buf[1:].view(2, 64, 4, 64).transpose(1, 2))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.check_aligned(buf[:2 * 64 * 4 * 60].view(2, 64, 4, 60)
+                         .transpose(1, 2))

@@ -75,6 +75,74 @@ def test_kernels_match_plain(cuda, dtype, B, Sq, Sk, H, K, D, causal, window):
         _close(got, w)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,window", [
+    (1, 100, 200, 4, 2, 128, False, 0),    # ragged, Sq != Sk
+    (2, 200, 200, 4, 1, 128, True, 0),     # ragged S
+    (1, 100, 200, 2, 1, 256, False, 0),
+    (2, 200, 200, 4, 1, 256, True, 0),
+    (1, 256, 256, 8, 1, 128, True, 0),     # GQA, G 8
+    (1, 320, 320, 10, 1, 256, True, 100),  # MQA, G 10; the window crosses tiles
+    (2, 192, 192, 4, 2, 128, False, 0),    # non-causal
+])
+def test_tensor_core_kernels_at_the_edges(cuda, B, Sq, Sk, H, K, D, causal,
+                                          window):
+    """The bf16 forward and dkv (wgmma) where tiles are partly masked or
+    cut by the sequence's end; the backward also on the forward's own
+    outputs."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    q, k, v, do = mk(B, Sq, H, D), mk(B, Sk, K, D), mk(B, Sk, K, D), \
+        mk(B, Sq, H, D)
+    qt, kt, vt, dot_ = (x.transpose(1, 2) for x in (q, k, v, do))
+    kw = dict(causal=causal, window=window)
+    ot, lse = fa.fwd_kernel_layout(qt, kt, vt, with_lse=True, **kw)
+    ot_p, lse_p = fa.fwd_plain(qt, kt, vt, with_lse=True, **kw)
+    _close(ot, ot_p)
+    _close(lse, lse_p)
+    delta_p = fab.delta_plain(ot_p, dot_)
+    want = fab.dkv_plain(qt, kt, vt, dot_, lse_p, delta_p, **kw)
+    for got, w in zip(fab.compute_dkv(qt, kt, vt, dot_, lse_p, delta_p, **kw),
+                      want):
+        _close(got, w)
+    for got, w in zip(fab.bwd_kernel_layout(qt, kt, vt, ot, lse, dot_,
+                                            **kw)[1:], want):
+        _close(got, w)
+
+
+@pytest.mark.parametrize("H,K,D", [(8, 1, 128), (10, 1, 256), (4, 2, 64)])
+def test_dkv_is_deterministic(cuda, H, K, D):
+    """One owner per dK/dV element and a fixed-order reduction of the head
+    split's partial sums: two calls give equal bits."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    B, S = 1, 512
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(
+        torch.bfloat16).transpose(1, 2)
+    qt, kt, vt, dot_ = mk(B, S, H, D), mk(B, S, K, D), mk(B, S, K, D), \
+        mk(B, S, H, D)
+    ot, lse = fa.fwd_kernel_layout(qt, kt, vt, with_lse=True)
+    delta = fab.compute_delta(ot, dot_)
+    first = fab.compute_dkv(qt, kt, vt, dot_, lse, delta)
+    again = fab.compute_dkv(qt, kt, vt, dot_, lse, delta)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_tensor_core_kernels_refuse_misaligned_operands(cuda):
+    """The bf16 kernels copy 16-byte chunks: an operand whose data does
+    not start 16-byte aligned raises before anything launches."""
+    buf = torch.randn(1 + 64 * 2 * 64, device=cuda).to(torch.bfloat16)
+    bad = buf[1:].view(1, 64, 2, 64).transpose(1, 2)
+    counts = (fa.fwd_kernel_layout.launches, fab.compute_dkv.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.fwd_kernel_layout(bad, bad, bad)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fab.compute_dkv(bad, bad, bad, bad, lse, lse)
+    assert (fa.fwd_kernel_layout.launches,
+            fab.compute_dkv.launches) == counts
+
+
 def test_autograd_on_the_card_matches_the_cpu(cuda):
     gen = torch.Generator().manual_seed(1)
     q, k, v, ct = (torch.randn(s, generator=gen) for s in
