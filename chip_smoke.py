@@ -6,23 +6,27 @@
 Phases, each printing a line; any failure exits non-zero:
   1. the device (nvidia-smi name and power limit, torch and CUDA versions);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds), print
-     each flash forward and dkv kernel's registers and spills (``nvcc
-     -Xptxas -v``) and count the tensor-core instructions (HGMMA, HMMA)
-     that ``cuobjdump -sass`` finds in those two libraries: none fails;
+     the registers and spills (``nvcc -Xptxas -v``) of each kernel of the
+     flash forward, dq, dkv and SSD backward libraries and count the
+     tensor-core instructions (HGMMA, HMMA) that ``cuobjdump -sass`` finds
+     in each of those four: none fails;
   3. each attention kernel against its plain PyTorch version on the same
      inputs: at the yi-6b main-path shape (B 2, S 2048, H 32, K 4, D 128,
      causal, bf16), a sliding-window case and a ragged Sq != Sk case, at
      the recurrentgemma-2b main-path shape (B 2, S 2048, H 10, K 1,
      D 256, window 2048, bf16) and a case where that window bites
      (S 4096), then the backward kernels on the forward kernel's own
-     outputs against the plain chain; max errors against the stated
-     tolerance, and the kernel's, the plain version's and a library
-     call's time at both main-path shapes;
+     outputs against the plain chain, and two dq calls and two dkv calls
+     bitwise equal; max errors against the stated tolerance, and the
+     kernel's, the plain version's and a library call's time at both
+     main-path shapes;
   3b. the same for the SSD kernels: at the mamba2-2.7b main-path shape
      (B 2, S 2048, H 80, P 64, N 128, chunk 256, bf16 x/B/C with B and C
      broadcast over heads, f32 dA), an f32 reduced case and ragged cases,
      then the backward kernel on the forward-with-residuals kernel's own
-     chunk states against the plain chain;
+     chunk states against the plain chain, two backward calls bitwise
+     equal, and the backward's four chunk-parallel kernels timed apart
+     (``torch.profiler``);
   3c. the same for the RG-LRU kernels: at the recurrentgemma-2b main-path
      shape (B 2, S 2048, W 2560, f32) and a ragged one (S 600, W 64), then
      the backward kernel on the forward kernel's own output;
@@ -189,8 +193,9 @@ def check_all(name: str, got, want) -> float:
 
 
 def _kernel_label(mangled: str) -> str:
-    """``fwd_wgmma_kernel<128>`` from a mangled ``flash::`` kernel name."""
-    m = re.match(r"_ZN5flash(\d+)", mangled)
+    """``fwd_wgmma_kernel<128>`` from a mangled ``flash::`` or ``ssd::``
+    kernel name."""
+    m = re.match(r"_ZN(?:5flash|3ssd)(\d+)", mangled)
     if not m:
         return mangled
     name = mangled[m.end():m.end() + int(m.group(1))]
@@ -203,14 +208,18 @@ def _kernel_label(mangled: str) -> str:
     return f"{name}<{','.join(label)}>"
 
 
+TENSOR_CORE_LIBS = ("flash_fwd", "flash_dq", "flash_dkv", "ssd_bwd")
+
+
 def phase_tensor_cores() -> dict:
-    """Phase 2's report on the flash forward and dkv libraries: each
-    kernel's registers and spills from the build log, and the number of
-    tensor-core instructions in the library's SASS.  Raises when either
-    library has none.  Returns {library: {"HGMMA": n, "HMMA": n}}."""
+    """Phase 2's report on the libraries whose bf16 kernels run on the
+    tensor cores: each kernel's registers and spills from the build log,
+    and the number of tensor-core instructions in the library's SASS.
+    Raises when one of them has none.  Returns {library: {"HGMMA": n,
+    "HMMA": n}}."""
     from repro_torch.kernels import _build
     counts = {}
-    for lib in ("flash_fwd", "flash_dkv"):
+    for lib in TENSOR_CORE_LIBS:
         fn = None
         for line in _build.build_log(lib).splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties "
@@ -223,7 +232,7 @@ def phase_tensor_cores() -> dict:
                 spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
             m = re.search(r"Used (\d+) registers", line)
             if m and fn:
-                log(f"[build] {lib:9s} {fn:28s} {m.group(1)} registers, "
+                log(f"[build] {lib:9s} {fn:30s} {m.group(1)} registers, "
                     f"{spills}")
         sass = subprocess.run(
             [_build.nvcc_tool("cuobjdump"), "-sass",
@@ -362,10 +371,12 @@ def phase_kernels():
         records = {}
         for name, (kern, plain) in runs.items():
             max_abs = check_all(f"{case} {name}", kern(), plain())
-            if name == "flash_dkv":     # one owner per element, no atomics
+            if name in ("flash_dq", "flash_dkv"):   # one owner, no atomics
                 first, again = kern(), kern()
+                first = first if isinstance(first, tuple) else (first,)
+                again = again if isinstance(again, tuple) else (again,)
                 if not all(torch.equal(a, b) for a, b in zip(first, again)):
-                    raise AssertionError(f"{case}: two dkv calls differ")
+                    raise AssertionError(f"{case}: two {name} calls differ")
             if case in TIMED:
                 records[name] = {"max_abs_err": max_abs,
                                  "ms": time_ms(kern, iters=5),
@@ -477,9 +488,32 @@ def check_rel(name: str, got, want) -> float:
     return max(e[0] for e in errs)
 
 
+def ssd_bwd_phases(kern, iters: int = 5) -> dict:
+    """The device ms of each CUDA kernel one ``ssd_bwd`` call launches
+    (the bf16 path's four phases), averaged over ``iters`` calls traced
+    with ``torch.profiler``."""
+    import torch
+    kern()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            kern()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        m = re.search(r"ssd::(\w+)", ev.key)
+        if m and ev.device_time_total > 0:
+            out[m.group(1)] = round(ev.device_time_total / iters / 1e3, 4)
+    if not out:
+        raise AssertionError("the profiler saw no ssd_bwd kernel on the card")
+    return out
+
+
 def phase_ssd_kernels():
     """Phase 3b: the SSD kernels against their plain versions; timings and
     bounds at the main-path shape.  Returns {name: record}."""
+    import torch
     from repro_torch.kernels import ssd, ssd_bwd
 
     records = {}
@@ -506,6 +540,14 @@ def phase_ssd_kernels():
                                  "ms": time_ms(kern, iters=5),
                                  "plain_ms": time_ms(plain, iters=3, warmup=1),
                                  "library_ms": None}
+        # one owner per output, fixed-order sums: two backward calls agree
+        first, again = runs["ssd_bwd"][0](), runs["ssd_bwd"][0]()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"{case}: two ssd_bwd calls differ")
+        if case == "main":
+            records["_ssd_bwd_phase_ms"] = ssd_bwd_phases(runs["ssd_bwd"][0])
+            log(f"[kernels] main   ssd_bwd by phase (ms): "
+                f"{records['_ssd_bwd_phase_ms']}")
         # the chain the main path runs: the backward kernel on the forward
         # kernel's own chunk states, against the plain chain
         y_k, st_k, cs_k = ssd_bwd.fwd_res_kernel_layout(x, dA, b, cm, chunk=Q)
@@ -739,6 +781,7 @@ def main() -> int:
                     "dkv_ms_by_head_split": {
                         TIMED[c]: t["_dkv_ms_by_split"]
                         for c, t in timed.items()},
+                    "ssd_bwd_phase_ms": records["_ssd_bwd_phase_ms"],
                     "tensor_core_sass": tensor_cores}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

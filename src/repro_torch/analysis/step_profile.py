@@ -27,15 +27,17 @@ import torch
 ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
 # (class, substrings a kernel's name holds): the forward-with-residuals
 # SSD scan is the forward template instantiated with RES = true; the flash
-# forward and dkv classes take their f32 and bf16 (wgmma) kernels, and
-# dkv also the reduction pass of its head split
+# forward, dq and dkv classes take their f32 and bf16 (wgmma) kernels, and
+# dkv also the reduction pass of its head split; the SSD backward class
+# takes the f32 reverse walk and the four chunk-parallel bf16 kernels
+# (bwd_u_, bwd_state_, bwd_chunk_ and bwd_ddA_kernel)
 CLASSES = (("flash_fwd", ("flash::fwd_",)),
            ("flash_delta", ("flash::delta_kernel",)),
-           ("flash_dq", ("flash::dq_kernel",)),
+           ("flash_dq", ("flash::dq_",)),
            ("flash_dkv", ("flash::dkv_",)),
            ("ssd_fwd_res", ("ssd::fwd_kernel", "true>")),
            ("ssd_fwd", ("ssd::fwd_kernel",)),
-           ("ssd_bwd", ("ssd::bwd_kernel",)),
+           ("ssd_bwd", ("ssd::bwd_",)),
            ("rglru_fwd", ("rglru::fwd_kernel",)),
            ("rglru_bwd", ("rglru::bwd_kernel",)))
 

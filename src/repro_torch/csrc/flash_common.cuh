@@ -14,17 +14,10 @@
 // floats so that the 16 lanes reading 16 different rows at one column hit
 // 16 different banks.
 //
-// These FMA kernels serve every dtype of dq and the f32 forward and dkv;
-// the bf16 forward and dkv run on the tensor cores (wgmma.cuh).  Head dim
-// 256 (recurrentgemma-2b) takes bf16 only, and dq's Q/K/V/dO tiles stay
-// bf16 in shared memory (Smem below): as f32 they would need 279,808
-// bytes, above the 232,448 a block may opt in to.  A bf16 row is padded by two elements, one 32-bit word, so the
-// word stride (D + 2) / 2 = 129 is odd and the 16 rows a half-warp reads
-// at one column still fall in 16 banks.  The score and accumulator tiles
-// stay f32 at every D.
+// These FMA kernels serve the f32 instantiations (head_dim up to 128); the
+// bf16 forward, dq and dkv run on the tensor cores (wgmma.cuh), and head
+// dim 256 takes bf16 only.
 #pragma once
-
-#include <type_traits>
 
 #include "kernel_common.cuh"
 
@@ -44,12 +37,12 @@ constexpr float LN2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
-// The shared-memory type of the operand tiles and their padded row length:
-// f32 rows of D + 1 up to D 128, storage-dtype rows of D + 2 above.
+// The shared-memory type of the FMA kernels' operand tiles and their
+// padded row length: f32 rows of D + 1.
 template <typename T, int D>
 struct Smem {
-  using type = typename std::conditional<(D > 128), T, float>::type;
-  static constexpr int LD = D + (sizeof(type) == 4 ? 1 : 2);
+  using type = float;
+  static constexpr int LD = D + 1;
 };
 
 // Half-warp reductions over the 16 lanes that share a tile row.
@@ -101,31 +94,8 @@ __device__ __forceinline__ void load_tile(S* dst, const T* src, long long ss, in
 
 }  // namespace flash
 
-// dtype code 0 = float32, 1 = bfloat16; head_dim 16, 32, 64 or 128, and
-// 256 in bfloat16.
-#define FLASH_DISPATCH(DTYPE, DIM, FN, ...)                                    \
-  do {                                                                         \
-    if ((DTYPE) == 0) {                                                        \
-      switch (DIM) {                                                           \
-        case 16: return FN<float, 16>(__VA_ARGS__);                            \
-        case 32: return FN<float, 32>(__VA_ARGS__);                            \
-        case 64: return FN<float, 64>(__VA_ARGS__);                            \
-        case 128: return FN<float, 128>(__VA_ARGS__);                          \
-      }                                                                        \
-    } else if ((DTYPE) == 1) {                                                 \
-      switch (DIM) {                                                           \
-        case 16: return FN<__nv_bfloat16, 16>(__VA_ARGS__);                    \
-        case 32: return FN<__nv_bfloat16, 32>(__VA_ARGS__);                    \
-        case 64: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                    \
-        case 128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                  \
-        case 256: return FN<__nv_bfloat16, 256>(__VA_ARGS__);                  \
-      }                                                                        \
-    }                                                                          \
-    return (int)cudaErrorInvalidValue;                                         \
-  } while (0)
-
-// The same dispatch for one dtype: FN<float, D> (f32 kernels, D up to
-// 128) and FN<D> (bf16 tensor-core kernels, D up to 256).
+// The dispatch by head_dim for one dtype: FN<float, D> (f32 kernels, D up
+// to 128) and FN<D> (bf16 tensor-core kernels, D up to 256).
 #define FLASH_DISPATCH_F32(DIM, FN, ...)                                       \
   switch (DIM) {                                                               \
     case 16: return FN<float, 16>(__VA_ARGS__);                                \

@@ -369,8 +369,10 @@ dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 
       uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
-      wg::to_a_frags<4>(p, ph, pl);
-      wg::to_a_frags<4>(dp, sh, sl);
+      wg::peel_frags<4>(p, ph);   // P^T and dS^T: bf16 high parts, then remainders
+      wg::peel_frags<4>(p, pl);
+      wg::peel_frags<4>(dp, sh);
+      wg::peel_frags<4>(dp, sl);
       wg::mma_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {

@@ -287,7 +287,8 @@ fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < NA; ++i) acc[i] *= alpha[(i % 4) / 2];
 
     uint32_t ph[4][4], pl[4][4];   // P = bf16 high part + bf16 remainder
-    wg::to_a_frags<4>(s, ph, pl);
+    wg::peel_frags<4>(s, ph);
+    wg::peel_frags<4>(s, pl);
     wg::mma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the tensor-core attention kernels:
-// cp.async copies into 128-byte-swizzled tiles, wgmma shared-memory
-// descriptors, the wgmma instructions themselves, and the fences that
-// order them.
+// Hopper (sm_90a) building blocks of the tensor-core kernels (flash
+// forward, dq and dkv; the SSD backward): cp.async copies into
+// 128-byte-swizzled tiles, wgmma shared-memory descriptors, the wgmma
+// instructions themselves, and the fences that order them.
 //
 // Tile layout.  A (ROWS x DP) bf16 tile, DP a multiple of 64, is stored
 // as DP / 64 column blocks of ROWS rows x 128 bytes; in a block, the
@@ -14,13 +14,20 @@
 //   MN-major (the reduction runs down the rows, e.g. V in O = P V):
 //     start = tile + k * 2048 bytes (16 rows), SBO 1024 bytes between
 //     8-row groups, LBO ROWS * 128 bytes between 64-column blocks.
+// bf16 takes either for both operands: an A tile read MN-major is the
+// transpose of what it stores (the SSD backward's (e dy)^T).
+//
+// f32 operands.  A product whose operand is f32 takes it as bf16 parts,
+// x = p1 + p2 (+ p3), part k the bf16 of what parts 1 .. k-1 leave, and
+// sums the products of the parts into one accumulator: in shared memory
+// from load_split, in registers from peel_frags.
 //
 // Fragments.  The f32 accumulator of an m64nN wgmma gives thread t of the
 // warpgroup (warp w = t / 32, lane l = t % 32) the N / 2 values
 // d[4 j + i]: row 16 w + l / 4 + 8 (i / 2), column 8 j + 2 (l % 4) + i % 2.
 // A register A operand (m64k16, bf16) has the same rows and columns for
 // the 16 columns of one k-step, so an accumulator converts to A operands
-// in place (to_a_frags).
+// in place (peel_frags).
 //
 // PTX needs every accumulator register named in the instruction, hence
 // the long operand lists of the mma_* functions.
@@ -124,25 +131,103 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// An m64n(16 K) f32 accumulator as K register A operands of m64k16
-// products: `hi` rounded to bf16 and `lo` the rounding's remainder,
-// x - bf16(x), as a second bf16 operand (x = hi + lo to ~16 bits).
+// Byte offset of element (r, c) in a swizzled tile of ROWS rows.
+template <int ROWS>
+__device__ __forceinline__ uint32_t tile_off(int r, int c) {
+  return (c / 64) * (ROWS * 128) + r * 128 + ((((c % 64) / 8) ^ (r % 8)) << 4) + (c % 8) * 2;
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+// Elements (r, c) and (r, c + 1), c even, of a swizzled bf16 tile.
+__device__ __forceinline__ float2 ld_pair(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// BYTES contiguous bytes (a multiple of 16, 16-byte aligned) by cp.async:
+// a tile image written in the swizzled layout lands as that tile.
+template <int BYTES, int NTHREADS>
+__device__ __forceinline__ void copy_bytes(uint32_t dst, const void* src, int tid) {
+  static_assert(BYTES % (16 * NTHREADS) == 0, "16-byte chunks must divide over the threads");
+#pragma unroll 4
+  for (int i = tid; i < BYTES / 16; i += NTHREADS)
+    cp_async16(dst + 16 * i, static_cast<const uint8_t*>(src) + 16 * i, 16);
+}
+
+// Rows [row0, row0 + ROWS) of a (rows, W) f32 slice with row stride ss
+// into a plain row-major (ROWS x WP) f32 staging tile by cp.async; rows at
+// or past nrows and columns at or past W read as zero.  Needs 16-byte
+// aligned rows and W a multiple of 4.
+template <int ROWS, int W, int WP, int NTHREADS>
+__device__ __forceinline__ void load_rows_f32(uint32_t dst, const float* src, long long ss,
+                                              int row0, int nrows, int tid) {
+  constexpr int CPR = WP / 4;   // 16-byte chunks a row
+  static_assert((ROWS * CPR) % NTHREADS == 0, "tile chunks must divide over the threads");
+#pragma unroll
+  for (int n = 0; n < ROWS * CPR / NTHREADS; ++n) {
+    const int i = tid + n * NTHREADS, r = i / CPR, c = 4 * (i % CPR);
+    const bool ok = row0 + r < nrows && c < W;
+    cp_async16(dst + (r * WP + c) * 4, ok ? src + (long long)(row0 + r) * ss + c : src,
+               ok ? 16 : 0);
+  }
+}
+
+// Rows [row0, row0 + ROWS) of a (rows, W) f32 slice with row stride ss,
+// each row times scale(row), into PARTS consecutive swizzled (ROWS x WP)
+// bf16 tiles from `tiles` on: part 0 = bf16(x), part k = bf16 of what
+// parts 0 .. k - 1 leave, so two parts hold x to about 16 bits and three
+// to about 24.  Rows at or past nrows and columns at or past W are zero.
+// Needs 8-byte aligned rows; plain stores, so fence_async_smem and a
+// barrier follow before a wgmma reads the tiles.
+template <int ROWS, int W, int WP, int NTHREADS, int PARTS, typename Scale>
+__device__ __forceinline__ void load_split(uint32_t tiles, const float* src, long long ss,
+                                           int row0, int nrows, int tid, Scale scale) {
+  constexpr int PPR = WP / 2;   // column pairs a row
+#pragma unroll 4
+  for (int i = tid; i < ROWS * PPR; i += NTHREADS) {
+    const int r = i / PPR, c = 2 * (i % PPR);
+    float2 x = make_float2(0.f, 0.f);
+    if (row0 + r < nrows && c < W) {
+      x = *reinterpret_cast<const float2*>(src + (long long)(row0 + r) * ss + c);
+      const float f = scale(row0 + r);
+      x.x *= f;
+      x.y *= f;
+    }
+    const uint32_t off = tile_off<ROWS>(r, c);
+#pragma unroll
+    for (int k = 0; k < PARTS; ++k) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+      st_shared(tiles + k * (ROWS * WP * 2) + off, *reinterpret_cast<const uint32_t*>(&h));
+      x.x -= __low2float(h);
+      x.y -= __high2float(h);
+    }
+  }
+}
+
+// Peel one bf16 part off an m64n(16 K) f32 accumulator: f = bf16(d) as K
+// register A operands of m64k16 products, and d -= f.  Called two or
+// three times, it splits d into parts as load_split does.
 template <int K>
-__device__ __forceinline__ void to_a_frags(const float (&d)[8 * K], uint32_t (&hi)[K][4],
-                                           uint32_t (&lo)[K][4]) {
+__device__ __forceinline__ void peel_frags(float (&d)[8 * K], uint32_t (&f)[K][4]) {
 #pragma unroll
   for (int k = 0; k < K; ++k)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float x0 = d[8 * k + 2 * r], x1 = d[8 * k + 2 * r + 1];
+      float& x0 = d[8 * k + 2 * r];
+      float& x1 = d[8 * k + 2 * r + 1];
       const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-      hi[k][r] = *reinterpret_cast<const uint32_t*>(&h);
-      lo[k][r] = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+      f[k][r] = *reinterpret_cast<const uint32_t*>(&h);
+      x0 -= __low2float(h);
+      x1 -= __high2float(h);
     }
 }
 
-// D (64 x 64, f32) = D * scale_d + A (64 x 16) B (16 x 64); A and B bf16 in
-// shared memory through descriptors, both K-major.
+// D (64 x N, f32) = D * scale_d + A (64 x 16) B (16 x N); A and B bf16 in
+// shared memory through descriptors.  TA, TB: 0 K-major, 1 MN-major
+// (transposed; bf16 takes either for both operands).
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                           int scale_d) {
   asm volatile(
@@ -150,14 +235,47 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x N) += A (64 x 16) B (16 x N), both from shared memory, for N = 64
+// or 128.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 64) mma_ss_n64<TA, TB>(d, da, db, 1);
+  else mma_ss_n128<TA, TB>(d, da, db, 1);
 }
 
 // D (64 x 64, f32) += A (64 x 16) B (16 x 64); A bf16 in registers (the

@@ -4,7 +4,8 @@ plain versions (counterpart of ``repro/kernels/flash_attention_bwd.py``).
   * :func:`compute_delta` -- ``delta = rowsum(dO * O)`` (``csrc/flash_delta.cu``,
     replaces ``_delta_kernel``);
   * :func:`compute_dq` -- dQ over the visible kv tiles
-    (``csrc/flash_dq.cu``, replaces ``_dq_kernel``);
+    (``csrc/flash_dq.cu``, replaces ``_dq_kernel``; in bf16 on the tensor
+    cores);
   * :func:`compute_dkv` -- dK, dV per kv head, summed over the GQA group's
     q heads and the visible q tiles and written once
     (``csrc/flash_dkv.cu``, replaces ``_dkv_kernel``; in bf16 on the
@@ -141,6 +142,8 @@ def compute_dq(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
         return dq_plain(qt, kt, vt, dot_, lse, delta, causal=causal,
                         window=window)
     dtype = kernel_dtype_code(qt, D)
+    if qt.dtype == torch.bfloat16:
+        check_aligned(qt, kt, vt, dot_)
     dq = empty_kernel_layout(B, H, Sq, D, qt)
     fn = _build.function("flash_dq", "flash_dq", _DQ_ARGTYPES)
     code = fn(dtype, D, qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),

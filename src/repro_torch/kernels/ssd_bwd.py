@@ -4,8 +4,11 @@ their plain versions (counterpart of ``repro/kernels/ssd_bwd.py``).
   * :func:`fwd_res_kernel_layout` -- the forward that also records the
     (P, N) state entering each chunk (``csrc/ssd_fwd.cu`` entry
     ``ssd_fwd_res``, replaces ``_fwd_res_kernel``);
-  * :func:`bwd_kernel_layout` -- the reverse-chunk backward carrying the
-    state adjoint dS (``csrc/ssd_bwd.cu``, replaces ``_bwd_kernel``).
+  * :func:`bwd_kernel_layout` -- the backward (``csrc/ssd_bwd.cu``,
+    replaces ``_bwd_kernel``).  In f32 one block per (batch, head) walks
+    the chunks in reverse carrying the state adjoint dS; in bf16 the walk
+    is split into chunk-parallel phases on the tensor cores, which
+    :func:`bwd_chunk_parallel_plain` spells out.
 
 Per chunk, with e = exp(csum), alpha = e[-1], d = exp(csum[-1] - csum),
 G = (c b^T) * L and the state S_in entering the chunk, given (dy, dS_out):
@@ -122,7 +125,69 @@ def bwd_plain(x: Tensor, dA: Tensor, b: Tensor, c: Tensor,
             unchunk(dc, S))
 
 
-_BWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 11
+def bwd_chunk_parallel_plain(x: Tensor, dA: Tensor, b: Tensor, c: Tensor,
+                             chunk_states: Tensor, dy: Tensor,
+                             dstate: Tensor, *, chunk: int
+                             ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The phases the bf16 backward kernels run, in plain f32 (the
+    counterpart of ``bwd_u_kernel``, ``bwd_state_kernel``,
+    ``bwd_chunk_kernel`` and ``bwd_ddA_kernel``; nothing calls it on the
+    main path):
+
+      1. each chunk's term of the dS recurrence, U_c = (e_c dy_c)^T c_c;
+      2. the reverse state pass, the only step sequential over chunks:
+         dS_out[nc-1] = dstate, dS_out[c-1] = alpha_c dS_out[c] + U_c;
+      3. every chunk's outputs at once, from its S_in and dS_out;
+      4. ddA, the chunk-local reverse cumsum (float64, rounded once).
+
+    Same returns as :func:`bwd_plain`."""
+    Bb, S, H, P, N = check_layout(x, dA, b, c)
+    xc, bc, cc, dyc = (chunked(t, chunk) for t in (x, b, c, dy))
+    csum = chunk_csum(chunked(dA, chunk))                   # (B,nc,Q,H)
+    e = torch.exp(csum)
+    d = torch.exp(csum[:, :, -1:] - csum)
+    alpha = e[:, :, -1]                                     # (B,nc,H)
+    U = torch.einsum("bcih,bcihp,bcihn->bchpn", e, dyc, cc)
+    carry, ds_out = dstate.float(), []
+    for k in reversed(range(xc.shape[1])):
+        ds_out.append(carry)
+        carry = alpha[:, k, :, None, None] * carry + U[:, k]
+    ds = torch.stack(ds_out[::-1], dim=1)                   # (B,nc,H,P,N)
+    s_in = chunk_states.float().transpose(1, 2)             # (B,nc,H,P,N)
+    L = decay_matrix(csum)
+    G = torch.einsum("bcihn,bcjhn->bcijh", cc, bc) * L
+    M = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc) * L
+    T = M * torch.einsum("bcihn,bcjhn->bcijh", cc, bc)      # dG * G
+    dy_s = torch.einsum("bcihp,bchpn->bcihn", dyc, s_in)
+    x_ds = torch.einsum("bcjhp,bchpn->bcjhn", xc, ds)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", G, dyc) + d[..., None] * \
+        torch.einsum("bcjhn,bchpn->bcjhp", bc, ds)
+    dc = torch.einsum("bcijh,bcjhn->bcihn", M, bc) + e[..., None] * dy_s
+    db = torch.einsum("bcijh,bcihn->bcjhn", M, cc) + d[..., None] * x_ds
+    s_term = (bc * x_ds).sum(dim=-1) * d                    # (B,nc,Q,H)
+    dcsum = T.sum(dim=3) - T.sum(dim=2) + e * (cc * dy_s).sum(dim=-1) \
+        - s_term
+    dcsum[:, :, -1] += alpha * (ds * s_in).sum(dim=(-2, -1)) \
+        + s_term.sum(dim=2)
+    rev = torch.flip(torch.cumsum(torch.flip(dcsum.double(), (2,)), dim=2),
+                     (2,)).float()
+    return (unchunk(dx, S), unchunk(rev, S), unchunk(db, S),
+            unchunk(dc, S))
+
+
+def check_aligned(x: Tensor, b: Tensor, c: Tensor, dy: Tensor) -> None:
+    """The bf16 backward copies 16-byte chunks of x, b, c (bf16) and dy
+    (f32): each must start 16-byte aligned, with batch, sequence and head
+    strides that are multiples of 16 bytes.  Raises otherwise."""
+    for t in (x, b, c, dy):
+        mult = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % mult for st in strides3(t)):
+            raise ValueError("the bf16 SSD backward needs x, b, c and dy "
+                             "16-byte aligned with batch, sequence and head "
+                             "strides that are multiples of 16 bytes")
+
+
+_BWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 14
                  + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 27
                  + [ctypes.c_void_p])
 
@@ -155,11 +220,23 @@ def bwd_kernel_layout(x: Tensor, dA: Tensor, b: Tensor, c: Tensor,
     ddA = torch.empty((Bb, S, H), **f32)
     db = torch.empty((Bb, S, H, N), **f32)
     dc = torch.empty((Bb, S, H, N), **f32)
+    u_scr = img_scr = rows_scr = None
+    if x.dtype == torch.bfloat16:   # the chunk-parallel kernels' scratch
+        check_aligned(x, b, c, dy)
+        u_scr = torch.empty((Bb, H, nc, P, N), **f32)
+        # S_in and dS_out, two bf16 parts each, as 64 x max(N, 64) tiles
+        img_scr = torch.empty(Bb * H * nc * 4 * 64 * max(N, 64),
+                              dtype=torch.bfloat16, device=x.device)
+        rows_scr = torch.empty(
+            Bb * H * nc * (2 * chunk + 4 + -(-P * N // 512)), **f32)
     fn = _build.function("ssd_bwd", "ssd_bwd", _BWD_ARGTYPES)
     code = fn(dtype, P, N, x.data_ptr(), dA.data_ptr(), b.data_ptr(),
               c.data_ptr(), chunk_states.data_ptr(), dy.data_ptr(),
               dstate.data_ptr(), dx.data_ptr(), ddA.data_ptr(), db.data_ptr(),
-              dc.data_ptr(), Bb, S, H, chunk, *strides3(x), *strides3(dA),
+              dc.data_ptr(),
+              *(None if t is None else t.data_ptr()
+                for t in (u_scr, img_scr, rows_scr)),
+              Bb, S, H, chunk, *strides3(x), *strides3(dA),
               *strides3(b), *strides3(c), *strides3(dy), *strides3(dx),
               *strides3(ddA), *strides3(db), *strides3(dc),
               _build.stream_of(x))

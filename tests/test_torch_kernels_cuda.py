@@ -128,6 +128,66 @@ def test_dkv_is_deterministic(cuda, H, K, D):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,window", [
+    (1, 100, 200, 4, 2, 128, False, 0),    # ragged, Sq != Sk
+    (2, 200, 200, 4, 1, 128, True, 0),     # ragged S
+    (1, 256, 256, 8, 1, 128, True, 0),     # GQA, G 8
+    (1, 320, 320, 10, 1, 256, True, 100),  # MQA, G 10; the window crosses tiles
+    (2, 192, 192, 4, 2, 64, False, 0),     # non-causal
+    (2, 200, 200, 4, 1, 256, True, 0),     # D 256, ragged
+    (1, 100, 200, 2, 1, 256, False, 0),    # D 256, Sq != Sk
+    (1, 128, 128, 4, 4, 16, True, 0),      # D 16, zero-padded to 64
+])
+def test_dq_tensor_core_kernel_at_the_edges(cuda, B, Sq, Sk, H, K, D, causal,
+                                            window):
+    """The bf16 dq (wgmma) where tiles are partly masked or cut by the
+    sequence's end, against dq_plain; also on the forward's own outputs."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    q, k, v, do = mk(B, Sq, H, D), mk(B, Sk, K, D), mk(B, Sk, K, D), \
+        mk(B, Sq, H, D)
+    qt, kt, vt, dot_ = (x.transpose(1, 2) for x in (q, k, v, do))
+    kw = dict(causal=causal, window=window)
+    ot_p, lse_p = fa.fwd_plain(qt, kt, vt, with_lse=True, **kw)
+    delta_p = fab.delta_plain(ot_p, dot_)
+    want = fab.dq_plain(qt, kt, vt, dot_, lse_p, delta_p, **kw)
+    n = fab.compute_dq.launches
+    _close(fab.compute_dq(qt, kt, vt, dot_, lse_p, delta_p, **kw), want)
+    assert fab.compute_dq.launches == n + 1
+    ot, lse = fa.fwd_kernel_layout(qt, kt, vt, with_lse=True, **kw)
+    _close(fab.bwd_kernel_layout(qt, kt, vt, ot, lse, dot_, **kw)[0], want)
+
+
+@pytest.mark.parametrize("H,K,D,window", [(8, 1, 128, 0), (10, 1, 256, 0),
+                                          (4, 2, 64, 96)])
+def test_dq_is_deterministic(cuda, H, K, D, window):
+    """One owner per dQ row, no atomics: two calls give equal bits."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    B, S = 1, 512
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(
+        torch.bfloat16).transpose(1, 2)
+    qt, kt, vt, dot_ = mk(B, S, H, D), mk(B, S, K, D), mk(B, S, K, D), \
+        mk(B, S, H, D)
+    ot, lse = fa.fwd_kernel_layout(qt, kt, vt, with_lse=True, window=window)
+    delta = fab.compute_delta(ot, dot_)
+    first = fab.compute_dq(qt, kt, vt, dot_, lse, delta, window=window)
+    again = fab.compute_dq(qt, kt, vt, dot_, lse, delta, window=window)
+    assert torch.equal(first, again)
+
+
+def test_dq_refuses_misaligned_operands(cuda):
+    """The bf16 dq copies 16-byte chunks: an operand whose data does not
+    start 16-byte aligned raises before anything launches."""
+    buf = torch.randn(1 + 64 * 2 * 64, device=cuda).to(torch.bfloat16)
+    bad = buf[1:].view(1, 64, 2, 64).transpose(1, 2)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    n = fab.compute_dq.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fab.compute_dq(bad, bad, bad, bad, lse, lse)
+    assert fab.compute_dq.launches == n
+
+
 def test_tensor_core_kernels_refuse_misaligned_operands(cuda):
     """The bf16 kernels copy 16-byte chunks: an operand whose data does
     not start 16-byte aligned raises before anything launches."""
@@ -219,6 +279,57 @@ def test_ssd_kernels_refuse_other_shapes(cuda, P, N, chunk, dtype):
     with pytest.raises(ValueError, match="SSD kernels take"):
         ops.ssd(x.requires_grad_(True), dA, b, c, chunk=chunk)
     assert ssd.ssd_fwd_kernel_layout.launches == n
+
+
+def _ssd_bwd_inputs(cuda, dtype, B, S, H, P, N, chunk, grouped, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    x = mk(B, S, H, P).to(dtype)
+    dA = -(torch.rand((B, S, H), generator=gen, device=cuda) * 1.95 + 0.05)
+    heads = 1 if grouped else H
+    b, c = (mk(B, S, heads, N).to(dtype).expand(B, S, H, N) for _ in "bc")
+    dy, dstate = mk(B, S, H, P), mk(B, H, P, N)
+    _, _, cs = ssd_bwd.fwd_res_kernel_layout(x, dA, b, c, chunk=chunk)
+    return x, dA, b, c, cs, dy, dstate
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,grouped", [
+    (2, 600, 3, 64, 128, 256, True),    # the main shape's widths, ragged
+    (1, 130, 2, 64, 128, 64, False),    # several chunks, short last one
+    (2, 100, 3, 16, 16, 32, True),      # reduced widths, ragged
+])
+def test_ssd_bwd_matches_plain_and_is_deterministic(cuda, dtype, B, S, H, P,
+                                                    N, chunk, grouped):
+    """The backward (bf16: the chunk-parallel tensor-core kernels; f32: the
+    reverse walk) against bwd_plain and against the plain chunk-parallel
+    decomposition, with a non-zero dstate; two calls give equal bits."""
+    args = _ssd_bwd_inputs(cuda, dtype, B, S, H, P, N, chunk, grouped, 11)
+    n = ssd_bwd.bwd_kernel_layout.launches
+    got = ssd_bwd.bwd_kernel_layout(*args, chunk=chunk)
+    again = ssd_bwd.bwd_kernel_layout(*args, chunk=chunk)
+    assert ssd_bwd.bwd_kernel_layout.launches == n + 2
+    want = ssd_bwd.bwd_plain(*args, chunk=chunk)
+    phases = ssd_bwd.bwd_chunk_parallel_plain(*args, chunk=chunk)
+    for g, a, w, p in zip(got, again, want, phases):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, a)
+        assert _rel_err(g, w) <= 1e-5
+        assert _rel_err(g, p) <= 1e-5
+
+
+def test_ssd_bwd_refuses_misaligned_operands(cuda):
+    """The bf16 backward copies 16-byte chunks: x starting off a 16-byte
+    boundary raises before anything launches."""
+    B, S, H, P, N = 1, 64, 2, 16, 16
+    args = list(_ssd_bwd_inputs(cuda, torch.bfloat16, B, S, H, P, N, 32,
+                                False, 12))
+    buf = torch.zeros(1 + B * S * H * P, device=cuda, dtype=torch.bfloat16)
+    args[0] = buf[1:].view(B, S, H, P)
+    n = ssd_bwd.bwd_kernel_layout.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_bwd.bwd_kernel_layout(*args, chunk=32)
+    assert ssd_bwd.bwd_kernel_layout.launches == n
 
 
 def test_ssd_autograd_on_the_card_matches_the_cpu(cuda):

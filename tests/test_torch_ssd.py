@@ -121,6 +121,36 @@ def test_backward_plain_matches_pallas(B, S, H, P, N, chunk):
         _rel_close(g, w, F32_TOL)
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 64, 3, 8, 4, 16),
+    (2, 50, 2, 4, 3, 16),
+    (1, 10, 2, 8, 8, 16),
+    (1, 96, 2, 16, 16, 32),
+    (1, 600, 2, 16, 16, 256),       # the main path's chunk, ragged
+])
+def test_chunk_parallel_plain_matches_bwd_plain_and_pallas(B, S, H, P, N,
+                                                           chunk):
+    """The chunk-parallel phases the bf16 kernels run (per-chunk U, the
+    reverse state pass, per-chunk outputs), in plain PyTorch, against the
+    reverse walk of bwd_plain and the Pallas _bwd_kernel, with a non-zero
+    final-state cotangent."""
+    x, dA, b, c, dy, dst = _inputs(B, S, H, P, N, seed=5)
+    assert np.abs(dst).max() > 0
+    want = _pallas_run(B, S, H, P, N, chunk, x, dA, b, c, dy, dst)
+    T = torch.from_numpy
+    _, _, cs = ssd_bwd.fwd_res_plain(T(x), T(dA), T(b), T(c), chunk=chunk)
+    args = (T(x), T(dA), T(b), T(c), cs, T(dy), T(dst))
+    got = ssd_bwd.bwd_chunk_parallel_plain(*args, chunk=chunk)
+    walk = ssd_bwd.bwd_plain(*args, chunk=chunk)
+    pallas_tol = CHUNK256_TOL if chunk == 256 else F32_TOL
+    for name, g, r, w in zip(("dx", "ddA", "db", "dc"), got, walk,
+                             want["grads"]):
+        w = w[..., 0] if name == "ddA" else w
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
+        _rel_close(g, r, F32_TOL)
+        _rel_close(g, w, pallas_tol)
+
+
 def _oracle64(x, dA, b, c, dy, dst, chunk):
     """The sequential recurrence in float64: y, the final state, the state
     entering each chunk, and by autograd the gradients of
