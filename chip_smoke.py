@@ -7,9 +7,9 @@ Phases, each printing a line; any failure exits non-zero:
   1. the device (nvidia-smi name and power limit, torch and CUDA versions);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds), print
      the registers and spills (``nvcc -Xptxas -v``) of each kernel of the
-     flash forward, dq, dkv and SSD backward libraries and count the
-     tensor-core instructions (HGMMA, HMMA) that ``cuobjdump -sass`` finds
-     in each of those four: none fails;
+     flash forward, dq, dkv, SSD forward and SSD backward libraries and
+     count the tensor-core instructions (HGMMA, HMMA) that ``cuobjdump
+     -sass`` finds in each of those five: none fails;
   3. each attention kernel against its plain PyTorch version on the same
      inputs: at the yi-6b main-path shape (B 2, S 2048, H 32, K 4, D 128,
      causal, bf16), a sliding-window case and a ragged Sq != Sk case, at
@@ -22,11 +22,12 @@ Phases, each printing a line; any failure exits non-zero:
      main-path shapes;
   3b. the same for the SSD kernels: at the mamba2-2.7b main-path shape
      (B 2, S 2048, H 80, P 64, N 128, chunk 256, bf16 x/B/C with B and C
-     broadcast over heads, f32 dA), an f32 reduced case and ragged cases,
-     then the backward kernel on the forward-with-residuals kernel's own
-     chunk states against the plain chain, two backward calls bitwise
-     equal, and the backward's four chunk-parallel kernels timed apart
-     (``torch.profiler``);
+     broadcast over heads, f32 dA), f32 reduced and ragged cases and bf16
+     ragged and reduced-width cases, then the backward kernel on the
+     forward-with-residuals kernel's own chunk states against the plain
+     chain, two calls of each kernel bitwise equal, and the chunk-parallel
+     kernels of the two forwards (three each) and of the backward (four)
+     timed apart (``torch.profiler``);
   3c. the same for the RG-LRU kernels: at the recurrentgemma-2b main-path
      shape (B 2, S 2048, W 2560, f32) and a ragged one (S 600, W 64), then
      the backward kernel on the forward kernel's own output;
@@ -92,6 +93,10 @@ SSD_CASES = {
                    grouped=True),
     "short": dict(B=2, S=100, H=4, P=16, N=16, chunk=256, dtype="float32",
                   grouped=False),
+    "bf16_ragged": dict(B=1, S=600, H=4, P=64, N=128, chunk=256,
+                        dtype="bfloat16", grouped=True),
+    "bf16_reduced": dict(B=2, S=100, H=8, P=16, N=16, chunk=32,
+                         dtype="bfloat16", grouped=False),
 }
 # RG-LRU cases (B, S, W); a ~ U(0.1, 0.999), b ~ N(0, 1) as in
 # tests/test_kernel_grads.py
@@ -208,7 +213,8 @@ def _kernel_label(mangled: str) -> str:
     return f"{name}<{','.join(label)}>"
 
 
-TENSOR_CORE_LIBS = ("flash_fwd", "flash_dq", "flash_dkv", "ssd_bwd")
+TENSOR_CORE_LIBS = ("flash_fwd", "flash_dq", "flash_dkv", "ssd_fwd",
+                    "ssd_bwd")
 
 
 def phase_tensor_cores() -> dict:
@@ -488,10 +494,10 @@ def check_rel(name: str, got, want) -> float:
     return max(e[0] for e in errs)
 
 
-def ssd_bwd_phases(kern, iters: int = 5) -> dict:
-    """The device ms of each CUDA kernel one ``ssd_bwd`` call launches
-    (the bf16 path's four phases), averaged over ``iters`` calls traced
-    with ``torch.profiler``."""
+def ssd_phases(kern, iters: int = 5) -> dict:
+    """The device ms of each CUDA kernel one call of an SSD wrapper
+    launches (the bf16 path's chunk-parallel phases), averaged over
+    ``iters`` calls traced with ``torch.profiler``."""
     import torch
     kern()
     torch.cuda.synchronize()
@@ -506,7 +512,7 @@ def ssd_bwd_phases(kern, iters: int = 5) -> dict:
         if m and ev.device_time_total > 0:
             out[m.group(1)] = round(ev.device_time_total / iters / 1e3, 4)
     if not out:
-        raise AssertionError("the profiler saw no ssd_bwd kernel on the card")
+        raise AssertionError("the profiler saw no SSD kernel on the card")
     return out
 
 
@@ -540,14 +546,18 @@ def phase_ssd_kernels():
                                  "ms": time_ms(kern, iters=5),
                                  "plain_ms": time_ms(plain, iters=3, warmup=1),
                                  "library_ms": None}
-        # one owner per output, fixed-order sums: two backward calls agree
-        first, again = runs["ssd_bwd"][0](), runs["ssd_bwd"][0]()
-        if not all(torch.equal(a, b) for a, b in zip(first, again)):
-            raise AssertionError(f"{case}: two ssd_bwd calls differ")
+        # one owner per output, fixed-order sums: two calls agree
+        for name, (kern, _) in runs.items():
+            first, again = kern(), kern()
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"{case}: two {name} calls differ")
+        log(f"[kernels] {case:24s} two calls of each of {list(runs)} "
+            f"bitwise equal")
         if case == "main":
-            records["_ssd_bwd_phase_ms"] = ssd_bwd_phases(runs["ssd_bwd"][0])
-            log(f"[kernels] main   ssd_bwd by phase (ms): "
-                f"{records['_ssd_bwd_phase_ms']}")
+            for name, (kern, _) in runs.items():
+                records[f"_{name}_phase_ms"] = ssd_phases(kern)
+                log(f"[kernels] main   {name} by phase (ms): "
+                    f"{records[f'_{name}_phase_ms']}")
         # the chain the main path runs: the backward kernel on the forward
         # kernel's own chunk states, against the plain chain
         y_k, st_k, cs_k = ssd_bwd.fwd_res_kernel_layout(x, dA, b, cm, chunk=Q)
@@ -781,7 +791,9 @@ def main() -> int:
                     "dkv_ms_by_head_split": {
                         TIMED[c]: t["_dkv_ms_by_split"]
                         for c, t in timed.items()},
-                    "ssd_bwd_phase_ms": records["_ssd_bwd_phase_ms"],
+                    "ssd_phase_ms": {
+                        n: records[f"_{n}_phase_ms"]
+                        for n in ("ssd_fwd", "ssd_fwd_res", "ssd_bwd")},
                     "tensor_core_sass": tensor_cores}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

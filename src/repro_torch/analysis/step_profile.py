@@ -10,9 +10,9 @@ cycle, then traces one step at each depth of the next cycle with
 ``torch.profiler``.  For each depth it prints the step's host time, the
 device's busy time (the union of kernel intervals in the trace), the
 idle share, the peak memory, and the kernel time by class: the port's
-kernels (four attention, three SSD, two RG-LRU), matrix products, and
-everything else, with the largest kernels of the last class.  Needs a
-card.
+kernels (four attention, three SSD, two RG-LRU; in bf16 the two SSD
+forwards share one class), matrix products, and everything else, with
+the largest kernels of the last class.  Needs a card.
 """
 from __future__ import annotations
 
@@ -25,18 +25,21 @@ from collections import defaultdict
 import torch
 
 ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
-# (class, substrings a kernel's name holds): the forward-with-residuals
-# SSD scan is the forward template instantiated with RES = true; the flash
-# forward, dq and dkv classes take their f32 and bf16 (wgmma) kernels, and
-# dkv also the reduction pass of its head split; the SSD backward class
-# takes the f32 reverse walk and the four chunk-parallel bf16 kernels
-# (bwd_u_, bwd_state_, bwd_chunk_ and bwd_ddA_kernel)
+# (class, substrings a kernel's name holds): the flash forward, dq and dkv
+# classes take their f32 and bf16 (wgmma) kernels, and dkv also the
+# reduction pass of its head split; the f32 forward-with-residuals SSD
+# walk is the forward template instantiated with RES = true, while the two
+# bf16 forwards (ssd_fwd in the frozen prefix, ssd_fwd_res in the suffix)
+# share their three chunk-parallel kernels (fwd_u_, fwd_state_ and
+# fwd_chunk_kernel), so both land in the ssd_fwd class; the SSD backward
+# class takes the f32 reverse walk and the four chunk-parallel bf16
+# kernels (bwd_u_, bwd_state_, bwd_chunk_ and bwd_ddA_kernel)
 CLASSES = (("flash_fwd", ("flash::fwd_",)),
            ("flash_delta", ("flash::delta_kernel",)),
            ("flash_dq", ("flash::dq_",)),
            ("flash_dkv", ("flash::dkv_",)),
            ("ssd_fwd_res", ("ssd::fwd_kernel", "true>")),
-           ("ssd_fwd", ("ssd::fwd_kernel",)),
+           ("ssd_fwd", ("ssd::fwd_",)),
            ("ssd_bwd", ("ssd::bwd_",)),
            ("rglru_fwd", ("rglru::fwd_kernel",)),
            ("rglru_bwd", ("rglru::bwd_kernel",)))

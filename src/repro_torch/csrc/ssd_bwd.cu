@@ -301,16 +301,6 @@ struct BwdScratch {
   uint8_t* img;   // (B*H, nc, [S_in, dS_out], 2 parts): swizzled 64 x NN bf16 tiles
 };
 
-// The two bf16 parts of (x0, x1) into two tile images `part` bytes apart,
-// at byte offset off.
-__device__ __forceinline__ void put_parts(uint8_t* img, int part, uint32_t off, float x0,
-                                          float x1) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  *reinterpret_cast<__nv_bfloat162*>(img + off) = h;
-  *reinterpret_cast<__nv_bfloat162*>(img + part + off) =
-      __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
-}
-
 template <int P, int N>
 struct BwdTC {
   static constexpr int NP = P < 64 ? 64 : P;   // tile widths: one swizzle row at least
@@ -388,8 +378,8 @@ __global__ void __launch_bounds__(128) bwd_u_kernel(BwdArgs a, BwdScratch z) {
     for (int i = tid; i < R * C::NN / 2; i += 128) {
       const int r = i / (C::NN / 2), c = 2 * (i % (C::NN / 2));
       if (r >= P || c >= N) {
-        put_parts(img, C::BT, wg::tile_off<R>(r, c), 0.f, 0.f);
-        put_parts(img + 2 * C::BT, C::BT, wg::tile_off<R>(r, c), 0.f, 0.f);
+        wg::put_parts<2>(img, C::BT, wg::tile_off<R>(r, c), 0.f, 0.f);
+        wg::put_parts<2>(img + 2 * C::BT, C::BT, wg::tile_off<R>(r, c), 0.f, 0.f);
       }
     }
   }
@@ -474,10 +464,10 @@ __global__ void __launch_bounds__(128) bwd_state_kernel(BwdArgs a, BwdScratch z)
       const long long ci = (long long)bh * nc + k0 - j;
       if (on) {   // S_in's and dS_out's two bf16 parts
         uint8_t* img = z.img + ci * 4 * C::BT;
-        put_parts(img, C::BT, off, si[j].x, si[j].y);
-        put_parts(img, C::BT, off + 4, si[j].z, si[j].w);
-        put_parts(img + 2 * C::BT, C::BT, off, carry.x, carry.y);
-        put_parts(img + 2 * C::BT, C::BT, off + 4, carry.z, carry.w);
+        wg::put_parts<2>(img, C::BT, off, si[j].x, si[j].y);
+        wg::put_parts<2>(img, C::BT, off + 4, si[j].z, si[j].w);
+        wg::put_parts<2>(img + 2 * C::BT, C::BT, off, carry.x, carry.y);
+        wg::put_parts<2>(img + 2 * C::BT, C::BT, off + 4, carry.z, carry.w);
       }
       float s = carry.x * si[j].x + carry.y * si[j].y + carry.z * si[j].z + carry.w * si[j].w;
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);

@@ -7,9 +7,11 @@
 // states -- final (B, H, P, N), per chunk (B, H, nc, P, N), their
 // cotangents -- are contiguous float32.
 //
-// One block of NT = 256 threads owns one (batch, head) and walks its
-// chunks of Q <= 256 positions in order (the TPU grid's "arbitrary"
-// axis), with the (P, N) state in shared memory.  Inside a chunk, work is
+// The f32 kernels: one block of NT = 256 threads owns one (batch, head)
+// and walks its chunks of Q <= 256 positions in order (the TPU grid's
+// "arbitrary" axis), with the (P, N) state in shared memory.  (The bf16
+// kernels are chunk-parallel on the tensor cores; see ssd_fwd.cu and
+// ssd_bwd.cu.)  Inside a chunk, work is
 // cut into 64-row slabs and 64 x 64 tiles.  Thread t has ty = t / 16,
 // tx = t % 16; in a 64-row tile it holds rows ty + 16 i (i < 4) and
 // columns tx + 16 j, so the 16 lanes of a half-warp share a row and a row

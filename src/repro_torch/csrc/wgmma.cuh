@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels (flash
-// forward, dq and dkv; the SSD backward): cp.async copies into
+// forward, dq and dkv; the SSD forward and backward): cp.async copies into
 // 128-byte-swizzled tiles, wgmma shared-memory descriptors, the wgmma
 // instructions themselves, and the fences that order them.
 //
@@ -20,7 +20,9 @@
 // f32 operands.  A product whose operand is f32 takes it as bf16 parts,
 // x = p1 + p2 (+ p3), part k the bf16 of what parts 1 .. k-1 leave, and
 // sums the products of the parts into one accumulator: in shared memory
-// from load_split, in registers from peel_frags.
+// from load_split (f32 rows) or split_tile (a bf16 tile times a row
+// scale), in device memory as tile images from put_parts, in registers
+// from peel_frags.
 //
 // Fragments.  The f32 accumulator of an m64nN wgmma gives thread t of the
 // warpgroup (warp w = t / 32, lane l = t % 32) the N / 2 values
@@ -203,6 +205,46 @@ __device__ __forceinline__ void load_split(uint32_t tiles, const float* src, lon
       x.x -= __low2float(h);
       x.y -= __high2float(h);
     }
+  }
+}
+
+// The swizzled (ROWS x WP) bf16 tile at src, each row r times scale(r),
+// into PARTS consecutive tiles of the same layout from dst on, split as
+// load_split splits.  Plain stores, so fence_async_smem and a barrier
+// follow before a wgmma reads the parts.
+template <int ROWS, int WP, int NTHREADS, int PARTS, typename Scale>
+__device__ __forceinline__ void split_tile(uint32_t dst, uint32_t src, int tid, Scale scale) {
+  constexpr int PPR = WP / 2;   // column pairs a row
+#pragma unroll 4
+  for (int i = tid; i < ROWS * PPR; i += NTHREADS) {
+    const int r = i / PPR;
+    const uint32_t off = tile_off<ROWS>(r, 2 * (i % PPR));
+    float2 x = ld_pair(src + off);
+    const float f = scale(r);
+    x.x *= f;
+    x.y *= f;
+#pragma unroll
+    for (int k = 0; k < PARTS; ++k) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+      st_shared(dst + k * (ROWS * WP * 2) + off, *reinterpret_cast<const uint32_t*>(&h));
+      x.x -= __low2float(h);
+      x.y -= __high2float(h);
+    }
+  }
+}
+
+// (x0, x1) as PARTS bf16 parts, split as load_split splits, into tile
+// images in device memory `stride` bytes apart, at byte offset off of
+// each: images that a block later copies into shared memory as they are.
+template <int PARTS>
+__device__ __forceinline__ void put_parts(uint8_t* img, int stride, uint32_t off, float x0,
+                                          float x1) {
+#pragma unroll
+  for (int k = 0; k < PARTS; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    *reinterpret_cast<__nv_bfloat162*>(img + k * stride + off) = h;
+    x0 -= __low2float(h);
+    x1 -= __high2float(h);
   }
 }
 

@@ -69,7 +69,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     spb_cfg: Optional[SPBConfig] = None, *,
                     depth: Optional[int] = None) -> Callable:
     """A (state, batch) -> (state, metrics) step at SPB suffix ``depth``
-    (None = full backprop).  The state is updated in place."""
+    (None = full backprop).  The state is updated in place.  Raises
+    ``NotImplementedError`` for gradient compression, which is not ported:
+    training on uncompressed gradients would silently differ from the
+    reference."""
+    if tcfg.compression != "none":
+        raise NotImplementedError(
+            f"TrainConfig.compression={tcfg.compression!r} is not ported: "
+            f"the step would have to match repro.core.compress.compress_tree "
+            f"applied before the optimizer (ROADMAP.md Queue 1 item 7); "
+            f"only 'none' is supported")
 
     def step(state: State, batch) -> Tuple[State, Dict[str, torch.Tensor]]:
         m = max(1, tcfg.microbatches)

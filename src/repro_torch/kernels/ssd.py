@@ -1,14 +1,19 @@
-"""Mamba-2 SSD chunked scan, forward: the Hopper kernel's wrapper and its
-plain version (counterpart of ``repro/kernels/ssd.py``).
+"""Mamba-2 SSD chunked scan, forward: the Hopper kernels' wrapper and its
+plain versions (counterpart of ``repro/kernels/ssd.py``).
 
-The kernel (``csrc/ssd_fwd.cu``, entry ``ssd_fwd``) replaces the Pallas
-``_ssd_kernel``: one block per (batch, head) walks the chunks in order
-with the (P, N) state in shared memory.  Within a chunk of Q positions,
-with csum = cumsum(dA) restarting at every chunk:
+The kernels (``csrc/ssd_fwd.cu``, entry ``ssd_fwd``) replace the Pallas
+``_ssd_kernel``.  Within a chunk of Q positions, with csum = cumsum(dA)
+restarting at every chunk:
 
     L[i,j] = exp(csum_i - csum_j) for i >= j, else 0
     y      = ((c b^T) * L) x + exp(csum)[:,None] * (c S^T)
     S'     = exp(csum[-1]) S + x^T (b * exp(csum[-1] - csum)[:,None])
+
+In f32 one block per (batch, head) walks the chunks in order with the
+(P, N) state in shared memory.  In bf16 the walk is split into
+chunk-parallel phases on the tensor cores, which
+:func:`fwd_chunk_parallel_plain` spells out: each chunk's term of the
+state recurrence, the state pass, then every chunk's outputs at once.
 
 Layout: the public (B, S, H, .) tensors go in as they are, addressed by
 their batch, sequence and head strides (unit stride on the last dim), so
@@ -18,12 +23,13 @@ missing positions count as zero inputs with zero log-decay (the JAX op's
 padding convention), so no padding is materialized.
 
 Rounding: csum is accumulated in float64 and rounded once to float32, in
-the kernel and in the plain version alike, so both build the same decay
+the kernels and in the plain versions alike, so both build the same decay
 matrix.  (A float32 running sum over a 256-long chunk drifts by ~1e-4 at
 |csum| ~ 250, which would move ``L`` near the diagonal by as much.)
 
 Dispatch: a CPU tensor takes :func:`ssd_fwd_plain`; a CUDA tensor launches
-the kernel or raises.  ``ssd_fwd_kernel_layout.launches`` counts launches.
+the kernels or raises.  ``ssd_fwd_kernel_layout.launches`` counts calls
+that launched them.
 """
 from __future__ import annotations
 
@@ -92,6 +98,18 @@ def n_chunks(S: int, chunk: int) -> int:
     return -(-S // chunk)
 
 
+def check_aligned(kernel: str, **ts: Tensor) -> None:
+    """The bf16 kernels copy 16-byte chunks of their operands: each must
+    start 16-byte aligned, with batch, sequence and head strides that are
+    multiples of 16 bytes.  Raises otherwise."""
+    for t in ts.values():
+        mult = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % mult for st in strides3(t)):
+            raise ValueError(f"the bf16 SSD {kernel} needs {', '.join(ts)} "
+                             f"16-byte aligned with batch, sequence and head "
+                             f"strides that are multiples of 16 bytes")
+
+
 # ---------------------------------------------------------------------------
 # Plain version (shared with ssd_bwd)
 # ---------------------------------------------------------------------------
@@ -152,27 +170,75 @@ def ssd_fwd_plain(x: Tensor, dA: Tensor, b: Tensor, c: Tensor, *,
     return y, state
 
 
+def fwd_chunk_parallel_plain(x: Tensor, dA: Tensor, b: Tensor, c: Tensor, *,
+                             chunk: int, with_states: bool = False):
+    """The phases the bf16 forward kernels run, in plain f32 (the
+    counterpart of ``fwd_u_kernel``, ``fwd_state_kernel`` and
+    ``fwd_chunk_kernel``; nothing calls it on the main path):
+
+      1. each chunk's term of the state recurrence,
+         U_k = (d_k x_k)^T b_k with d = exp(csum[-1] - csum);
+      2. the state pass, the only step sequential over chunks:
+         S_in[0] = 0, S_in[k+1] = exp(csum_k[-1]) S_in[k] + U_k;
+      3. every chunk's outputs at once from its S_in:
+         y = ((c b^T) * L) x + exp(csum) (c S_in^T).
+
+    Same returns as :func:`ssd_fwd_plain`."""
+    Bb, S, H, P, N = check_layout(x, dA, b, c)
+    xc, bc, cc = chunked(x, chunk), chunked(b, chunk), chunked(c, chunk)
+    csum = chunk_csum(chunked(dA, chunk))                   # (B,nc,Q,H)
+    e = torch.exp(csum)
+    d = torch.exp(csum[:, :, -1:] - csum)
+    U = torch.einsum("bcjh,bcjhp,bcjhn->bchpn", d, xc, bc)
+    carry, s_in = torch.zeros_like(U[:, 0]), []
+    for k in range(U.shape[1]):
+        s_in.append(carry)
+        carry = e[:, k, -1, :, None, None] * carry + U[:, k]
+    s_in = torch.stack(s_in, dim=1)                         # (B,nc,H,P,N)
+    G = torch.einsum("bcihn,bcjhn->bcijh", cc, bc) * decay_matrix(csum)
+    y = torch.einsum("bcijh,bcjhp->bcihp", G, xc) + e[..., None] * \
+        torch.einsum("bcihn,bchpn->bcihp", cc, s_in)
+    y = unchunk(y, S)
+    if with_states:
+        return y, carry, s_in.transpose(1, 2)
+    return y, carry
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
-FWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+FWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+                + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 15
+                + [ctypes.c_void_p])
 
 
 def launch_fwd(x: Tensor, dA: Tensor, b: Tensor, c: Tensor, chunk: int,
                chunk_states: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
     """Launch ``ssd_fwd`` (``chunk_states`` None) or ``ssd_fwd_res`` (it
-    is the (B,H,nc,P,N) f32 output).  Returns (y, state)."""
+    is the (B,H,nc,P,N) f32 output, contiguous).  bf16 operands must be
+    16-byte aligned (:func:`check_aligned`) and take about 84 MB of
+    scratch a call at mamba2-2.7b's shape.  Returns (y, state)."""
     Bb, S, H, P, N = check_layout(x, dA, b, c)
     dtype = kernel_dtype_code(x, dA, b, c, P, N, chunk)
-    y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
-    state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    scratch = (None, None, None)
+    if x.dtype == torch.bfloat16:   # the chunk-parallel kernels' scratch
+        check_aligned("forward", x=x, b=b, c=c)
+        nc = n_chunks(S, chunk)
+        scratch = (torch.empty((Bb, H, nc, P, N), **f32),     # U
+                   # S_in in two bf16 parts, as 64 x max(N, 64) tiles
+                   torch.empty(Bb * H * nc * 2 * 64 * max(N, 64),
+                               dtype=torch.bfloat16, device=x.device),
+                   torch.empty((Bb, H, nc, chunk), **f32))    # csum
+    y = torch.empty((Bb, S, H, P), **f32)
+    state = torch.empty((Bb, H, P, N), **f32)
     name = "ssd_fwd" if chunk_states is None else "ssd_fwd_res"
     fn = _build.function("ssd_fwd", name, FWD_ARGTYPES)
     code = fn(dtype, P, N, x.data_ptr(), dA.data_ptr(), b.data_ptr(),
               c.data_ptr(), y.data_ptr(), state.data_ptr(),
-              None if chunk_states is None else chunk_states.data_ptr(),
+              *(None if t is None else t.data_ptr()
+                for t in (chunk_states,) + scratch),
               Bb, S, H, chunk, *strides3(x), *strides3(dA), *strides3(b),
               *strides3(c), *strides3(y), _build.stream_of(x))
     _build.check("ssd_fwd", code)

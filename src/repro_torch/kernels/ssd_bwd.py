@@ -3,7 +3,8 @@ their plain versions (counterpart of ``repro/kernels/ssd_bwd.py``).
 
   * :func:`fwd_res_kernel_layout` -- the forward that also records the
     (P, N) state entering each chunk (``csrc/ssd_fwd.cu`` entry
-    ``ssd_fwd_res``, replaces ``_fwd_res_kernel``);
+    ``ssd_fwd_res``, replaces ``_fwd_res_kernel``; the kernels of
+    ``kernels/ssd.py``, whose bf16 state pass writes these states);
   * :func:`bwd_kernel_layout` -- the backward (``csrc/ssd_bwd.cu``,
     replaces ``_bwd_kernel``).  In f32 one block per (batch, head) walks
     the chunks in reverse carrying the state adjoint dS; in bf16 the walk
@@ -36,10 +37,10 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd import (chunk_csum, chunked, check_layout,
-                                     decay_matrix, kernel_dtype_code,
-                                     launch_fwd, n_chunks, ssd_fwd_plain,
-                                     strides3, unchunk)
+from repro_torch.kernels.ssd import (check_aligned, check_layout,
+                                     chunk_csum, chunked, decay_matrix,
+                                     kernel_dtype_code, launch_fwd, n_chunks,
+                                     ssd_fwd_plain, strides3, unchunk)
 
 Tensor = torch.Tensor
 
@@ -175,18 +176,6 @@ def bwd_chunk_parallel_plain(x: Tensor, dA: Tensor, b: Tensor, c: Tensor,
             unchunk(dc, S))
 
 
-def check_aligned(x: Tensor, b: Tensor, c: Tensor, dy: Tensor) -> None:
-    """The bf16 backward copies 16-byte chunks of x, b, c (bf16) and dy
-    (f32): each must start 16-byte aligned, with batch, sequence and head
-    strides that are multiples of 16 bytes.  Raises otherwise."""
-    for t in (x, b, c, dy):
-        mult = 16 // t.element_size()
-        if t.data_ptr() % 16 or any(st % mult for st in strides3(t)):
-            raise ValueError("the bf16 SSD backward needs x, b, c and dy "
-                             "16-byte aligned with batch, sequence and head "
-                             "strides that are multiples of 16 bytes")
-
-
 _BWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 14
                  + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 27
                  + [ctypes.c_void_p])
@@ -222,7 +211,7 @@ def bwd_kernel_layout(x: Tensor, dA: Tensor, b: Tensor, c: Tensor,
     dc = torch.empty((Bb, S, H, N), **f32)
     u_scr = img_scr = rows_scr = None
     if x.dtype == torch.bfloat16:   # the chunk-parallel kernels' scratch
-        check_aligned(x, b, c, dy)
+        check_aligned("backward", x=x, b=b, c=c, dy=dy)
         u_scr = torch.empty((Bb, H, nc, P, N), **f32)
         # S_in and dS_out, two bf16 parts each, as 64 x max(N, 64) tiles
         img_scr = torch.empty(Bb * H * nc * 4 * 64 * max(N, 64),

@@ -332,6 +332,82 @@ def test_ssd_bwd_refuses_misaligned_operands(cuda):
     assert ssd_bwd.bwd_kernel_layout.launches == n
 
 
+def _ssd_fwd_inputs(cuda, B, S, H, P, N, grouped, seed):
+    """bf16 x, b, c (b and c head-stride-0 views when ``grouped``), f32
+    dA, dy and dstate on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    x = mk(B, S, H, P).bfloat16()
+    dA = -(torch.rand((B, S, H), generator=gen, device=cuda) * 1.95 + 0.05)
+    heads = 1 if grouped else H
+    b, c = (mk(B, S, heads, N).bfloat16().expand(B, S, H, N) for _ in "bc")
+    return x, dA, b, c, mk(B, S, H, P), mk(B, H, P, N)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,grouped", [
+    (2, 2048, 80, 64, 128, 256, True),  # mamba2-2.7b's main shape
+    (2, 600, 3, 64, 128, 256, True),    # the main widths, ragged
+    (1, 130, 2, 64, 128, 64, False),    # several chunks, short last one
+    (2, 100, 3, 16, 16, 32, True),      # reduced widths, ragged
+    (1, 50, 2, 16, 16, 256, False),     # shorter than one chunk
+])
+def test_bf16_ssd_forwards_match_plain_and_are_deterministic(
+        cuda, B, S, H, P, N, chunk, grouped):
+    """The bf16 forwards (the chunk-parallel tensor-core kernels) against
+    ssd_fwd_plain and the plain chunk-parallel phases; two calls give equal
+    bits, one launch count each; ssd_fwd_res's chunk states feed ssd_bwd
+    as the plain ones do."""
+    x, dA, b, c, dy, dstate = _ssd_fwd_inputs(cuda, B, S, H, P, N, grouped,
+                                              13)
+    n = (ssd.ssd_fwd_kernel_layout.launches,
+         ssd_bwd.fwd_res_kernel_layout.launches)
+    y, state = ssd.ssd_fwd_kernel_layout(x, dA, b, c, chunk=chunk)
+    got = ssd_bwd.fwd_res_kernel_layout(x, dA, b, c, chunk=chunk)
+    again = ssd_bwd.fwd_res_kernel_layout(x, dA, b, c, chunk=chunk)
+    y2, _ = ssd.ssd_fwd_kernel_layout(x, dA, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (ssd.ssd_fwd_kernel_layout.launches,
+            ssd_bwd.fwd_res_kernel_layout.launches) == (n[0] + 2, n[1] + 2)
+    want = ssd.ssd_fwd_plain(x, dA, b, c, chunk=chunk, with_states=True)
+    phases = ssd.fwd_chunk_parallel_plain(x, dA, b, c, chunk=chunk,
+                                          with_states=True)
+    assert torch.equal(y, y2) and torch.equal(y, got[0])
+    assert torch.equal(state, got[1])
+    for g, a, w, p in zip(got, again, want, phases):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, a)
+        assert _rel_err(g, w) <= 1e-5
+        assert _rel_err(g, p) <= 1e-5
+    grads = ssd_bwd.bwd_kernel_layout(x, dA, b, c, got[2], dy, dstate,
+                                      chunk=chunk)
+    for g, w in zip(grads, ssd_bwd.bwd_plain(x, dA, b, c, want[2], dy,
+                                             dstate, chunk=chunk)):
+        assert _rel_err(g, w) <= 1e-5
+
+
+def test_ssd_forwards_refuse_misaligned_operands(cuda):
+    """The bf16 forwards copy 16-byte chunks: x starting off a 16-byte
+    boundary, or c with a sequence stride that is not a multiple of 16
+    bytes, raises before anything launches."""
+    B, S, H, P, N = 1, 64, 2, 16, 16
+    x, dA, b, c, _, _ = _ssd_fwd_inputs(cuda, B, S, H, P, N, False, 14)
+    buf = torch.zeros(1 + x.numel(), device=cuda, dtype=torch.bfloat16)
+    shifted = buf[1:].view(B, S, H, P)
+    shifted.copy_(x)
+    wide = torch.zeros(B, S, H, N + 4, device=cuda, dtype=torch.bfloat16)
+    strided = wide[..., :N]
+    strided.copy_(c)
+    n = (ssd.ssd_fwd_kernel_layout.launches,
+         ssd_bwd.fwd_res_kernel_layout.launches)
+    for args in ((shifted, dA, b, c), (x, dA, b, strided)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ssd.ssd_fwd_kernel_layout(*args, chunk=32)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ssd_bwd.fwd_res_kernel_layout(*args, chunk=32)
+    assert (ssd.ssd_fwd_kernel_layout.launches,
+            ssd_bwd.fwd_res_kernel_layout.launches) == n
+
+
 def test_ssd_autograd_on_the_card_matches_the_cpu(cuda):
     gen = torch.Generator().manual_seed(2)
     B, S, H, P, N = 2, 80, 4, 16, 16

@@ -17,6 +17,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.ssd import ssd_fwd_kernel_layout as j_ssd_fwd
 from repro.kernels import ssd_bwd as jssd_bwd
+from repro_torch.analysis import ssd_split_error as split_error
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd
@@ -71,22 +72,32 @@ def _from_pallas(t, B, H, S):
     return np.swapaxes(t, 1, 2)[:, :S]
 
 
-def _pallas_run(B, S, H, P, N, chunk, x, dA, b, c, dy, dst):
+def _pallas_fwd(B, S, H, P, N, chunk, x, dA, b, c):
+    """The Pallas forwards (interpret mode) in the port's layout, and the
+    kernel-layout operands (zero-padded to whole chunks) with the chunk
+    states the backward takes."""
     Sp = -(-S // chunk) * chunk
-    xr, dr, br, cr, dyr = (_pallas_layout(t, Sp) for t in (x, dA, b, c, dy))
+    xr, dr, br, cr = (_pallas_layout(t, Sp) for t in (x, dA, b, c))
     y, state = j_ssd_fwd(xr, dr, br, cr, chunk=chunk, interpret=True)
     y2, state2, cs = jssd_bwd.fwd_res_kernel_layout(xr, dr, br, cr,
                                                     chunk=chunk,
                                                     interpret=True)
-    grads = jssd_bwd.bwd_kernel_layout(
-        xr, dr, br, cr, cs, dyr, jnp.asarray(dst.reshape(B * H, P, N)),
-        chunk=chunk, interpret=True)
     return {"y": _from_pallas(y, B, H, S),
             "state": np.asarray(state).reshape(B, H, P, N),
             "y_res": _from_pallas(y2, B, H, S),
             "state_res": np.asarray(state2).reshape(B, H, P, N),
-            "chunk_states": np.asarray(cs).reshape(B, H, -1, P, N),
-            "grads": [_from_pallas(g, B, H, S) for g in grads]}
+            "chunk_states": np.asarray(cs).reshape(B, H, -1, P, N)}, \
+        (Sp, xr, dr, br, cr, cs)
+
+
+def _pallas_run(B, S, H, P, N, chunk, x, dA, b, c, dy, dst):
+    want, (Sp, xr, dr, br, cr, cs) = _pallas_fwd(B, S, H, P, N, chunk, x,
+                                                 dA, b, c)
+    grads = jssd_bwd.bwd_kernel_layout(
+        xr, dr, br, cr, cs, _pallas_layout(dy, Sp),
+        jnp.asarray(dst.reshape(B * H, P, N)), chunk=chunk, interpret=True)
+    want["grads"] = [_from_pallas(g, B, H, S) for g in grads]
+    return want
 
 
 @SHAPES
@@ -149,6 +160,54 @@ def test_chunk_parallel_plain_matches_bwd_plain_and_pallas(B, S, H, P, N,
         assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
         _rel_close(g, r, F32_TOL)
         _rel_close(g, w, pallas_tol)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 64, 3, 8, 4, 16),
+    (2, 50, 2, 4, 3, 16),
+    (1, 10, 2, 8, 8, 16),
+    (1, 96, 2, 16, 16, 32),
+    (1, 600, 2, 16, 16, 256),       # the main path's chunk, ragged
+])
+def test_fwd_chunk_parallel_plain_matches_fwd_plain_and_pallas(B, S, H, P,
+                                                               N, chunk):
+    """The chunk-parallel phases the bf16 forward kernels run (per-chunk
+    U, the state pass, per-chunk outputs), in plain PyTorch, against the
+    in-order walk of ssd_fwd_plain and the Pallas _ssd_kernel and
+    _fwd_res_kernel."""
+    x, dA, b, c, _, _ = _inputs(B, S, H, P, N, seed=6)
+    want, _ = _pallas_fwd(B, S, H, P, N, chunk, x, dA, b, c)
+    T = torch.from_numpy
+    args = (T(x), T(dA), T(b), T(c))
+    got = ssd.fwd_chunk_parallel_plain(*args, chunk=chunk, with_states=True)
+    walk = ssd.ssd_fwd_plain(*args, chunk=chunk, with_states=True)
+    y, state = ssd.fwd_chunk_parallel_plain(*args, chunk=chunk)
+    assert torch.equal(y, got[0]) and torch.equal(state, got[1])
+    pallas_tol = CHUNK256_TOL if chunk == 256 else F32_TOL
+    for name, g, r in zip(("y", "state", "chunk_states"), got, walk):
+        assert g.dtype == torch.float32 and g.shape == r.shape, name
+        _rel_close(g, r, F32_TOL)
+        for key in ((name, name + "_res") if name != "chunk_states"
+                    else (name,)):
+            assert tuple(g.shape) == want[key].shape, key
+            _rel_close(g, want[key], pallas_tol)
+
+
+def test_forward_split_scheme_holds_the_tolerance():
+    """The bf16 forward kernels feed their f32 operands to the tensor
+    cores as bf16 parts (d x and G in three, S_in in two).  The CPU model
+    of that rounding (analysis/ssd_split_error.py) at mamba2-2.7b's widths
+    keeps y, the final state and the chunk states within a tenth of the
+    card's SCAN_TOL (1e-5); with two parts everywhere y alone would use
+    several times more of it."""
+    x, dA, b, c, _, _ = split_error.inputs(0, S=1024, H=2)
+    kern = split_error.forward_errors(x, dA, b, c, 256,
+                                      split_error.FWD_KERNELS)
+    two = split_error.forward_errors(x, dA, b, c, 256,
+                                     split_error.FWD_TWO_PARTS)
+    assert max(kern.values()) <= 1e-6
+    assert two["y"] >= 3 * kern["y"]
+    assert two["chunk_states"] >= 10 * max(kern["chunk_states"], 1e-8)
 
 
 def _oracle64(x, dA, b, c, dy, dst, chunk):

@@ -1,7 +1,8 @@
 """``analysis/step_profile.kernel_class`` on the kernel names a
 ``torch.profiler`` trace of the card gives (demangled, as the trace holds
 them): every kernel of the port lands in its own class, the bf16
-tensor-core kernels and the chunk-parallel SSD backward included."""
+tensor-core kernels and the chunk-parallel SSD backward included; the two
+bf16 SSD forwards share their chunk-parallel kernels and so one class."""
 import pytest
 
 from repro_torch.analysis.step_profile import kernel_class
@@ -30,6 +31,14 @@ from repro_torch.analysis.step_profile import kernel_class
     ("void ssd::fwd_kernel<__nv_bfloat16, 64, 128, true>(ssd::FwdArgs)",
      "ssd_fwd_res"),
     ("void ssd::fwd_kernel<__nv_bfloat16, 64, 128, false>(ssd::FwdArgs)",
+     "ssd_fwd"),
+    ("void ssd::fwd_kernel<float, 16, 16, true>(ssd::FwdArgs)",
+     "ssd_fwd_res"),
+    ("void ssd::fwd_u_kernel<64, 128>(ssd::FwdArgs, ssd::FwdScratch)",
+     "ssd_fwd"),
+    ("void ssd::fwd_state_kernel<64, 128>(ssd::FwdArgs, ssd::FwdScratch)",
+     "ssd_fwd"),
+    ("void ssd::fwd_chunk_kernel<16, 16>(ssd::FwdArgs, ssd::FwdScratch)",
      "ssd_fwd"),
     ("void rglru::bwd_kernel(float const*)", "rglru_bwd"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "matmul"),

@@ -183,3 +183,30 @@ def test_recurrentgemma_train_entry_point_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert len(history) == 2 and all(np.isfinite(history))
     assert "[train] step=    1 depth=   3 loss=" in out
+
+
+@pytest.mark.parametrize("compression", ["topk", "randk", "lowrank"])
+def test_gradient_compression_is_refused_when_the_step_is_built(compression):
+    """The port has no gradient compressor: a config that asks for one
+    raises when its step is built (by make_train_step, and so by the
+    engine's step table), instead of training on uncompressed gradients
+    as if it matched the reference."""
+    cfg = t_reduced("yi-6b")
+    tcfg = TrainConfig(compression=compression)
+    with pytest.raises(NotImplementedError, match="compress_tree"):
+        steps_lib.make_train_step(cfg, tcfg, depth=2)
+    with pytest.raises(NotImplementedError, match="compress_tree"):
+        steps_lib.make_train_step(cfg, tcfg, SPBConfig(mode="off"))
+    with pytest.raises(NotImplementedError, match="compress_tree"):
+        SPBEngine(cfg, tcfg, SPBConfig(mode="temporal", k=4), device="cpu")
+
+
+def test_without_compression_the_engine_still_trains():
+    cfg = t_reduced("yi-6b")
+    tcfg = TrainConfig(num_steps=2, compression="none")
+    eng = SPBEngine(cfg, tcfg, SPBConfig(mode="temporal", k=4), device="cpu")
+    eng.init_state(0)
+    pipe = Pipeline(cfg, 2, 32, seed=0)
+    losses = [float(eng.train_step(pipe.get_batch(s), s)["loss"])
+              for s in range(2)]
+    assert np.isfinite(losses).all() and eng.step_count == 2
