@@ -7,9 +7,9 @@ Phases, each printing a line; any failure exits non-zero:
   1. the device (nvidia-smi name and power limit, torch and CUDA versions);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds), print
      the registers and spills (``nvcc -Xptxas -v``) of each kernel of the
-     flash forward, dq, dkv, SSD forward and SSD backward libraries and
-     count the tensor-core instructions (HGMMA, HMMA) that ``cuobjdump
-     -sass`` finds in each of those five: none fails;
+     flash forward, dq, dkv, SSD forward, SSD backward and RG-LRU
+     libraries and count the tensor-core instructions (HGMMA, HMMA) that
+     ``cuobjdump -sass`` finds in each of the first five: none fails;
   3. each attention kernel against its plain PyTorch version on the same
      inputs: at the yi-6b main-path shape (B 2, S 2048, H 32, K 4, D 128,
      causal, bf16), a sliding-window case and a ragged Sq != Sk case, at
@@ -29,8 +29,11 @@ Phases, each printing a line; any failure exits non-zero:
      kernels of the two forwards (three each) and of the backward (four)
      timed apart (``torch.profiler``);
   3c. the same for the RG-LRU kernels: at the recurrentgemma-2b main-path
-     shape (B 2, S 2048, W 2560, f32) and a ragged one (S 600, W 64), then
-     the backward kernel on the forward kernel's own output;
+     shape (B 2, S 2048, W 2560, f32), a ragged one (S 600, W 64), S and W
+     off the (128-step, 32-channel) tile, and a grid of tiles far larger
+     than the card holds at once (B 64, S 8192: the chained scan's forward
+     progress), then the backward kernel on the forward kernel's own
+     output, and two calls of each kernel bitwise equal;
   4. card against CPU: yi-6b-reduced, mamba2-reduced and then
      recurrentgemma-reduced in f32 with the kernels, 4 temporal SPB steps
      from the same seeded weights as on the CPU plain path, with the card
@@ -99,10 +102,15 @@ SSD_CASES = {
                          dtype="bfloat16", grouped=False),
 }
 # RG-LRU cases (B, S, W); a ~ U(0.1, 0.999), b ~ N(0, 1) as in
-# tests/test_kernel_grads.py
+# tests/test_kernel_grads.py.  The kernels' tile is 128 steps by 32
+# channels: "off_tile" and "short" miss it in S and W, and "many_tiles"
+# hands out 65536 tiles, far more than the card holds at once.
 RGLRU_CASES = {
     "main": dict(B=2, S=2048, W=2560),
     "ragged": dict(B=2, S=600, W=64),
+    "off_tile": dict(B=3, S=1000, W=100),
+    "short": dict(B=1, S=17, W=130),
+    "many_tiles": dict(B=64, S=8192, W=512),
 }
 ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
 KERNELS = {     # name: (source, TPU kernel it replaces)
@@ -198,9 +206,9 @@ def check_all(name: str, got, want) -> float:
 
 
 def _kernel_label(mangled: str) -> str:
-    """``fwd_wgmma_kernel<128>`` from a mangled ``flash::`` or ``ssd::``
-    kernel name."""
-    m = re.match(r"_ZN(?:5flash|3ssd)(\d+)", mangled)
+    """``fwd_wgmma_kernel<128>`` from a mangled ``flash::``, ``ssd::`` or
+    ``rglru::`` kernel name."""
+    m = re.match(r"_ZN(?:5flash|3ssd|5rglru)(\d+)", mangled)
     if not m:
         return mangled
     name = mangled[m.end():m.end() + int(m.group(1))]
@@ -217,29 +225,35 @@ TENSOR_CORE_LIBS = ("flash_fwd", "flash_dq", "flash_dkv", "ssd_fwd",
                     "ssd_bwd")
 
 
+def log_resources(lib: str) -> None:
+    """Each kernel's registers and spills from the library's build log."""
+    from repro_torch.kernels import _build
+    fn = None
+    for line in _build.build_log(lib).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            fn, spills = _kernel_label(m.group(1)), ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and fn:
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            log(f"[build] {lib:9s} {fn:30s} {m.group(1)} registers, "
+                f"{spills}")
+
+
 def phase_tensor_cores() -> dict:
-    """Phase 2's report on the libraries whose bf16 kernels run on the
-    tensor cores: each kernel's registers and spills from the build log,
-    and the number of tensor-core instructions in the library's SASS.
-    Raises when one of them has none.  Returns {library: {"HGMMA": n,
-    "HMMA": n}}."""
+    """Phase 2's report: every kernel's registers and spills, and the
+    number of tensor-core instructions in the SASS of each library whose
+    bf16 kernels run on the tensor cores.  Raises when one of those has
+    none.  Returns {library: {"HGMMA": n, "HMMA": n}}."""
     from repro_torch.kernels import _build
     counts = {}
+    log_resources("rglru")
     for lib in TENSOR_CORE_LIBS:
-        fn = None
-        for line in _build.build_log(lib).splitlines():
-            m = re.search(r"(?:Compiling entry function|Function properties "
-                          r"for) '?(_Z\w+)", line)
-            if m:
-                fn, spills = _kernel_label(m.group(1)), ""
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m and fn:
-                spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn:
-                log(f"[build] {lib:9s} {fn:30s} {m.group(1)} registers, "
-                    f"{spills}")
+        log_resources(lib)
         sass = subprocess.run(
             [_build.nvcc_tool("cuobjdump"), "-sass",
              str(_build.lib_path(lib))], check=True, capture_output=True,
@@ -494,10 +508,11 @@ def check_rel(name: str, got, want) -> float:
     return max(e[0] for e in errs)
 
 
-def ssd_phases(kern, iters: int = 5) -> dict:
-    """The device ms of each CUDA kernel one call of an SSD wrapper
-    launches (the bf16 path's chunk-parallel phases), averaged over
-    ``iters`` calls traced with ``torch.profiler``."""
+def kernel_device_ms(kern, namespace: str = "ssd", iters: int = 5) -> dict:
+    """The device ms of each CUDA kernel of ``namespace`` that one call of
+    a wrapper launches (the bf16 SSD path's chunk-parallel phases; an
+    RG-LRU kernel without its scratch's zeroing), averaged over ``iters``
+    calls traced with ``torch.profiler``."""
     import torch
     kern()
     torch.cuda.synchronize()
@@ -508,11 +523,12 @@ def ssd_phases(kern, iters: int = 5) -> dict:
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
-        m = re.search(r"ssd::(\w+)", ev.key)
+        m = re.search(rf"{namespace}::(\w+)", ev.key)
         if m and ev.device_time_total > 0:
             out[m.group(1)] = round(ev.device_time_total / iters / 1e3, 4)
     if not out:
-        raise AssertionError("the profiler saw no SSD kernel on the card")
+        raise AssertionError(f"the profiler saw no {namespace} kernel on "
+                             f"the card")
     return out
 
 
@@ -555,7 +571,7 @@ def phase_ssd_kernels():
             f"bitwise equal")
         if case == "main":
             for name, (kern, _) in runs.items():
-                records[f"_{name}_phase_ms"] = ssd_phases(kern)
+                records[f"_{name}_phase_ms"] = kernel_device_ms(kern)
                 log(f"[kernels] main   {name} by phase (ms): "
                     f"{records[f'_{name}_phase_ms']}")
         # the chain the main path runs: the backward kernel on the forward
@@ -623,13 +639,31 @@ def phase_rglru_kernels():
                                  "ms": time_ms(kern, iters=20),
                                  "plain_ms": time_ms(plain, iters=3, warmup=1),
                                  "library_ms": None}
+            elif case == "many_tiles":
+                records[f"_{name}_many_tiles_ms"] = time_ms(kern, iters=3)
+        # each tile combines with its one predecessor in a fixed order:
+        # two calls agree
+        for name, (kern, _) in runs.items():
+            first, again = kern(), kern()
+            if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                raise AssertionError(f"{case}: two {name} calls differ")
+        log(f"[kernels] {case:24s} two calls of each of {list(runs)} "
+            f"bitwise equal")
         # the chain the main path runs: the backward kernel on the forward
         # kernel's own output, against the plain chain
         h_k = rglru.rglru_scan(a, b)
         grads = rglru_bwd.bwd_kernel_layout(a, h_k, dy)
         check_rel(f"{case} fwd->bwd", grads, rglru_bwd.bwd_plain(a, h_p, dy))
+        if case == "many_tiles":
+            log(f"[kernels] many_tiles finished on {sms()} SMs: rglru_fwd "
+                f"ms={records['_rglru_fwd_many_tiles_ms']:.4f} rglru_bwd "
+                f"ms={records['_rglru_bwd_many_tiles_ms']:.4f}")
         if case != "main":
             continue
+        for name, (kern, _) in runs.items():
+            records[f"_{name}_device_ms"] = kernel_device_ms(kern, "rglru")
+            log(f"[kernels] main   {name} device ms by kernel: "
+                f"{records[f'_{name}_device_ms']}")
         # bounds from this run's inputs: each tensor read or written once;
         # one multiply-add per channel and step (two in the backward)
         n = a.numel()
@@ -794,6 +828,12 @@ def main() -> int:
                     "ssd_phase_ms": {
                         n: records[f"_{n}_phase_ms"]
                         for n in ("ssd_fwd", "ssd_fwd_res", "ssd_bwd")},
+                    "rglru_device_ms": {
+                        n: records[f"_{n}_device_ms"]
+                        for n in ("rglru_fwd", "rglru_bwd")},
+                    "rglru_many_tiles_ms": {
+                        n: records[f"_{n}_many_tiles_ms"]
+                        for n in ("rglru_fwd", "rglru_bwd")},
                     "tensor_core_sass": tensor_cores}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

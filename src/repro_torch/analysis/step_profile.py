@@ -1,28 +1,34 @@
 """Where a full-width SPB step spends the card's time.
 
-    python -m repro_torch.analysis.step_profile
+    python -m repro_torch.analysis.step_profile [arch ...]
 
-Runs the chip smoke's full-width configurations one after the other
-(``configs.full_width_config``: yi-6b cut to 8 layers, mamba2-2.7b cut
-to 32 and recurrentgemma-2b cut to 12, bf16, the hand-written kernels;
-temporal SPB k=4, batch 2 x 2048).  For each it warms up one depth
-cycle, then traces one step at each depth of the next cycle with
-``torch.profiler``.  For each depth it prints the step's host time, the
+Runs the chip smoke's full-width configurations, or the named ones, one
+after the other (``configs.full_width_config``: yi-6b cut to 8 layers,
+mamba2-2.7b cut to 32 and recurrentgemma-2b cut to 12, bf16, the
+hand-written kernels; temporal SPB k=4, batch 2 x 2048).  For each it
+warms up one depth cycle, then traces one step at each depth of the next
+cycle with ``torch.profiler``.  For each depth it prints the step's host time, the
 device's busy time (the union of kernel intervals in the trace), the
 idle share, the peak memory, and the kernel time by class: the port's
 kernels (four attention, three SSD, two RG-LRU; in bf16 the two SSD
 forwards share one class), matrix products, and everything else, with
-the largest kernels of the last class.  Needs a card.
+the largest kernels of the last class.  It also gives the device time of
+the kernels each profiler range of the model launched (``RANGES``: the
+RG-LRU gates and scan), in the forward and in their backward, with the
+matmul class's share.  Needs a card.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 import tempfile
 import time
 from collections import defaultdict
 
 import torch
+
+from repro_torch.models import ssm
 
 ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
 # (class, substrings a kernel's name holds): the flash forward, dq and dkv
@@ -43,6 +49,7 @@ CLASSES = (("flash_fwd", ("flash::fwd_",)),
            ("ssd_bwd", ("ssd::bwd_",)),
            ("rglru_fwd", ("rglru::fwd_kernel",)),
            ("rglru_bwd", ("rglru::bwd_kernel",)))
+RANGES = (ssm.GATES_RANGE, ssm.SCAN_RANGE)
 
 
 def kernel_class(name: str) -> str:
@@ -55,12 +62,60 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def trace_kernels(path: str):
-    """(name, start_us, dur_us) of every kernel in a chrome trace."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
+def trace_kernels(events):
+    """(name, start_us, dur_us) of every kernel in a chrome trace's
+    events."""
     return [(e["name"], float(e["ts"]), float(e["dur"])) for e in events
             if e.get("cat") == "kernel"]
+
+
+def range_device_ms(events, names=RANGES) -> dict:
+    """{range: {"fwd": ms, "bwd": ms, "fwd_matmul": ms, "bwd_matmul": ms}}:
+    the device time of the kernels launched inside each ``record_function``
+    range, and of those launched by the autograd nodes of the ops the range
+    ran (a node's ``evaluate_function`` event carries its op's sequence
+    number); the ``_matmul`` keys take the matmul class alone.  A kernel is
+    matched to its launch by the trace's correlation id."""
+    spans = {n: [] for n in names}
+    launch_at, ops = {}, []
+    for e in events:
+        cat, args = e.get("cat"), e.get("args", {})
+        if cat == "user_annotation" and e["name"] in spans:
+            spans[e["name"]].append(
+                (e["tid"], float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch_at[args["correlation"]] = (e["tid"], float(e["ts"]))
+        elif cat == "cpu_op" and "Sequence number" in args:
+            ops.append(e)
+
+    def inside(tid, ts, intervals):
+        return any(t == tid and lo <= ts <= hi for t, lo, hi in intervals)
+
+    backward = "autograd::engine::evaluate_function"
+    parts = {}
+    for n, fwd in spans.items():
+        seqs = {e["args"]["Sequence number"] for e in ops
+                if not e["name"].startswith(backward)
+                and inside(e["tid"], float(e["ts"]), fwd)}
+        bwd = [(e["tid"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+               for e in ops if e["name"].startswith(backward)
+               and e["args"]["Sequence number"] in seqs]
+        parts[n] = {"fwd": fwd, "bwd": bwd}
+    out = {n: dict.fromkeys(("fwd", "bwd", "fwd_matmul", "bwd_matmul"), 0.0)
+           for n in names}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        launch = launch_at.get(e.get("args", {}).get("correlation"))
+        if launch is None:
+            continue
+        for n, by_part in parts.items():
+            for part, intervals in by_part.items():
+                if inside(*launch, intervals):
+                    out[n][part] += float(e["dur"]) / 1e3
+                    if kernel_class(e["name"]) == "matmul":
+                        out[n][f"{part}_matmul"] += float(e["dur"]) / 1e3
+    return out
 
 
 def busy_us(kernels) -> float:
@@ -102,7 +157,9 @@ def profile(arch: str) -> None:
                 wall_us = (time.perf_counter() - t0) * 1e6
             path = os.path.join(tmp, f"step{s}.json")
             prof.export_chrome_trace(path)
-            kernels = trace_kernels(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = trace_kernels(events)
             if not kernels:
                 raise RuntimeError("the trace holds no kernel events")
             by_class, other = defaultdict(float), defaultdict(float)
@@ -119,15 +176,16 @@ def profile(arch: str) -> None:
                 "idle_share": 1.0 - busy / wall_us,
                 "max_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "kernel_ms": {k: v / 1e3 for k, v in sorted(by_class.items())},
+                "range_ms": range_device_ms(events),
                 "kernels": len(kernels),
                 "top_other_ms": {k: v / 1e3 for k, v in top}}), flush=True)
 
 
-def main() -> None:
-    for arch in ARCHS:
+def main(archs=ARCHS) -> None:
+    for arch in archs:
         profile(arch)
         torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:] or ARCHS)

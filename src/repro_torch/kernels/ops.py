@@ -136,10 +136,10 @@ class _RGLRU(torch.autograd.Function):
 
 def rglru(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Differentiable RG-LRU scan h_t = a_t h_{t-1} + b_t.  a, b: (B, S, W)
-    (float32 on the card).  Returns h: (B, S, W) f32.  Any S works: the
-    kernels walk the whole sequence, so the JAX op's (a=1, b=0) padding to
-    a whole chunk, and its ``chunk`` and ``width_block``, have no
-    counterpart.
+    (float32 on the card).  Returns h: (B, S, W) f32.  Any S and W work:
+    the kernels' chained scan masks its last chunk and strip itself, so the
+    JAX op's (a=1, b=0) padding to a whole chunk, and its ``chunk`` and
+    ``width_block``, have no counterpart.
 
     Outside grad mode, or when no input requires grad (the SPB frozen
     prefix), the same scan kernel runs and nothing is kept."""

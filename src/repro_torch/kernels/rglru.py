@@ -4,10 +4,11 @@ plain version (counterpart of ``repro/kernels/rglru.py``).
     h_t = a_t * h_{t-1} + b_t,  h_{-1} = 0,  over (B, S, W) float32
 
 The kernel (``csrc/rglru.cu``, entry ``rglru_fwd``) replaces the Pallas
-``_rglru_kernel``: one thread per (b, w) channel walks the sequence with
-the carry in a register, so any S works and the Pallas ``chunk`` and
-``width_block`` have no counterpart (a sequential scan gives the same
-numbers however it is chunked).  Its source note says what bounds it.
+``_rglru_kernel``: a single-pass chained scan over tiles of (b, 32
+channels, 128 steps), all in parallel, each handing its chunk's carry to
+the next through a zeroed per-launch scratch (:func:`chain_scratch`).
+Any S and W work; the Pallas ``chunk`` and ``width_block`` have no
+counterpart.  Its source note says what bounds it.
 
 Dispatch: a CPU tensor takes :func:`rglru_plain`; a CUDA tensor launches
 the kernel or raises.  ``rglru_scan.launches`` counts launches.
@@ -55,7 +56,18 @@ def rglru_plain(a: Tensor, b: Tensor) -> Tensor:
     return h
 
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def chain_scratch(a: Tensor) -> Tensor:
+    """The zeroed scratch one launch of either RG-LRU kernel takes at a's
+    (B, S, W): each tile's carry and flag and the tile ticket, allocated
+    and zeroed on the current stream for every launch."""
+    words = _build.function("rglru", "rglru_scratch_words",
+                            [ctypes.c_int] * 3)(*a.shape)
+    if words < 0:
+        raise ValueError(f"RG-LRU kernels do not take shape {tuple(a.shape)}")
+    return torch.zeros(words, dtype=torch.int32, device=a.device)
 
 
 def rglru_scan(a: Tensor, b: Tensor) -> Tensor:
@@ -64,10 +76,10 @@ def rglru_scan(a: Tensor, b: Tensor) -> Tensor:
     if a.device.type == "cpu":
         return rglru_plain(a, b)
     B, S, W = a.shape
-    h = torch.empty_like(a)
+    h, scratch = torch.empty_like(a), chain_scratch(a)
     fn = _build.function("rglru", "rglru_fwd", _ARGTYPES)
-    code = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, W,
-              _build.stream_of(a))
+    code = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), scratch.data_ptr(),
+              B, S, W, _build.stream_of(a))
     _build.check("rglru", code)
     rglru_scan.launches += 1
     return h

@@ -6,10 +6,11 @@ plain version (counterpart of ``repro/kernels/rglru_bwd.py``).
     da_t  = lam_t * h_{t-1}              (h_{-1} = 0)
 
 The kernel (``csrc/rglru.cu``, entry ``rglru_bwd``) replaces the Pallas
-``_rglru_bwd_kernel``: one thread per (b, w) channel walks the sequence
-backwards with lam in a register.  It takes the forward's output ``h``
-itself and reads ``h_{t-1}`` from it, where the JAX op hands its kernel a
-shifted copy ``y_prev``: the port never makes that copy.
+``_rglru_bwd_kernel``: the forward's chained scan walked in reverse chunk
+order, each tile handing ``a_t * lam_t`` at its first step to the tile
+before it.  It takes the forward's output ``h`` itself and reads
+``h_{t-1}`` from it, where the JAX op hands its kernel a shifted copy
+``y_prev``: the port never makes that copy.
 
 Dispatch: a CPU tensor takes :func:`bwd_plain`; a CUDA tensor launches the
 kernel or raises.  ``bwd_kernel_layout.launches`` counts launches.
@@ -22,7 +23,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rglru import check_operands
+from repro_torch.kernels.rglru import chain_scratch, check_operands
 
 Tensor = torch.Tensor
 
@@ -42,7 +43,7 @@ def bwd_plain(a: Tensor, h: Tensor, dy: Tensor) -> Tuple[Tensor, Tensor]:
     return da, db
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def bwd_kernel_layout(a: Tensor, h: Tensor, dy: Tensor
@@ -54,9 +55,10 @@ def bwd_kernel_layout(a: Tensor, h: Tensor, dy: Tensor
         return bwd_plain(a, h, dy)
     B, S, W = a.shape
     da, db = torch.empty_like(a), torch.empty_like(a)
+    scratch = chain_scratch(a)
     fn = _build.function("rglru", "rglru_bwd", _ARGTYPES)
     code = fn(a.data_ptr(), h.data_ptr(), dy.data_ptr(), da.data_ptr(),
-              db.data_ptr(), B, S, W, _build.stream_of(a))
+              db.data_ptr(), scratch.data_ptr(), B, S, W, _build.stream_of(a))
     _build.check("rglru", code)
     bwd_kernel_layout.launches += 1
     return da, db

@@ -14,6 +14,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
@@ -175,6 +176,9 @@ def mamba2_fwd(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
 # ---------------------------------------------------------------------------
 
 C_SCALE = 8.0   # Griffin's fixed c constant
+# profiler ranges around the RG-LRU gates and scan, which
+# analysis/step_profile.py reads
+GATES_RANGE, SCAN_RANGE = "rglru_gates", "rglru_scan"
 
 
 def _rglru_gates(p: Params, xw: Tensor) -> Tuple[Tensor, Tensor]:
@@ -230,13 +234,15 @@ def rglru_core(p: Params, x: Tensor, cfg: ModelConfig
     z = F.gelu(x @ p["in_z"], approximate="tanh")   # jax.nn.gelu's default
     xb = x @ p["in_x"]
     xc = F.silu(causal_conv(xb, p["conv_w"], p["conv_b"]))
-    a, gated = _rglru_gates(p, xc.float())
-    if _use_pallas_rglru(cfg):
-        h = ops.rglru(a, gated)
-        hT = h[:, -1]
-    else:
-        h0 = torch.zeros((B_, W), dtype=torch.float32, device=x.device)
-        h, hT = _lru_scan(a, gated, h0, lru.block_width)
+    with record_function(GATES_RANGE):
+        a, gated = _rglru_gates(p, xc.float())
+    with record_function(SCAN_RANGE):
+        if _use_pallas_rglru(cfg):
+            h = ops.rglru(a, gated)
+            hT = h[:, -1]
+        else:
+            h0 = torch.zeros((B_, W), dtype=torch.float32, device=x.device)
+            h, hT = _lru_scan(a, gated, h0, lru.block_width)
     y = (h.to(x.dtype) * z) @ p["out_proj"]
     conv_tail = xb[:, -(lru.d_conv - 1):]
     return y, hT, conv_tail

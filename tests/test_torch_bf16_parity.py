@@ -1,0 +1,93 @@
+"""The port against the JAX package in bf16, the dtype every full-width run
+trains in: the three reduced configs, with and without the kernels (their
+plain versions here, the Pallas kernels in interpret mode on the JAX side),
+one SPB loss and its suffix gradients from the same bridged weights and the
+same numpy batch.
+
+Bound: bf16 rounds at other places in the two frameworks, so the port
+cannot match JAX's bf16 run more closely than bf16 noise.  The test
+measures that noise on the same inputs as JAX's own bf16-vs-f32 spread:
+the loss's relative difference, and each gradient leaf's max difference
+over that leaf's max, the worst leaf taken.  The port's loss must be
+within twice the loss spread of JAX's bf16 loss, and each of its gradient
+leaves within twice the worst leaf spread of JAX's bf16 leaf (relative to
+that leaf's max).  Measured on the CPU when the bound was set: the port's
+worst leaf is 0.70-1.47x the worst spread (2.9-8.3% of its leaf's max),
+its loss error 0.27-1.48x the loss spread."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config as j_reduced
+from repro.models import lm as jlm
+from repro_torch import bridge
+from repro_torch.configs import reduced_config as t_reduced
+from repro_torch.models import lm as tlm
+
+# a snapped temporal SPB depth of each reduced config (k = 4)
+DEPTH = {"yi-6b": 2, "mamba2-2.7b": 2, "recurrentgemma-2b": 3}
+FACTOR = 2.0
+
+
+def _jax_run(cfg, params, batch, depth):
+    return jax.jit(jax.value_and_grad(
+        lambda p: jlm.loss_fn(p, batch, cfg, bwd_layers=depth)[0]))(params)
+
+
+def _leaves(tree):
+    return [np.asarray(x, np.float32) for x in jax.tree.leaves(tree)]
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("arch", list(DEPTH))
+def test_bf16_loss_and_suffix_grads_are_within_bf16_noise_of_jax(
+        arch, use_pallas):
+    depth = DEPTH[arch]
+    jbf = dataclasses.replace(j_reduced(arch).scaled(dtype="bfloat16"),
+                              use_pallas=use_pallas)
+    jf32 = dataclasses.replace(j_reduced(arch), use_pallas=use_pallas)
+    tbf = dataclasses.replace(t_reduced(arch).scaled(dtype="bfloat16"),
+                              use_pallas=use_pallas)
+    # bf16 weights; the f32 run takes the same values
+    params = jlm.init_lm(jax.random.key(0), jbf)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, jbf.vocab_size, (2, 64)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    loss_bf, grads_bf = _jax_run(jbf, params, batch, depth)
+    loss_f32, grads_f32 = _jax_run(
+        jf32, jax.tree.map(lambda x: x.astype(jnp.float32), params), batch,
+        depth)
+
+    tp = bridge.params_from_numpy(
+        jax.tree.map(lambda x: np.asarray(x, np.float32), params), tbf)
+    loss, _ = tlm.loss_fn(tp, {k: torch.from_numpy(v).long()
+                               for k, v in batch.items()}, tbf,
+                          bwd_layers=depth)
+    loss.backward()
+
+    loss_spread = abs(float(loss_bf) - float(loss_f32)) / abs(float(loss_f32))
+    loss_err = abs(float(loss.detach()) - float(loss_bf)) / abs(float(loss_bf))
+    assert np.isfinite(float(loss.detach()))
+    assert loss_err <= FACTOR * loss_spread, (loss_err, loss_spread)
+
+    port = [np.zeros(p.shape, np.float32) if p.grad is None
+            else p.grad.float().numpy() for p in jax.tree.leaves(tp)]
+    pairs = []
+    for g, w, w32 in zip(port, _leaves(grads_bf), _leaves(grads_f32),
+                         strict=True):
+        if not np.abs(w).max() > 0:     # a leaf wholly in the frozen prefix
+            assert not np.abs(g).max() > 0
+            continue
+        pairs.append((_rel(g, w), _rel(w, w32)))
+    assert pairs
+    spread = max(s for _, s in pairs)
+    worst = max(e for e, _ in pairs)
+    assert worst <= FACTOR * spread, (worst, spread)

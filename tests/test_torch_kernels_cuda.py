@@ -466,8 +466,11 @@ def test_flash_kernels_refuse_f32_at_head_dim_256(cuda):
     assert fa.fwd_kernel_layout.launches == n
 
 
+# the kernels' tile is 128 steps by 32 channels: (2, 129, 33) and
+# (3, 1000, 100) miss it in both S and W
 @pytest.mark.parametrize("B,S,W", [
-    (2, 64, 32), (2, 600, 64), (3, 17, 130), (1, 1, 5), (2, 2048, 2560)])
+    (2, 64, 32), (2, 600, 64), (3, 17, 130), (1, 1, 5), (2, 2048, 2560),
+    (2, 129, 33), (3, 1000, 100)])
 def test_rglru_kernels_match_plain(cuda, B, S, W):
     gen = torch.Generator(device=cuda).manual_seed(4)
     a = torch.rand((B, S, W), generator=gen, device=cuda) * 0.899 + 0.1
@@ -500,6 +503,44 @@ def test_rglru_kernels_refuse_non_f32(cuda, dtype):
         rglru_bwd.bwd_kernel_layout(a.float(), a.float(), a)
     assert (rglru.rglru_scan.launches,
             rglru_bwd.bwd_kernel_layout.launches) == counts
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 2048, 2560), (64, 8192, 512)])
+def test_rglru_kernels_are_deterministic_and_finish_any_grid(cuda, B, S, W):
+    """Each tile combines with its one predecessor in a fixed order, so two
+    calls give the same bits; (64, 8192, 512) hands out 65536 tiles, far
+    more than the card holds at once, and every one must still get its
+    carry (the tiles are taken from a ticket in walk order)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.rand((B, S, W), generator=gen, device=cuda) * 0.899 + 0.1
+    b, dy = (torch.randn((B, S, W), generator=gen, device=cuda)
+             for _ in "bd")
+    h, again = rglru.rglru_scan(a, b), rglru.rglru_scan(a, b)
+    grads = rglru_bwd.bwd_kernel_layout(a, h, dy)
+    grads_again = rglru_bwd.bwd_kernel_layout(a, h, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(h, again)
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads_again))
+    h_p = rglru.rglru_plain(a, b)
+    assert _rel_err(h, h_p) <= 1e-5
+    for got, want in zip(grads, rglru_bwd.bwd_plain(a, h_p, dy)):
+        assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1e-3), (0.999, 1.0)])
+def test_rglru_kernels_with_a_near_0_and_near_1(cuda, lo, hi):
+    """a near 0 underflows the tiles' products of a (no division, so no
+    inf or NaN); a near 1 carries the state across every tile."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    shape = (2, 700, 96)
+    a = torch.rand(shape, generator=gen, device=cuda) * (hi - lo) + lo
+    b, dy = (torch.randn(shape, generator=gen, device=cuda) for _ in "bd")
+    h = rglru.rglru_scan(a, b)
+    h_p = rglru.rglru_plain(a, b)
+    assert _rel_err(h, h_p) <= 1e-5
+    for got, want in zip(rglru_bwd.bwd_kernel_layout(a, h, dy),
+                         rglru_bwd.bwd_plain(a, h_p, dy)):
+        assert _rel_err(got, want) <= 1e-5
 
 
 def test_rglru_autograd_on_the_card_matches_the_cpu(cuda):

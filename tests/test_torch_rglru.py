@@ -17,6 +17,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.analysis import rglru_tiles
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru
@@ -134,6 +135,124 @@ def test_op_keeps_a_and_h_and_nothing_in_the_frozen_prefix(monkeypatch):
     with torch.no_grad():
         assert ops.rglru(ta, tb).grad_fn is None
     assert calls == [1, 1, 1]
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' association order, modelled on the CPU
+# ---------------------------------------------------------------------------
+
+# csrc/rglru.cu's tile: a thread owns 16 steps, a block of 8 warps one
+# 128-step chunk (channels are independent, so the 32-channel strip does
+# not change a number)
+LANE_STEPS, WARPS = 16, 8
+CHUNK = LANE_STEPS * WARPS
+
+
+def _lanes(x, fill):
+    """(B, S, W) -> (B, chunks, warps, 16, W), the steps past S ``fill``
+    (the identity of the recurrence)."""
+    B, S, W = x.shape
+    n = -(-S // CHUNK)
+    pad = np.full((B, n * CHUNK - S, W), fill, np.float32)
+    return np.concatenate([x, pad], 1).reshape(B, n, WARPS, LANE_STEPS, W)
+
+
+def _chained_scan(a, b):
+    """h as the forward kernel associates it: each lane's 16 steps scanned
+    from a zero carry into the map h -> A h + H, the maps folded in warp
+    order, the chunks chained in order, then each lane re-walked from its
+    own carry.  f32 throughout."""
+    S = a.shape[1]
+    av, bv = _lanes(a, 1.0), _lanes(b, 0.0)
+    A, H = np.ones_like(av[..., 0, :]), np.zeros_like(av[..., 0, :])
+    for u in range(LANE_STEPS):
+        H = av[..., u, :] * H + bv[..., u, :]
+        A = A * av[..., u, :]
+    h = np.empty_like(av)
+    carry = np.zeros_like(A[:, 0, 0])
+    for c in range(av.shape[1]):
+        PA, PH = np.ones_like(carry), np.zeros_like(carry)
+        for j in range(WARPS):
+            hv = PA * carry + PH
+            for u in range(LANE_STEPS):
+                hv = av[:, c, j, u] * hv + bv[:, c, j, u]
+                h[:, c, j, u] = hv
+            PH = A[:, c, j] * PH + H[:, c, j]
+            PA = PA * A[:, c, j]
+        carry = PA * carry + PH
+    return h.reshape(a.shape[0], -1, a.shape[2])[:, :S]
+
+
+def _chained_scan_bwd(a, h, dy):
+    """(da, db) as the backward kernel associates them: the same lanes on
+    the map c -> a_t (dy_t + c) of c_t = a_t lam_t, folded from the last
+    warp down and chained over the chunks in reverse."""
+    S = a.shape[1]
+    h_prev = np.concatenate([np.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    av, dv, hv = _lanes(a, 1.0), _lanes(dy, 0.0), _lanes(h_prev, 0.0)
+    A, H = np.ones_like(av[..., 0, :]), np.zeros_like(av[..., 0, :])
+    for u in reversed(range(LANE_STEPS)):
+        H = av[..., u, :] * (dv[..., u, :] + H)
+        A = A * av[..., u, :]
+    da, db = np.empty_like(av), np.empty_like(av)
+    carry = np.zeros_like(A[:, 0, 0])
+    for c in reversed(range(av.shape[1])):
+        PA, PH = np.ones_like(carry), np.zeros_like(carry)
+        for j in reversed(range(WARPS)):
+            cv = PA * carry + PH
+            for u in reversed(range(LANE_STEPS)):
+                lam = dv[:, c, j, u] + cv
+                db[:, c, j, u], da[:, c, j, u] = lam, lam * hv[:, c, j, u]
+                cv = av[:, c, j, u] * lam
+            PH = A[:, c, j] * PH + H[:, c, j]
+            PA = PA * A[:, c, j]
+        carry = PA * carry + PH
+    unlane = lambda x: x.reshape(a.shape[0], -1, a.shape[2])[:, :S]
+    return unlane(da), unlane(db)
+
+
+# (B, S, W, range of a, Pallas chunk, width_block): S off the 128-step
+# chunk and W off the 32-channel strip; a near 0 (its products underflow)
+# and near 1 (the state crosses every chunk)
+@pytest.mark.parametrize("B,S,W,lo,hi,chunk,wb", [
+    (2, 300, 40, 0.1, 0.999, 60, 40),
+    (1, 200, 8, 0.0, 1e-3, 40, 8),
+    (1, 520, 8, 0.999, 1.0, 104, 8)])
+def test_kernel_association_matches_plain_and_pallas(B, S, W, lo, hi, chunk,
+                                                     wb):
+    rng = np.random.default_rng(S)
+    a = rng.uniform(lo, hi, (B, S, W)).astype(np.float32)
+    b, dy = (rng.standard_normal((B, S, W)).astype(np.float32)
+             for _ in "bd")
+    h = _chained_scan(a, b)
+    assert h.dtype == np.float32 and np.isfinite(h).all()
+    h_plain = rglru.rglru_plain(torch.from_numpy(a), torch.from_numpy(b))
+    _rel_close(h, h_plain.numpy())
+    h_pallas = jrglru.rglru_scan(jnp.asarray(a), jnp.asarray(b), chunk=chunk,
+                                 width_block=wb, interpret=True)
+    _rel_close(h, h_pallas)
+
+    grads = _chained_scan_bwd(a, h, dy)
+    plain = rglru_bwd.bwd_plain(torch.from_numpy(a), h_plain,
+                                torch.from_numpy(dy))
+    y_prev = jnp.pad(h_pallas, ((0, 0), (1, 0), (0, 0)))[:, :-1]
+    pallas = jrglru_bwd.bwd_kernel_layout(jnp.asarray(a), y_prev,
+                                          jnp.asarray(dy), chunk=chunk,
+                                          width_block=wb, interpret=True)
+    for g, p, j in zip(grads, plain, pallas):
+        assert g.dtype == np.float32 and np.isfinite(g).all()
+        _rel_close(g, p.numpy())
+        _rel_close(g, j)
+
+
+@pytest.mark.parametrize("name", list(rglru_tiles.VARIANTS))
+def test_tile_variants_rewrite_the_kernel_source(name):
+    """``analysis/rglru_tiles`` times the kernels at other tile shapes by
+    rewriting csrc/rglru.cu: each variant's text must still be there."""
+    tree = rglru_tiles.variant_source("tree")
+    got = rglru_tiles.variant_source(name)
+    old, new = rglru_tiles.VARIANTS[name]
+    assert got != tree and new in got and got.replace(new, old) == tree
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
