@@ -7,9 +7,10 @@ Phases, each printing a line; any failure exits non-zero:
   1. the device (nvidia-smi name and power limit, torch and CUDA versions);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds), print
      the registers and spills (``nvcc -Xptxas -v``) of each kernel of the
-     flash forward, dq, dkv, SSD forward, SSD backward and RG-LRU
+     flash forward, delta, dq, dkv, SSD forward, SSD backward and RG-LRU
      libraries and count the tensor-core instructions (HGMMA, HMMA) that
-     ``cuobjdump -sass`` finds in each of the first five: none fails;
+     ``cuobjdump -sass`` finds in each but the delta and RG-LRU ones: none
+     fails;
   3. each attention kernel against its plain PyTorch version on the same
      inputs: at the yi-6b main-path shape (B 2, S 2048, H 32, K 4, D 128,
      causal, bf16), a sliding-window case and a ragged Sq != Sk case, at
@@ -18,8 +19,9 @@ Phases, each printing a line; any failure exits non-zero:
      (S 4096), then the backward kernels on the forward kernel's own
      outputs against the plain chain, and two dq calls and two dkv calls
      bitwise equal; max errors against the stated tolerance, and the
-     kernel's, the plain version's and a library call's time at both
-     main-path shapes;
+     kernel's (CUDA events over 5 calls, and its kernels' device time
+     from ``torch.profiler`` over 20), the plain version's and a library
+     call's time at both main-path shapes;
   3b. the same for the SSD kernels: at the mamba2-2.7b main-path shape
      (B 2, S 2048, H 80, P 64, N 128, chunk 256, bf16 x/B/C with B and C
      broadcast over heads, f32 dA), f32 reduced and ragged cases and bf16
@@ -252,6 +254,7 @@ def phase_tensor_cores() -> dict:
     from repro_torch.kernels import _build
     counts = {}
     log_resources("rglru")
+    log_resources("flash_delta")
     for lib in TENSOR_CORE_LIBS:
         log_resources(lib)
         sass = subprocess.run(
@@ -400,6 +403,8 @@ def phase_kernels():
             if case in TIMED:
                 records[name] = {"max_abs_err": max_abs,
                                  "ms": time_ms(kern, iters=5),
+                                 "device_ms": round(sum(kernel_device_ms(
+                                     kern, "flash", iters=20).values()), 4),
                                  "plain_ms": time_ms(plain, iters=3, warmup=1)}
         # the chain the main path runs: the backward kernels on the forward
         # kernel's own ot and lse, against the plain chain
@@ -458,9 +463,11 @@ def phase_kernels():
         for name in runs:
             r = records[name]
             log(f"[kernels] {case:7s} {name:11s} ms={r['ms']:.4f} "
+                f"device_ms={r['device_ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                 f"({r['bound_by']}) library_ms={r['library_ms']:.4f} "
                 f"x_bound={r['ms'] / r['bound_ms']:.2f} "
+                f"x_bound_device={r['device_ms'] / r['bound_ms']:.2f} "
                 f"x_library={r['ms'] / r['library_ms']:.2f}")
         log(f"[kernels] {case:7s} SDPA fwd+bwd ms="
             f"{records['_sdpa_fwd_bwd_ms']:.4f}")
@@ -511,8 +518,9 @@ def check_rel(name: str, got, want) -> float:
 def kernel_device_ms(kern, namespace: str = "ssd", iters: int = 5) -> dict:
     """The device ms of each CUDA kernel of ``namespace`` that one call of
     a wrapper launches (the bf16 SSD path's chunk-parallel phases; an
-    RG-LRU kernel without its scratch's zeroing), averaged over ``iters``
-    calls traced with ``torch.profiler``."""
+    RG-LRU kernel without its scratch's zeroing; an attention kernel
+    without the wrapper's host work), averaged over ``iters`` calls traced
+    with ``torch.profiler``."""
     import torch
     kern()
     torch.cuda.synchronize()
@@ -572,6 +580,8 @@ def phase_ssd_kernels():
         if case == "main":
             for name, (kern, _) in runs.items():
                 records[f"_{name}_phase_ms"] = kernel_device_ms(kern)
+                records[name]["device_ms"] = round(
+                    sum(records[f"_{name}_phase_ms"].values()), 4)
                 log(f"[kernels] main   {name} by phase (ms): "
                     f"{records[f'_{name}_phase_ms']}")
         # the chain the main path runs: the backward kernel on the forward
@@ -662,6 +672,8 @@ def phase_rglru_kernels():
             continue
         for name, (kern, _) in runs.items():
             records[f"_{name}_device_ms"] = kernel_device_ms(kern, "rglru")
+            records[name]["device_ms"] = round(
+                sum(records[f"_{name}_device_ms"].values()), 4)
             log(f"[kernels] main   {name} device ms by kernel: "
                 f"{records[f'_{name}_device_ms']}")
         # bounds from this run's inputs: each tensor read or written once;
@@ -813,7 +825,8 @@ def main() -> int:
                  "launches_by_arch": {a: g[name] for a, g in by_arch.items()
                                       if name in g},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         rg = timed["rg_main"].get(name)
         if rg is not None:      # the flash kernels at recurrentgemma's shape

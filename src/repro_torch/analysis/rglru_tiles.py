@@ -51,27 +51,14 @@ def variant_source(name: str) -> str:
 
 def build(names) -> dict:
     """Compile every named build at once; {name: (library, nvcc output)}."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        cu = OUT / f"{name}.cu"
-        cu.write_text(variant_source(name))
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-             "-o", str(OUT / f"lib{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    built = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
+    built = _build.build_variants({n: variant_source(n) for n in names},
+                                  OUT)
+    for lib, _ in built.values():
         lib.rglru_scratch_words.argtypes = [ctypes.c_int] * 3
         lib.rglru_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                                   + [ctypes.c_void_p])
         lib.rglru_bwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                                   + [ctypes.c_void_p])
-        built[name] = (lib, log)
     return built
 
 

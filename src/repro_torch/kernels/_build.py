@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Sequence, Tuple
 
 import torch
 
@@ -83,6 +83,31 @@ def build(names: Iterable[str] = SOURCES) -> float:
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
+
+
+def build_variants(sources: Dict[str, str], out_dir: Path
+                   ) -> Dict[str, Tuple[ctypes.CDLL, str]]:
+    """Compile each ``{name: CUDA source text}`` with this module's flags
+    (headers from ``csrc/``) into ``out_dir/lib<name>.so``, all ``nvcc``
+    processes at once, and load it: ``{name: (library, nvcc output)}``.
+    For the analysis scripts that time variants of a kernel; raises with
+    the compiler's output if any build fails."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in sources.items():
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(src)
+        procs[name] = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
+             str(out_dir / f"lib{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    built = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        built[name] = (ctypes.CDLL(str(out_dir / f"lib{name}.so")), log)
+    return built
 
 
 def build_log(name: str) -> str:

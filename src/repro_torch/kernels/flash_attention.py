@@ -84,14 +84,16 @@ def kernel_dtype_code(qt: torch.Tensor, D: int) -> int:
 
 
 def check_aligned(*ts: torch.Tensor) -> None:
-    """The bf16 tensor-core kernels copy 16-byte chunks: each operand's
-    data must start 16-byte aligned and its batch, head and sequence
-    strides be multiples of 8 elements.  Raises otherwise."""
+    """The bf16 tensor-core kernels, and the delta kernel in both dtypes,
+    copy 16-byte chunks: each operand's data must start 16-byte aligned
+    and its batch, head and sequence strides be multiples of 16 bytes
+    (8 bf16 or 4 f32 elements).  Raises otherwise."""
     for t in ts:
-        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-            raise ValueError("bf16 attention operands need 16-byte aligned "
-                             "data and batch/head/sequence strides that are "
-                             "multiples of 8")
+        vec = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
+            raise ValueError(f"{t.dtype} attention operands need 16-byte "
+                             f"aligned data and batch/head/sequence strides "
+                             f"that are multiples of {vec}")
 
 
 def strides(t: torch.Tensor):

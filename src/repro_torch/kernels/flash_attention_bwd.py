@@ -2,7 +2,8 @@
 plain versions (counterpart of ``repro/kernels/flash_attention_bwd.py``).
 
   * :func:`compute_delta` -- ``delta = rowsum(dO * O)`` (``csrc/flash_delta.cu``,
-    replaces ``_delta_kernel``);
+    replaces ``_delta_kernel``; a stream of 16-byte loads, templated on
+    the dtype and head_dim);
   * :func:`compute_dq` -- dQ over the visible kv tiles
     (``csrc/flash_dq.cu``, replaces ``_dq_kernel``; in bf16 on the tensor
     cores);
@@ -115,7 +116,8 @@ def _check_rows(lse: Tensor, delta: Tensor, B: int, H: int, Sq: int) -> None:
 
 
 def compute_delta(ot: Tensor, dot_: Tensor) -> Tensor:
-    """delta (B, H, Sq) f32 from ot, dot_ (B, H, Sq, D)."""
+    """delta (B, H, Sq) f32 from ot, dot_ (B, H, Sq, D).  On the card both
+    need 16-byte aligned data and strides (:func:`check_aligned`)."""
     if ot.shape != dot_.shape or ot.dtype != dot_.dtype:
         raise ValueError("ot and dot_ must match in shape and dtype")
     if ot.stride(-1) != 1 or dot_.stride(-1) != 1:
@@ -124,6 +126,7 @@ def compute_delta(ot: Tensor, dot_: Tensor) -> Tensor:
         return delta_plain(ot, dot_)
     B, H, Sq, D = ot.shape
     dtype = kernel_dtype_code(ot, D)
+    check_aligned(ot, dot_)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=ot.device)
     fn = _build.function("flash_delta", "flash_delta", _DELTA_ARGTYPES)
     code = fn(dtype, ot.data_ptr(), dot_.data_ptr(), delta.data_ptr(), B, H,

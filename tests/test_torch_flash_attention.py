@@ -14,6 +14,8 @@ import torch
 from repro.kernels import flash_attention_bwd as jfab
 from repro.kernels.flash_attention import fwd_kernel_layout as j_fwd
 from repro.kernels.ops import flash_attention as j_flash_attention
+from repro_torch.analysis import delta_tiles
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops
@@ -82,12 +84,31 @@ def test_vjp_matches_pallas_and_ref(B, Sq, Sk, H, K, D, causal, window):
         np.testing.assert_allclose(g, o, **TOL, err_msg=f"d{name} vs ref")
 
 
-def test_delta_matches_pallas():
+@pytest.mark.parametrize("B,H,Sq,D,dtype,q_block,transposed", [
+    (2, 4, 128, 32, "float32", 64, False),
+    (1, 2, 96, 16, "float32", 32, True),      # Sq not a multiple of 64
+    (1, 3, 64, 64, "float32", 64, True),
+    (1, 2, 96, 128, "float32", 32, False),
+    (1, 2, 64, 256, "float32", 64, True),
+    (1, 2, 96, 128, "bfloat16", 32, True),    # yi-6b's dtype and head_dim
+    (2, 1, 64, 256, "bfloat16", 64, True),    # recurrentgemma-2b's
+])
+def test_delta_matches_pallas(B, H, Sq, D, dtype, q_block, transposed):
+    """compute_delta on the CPU against the Pallas delta kernel; with
+    ``transposed`` the port gets (B, H, Sq, D) views of (B, Sq, H, D)
+    tensors, as the main path hands them.  bf16 inputs are the same
+    rounded values on both sides, summed in f32."""
     rng = np.random.default_rng(3)
-    o, do = (rng.standard_normal((2, 4, 128, 32)).astype(np.float32)
+    o, do = (rng.standard_normal((B, Sq, H, D)).astype(np.float32)
              for _ in range(2))
-    want = jfab._compute_delta(o, do, 64, True)
-    got = fab.compute_delta(torch.from_numpy(o), torch.from_numpy(do))
+    want = jfab._compute_delta(
+        *(jnp.asarray(_kl(x), dtype=getattr(jnp, dtype)) for x in (o, do)),
+        q_block, True)
+    t = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in (o, do)]
+    t = ([x.transpose(1, 2) for x in t] if transposed else
+         [x.transpose(1, 2).contiguous() for x in t])
+    got = fab.compute_delta(*t)
+    assert got.dtype == torch.float32 and got.shape == (B, H, Sq)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -182,3 +203,28 @@ def test_check_aligned_refuses_what_the_copies_cannot_take():
     with pytest.raises(ValueError, match="multiples of 8"):
         fa.check_aligned(buf[:2 * 64 * 4 * 60].view(2, 64, 4, 60)
                          .transpose(1, 2))
+
+
+def test_check_aligned_takes_f32_in_16_byte_chunks():
+    """The delta kernel copies 16-byte chunks in f32 too: 4 elements."""
+    buf = torch.zeros(4 + 2 * 64 * 4 * 64)
+    fa.check_aligned(buf[:-4].view(2, 64, 4, 64).transpose(1, 2))
+    fa.check_aligned(buf[4:4 + 2 * 64 * 4 * 20].view(2, 64, 4, 20)
+                     .transpose(1, 2))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.check_aligned(buf[1:-3].view(2, 64, 4, 64).transpose(1, 2))
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fa.check_aligned(buf[:2 * 64 * 4 * 18].view(2, 64, 4, 18)
+                         .transpose(1, 2))
+
+
+@pytest.mark.parametrize("nt,rpt", delta_tiles.GRID)
+def test_delta_tile_variants_rewrite_the_kernel_source(nt, rpt):
+    """``analysis/delta_tiles`` times the delta kernel at other block
+    shapes by rewriting csrc/flash_delta.cu's two constants."""
+    tree = (_build.CSRC / "flash_delta.cu").read_text()
+    got = delta_tiles.variant_source(nt, rpt)
+    assert f"constexpr int DELTA_NT = {nt};" in got
+    assert f"constexpr int DELTA_RPT = {rpt};" in got
+    assert (got == tree) == ((nt, rpt) == delta_tiles.tree_pair())
+    assert delta_tiles.tree_pair() in delta_tiles.GRID

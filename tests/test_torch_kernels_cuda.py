@@ -466,6 +466,57 @@ def test_flash_kernels_refuse_f32_at_head_dim_256(cuda):
     assert fa.fwd_kernel_layout.launches == n
 
 
+# every (dtype, head_dim) pair the delta kernel is instantiated for
+DELTA_PAIRS = ([(torch.float32, D) for D in (16, 32, 64, 128)]
+               + [(torch.bfloat16, D) for D in (16, 32, 64, 128, 256)])
+
+
+@pytest.mark.parametrize("dtype,D", DELTA_PAIRS)
+@pytest.mark.parametrize("B,H,Sq", [(1, 1, 1), (3, 5, 100), (1, 3, 2048)])
+def test_delta_kernel_matches_plain_at_every_head_dim(cuda, dtype, D, B, H,
+                                                      Sq):
+    """The delta kernel at ragged row counts (B * H odd) on contiguous
+    (B, H, Sq, D) tensors and on transposed (B, S, H, D) views, against
+    delta_plain at the f32 tolerance; two calls give equal bits."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(dtype)
+    for ot, dot_ in ((mk(B, H, Sq, D), mk(B, H, Sq, D)),
+                     (mk(B, Sq, H, D).transpose(1, 2),
+                      mk(B, Sq, H, D).transpose(1, 2))):
+        n = fab.compute_delta.launches
+        got = fab.compute_delta(ot, dot_)
+        assert fab.compute_delta.launches == n + 1
+        assert got.dtype == torch.float32 and got.shape == (B, H, Sq)
+        _close(got, fab.delta_plain(ot, dot_))
+        assert torch.equal(got, fab.compute_delta(ot, dot_))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_delta_kernel_refuses_misaligned_operands(cuda, dtype):
+    """The delta kernel loads 16-byte chunks: data one element off 16
+    bytes, or a sequence stride that is no multiple of 16 bytes, raises
+    before anything launches."""
+    n = 2 * 64 * 64
+    buf = torch.randn(64 * 130 + 1, device=cuda).to(dtype)
+    good = buf[:n].view(1, 64, 2, 64).transpose(1, 2)
+    off = buf[1:n + 1].view(1, 64, 2, 64).transpose(1, 2)
+    padded = torch.as_strided(buf, (1, 2, 64, 64), (64 * 130, 64, 130, 1))
+    count = fab.compute_delta.launches
+    for bad, match in ((off, "16-byte aligned"), (padded, "multiples of")):
+        with pytest.raises(ValueError, match=match):
+            fab.compute_delta(bad, good)
+        with pytest.raises(ValueError, match=match):
+            fab.compute_delta(good, bad)
+    assert fab.compute_delta.launches == count
+    with pytest.raises(ValueError, match="attention kernels take"):
+        fab.compute_delta(*(torch.zeros(1, 2, 64, 96, device=cuda,
+                                        dtype=dtype) for _ in "od"))
+    with pytest.raises(ValueError, match="bfloat16 at head_dim 256"):
+        fab.compute_delta(*(torch.zeros(1, 2, 64, 256, device=cuda)
+                            for _ in "od"))
+    assert fab.compute_delta.launches == count
+
+
 # the kernels' tile is 128 steps by 32 channels: (2, 129, 33) and
 # (3, 1000, 100) miss it in both S and W
 @pytest.mark.parametrize("B,S,W", [
