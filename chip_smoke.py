@@ -45,7 +45,20 @@ Phases, each printing a line; any failure exits non-zero:
      temporal k=4, batch 2 x 2048, 8 steps, with the launch counts of
      every kernel checked against the step's depth (the counts are zeroed
      before each path and read after it);
-  6. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+  6. temporal-mb at full width: the same three paths, batch 8 x 2048 (four
+     microbatches of phase 5's shape, one at each depth of the k=4 cycle,
+     then one optimizer step), 3 steps, each step's launches checked
+     against its cycle, its time on the host clock and by CUDA events
+     beside the sum of one cycle of phase 5's temporal steps; the engine's
+     policy sets ``needs_step_time`` and must observe no less than the
+     card's time;
+  7. card against CPU with gradient compression: the three reduced
+     configs, 4 temporal-mb steps with topk and 4 temporal steps with
+     lowrank, losses within 1e-3; randk's structure on the card;
+  8. the driver's restart loop on the card: yi-6b-reduced with the
+     kernels, 8 steps straight and with a failure injected at step 5,
+     exactly one FAILURE line and the same last xent to 1e-5;
+  9. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card: without one it exits 1 and prints no result.
 """
@@ -733,9 +746,10 @@ def phase_card_vs_cpu(arch: str):
                                  f"step {s}")
 
 
-def phase_full_width(arch: str) -> dict:
+def phase_full_width(arch: str):
     """Phase 5: one path at full width; returns its launch counts per
-    kernel, zeroed just before the run and read just after."""
+    kernel, zeroed just before the run and read just after, and each
+    step's ms."""
     import torch
     from repro_torch.config import SPBConfig, TrainConfig
     from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
@@ -756,6 +770,7 @@ def phase_full_width(arch: str) -> dict:
     batches = [make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=s,
                           device="cuda") for s in range(steps)]
     zero_launches()
+    times = []
     for s in range(steps):
         before = launches_now()
         torch.cuda.reset_peak_memory_stats()
@@ -773,7 +788,198 @@ def phase_full_width(arch: str) -> dict:
             f"launches={ {n: c for n, c in grew.items() if c} }")
         if not math.isfinite(loss):
             raise AssertionError(f"{arch}: loss not finite at step {s}")
+        times.append(ms)
+    return launches_now(), times
+
+
+class _TimedFullBackprop:
+    """A policy that asks for the step's time (``needs_step_time``): the
+    engine synchronizes the card before it reads the clock."""
+    needs_step_time = True
+
+    def __init__(self):
+        self.times = []
+
+    def depth_for_step(self, step):
+        return None
+
+    def observe(self, step, step_time_s):
+        self.times.append(step_time_s)
+
+
+def cycle_depths(cfg, spb) -> list:
+    """The depths of one temporal-mb step's microbatches, in order."""
+    from repro_torch.core import spb as spb_lib
+    sched = spb_lib.make_schedule(cfg, spb)
+    return [sched.depths[i] for i in sched.order]
+
+
+def phase_temporal_mb(arch: str, temporal_ms: list) -> dict:
+    """Phase 6: temporal-mb at full width, batch 4 x FULL_WIDTH_BATCH x
+    FULL_WIDTH_SEQ (each microbatch the shape phase 5's steps run), 3
+    steps, each step's launches checked against its cycle's depths.  Its
+    policy sets ``needs_step_time``: the time it observes must be no
+    shorter than the step's time on the card (CUDA events).  Returns the
+    launch counts, zeroed just before the run and read just after."""
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
+                                     full_width_config, make_batch)
+    from repro_torch.engine.engine import SPBEngine
+
+    cfg = full_width_config(arch)
+    steps, spb = 3, SPBConfig(mode="temporal-mb", k=4)
+    policy = _TimedFullBackprop()
+    eng = SPBEngine(cfg, TrainConfig(num_steps=steps), spb, policy=policy,
+                    device="cuda")
+    eng.init_state(0)
+    depths = cycle_depths(cfg, spb)
+    batches = [make_batch(cfg, 4 * FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=s,
+                          device="cuda") for s in range(steps)]
+    # the four temporal steps of one cycle in phase 5 (its second cycle)
+    four = sum(temporal_ms[len(depths):2 * len(depths)])
+    # CUDA events around the step function itself, inside the engine's
+    # clock: the card's time from the step's dispatch to its last kernel
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+    step_fn = eng.step_fn("mb")
+
+    def timed_step(state, batch):
+        ev0.record()
+        out = step_fn(state, batch)
+        ev1.record()
+        return out
+
+    eng._steps["mb"] = timed_step
+    zero_launches()
+    for s in range(steps):
+        before = launches_now()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eng.train_step(batches[s], s)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        device_ms = ev0.elapsed_time(ev1)
+        observed_ms = policy.times[-1] * 1e3
+        grew = check_launches(f"temporal-mb {arch} step {s}", before, depths,
+                              cfg)
+        log(f"[temporal-mb] {arch} step={s} depths={depths} loss={loss:.4f} "
+            f"step_ms={ms:.1f} device_ms={device_ms:.1f} "
+            f"observed_ms={observed_ms:.1f} "
+            f"max_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+            f"four_temporal_steps_ms={four:.1f} "
+            f"launches={ {n: c for n, c in grew.items() if c} }")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{arch}: temporal-mb loss not finite at "
+                                 f"step {s}")
+        # CUDA events have ~0.5 us resolution
+        if observed_ms < device_ms - 0.01:
+            raise AssertionError(
+                f"{arch}: a needs_step_time policy observed {observed_ms} ms "
+                f"of a step the card ran for {device_ms} ms")
     return launches_now()
+
+
+def phase_card_vs_cpu_compressed(arch: str):
+    """Phase 7: card against CPU with gradient compression: 4 temporal-mb
+    steps with topk (batch 4 x 64) and 4 temporal steps with lowrank
+    (batch 2 x 64, its projections drawn from the step's CPU generator, so
+    both devices project on the same q), from one set of seeded weights,
+    losses within 1e-3 relative; then randk's structure on the card."""
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import compress
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(reduced_config(arch), use_pallas=True)
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    for mode, method, batch in (("temporal-mb", "topk", 4),
+                                ("temporal", "lowrank", 2)):
+        tcfg = TrainConfig(num_steps=4, compression=method)
+        spb = SPBConfig(mode=mode, k=4)
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            eng = SPBEngine(cfg, tcfg, spb, device=dev)
+            eng.attach_state(steps_lib.state_from_params(
+                tree_map(torch.clone, params), tcfg))
+            pipe = Pipeline(cfg, batch, 64, seed=0)
+            before, losses[dev], depths = launches_now(), [], []
+            for s in range(4):
+                losses[dev].append(float(
+                    eng.train_step(pipe.get_batch(s), s)["loss"]))
+                depths += (cycle_depths(cfg, spb) if mode == "temporal-mb"
+                           else [eng.last_depth])
+            if dev == "cuda":
+                check_launches(f"compressed {mode} {arch}", before, depths,
+                               cfg)
+        for s, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
+            rel = abs(a - b) / abs(b)
+            log(f"[compressed] {cfg.name} {mode} {method} step={s} "
+                f"loss_cuda={a:.6f} loss_cpu={b:.6f} rel={rel:.2e} "
+                f"tol=1e-3")
+            if not rel <= 1e-3:
+                raise AssertionError(f"{arch} {mode} {method}: card and CPU "
+                                     f"losses differ at step {s}")
+    # randk draws differ across devices: its structure, leaf by leaf
+    gen = torch.Generator().manual_seed(1)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen).cuda(),
+                     params)
+    ratio = 0.1
+    out = compress.compress_tree(grads, "randk", ratio,
+                                 torch.Generator().manual_seed(2))
+    for g, c in zip(tree_leaves(grads), tree_leaves(out)):
+        kept = c != 0
+        if int(kept.sum()) != max(1, int(g.numel() * ratio)) or \
+                not torch.equal(c[kept], g[kept] * (1.0 / ratio)):
+            raise AssertionError(f"{arch}: randk on the card kept the wrong "
+                                 f"entries of a {tuple(g.shape)} leaf")
+    log(f"[compressed] {cfg.name} randk on the card: exactly k entries a "
+        f"leaf, each g / {ratio}, over {len(tree_leaves(out))} leaves")
+
+
+def phase_restart() -> None:
+    """Phase 8: the driver's restart loop on the card: yi-6b-reduced with
+    the kernels, 8 temporal steps with a checkpoint every 4, once straight
+    and once with a failure injected at step 5 (restored from step 4):
+    exactly one FAILURE line, the injected one, and the same last xent to
+    1e-5 relative."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.launch import train as train_mod
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--device", "cuda", "--use-pallas", "--arch", "yi-6b",
+            "--steps", "8", "--checkpoint-every", "4", "--spb-mode",
+            "temporal", "--batch", "2", "--seq", "64", "--log-every", "100"]
+    runs = {}
+    for name, extra in (("straight", []), ("failed", ["--fail-at", "5"])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            history = train_mod.train(args + ["--checkpoint-dir",
+                                              str(root / name)] + extra)
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            log(f"[restart] {name}: {line}")
+        runs[name] = (history, [ln for ln in lines if "FAILURE" in ln])
+    shutil.rmtree(root, ignore_errors=True)
+    (straight, clean), (failed, failures) = runs["straight"], runs["failed"]
+    rel = abs(failed[-1] - straight[-1]) / abs(straight[-1])
+    log(f"[restart] last xent straight={straight[-1]:.7f} "
+        f"after_restart={failed[-1]:.7f} rel={rel:.2e} tol=1e-5 "
+        f"failure_lines={len(failures)}")
+    if clean or failures != ["[train] FAILURE: injected failure; restart 1"]:
+        raise AssertionError(f"restart: FAILURE lines {clean} / {failures}")
+    if not rel <= 1e-5 or len(failed) != 9:
+        raise AssertionError("restart: the resumed run does not end where "
+                             "the straight one does")
 
 
 def main() -> int:
@@ -806,9 +1012,9 @@ def main() -> int:
         phase_card_vs_cpu(arch)
         torch.cuda.empty_cache()
     # each path's own launches: its kernels' counts from its own run
-    by_arch = {}
+    by_arch, temporal_ms = {}, {}
     for arch in ARCHS:
-        grew = phase_full_width(arch)
+        grew, temporal_ms[arch] = phase_full_width(arch)
         by_arch[arch] = {n: c for n, c in grew.items() if c}
         torch.cuda.empty_cache()
     launches = {n: sum(g.get(n, 0) for g in by_arch.values())
@@ -816,6 +1022,19 @@ def main() -> int:
     idle = [n for n in KERNELS if not launches[n]]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")
+    mb_by_arch = {}
+    for arch in ARCHS:
+        grew = phase_temporal_mb(arch, temporal_ms[arch])
+        mb_by_arch[arch] = {n: c for n, c in grew.items() if c}
+        torch.cuda.empty_cache()
+    idle = [n for n in KERNELS
+            if not any(g.get(n) for g in mb_by_arch.values())]
+    if idle:
+        raise AssertionError(f"kernels the temporal-mb paths never "
+                             f"launched: {idle}")
+    for arch in ARCHS:
+        phase_card_vs_cpu_compressed(arch)
+    phase_restart()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -824,6 +1043,9 @@ def main() -> int:
                  "replaces": replaces, "launches": launches[name],
                  "launches_by_arch": {a: g[name] for a, g in by_arch.items()
                                       if name in g},
+                 "launches_temporal_mb": {a: g[name]
+                                          for a, g in mb_by_arch.items()
+                                          if name in g},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],

@@ -93,6 +93,8 @@ class SPBEngine:
     def depth_key_for_step(self, step: int) -> Any:
         if self.spb.mode == "off":
             return None
+        if self.spb.mode == "temporal-mb":
+            return "mb"             # the step runs the whole depth cycle
         return self.resolve_depth(self.policy.depth_for_step(step))
 
     # -- training ----------------------------------------------------------
@@ -100,8 +102,9 @@ class SPBEngine:
     def train_step(self, batch, step: Optional[int] = None, *,
                    depth: Any = _POLICY) -> Dict[str, torch.Tensor]:
         """Run one step on the session state; the policy picks the depth
-        unless ``depth`` overrides it.  Returns the metrics (0-d tensors:
-        loss, xent, moe_aux, grad_norm, lr)."""
+        unless ``depth`` overrides it (a step-table key: None, a suffix
+        depth, or ``"mb"``).  Returns the metrics (0-d tensors: loss, xent,
+        moe_aux, grad_norm, lr)."""
         if self.state is None:
             raise RuntimeError("call init_state()/attach_state() first")
         if step is None:
@@ -111,6 +114,12 @@ class SPBEngine:
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
         t0 = time.perf_counter()
         self.state, metrics = self.step_fn(key)(self.state, batch)
+        if getattr(self.policy, "needs_step_time", False) and \
+                self.device.type == "cuda":
+            # the card runs the step after the host returns: a policy fed
+            # by step times needs the step's end, at the cost of the
+            # host running ahead
+            torch.cuda.synchronize(self.device)
         self.policy.observe(step, time.perf_counter() - t0)
         self.last_depth = key
         self._auto_step = step + 1

@@ -5,9 +5,9 @@ Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` into
 git-ignored directory), where ``<digest>`` hashes the source, the shared
 headers and the flags: a changed source rebuilds, an unchanged one loads.
 The sources have a plain C interface (pointers, ints, the stream) and
-return ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception, with the message of the ``kernel_error_string`` entry that every
-source gets from ``csrc/kernel_common.cuh``.  Builds happen at first use,
+return ``cudaGetLastError()``; :func:`check` turns a non-zero code into a
+:class:`KernelError`, with the message of the ``kernel_error_string``
+entry that every source gets from ``csrc/kernel_common.cuh``.  Builds happen at first use,
 never at import, and only from the sources in this package.  The
 compiler's output (``-Xptxas -v``: each kernel's registers, spills and
 static shared memory) is kept beside the library, :func:`build_log`.
@@ -35,14 +35,21 @@ SOURCES = ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv", "ssd_fwd",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch.  A subclass of
+    ``RuntimeError``, so every ``except RuntimeError`` still catches it; a
+    loop that retries failed steps re-raises it instead, since a kernel
+    fault is not transient."""
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
             "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]:
         if cand and Path(cand).is_file():
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
-                       "cannot be built")
+    raise KernelError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                      "cannot be built")
 
 
 def lib_path(name: str) -> Path:
@@ -81,7 +88,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
             os.replace(tmp, out)
             out.with_suffix(".log").write_bytes(log)
     if failures:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+        raise KernelError("nvcc failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
 
 
@@ -105,7 +112,7 @@ def build_variants(sources: Dict[str, str], out_dir: Path
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            raise KernelError(f"nvcc failed for {name}:\n{log}")
         built[name] = (ctypes.CDLL(str(out_dir / f"lib{name}.so")), log)
     return built
 
@@ -141,7 +148,7 @@ def check(lib_name: str, code: int) -> None:
     """Raise if a C entry returned a CUDA error code."""
     if code != 0:
         msg = _LIBS[lib_name].kernel_error_string(code).decode()
-        raise RuntimeError(f"{lib_name}: CUDA error {code} ({msg})")
+        raise KernelError(f"{lib_name}: CUDA error {code} ({msg})")
 
 
 def stream_of(t: torch.Tensor) -> int:

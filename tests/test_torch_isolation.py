@@ -43,7 +43,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [SMOKE]
     names = {p.relative_to(PORT).as_posix() for p in files[:-1]}
     assert {"kernels/ssd.py", "kernels/ssd_bwd.py", "models/ssm.py",
-            "configs/mamba2_2_7b.py"} <= names
+            "configs/mamba2_2_7b.py", "core/compress.py",
+            "jigsaw/costmodel.py", "checkpoint/manager.py"} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

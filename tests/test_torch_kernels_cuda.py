@@ -620,3 +620,47 @@ def test_attention_gate_never_falls_back_on_the_card(cuda):
     assert out is not None and fa.fwd_kernel_layout.launches == n + 1
     want = layers.blockwise_attention(q, k, k, causal=True)
     torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-2.7b", "recurrentgemma-2b"])
+def test_temporal_mb_step_on_the_card(cuda, arch):
+    """One temporal-mb step (f32, kernels on, batch 4 x 64: one microbatch
+    at each depth of the k=4 cycle) launches each kernel as often as its
+    cycle's depths ask (``chip_smoke.expected_launches``), and its loss is
+    the CPU step's to 1e-3 relative, from the same weights."""
+    import dataclasses
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import spb as spb_lib
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = dataclasses.replace(reduced_config(arch), use_pallas=True)
+    tcfg, spb = TrainConfig(num_steps=1), SPBConfig(mode="temporal-mb", k=4)
+    sched = spb_lib.make_schedule(cfg, spb)
+    cycle = [sched.depths[i] for i in sched.order]
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = Pipeline(cfg, 4, 64, seed=0).get_batch(0)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        eng = SPBEngine(cfg, tcfg, spb, device=dev)
+        eng.attach_state(steps_lib.state_from_params(
+            tree_map(torch.clone, params), tcfg))
+        before = smoke.launches_now()
+        losses[dev] = float(eng.train_step(batch, 0)["loss"])
+        grew = smoke.launches_since(before)
+        if dev == "cuda":
+            assert grew == smoke.expected_launches(cfg, cycle)
+        else:
+            assert not any(grew.values())
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"])

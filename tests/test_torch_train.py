@@ -5,8 +5,9 @@ depths 4, 1, 3, 2.  Metrics agree step by step to rtol 1e-4: the same f32
 arithmetic, summed in another order, compounded over four AdamW updates.
 The same for mamba2-reduced (the SSD kernels' plain versions) and for
 recurrentgemma-reduced (the RG-LRU kernels' plain versions and flash at a
-window of 32 over 64 positions).  Also the port's train entry point, and
-its refusal to run on a missing card."""
+window of 32 over 64 positions).  Also the port's train entry point, its
+steps on compressed gradients, and its refusals: of spatial SPB, and to
+run on a missing card."""
 import dataclasses
 
 import jax
@@ -16,15 +17,18 @@ import torch
 
 from repro.config import SPBConfig as JSPB, TrainConfig as JTrain
 from repro.configs import reduced_config as j_reduced
+from repro.core import compress as j_compress
 from repro.data.pipeline import Pipeline as JPipeline
 from repro.engine import SPBEngine as JEngine
 from repro_torch import bridge
 from repro_torch.config import SPBConfig, TrainConfig
 from repro_torch.configs import reduced_config as t_reduced
+from repro_torch.core import compress
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.dist import steps as steps_lib
 from repro_torch.engine.engine import SPBEngine
 from repro_torch.launch import train as train_mod
+from repro_torch.tree import tree_leaves
 
 STEPS = 4
 
@@ -186,19 +190,67 @@ def test_recurrentgemma_train_entry_point_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("compression", ["topk", "randk", "lowrank"])
-def test_gradient_compression_is_refused_when_the_step_is_built(compression):
-    """The port has no gradient compressor: a config that asks for one
-    raises when its step is built (by make_train_step, and so by the
-    engine's step table), instead of training on uncompressed gradients
-    as if it matched the reference."""
+def test_gradient_compression_builds_and_trains(compression, monkeypatch):
+    """A config that asks for a compressor builds its steps (by
+    make_train_step, and so by the engine's step table) and trains on
+    compressed gradients: what the optimizer receives is, leaf by leaf,
+    the reference's topk of the raw gradient bit for bit; for randk, at
+    most k = int(0.1 * size) entries, each the raw entry times 1 / 0.1
+    (exactly k where the raw gradient has no zero); for lowrank, a matrix
+    of rank at most int(0.1 * 32) = 3, with vectors passed unchanged."""
     cfg = t_reduced("yi-6b")
-    tcfg = TrainConfig(compression=compression)
-    with pytest.raises(NotImplementedError, match="compress_tree"):
-        steps_lib.make_train_step(cfg, tcfg, depth=2)
-    with pytest.raises(NotImplementedError, match="compress_tree"):
-        steps_lib.make_train_step(cfg, tcfg, SPBConfig(mode="off"))
-    with pytest.raises(NotImplementedError, match="compress_tree"):
-        SPBEngine(cfg, tcfg, SPBConfig(mode="temporal", k=4), device="cpu")
+    tcfg = TrainConfig(num_steps=2, compression=compression)
+    steps_lib.make_train_step(cfg, tcfg, depth=2)
+    seen = []
+    real = compress.compress_tree
+
+    def spy(grads, method, ratio, gen):
+        out = real(grads, method, ratio, gen)
+        seen.append((tree_leaves(grads), tree_leaves(out)))
+        return out
+
+    monkeypatch.setattr(steps_lib.compress, "compress_tree", spy)
+    eng = SPBEngine(cfg, tcfg, SPBConfig(mode="temporal", k=4), device="cpu")
+    eng.init_state(0)
+    pipe = Pipeline(cfg, 2, 32, seed=0)
+    losses = [float(eng.train_step(pipe.get_batch(s), s)["loss"])
+              for s in range(2)]
+    assert np.isfinite(losses).all() and len(seen) == 2
+    for raw, out in seen:
+        for g, c in zip(raw, out):
+            if g is None:
+                assert c is None
+                continue
+            g, c = g.detach(), c.detach()
+            assert c.shape == g.shape and c.dtype == g.dtype
+            if compression == "topk":
+                want = j_compress.topk_apply(g.numpy(), 0.1)
+                np.testing.assert_array_equal(c.numpy(), np.asarray(want))
+            elif compression == "randk":
+                k, kept = max(1, int(g.numel() * 0.1)), c != 0
+                assert int(kept.sum()) <= k
+                assert torch.equal(c[kept], g[kept] * (1.0 / 0.1))
+                if bool((g != 0).all()):
+                    assert int(kept.sum()) == k
+            elif g.dim() < 2:
+                assert torch.equal(c, g)
+            else:
+                m = c.reshape(c.shape[0], -1)
+                assert int(torch.linalg.matrix_rank(m)) <= 3
+
+
+def test_spatial_is_refused_when_the_step_is_built():
+    """spatial SPB runs one depth per data-parallel worker; it needs a
+    process group of several GPUs, and says so."""
+    cfg = t_reduced("yi-6b")
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        steps_lib.build_spb_train_steps(cfg, TrainConfig(),
+                                        SPBConfig(mode="spatial"))
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        SPBEngine(cfg, TrainConfig(), SPBConfig(mode="spatial"), device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        train_mod.train(["--steps", "1", "--spb-mode", "spatial",
+                         "--device", "cpu"])
 
 
 def test_without_compression_the_engine_still_trains():
