@@ -58,7 +58,22 @@ Phases, each printing a line; any failure exits non-zero:
   8. the driver's restart loop on the card: yi-6b-reduced with the
      kernels, 8 steps straight and with a failure injected at step 5,
      exactly one FAILURE line and the same last xent to 1e-5;
-  9. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+  9. a JigSaw session at full width: ``LiveBackend`` on the card with a
+     yi-6b job (8 layers) and a mamba2-2.7b job (32), two workers each
+     (depths 4 and 8, 16 and 32), 3 iterations on 2 machine slots under
+     ``JigsawScheduler``, batch 2 x 2048: both jobs done, each task's
+     launches checked against its depth (the counts are zeroed before the
+     session and read after it), every measured task the interval the
+     runtime scheduled, each warm depth's measured ms within 10% of a
+     CUDA-event timing of one step at that depth, each worker's estimate
+     the EMA of its warm measurements, finite xent; one line a task, the
+     host time outside the steps and each job's peak memory;
+  10. a fault session on the card: yi-6b-reduced and mamba2-reduced with
+     the kernels under one machine crash and one transient task failure,
+     checkpointed every iteration: both jobs done, a restore, exactly one
+     retry; then a ``KernelError`` raised inside one attempt leaves
+     ``ClusterRuntime.run()`` with no retry counted;
+  11. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card: without one it exits 1 and prints no result.
 """
@@ -749,7 +764,7 @@ def phase_card_vs_cpu(arch: str):
 def phase_full_width(arch: str):
     """Phase 5: one path at full width; returns its launch counts per
     kernel, zeroed just before the run and read just after, and each
-    step's ms."""
+    step's ms and depth."""
     import torch
     from repro_torch.config import SPBConfig, TrainConfig
     from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
@@ -770,7 +785,7 @@ def phase_full_width(arch: str):
     batches = [make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=s,
                           device="cuda") for s in range(steps)]
     zero_launches()
-    times = []
+    times, depths = [], []
     for s in range(steps):
         before = launches_now()
         torch.cuda.reset_peak_memory_stats()
@@ -789,7 +804,8 @@ def phase_full_width(arch: str):
         if not math.isfinite(loss):
             raise AssertionError(f"{arch}: loss not finite at step {s}")
         times.append(ms)
-    return launches_now(), times
+        depths.append(d)
+    return launches_now(), times, depths
 
 
 class _TimedFullBackprop:
@@ -982,6 +998,319 @@ def phase_restart() -> None:
                              "the straight one does")
 
 
+# the JigSaw session (phase 9): per arch, the full-depth step's seconds and
+# peak GB at batch 2 x 2048 (PERF.md section 5), seeding the scheduler's
+# estimates; the live feedback replaces the times with measurements
+JIGSAW_JOBS = {"yi-6b": (0.217, 38.5), "mamba2-2.7b": (0.465, 43.3)}
+JIGSAW_TOL = 0.10       # measured step against CUDA events, relative
+# the least room (GB) the session's peak allocation must leave on the card:
+# the resting tenant's state stays resident while the other steps, so a
+# deeper step or a larger state shows here before it runs out of memory
+JIGSAW_HEADROOM_GB = 8.0
+
+
+def _task_log_backend(feed_random: bool):
+    """A ``LiveBackend`` that logs each task's (job, worker, iteration,
+    depth, measured s, launches, peak allocated and reserved bytes).
+    With ``feed_random`` its batches come from ``configs.make_batch`` on
+    the card: the ``MarkovLM`` pipeline would build a (vocab, vocab)
+    float64 table of ~33 GB at yi-6b's vocabulary."""
+    import torch
+    from repro_torch.cluster.live import LiveBackend
+    from repro_torch.configs import make_batch
+
+    class TaskLogBackend(LiveBackend):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.task_log, self.arrival_s = [], {}
+
+        def job_arrived(self, job, now):
+            t0 = time.perf_counter()
+            super().job_arrived(job, now)
+            torch.cuda.synchronize()
+            self.arrival_s[job.job_id] = time.perf_counter() - t0
+
+        def run_task(self, job, task, *a, **kw):
+            before = launches_now()
+            torch.cuda.reset_peak_memory_stats()
+            measured = super().run_task(job, task, *a, **kw)
+            self.task_log.append(dict(
+                job=task.job_id, worker=task.worker_id, it=task.iteration,
+                depth=self.engines[task.job_id].last_depth, s=measured,
+                launches=launches_since(before),
+                alloc=torch.cuda.max_memory_allocated(),
+                reserved=torch.cuda.max_memory_reserved()))
+            return measured
+
+        def _stacked_batch(self, jid, step):
+            if not feed_random:
+                return super()._stacked_batch(jid, step)
+            lj = self.jobs[jid]
+            return make_batch(lj.cfg, lj.batch, lj.seq, seed=1000 * jid + step,
+                              device=self.device)
+
+    return TaskLogBackend
+
+
+def check_task_launches(phase: str, backend) -> dict:
+    """Each logged task's launches against its depth; returns their sum
+    by job id."""
+    by_job = {}
+    for t in backend.task_log:
+        want = expected_launches(backend.jobs[t["job"]].cfg, [t["depth"]])
+        if t["launches"] != want:
+            raise AssertionError(f"{phase}: task {t} launched "
+                                 f"{t['launches']} != {want}")
+        acc = by_job.setdefault(t["job"], dict.fromkeys(want, 0))
+        for n, c in want.items():
+            acc[n] += c
+    return by_job
+
+
+def phase_jigsaw(phase5: dict) -> dict:
+    """Phase 9: the JigSaw session at full width (see the module
+    docstring).  ``phase5``: {arch: (step ms, depths)} of phase 5, printed
+    beside the session's warm ms at the same depth.  Returns the launch
+    counts by arch, zeroed just before the session and read just after."""
+    import torch
+    from repro_torch.cluster import ClusterRuntime, make_live_job
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
+                                     full_width_config, make_batch)
+    from repro_torch.jigsaw.schedulers import JigsawScheduler
+
+    iters, workers, ema = 3, 2, 0.5
+    jobs = []
+    for jid, (arch, (est_s, mem_gb)) in enumerate(JIGSAW_JOBS.items()):
+        cfg = full_width_config(arch)
+        jobs.append(make_live_job(
+            jid, arrival=0.0, cfg=cfg, iterations=iters, num_workers=workers,
+            batch=FULL_WIDTH_BATCH, seq=FULL_WIDTH_SEQ, est_step_s=est_s,
+            est_mem_gb=mem_gb, model_size_gb=0.01,
+            tcfg=TrainConfig(num_steps=iters * workers, seed=jid),
+            spb=SPBConfig(mode="temporal", k=workers)))
+    estimates = {(lj.spec.job_id, w): ws.duration
+                 for lj in jobs for w, ws in enumerate(lj.spec.workers)}
+    backend = _task_log_backend(feed_random=True)(jobs, device="cuda",
+                                                  ema=ema)
+    runtime = ClusterRuntime(backend.specs(), JigsawScheduler(), backend,
+                             num_machines=2, machine_mem_gb=80.0, gamma=0.1,
+                             horizon=60.0, record_schedule=True)
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        res = runtime.run()
+    except torch.cuda.OutOfMemoryError as e:
+        raise AssertionError(
+            f"jigsaw: out of memory after {len(backend.task_log)} tasks "
+            f"(peaks so far "
+            f"{[round(t['alloc'] / 1e9, 2) for t in backend.task_log]} GB)"
+            f": the two tenants no longer fit the card; cut a depth in "
+            f"configs.full_width_config") from e
+    wall = time.perf_counter() - t0
+    grew = launches_now()
+    by_job = check_task_launches("jigsaw", backend)
+    want = dict.fromkeys(grew, 0)
+    for acc in by_job.values():
+        for n, c in acc.items():
+            want[n] += c
+    if grew != want:
+        raise AssertionError(f"jigsaw: launches {grew} != {want}")
+
+    names = dict(enumerate(JIGSAW_JOBS))
+    for t in backend.task_log:
+        log(f"[jigsaw] job={t['job']} ({names[t['job']]}) worker={t['worker']}"
+            f" iter={t['it']} depth={t['depth']} measured_ms="
+            f"{t['s'] * 1e3:.1f} max_mem_gb={t['alloc'] / 1e9:.2f} "
+            f"reserved_gb={t['reserved'] / 1e9:.2f} launches="
+            f"{ {n: c for n, c in t['launches'].items() if c} }")
+    depths = {j: sorted(d) for j, d in backend.observed_depths.items()}
+    log(f"[jigsaw] scheduler=jigsaw jobs_done={len(res.jct)}/{len(jobs)} "
+        f"depths={depths} makespan={res.makespan:.3f}s util={res.util:.3f} "
+        f"goodput={res.goodput:.3f} migrations={sum(res.migrations.values())}"
+        f" wall={wall:.3f}s")
+    if len(res.jct) != len(jobs) or res.failed_jobs:
+        raise AssertionError(f"jigsaw: jobs_done {len(res.jct)}/{len(jobs)}")
+    for lj in jobs:
+        jid, L = lj.spec.job_id, lj.cfg.num_layers
+        if depths[jid] != [L // workers, L]:
+            raise AssertionError(f"jigsaw: job {jid} ran depths "
+                                 f"{depths[jid]}, not {[L // workers, L]}")
+        if not math.isfinite(backend.last_xent[jid]):
+            raise AssertionError(f"jigsaw: job {jid} xent not finite")
+    # the virtual clock is the card's: each scheduled interval is the
+    # task's measured time
+    for m, s, e, jid, wid, it in res.schedule:
+        meas = backend.task_measured[(jid, wid, it)]
+        if not math.isclose(e - s, meas, rel_tol=1e-9):
+            raise AssertionError(f"jigsaw: task {(jid, wid, it)} scheduled "
+                                 f"{e - s} s, measured {meas} s")
+    # each worker's estimate is the EMA of its warm measurements (its
+    # first run, at a depth new to its job, is left out)
+    for (jid, w), est in estimates.items():
+        want_d = est
+        for it in range(1, iters):
+            want_d = (1 - ema) * want_d + ema * backend.task_measured[
+                (jid, w, it)]
+        got = runtime.jobs_by_id[jid].workers[w].duration
+        if not math.isclose(got, want_d, rel_tol=1e-12) or got == est:
+            raise AssertionError(f"jigsaw: job {jid} worker {w} estimate "
+                                 f"{got} != EMA {want_d} (seed {est})")
+    spent = sum(backend.task_measured.values())
+    arrival = sum(backend.arrival_s.values())
+    log(f"[jigsaw] wall_s={wall:.4f} sum_measured_s={spent:.4f} "
+        f"job_arrival_s={arrival:.4f} (engine build and init) "
+        f"outside_steps_s={wall - spent:.4f} "
+        f"outside_steps_less_arrival_s={wall - spent - arrival:.4f} "
+        f"share_of_wall_less_arrival="
+        f"{(wall - spent - arrival) / (wall - arrival):.4%}")
+    for lj in jobs:
+        jid = lj.spec.job_id
+        mine = [t for t in backend.task_log if t["job"] == jid]
+        log(f"[jigsaw] job={jid} ({lj.cfg.name}) peak max_memory_allocated_gb"
+            f"={max(t['alloc'] for t in mine) / 1e9:.2f} "
+            f"max_memory_reserved_gb="
+            f"{max(t['reserved'] for t in mine) / 1e9:.2f} "
+            f"final_xent={backend.last_xent[jid]:.4f}")
+    free, total = torch.cuda.mem_get_info()
+    room = (total - max(t["alloc"] for t in backend.task_log)) / 1e9
+    log(f"[jigsaw] card_gb={total / 1e9:.2f} free_gb_now={free / 1e9:.2f} "
+        f"room_at_peak_allocation_gb={room:.2f} "
+        f"least_room_gb={JIGSAW_HEADROOM_GB}")
+    if room < JIGSAW_HEADROOM_GB:
+        raise AssertionError(
+            f"jigsaw: the peak allocation leaves {room:.2f} GB of the card, "
+            f"under {JIGSAW_HEADROOM_GB}: the two tenants are close to not "
+            f"fitting; cut a depth in configs.full_width_config")
+
+    # each warm depth's measured ms against CUDA events around one more
+    # step of the same engine at that depth
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+    for lj in jobs:
+        jid, arch = lj.spec.job_id, names[lj.spec.job_id]
+        engine = backend.engines[jid]
+        p5_ms, p5_depths = phase5[arch]
+        for w in range(workers):
+            warm = [t["s"] * 1e3 for t in backend.task_log
+                    if (t["job"], t["worker"]) == (jid, w) and t["it"] > 0]
+            depth = engine.resolve_depth(
+                math.ceil((w + 1) / workers * lj.cfg.num_layers))
+            batch = make_batch(lj.cfg, lj.batch, lj.seq, seed=999,
+                               device="cuda")
+            torch.cuda.synchronize()
+            ev0.record()
+            engine.train_step(batch, depth=depth)
+            ev1.record()
+            torch.cuda.synchronize()
+            event_ms = ev0.elapsed_time(ev1)
+            mean = sum(warm) / len(warm)
+            # phase 5's second cycle (steps 4-7) at this depth
+            p5 = [ms for ms, d in zip(p5_ms[4:], p5_depths[4:]) if d == depth]
+            log(f"[jigsaw] job={jid} ({arch}) depth={depth} warm_measured_ms="
+                f"{[round(x, 2) for x in warm]} mean={mean:.2f} "
+                f"event_ms={event_ms:.2f} rel={mean / event_ms - 1:+.4f} "
+                f"tol={JIGSAW_TOL} phase5_step_ms={[round(x, 1) for x in p5]}")
+            if abs(mean / event_ms - 1) > JIGSAW_TOL:
+                raise AssertionError(f"jigsaw: job {jid} depth {depth}: "
+                                     f"measured {mean} ms against events "
+                                     f"{event_ms} ms")
+    backend.close()
+    return {names[jid]: {n: c for n, c in acc.items() if c}
+            for jid, acc in by_job.items()}
+
+
+class _StepClock:
+    """A scripted clock: each (start, end) pair of calls measures one
+    virtual second, so the fault plan's crash lands mid-session whatever
+    the card's speed."""
+
+    def __init__(self):
+        self.t, self.mid = 0.0, False
+
+    def __call__(self):
+        if self.mid:
+            self.t += 1.0
+        self.mid = not self.mid
+        return self.t
+
+
+def phase_cluster_faults() -> None:
+    """Phase 10: yi-6b-reduced and mamba2-reduced with the kernels on the
+    card, two workers each, 4 iterations on 2 machine slots, under one
+    crash of machine 0 (t=3.5, back at 4.5) and one transient failure of
+    job 1 worker 0's iteration 1, checkpointed every iteration: both jobs
+    done, at least one restore, exactly one retry, each task's launches
+    against its depth.  Then a ``KernelError`` raised in one attempt
+    leaves ``ClusterRuntime.run()`` with no retry counted."""
+    import shutil
+    from repro_torch.cluster import ClusterRuntime, FaultPlan, make_live_job
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.jigsaw.schedulers import JigsawScheduler
+    from repro_torch.kernels._build import KernelError
+
+    def jobs():
+        return [make_live_job(
+            jid, arrival=0.0,
+            cfg=dataclasses.replace(reduced_config(arch), use_pallas=True),
+            iterations=4, num_workers=2, batch=2, seq=64, est_step_s=1.0,
+            tcfg=TrainConfig(num_steps=8, seed=jid),
+            spb=SPBConfig(mode="temporal", k=2))
+            for jid, arch in enumerate(JIGSAW_JOBS)]
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_cluster"
+    shutil.rmtree(root, ignore_errors=True)
+    plan = FaultPlan.parse("crash:0@3.5+1.0;fail:1.0@1", restore_s=0.25)
+    backend = _task_log_backend(feed_random=False)(
+        jobs(), device="cuda", timer=_StepClock(), ckpt_dir=str(root))
+    res = ClusterRuntime(backend.specs(), JigsawScheduler(), backend,
+                         num_machines=2, gamma=0.05, horizon=1e9,
+                         record_schedule=True, faults=plan,
+                         ckpt_every=1).run()
+    backend.close()
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {j: {n: c for n, c in acc.items() if c} for j, acc in
+                check_task_launches("cluster-faults", backend).items()}
+    log(f"[cluster-faults] jobs_done={len(res.jct)}/2 crashes={res.crashes} "
+        f"killed={len(res.killed_tasks)} retried={res.retried_tasks} "
+        f"backend_retries={backend.retries} restores={backend.restores} "
+        f"lost_iterations={res.lost_iterations} steps_run={backend.steps_run}"
+        f" tasks_run={len(backend.task_log)} goodput={res.goodput:.3f} "
+        f"util={res.util:.3f} launches={launches}")
+    if len(res.jct) != 2 or res.failed_jobs:
+        raise AssertionError("cluster-faults: a job did not finish")
+    if not sum(backend.restores.values()) or res.crashes != 1:
+        raise AssertionError("cluster-faults: the crash restored nothing")
+    if res.retried_tasks != [(1, 0, 1)] or backend.retries:
+        raise AssertionError("cluster-faults: not exactly one retry")
+    if backend.steps_run != {0: 8, 1: 8}:
+        raise AssertionError(f"cluster-faults: steps {backend.steps_run}")
+
+    fault = KernelError("injected: flash_dq: CUDA error 700")
+
+    def hook(jid, task, attempt):
+        if (jid, task.iteration) == (1, 1):
+            raise fault
+
+    naps = []
+    backend = _task_log_backend(feed_random=False)(
+        jobs(), device="cuda", fault_hook=hook, sleeper=naps.append)
+    try:
+        ClusterRuntime(backend.specs(), JigsawScheduler(), backend,
+                       num_machines=2, horizon=1e9).run()
+    except KernelError as e:
+        if e is not fault:
+            raise
+    else:
+        raise AssertionError("cluster-faults: the KernelError was swallowed")
+    backend.close()
+    log(f"[cluster-faults] KernelError left run() after "
+        f"{len(backend.task_log)} tasks: retries={backend.retries} "
+        f"sleeps={naps} failed={backend.failed}")
+    if backend.retries or naps or backend.failed:
+        raise AssertionError("cluster-faults: a device fault was retried")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1012,9 +1341,10 @@ def main() -> int:
         phase_card_vs_cpu(arch)
         torch.cuda.empty_cache()
     # each path's own launches: its kernels' counts from its own run
-    by_arch, temporal_ms = {}, {}
+    by_arch, temporal_ms, phase5 = {}, {}, {}
     for arch in ARCHS:
-        grew, temporal_ms[arch] = phase_full_width(arch)
+        grew, temporal_ms[arch], depths = phase_full_width(arch)
+        phase5[arch] = (temporal_ms[arch], depths)
         by_arch[arch] = {n: c for n, c in grew.items() if c}
         torch.cuda.empty_cache()
     launches = {n: sum(g.get(n, 0) for g in by_arch.values())
@@ -1035,6 +1365,15 @@ def main() -> int:
     for arch in ARCHS:
         phase_card_vs_cpu_compressed(arch)
     phase_restart()
+    torch.cuda.empty_cache()
+    jigsaw_by_arch = phase_jigsaw(phase5)
+    torch.cuda.empty_cache()
+    idle = [n for n in KERNELS if not n.startswith("rglru")
+            and not any(g.get(n) for g in jigsaw_by_arch.values())]
+    if idle:
+        raise AssertionError(f"kernels the JigSaw session never launched: "
+                             f"{idle}")
+    phase_cluster_faults()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1046,6 +1385,9 @@ def main() -> int:
                  "launches_temporal_mb": {a: g[name]
                                           for a, g in mb_by_arch.items()
                                           if name in g},
+                 "launches_jigsaw": {a: g[name]
+                                     for a, g in jigsaw_by_arch.items()
+                                     if name in g},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],

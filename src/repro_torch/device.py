@@ -1,9 +1,12 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and the device-fault predicate shared by the port's
+entry points."""
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+
+from repro_torch.kernels._build import KernelError
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -17,3 +20,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' (--device cpu) "
             "to run on the CPU")
     return dev
+
+
+def device_fault(e: BaseException) -> bool:
+    """A kernel's or the card's own fault: not transient, and a CUDA
+    context that took an illegal access cannot be recovered within the
+    process, so a restart or a retry would only hide it."""
+    faults = (KernelError, torch.cuda.OutOfMemoryError) + tuple(
+        t for t in (getattr(torch, "AcceleratorError", None),) if t)
+    return isinstance(e, faults) or "CUDA error" in str(e)

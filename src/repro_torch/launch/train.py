@@ -27,15 +27,13 @@ import argparse
 import dataclasses
 import time
 
-import torch
-
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config import SPBConfig, TrainConfig
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.pipeline import Pipeline
+from repro_torch.device import device_fault
 from repro_torch.engine.engine import SPBEngine
 from repro_torch.engine.policies import make_policy
-from repro_torch.kernels._build import KernelError
 
 
 def build_engine(cfg, tcfg, spb_cfg, *, depth_policy: str = "cycle",
@@ -44,15 +42,6 @@ def build_engine(cfg, tcfg, spb_cfg, *, depth_policy: str = "cycle",
     return SPBEngine(cfg, tcfg, spb_cfg, device=device,
                      policy=make_policy(depth_policy, cfg, spb_cfg,
                                         time_budget_frac=time_budget))
-
-
-def _device_fault(e: RuntimeError) -> bool:
-    """A kernel's or the card's own fault: not transient, and a CUDA
-    context that took an illegal access cannot be recovered within the
-    process, so a restart would only hide it."""
-    faults = (KernelError, torch.cuda.OutOfMemoryError) + tuple(
-        t for t in (getattr(torch, "AcceleratorError", None),) if t)
-    return isinstance(e, faults) or "CUDA error" in str(e)
 
 
 def train(argv=None):
@@ -121,7 +110,7 @@ def train(argv=None):
             break
         except RuntimeError as e:      # noqa: PERF203
             restarts += 1
-            if _device_fault(e) or mgr is None or \
+            if device_fault(e) or mgr is None or \
                     restarts > args.max_restarts:
                 raise
             print(f"[train] FAILURE: {e}; restart {restarts}", flush=True)
