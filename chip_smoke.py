@@ -16,12 +16,15 @@ Phases, each printing a line; any failure exits non-zero:
      causal, bf16), a sliding-window case and a ragged Sq != Sk case, at
      the recurrentgemma-2b main-path shape (B 2, S 2048, H 10, K 1,
      D 256, window 2048, bf16) and a case where that window bites
-     (S 4096), then the backward kernels on the forward kernel's own
-     outputs against the plain chain, and two dq calls and two dkv calls
-     bitwise equal; max errors against the stated tolerance, and the
-     kernel's (CUDA events over 5 calls, and its kernels' device time
-     from ``torch.profiler`` over 20), the plain version's and a library
-     call's time at both main-path shapes;
+     (S 4096), at gemma3-4b's (H 8, K 4, D 256, window 1024, which skips
+     kv tiles, and its global layer without the window) and at
+     qwen3-moe-235b-a22b's (H 64, K 4, D 128, causal), then the backward
+     kernels on the forward kernel's own outputs against the plain chain,
+     and two dq calls and two dkv calls bitwise equal; max errors against
+     the stated tolerance, and the kernel's (CUDA events over 5 calls, and
+     its kernels' device time from ``torch.profiler`` over 20), the plain
+     version's and a library call's time at the yi-6b, recurrentgemma-2b,
+     gemma3-4b (local) and qwen3 shapes;
   3b. the same for the SSD kernels: at the mamba2-2.7b main-path shape
      (B 2, S 2048, H 80, P 64, N 128, chunk 256, bf16 x/B/C with B and C
      broadcast over heads, f32 dA), f32 reduced and ragged cases and bf16
@@ -36,18 +39,23 @@ Phases, each printing a line; any failure exits non-zero:
      than the card holds at once (B 64, S 8192: the chained scan's forward
      progress), then the backward kernel on the forward kernel's own
      output, and two calls of each kernel bitwise equal;
-  4. card against CPU: yi-6b-reduced, mamba2-reduced and then
-     recurrentgemma-reduced in f32 with the kernels, 4 temporal SPB steps
-     from the same seeded weights as on the CPU plain path, with the card
-     run's launch counts checked against the steps' depths;
+  4. card against CPU: yi-6b-reduced, mamba2-reduced,
+     recurrentgemma-reduced, gemma3-reduced, deepseek-67b-reduced and
+     qwen3-moe-reduced in f32 with the kernels, 4 temporal SPB steps from
+     the same seeded weights as on the CPU plain path, with the card run's
+     launch counts checked against the steps' depths;
   5. each path at full width: SPBEngine on yi-6b cut to 8 layers, on
-     mamba2-2.7b cut to 32 and on recurrentgemma-2b cut to 12, bf16,
-     temporal k=4, batch 2 x 2048, 8 steps, with the launch counts of
-     every kernel checked against the step's depth (the counts are zeroed
-     before each path and read after it);
-  6. temporal-mb at full width: the same three paths, batch 8 x 2048 (four
-     microbatches of phase 5's shape, one at each depth of the k=4 cycle,
-     then one optimizer step), 3 steps, each step's launches checked
+     mamba2-2.7b cut to 32, on recurrentgemma-2b cut to 12, on gemma3-4b
+     cut to 12 and on qwen3-moe-235b-a22b cut to 4 layers of 8 held
+     experts (rank 0 of a 16-way expert-parallel layer), bf16, temporal
+     k=4, batch 2 x 2048, 8 steps, with the launch counts of every kernel
+     checked against the step's depth (the counts are zeroed before each
+     path and read after it), each step's peak allocation leaving at least
+     ``HEADROOM_GB`` of the card;
+  6. temporal-mb at full width: yi-6b, mamba2-2.7b and
+     recurrentgemma-2b, batch 8 x 2048 (four microbatches of phase 5's
+     shape, one at each depth of the k=4 cycle, then one optimizer
+     step), 3 steps, each step's launches checked
      against its cycle, its time on the host clock and by CUDA events
      beside the sum of one cycle of phase 5's temporal steps; the engine's
      policy sets ``needs_step_time`` and must observe no less than the
@@ -101,6 +109,13 @@ MAIN = dict(B=2, Sq=2048, Sk=2048, H=32, K=4, D=128, causal=True, window=0,
 # (which masks nothing more than causality at S 2048)
 RG_MAIN = dict(B=2, Sq=2048, Sk=2048, H=10, K=1, D=256, causal=True,
                window=2048, dtype="bfloat16")
+# gemma3-4b's local attention: GQA 8 over 4 (G 2), head_dim 256, window
+# 1024, which skips whole kv tiles at S 2048; its global layer is the same
+# without the window
+G3_MAIN = dict(B=2, Sq=2048, Sk=2048, H=8, K=4, D=256, causal=True,
+               window=1024, dtype="bfloat16")
+# qwen3-moe-235b-a22b's attention: 64 q heads over 4 kv heads (G 16)
+Q3_MAIN = dict(MAIN, H=64)
 CASES = {
     "main": MAIN,
     "window": dict(B=1, Sq=1024, Sk=1024, H=8, K=2, D=64, causal=True,
@@ -109,8 +124,12 @@ CASES = {
                    window=0, dtype="float32"),
     "rg_main": RG_MAIN,
     "rg_window": dict(RG_MAIN, B=1, Sq=4096, Sk=4096),
+    "g3_main": G3_MAIN,
+    "g3_global": dict(G3_MAIN, window=0),
+    "q3_main": Q3_MAIN,
 }
-TIMED = {"main": "yi-6b", "rg_main": "recurrentgemma-2b"}   # case: arch
+TIMED = {"main": "yi-6b", "rg_main": "recurrentgemma-2b",   # case: arch
+         "g3_main": "gemma3-4b", "q3_main": "qwen3-moe-235b-a22b"}
 # SSD cases: (B, S, H, P, N, chunk, dtype of x/B/C, B/C broadcast over
 # heads); dA is f32 -U(0.05, 2.0) as in tests/test_kernel_grads.py.  Every
 # SSD and RG-LRU output is f32, held at that suite's measure:
@@ -142,7 +161,15 @@ RGLRU_CASES = {
     "short": dict(B=1, S=17, W=130),
     "many_tiles": dict(B=64, S=8192, W=512),
 }
+# phases 6-10 run these; phase 4 also the three below, phase 5 also the
+# two of them with a full-width cut (deepseek-67b has none)
 ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
+CARD_VS_CPU_ARCHS = ARCHS + ("gemma3-4b", "deepseek-67b",
+                             "qwen3-moe-235b-a22b")
+FULL_WIDTH_ARCHS = ARCHS + ("gemma3-4b", "qwen3-moe-235b-a22b")
+# the least room (GB) a full-width step's peak allocation must leave on the
+# card (phases 5 and 9)
+HEADROOM_GB = 8.0
 KERNELS = {     # name: (source, TPU kernel it replaces)
     "flash_fwd": ("src/repro_torch/csrc/flash_fwd.cu",
                   "src/repro/kernels/flash_attention.py:58"),
@@ -460,21 +487,26 @@ def phase_kernels():
             records[name]["bound_ms"], records[name]["bound_by"] = bound(
                 flops, nb, c["dtype"])
         # library yardsticks, never called by the port: SDPA forward (its
-        # causal mask is the whole mask at these shapes); the row dot
-        # product of O and dO (rounded to bf16 at the end, where the kernel
-        # keeps f32); SDPA's backward alone (dQ, dK and dV in one call)
-        # for dq and dkv; SDPA forward + backward beside the four kernels
-        assert c["causal"] and c["window"] in (0, Sq)
+        # causal mask is the whole mask where the window masks nothing
+        # more, else the kernels' own pair mask as a boolean attn_mask);
+        # the row dot product of O and dO (rounded to bf16 at the end,
+        # where the kernel keeps f32); SDPA's backward alone (dQ, dK and dV
+        # in one call) for dq and dkv; SDPA forward + backward beside the
+        # four kernels
+        assert c["causal"]
+        mask = (dict(is_causal=True) if c["window"] in (0, Sq) else
+                dict(attn_mask=fa.pair_mask(Sq, Sk, True, c["window"],
+                                            "cuda")))
         qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, enable_gqa=True)
+            qs, ks, vs, enable_gqa=True, **mask)
         records["flash_fwd"]["library_ms"] = time_ms(sdpa)
         records["flash_delta"]["library_ms"] = time_ms(
             lambda: torch.linalg.vecdot(ot_p, dot_))
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (qs, ks, vs))
         gs = do.transpose(1, 2)
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                             enable_gqa=True)
+        out = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True,
+                                             **mask)
         sdpa_bwd = time_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), gs, retain_graph=True))
         for name in ("flash_dq", "flash_dkv"):
@@ -482,8 +514,8 @@ def phase_kernels():
         del out
 
         def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                                 enable_gqa=True)
+            out = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True,
+                                                 **mask)
             torch.autograd.grad(out, (qg, kg, vg), gs)
 
         records["_sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
@@ -774,6 +806,7 @@ def phase_full_width(arch: str):
 
     cfg = full_width_config(arch)
     steps = 8
+    total_gb = torch.cuda.mem_get_info()[1] / 1e9
     eng = SPBEngine(cfg, TrainConfig(num_steps=steps),
                     SPBConfig(mode="temporal", k=4), device="cuda")
     t0 = time.perf_counter()
@@ -781,7 +814,8 @@ def phase_full_width(arch: str):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(eng.state["params"]))
     log(f"[full-width] {arch} num_layers={cfg.num_layers} {cfg.dtype} "
-        f"params={n_params} init_s={time.perf_counter() - t0:.2f}")
+        f"params={n_params} init_s={time.perf_counter() - t0:.2f} "
+        f"card_gb={total_gb:.2f}")
     batches = [make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=s,
                           device="cuda") for s in range(steps)]
     zero_launches()
@@ -797,12 +831,19 @@ def phase_full_width(arch: str):
         ms = (time.perf_counter() - t0) * 1e3
         d = eng.last_depth
         grew = check_launches(f"full-width {arch} step {s}", before, [d], cfg)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         log(f"[full-width] {arch} step={s} depth={d} loss={loss:.4f} "
+            f"moe_aux={float(m['moe_aux']):.4f} "
             f"gnorm={float(m['grad_norm']):.4f} step_ms={ms:.1f} "
-            f"max_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+            f"max_mem_gb={peak_gb:.2f} "
             f"launches={ {n: c for n, c in grew.items() if c} }")
         if not math.isfinite(loss):
             raise AssertionError(f"{arch}: loss not finite at step {s}")
+        if total_gb - peak_gb < HEADROOM_GB:
+            raise AssertionError(
+                f"{arch}: step {s}'s peak allocation {peak_gb:.2f} GB leaves "
+                f"under {HEADROOM_GB} of the card's {total_gb:.2f}; cut a "
+                f"depth in configs.FULL_WIDTH_LAYERS")
         times.append(ms)
         depths.append(d)
     return launches_now(), times, depths
@@ -1003,10 +1044,6 @@ def phase_restart() -> None:
 # estimates; the live feedback replaces the times with measurements
 JIGSAW_JOBS = {"yi-6b": (0.217, 38.5), "mamba2-2.7b": (0.465, 43.3)}
 JIGSAW_TOL = 0.10       # measured step against CUDA events, relative
-# the least room (GB) the session's peak allocation must leave on the card:
-# the resting tenant's state stays resident while the other steps, so a
-# deeper step or a larger state shows here before it runs out of memory
-JIGSAW_HEADROOM_GB = 8.0
 
 
 def _task_log_backend(feed_random: bool):
@@ -1176,11 +1213,13 @@ def phase_jigsaw(phase5: dict) -> dict:
     room = (total - max(t["alloc"] for t in backend.task_log)) / 1e9
     log(f"[jigsaw] card_gb={total / 1e9:.2f} free_gb_now={free / 1e9:.2f} "
         f"room_at_peak_allocation_gb={room:.2f} "
-        f"least_room_gb={JIGSAW_HEADROOM_GB}")
-    if room < JIGSAW_HEADROOM_GB:
+        f"least_room_gb={HEADROOM_GB}")
+    # the resting tenant's state stays resident while the other steps, so
+    # a deeper step or a larger state shows here before it runs out
+    if room < HEADROOM_GB:
         raise AssertionError(
             f"jigsaw: the peak allocation leaves {room:.2f} GB of the card, "
-            f"under {JIGSAW_HEADROOM_GB}: the two tenants are close to not "
+            f"under {HEADROOM_GB}: the two tenants are close to not "
             f"fitting; cut a depth in configs.full_width_config")
 
     # each warm depth's measured ms against CUDA events around one more
@@ -1337,12 +1376,12 @@ def main() -> int:
     records.update(phase_ssd_kernels())
     records.update(phase_rglru_kernels())
     torch.cuda.empty_cache()
-    for arch in ARCHS:
+    for arch in CARD_VS_CPU_ARCHS:
         phase_card_vs_cpu(arch)
         torch.cuda.empty_cache()
     # each path's own launches: its kernels' counts from its own run
     by_arch, temporal_ms, phase5 = {}, {}, {}
-    for arch in ARCHS:
+    for arch in FULL_WIDTH_ARCHS:
         grew, temporal_ms[arch], depths = phase_full_width(arch)
         phase5[arch] = (temporal_ms[arch], depths)
         by_arch[arch] = {n: c for n, c in grew.items() if c}
@@ -1392,9 +1431,9 @@ def main() -> int:
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        rg = timed["rg_main"].get(name)
-        if rg is not None:      # the flash kernels at recurrentgemma's shape
-            entry["at_recurrentgemma_2b"] = rg
+        for case, arch in TIMED.items():   # the flash kernels at each shape
+            if case != "main" and name in timed[case]:
+                entry["at_" + re.sub(r"\W", "_", arch)] = timed[case][name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels,
                     "sdpa_fwd_bwd_ms": {TIMED[c]: t["_sdpa_fwd_bwd_ms"]

@@ -2,7 +2,9 @@
 
 A copy of ``repro/config.py`` (pure dataclasses, no framework import) so
 the PyTorch port imports nothing of the JAX package; the parity tests pin
-the two as equal.  Architecture configs (``repro_torch/configs/<id>.py``)
+the two as equal.  One field is the port's own:
+``MoEConfig.experts_held``, the share of an expert-parallel layer that
+one card holds.  Architecture configs (``repro_torch/configs/<id>.py``)
 instantiate :class:`ModelConfig`; shapes come from :data:`SHAPES`;
 parallelism from :class:`ParallelConfig`; the paper's technique from
 :class:`SPBConfig`.  In the port ``ModelConfig.use_pallas`` selects the
@@ -31,6 +33,17 @@ class MoEConfig:
     # 'dense' computes every expert masked (exact, small-scale);
     # 'ep' is the sort-based expert-parallel all_to_all path (production).
     impl: str = "dense"
+    # The port's own field (the reference has none): the experts this card
+    # holds, the first ``experts_held`` of ``num_experts`` -- rank 0's share
+    # of a layer split over num_experts // experts_held ranks.  The router
+    # still scores all of them (models/moe.py).  None = all.
+    experts_held: Optional[int] = None
+
+    def __post_init__(self):
+        held = self.experts_held
+        if held is not None and (held <= 0 or self.num_experts % held):
+            raise ValueError(f"experts_held={held} must divide num_experts="
+                             f"{self.num_experts}")
 
 
 @dataclass(frozen=True)

@@ -19,6 +19,9 @@ ARCHS: Dict[str, str] = {
     "yi-6b": "yi_6b",
     "mamba2-2.7b": "mamba2_2_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "gemma3-4b": "gemma3_4b",
+    "deepseek-67b": "deepseek_67b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
 }
 
 # The full-width runs on one 80 GB card (chip_smoke.py, analysis/step_profile):
@@ -36,7 +39,26 @@ FULL_WIDTH_LAYERS: Dict[str, int] = {
     # 4 local-attention layers, 1.68 B parameters (655 M of them the tied
     # 256k embedding), about yi-6b's 8 layers.  Depth cycle 12, 3, 9, 6.
     "recurrentgemma-2b": 12,
+    # 34 layers: ~94 M parameters a layer plus the tied 262144-row
+    # embedding (671 M).  12 are two whole (5 local + 1 global) periods,
+    # one layer group: 1,803,614,720 parameters, ~42.2 GB of state.  Depth
+    # cycle 12, 6, 12, 6 (depths snap to whole 6-layer periods).
+    "gemma3-4b": 12,
+    # 94 layers of 128 experts: one layer holds 2.42 B expert parameters,
+    # so no layer fits whole (1 layer, all 128 experts: 3,733,467,136
+    # parameters, 87.4 GB of state).  With FULL_WIDTH_EXPERTS' share, 4
+    # layers: 2,137,034,752 parameters, ~50.0 GB.  Depth cycle 4, 1, 3, 2.
+    "qwen3-moe-235b-a22b": 4,
+    # deepseek-67b has no entry: its untied 102400 x 8192 pair is 1.68 B
+    # parameters and a layer 0.69 B, so 2 layers take 3,061,882,880
+    # parameters, 71.6 GB of state before any logit or activation, and 1
+    # layer (55.5 GB) has no SPB cycle.
 }
+# The experts one card holds of each MoE layer at full width: the published
+# 128 of qwen3-moe-235b-a22b over a 16-way expert-parallel group (two 8-GPU
+# nodes) leave 8 a rank; the card is rank 0 and holds experts 0-7.  The
+# router keeps its 128 outputs and top-8.
+FULL_WIDTH_EXPERTS: Dict[str, int] = {"qwen3-moe-235b-a22b": 8}
 FULL_WIDTH_BATCH = 2
 FULL_WIDTH_SEQ = 2048
 
@@ -57,10 +79,19 @@ def reduced_config(arch: str) -> ModelConfig:
 
 def full_width_config(arch: str) -> ModelConfig:
     """``arch`` at its published widths, cut to its
-    :data:`FULL_WIDTH_LAYERS` layers, on the hand-written kernels."""
-    return dataclasses.replace(get_config(arch),
-                               num_layers=FULL_WIDTH_LAYERS[arch],
-                               use_pallas=True)
+    :data:`FULL_WIDTH_LAYERS` layers (and to its
+    :data:`FULL_WIDTH_EXPERTS` share of each MoE layer), on the
+    hand-written kernels."""
+    cfg = get_config(arch)
+    if arch not in FULL_WIDTH_LAYERS:
+        raise KeyError(f"{arch!r} has no full-width cut that fits one 80 GB "
+                       f"card with an SPB cycle; the cuts: "
+                       f"{sorted(FULL_WIDTH_LAYERS)}")
+    over = dict(num_layers=FULL_WIDTH_LAYERS[arch], use_pallas=True)
+    if arch in FULL_WIDTH_EXPERTS:
+        over["moe"] = dataclasses.replace(
+            cfg.moe, experts_held=FULL_WIDTH_EXPERTS[arch])
+    return dataclasses.replace(cfg, **over)
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0, *,

@@ -1,6 +1,6 @@
 """LM assembly with SPB suffix splitting (the train path of
 ``repro/models/lm.py`` for dense attention, Mamba-2 SSD and Griffin
-RG-LRU + local-attention stacks).
+RG-LRU + local-attention stacks, with dense or MoE FFNs).
 
 Parameters keep the JAX package's stacked per-group layout:
 ``params["groups"][g][u][name]`` carries a leading ``count`` dim, one row
@@ -14,6 +14,8 @@ input -- the torch form of ``stop_gradient``: autograd records nothing
 for it, so no backward runs there and none of its activations are kept.
 The live rows are a slice ``t[q:]`` of the stacked leaf, so the leaf's
 gradient holds zeros in the frozen rows, as ``jax.grad`` returns.  The
+MoE load-balancing aux of every layer, frozen or live, is summed in layer
+order into the loss; the frozen layers' part carries no graph.  The
 port keeps every live activation (the JAX ``REMAT="full"`` recomputes
 instead; it changes no numbers).
 """
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.config import ModelConfig, layer_groups
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.tree import tree_leaves
 
@@ -41,12 +44,14 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = {k for unit, _ in layer_groups(cfg) for k in unit}
-    if cfg.enc_layers or cfg.frontend or cfg.moe is not None or \
+    if cfg.enc_layers or cfg.frontend or \
             kinds - {("attn", "dense"), ("local", "dense"), ("ssd", "dense"),
-                     ("rglru", "dense")}:
+                     ("rglru", "dense"), ("attn", "moe")}:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attn/local, ssd and rglru "
-            f"decoder stacks only (got layer kinds {sorted(kinds)})")
+            f"{cfg.name}: the port runs attn/local, ssd and rglru decoder "
+            f"stacks with dense FFNs and attn with MoE FFNs (got layer kinds "
+            f"{sorted(kinds)}); MLA is ROADMAP.md Queue 1 B item 10c, "
+            f"encoder-decoder (xdec) and frontends item 10d")
 
 
 # ---------------------------------------------------------------------------
@@ -94,17 +99,22 @@ def param_shapes(cfg: ModelConfig) -> Params:
     def meta(shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device="meta")
 
-    def layer(mixer, count):
+    def stacked(shapes, count):
+        return {k: stacked(v, count) if isinstance(v, dict)
+                else meta((count,) + v[0], v[1]) for k, v in shapes.items()}
+
+    def layer(mixer, ffn, count):
         out = {"ln1": meta((count, D)),
-               "mixer": {k: meta((count,) + shape, dt) for k, (shape, dt)
-                         in _mixer_shapes(cfg, mixer, dtype).items()}}
+               "mixer": stacked(_mixer_shapes(cfg, mixer, dtype), count)}
         if F > 0:
             out["ln2"] = meta((count, D))
-            out["ffn"] = {"wg": meta((count, D, F)), "wu": meta((count, D, F)),
-                          "wd": meta((count, F, D))}
+            out["ffn"] = stacked(
+                M.moe_shapes(cfg, dtype) if ffn == "moe" else
+                {"wg": ((D, F), dtype), "wu": ((D, F), dtype),
+                 "wd": ((F, D), dtype)}, count)
         return out
 
-    groups = [[layer(mixer, count) for mixer, _ in unit]
+    groups = [[layer(mixer, ffn, count) for mixer, ffn in unit]
               for unit, count in layer_groups(cfg)]
     embed = {"tok": meta((cfg.padded_vocab, D))}
     if not cfg.tie_embeddings:
@@ -183,8 +193,9 @@ def _unbind(tree, count: int):
 
 
 def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
-                 positions: Tensor) -> Tensor:
-    mixer, _ = kinds
+                 positions: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+    """Returns (x, the layer's MoE aux, or None for a dense FFN)."""
+    mixer, ffn = kinds
     h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
     if mixer == "ssd":
         x = x + S.mamba2_fwd(up["mixer"], h, cfg)
@@ -193,19 +204,28 @@ def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
     else:
         x = x + L.attention_fwd(up["mixer"], h, cfg, kind=mixer,
                                 positions=positions)
+    aux = None
     if cfg.d_ff > 0:
-        x = x + L.ffn_fwd(up["ffn"], L.rms_norm(x, up["ln2"], cfg.norm_eps))
-    return x
+        h = L.rms_norm(x, up["ln2"], cfg.norm_eps)
+        if ffn == "moe":
+            out, aux = M.moe_fwd(up["ffn"], h, cfg)
+        else:
+            out = L.ffn_fwd(up["ffn"], h)
+        x = x + out
+    return x, aux
 
 
-def _run_group_train(x: Tensor, gparams, unit, cfg: ModelConfig,
-                     positions: Tensor) -> Tensor:
+def _run_group_train(x: Tensor, aux: Tensor, gparams, unit,
+                     cfg: ModelConfig, positions: Tensor
+                     ) -> Tuple[Tensor, Tensor]:
     count = tree_leaves(gparams)[0].shape[0]
     per_unit = [_unbind(up, count) for up in gparams]
     for r in range(count):
         for u in range(len(unit)):
-            x = _apply_layer(x, per_unit[u][r], unit[u], cfg, positions)
-    return x
+            x, a = _apply_layer(x, per_unit[u][r], unit[u], cfg, positions)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def _split_group(gparams, n_frozen_units: int):
@@ -214,13 +234,17 @@ def _split_group(gparams, n_frozen_units: int):
     return frozen, live
 
 
-def _run_frozen(x: Tensor, gparams, unit, cfg, positions) -> Tensor:
+def _run_frozen(x: Tensor, aux: Tensor, gparams, unit, cfg, positions
+                ) -> Tuple[Tensor, Tensor]:
+    """The frozen layers under ``no_grad``: their aux still counts in the
+    loss, as a value with no graph (the reference's ``stop_gradient``)."""
     with torch.no_grad():
-        return _run_group_train(x.detach(), gparams, unit, cfg, positions)
+        return _run_group_train(x.detach(), aux.detach(), gparams, unit, cfg,
+                                positions)
 
 
-def _run_stack(x: Tensor, groups, cfg: ModelConfig, positions: Tensor,
-               boundary: int) -> Tensor:
+def _run_stack(x: Tensor, aux: Tensor, groups, cfg: ModelConfig,
+               positions: Tensor, boundary: int) -> Tuple[Tensor, Tensor]:
     """Run all groups, freezing flat layers < boundary."""
     off = 0
     for (unit, count), gparams in zip(layer_groups(cfg), groups):
@@ -228,14 +252,14 @@ def _run_stack(x: Tensor, groups, cfg: ModelConfig, positions: Tensor,
         lo, hi = off, off + p * count
         off = hi
         if boundary >= hi:          # fully frozen group
-            x = _run_frozen(x, gparams, unit, cfg, positions)
+            x, aux = _run_frozen(x, aux, gparams, unit, cfg, positions)
         elif boundary <= lo:        # fully differentiable
-            x = _run_group_train(x, gparams, unit, cfg, positions)
+            x, aux = _run_group_train(x, aux, gparams, unit, cfg, positions)
         else:                       # split at a unit boundary
             frozen, live = _split_group(gparams, (boundary - lo) // p)
-            x = _run_frozen(x, frozen, unit, cfg, positions)
-            x = _run_group_train(x, live, unit, cfg, positions)
-    return x
+            x, aux = _run_frozen(x, aux, frozen, unit, cfg, positions)
+            x, aux = _run_group_train(x, aux, live, unit, cfg, positions)
+    return x, aux
 
 
 def forward_train(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
@@ -251,10 +275,11 @@ def forward_train(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
     with torch.set_grad_enabled(torch.is_grad_enabled() and boundary == 0):
         x = L.embed(params["embed"], tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_stack(x, params["groups"], cfg, positions, boundary)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _run_stack(x, aux, params["groups"], cfg, positions, boundary)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,

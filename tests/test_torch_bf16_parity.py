@@ -1,5 +1,6 @@
 """The port against the JAX package in bf16, the dtype every full-width run
-trains in: the three reduced configs, with and without the kernels (their
+trains in: the three reduced configs and qwen3-moe-reduced (MoE layers,
+an f32 router), with and without the kernels (their
 plain versions here, the Pallas kernels in interpret mode on the JAX side),
 one SPB loss and its suffix gradients from the same bridged weights and the
 same numpy batch.
@@ -29,7 +30,8 @@ from repro_torch.configs import reduced_config as t_reduced
 from repro_torch.models import lm as tlm
 
 # a snapped temporal SPB depth of each reduced config (k = 4)
-DEPTH = {"yi-6b": 2, "mamba2-2.7b": 2, "recurrentgemma-2b": 3}
+DEPTH = {"yi-6b": 2, "mamba2-2.7b": 2, "recurrentgemma-2b": 3,
+         "qwen3-moe-235b-a22b": 2}
 FACTOR = 2.0
 
 

@@ -1,6 +1,7 @@
 """The port's config and SPB schedule code must equal the JAX package's:
 same fields, layer groups, snapping, depth cycles, rebalancing and
-per-block scales, for yi-6b at full and reduced size and cut depths."""
+per-block scales, for yi-6b at full and reduced size and cut depths, and
+the fields of every registered arch; the full-width cuts."""
 import dataclasses
 
 import jax
@@ -15,6 +16,7 @@ from repro.models import lm as jlm
 from repro_torch import config as tc
 from repro_torch.configs import get_config as t_get, reduced_config as t_reduced
 from repro_torch.core import spb as tspb
+from repro_torch.models import lm as tlm
 
 CFGS = [("full", None), ("full", 8), ("reduced", None), ("reduced", 1),
         ("reduced", 3), ("reduced", 8)]
@@ -160,15 +162,76 @@ def test_recurrentgemma_full_width_cut():
     assert tspb.snapped_depths(cfg, ts) == (3, 6, 9, 12)
 
 
-@pytest.mark.parametrize("arch,layers,cycle", [
-    ("yi-6b", 8, (8, 2, 6, 4)), ("mamba2-2.7b", 32, (32, 8, 24, 16)),
-    ("recurrentgemma-2b", 12, (12, 3, 9, 6))])
-def test_full_width_config_per_arch(arch, layers, cycle):
+@pytest.mark.parametrize("arch,layers,cycle,held", [
+    ("yi-6b", 8, (8, 2, 6, 4), None),
+    ("mamba2-2.7b", 32, (32, 8, 24, 16), None),
+    ("recurrentgemma-2b", 12, (12, 3, 9, 6), None),
+    ("gemma3-4b", 12, (12, 6, 12, 6), None),
+    ("qwen3-moe-235b-a22b", 4, (4, 1, 3, 2), 8)])
+def test_full_width_config_per_arch(arch, layers, cycle, held):
     from repro_torch.configs import full_width_config
     cfg = full_width_config(arch)
     want = t_get(arch)
     assert cfg.num_layers == layers and cfg.use_pallas
+    moe = cfg.moe and dataclasses.replace(cfg.moe, experts_held=None)
     assert dataclasses.replace(cfg, num_layers=want.num_layers,
-                               use_pallas=False) == want
+                               use_pallas=False, moe=moe) == want
+    assert (cfg.moe and cfg.moe.experts_held) == held
     sch = tspb.make_schedule(cfg, tc.SPBConfig(mode="temporal", k=4))
     assert tuple(sch.depth_at(s) for s in range(4)) == cycle
+
+
+def test_deepseek_67b_has_no_full_width_cut():
+    from repro_torch.configs import full_width_config
+    with pytest.raises(KeyError, match="no full-width cut"):
+        full_width_config("deepseek-67b")
+
+
+# parameters at the full-width cut, counted on the JAX package's shapes
+# (qwen3 with 8 of each layer's 128 experts: the reference's config with
+# num_experts=8 but the router's 128 outputs, 4,096 x 120 more a layer)
+@pytest.mark.parametrize("arch,n_params", [
+    ("gemma3-4b", 1_803_614_720), ("qwen3-moe-235b-a22b", 2_137_034_752)])
+def test_full_width_parameter_count(arch, n_params):
+    from repro_torch.configs import full_width_config
+    from repro_torch.tree import tree_leaves
+    cfg = full_width_config(arch)
+    assert sum(t.numel() for t in tree_leaves(tlm.param_shapes(cfg))) == \
+        n_params
+    j = j_get(arch).scaled(num_layers=cfg.num_layers)
+    if cfg.moe is not None:
+        j = j.scaled(moe=dataclasses.replace(j.moe, num_experts=8))
+    extra = cfg.num_layers * cfg.d_model * 120 if cfg.moe is not None else 0
+    assert sum(int(np.prod(s.shape)) for s in jax.tree.leaves(
+        jlm.param_shapes(j))) + extra == n_params
+
+
+NEW_ARCHS = [("gemma3-4b", None), ("gemma3-4b", 12), ("deepseek-67b", None),
+             ("deepseek-67b", 2), ("qwen3-moe-235b-a22b", None),
+             ("qwen3-moe-235b-a22b", 4)]
+
+
+@pytest.mark.parametrize("size", ["full", "reduced"])
+@pytest.mark.parametrize("arch,layers", NEW_ARCHS)
+def test_new_arch_config_and_spb_schedules_match(arch, layers, size):
+    """gemma3-4b, deepseek-67b and qwen3-moe-235b-a22b: the same fields
+    (the port's ``MoEConfig.experts_held`` left out, and None), layer
+    groups, snapping and depth cycles as the JAX package."""
+    j, t = ((j_get(arch), t_get(arch)) if size == "full"
+            else (j_reduced(arch), t_reduced(arch)))
+    if layers:
+        j, t = j.scaled(num_layers=layers), t.scaled(num_layers=layers)
+    got = dataclasses.asdict(t)
+    if t.moe is not None:
+        assert got["moe"].pop("experts_held") is None
+    assert got == dataclasses.asdict(j)
+    assert jc.layer_groups(j) == tc.layer_groups(t)
+    L = jc.total_layers(j)
+    assert [jc.snap_depth(j, d) for d in range(L + 2)] == \
+        [tc.snap_depth(t, d) for d in range(L + 2)]
+    js, ts = jc.SPBConfig(mode="temporal", k=4), tc.SPBConfig(mode="temporal",
+                                                             k=4)
+    assert jspb.snapped_depths(j, js) == tspb.snapped_depths(t, ts)
+    jsch, tsch = jspb.make_schedule(j, js), tspb.make_schedule(t, ts)
+    assert [jsch.depth_at(s) for s in range(8)] == \
+        [tsch.depth_at(s) for s in range(8)]

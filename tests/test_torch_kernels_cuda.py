@@ -426,17 +426,14 @@ def test_ssd_autograd_on_the_card_matches_the_cpu(cuda):
         assert _rel_err(b_, a) <= 1e-5
 
 
-@pytest.mark.parametrize("B,S,H,window", [
-    (1, 256, 10, 64),       # recurrentgemma's MQA group, the window bites
-    (2, 200, 4, 2048),      # ragged, the window wider than S
-])
-def test_flash_kernels_at_head_dim_256(cuda, B, S, H, window):
-    """recurrentgemma-2b's local attention: D 256, one kv head, bf16."""
+def _flash_chain_bf16(cuda, B, S, H, K, D, window):
+    """The bf16 forward, dq and dkv kernels and the backward chain on the
+    forward kernel's own outputs against the plain versions."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(
         torch.bfloat16)
-    q, k, v, do = mk(B, S, H, 256), mk(B, S, 1, 256), mk(B, S, 1, 256), \
-        mk(B, S, H, 256)
+    q, k, v, do = mk(B, S, H, D), mk(B, S, K, D), mk(B, S, K, D), \
+        mk(B, S, H, D)
     qt, kt, vt, dot_ = (x.transpose(1, 2) for x in (q, k, v, do))
     kw = dict(causal=True, window=window)
     ot, lse = fa.fwd_kernel_layout(qt, kt, vt, with_lse=True, **kw)
@@ -453,6 +450,26 @@ def test_flash_kernels_at_head_dim_256(cuda, B, S, H, window):
     for g, w in zip(fab.bwd_kernel_layout(qt, kt, vt, ot, lse, dot_, **kw),
                     want):
         _close(g, w)
+
+
+@pytest.mark.parametrize("B,S,H,K,window", [
+    (1, 256, 10, 1, 64),    # recurrentgemma's MQA group, the window bites
+    (2, 200, 4, 1, 2048),   # ragged, the window wider than S
+    (1, 384, 8, 4, 100),    # gemma3's G 2, a window across 64-row tiles
+    (2, 256, 8, 4, 0),      # gemma3's global layer
+])
+def test_flash_kernels_at_head_dim_256(cuda, B, S, H, K, window):
+    """recurrentgemma-2b's local attention (D 256, one kv head) and
+    gemma3-4b's local and global attention (D 256, 4 kv heads), bf16."""
+    _flash_chain_bf16(cuda, B, S, H, K, 256, window)
+
+
+@pytest.mark.parametrize("B,S", [(1, 256), (2, 2048)])
+def test_flash_kernels_at_a_16_head_gqa_group(cuda, B, S):
+    """qwen3-moe-235b-a22b's attention: 64 q heads over 4 kv heads (G 16),
+    D 128, causal, bf16; at S 2048 the dkv planner splits each group as at
+    full width, at S 256 into single heads."""
+    _flash_chain_bf16(cuda, B, S, 64, 4, 128, 0)
 
 
 def test_flash_kernels_refuse_f32_at_head_dim_256(cuda):

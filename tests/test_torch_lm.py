@@ -1,7 +1,8 @@
 """The port's LM on weights bridged from the JAX package: the bridge is a
 checked name-by-name copy, the logits match, and SPB partial backprop
 gives JAX's suffix gradients with a zero (or absent) prefix gradient,
-for yi-6b-reduced and for mamba2-reduced.
+for yi-6b-reduced, mamba2-reduced, recurrentgemma-reduced, gemma3-reduced,
+deepseek-67b-reduced and qwen3-moe-reduced (with its MoE aux loss).
 
 Tolerance 2e-4: four f32 layers whose attention goes through the kernels'
 plain versions on one side and the Pallas kernels (interpret mode) on the
@@ -289,3 +290,100 @@ def test_recurrentgemma_suffix_grads_match_and_prefix_is_zero(
         for w, p in zip(jax.tree.leaves(jg[key]), jax.tree.leaves(tp[key])):
             got = np.zeros_like(w) if p.grad is None else p.grad.numpy()
             _rel_close(got, w)
+
+
+# ---------------------------------------------------------------------------
+# gemma3-reduced ((local x 3, attn) x 2), deepseek-67b-reduced (untied
+# embeddings) and qwen3-moe-reduced (every FFN an MoE layer), kernels on
+# (their plain versions here), at the yi-6b tolerance; the MoE aux of the
+# frozen layers counts in the loss at every depth
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ("gemma3-4b", "deepseek-67b", "qwen3-moe-235b-a22b")
+
+
+def _arch_setup(arch):
+    jcfg = dataclasses.replace(j_reduced(arch), use_pallas=True)
+    tcfg = dataclasses.replace(t_reduced(arch), use_pallas=True)
+    params = jax.tree.map(np.asarray, jlm.init_lm(jax.random.key(0), jcfg))
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 64)).astype(np.int32)
+    labels = rng.integers(0, jcfg.vocab_size, (2, 64)).astype(np.int32)
+    return jcfg, tcfg, params, {"tokens": tokens, "labels": labels}
+
+
+@pytest.fixture(scope="module", params=NEW_ARCHS)
+def arch_setup(request):
+    return _arch_setup(request.param)
+
+
+def test_new_arch_bridge_logits_loss_and_aux_match(arch_setup):
+    jcfg, tcfg, params, batch = arch_setup
+    tp = bridge.params_from_numpy(params, tcfg)
+    for w, g in zip(jax.tree.leaves(params), jax.tree.leaves(tp)):
+        np.testing.assert_array_equal(g.detach().numpy(), w)
+    want, waux = jlm.forward_train(params, batch, jcfg)
+    got, aux = tlm.forward_train(tp, _tbatch(batch), tcfg)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux.detach()), float(waux), **TOL)
+    _, wm = jlm.loss_fn(params, batch, jcfg)
+    _, tm = tlm.loss_fn(tp, _tbatch(batch), tcfg)
+    for k in ("loss", "xent", "moe_aux"):
+        np.testing.assert_allclose(float(tm[k].detach()), float(wm[k]),
+                                   **TOL)
+    assert (float(waux) > 0) == (jcfg.moe is not None)
+
+
+@pytest.mark.parametrize("arch,depth", [
+    (a, d) for a in NEW_ARCHS for d in sorted(set(jspb.snapped_depths(
+        j_reduced(a), JSPB(mode="temporal", k=4))))])
+def test_new_arch_suffix_grads_match_and_prefix_is_zero(arch, depth):
+    """Suffix gradients at every snapped depth, zero in the frozen rows; the
+    loss (the MoE aux of the frozen layers included, with no gradient into
+    their routers) equals the reference's."""
+    jcfg, tcfg, params, batch = _arch_setup(arch)
+    (wloss, wm), jg = jax.value_and_grad(
+        lambda p: jlm.loss_fn(p, batch, jcfg, bwd_layers=depth),
+        has_aux=True)(params)
+    tp = bridge.params_from_numpy(params, tcfg)
+    loss, tm = tlm.loss_fn(tp, _tbatch(batch), tcfg, bwd_layers=depth)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(wloss), **TOL)
+    np.testing.assert_allclose(float(tm["moe_aux"].detach()),
+                               float(wm["moe_aux"]), **TOL)
+    b = (jcfg.num_layers - depth) // len(jcfg.pattern)   # frozen units
+    for w, p in zip(jax.tree.leaves(jg["groups"]),
+                    jax.tree.leaves(tp["groups"])):
+        w = np.asarray(w)
+        g = np.zeros_like(w) if p.grad is None else p.grad.numpy()
+        assert np.abs(g[:b]).max(initial=0.0) == 0.0
+        np.testing.assert_allclose(g[b:], w[b:], **TOL)
+    for key in ("embed", "final_norm"):
+        for w, p in zip(jax.tree.leaves(jg[key]), jax.tree.leaves(tp[key])):
+            got = np.zeros_like(w) if p.grad is None else p.grad.numpy()
+            np.testing.assert_allclose(got, np.asarray(w), **TOL)
+
+
+def test_qwen3_loss_at_depth_1_counts_the_frozen_layers_aux():
+    """At depth 1 the three frozen MoE layers' aux stays in the loss: the
+    aux equals the full-depth aux, and the loss is xent + 0.01 * aux as the
+    reference's; the frozen routers get no gradient."""
+    jcfg, tcfg, params, batch = _arch_setup("qwen3-moe-235b-a22b")
+    tp = bridge.params_from_numpy(params, tcfg)
+    loss, tm = tlm.loss_fn(tp, _tbatch(batch), tcfg, bwd_layers=1)
+    _, full = tlm.loss_fn(bridge.params_from_numpy(params, tcfg),
+                          _tbatch(batch), tcfg)
+    wloss, wm = jlm.loss_fn(params, batch, jcfg, bwd_layers=1)
+    np.testing.assert_allclose(float(loss.detach()), float(wloss), **TOL)
+    np.testing.assert_allclose(float(tm["moe_aux"].detach()),
+                               float(wm["moe_aux"]), **TOL)
+    aux = float(tm["moe_aux"].detach())
+    assert aux == float(full["moe_aux"].detach())
+    assert aux > 3.0              # four layers' aux, each about 1 or more
+    np.testing.assert_allclose(float(loss.detach()),
+                               float(tm["xent"].detach()) + 0.01 * aux,
+                               rtol=1e-6)
+    loss.backward()
+    router = tp["groups"][0][0]["ffn"]["router"].grad
+    assert float(router[:3].abs().max()) == 0.0
+    assert float(router[3].abs().max()) > 0.0

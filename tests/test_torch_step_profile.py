@@ -4,13 +4,13 @@ them): every kernel of the port lands in its own class, the bf16
 tensor-core kernels and the chunk-parallel SSD backward included; the two
 bf16 SSD forwards share their chunk-parallel kernels and so one class.
 ``range_device_ms`` on a small chrome trace of the same form, and the
-ranges the RG-LRU block opens."""
+ranges the RG-LRU block and the MoE layer open."""
 import pytest
 import torch
 
 from repro_torch.analysis.step_profile import kernel_class, range_device_ms
 from repro_torch.configs import reduced_config
-from repro_torch.models import lm, ssm
+from repro_torch.models import lm, moe, ssm
 
 
 @pytest.mark.parametrize("name,cls", [
@@ -92,7 +92,9 @@ def test_range_device_ms_takes_the_range_s_launches_and_its_backward():
         "rglru_gates": {"fwd": 0.03, "bwd": 0.05, "fwd_matmul": 0.03,
                         "bwd_matmul": 0.05},
         "rglru_scan": {"fwd": 0.008, "bwd": 0.0, "fwd_matmul": 0.0,
-                       "bwd_matmul": 0.0}}
+                       "bwd_matmul": 0.0},
+        **{n: dict.fromkeys(("fwd", "bwd", "fwd_matmul", "bwd_matmul"), 0.0)
+           for n in (moe.ROUTE_RANGE, moe.EXPERTS_RANGE, moe.COMBINE_RANGE)}}
 
 
 def test_rglru_block_opens_the_gates_and_scan_ranges():
@@ -110,3 +112,17 @@ def test_rglru_block_opens_the_gates_and_scan_ranges():
     for rng in (ssm.GATES_RANGE, ssm.SCAN_RANGE):
         assert rng in names
         assert next(e.count for e in prof.key_averages() if e.key == rng) == 1
+
+
+def test_moe_layer_opens_the_route_experts_and_combine_ranges():
+    """One qwen3-moe-reduced MoE layer opens each of its ranges once."""
+    cfg = reduced_config("qwen3-moe-235b-a22b")
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    layer = {k: v[0] for k, v in params["groups"][0][0]["ffn"].items()}
+    x = torch.randn(1, 8, cfg.d_model)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        moe.moe_fwd(layer, x, cfg)
+    counts = {e.key: e.count for e in prof.key_averages()}
+    for rng in (moe.ROUTE_RANGE, moe.EXPERTS_RANGE, moe.COMBINE_RANGE):
+        assert counts.get(rng) == 1

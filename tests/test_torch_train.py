@@ -5,7 +5,7 @@ depths 4, 1, 3, 2.  Metrics agree step by step to rtol 1e-4: the same f32
 arithmetic, summed in another order, compounded over four AdamW updates.
 The same for mamba2-reduced (the SSD kernels' plain versions) and for
 recurrentgemma-reduced (the RG-LRU kernels' plain versions and flash at a
-window of 32 over 64 positions).  Also the port's train entry point, its
+window of 32 over 64 positions) and for qwen3-moe-reduced (MoE layers).  Also the port's train entry point, its
 steps on compressed gradients, and its refusals: of spatial SPB, and to
 run on a missing card."""
 import dataclasses
@@ -187,6 +187,60 @@ def test_recurrentgemma_train_entry_point_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert len(history) == 2 and all(np.isfinite(history))
     assert "[train] step=    1 depth=   3 loss=" in out
+
+
+@pytest.fixture(scope="module")
+def jax_qwen3_run():
+    cfg = dataclasses.replace(j_reduced("qwen3-moe-235b-a22b"),
+                              use_pallas=True)
+    eng = JEngine(cfg, JTrain(num_steps=STEPS), JSPB(mode="temporal", k=4))
+    eng.init_state(jax.random.key(0))
+    params = jax.tree.map(np.asarray, eng.state["params"])
+    pipe = JPipeline(cfg, 2, 64, seed=0)
+    history = []
+    for s in range(STEPS):
+        m = eng.train_step(pipe.get_batch(s), s)
+        history.append((eng.last_depth, {k: float(v) for k, v in m.items()}))
+    return params, history
+
+
+def test_qwen3_moe_spb_engine_tracks_jax_step_by_step(jax_qwen3_run):
+    """qwen3-moe-reduced (f32, every FFN an MoE layer with an f32 router),
+    temporal SPB k=4, batch 2 x 64: the same metrics as the JAX engine at
+    every step, the MoE aux among them, at the yi-6b run's rtol of 1e-4."""
+    params, want = jax_qwen3_run
+    cfg = dataclasses.replace(t_reduced("qwen3-moe-235b-a22b"),
+                              use_pallas=True)
+    tcfg = TrainConfig(num_steps=STEPS)
+    eng = SPBEngine(cfg, tcfg, SPBConfig(mode="temporal", k=4), device="cpu")
+    eng.attach_state(steps_lib.state_from_params(
+        bridge.params_from_numpy(params, cfg), tcfg))
+    pipe = Pipeline(cfg, 2, 64, seed=0)
+    for s, (jdepth, jm) in enumerate(want):
+        m = eng.train_step(pipe.get_batch(s), s)
+        assert eng.last_depth == jdepth
+        for key in ("loss", "xent", "moe_aux", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(m[key]), jm[key], rtol=1e-4,
+                                       err_msg=f"step {s} {key}")
+        assert jm["moe_aux"] > 0
+
+
+def test_qwen3_moe_train_entry_point_runs_on_cpu(capsys):
+    """qwen3-moe-reduced through the driver: every FFN an MoE layer, the
+    depth cycle 4, 1, 3, 2, and the aux loss in every step's loss."""
+    history = train_mod.train(
+        ["--arch", "qwen3-moe-235b-a22b", "--reduced", "--steps", "4",
+         "--batch", "2", "--seq", "32", "--spb-mode", "temporal",
+         "--use-pallas", "--device", "cpu", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert len(history) == 4 and all(np.isfinite(history))
+    lines = [ln for ln in out.splitlines() if ln.startswith("[train] step=")]
+    assert [int(ln.split("depth=")[1].split()[0]) for ln in lines] == \
+        [4, 1, 3, 2]
+    for ln in lines:      # loss = xent + 0.01 * aux, the aux of all 4 layers
+        loss = float(ln.split("loss=")[1].split()[0])
+        xent = float(ln.split("xent=")[1].split()[0])
+        assert loss - xent > 0.02
 
 
 @pytest.mark.parametrize("compression", ["topk", "randk", "lowrank"])
