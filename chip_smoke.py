@@ -18,13 +18,17 @@ Phases, each printing a line; any failure exits non-zero:
      D 256, window 2048, bf16) and a case where that window bites
      (S 4096), at gemma3-4b's (H 8, K 4, D 256, window 1024, which skips
      kv tiles, and its global layer without the window) and at
-     qwen3-moe-235b-a22b's (H 64, K 4, D 128, causal), then the backward
+     qwen3-moe-235b-a22b's (H 64, K 4, D 128, causal), and at MLA's
+     padded heads with the explicit scale 1 / sqrt(dn + dr):
+     deepseek-v2-lite-16b's (H = K = 16, 192 / 128 in D 256) and
+     minicpm3-4b's (H = K = 40, 96 / 64 in D 128), then the backward
      kernels on the forward kernel's own outputs against the plain chain,
      and two dq calls and two dkv calls bitwise equal; max errors against
      the stated tolerance, and the kernel's (CUDA events over 5 calls, and
      its kernels' device time from ``torch.profiler`` over 20), the plain
-     version's and a library call's time at the yi-6b, recurrentgemma-2b,
-     gemma3-4b (local) and qwen3 shapes;
+     version's and a library call's time (SDPA at MLA's unpadded dims) at
+     the yi-6b, recurrentgemma-2b, gemma3-4b (local), qwen3 and the two
+     MLA shapes;
   3b. the same for the SSD kernels: at the mamba2-2.7b main-path shape
      (B 2, S 2048, H 80, P 64, N 128, chunk 256, bf16 x/B/C with B and C
      broadcast over heads, f32 dA), f32 reduced and ragged cases and bf16
@@ -39,15 +43,32 @@ Phases, each printing a line; any failure exits non-zero:
      than the card holds at once (B 64, S 8192: the chained scan's forward
      progress), then the backward kernel on the forward kernel's own
      output, and two calls of each kernel bitwise equal;
+  11. (run right after 3c) the dense-cache serving path of every
+     registered arch at its reduced config, f32, the kernels on: prefill
+     plus one decode step against the train forward's logits at the
+     reference's tolerance, on the card and on the CPU, card against CPU,
+     and the prefill's launches those of a forward;
+  12. (run next) ``ServeEngine`` at published widths and full depth on
+     yi-6b, gemma3-4b and deepseek-v2-lite-16b (all 64 experts), bf16:
+     4 slots, 16-token pages, 2048 context, buckets to 1024, a staggered
+     trace of 4 greedy requests, each also run alone: every request
+     completes, co-batched equals solo token for token, ``engine.step()``
+     under ``torch.cuda.set_sync_debug_mode("error")``, one flash forward
+     a prefill and attention layer; prefill ms per bucket, decode step ms
+     at 1 and 4 active slots beside its bytes bound, tokens/s, the paged
+     cache bytes and the peak allocation;
   4. card against CPU: yi-6b-reduced, mamba2-reduced,
-     recurrentgemma-reduced, gemma3-reduced, deepseek-67b-reduced and
-     qwen3-moe-reduced in f32 with the kernels, 4 temporal SPB steps from
+     recurrentgemma-reduced, gemma3-reduced, deepseek-67b-reduced,
+     qwen3-moe-reduced, deepseek-v2-lite-reduced and minicpm3-reduced in
+     f32 with the kernels, 4 temporal SPB steps from
      the same seeded weights as on the CPU plain path, with the card run's
      launch counts checked against the steps' depths;
   5. each path at full width: SPBEngine on yi-6b cut to 8 layers, on
      mamba2-2.7b cut to 32, on recurrentgemma-2b cut to 12, on gemma3-4b
-     cut to 12 and on qwen3-moe-235b-a22b cut to 4 layers of 8 held
-     experts (rank 0 of a 16-way expert-parallel layer), bf16, temporal
+     cut to 12, on qwen3-moe-235b-a22b cut to 4 layers of 8 held experts
+     (rank 0 of a 16-way expert-parallel layer), on deepseek-v2-lite-16b
+     cut to 4 (the dense layer 0 and 3 MoE layers of all 64 experts) and
+     on minicpm3-4b cut to 24, bf16, temporal
      k=4, batch 2 x 2048, 8 steps, with the launch counts of every kernel
      checked against the step's depth (the counts are zeroed before each
      path and read after it), each step's peak allocation leaving at least
@@ -81,7 +102,9 @@ Phases, each printing a line; any failure exits non-zero:
      checkpointed every iteration: both jobs done, a restore, exactly one
      retry; then a ``KernelError`` raised inside one attempt leaves
      ``ClusterRuntime.run()`` with no retry counted;
-  11. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+  13. a ``{"kernels": [...]}`` line (launches by path, among them
+     ``launches_decode`` and ``launches_serve``), the card's name and
+     power limit, and last the ``{"ok": true, ...}`` line.
 
 Needs a CUDA card: without one it exits 1 and prints no result.
 """
@@ -116,6 +139,12 @@ G3_MAIN = dict(B=2, Sq=2048, Sk=2048, H=8, K=4, D=256, causal=True,
                window=1024, dtype="bfloat16")
 # qwen3-moe-235b-a22b's attention: 64 q heads over 4 kv heads (G 16)
 Q3_MAIN = dict(MAIN, H=64)
+# MLA's attention on the kernels (models/layers._mla_attention): heads of
+# qk dim dn + dr and v dim dv zero-padded to one dispatched D, scaled by
+# 1 / sqrt(dn + dr): deepseek-v2-lite-16b's 192 / 128 in D 256 (16 heads)
+# and minicpm3-4b's 96 / 64 in D 128 (40 heads)
+DS2_MAIN = dict(MAIN, H=16, K=16, D=256, mla=(192, 128))
+MC3_MAIN = dict(MAIN, H=40, K=40, D=128, mla=(96, 64))
 CASES = {
     "main": MAIN,
     "window": dict(B=1, Sq=1024, Sk=1024, H=8, K=2, D=64, causal=True,
@@ -127,9 +156,12 @@ CASES = {
     "g3_main": G3_MAIN,
     "g3_global": dict(G3_MAIN, window=0),
     "q3_main": Q3_MAIN,
+    "ds2_mla": DS2_MAIN,
+    "mc3_mla": MC3_MAIN,
 }
 TIMED = {"main": "yi-6b", "rg_main": "recurrentgemma-2b",   # case: arch
-         "g3_main": "gemma3-4b", "q3_main": "qwen3-moe-235b-a22b"}
+         "g3_main": "gemma3-4b", "q3_main": "qwen3-moe-235b-a22b",
+         "ds2_mla": "deepseek-v2-lite-16b", "mc3_mla": "minicpm3-4b"}
 # SSD cases: (B, S, H, P, N, chunk, dtype of x/B/C, B/C broadcast over
 # heads); dA is f32 -U(0.05, 2.0) as in tests/test_kernel_grads.py.  Every
 # SSD and RG-LRU output is f32, held at that suite's measure:
@@ -161,12 +193,19 @@ RGLRU_CASES = {
     "short": dict(B=1, S=17, W=130),
     "many_tiles": dict(B=64, S=8192, W=512),
 }
-# phases 6-10 run these; phase 4 also the three below, phase 5 also the
-# two of them with a full-width cut (deepseek-67b has none)
+# phases 6-10 run these; phase 4 also the five below, phase 5 also the
+# four of them with a full-width cut (deepseek-67b has none)
 ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
 CARD_VS_CPU_ARCHS = ARCHS + ("gemma3-4b", "deepseek-67b",
-                             "qwen3-moe-235b-a22b")
-FULL_WIDTH_ARCHS = ARCHS + ("gemma3-4b", "qwen3-moe-235b-a22b")
+                             "qwen3-moe-235b-a22b", "deepseek-v2-lite-16b",
+                             "minicpm3-4b")
+FULL_WIDTH_ARCHS = ARCHS + ("gemma3-4b", "qwen3-moe-235b-a22b",
+                            "deepseek-v2-lite-16b", "minicpm3-4b")
+# phase 12 serves these at published widths and full depth (the reference's
+# acceptance archs: dense GQA, local + global windows, MLA with MoE)
+SERVE_ARCHS = ("yi-6b", "gemma3-4b", "deepseek-v2-lite-16b")
+# the reference's prefill + decode tolerance (tests/test_decode_consistency.py)
+DECODE_TOL = 2e-4
 # the least room (GB) a full-width step's peak allocation must leave on the
 # card (phases 5 and 9)
 HEADROOM_GB = 8.0
@@ -360,7 +399,8 @@ def expected_launches(cfg, depths) -> dict:
     dq and dkv kernels when it is in the suffix; an SSD layer runs the
     primal scan in the frozen prefix and the forward-with-residuals plus
     the backward in the suffix; an RG-LRU layer runs the scan always and
-    the backward scan when it is in the suffix."""
+    the backward scan when it is in the suffix; an MLA layer as an
+    attention layer.  Depth 0 is a forward alone (prefill)."""
     from repro_torch.config import layer_kinds
     want = dict.fromkeys(counters(), 0)
     kinds = layer_kinds(cfg)
@@ -371,7 +411,8 @@ def expected_launches(cfg, depths) -> dict:
                 names = ("ssd_fwd_res", "ssd_bwd") if live else ("ssd_fwd",)
             elif mixer == "rglru":
                 names = ("rglru_fwd", "rglru_bwd") if live else ("rglru_fwd",)
-            elif mixer in ("attn", "local"):
+            elif mixer in ("attn", "local", "mla"):
+                # MLA's attention runs the same kernels on padded heads
                 names = ("flash_fwd",) + (("flash_delta", "flash_dq",
                                            "flash_dkv") if live else ())
             else:
@@ -426,11 +467,18 @@ def phase_kernels():
         gen = torch.Generator(device="cuda").manual_seed(1)
         B, Sq, Sk, H, K, D = (c[k] for k in ("B", "Sq", "Sk", "H", "K", "D"))
         mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
-        # public (B, S, H, D) tensors, passed as kernel-layout views
-        q, k, v, do = mk(B, Sq, H, D), mk(B, Sk, K, D), mk(B, Sk, K, D), \
-            mk(B, Sq, H, D)
+        # public (B, S, H, D) tensors, passed as kernel-layout views; an MLA
+        # case draws q, k at dqk and v, dO at dv and zero-pads them to D,
+        # with the scale 1 / sqrt(dqk), as the main path passes them
+        dqk, dv = c.get("mla", (D, D))
+        q0, k0, v0, do0 = mk(B, Sq, H, dqk), mk(B, Sk, K, dqk), \
+            mk(B, Sk, K, dv), mk(B, Sq, H, dv)
+        q, k, v, do = (F.pad(x, (0, D - x.shape[-1]))
+                       for x in (q0, k0, v0, do0))
         qt, kt, vt, dot_ = (x.transpose(1, 2) for x in (q, k, v, do))
         kw = dict(causal=c["causal"], window=c["window"])
+        if "mla" in c:
+            kw["scale"] = dqk ** -0.5
         ot_p, lse_p = fa.fwd_plain(qt, kt, vt, with_lse=True, **kw)
         delta_p = fab.delta_plain(ot_p, dot_)
 
@@ -458,8 +506,6 @@ def phase_kernels():
             if case in TIMED:
                 records[name] = {"max_abs_err": max_abs,
                                  "ms": time_ms(kern, iters=5),
-                                 "device_ms": round(sum(kernel_device_ms(
-                                     kern, "flash", iters=20).values()), 4),
                                  "plain_ms": time_ms(plain, iters=3, warmup=1)}
         # the chain the main path runs: the backward kernels on the forward
         # kernel's own ot and lse, against the plain chain
@@ -471,17 +517,34 @@ def phase_kernels():
 
         if case not in TIMED:
             continue
+        # each wrapper's kernels' device time, the four wrappers traced in
+        # one profiler session (kernel fwd_* is flash_fwd's, dkv_* dkv's)
+        by_kernel = kernel_device_ms(
+            lambda: [kern() for kern, _ in runs.values()], "flash", iters=20)
+        for name in runs:
+            mine = [ms for k, ms in by_kernel.items()
+                    if k.split("_")[0] == name.removeprefix("flash_")]
+            if not mine:
+                raise AssertionError(f"{case}: the profiler saw no kernel "
+                                     f"of {name}")
+            records[name]["device_ms"] = round(sum(mine), 4)
         # bounds from this run's inputs: each input read once, each output
-        # written once; operations over the pairs the mask lets in
+        # written once; operations over the pairs the mask lets in.  An MLA
+        # case counts the unpadded work (q, k at dqk, v, o at dv): the
+        # padding's cost shows in x_bound
         pairs = int(fa.pair_mask(Sq, Sk, c["causal"], c["window"],
                                  "cpu").sum()) * B * H
-        prod = 2.0 * D * pairs                        # one S x S x D product
+        qk, pv = 2.0 * dqk * pairs, 2.0 * dv * pairs   # S = Q K^T, O = P V
+        o_k, do_k = ot_k[..., :dv], dot_[..., :dv]
         work = {
-            "flash_fwd": (2 * prod, nbytes(q, k, v, ot_k, lse_k)),
-            "flash_delta": (2.0 * B * H * Sq * D, nbytes(ot_p, do, delta_p)),
-            "flash_dq": (3 * prod, nbytes(q, k, v, do, lse_p, delta_p, dq_k)),
-            "flash_dkv": (4 * prod,
-                          nbytes(q, k, v, do, lse_p, delta_p, dk_k, dv_k)),
+            "flash_fwd": (qk + pv, nbytes(q0, k0, v0, o_k, lse_k)),
+            "flash_delta": (2.0 * B * H * Sq * dv,
+                            nbytes(o_k, do_k, delta_p)),
+            "flash_dq": (2 * qk + pv, nbytes(q0, k0, v0, do0, lse_p, delta_p,
+                                             dq_k[..., :dqk])),
+            "flash_dkv": (2 * qk + 2 * pv,
+                          nbytes(q0, k0, v0, do0, lse_p, delta_p,
+                                 dk_k[..., :dqk], dv_k[..., :dv])),
         }
         for name, (flops, nb) in work.items():
             records[name]["bound_ms"], records[name]["bound_by"] = bound(
@@ -497,14 +560,15 @@ def phase_kernels():
         mask = (dict(is_causal=True) if c["window"] in (0, Sq) else
                 dict(attn_mask=fa.pair_mask(Sq, Sk, True, c["window"],
                                             "cuda")))
-        qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+        # SDPA at the unpadded head dims (its default scale 1 / sqrt(dqk))
+        qs, ks, vs = (x.transpose(1, 2) for x in (q0, k0, v0))
         sdpa = lambda: F.scaled_dot_product_attention(
             qs, ks, vs, enable_gqa=True, **mask)
         records["flash_fwd"]["library_ms"] = time_ms(sdpa)
         records["flash_delta"]["library_ms"] = time_ms(
-            lambda: torch.linalg.vecdot(ot_p, dot_))
+            lambda: torch.linalg.vecdot(ot_p[..., :dv], dot_[..., :dv]))
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (qs, ks, vs))
-        gs = do.transpose(1, 2)
+        gs = do0.transpose(1, 2)
         out = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True,
                                              **mask)
         sdpa_bwd = time_ms(lambda: torch.autograd.grad(
@@ -577,10 +641,10 @@ def check_rel(name: str, got, want) -> float:
 
 def kernel_device_ms(kern, namespace: str = "ssd", iters: int = 5) -> dict:
     """The device ms of each CUDA kernel of ``namespace`` that one call of
-    a wrapper launches (the bf16 SSD path's chunk-parallel phases; an
-    RG-LRU kernel without its scratch's zeroing; an attention kernel
-    without the wrapper's host work), averaged over ``iters`` calls traced
-    with ``torch.profiler``."""
+    ``kern`` launches (the bf16 SSD path's chunk-parallel phases; an
+    RG-LRU kernel without its scratch's zeroing; the attention kernels of
+    the four flash wrappers, called in turn, without the wrappers' host
+    work), averaged over ``iters`` calls traced with ``torch.profiler``."""
     import torch
     kern()
     torch.cuda.synchronize()
@@ -1350,6 +1414,267 @@ def phase_cluster_faults() -> None:
         raise AssertionError("cluster-faults: a device fault was retried")
 
 
+def phase_decode(arch: str) -> dict:
+    """Phase 11: the dense-cache serving path at ``arch``'s reduced config
+    in f32 with the kernels: a prefill of 63 tokens and one decode step
+    against the train forward's logits on the card, at the reference's
+    tolerance (``DECODE_TOL``); the same on the CPU (the plain versions),
+    and the card's logits against the CPU's.  The card's prefill launches
+    what a forward does (``expected_launches`` at depth 0: the flash
+    forward for attention and MLA, the primal SSD and RG-LRU scans), the
+    decode step nothing.  Returns the card's launches."""
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(reduced_config(arch), use_pallas=True)
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    logits, errs, grew = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        p, t = tree_map(lambda x: x.to(dev), params), toks.to(dev)
+        with torch.no_grad():
+            train, _ = lm.forward_train(p, {"tokens": t}, cfg)
+        cache = lm.init_cache(cfg, 2, 64, device=dev)
+        before = launches_now()
+        pre, cache = lm.prefill(p, {"tokens": t[:, :-1]}, cfg, cache)
+        dec, cache = lm.decode_step(p, cache, t[:, -1:], cfg)
+        grew[dev] = launches_since(before)
+        logits[dev] = (pre[:, 0].cpu(), dec[:, 0].cpu())
+        errs[dev] = [decode_close(f"decode {arch} {dev} {name}", a, b)
+                     for name, a, b in (("prefill", pre[:, 0], train[:, -2]),
+                                        ("decode", dec[:, 0], train[:, -1]))]
+    cross = max(decode_close(f"decode {arch} cuda vs cpu", a, b)
+                for a, b in zip(logits["cuda"], logits["cpu"]))
+    want = expected_launches(cfg, [0])
+    if grew["cuda"] != want or any(grew["cpu"].values()):
+        raise AssertionError(f"decode {arch}: card launches {grew['cuda']} "
+                             f"!= {want}, cpu {grew['cpu']}")
+    log(f"[decode] {cfg.name} max_abs_err prefill_vs_forward "
+        f"cuda={errs['cuda'][0]:.3e} cpu={errs['cpu'][0]:.3e} "
+        f"decode_vs_forward cuda={errs['cuda'][1]:.3e} "
+        f"cpu={errs['cpu'][1]:.3e} cuda_vs_cpu={cross:.3e} "
+        f"tol={DECODE_TOL}+{DECODE_TOL}*|want| "
+        f"launches={ {n: c for n, c in grew['cuda'].items() if c} }")
+    return grew["cuda"]
+
+
+def decode_close(name: str, got, want) -> float:
+    """The reference's decode check (rtol = atol = ``DECODE_TOL``);
+    returns the max abs error."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    if not bool(torch.isfinite(got).all()) or bool(
+            (err > DECODE_TOL * (1 + want.float().abs())).any()):
+        raise AssertionError(f"{name}: logits off by {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def device_busy(fn, iters: int = 3):
+    """(the card's busy ms of one call of ``fn``: every kernel it launches,
+    from a ``torch.profiler`` trace over ``iters`` calls; the kernels a
+    call launches)."""
+    import torch
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError("the profiler saw no kernel on the card")
+    return (sum(ev.device_time_total for ev in kern) / iters / 1e3,
+            sum(ev.count for ev in kern) // iters)
+
+
+class _EventLog:
+    """Wraps an engine's step functions with CUDA events around each call,
+    recorded without a sync and read after the run; ``raw`` keeps the
+    unwrapped functions."""
+
+    def __init__(self, engine):
+        import torch
+        self.raw, self.calls = dict(engine._steps), []
+        for key, fn in self.raw.items():
+            def timed(*a, key=key, fn=fn):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "01"]
+                ev[0].record()
+                fn(*a)
+                ev[1].record()
+                self.calls.append((key, ev))
+            engine._steps[key] = timed
+
+    def ms(self, prefix: str, since: int = 0) -> dict:
+        """{key: [ms of each call]} of the keys starting with ``prefix``."""
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for key, (a, b) in self.calls[since:]:
+            if key.startswith(prefix):
+                out.setdefault(key, []).append(round(a.elapsed_time(b), 4))
+        return out
+
+
+def serve_bound(engine):
+    """The least time of one decode step, ms: every weight read once (the
+    dense MoE reads all its experts, the tied table once as the
+    unembedding) and each layer's gathered cache view read once -- every
+    slot at the full context, as ``pages[page_table]`` gathers it -- over
+    the card's memory rate.  Returns (ms, weight bytes, view bytes)."""
+    from repro_torch.tree import tree_leaves
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(engine.params))
+    per_token = sum(t.shape[0] * t[0, 0, 0].numel() * t.element_size()
+                    for t in tree_leaves(engine.state["groups"]))
+    view = per_token * engine.geom.num_slots * engine.geom.max_context
+    return (weights + view) / PEAK_BYTES * 1e3, weights, view
+
+
+SERVE_MAX_NEW = 16
+# (prompt length, arrival in engine steps) of the staggered trace: one
+# prompt in each prefill bucket (16, 64, 256, 1024), arriving mid-decode
+SERVE_TRACE = ((700, 0), (12, 2), (200, 4), (50, 6))
+
+
+def phase_serve(arch: str) -> dict:
+    """Phase 12: ``ServeEngine`` on the card at ``arch``'s published widths
+    and full depth, bf16, the kernels on, the weights built leaf by leaf
+    on the card from a seed; 4 slots of 16-token pages, 2048 context,
+    buckets up to 1024, greedy, random prompts from a seeded generator.
+    Each request of ``SERVE_TRACE`` runs alone, then all four staggered:
+    every request completes, the co-batched outputs equal the solo ones
+    token for token, and every ``engine.step()`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in admission
+    or decode raises).  The flash forward launches once a prefill and
+    attention layer, nothing else.  Prints the prefill ms per bucket and
+    the decode step's ms (CUDA events) at 1 and 4 active slots beside its
+    bytes bound, tokens/s, the paged cache bytes and the peak allocation.
+    Returns the launches, zeroed before the solo runs and read after the
+    staggered one."""
+    import collections
+
+    import torch
+    from repro_torch.config import layer_kinds
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine, cache_bytes, default_geometry
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch), use_pallas=True)
+    geom = default_geometry(num_slots=4, page_size=16, max_context=2048)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        "cuda")
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    eng = ServeEngine(cfg, geom=geom, params=params, device="cuda")
+    bound_ms, w_bytes, view_bytes = serve_bound(eng)
+    log(f"[serve] {arch} num_layers={cfg.num_layers} {cfg.dtype} "
+        f"params={sum(t.numel() for t in tree_leaves(params))} "
+        f"weight_bytes={w_bytes} init_s={init_s:.2f} "
+        f"init_peak_gb={init_peak / 1e9:.2f} "
+        f"paged_cache_bytes={cache_bytes(cfg, geom)} "
+        f"buckets={list(eng.buckets)}")
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n, _ in SERVE_TRACE]
+    events = _EventLog(eng)
+
+    def run(trace):
+        """Replay [(arrival step, prompt)] to the end, every step under the
+        sync check; returns (requests in trace order, wall seconds)."""
+        start, pending, reqs = eng.clock, collections.deque(trace), []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        while pending or eng._live or eng.scheduler.queue:
+            while pending and pending[0][0] <= eng.clock - start:
+                reqs.append(eng.submit(pending.popleft()[1],
+                                       max_new=SERVE_MAX_NEW))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.step(1)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            eng.poll()
+        torch.cuda.synchronize()
+        return reqs, time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    solo = [run([(0, p)])[0][0].output for p in prompts]
+    mark = len(events.calls)
+    reqs, wall = run([(at, p) for (_, at), p in zip(SERVE_TRACE, prompts)])
+    grew = launches_now()
+    outs = [r.output for r in reqs]
+    if len(reqs) != len(prompts) or not all(r.done for r in reqs) or \
+            any(len(o) != SERVE_MAX_NEW for o in outs):
+        raise AssertionError(f"serve {arch}: not every request completed "
+                             f"({[len(o) for o in outs]})")
+    if outs != solo:
+        raise AssertionError(f"serve {arch}: co-batched outputs differ from "
+                             f"solo: {outs} != {solo}")
+    attn = sum(m in ("attn", "local", "mla") for m, _ in layer_kinds(cfg))
+    want = dict.fromkeys(grew, 0)
+    want["flash_fwd"] = 2 * len(prompts) * attn
+    if grew != want:
+        raise AssertionError(f"serve {arch}: launches {grew} != {want}")
+    prefill = events.ms("prefill_")
+    stag_decode = events.ms("decode", since=mark).get("decode", [])
+    # the decode step alone, at 1 and at 4 active slots (every slot
+    # computes either way): CUDA events over 10 calls of the raw step
+    step_ms = {}
+    for n in (1, 4):
+        for _ in range(n):
+            eng.submit(prompts[1], max_new=SERVE_MAX_NEW)
+        eng.step(1)             # admits all n, one decode: 2 tokens each
+        step_ms[n] = time_ms(lambda: events.raw["decode"](
+            eng.params, eng.state, None), iters=10, warmup=2)
+        eng.drain()
+    # where a decode step's time goes: the host's enqueue of it against
+    # the card's busy time (the step's kernels, torch.profiler)
+    raw = lambda: events.raw["decode"](eng.params, eng.state, None)
+    eng.submit(prompts[1], max_new=SERVE_MAX_NEW)
+    eng.step(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, kernels = device_busy(raw, iters=3)
+    eng.drain()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(o) for o in outs)
+    by_bucket = {int(k.split("_")[1]): v for k, v in prefill.items()}
+    log(f"[serve] {arch} requests={len(reqs)} "
+        f"completed={sum(r.done for r in reqs)} co_batched_equal_solo=True "
+        f"sync_debug=error tokens={tokens} "
+        f"wall_s={wall:.4f} tokens_per_s={tokens / wall:.2f} "
+        f"decode_steps_staggered={len(stag_decode)} "
+        f"launches={ {n: c for n, c in grew.items() if c} }")
+    log(f"[serve] {arch} prefill_ms_by_bucket (solo, staggered) "
+        f"{dict(sorted(by_bucket.items()))}")
+    log(f"[serve] {arch} decode_step_ms slots_active_1={step_ms[1]:.4f} "
+        f"slots_active_4={step_ms[4]:.4f} bound_ms={bound_ms:.4f} (bytes: "
+        f"weights {w_bytes} + gathered views {view_bytes}) "
+        f"x_bound={step_ms[4] / bound_ms:.2f} staggered_decode_ms "
+        f"median={sorted(stag_decode)[len(stag_decode) // 2]:.4f} "
+        f"min={min(stag_decode):.4f} max={max(stag_decode):.4f}")
+    log(f"[serve] {arch} decode_step host_enqueue_ms={host_ms:.4f} "
+        f"device_busy_ms={busy_ms:.4f} kernels_per_step={kernels}")
+    log(f"[serve] {arch} max_memory_allocated_gb={peak / 1e9:.2f} "
+        f"card_gb={torch.cuda.mem_get_info()[1] / 1e9:.2f}")
+    del eng, params, events
+    torch.cuda.empty_cache()
+    return {n: c for n, c in grew.items() if c}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1376,6 +1701,14 @@ def main() -> int:
     records.update(phase_ssd_kernels())
     records.update(phase_rglru_kernels())
     torch.cuda.empty_cache()
+    from repro_torch.configs import ARCHS as REGISTERED
+    decode_by_arch = {arch: phase_decode(arch) for arch in REGISTERED}
+    torch.cuda.empty_cache()
+    # the serving path's own launches: counted from each arch's runs
+    serve_by_arch = {arch: phase_serve(arch) for arch in SERVE_ARCHS}
+    if not all(g.get("flash_fwd") for g in serve_by_arch.values()):
+        raise AssertionError(f"a serve path never launched the flash "
+                             f"forward: {serve_by_arch}")
     for arch in CARD_VS_CPU_ARCHS:
         phase_card_vs_cpu(arch)
         torch.cuda.empty_cache()
@@ -1427,6 +1760,11 @@ def main() -> int:
                  "launches_jigsaw": {a: g[name]
                                      for a, g in jigsaw_by_arch.items()
                                      if name in g},
+                 "launches_decode": {a: g[name]
+                                     for a, g in decode_by_arch.items()
+                                     if g.get(name)},
+                 "launches_serve": {a: g.get(name, 0)
+                                    for a, g in serve_by_arch.items()},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],

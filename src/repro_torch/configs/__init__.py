@@ -22,6 +22,8 @@ ARCHS: Dict[str, str] = {
     "gemma3-4b": "gemma3_4b",
     "deepseek-67b": "deepseek_67b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "minicpm3-4b": "minicpm3_4b",
 }
 
 # The full-width runs on one 80 GB card (chip_smoke.py, analysis/step_profile):
@@ -49,6 +51,15 @@ FULL_WIDTH_LAYERS: Dict[str, int] = {
     # parameters, 87.4 GB of state).  With FULL_WIDTH_EXPERTS' share, 4
     # layers: 2,137,034,752 parameters, ~50.0 GB.  Depth cycle 4, 1, 3, 2.
     "qwen3-moe-235b-a22b": 4,
+    # 27 layers: 15,496,769,024 parameters, ~363 GB of state (each of the
+    # 26 MoE layers holds 64 experts of width 1408, 571 M parameters).  4
+    # are the dense layer 0 and 3 MoE layers with all 64 experts:
+    # 2,045,267,968 parameters, ~47.9 GB.  Depth cycle 4, 1, 3, 2.
+    "deepseek-v2-lite-16b": 4,
+    # 62 layers: 4,073,937,408 parameters, ~95.3 GB.  24: 1,692,289,536
+    # (188 M of them the tied embedding), ~39.6 GB.  Depth cycle 24, 6,
+    # 18, 12.
+    "minicpm3-4b": 24,
     # deepseek-67b has no entry: its untied 102400 x 8192 pair is 1.68 B
     # parameters and a layer 0.69 B, so 2 layers take 3,061,882,880
     # parameters, 71.6 GB of state before any logit or activation, and 1

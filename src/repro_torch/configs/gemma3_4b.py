@@ -2,8 +2,10 @@
 vocab=262144, 5:1 local:global attention, 1024-token sliding window.
 [hf:google/gemma-3-4b-pt]
 
-The port trains it; its long_500k decode (the 5/6 sliding-window layers
-dominate, the 1/6 global layers hold the full KV) comes with serving.
+The port trains and serves it: its dense-cache decode keeps each
+sliding-window layer's cache in a ring buffer of ``window`` slots (only
+the 1/6 global layers hold the full KV); the serving engine pages every
+layer's cache and masks the window.
 """
 from repro_torch.config import ModelConfig
 

@@ -72,6 +72,22 @@ def check_layout(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     return B, H, K, Sq, Sk, D
 
 
+def padded_head_dim(need: int) -> int:
+    """The smallest head_dim the kernels dispatch that holds ``need``
+    columns: MLA's attention pads its (dn + dr, dv) heads to it with zeros
+    (``models/layers._mla_attention``)."""
+    for d in sorted(_HEAD_DIMS):
+        if d >= need:
+            return d
+    raise ValueError(f"no attention kernel holds a head_dim of {need}; the "
+                     f"kernels take {sorted(_HEAD_DIMS)}")
+
+
+def softmax_scale(D: int, scale: Optional[float]) -> float:
+    """The score scale: ``scale`` when given, else 1 / sqrt(D)."""
+    return 1.0 / math.sqrt(D) if scale is None else float(scale)
+
+
 def kernel_dtype_code(qt: torch.Tensor, D: int) -> int:
     """The kernels' dtype code; raises for what they do not take."""
     if qt.device.type != "cuda":
@@ -110,14 +126,17 @@ def empty_kernel_layout(B: int, heads: int, S: int, D: int, like: torch.Tensor
 
 
 def fwd_plain(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, *,
-              causal: bool = True, window: int = 0, with_lse: bool = False):
+              causal: bool = True, window: int = 0, with_lse: bool = False,
+              scale: Optional[float] = None):
     """Plain version of the forward kernel, f32 math on the whole score
-    matrix.  Returns ot (B, H, Sq, D) in qt's dtype, plus lse (B, H, Sq)
-    f32 when ``with_lse``."""
+    matrix, scores times ``scale`` (1 / sqrt(D) when None).  Returns ot
+    (B, H, Sq, D) in qt's dtype, plus lse (B, H, Sq) f32 when
+    ``with_lse``."""
     B, H, K, Sq, Sk, D = check_layout(qt, kt, vt)
     G = H // K
     q = qt.float().reshape(B, K, G, Sq, D)
-    s = torch.einsum("bkgqd,bksd->bkgqs", q, kt.float()) / math.sqrt(D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", q, kt.float()) * softmax_scale(
+        D, scale)
     mask = pair_mask(Sq, Sk, causal, window, qt.device)
     s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
@@ -137,13 +156,14 @@ _FWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
 
 def fwd_kernel_layout(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
-                      with_lse: bool = False):
+                      with_lse: bool = False, scale: Optional[float] = None):
     """Forward in kernel layout.  qt: (B, H, Sq, D); kt, vt: (B, K, Sk, D).
-    Returns ot, or (ot, lse) when ``with_lse``."""
+    Scores are scaled by ``scale`` (1 / sqrt(D) when None).  Returns ot,
+    or (ot, lse) when ``with_lse``."""
     B, H, K, Sq, Sk, D = check_layout(qt, kt, vt)
     if qt.device.type == "cpu":
         return fwd_plain(qt, kt, vt, causal=causal, window=window,
-                         with_lse=with_lse)
+                         with_lse=with_lse, scale=scale)
     dtype = kernel_dtype_code(qt, D)
     if qt.dtype == torch.bfloat16:
         check_aligned(qt, kt, vt)
@@ -155,7 +175,7 @@ def fwd_kernel_layout(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, *,
     code = fn(dtype, D, qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
               ot.data_ptr(), lse.data_ptr() if lse is not None else None,
               B, H, K, Sq, Sk, *strides(qt), *strides(kt), *strides(vt),
-              *strides(ot), int(causal), int(window), 1.0 / math.sqrt(D),
+              *strides(ot), int(causal), int(window), softmax_scale(D, scale),
               _build.stream_of(qt))
     _build.check("flash_fwd", code)
     fwd_kernel_layout.launches += 1

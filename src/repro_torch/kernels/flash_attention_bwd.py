@@ -22,8 +22,7 @@ raises.  Each wrapper counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,7 +30,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (check_aligned, check_layout,
                                                  empty_kernel_layout,
                                                  kernel_dtype_code,
-                                                 pair_mask, strides)
+                                                 pair_mask, softmax_scale,
+                                                 strides)
 
 Tensor = torch.Tensor
 
@@ -44,11 +44,12 @@ def delta_plain(ot: Tensor, dot_: Tensor) -> Tensor:
     return (ot.float() * dot_.float()).sum(dim=-1)
 
 
-def _probs_and_ds(qt, kt, vt, dot_, lse, delta, causal, window):
-    """P and dS, (B, K, G, Sq, Sk) f32, with dS = P (dP - delta) * scale."""
+def _probs_and_ds(qt, kt, vt, dot_, lse, delta, causal, window, scale):
+    """P and dS, (B, K, G, Sq, Sk) f32, with dS = P (dP - delta) * scale
+    (1 / sqrt(D) when ``scale`` is None)."""
     B, H, K, Sq, Sk, D = check_layout(qt, kt, vt, dot_)
     G = H // K
-    scale = 1.0 / math.sqrt(D)
+    scale = softmax_scale(D, scale)
     q = qt.float().reshape(B, K, G, Sq, D)
     do = dot_.float().reshape(B, K, G, Sq, D)
     s = torch.einsum("bkgqd,bksd->bkgqs", q, kt.float()) * scale
@@ -59,16 +60,19 @@ def _probs_and_ds(qt, kt, vt, dot_, lse, delta, causal, window):
     return p, ds, q, do
 
 
-def dq_plain(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0) -> Tensor:
+def dq_plain(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0,
+             scale: Optional[float] = None) -> Tensor:
     B, H, Sq, D = qt.shape
-    _, ds, _, _ = _probs_and_ds(qt, kt, vt, dot_, lse, delta, causal, window)
+    _, ds, _, _ = _probs_and_ds(qt, kt, vt, dot_, lse, delta, causal, window,
+                                scale)
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kt.float())
     return dq.reshape(B, H, Sq, D).to(qt.dtype)
 
 
-def dkv_plain(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
-              ) -> Tuple[Tensor, Tensor]:
-    p, ds, q, do = _probs_and_ds(qt, kt, vt, dot_, lse, delta, causal, window)
+def dkv_plain(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0,
+              scale: Optional[float] = None) -> Tuple[Tensor, Tensor]:
+    p, ds, q, do = _probs_and_ds(qt, kt, vt, dot_, lse, delta, causal, window,
+                                 scale)
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, q)
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, do)
     return dk.to(kt.dtype), dv.to(vt.dtype)
@@ -136,14 +140,14 @@ def compute_delta(ot: Tensor, dot_: Tensor) -> Tensor:
     return delta
 
 
-def compute_dq(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
-               ) -> Tensor:
-    """dq (B, H, Sq, D) in qt's dtype."""
+def compute_dq(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0,
+               scale: Optional[float] = None) -> Tensor:
+    """dq (B, H, Sq, D) in qt's dtype; ``scale`` as the forward's."""
     B, H, K, Sq, Sk, D = check_layout(qt, kt, vt, dot_)
     _check_rows(lse, delta, B, H, Sq)
     if qt.device.type == "cpu":
         return dq_plain(qt, kt, vt, dot_, lse, delta, causal=causal,
-                        window=window)
+                        window=window, scale=scale)
     dtype = kernel_dtype_code(qt, D)
     if qt.dtype == torch.bfloat16:
         check_aligned(qt, kt, vt, dot_)
@@ -153,20 +157,21 @@ def compute_dq(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
               dot_.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               dq.data_ptr(), B, H, K, Sq, Sk, *strides(qt), *strides(kt),
               *strides(vt), *strides(dot_), *strides(dq), int(causal),
-              int(window), 1.0 / math.sqrt(D), _build.stream_of(qt))
+              int(window), softmax_scale(D, scale), _build.stream_of(qt))
     _build.check("flash_dq", code)
     compute_dq.launches += 1
     return dq
 
 
-def compute_dkv(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
-                ) -> Tuple[Tensor, Tensor]:
-    """(dk, dv), each (B, K, Sk, D) in kt's dtype."""
+def compute_dkv(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0,
+                scale: Optional[float] = None) -> Tuple[Tensor, Tensor]:
+    """(dk, dv), each (B, K, Sk, D) in kt's dtype; ``scale`` as the
+    forward's."""
     B, H, K, Sq, Sk, D = check_layout(qt, kt, vt, dot_)
     _check_rows(lse, delta, B, H, Sq)
     if qt.device.type == "cpu":
         return dkv_plain(qt, kt, vt, dot_, lse, delta, causal=causal,
-                         window=window)
+                         window=window, scale=scale)
     dtype = kernel_dtype_code(qt, D)
     dk = empty_kernel_layout(B, K, Sk, D, kt)
     dv = empty_kernel_layout(B, K, Sk, D, vt)
@@ -186,7 +191,7 @@ def compute_dkv(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0
               part.data_ptr() if part is not None else None, splits,
               B, H, K, Sq, Sk, *strides(qt),
               *strides(kt), *strides(vt), *strides(dot_), *strides(dk),
-              *strides(dv), int(causal), int(window), 1.0 / math.sqrt(D),
+              *strides(dv), int(causal), int(window), softmax_scale(D, scale),
               _build.stream_of(qt))
     _build.check("flash_dkv", code)
     compute_dkv.launches += 1
@@ -198,11 +203,12 @@ compute_dq.launches = 0
 compute_dkv.launches = 0
 
 
-def bwd_kernel_layout(qt, kt, vt, ot, lse, dot_, *, causal=True, window=0):
+def bwd_kernel_layout(qt, kt, vt, ot, lse, dot_, *, causal=True, window=0,
+                      scale: Optional[float] = None):
     """Backward in kernel layout; returns (dqt, dkt, dvt)."""
     delta = compute_delta(ot, dot_)
     dq = compute_dq(qt, kt, vt, dot_, lse, delta, causal=causal,
-                    window=window)
+                    window=window, scale=scale)
     dk, dv = compute_dkv(qt, kt, vt, dot_, lse, delta, causal=causal,
-                         window=window)
+                         window=window, scale=scale)
     return dq, dk, dv

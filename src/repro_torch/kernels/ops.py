@@ -18,6 +18,8 @@ when ``cfg.use_pallas`` is set.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import flash_attention as fa
@@ -35,12 +37,13 @@ def _t(x: torch.Tensor) -> torch.Tensor:
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, scale):
         qt, kt, vt = _t(q), _t(k), _t(v)
         ot, lse = fa.fwd_kernel_layout(qt, kt, vt, causal=causal,
-                                       window=window, with_lse=True)
+                                       window=window, with_lse=True,
+                                       scale=scale)
         ctx.save_for_backward(qt, kt, vt, ot, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return _t(ot)
 
     @staticmethod
@@ -48,19 +51,22 @@ class _FlashAttention(torch.autograd.Function):
         qt, kt, vt, ot, lse = ctx.saved_tensors
         dq, dk, dv = fab.bwd_kernel_layout(
             qt, kt, vt, ot, lse, _t(g.contiguous()), causal=ctx.causal,
-            window=ctx.window)
-        return _t(dq), _t(dk), _t(dv), None, None
+            window=ctx.window, scale=ctx.scale)
+        return _t(dq), _t(dk), _t(dv), None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_block: int = 128,
-                    kv_block: int = 128) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Sk, K, D).  Returns (B, Sq, H, D)."""
+                    kv_block: int = 128, scale: Optional[float] = None
+                    ) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, K, D).  Returns (B, Sq, H, D).
+    Scores are scaled by ``scale``, 1 / sqrt(D) when None (MLA passes
+    1 / sqrt(dn + dr) for heads zero-padded to D)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
     return _t(fa.fwd_kernel_layout(_t(q), _t(k), _t(v), causal=causal,
-                                   window=window))
+                                   window=window, scale=scale))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,19 @@
-"""Dense model layers of the port: norm, RoPE, embedding, SwiGLU FFN, GQA
-attention and the loss (the dense subset of ``repro/models/layers.py``).
+"""Model layers of the port: norm, RoPE, embedding, SwiGLU FFN, GQA and
+MLA attention (train, dense-cache prefill/decode and the serving engine's
+paged prefill/decode) and the loss (``repro/models/layers.py`` without
+cross-attention and the tensor-parallel collectives).
 
 Plain functions over parameter dictionaries of tensors, in the JAX
 package's layouts, so the two packages can be fed the same weights.
-Attention runs the hand-written kernels (``repro_torch.kernels.ops``)
-when ``cfg.use_pallas`` is set: always on the card, and on the CPU when
-the shapes tile as the JAX gate demands; otherwise the plain blockwise
-path.  The large projections are ``torch.matmul``.
+Train and prefill attention run the hand-written kernels
+(``repro_torch.kernels.ops``) when ``cfg.use_pallas`` is set: always on
+the card, and on the CPU when the shapes tile as the JAX gate demands;
+otherwise the plain blockwise path.  MLA's heads (qk dim dn + dr, v dim
+dv) go to the kernels zero-padded to one dispatched head_dim with the
+scale 1 / sqrt(dn + dr).  One-token decode attention has no kernel in
+the reference either: it is plain PyTorch with f32 scores.  The cached
+paths update their cache tensors in place and return them.  The large
+projections are ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import pair_mask
+from repro_torch.kernels.flash_attention import pair_mask, padded_head_dim
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -99,7 +106,8 @@ def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
 # ---------------------------------------------------------------------------
 
 def _pallas_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
-                      window: int) -> Optional[Tensor]:
+                      window: int, scale: Optional[float] = None
+                      ) -> Optional[Tensor]:
     """The hand-written kernels, or None for :func:`blockwise_attention`.
 
     A CUDA tensor always takes the kernels: they tile at 64 x 64 and mask
@@ -113,21 +121,13 @@ def _pallas_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                                    or q.shape[2] % k.shape[2]):
         return None
     return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               q_block=qb, kv_block=kb)
+                               q_block=qb, kv_block=kb, scale=scale)
 
 
-def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
-                  positions: Tensor) -> Tensor:
-    """Train self-attention.  x: (B, S, D)."""
-    B, S, _ = x.shape
-    Dh = cfg.head_dim
-    H, K = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
-    q = (x @ p["wq"]).reshape(B, S, H, Dh)
-    k = (x @ p["wk"]).reshape(B, S, K, Dh)
-    v = (x @ p["wv"]).reshape(B, S, K, Dh)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    window = cfg.window if kind == "local" else 0
+def _attend(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
+            window: int) -> Tensor:
+    """Causal train/prefill attention: the kernels under ``use_pallas``,
+    else (or for a CPU shape they do not tile) the blockwise path."""
     o = None
     if cfg.use_pallas:
         o = _pallas_attention(q, k, v, causal=True, window=window)
@@ -135,7 +135,356 @@ def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
         o = blockwise_attention(q, k, v, causal=True, window=window,
                                 q_block=cfg.attn_q_block,
                                 kv_block=cfg.attn_kv_block)
-    return o.reshape(B, S, H * Dh) @ p["wo"]
+    return o
+
+
+def _qkv(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor):
+    """Roped q (B, S, H, Dh) and k, v (B, S, K, Dh); the head counts from
+    the weights' widths."""
+    B, S, _ = x.shape
+    Dh = cfg.head_dim
+    H, K = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
+    q = (x @ p["wq"]).reshape(B, S, H, Dh)
+    k = (x @ p["wk"]).reshape(B, S, K, Dh)
+    v = (x @ p["wv"]).reshape(B, S, K, Dh)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.window if kind == "local" else 0
+
+
+def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
+                  positions: Tensor) -> Tensor:
+    """Train self-attention.  x: (B, S, D)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = _attend(q, k, v, cfg, _window(cfg, kind))
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def decode_attention(q: Tensor, k: Tensor, v: Tensor, kpos: Tensor,
+                     qpos: Tensor, *, window: int = 0) -> Tensor:
+    """Single-step decode attention over a (possibly ring-buffered) cache.
+
+    q: (B, 1, H, D); k, v: (B, W, K, D); kpos: (B, W) absolute positions of
+    the cache slots (negative or beyond ``qpos`` = masked to -inf); qpos:
+    (B,) absolute query positions.  f32 scores and softmax, weights in v's
+    dtype, f32 sums."""
+    B, _, H, D = q.shape
+    K = k.shape[2]
+    qv = q.reshape(B, K, H // K, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qv.float(), k.float()) \
+        * (1.0 / math.sqrt(D))
+    mask = (kpos >= 0) & (kpos <= qpos[:, None])
+    if window > 0:
+        mask &= kpos > (qpos[:, None] - window)
+    s = torch.where(mask[:, None, None], s, -math.inf)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", w.to(v.dtype).float(), v.float())
+    return out.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention: dense per-slot caches (prefill / decode)
+# ---------------------------------------------------------------------------
+
+def attention_prefill(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
+                      positions: Tensor, cache: Params):
+    """Prefill: run attention and fill the layer cache in place.  A cache
+    shorter than the prompt (a local layer's ring buffer of W slots) keeps
+    the last W positions, position t in slot t mod W."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = _attend(q, k, v, cfg, _window(cfg, kind))
+    W = cache["k"].shape[1]
+    if W >= S:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    else:
+        slots = positions[-W:] % W
+        cache["k"][:, slots] = k[:, -W:].to(cache["k"].dtype)
+        cache["v"][:, slots] = v[:, -W:].to(cache["v"].dtype)
+    return o.reshape(B, S, -1) @ p["wo"], cache
+
+
+def attention_decode(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
+                     pos: Tensor, cache: Params):
+    """One-token decode.  x: (B, 1, D); pos: 0-dim int64 absolute position
+    (a device tensor: nothing here reads it on the host)."""
+    B = x.shape[0]
+    posv = pos.reshape(1)
+    q, k, v = _qkv(p, x, cfg, posv)
+    W = cache["k"].shape[1]
+    slot = posv % W
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    # the absolute position each slot j holds: pos - ((pos - j) mod W)
+    j = torch.arange(W, device=x.device)
+    kpos = (pos - (pos - j) % W).expand(B, W)
+    o = decode_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                         kpos, pos.expand(B), window=_window(cfg, kind))
+    return o.reshape(B, 1, -1) @ p["wo"], cache
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
+                         kind: str, dtype: torch.dtype, device=None) -> Params:
+    W = max_len if kind != "local" else min(cfg.window, max_len)
+    shape = (batch, W, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (Multi-head Latent Attention)
+# ---------------------------------------------------------------------------
+
+def mla_shapes(cfg: ModelConfig, dtype: torch.dtype) -> Dict[str, Any]:
+    """{name: (shape, dtype)} of one MLA layer's leaves (``init_mla``'s
+    layout): the KV down-projection and its norm, the rope key, the K and
+    V up-projections, the output, and either the query's low-rank pair
+    with its norm (``q_lora_rank`` set) or one query projection."""
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    dn, dr, dv, r = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                     m.kv_lora_rank)
+    out = {"wdkv": ((D, r), dtype), "kv_norm": ((r,), dtype),
+           "wkr": ((D, dr), dtype), "wuk": ((r, H * dn), dtype),
+           "wuv": ((r, H * dv), dtype), "wo": ((H * dv, D), dtype)}
+    if m.q_lora_rank:
+        out.update(wdq=((D, m.q_lora_rank), dtype),
+                   q_norm=((m.q_lora_rank,), dtype),
+                   wuq=((m.q_lora_rank, H * (dn + dr)), dtype))
+    else:
+        out["wq"] = ((D, H * (dn + dr)), dtype)
+    return out
+
+
+def _mla_q(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor):
+    """(qn (B, S, H, dn), roped qr (B, S, H, dr))."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, dn = cfg.num_heads, m.qk_nope_head_dim
+    if m.q_lora_rank:
+        q = rms_norm(x @ p["wdq"], p["q_norm"], cfg.norm_eps) @ p["wuq"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, H, -1)
+    return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_latent(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor):
+    """What the MLA cache holds: the normed latent ckv (B, S, r) and the
+    roped shared key kr (B, S, dr)."""
+    ckv = rms_norm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)
+    kr = rope((x @ p["wkr"])[:, :, None, :], positions, cfg.rope_theta)
+    return ckv, kr[:, :, 0]
+
+
+def _mla_attention(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig
+                   ) -> Tensor:
+    """Causal attention with qk head dim dn + dr and v head dim dv, scaled
+    by 1 / sqrt(dn + dr).  Under ``use_pallas`` the kernels take Q, K and V
+    zero-padded on the last dim to the smallest dispatched head_dim that
+    holds both, with the scale passed explicitly, and the output is cut
+    back to dv: zero columns change neither Q K^T nor the kept columns of
+    P V, and autograd slices their gradients away."""
+    dqk, dv = q.shape[-1], v.shape[-1]
+    if cfg.use_pallas:
+        D = padded_head_dim(max(dqk, dv))
+        pad = lambda t: F.pad(t, (0, D - t.shape[-1]))
+        o = _pallas_attention(pad(q), pad(k), pad(v), causal=True, window=0,
+                              scale=1.0 / math.sqrt(dqk))
+        if o is not None:
+            return o[..., :dv]
+    return blockwise_attention(q, k, v, causal=True,
+                               q_block=cfg.attn_q_block,
+                               kv_block=cfg.attn_kv_block)
+
+
+def _mla_core(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor):
+    """Train/prefill MLA with materialized K/V.  Returns (out, ckv, kr)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, dn, dr, dv = (cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim,
+                     m.v_head_dim)
+    qn, qr = _mla_q(p, x, cfg, positions)
+    ckv, kr = _mla_latent(p, x, cfg, positions)
+    kn = (ckv @ p["wuk"]).reshape(B, S, H, dn)
+    v = (ckv @ p["wuv"]).reshape(B, S, H, dv)
+    q = torch.cat([qn, qr], dim=-1)
+    k = torch.cat([kn, kr[:, :, None].expand(B, S, H, dr)], dim=-1)
+    o = _mla_attention(q, k, v, cfg)
+    return o.reshape(B, S, H * dv) @ p["wo"], ckv, kr
+
+
+def mla_fwd(p: Params, x: Tensor, cfg: ModelConfig, *,
+            positions: Tensor) -> Tensor:
+    """Train MLA.  x: (B, S, D)."""
+    return _mla_core(p, x, cfg, positions)[0]
+
+
+def mla_prefill(p: Params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
+                cache: Params):
+    """Prefill: MLA over the prompt, the latents into the cache in place."""
+    S = x.shape[1]
+    out, ckv, kr = _mla_core(p, x, cfg, positions)
+    cache["ckv"][:, :S] = ckv
+    cache["kr"][:, :S] = kr
+    return out, cache
+
+
+def _mla_absorbed(p: Params, qn: Tensor, qr: Tensor, cview: Tensor,
+                  rview: Tensor, pos: Tensor, cfg: ModelConfig,
+                  dtype: torch.dtype) -> Tensor:
+    """Absorbed-matrix MLA decode: W_uk folds into the query, so the
+    scores are taken against the latent cache itself, and W_uv is applied
+    to the attended latent.  qn (N, 1, H, dn), qr (N, 1, H, dr); cview
+    (N, W, r), rview (N, W, dr); pos (N,): cache positions beyond it are
+    masked to -inf.  The einsums are f32.  Returns (N, 1, D) in
+    ``dtype``."""
+    m = cfg.mla
+    N = qn.shape[0]
+    H, dn, dr, dv, r = (cfg.num_heads, m.qk_nope_head_dim,
+                        m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank)
+    cf = cview.float()
+    q_lat = torch.einsum("bhd,rhd->bhr", qn[:, 0].float(),
+                         p["wuk"].reshape(r, H, dn).float())
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, cf)
+         + torch.einsum("bhd,bsd->bhs", qr[:, 0].float(), rview.float()))
+    s = s / math.sqrt(dn + dr)
+    kpos = torch.arange(cview.shape[1], device=cview.device)
+    s = torch.where(kpos[None, None] <= pos[:, None, None], s, -math.inf)
+    w = torch.softmax(s, dim=-1)
+    lat = torch.einsum("bhs,bsr->bhr", w, cf)
+    o = torch.einsum("bhr,rhd->bhd", lat,
+                     p["wuv"].reshape(r, H, dv).float())
+    return o.reshape(N, 1, H * dv).to(dtype) @ p["wo"]
+
+
+def mla_decode(p: Params, x: Tensor, cfg: ModelConfig, *, pos: Tensor,
+               cache: Params):
+    """One-token absorbed-matrix MLA decode: it attends in the latent
+    space, so the cache is r + dr a token instead of 2 H Dh.  pos: 0-dim
+    int64 device tensor."""
+    B = x.shape[0]
+    posv = pos.reshape(1)
+    qn, qr = _mla_q(p, x, cfg, posv)
+    ckv, kr = _mla_latent(p, x, cfg, posv)
+    cache["ckv"].index_copy_(1, posv, ckv.to(cache["ckv"].dtype))
+    cache["kr"].index_copy_(1, posv, kr.to(cache["kr"].dtype))
+    o = _mla_absorbed(p, qn, qr, cache["ckv"], cache["kr"], pos.expand(B),
+                      cfg, x.dtype)
+    return o, cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device=None) -> Params:
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "kr": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                              dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Paged (block-table) attention: the serving engine's cache views
+# ---------------------------------------------------------------------------
+#
+# The serve cache is a flat pool of fixed-size pages shared by all slots
+# (repro_torch.serve.kvcache).  Prefill scatters a prompt's K/V through one
+# slot's page list; decode scatters the new token and gathers the slot's
+# logical view ``pages[page_table]`` for the attention read.  Positions
+# beyond ``pos`` (including unallocated trash-page entries) are masked to
+# -inf, so garbage contributes exp(-inf) == 0 -- exactly nothing -- and
+# slots stay bit-isolated from each other.  Every index is a device tensor
+# and every write an in-place scatter: no host sync.
+
+def _paged_scatter(pages: Tensor, rows: Tensor, positions: Tensor,
+                   valid: Tensor, values: Tensor) -> Tensor:
+    """Write ``values`` at logical ``positions`` of per-entry page ``rows``,
+    in place.  pages: (P, ps, ...); rows: the physical page of each entry;
+    positions: logical token positions (rows' shape); valid: bool mask --
+    invalid entries go to the trash page 0 (never allocated, never read
+    unmasked).  values: positions.shape + pages.shape[2:]."""
+    phys = torch.where(valid, rows, torch.zeros_like(rows))
+    pages.index_put_((phys, positions % pages.shape[1]),
+                     values.to(pages.dtype))
+    return pages
+
+
+def attention_prefill_paged(p: Params, x: Tensor, cfg: ModelConfig, *,
+                            kind: str, positions: Tensor, cache: Params,
+                            page_row: Tensor, valid_len: Tensor):
+    """Single-slot prefill into a paged cache.  x: (1, S, D), the prompt
+    right-padded to S; ``valid_len`` ((1,) device tensor) marks how many
+    leading positions are real -- pad positions are computed (causally
+    harmless) but their K/V goes to the trash page."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = _attend(q, k, v, cfg, _window(cfg, kind))
+    rows = page_row[positions // cache["k"].shape[1]]
+    valid = positions < valid_len
+    _paged_scatter(cache["k"], rows, positions, valid, k[0])
+    _paged_scatter(cache["v"], rows, positions, valid, v[0])
+    return o.reshape(B, S, -1) @ p["wo"], cache
+
+
+def _page_rows(page_table: Tensor, pos: Tensor, ps: int) -> Tensor:
+    """The physical page holding each slot's position ``pos``."""
+    return page_table.gather(1, (pos // ps)[:, None])[:, 0]
+
+
+def attention_decode_paged(p: Params, x: Tensor, cfg: ModelConfig, *,
+                           kind: str, pos: Tensor, cache: Params,
+                           page_table: Tensor, active: Tensor):
+    """Slot-batched one-token decode over a paged cache.
+
+    x: (N, 1, D); pos: (N,) per-slot absolute positions; page_table:
+    (N, Pmax) physical page ids (0 = unallocated); active: (N,) bool --
+    inactive slots compute (and are discarded) but write only to the trash
+    page."""
+    N = x.shape[0]
+    K, Dh = cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    rows = _page_rows(page_table, pos, cache["k"].shape[1])
+    _paged_scatter(cache["k"], rows, pos, active, k[:, 0])
+    _paged_scatter(cache["v"], rows, pos, active, v[:, 0])
+    # the slots' logical views: (N, Pmax * ps, K, Dh)
+    kview = cache["k"][page_table].reshape(N, -1, K, Dh)
+    vview = cache["v"][page_table].reshape(N, -1, K, Dh)
+    kpos = torch.arange(kview.shape[1], device=x.device).expand(N, -1)
+    o = decode_attention(q, kview.to(q.dtype), vview.to(q.dtype), kpos, pos,
+                         window=_window(cfg, kind))
+    return o.reshape(N, 1, -1) @ p["wo"], cache
+
+
+def mla_prefill_paged(p: Params, x: Tensor, cfg: ModelConfig, *,
+                      positions: Tensor, cache: Params, page_row: Tensor,
+                      valid_len: Tensor):
+    """Single-slot MLA prefill into paged latent caches (x: (1, S, D))."""
+    out, ckv, kr = _mla_core(p, x, cfg, positions)
+    rows = page_row[positions // cache["ckv"].shape[1]]
+    valid = positions < valid_len
+    _paged_scatter(cache["ckv"], rows, positions, valid, ckv[0])
+    _paged_scatter(cache["kr"], rows, positions, valid, kr[0])
+    return out, cache
+
+
+def mla_decode_paged(p: Params, x: Tensor, cfg: ModelConfig, *, pos: Tensor,
+                     cache: Params, page_table: Tensor, active: Tensor):
+    """Slot-batched absorbed-matrix MLA decode over paged latent caches."""
+    N = x.shape[0]
+    posv = pos[:, None]
+    qn, qr = _mla_q(p, x, cfg, posv)
+    ckv, kr = _mla_latent(p, x, cfg, posv)
+    rows = _page_rows(page_table, pos, cache["ckv"].shape[1])
+    _paged_scatter(cache["ckv"], rows, pos, active, ckv[:, 0])
+    _paged_scatter(cache["kr"], rows, pos, active, kr[:, 0])
+    cview = cache["ckv"][page_table].reshape(N, -1, cache["ckv"].shape[-1])
+    rview = cache["kr"][page_table].reshape(N, -1, cache["kr"].shape[-1])
+    return _mla_absorbed(p, qn, qr, cview, rview, pos, cfg, x.dtype), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""LM assembly with SPB suffix splitting (the train path of
-``repro/models/lm.py`` for dense attention, Mamba-2 SSD and Griffin
-RG-LRU + local-attention stacks, with dense or MoE FFNs).
+"""LM assembly with SPB suffix splitting, dense-cache prefill/decode and
+the serving engine's paged prefill/decode (``repro/models/lm.py`` for
+GQA attention, MLA, Mamba-2 SSD and Griffin RG-LRU + local-attention
+stacks, with dense or MoE FFNs).
 
 Parameters keep the JAX package's stacked per-group layout:
 ``params["groups"][g][u][name]`` carries a leading ``count`` dim, one row
@@ -18,6 +19,11 @@ MoE load-balancing aux of every layer, frozen or live, is summed in layer
 order into the loss; the frozen layers' part carries no graph.  The
 port keeps every live activation (the JAX ``REMAT="full"`` recomputes
 instead; it changes no numbers).
+
+The cached paths (:func:`prefill`, :func:`decode_step`,
+:func:`serve_prefill`, :func:`serve_decode`) run under ``no_grad`` and
+update their cache tensors in place; positions, page tables and masks
+are device tensors, so a decode step reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -46,12 +52,13 @@ def _check_supported(cfg: ModelConfig) -> None:
     kinds = {k for unit, _ in layer_groups(cfg) for k in unit}
     if cfg.enc_layers or cfg.frontend or \
             kinds - {("attn", "dense"), ("local", "dense"), ("ssd", "dense"),
-                     ("rglru", "dense"), ("attn", "moe")}:
+                     ("rglru", "dense"), ("attn", "moe"), ("mla", "dense"),
+                     ("mla", "moe")}:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attn/local, ssd and rglru decoder "
-            f"stacks with dense FFNs and attn with MoE FFNs (got layer kinds "
-            f"{sorted(kinds)}); MLA is ROADMAP.md Queue 1 B item 10c, "
-            f"encoder-decoder (xdec) and frontends item 10d")
+            f"{cfg.name}: the port runs attn/local, mla, ssd and rglru "
+            f"decoder stacks with dense FFNs and attn and mla with MoE FFNs "
+            f"(got layer kinds {sorted(kinds)}); encoder-decoder (xdec) and "
+            f"frontends are ROADMAP.md Queue 1 B item 10d")
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +72,8 @@ def _mixer_shapes(cfg: ModelConfig, mixer: str, dtype: torch.dtype):
     if mixer in ("attn", "local"):
         return {"wq": ((D, cfg.q_dim), dtype), "wk": ((D, cfg.kv_dim), dtype),
                 "wv": ((D, cfg.kv_dim), dtype), "wo": ((cfg.q_dim, D), dtype)}
+    if mixer == "mla":
+        return L.mla_shapes(cfg, dtype)
     if mixer == "rglru":
         # repro/models/ssm.py::init_rglru; lam, ba, bx are f32 at any
         # cfg.dtype
@@ -127,7 +136,8 @@ def _init_leaf(gen: torch.Generator, name: str, like: Tensor, device):
     meta tensor ``like`` (a stacked leaf's rows are drawn as one):
 
     - norms store scale - 1: zeros (``ln*``, ``final_norm``, the mixer's
-      ``norm``); ``conv_b``, ``ba``, ``bx`` zeros;
+      ``norm``, MLA's ``kv_norm`` and ``q_norm``); ``conv_b``, ``ba``,
+      ``bx`` zeros;
     - the token table is N(0, 0.02); ``conv_w`` is N(0, 1) / sqrt(d_conv);
     - ``A_log`` = log(linspace(1, 16, H)), ``D`` = ones, ``dt_bias`` =
       log(expm1(dt)) with dt log-uniform in [1e-3, 1e-1];
@@ -135,8 +145,8 @@ def _init_leaf(gen: torch.Generator, name: str, like: Tensor, device):
     - every projection (.., fan_in, fan_out) is a normal truncated at +-2
       and scaled by 1 / sqrt(fan_in)."""
     shape, dtype = like.shape, like.dtype
-    if name.startswith("ln") or name in ("final_norm", "norm", "conv_b",
-                                         "ba", "bx"):
+    if name.startswith("ln") or name in ("final_norm", "norm", "kv_norm",
+                                         "q_norm", "conv_b", "ba", "bx"):
         return torch.zeros(shape, dtype=dtype, device=device)
     if name == "D":
         return torch.ones(shape, dtype=dtype, device=device)
@@ -192,18 +202,10 @@ def _unbind(tree, count: int):
     return [{k: v[r] for k, v in parts.items()} for r in range(count)]
 
 
-def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
-                 positions: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
-    """Returns (x, the layer's MoE aux, or None for a dense FFN)."""
-    mixer, ffn = kinds
-    h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
-    if mixer == "ssd":
-        x = x + S.mamba2_fwd(up["mixer"], h, cfg)
-    elif mixer == "rglru":
-        x = x + S.rglru_fwd(up["mixer"], h, cfg)
-    else:
-        x = x + L.attention_fwd(up["mixer"], h, cfg, kind=mixer,
-                                positions=positions)
+def _apply_ffn(x: Tensor, up: Params, ffn: str, cfg: ModelConfig
+               ) -> Tuple[Tensor, Optional[Tensor]]:
+    """The FFN half of a layer: (x, the layer's MoE aux, or None for a
+    dense FFN or none)."""
     aux = None
     if cfg.d_ff > 0:
         h = L.rms_norm(x, up["ln2"], cfg.norm_eps)
@@ -213,6 +215,60 @@ def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
             out = L.ffn_fwd(up["ffn"], h)
         x = x + out
     return x, aux
+
+
+def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
+                 positions: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+    """Returns (x, the layer's MoE aux, or None for a dense FFN)."""
+    mixer, ffn = kinds
+    h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
+    if mixer == "ssd":
+        o = S.mamba2_fwd(up["mixer"], h, cfg)
+    elif mixer == "rglru":
+        o = S.rglru_fwd(up["mixer"], h, cfg)
+    elif mixer == "mla":
+        o = L.mla_fwd(up["mixer"], h, cfg, positions=positions)
+    else:
+        o = L.attention_fwd(up["mixer"], h, cfg, kind=mixer,
+                            positions=positions)
+    return _apply_ffn(x + o, up, ffn, cfg)
+
+
+# the cached modes' mixer functions: dense per-slot caches ('prefill',
+# 'decode') and the serving engine's paged pair ('serve_prefill': one slot,
+# its page row and unpadded prompt length; 'serve_decode': slot-batched,
+# the whole page table and the slots' liveness)
+_ATTN = {"prefill": L.attention_prefill, "decode": L.attention_decode,
+         "serve_prefill": L.attention_prefill_paged,
+         "serve_decode": L.attention_decode_paged}
+_MLA = {"prefill": L.mla_prefill, "decode": L.mla_decode,
+        "serve_prefill": L.mla_prefill_paged,
+        "serve_decode": L.mla_decode_paged}
+_RECURRENT = {"ssd": {"prefill": S.mamba2_prefill,
+                      "decode": S.mamba2_decode},
+              "rglru": {"prefill": S.rglru_prefill,
+                        "decode": S.rglru_decode}}
+
+
+def _apply_layer_cached(x: Tensor, up: Params, kinds, cfg: ModelConfig,
+                        cache: Params, mode: str, kw: Dict[str, Any]
+                        ) -> Tensor:
+    """One layer of a cached mode; its cache is updated in place.  ``kw``:
+    the mode's position arguments (``positions`` or ``pos``, plus the
+    page table and the mask in the serve modes)."""
+    mixer, ffn = kinds
+    h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
+    if mixer in _RECURRENT:
+        if mode.startswith("serve_"):
+            raise NotImplementedError(
+                f"mixer {mixer!r} has no paged serve path (kvcache.supports)")
+        o, _ = _RECURRENT[mixer][mode](up["mixer"], h, cfg, cache["self"])
+    elif mixer == "mla":
+        o, _ = _MLA[mode](up["mixer"], h, cfg, cache=cache["self"], **kw)
+    else:
+        o, _ = _ATTN[mode](up["mixer"], h, cfg, kind=mixer,
+                           cache=cache["self"], **kw)
+    return _apply_ffn(x + o, up, ffn, cfg)[0]
 
 
 def _run_group_train(x: Tensor, aux: Tensor, gparams, unit,
@@ -289,3 +345,153 @@ def loss_fn(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
     xent = L.softmax_xent(logits, batch["labels"], valid_vocab=cfg.vocab_size)
     loss = xent + aux_weight * aux
     return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# KV cache: init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def _init_layer_cache(kinds, cfg: ModelConfig, batch: int, max_len: int,
+                      dtype: torch.dtype, device) -> Params:
+    mixer, _ = kinds
+    if mixer in ("attn", "local"):
+        c = L.init_attention_cache(cfg, batch, max_len, mixer, dtype, device)
+    elif mixer == "mla":
+        c = L.init_mla_cache(cfg, batch, max_len, dtype, device)
+    elif mixer == "ssd":
+        c = S.init_mamba2_cache(cfg, batch, dtype, device)
+    elif mixer == "rglru":
+        c = S.init_rglru_cache(cfg, batch, dtype, device)
+    else:
+        raise ValueError(mixer)
+    return {"self": c}
+
+
+def stacked_zeros(tree: Params, count: int, device) -> Params:
+    """Zeros shaped as the (meta) ``tree`` with a leading ``count`` dim:
+    one group's cache, laid out as the group's stacked parameters."""
+    return {k: stacked_zeros(v, count, device) if isinstance(v, dict) else
+            torch.zeros((count,) + tuple(v.shape), dtype=v.dtype,
+                        device=device) for k, v in tree.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+               device=None) -> Params:
+    """The dense per-slot caches, grouped like the params: each leaf has a
+    leading ``count`` dim.  ``pos`` (a 0-dim int64 tensor) is the next
+    position to decode."""
+    _check_supported(cfg)
+    dtype = _dtype(cfg)
+    groups = [[stacked_zeros(_init_layer_cache(kinds, cfg, batch, max_len,
+                                               dtype, "meta"), count, device)
+               for kinds in unit] for unit, count in layer_groups(cfg)]
+    return {"groups": groups,
+            "pos": torch.zeros((), dtype=torch.int64, device=device)}
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 enc_len: int = 0) -> Params:
+    """:func:`init_cache` as meta tensors (``jax.eval_shape`` of it)."""
+    return init_cache(cfg, batch, max_len, enc_len, device="meta")
+
+
+def _select(tree: Params, r: int) -> Params:
+    """Row ``r`` of every stacked leaf, as views (in-place writes reach
+    the stacked tensor)."""
+    return {k: _select(v, r) if isinstance(v, dict) else v[r]
+            for k, v in tree.items()}
+
+
+def _run_group_cached(x: Tensor, gparams, gcache, unit, cfg: ModelConfig,
+                      mode: str, kw: Dict[str, Any]) -> Tensor:
+    count = tree_leaves(gparams)[0].shape[0]
+    per_unit = [_unbind(up, count) for up in gparams]
+    for r in range(count):
+        for u in range(len(unit)):
+            x = _apply_layer_cached(x, per_unit[u][r], unit[u], cfg,
+                                    _select(gcache[u], r), mode, kw)
+    return x
+
+
+def _run_cached(x: Tensor, params: Params, groups, cfg: ModelConfig,
+                mode: str, kw: Dict[str, Any]) -> Tensor:
+    for (unit, _), gp, gc in zip(layer_groups(cfg), params["groups"], groups):
+        x = _run_group_cached(x, gp, gc, unit, cfg, mode, kw)
+    return x
+
+
+@torch.no_grad()
+def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
+            cache: Params) -> Tuple[Tensor, Params]:
+    """Fill the cache from a prompt; returns (last-token logits (B, 1, V),
+    cache)."""
+    _check_supported(cfg)
+    x = L.embed(params["embed"], batch["tokens"], cfg)
+    S_ = x.shape[1]
+    x = _run_cached(x, params, cache["groups"], cfg, "prefill",
+                    {"positions": torch.arange(S_, device=x.device)})
+    x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    pos = torch.full((), S_, dtype=torch.int64, device=x.device)
+    return L.unembed(params["embed"], x, cfg), {"groups": cache["groups"],
+                                                 "pos": pos}
+
+
+@torch.no_grad()
+def decode_step(params: Params, cache: Params, tokens: Tensor,
+                cfg: ModelConfig) -> Tuple[Tensor, Params]:
+    """One-token decode.  tokens: (B, 1).  The position is cache['pos']."""
+    _check_supported(cfg)
+    pos = cache["pos"]
+    x = L.embed(params["embed"], tokens, cfg)
+    x = _run_cached(x, params, cache["groups"], cfg, "decode", {"pos": pos})
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(params["embed"], x, cfg), {"groups": cache["groups"],
+                                                 "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# Serving: paged-cache prefill / slot-batched decode (repro_torch.serve)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def serve_prefill(params: Params, tokens: Tensor, cfg: ModelConfig,
+                  cache_groups, *, page_row: Tensor, prompt_len: Tensor
+                  ) -> Tuple[Tensor, Any]:
+    """Prefill ONE slot of a paged cache from a right-padded prompt.
+
+    tokens: (1, bucket) with the real prompt in the first ``prompt_len``
+    positions (a (1,) int64 device tensor: one code path serves every
+    prompt up to the bucket length).  ``page_row``: the slot's (Pmax,)
+    physical page list.  Returns (logits (1, V) at position prompt_len - 1,
+    the cache groups, updated in place).  Pad positions are computed but
+    masked everywhere it matters: causal attention keeps them out of real
+    positions' context, and their K/V goes to the trash page.
+    """
+    x = L.embed(params["embed"], tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_cached(x, params, cache_groups, cfg, "serve_prefill",
+                    {"positions": positions, "page_row": page_row,
+                     "valid_len": prompt_len})
+    x_last = x.index_select(1, prompt_len.reshape(1) - 1)         # (1, 1, D)
+    x_last = L.rms_norm(x_last, params["final_norm"], cfg.norm_eps)
+    return L.unembed(params["embed"], x_last, cfg)[:, 0], cache_groups
+
+
+@torch.no_grad()
+def serve_decode(params: Params, cache_groups, tokens: Tensor,
+                 cfg: ModelConfig, *, pos: Tensor, page_table: Tensor,
+                 active: Tensor) -> Tuple[Tensor, Any]:
+    """One slot-batched decode step over a paged cache.
+
+    tokens: (N, 1) last emitted token per slot; pos: (N,) absolute write
+    position per slot; page_table: (N, Pmax); active: (N,) bool.  Every
+    slot computes (the batch shape is fixed, so requests come and go
+    without a new shape); inactive slots write only to the trash page and
+    their logits are discarded by the engine.  Returns (logits (N, V), the
+    cache groups, updated in place).
+    """
+    x = L.embed(params["embed"], tokens, cfg)
+    x = _run_cached(x, params, cache_groups, cfg, "serve_decode",
+                    {"pos": pos, "page_table": page_table, "active": active})
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(params["embed"], x, cfg)[:, 0], cache_groups

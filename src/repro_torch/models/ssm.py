@@ -1,12 +1,14 @@
-"""Mamba-2 (SSD) and RG-LRU (Griffin) blocks of the port, train path (the
-train part of ``repro/models/ssm.py``).
+"""Mamba-2 (SSD) and RG-LRU (Griffin) blocks of the port: train, prefill
+and one-token decode (``repro/models/ssm.py``).
 
 Each scan runs its hand-written kernels (``repro_torch.kernels.ops.ssd``,
 ``ops.rglru``) when ``cfg.use_pallas`` is set (they raise on the card for
 a shape or dtype they do not take); otherwise a plain chunked path
 (:func:`_ssd_scan`, :func:`_lru_scan`) that keeps the JAX path's rounding
-points.  The large projections are ``torch.matmul``.  Prefill, decode and
-``conv_step`` come with the serving slice.
+points.  Prefill is the train path's core, which also returns the final
+state and the conv window's tail; decode advances that state one token
+(:func:`conv_step` and the recurrence in f32), in place in the layer's
+cache.  The large projections are ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -72,6 +74,16 @@ def causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     """x: (B, S, C); w: (K, C) depthwise; left-padded causal conv, f32
     sums, output in x's dtype."""
     return _CausalConv.apply(x, w, b)
+
+
+def conv_step(xt: Tensor, conv_state: Tensor, w: Tensor, b: Tensor
+              ) -> Tuple[Tensor, Tensor]:
+    """One-token causal conv.  xt: (B, C); conv_state: (B, K-1, C), the
+    last K - 1 pre-activation inputs.  Returns (out in xt's dtype, the
+    next conv_state)."""
+    window = torch.cat([conv_state, xt[:, None]], dim=1)       # (B, K, C)
+    out = torch.einsum("bkc,kc->bc", window.float(), w.float()) + b.float()
+    return out.to(xt.dtype), window[:, 1:]
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +183,54 @@ def mamba2_fwd(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     return out
 
 
+def mamba2_prefill(p: Params, x: Tensor, cfg: ModelConfig, cache: Params):
+    """The train path over the prompt; its final state and conv tail into
+    the cache, in place."""
+    out, state, conv_tail = mamba2_core(p, x, cfg)
+    cache["state"].copy_(state)
+    cache["conv"].copy_(conv_tail)
+    return out, cache
+
+
+def mamba2_decode(p: Params, x: Tensor, cfg: ModelConfig, cache: Params):
+    """One-token step.  x: (B, 1, D); the state update in f32."""
+    s = cfg.ssm
+    B_ = x.shape[0]
+    z, xbc, dt, d_in, H, G, N = _mamba2_split(p, x, cfg)
+    z, xbc, dt = z[:, 0], xbc[:, 0], dt[:, 0]
+    conv_out, new_conv = conv_step(xbc, cache["conv"].to(xbc.dtype),
+                                   p["conv_w"], p["conv_b"])
+    xs, Bm, Cm = torch.split(F.silu(conv_out), [d_in, G * N, G * N], dim=-1)
+    P, rep = s.head_dim, H // G
+    xh = xs.reshape(B_, H, P).float()
+    # each group repeated over its heads, as jnp.repeat
+    Bm = Bm.reshape(B_, G, 1, N).expand(B_, G, rep, N).reshape(B_, H, N)
+    Cm = Cm.reshape(B_, G, 1, N).expand(B_, G, rep, N).reshape(B_, H, N)
+    dt = F.softplus(dt.float() + p["dt_bias"])                  # (B,H)
+    dA = torch.exp(dt * -torch.exp(p["A_log"]))
+    state = cache["state"].float() * dA[..., None, None] + torch.einsum(
+        "bhp,bhn,bh->bhpn", xh, Bm.float(), dt)
+    y = torch.einsum("bhn,bhpn->bhp", Cm.float(), state) \
+        + p["D"][None, :, None] * xh
+    y = y.reshape(B_, 1, d_in).to(x.dtype)
+    y = rms_norm(y * F.silu(z[:, None]), p["norm"], cfg.norm_eps)
+    cache["state"].copy_(state)
+    cache["conv"].copy_(new_conv)
+    return y @ p["out_proj"], cache
+
+
+def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                      device=None) -> Params:
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    H = d_in // s.head_dim
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    return {"state": torch.zeros((batch, H, s.head_dim, s.d_state),
+                                 dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, s.d_conv - 1, conv_dim), dtype=dtype,
+                                device=device)}
+
+
 # ---------------------------------------------------------------------------
 # RG-LRU (Griffin / RecurrentGemma recurrent block)
 # ---------------------------------------------------------------------------
@@ -251,3 +311,35 @@ def rglru_core(p: Params, x: Tensor, cfg: ModelConfig
 def rglru_fwd(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     out, _, _ = rglru_core(p, x, cfg)
     return out
+
+
+def rglru_prefill(p: Params, x: Tensor, cfg: ModelConfig, cache: Params):
+    """The train path over the prompt; its final state and conv tail into
+    the cache, in place."""
+    y, hT, conv_tail = rglru_core(p, x, cfg)
+    cache["state"].copy_(hT)
+    cache["conv"].copy_(conv_tail)
+    return y, cache
+
+
+def rglru_decode(p: Params, x: Tensor, cfg: ModelConfig, cache: Params):
+    """One-token step.  x: (B, 1, D); h = a h + gated input in f32."""
+    z = F.gelu(x[:, 0] @ p["in_z"], approximate="tanh")
+    xb = x[:, 0] @ p["in_x"]
+    conv_out, new_conv = conv_step(xb, cache["conv"].to(xb.dtype),
+                                   p["conv_w"], p["conv_b"])
+    a, gated = _rglru_gates(p, F.silu(conv_out).float())
+    h = a * cache["state"] + gated
+    cache["state"].copy_(h)
+    cache["conv"].copy_(new_conv)
+    return ((h.to(x.dtype) * z) @ p["out_proj"])[:, None], cache
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device=None) -> Params:
+    lru = cfg.lru
+    W = lru.lru_width or cfg.d_model
+    return {"state": torch.zeros((batch, W), dtype=torch.float32,
+                                 device=device),
+            "conv": torch.zeros((batch, lru.d_conv - 1, W), dtype=dtype,
+                                device=device)}

@@ -167,7 +167,9 @@ def test_recurrentgemma_full_width_cut():
     ("mamba2-2.7b", 32, (32, 8, 24, 16), None),
     ("recurrentgemma-2b", 12, (12, 3, 9, 6), None),
     ("gemma3-4b", 12, (12, 6, 12, 6), None),
-    ("qwen3-moe-235b-a22b", 4, (4, 1, 3, 2), 8)])
+    ("qwen3-moe-235b-a22b", 4, (4, 1, 3, 2), 8),
+    ("deepseek-v2-lite-16b", 4, (4, 1, 3, 2), None),
+    ("minicpm3-4b", 24, (24, 6, 18, 12), None)])
 def test_full_width_config_per_arch(arch, layers, cycle, held):
     from repro_torch.configs import full_width_config
     cfg = full_width_config(arch)
@@ -189,9 +191,11 @@ def test_deepseek_67b_has_no_full_width_cut():
 
 # parameters at the full-width cut, counted on the JAX package's shapes
 # (qwen3 with 8 of each layer's 128 experts: the reference's config with
-# num_experts=8 but the router's 128 outputs, 4,096 x 120 more a layer)
+# num_experts=8 but the router's 128 outputs, 4,096 x 120 more a layer;
+# deepseek-v2-lite-16b holds all 64)
 @pytest.mark.parametrize("arch,n_params", [
-    ("gemma3-4b", 1_803_614_720), ("qwen3-moe-235b-a22b", 2_137_034_752)])
+    ("gemma3-4b", 1_803_614_720), ("qwen3-moe-235b-a22b", 2_137_034_752),
+    ("deepseek-v2-lite-16b", 2_045_267_968), ("minicpm3-4b", 1_692_289_536)])
 def test_full_width_parameter_count(arch, n_params):
     from repro_torch.configs import full_width_config
     from repro_torch.tree import tree_leaves
@@ -199,24 +203,28 @@ def test_full_width_parameter_count(arch, n_params):
     assert sum(t.numel() for t in tree_leaves(tlm.param_shapes(cfg))) == \
         n_params
     j = j_get(arch).scaled(num_layers=cfg.num_layers)
-    if cfg.moe is not None:
-        j = j.scaled(moe=dataclasses.replace(j.moe, num_experts=8))
-    extra = cfg.num_layers * cfg.d_model * 120 if cfg.moe is not None else 0
+    held = cfg.moe is not None and cfg.moe.experts_held
+    if held:
+        j = j.scaled(moe=dataclasses.replace(j.moe, num_experts=held))
+    extra = cfg.num_layers * cfg.d_model * 120 if held else 0
     assert sum(int(np.prod(s.shape)) for s in jax.tree.leaves(
         jlm.param_shapes(j))) + extra == n_params
 
 
 NEW_ARCHS = [("gemma3-4b", None), ("gemma3-4b", 12), ("deepseek-67b", None),
              ("deepseek-67b", 2), ("qwen3-moe-235b-a22b", None),
-             ("qwen3-moe-235b-a22b", 4)]
+             ("qwen3-moe-235b-a22b", 4), ("deepseek-v2-lite-16b", None),
+             ("deepseek-v2-lite-16b", 4), ("minicpm3-4b", None),
+             ("minicpm3-4b", 24)]
 
 
 @pytest.mark.parametrize("size", ["full", "reduced"])
 @pytest.mark.parametrize("arch,layers", NEW_ARCHS)
 def test_new_arch_config_and_spb_schedules_match(arch, layers, size):
-    """gemma3-4b, deepseek-67b and qwen3-moe-235b-a22b: the same fields
-    (the port's ``MoEConfig.experts_held`` left out, and None), layer
-    groups, snapping and depth cycles as the JAX package."""
+    """gemma3-4b, deepseek-67b, qwen3-moe-235b-a22b and the MLA archs
+    deepseek-v2-lite-16b and minicpm3-4b: the same fields (the port's
+    ``MoEConfig.experts_held`` left out, and None), layer groups, snapping
+    and depth cycles as the JAX package."""
     j, t = ((j_get(arch), t_get(arch)) if size == "full"
             else (j_reduced(arch), t_reduced(arch)))
     if layers:
@@ -235,3 +243,21 @@ def test_new_arch_config_and_spb_schedules_match(arch, layers, size):
     jsch, tsch = jspb.make_schedule(j, js), tspb.make_schedule(t, ts)
     assert [jsch.depth_at(s) for s in range(8)] == \
         [tsch.depth_at(s) for s in range(8)]
+
+
+def test_registry_holds_eight_archs_and_serving_sizes():
+    """The eight registered archs; at published widths and full depth the
+    three serving archs have the reference's parameter counts."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.tree import tree_leaves
+    assert sorted(ARCHS) == sorted([
+        "yi-6b", "mamba2-2.7b", "recurrentgemma-2b", "gemma3-4b",
+        "deepseek-67b", "qwen3-moe-235b-a22b", "deepseek-v2-lite-16b",
+        "minicpm3-4b"])
+    for arch, n in (("yi-6b", 5_798_891_520), ("gemma3-4b", 3_879_907_840),
+                    ("deepseek-v2-lite-16b", 15_496_769_024)):
+        got = sum(t.numel() for t in tree_leaves(tlm.param_shapes(
+            t_get(arch))))
+        want = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(
+            jlm.param_shapes(j_get(arch))))
+        assert got == want == n

@@ -681,3 +681,138 @@ def test_temporal_mb_step_on_the_card(cuda, arch):
         else:
             assert not any(grew.values())
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"])
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 32),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 256)])
+def test_flash_kernels_take_an_explicit_scale(cuda, dtype, D):
+    """The forward, dq and dkv kernels with a score scale other than
+    1 / sqrt(D) against the plain versions at the same scale."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(dtype)
+    B, S, H, K = 2, 192, 4, 2
+    q, k, v, do = mk(B, S, H, D), mk(B, S, K, D), mk(B, S, K, D), \
+        mk(B, S, H, D)
+    qt, kt, vt, dot_ = (x.transpose(1, 2) for x in (q, k, v, do))
+    kw = dict(causal=True, window=0, scale=0.3 / D ** 0.5)
+    ot, lse = fa.fwd_kernel_layout(qt, kt, vt, with_lse=True, **kw)
+    ot_p, lse_p = fa.fwd_plain(qt, kt, vt, with_lse=True, **kw)
+    _close(ot, ot_p)
+    _close(lse, lse_p)
+    delta_p = fab.delta_plain(ot_p, dot_)
+    want = (fab.dq_plain(qt, kt, vt, dot_, lse_p, delta_p, **kw),
+            *fab.dkv_plain(qt, kt, vt, dot_, lse_p, delta_p, **kw))
+    for g, w in zip(fab.bwd_kernel_layout(qt, kt, vt, ot, lse, dot_, **kw),
+                    want):
+        _close(g, w)
+    # the default is 1 / sqrt(D), and the scale changes the result
+    unscaled = fa.fwd_kernel_layout(qt, kt, vt)
+    _close(unscaled, fa.fwd_plain(qt, kt, vt))
+    assert float((unscaled.float() - ot.float()).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("B,S,H,dqk,dv,dtype", [
+    (1, 512, 16, 192, 128, torch.bfloat16),   # deepseek-v2-lite: D 256
+    (1, 256, 40, 96, 64, torch.bfloat16),     # minicpm3: D 128
+    (2, 100, 4, 24, 16, torch.float32),       # their reduced configs: D 32
+])
+def test_flash_kernels_at_the_padded_mla_shapes(cuda, B, S, H, dqk, dv,
+                                                dtype):
+    """MLA's heads zero-padded to one dispatched head_dim, scale
+    1 / sqrt(dqk), through ``ops.flash_attention``: the output cut to dv
+    and the gradients equal the unpadded plain attention's (f32, on the
+    card), and the pad's columns come back zero."""
+    from repro_torch.models import layers
+    D = fa.padded_head_dim(max(dqk, dv))
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    mk = lambda d: torch.randn(B, S, H, d, generator=gen, device=cuda).to(
+        dtype)
+    q, k, v, g = mk(dqk), mk(dqk), mk(dv), mk(dv)
+    pad = lambda t: torch.nn.functional.pad(t, (0, D - t.shape[-1]))
+    ts = [pad(t).requires_grad_(True) for t in (q, k, v)]
+    n = fa.fwd_kernel_layout.launches
+    out = ops.flash_attention(*ts, causal=True, scale=dqk ** -0.5)
+    assert fa.fwd_kernel_layout.launches == n + 1
+    (out[..., :dv].float() * g.float()).sum().backward()
+    assert float(out[..., dv:].abs().max()) == 0.0
+    ref = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = layers.blockwise_attention(*ref, causal=True)
+    (want * g.float()).sum().backward()
+    _close(out[..., :dv].detach(), want.detach())
+    for t, r, d in zip(ts, ref, (dqk, dqk, dv)):
+        assert float(t.grad[..., d:].abs().max()) == 0.0
+        atol, rtol = TOL[dtype]
+        torch.testing.assert_close(t.grad[..., :d].float(), r.grad,
+                                   rtol=rtol, atol=atol * 4)
+
+
+def test_mla_attention_on_the_card_matches_the_cpu(cuda):
+    """deepseek-v2-lite-reduced's MLA layer with the kernels (f32, padded
+    24/16 -> 32) on the card against the CPU, output and gradients, with
+    one forward and one of each backward kernel launched."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import layers, lm
+    cfg = dataclasses.replace(reduced_config("deepseek-v2-lite-16b"),
+                              use_pallas=True)
+    p = lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    up = {k: v[0] for k, v in p["groups"][0][0]["mixer"].items()}
+    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    res = {}
+    for dev in ("cpu", cuda):
+        pp = {k: v.detach().to(dev).requires_grad_(True)
+              for k, v in up.items()}
+        xx = x.detach().to(dev).requires_grad_(True)
+        n = (fa.fwd_kernel_layout.launches, fab.compute_dq.launches)
+        out = layers.mla_fwd(pp, xx, cfg, positions=torch.arange(
+            64, device=dev))
+        out.square().sum().backward()
+        res[str(dev)] = [out.detach().cpu(), xx.grad.cpu()] + [
+            pp[k].grad.cpu() for k in sorted(pp)]
+        if dev == cuda:
+            assert (fa.fwd_kernel_layout.launches,
+                    fab.compute_dq.launches) == (n[0] + 1, n[1] + 1)
+    for a, b in zip(res["cpu"], res["cuda"]):
+        assert _rel_err(b, a) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma3-4b",
+                                  "deepseek-v2-lite-16b"])
+def test_serve_engine_on_the_card_syncs_only_in_poll(cuda, arch):
+    """A staggered greedy trace on the card with the kernels: ``step()``
+    runs under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in
+    admission or decode raises), and the outputs equal the CPU engine's
+    from the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine, default_geometry
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(reduced_config(arch), use_pallas=True)
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, device=dev, params=tree_map(
+            lambda t: t.to(dev), params), geom=default_geometry(
+                num_slots=2, page_size=8, max_context=48))
+        ra = eng.submit([3, 1, 4, 1, 5, 9, 2, 6], max_new=6)
+        rb = None
+        for s in range(40):
+            if s == 2:
+                rb = eng.submit([2, 7, 1, 8, 2, 8], max_new=6)
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.step(1)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            eng.poll()
+            if ra.done and rb is not None and rb.done:
+                break
+        outs[dev] = (ra.output, rb.output)
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"][0]) == 6

@@ -2,7 +2,10 @@
 checked name-by-name copy, the logits match, and SPB partial backprop
 gives JAX's suffix gradients with a zero (or absent) prefix gradient,
 for yi-6b-reduced, mamba2-reduced, recurrentgemma-reduced, gemma3-reduced,
-deepseek-67b-reduced and qwen3-moe-reduced (with its MoE aux loss).
+deepseek-67b-reduced and qwen3-moe-reduced (with its MoE aux loss), and
+the MLA archs deepseek-v2-lite-reduced (MLA with a dense layer 0 and MoE
+layers) and minicpm3-reduced (MLA with q-lora), with the kernels' padded
+route and without.
 
 Tolerance 2e-4: four f32 layers whose attention goes through the kernels'
 plain versions on one side and the Pallas kernels (interpret mode) on the
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from repro.config import SPBConfig as JSPB
+from repro.config import layer_groups as jc_layer_groups
 from repro.configs import reduced_config as j_reduced
 from repro.core import spb as jspb
 from repro.models import lm as jlm
@@ -387,3 +391,73 @@ def test_qwen3_loss_at_depth_1_counts_the_frozen_layers_aux():
     router = tp["groups"][0][0]["ffn"]["router"].grad
     assert float(router[:3].abs().max()) == 0.0
     assert float(router[3].abs().max()) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# The MLA archs: deepseek-v2-lite-reduced (dense layer 0, then MoE layers
+# with a shared expert) and minicpm3-reduced (q-lora).  The reference runs
+# MLA on its blockwise attention whatever use_pallas says; the port takes
+# the kernels' padded route under use_pallas (their plain versions here)
+# and the blockwise path without: both against the one reference gradient.
+# ---------------------------------------------------------------------------
+
+MLA_ARCHS = ("deepseek-v2-lite-16b", "minicpm3-4b")
+
+
+def test_mla_arch_init_and_bridge():
+    """kv_norm and q_norm are norms (zeros in the port's init, as
+    init_rms_norm makes them); every leaf bridges, with the reference's
+    shapes and dtypes."""
+    for arch in MLA_ARCHS:
+        tcfg = t_reduced(arch)
+        p = tlm.init_lm(torch.Generator().manual_seed(0), tcfg)
+        for g in p["groups"]:
+            m = g[0]["mixer"]
+            assert bool((m["kv_norm"] == 0).all())
+            assert ("q_norm" in m) == bool(tcfg.mla.q_lora_rank)
+            if "q_norm" in m:
+                assert bool((m["q_norm"] == 0).all())
+            assert float(m["wdkv"].std()) > 0
+        jcfg = j_reduced(arch)
+        want = jax.eval_shape(lambda k: jlm.init_lm(k, jcfg),
+                              jax.random.key(0))
+        for w, t in zip(jax.tree.leaves(want),
+                        jax.tree.leaves(tlm.param_shapes(tcfg))):
+            assert (tuple(w.shape), str(w.dtype)) == \
+                (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+
+
+@pytest.mark.parametrize("arch,depth", [
+    (a, d) for a in MLA_ARCHS for d in sorted(set(jspb.snapped_depths(
+        j_reduced(a), JSPB(mode="temporal", k=4))))])
+def test_mla_arch_loss_and_suffix_grads_match(arch, depth):
+    """Loss, aux and suffix gradients at every snapped depth, zero in the
+    frozen rows, with use_pallas on and off."""
+    jcfg, _, params, batch = _arch_setup(arch)
+    (wloss, wm), jg = jax.value_and_grad(
+        lambda p: jlm.loss_fn(p, batch, jcfg, bwd_layers=depth),
+        has_aux=True)(params)
+    for use_pallas in (True, False):
+        tcfg = dataclasses.replace(t_reduced(arch), use_pallas=use_pallas)
+        tp = bridge.params_from_numpy(params, tcfg)
+        loss, tm = tlm.loss_fn(tp, _tbatch(batch), tcfg, bwd_layers=depth)
+        loss.backward()
+        np.testing.assert_allclose(float(loss.detach()), float(wloss), **TOL)
+        np.testing.assert_allclose(float(tm["moe_aux"].detach()),
+                                   float(wm["moe_aux"]), **TOL)
+        frozen = jcfg.num_layers - depth         # one layer a unit
+        off = 0
+        for (unit, count), jgg, tgg in zip(
+                jc_layer_groups(jcfg), jg["groups"], tp["groups"]):
+            b = min(max(frozen - off, 0), count)
+            off += count
+            for w, p in zip(jax.tree.leaves(jgg), jax.tree.leaves(tgg)):
+                w = np.asarray(w)
+                g = np.zeros_like(w) if p.grad is None else p.grad.numpy()
+                assert np.abs(g[:b]).max(initial=0.0) == 0.0
+                np.testing.assert_allclose(g[b:], w[b:], **TOL)
+        for key in ("embed", "final_norm"):
+            for w, p in zip(jax.tree.leaves(jg[key]),
+                            jax.tree.leaves(tp[key])):
+                got = np.zeros_like(w) if p.grad is None else p.grad.numpy()
+                np.testing.assert_allclose(got, np.asarray(w), **TOL)

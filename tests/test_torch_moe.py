@@ -30,8 +30,7 @@ ARCHS = ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b")
 
 def _port_cfg(arch: str, **moe) -> tc.ModelConfig:
     """The reference's reduced config as the port's ModelConfig, with its
-    MoE fields (deepseek-v2-lite stays unregistered in the port: its MLA
-    mixer is not ported, and the layer needs only d_model and the MoE)."""
+    MoE fields (the layer needs only d_model and the MoE)."""
     j = j_reduced(arch)
     return tc.ModelConfig(
         name=j.name, family=j.family, d_model=j.d_model,
@@ -152,8 +151,7 @@ def test_ep_impl_and_unported_mixers_raise():
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
     with pytest.raises(NotImplementedError, match="item 11"):
         tlm.forward_train(params, batch, ep)
-    for bad, item in ((dict(pattern=("mla",)), "10c"),
-                      (dict(pattern=("xdec",)), "10d"),
+    for bad, item in ((dict(pattern=("xdec",)), "10d"),
                       (dict(frontend="vision"), "10d"),
                       (dict(enc_layers=2), "10d")):
         with pytest.raises(NotImplementedError, match=item):

@@ -1,0 +1,61 @@
+"""The port's serving client: ``python -m repro_torch.launch.serve
+--device cpu`` replays its trace to the end and prints the reference
+driver's summary lines; the flags of the reference's AOT and compilation
+caches raise naming ROADMAP.md Queue 1 B item 9; the reduced configs'
+prompts are the reference's."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from repro.data.pipeline import MarkovLM as JMarkovLM
+from repro_torch.configs import reduced_config
+from repro_torch.launch import serve as serve_mod
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_cli_completes_every_request():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "yi-6b", "--requests", "6", "--arrive-every", "3",
+         "--slots", "2", "--max-new", "8"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+        check=True)
+    lines = res.stdout.splitlines()
+    assert lines[0].startswith("[serve] arch=yi-6b-reduced device=cpu")
+    assert any(ln.startswith("[serve] completed=6/6 ") for ln in lines)
+    assert any("slots_reused=2" in ln and "free_pages=16" in ln
+               for ln in lines)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b"])
+def test_mla_archs_serve_in_process(arch, capsys):
+    done = serve_mod.serve(["--device", "cpu", "--arch", arch, "--requests",
+                            "3", "--arrive-every", "2", "--slots", "2",
+                            "--max-new", "4", "--use-pallas"])
+    assert sorted(len(r.output) for r in done) == [4, 4, 4]
+    assert "[serve] completed=3/3 " in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", [["--aot-cache", "x"],
+                                  ["--compilation-cache-dir", "x"]])
+def test_cache_flags_raise_naming_item_9(flag):
+    with pytest.raises(NotImplementedError, match="Queue 1 B item 9"):
+        serve_mod.serve(["--device", "cpu"] + flag)
+
+
+def test_reduced_prompts_are_the_reference_markov_stream():
+    class Args:
+        reduced, requests, prompt_len, seed = True, 3, 16, 0
+
+    cfg = reduced_config("yi-6b")
+    want = JMarkovLM(cfg.vocab_size, seed=0).sample(3, 17, step=0)[:, :16]
+    assert serve_mod._prompts(cfg, Args) == want.tolist()
+    Args.reduced = False                     # --full: make_batch's tokens
+    got = np.asarray(serve_mod._prompts(cfg, Args))
+    assert got.shape == (3, 16) and got.max() < cfg.vocab_size
