@@ -21,14 +21,16 @@ Phases, each printing a line; any failure exits non-zero:
      qwen3-moe-235b-a22b's (H 64, K 4, D 128, causal), and at MLA's
      padded heads with the explicit scale 1 / sqrt(dn + dr):
      deepseek-v2-lite-16b's (H = K = 16, 192 / 128 in D 256) and
-     minicpm3-4b's (H = K = 40, 96 / 64 in D 128), then the backward
+     minicpm3-4b's (H = K = 40, 96 / 64 in D 128), at seamless-m4t-medium's
+     decoder self-attention (H = K = 16, D 64) and internvl2-26b's (H 48
+     over K 8, D 128), then the backward
      kernels on the forward kernel's own outputs against the plain chain,
      and two dq calls and two dkv calls bitwise equal; max errors against
      the stated tolerance, and the kernel's (CUDA events over 5 calls, and
      its kernels' device time from ``torch.profiler`` over 20), the plain
      version's and a library call's time (SDPA at MLA's unpadded dims) at
-     the yi-6b, recurrentgemma-2b, gemma3-4b (local), qwen3 and the two
-     MLA shapes;
+     the yi-6b, recurrentgemma-2b, gemma3-4b (local), qwen3, the two
+     MLA, the seamless and the internvl2 shapes;
   3b. the same for the SSD kernels: at the mamba2-2.7b main-path shape
      (B 2, S 2048, H 80, P 64, N 128, chunk 256, bf16 x/B/C with B and C
      broadcast over heads, f32 dA), f32 reduced and ragged cases and bf16
@@ -47,7 +49,8 @@ Phases, each printing a line; any failure exits non-zero:
      registered arch at its reduced config, f32, the kernels on: prefill
      plus one decode step against the train forward's logits at the
      reference's tolerance, on the card and on the CPU, card against CPU,
-     and the prefill's launches those of a forward;
+     and the prefill's launches those of a forward (seamless-reduced's
+     batch holds encoder frames, internvl2-reduced's frontend embeddings);
   12. (run next) ``ServeEngine`` at published widths and full depth on
      yi-6b, gemma3-4b and deepseek-v2-lite-16b (all 64 experts), bf16:
      4 slots, 16-token pages, 2048 context, buckets to 1024, a staggered
@@ -59,7 +62,8 @@ Phases, each printing a line; any failure exits non-zero:
      cache bytes and the peak allocation;
   4. card against CPU: yi-6b-reduced, mamba2-reduced,
      recurrentgemma-reduced, gemma3-reduced, deepseek-67b-reduced,
-     qwen3-moe-reduced, deepseek-v2-lite-reduced and minicpm3-reduced in
+     qwen3-moe-reduced, deepseek-v2-lite-reduced, minicpm3-reduced,
+     seamless-reduced and internvl2-reduced in
      f32 with the kernels, 4 temporal SPB steps from
      the same seeded weights as on the CPU plain path, with the card run's
      launch counts checked against the steps' depths;
@@ -67,10 +71,13 @@ Phases, each printing a line; any failure exits non-zero:
      mamba2-2.7b cut to 32, on recurrentgemma-2b cut to 12, on gemma3-4b
      cut to 12, on qwen3-moe-235b-a22b cut to 4 layers of 8 held experts
      (rank 0 of a 16-way expert-parallel layer), on deepseek-v2-lite-16b
-     cut to 4 (the dense layer 0 and 3 MoE layers of all 64 experts) and
-     on minicpm3-4b cut to 24, bf16, temporal
+     cut to 4 (the dense layer 0 and 3 MoE layers of all 64 experts), on
+     minicpm3-4b cut to 24, on seamless-m4t-medium whole (12 encoder and
+     12 decoder layers over 2048 frames) and on internvl2-26b cut to 4
+     (1024 patch embeddings and 1024 text tokens), bf16, temporal
      k=4, batch 2 x 2048, 8 steps, with the launch counts of every kernel
-     checked against the step's depth (the counts are zeroed before each
+     checked against the step's depth (an encoder layer and a
+     cross-attention launch none; the counts are zeroed before each
      path and read after it), each step's peak allocation leaving at least
      ``HEADROOM_GB`` of the card;
   6. temporal-mb at full width: yi-6b, mamba2-2.7b and
@@ -145,6 +152,11 @@ Q3_MAIN = dict(MAIN, H=64)
 # and minicpm3-4b's 96 / 64 in D 128 (40 heads)
 DS2_MAIN = dict(MAIN, H=16, K=16, D=256, mla=(192, 128))
 MC3_MAIN = dict(MAIN, H=40, K=40, D=128, mla=(96, 64))
+# the decoder self-attention of the encoder-decoder and frontend archs:
+# seamless-m4t-medium's MHA at head_dim 64, internvl2-26b's 48 q heads over
+# 8 kv heads (G 6) over 1024 patch and 1024 text positions
+SM4T_MAIN = dict(MAIN, H=16, K=16, D=64)
+IV2_MAIN = dict(MAIN, H=48, K=8)
 CASES = {
     "main": MAIN,
     "window": dict(B=1, Sq=1024, Sk=1024, H=8, K=2, D=64, causal=True,
@@ -158,10 +170,13 @@ CASES = {
     "q3_main": Q3_MAIN,
     "ds2_mla": DS2_MAIN,
     "mc3_mla": MC3_MAIN,
+    "sm4t_main": SM4T_MAIN,
+    "iv2_main": IV2_MAIN,
 }
 TIMED = {"main": "yi-6b", "rg_main": "recurrentgemma-2b",   # case: arch
          "g3_main": "gemma3-4b", "q3_main": "qwen3-moe-235b-a22b",
-         "ds2_mla": "deepseek-v2-lite-16b", "mc3_mla": "minicpm3-4b"}
+         "ds2_mla": "deepseek-v2-lite-16b", "mc3_mla": "minicpm3-4b",
+         "sm4t_main": "seamless-m4t-medium", "iv2_main": "internvl2-26b"}
 # SSD cases: (B, S, H, P, N, chunk, dtype of x/B/C, B/C broadcast over
 # heads); dA is f32 -U(0.05, 2.0) as in tests/test_kernel_grads.py.  Every
 # SSD and RG-LRU output is f32, held at that suite's measure:
@@ -193,14 +208,16 @@ RGLRU_CASES = {
     "short": dict(B=1, S=17, W=130),
     "many_tiles": dict(B=64, S=8192, W=512),
 }
-# phases 6-10 run these; phase 4 also the five below, phase 5 also the
-# four of them with a full-width cut (deepseek-67b has none)
+# phases 6-10 run these; phase 4 also the seven below, phase 5 also the
+# six of them with a full-width cut (deepseek-67b has none)
 ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
 CARD_VS_CPU_ARCHS = ARCHS + ("gemma3-4b", "deepseek-67b",
                              "qwen3-moe-235b-a22b", "deepseek-v2-lite-16b",
-                             "minicpm3-4b")
+                             "minicpm3-4b", "seamless-m4t-medium",
+                             "internvl2-26b")
 FULL_WIDTH_ARCHS = ARCHS + ("gemma3-4b", "qwen3-moe-235b-a22b",
-                            "deepseek-v2-lite-16b", "minicpm3-4b")
+                            "deepseek-v2-lite-16b", "minicpm3-4b",
+                            "seamless-m4t-medium", "internvl2-26b")
 # phase 12 serves these at published widths and full depth (the reference's
 # acceptance archs: dense GQA, local + global windows, MLA with MoE)
 SERVE_ARCHS = ("yi-6b", "gemma3-4b", "deepseek-v2-lite-16b")
@@ -399,8 +416,12 @@ def expected_launches(cfg, depths) -> dict:
     dq and dkv kernels when it is in the suffix; an SSD layer runs the
     primal scan in the frozen prefix and the forward-with-residuals plus
     the backward in the suffix; an RG-LRU layer runs the scan always and
-    the backward scan when it is in the suffix; an MLA layer as an
-    attention layer.  Depth 0 is a forward alone (prefill)."""
+    the backward scan when it is in the suffix; an MLA layer and an
+    encoder-decoder's ``xdec`` decoder layer (its causal self-attention)
+    as an attention layer.  An encoder layer and a cross-attention run the
+    plain blockwise path and launch nothing, so only the decoder's layers
+    count, live when the suffix (counted over the encoder and the decoder)
+    reaches them.  Depth 0 is a forward alone (prefill)."""
     from repro_torch.config import layer_kinds
     want = dict.fromkeys(counters(), 0)
     kinds = layer_kinds(cfg)
@@ -411,7 +432,7 @@ def expected_launches(cfg, depths) -> dict:
                 names = ("ssd_fwd_res", "ssd_bwd") if live else ("ssd_fwd",)
             elif mixer == "rglru":
                 names = ("rglru_fwd", "rglru_bwd") if live else ("rglru_fwd",)
-            elif mixer in ("attn", "local", "mla"):
+            elif mixer in ("attn", "local", "mla", "xdec"):
                 # MLA's attention runs the same kernels on padded heads
                 names = ("flash_fwd",) + (("flash_delta", "flash_dq",
                                            "flash_dkv") if live else ())
@@ -877,7 +898,8 @@ def phase_full_width(arch: str):
     eng.init_state(0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(eng.state["params"]))
-    log(f"[full-width] {arch} num_layers={cfg.num_layers} {cfg.dtype} "
+    log(f"[full-width] {arch} num_layers={cfg.num_layers} "
+        f"enc_layers={cfg.enc_layers} {cfg.dtype} "
         f"params={n_params} init_s={time.perf_counter() - t0:.2f} "
         f"card_gb={total_gb:.2f}")
     batches = [make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=s,
@@ -1416,7 +1438,8 @@ def phase_cluster_faults() -> None:
 
 def phase_decode(arch: str) -> dict:
     """Phase 11: the dense-cache serving path at ``arch``'s reduced config
-    in f32 with the kernels: a prefill of 63 tokens and one decode step
+    in f32 with the kernels: a prefill of 63 of 64 positions (after a
+    frontend's embeddings; over 64 encoder frames) and one decode step
     against the train forward's logits on the card, at the reference's
     tolerance (``DECODE_TOL``); the same on the CPU (the plain versions),
     and the card's logits against the CPU's.  The card's prefill launches
@@ -1424,22 +1447,27 @@ def phase_decode(arch: str) -> dict:
     forward for attention and MLA, the primal SSD and RG-LRU scans), the
     decode step nothing.  Returns the card's launches."""
     import torch
-    from repro_torch.configs import reduced_config
+    from repro_torch.configs import make_batch, reduced_config
     from repro_torch.models import lm
     from repro_torch.tree import tree_map
 
     cfg = dataclasses.replace(reduced_config(arch), use_pallas=True)
     params = lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
-    toks = torch.randint(0, cfg.vocab_size, (2, 64),
-                         generator=torch.Generator().manual_seed(1))
+    # 64 positions: the tokens, after a frontend's embeddings; an
+    # encoder-decoder's 64 frames
+    batch = make_batch(cfg, 2, 64, seed=1, device="cpu")
+    del batch["labels"]
+    enc_len = 64 if cfg.enc_layers else 0
     logits, errs, grew = {}, {}, {}
     for dev in ("cuda", "cpu"):
-        p, t = tree_map(lambda x: x.to(dev), params), toks.to(dev)
+        p = tree_map(lambda x: x.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        t = b["tokens"]
         with torch.no_grad():
-            train, _ = lm.forward_train(p, {"tokens": t}, cfg)
-        cache = lm.init_cache(cfg, 2, 64, device=dev)
+            train, _ = lm.forward_train(p, b, cfg)
+        cache = lm.init_cache(cfg, 2, 64, enc_len, device=dev)
         before = launches_now()
-        pre, cache = lm.prefill(p, {"tokens": t[:, :-1]}, cfg, cache)
+        pre, cache = lm.prefill(p, dict(b, tokens=t[:, :-1]), cfg, cache)
         dec, cache = lm.decode_step(p, cache, t[:, -1:], cfg)
         grew[dev] = launches_since(before)
         logits[dev] = (pre[:, 0].cpu(), dec[:, 0].cpu())

@@ -4,8 +4,9 @@
 
 Runs the chip smoke's full-width configurations, or the named ones, one
 after the other (``configs.full_width_config``: yi-6b cut to 8 layers,
-mamba2-2.7b cut to 32, recurrentgemma-2b cut to 12, gemma3-4b cut to 12
-and qwen3-moe-235b-a22b cut to 4 layers of 8 held experts, bf16, the
+mamba2-2.7b cut to 32, recurrentgemma-2b cut to 12, gemma3-4b cut to 12,
+qwen3-moe-235b-a22b cut to 4 layers of 8 held experts, seamless-m4t-medium
+whole (12 + 12 layers) and internvl2-26b cut to 4, bf16, the
 hand-written kernels; temporal SPB k=4, batch 2 x 2048).  For each it
 warms up one depth cycle, then traces one step at each depth of the next
 cycle with ``torch.profiler``.  For each depth it prints the step's host time, the
@@ -15,7 +16,8 @@ kernels (four attention, three SSD, two RG-LRU; in bf16 the two SSD
 forwards share one class), matrix products, and everything else, with
 the largest kernels of the last class.  It also gives the device time of
 the kernels each profiler range of the model launched (``RANGES``: the
-RG-LRU gates and scan; the MoE routing, expert products and combine), in
+RG-LRU gates and scan; the MoE routing, expert products and combine; an
+encoder-decoder's encoder stack and its decoder's cross-attention), in
 the forward and in their backward, with the
 matmul class's share.  Needs a card.
 """
@@ -30,10 +32,10 @@ from collections import defaultdict
 
 import torch
 
-from repro_torch.models import moe, ssm
+from repro_torch.models import layers, lm, moe, ssm
 
 ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b", "gemma3-4b",
-         "qwen3-moe-235b-a22b")
+         "qwen3-moe-235b-a22b", "seamless-m4t-medium", "internvl2-26b")
 # (class, substrings a kernel's name holds): the flash forward, dq and dkv
 # classes take their f32 and bf16 (wgmma) kernels, and dkv also the
 # reduction pass of its head split; the f32 forward-with-residuals SSD
@@ -53,7 +55,8 @@ CLASSES = (("flash_fwd", ("flash::fwd_",)),
            ("rglru_fwd", ("rglru::fwd_kernel",)),
            ("rglru_bwd", ("rglru::bwd_kernel",)))
 RANGES = (ssm.GATES_RANGE, ssm.SCAN_RANGE, moe.ROUTE_RANGE,
-          moe.EXPERTS_RANGE, moe.COMBINE_RANGE)
+          moe.EXPERTS_RANGE, moe.COMBINE_RANGE, lm.ENCODER_RANGE,
+          layers.CROSS_RANGE)
 
 
 def kernel_class(name: str) -> str:

@@ -1,9 +1,5 @@
-"""Architecture registry of the port and its random-batch maker.
-
-Only the architectures whose whole train path the port runs are
-registered; the others come in with the slice that ports their mixers,
-and until then :func:`get_config` raises ``KeyError`` for them.
-"""
+"""Architecture registry of the port (the JAX package's ten archs) and
+its random-batch maker."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,6 +20,8 @@ ARCHS: Dict[str, str] = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "minicpm3-4b": "minicpm3_4b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "internvl2-26b": "internvl2_26b",
 }
 
 # The full-width runs on one 80 GB card (chip_smoke.py, analysis/step_profile):
@@ -60,6 +58,15 @@ FULL_WIDTH_LAYERS: Dict[str, int] = {
     # (188 M of them the tied embedding), ~39.6 GB.  Depth cycle 24, 6,
     # 18, 12.
     "minicpm3-4b": 24,
+    # 12 + 12 layers, whole: 715,454,464 parameters (262,406,144 of them
+    # the tied 256256-row embedding, 201,352,192 the encoder), ~16.7 GB.
+    # The encoder is cut with the decoder (an enc-dec cut names both
+    # stacks' depth).  Depth cycle 24, 6, 18, 12 over the combined stack.
+    "seamless-m4t-medium": 12,
+    # 48 layers: 19,293,345,792 parameters, 390,082,560 a layer plus the
+    # tied 92672-row embedding (569,376,768).  4: 2,129,707,008, ~49.8 GB.
+    # Depth cycle 4, 1, 3, 2.
+    "internvl2-26b": 4,
     # deepseek-67b has no entry: its untied 102400 x 8192 pair is 1.68 B
     # parameters and a layer 0.69 B, so 2 layers take 3,061,882,880
     # parameters, 71.6 GB of state before any logit or activation, and 1
@@ -91,14 +98,18 @@ def reduced_config(arch: str) -> ModelConfig:
 def full_width_config(arch: str) -> ModelConfig:
     """``arch`` at its published widths, cut to its
     :data:`FULL_WIDTH_LAYERS` layers (and to its
-    :data:`FULL_WIDTH_EXPERTS` share of each MoE layer), on the
+    :data:`FULL_WIDTH_EXPERTS` share of each MoE layer; an
+    encoder-decoder's encoder to as many layers as its decoder), on the
     hand-written kernels."""
     cfg = get_config(arch)
     if arch not in FULL_WIDTH_LAYERS:
         raise KeyError(f"{arch!r} has no full-width cut that fits one 80 GB "
                        f"card with an SPB cycle; the cuts: "
                        f"{sorted(FULL_WIDTH_LAYERS)}")
-    over = dict(num_layers=FULL_WIDTH_LAYERS[arch], use_pallas=True)
+    layers = FULL_WIDTH_LAYERS[arch]
+    over = dict(num_layers=layers, use_pallas=True)
+    if cfg.enc_layers:
+        over["enc_layers"] = layers
     if arch in FULL_WIDTH_EXPERTS:
         over["moe"] = dataclasses.replace(
             cfg.moe, experts_held=FULL_WIDTH_EXPERTS[arch])
@@ -110,17 +121,23 @@ def make_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0, *,
                ) -> Dict[str, torch.Tensor]:
     """A batch of uniform random tokens and labels, drawn on ``device``
     from a generator seeded with ``seed`` (the counterpart of
-    ``repro.configs.make_batch``; the two draw different numbers)."""
-    if cfg.enc_layers or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: frames/frontend batches come with the slice that "
-            f"ports encoder-decoder and frontend models")
+    ``repro.configs.make_batch``; the two draw different numbers).  An
+    encoder-decoder's batch also holds N(0, 1) ``frames`` (B, S, d_model)
+    for the encoder; a frontend config's holds N(0, 1) ``frontend``
+    embeddings (B, frontend_tokens, d_model), and its text is the other
+    ``seq_len - frontend_tokens`` positions."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shape = (batch, seq_len)
-    return {
-        "tokens": torch.randint(0, cfg.vocab_size, shape, generator=gen,
-                                device=dev),
-        "labels": torch.randint(0, cfg.vocab_size, shape, generator=gen,
-                                device=dev),
-    }
+    feats = {}                          # name: positions
+    if cfg.enc_layers:
+        feats["frames"] = seq_len
+    elif cfg.frontend:
+        feats["frontend"] = cfg.frontend_tokens
+        seq_len -= cfg.frontend_tokens
+    out = {k: torch.randint(0, cfg.vocab_size, (batch, seq_len),
+                            generator=gen, device=dev)
+           for k in ("tokens", "labels")}
+    for name, n in feats.items():
+        out[name] = torch.randn((batch, n, cfg.d_model), generator=gen,
+                                device=dev).to(getattr(torch, cfg.dtype))
+    return out

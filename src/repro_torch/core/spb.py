@@ -126,13 +126,21 @@ def _scale_rows(tree, s: torch.Tensor):
 def scale_params_tree(params: Dict[str, Any], cfg: ModelConfig,
                       spb: SPBConfig) -> Dict[str, Any]:
     """Apply SPB weighted-average scaling to a gradient tree shaped like the
-    LM params (``None`` leaves stay ``None``)."""
+    LM params (``None`` leaves stay ``None``).  An encoder-decoder's
+    encoder is the first group of the combined stack, so its groups take
+    the first scales and the decoder's the rest."""
     if spb.mode == "off" or not spb.lr_rescale:
         return params
-    if cfg.enc_layers:
-        raise NotImplementedError("encoder-decoder stacks are not ported")
+
+    def scaled(groups, scales):
+        return [[_scale_rows(up, s) for up, s in zip(gp, gs)]
+                for gp, gs in zip(groups, scales)]
+
+    scales = group_layer_scales(cfg, spb)
     out = dict(params)
-    out["groups"] = [[_scale_rows(up, s) for up, s in zip(gp, gs)]
-                     for gp, gs in zip(params["groups"],
-                                       group_layer_scales(cfg, spb))]
+    if cfg.enc_layers:
+        out["enc"] = dict(params["enc"],
+                          groups=scaled(params["enc"]["groups"], scales[:1]))
+        scales = scales[1:]
+    out["groups"] = scaled(params["groups"], scales)
     return out

@@ -2,9 +2,13 @@
 
 Batches are a pure function of (seed, step, shard) and are drawn with
 numpy exactly as the JAX package draws them, so both packages see the
-same tokens.  ``MarkovLM`` builds a (vocab, vocab) float64 transition
-matrix: use it at reduced vocabularies only (at 64000 it would need about
-33 GB per copy).
+same tokens and the same frontend features: an encoder-decoder's
+``frames`` (B, S, d_model), or a frontend config's ``frontend``
+embeddings (B, frontend_tokens, d_model) before S - frontend_tokens text
+positions, Gaussian stand-ins x 0.1 from a stream of their own.
+``MarkovLM`` builds a (vocab, vocab) float64 transition matrix: use it
+at reduced vocabularies only (at 64000 it would need about 33 GB per
+copy).
 """
 from __future__ import annotations
 
@@ -51,17 +55,27 @@ class Pipeline:
 
     def __init__(self, cfg: ModelConfig, batch: int, seq_len: int, *,
                  seed: int = 0, shard: int = 0):
-        if cfg.enc_layers or cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.name}: frames/frontend features are not ported")
         self.cfg = cfg
         self.batch = batch
         self.seq_len = seq_len
         self.shard = shard
         self.lm = MarkovLM(cfg.vocab_size, seed=seed)
+        self._feat_seed = seed + 17
 
     def get_batch(self, step: int) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        text = self.seq_len - (cfg.frontend_tokens if cfg.frontend else 0)
         toks = torch.from_numpy(
-            self.lm.sample(self.batch, self.seq_len, step=step,
-                           shard=self.shard))
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            self.lm.sample(self.batch, text, step=step, shard=self.shard))
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self._feat_seed, step, self.shard]))
+        dt = getattr(torch, cfg.dtype)
+        if cfg.enc_layers:
+            out["frames"] = torch.from_numpy(rng.normal(
+                size=(self.batch, self.seq_len, cfg.d_model)) * 0.1).to(dt)
+        elif cfg.frontend:
+            out["frontend"] = torch.from_numpy(rng.normal(
+                size=(self.batch, cfg.frontend_tokens, cfg.d_model))
+                * 0.1).to(dt)
+        return out

@@ -12,6 +12,8 @@ checkpointing and restart (the one-device surface of
       --checkpoint-every 4 --fail-at 5     # one injected failure, resumed
   python -m repro_torch.launch.train --arch recurrentgemma-2b --reduced \\
       --use-pallas --device cpu     # the kernels' plain versions on the CPU
+  python -m repro_torch.launch.train --arch seamless-m4t-medium --reduced \\
+      --steps 2 --spb-mode temporal --use-pallas --device cpu  # enc-dec
 
 Prints the JAX driver's ``[train] step=... depth=... loss=...`` lines.  The
 engine owns the state and the step table; this driver owns the loop: data,
@@ -47,7 +49,7 @@ def build_engine(cfg, tcfg, spb_cfg, *, depth_policy: str = "cycle",
 def train(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi-6b",
-                    help="yi-6b, mamba2-2.7b or recurrentgemma-2b")
+                    help="a registered arch (repro_torch.configs.ARCHS)")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--steps", type=int, default=50)

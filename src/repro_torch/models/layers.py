@@ -1,7 +1,7 @@
 """Model layers of the port: norm, RoPE, embedding, SwiGLU FFN, GQA and
 MLA attention (train, dense-cache prefill/decode and the serving engine's
-paged prefill/decode) and the loss (``repro/models/layers.py`` without
-cross-attention and the tensor-parallel collectives).
+paged prefill/decode), the encoder-decoder's cross-attention and the loss
+(``repro/models/layers.py`` without the tensor-parallel collectives).
 
 Plain functions over parameter dictionaries of tensors, in the JAX
 package's layouts, so the two packages can be fed the same weights.
@@ -10,7 +10,10 @@ Train and prefill attention run the hand-written kernels
 the card, and on the CPU when the shapes tile as the JAX gate demands;
 otherwise the plain blockwise path.  MLA's heads (qk dim dn + dr, v dim
 dv) go to the kernels zero-padded to one dispatched head_dim with the
-scale 1 / sqrt(dn + dr).  One-token decode attention has no kernel in
+scale 1 / sqrt(dn + dr).  Bidirectional attention (an encoder's
+self-attention, the decoder's cross-attention over the encoder output)
+is plain blockwise attention, as the reference computes it outside its
+kernels.  One-token decode attention has no kernel in
 the reference either: it is plain PyTorch with f32 scores.  The cached
 paths update their cache tensors in place and return them.  The large
 projections are ``torch.matmul``.
@@ -22,6 +25,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
@@ -156,11 +160,17 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 
 def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
-                  positions: Tensor) -> Tensor:
-    """Train self-attention.  x: (B, S, D)."""
+                  positions: Tensor, causal: bool = True) -> Tensor:
+    """Train self-attention.  x: (B, S, D).  ``causal=False`` is an
+    encoder's: every position sees every other, on the blockwise path."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    o = _attend(q, k, v, cfg, _window(cfg, kind))
+    if causal:
+        o = _attend(q, k, v, cfg, _window(cfg, kind))
+    else:
+        o = blockwise_attention(q, k, v, causal=False,
+                                q_block=cfg.attn_q_block,
+                                kv_block=cfg.attn_kv_block)
     return o.reshape(B, S, -1) @ p["wo"]
 
 
@@ -485,6 +495,51 @@ def mla_decode_paged(p: Params, x: Tensor, cfg: ModelConfig, *, pos: Tensor,
     cview = cache["ckv"][page_table].reshape(N, -1, cache["ckv"].shape[-1])
     rview = cache["kr"][page_table].reshape(N, -1, cache["kr"].shape[-1])
     return _mla_absorbed(p, qn, qr, cview, rview, pos, cfg, x.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+# the profiler range of the train/prefill cross-attention
+# (analysis/step_profile.RANGES)
+CROSS_RANGE = "cross_attention"
+
+
+def cross_kv(p: Params, enc: Tensor, cfg: ModelConfig):
+    """k, v (B, T, K, Dh) of the encoder output enc (B, T, D), unroped."""
+    B, T, _ = enc.shape
+    Dh = cfg.head_dim
+    return ((enc @ p["wk"]).reshape(B, T, -1, Dh),
+            (enc @ p["wv"]).reshape(B, T, -1, Dh))
+
+
+def cross_attention_fwd(p: Params, x: Tensor, enc: Tensor,
+                        cfg: ModelConfig) -> Tensor:
+    """Train/prefill cross-attention.  x: (B, S, D) decoder states; enc:
+    (B, T, D) encoder output; every encoder position visible, no rope."""
+    B, S, _ = x.shape
+    with record_function(CROSS_RANGE):
+        q = (x @ p["wq"]).reshape(B, S, -1, cfg.head_dim)
+        k, v = cross_kv(p, enc, cfg)
+        o = blockwise_attention(q, k, v, causal=False,
+                                q_block=cfg.attn_q_block,
+                                kv_block=cfg.attn_kv_block)
+        return o.reshape(B, S, -1) @ p["wo"]
+
+
+def cross_attention_decode(p: Params, x: Tensor, cfg: ModelConfig,
+                           kv) -> Tensor:
+    """Decode-time cross-attention of x (B, 1, D) over the cached encoder
+    k, v (B, T, K, Dh), every position visible."""
+    B = x.shape[0]
+    k, v = kv
+    T = k.shape[1]
+    q = (x @ p["wq"]).reshape(B, 1, -1, cfg.head_dim)
+    kpos = torch.arange(T, device=x.device).expand(B, T)
+    o = decode_attention(q, k.to(q.dtype), v.to(q.dtype), kpos,
+                         torch.full((B,), T, device=x.device))
+    return o.reshape(B, 1, -1) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """LM assembly with SPB suffix splitting, dense-cache prefill/decode and
 the serving engine's paged prefill/decode (``repro/models/lm.py`` for
 GQA attention, MLA, Mamba-2 SSD and Griffin RG-LRU + local-attention
-stacks, with dense or MoE FFNs).
+stacks, with dense or MoE FFNs, an encoder-decoder's bidirectional
+encoder and cross-attending ``xdec`` decoder, and a modality frontend's
+embeddings placed before the text).
 
 Parameters keep the JAX package's stacked per-group layout:
 ``params["groups"][g][u][name]`` carries a leading ``count`` dim, one row
@@ -20,6 +22,17 @@ order into the loss; the frozen layers' part carries no graph.  The
 port keeps every live activation (the JAX ``REMAT="full"`` recomputes
 instead; it changes no numbers).
 
+An encoder-decoder's SPB depth counts over the combined stack, the
+encoder's layers first (``config.combined_layer_groups``): one boundary
+freezes a prefix of the encoder, or all of it and a prefix of the
+decoder.  The encoder output feeds every decoder layer's
+cross-attention.  A frozen decoder layer uses it as a value with no
+graph, so no gradient runs back through the frozen decoder prefix.  The
+reference differs there: its frozen decoder layers stop the gradient of
+their input and weights but not of the encoder output, so where the
+boundary lies inside the decoder it backpropagates through them into
+``enc.final_norm``.  That leaf is the only one it changes.
+
 The cached paths (:func:`prefill`, :func:`decode_step`,
 :func:`serve_prefill`, :func:`serve_decode`) run under ``no_grad`` and
 update their cache tensors in place; positions, page tables and masks
@@ -31,8 +44,9 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
-from repro_torch.config import ModelConfig, layer_groups
+from repro_torch.config import ModelConfig, layer_groups, total_layers
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -42,23 +56,33 @@ Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the profiler range of an encoder-decoder's encoder stack
+# (analysis/step_profile.RANGES)
+ENCODER_RANGE = "encoder"
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
+_KINDS = {("attn", "dense"), ("local", "dense"), ("ssd", "dense"),
+          ("rglru", "dense"), ("mla", "dense"), ("xdec", "dense"),
+          ("attn", "moe"), ("mla", "moe"), ("xdec", "moe")}
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = {k for unit, _ in layer_groups(cfg) for k in unit}
-    if cfg.enc_layers or cfg.frontend or \
-            kinds - {("attn", "dense"), ("local", "dense"), ("ssd", "dense"),
-                     ("rglru", "dense"), ("attn", "moe"), ("mla", "dense"),
-                     ("mla", "moe")}:
+    if kinds - _KINDS:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attn/local, mla, ssd and rglru "
-            f"decoder stacks with dense FFNs and attn and mla with MoE FFNs "
-            f"(got layer kinds {sorted(kinds)}); encoder-decoder (xdec) and "
-            f"frontends are ROADMAP.md Queue 1 B item 10d")
+            f"{cfg.name}: the port runs attn/local, mla, ssd, rglru and xdec "
+            f"stacks with dense FFNs and attn, mla and xdec with MoE FFNs "
+            f"(got layer kinds {sorted(kinds)})")
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's config: ``enc_layers`` dense attention layers."""
+    return cfg.scaled(num_layers=cfg.enc_layers, pattern=("attn",),
+                      moe=None, enc_layers=0)
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +93,7 @@ def _mixer_shapes(cfg: ModelConfig, mixer: str, dtype: torch.dtype):
     """{name: (shape, dtype)} of one layer's mixer leaves."""
     D = cfg.d_model
     f32 = torch.float32
-    if mixer in ("attn", "local"):
+    if mixer in ("attn", "local", "xdec"):
         return {"wq": ((D, cfg.q_dim), dtype), "wk": ((D, cfg.kv_dim), dtype),
                 "wv": ((D, cfg.kv_dim), dtype), "wo": ((cfg.q_dim, D), dtype)}
     if mixer == "mla":
@@ -115,6 +139,9 @@ def param_shapes(cfg: ModelConfig) -> Params:
     def layer(mixer, ffn, count):
         out = {"ln1": meta((count, D)),
                "mixer": stacked(_mixer_shapes(cfg, mixer, dtype), count)}
+        if mixer == "xdec":         # cross-attention over the encoder
+            out["xattn"] = stacked(_mixer_shapes(cfg, "attn", dtype), count)
+            out["lnx"] = meta((count, D))
         if F > 0:
             out["ln2"] = meta((count, D))
             out["ffn"] = stacked(
@@ -123,12 +150,18 @@ def param_shapes(cfg: ModelConfig) -> Params:
                  "wd": ((F, D), dtype)}, count)
         return out
 
-    groups = [[layer(mixer, ffn, count) for mixer, ffn in unit]
-              for unit, count in layer_groups(cfg)]
+    def groups(c):
+        return [[layer(mixer, ffn, count) for mixer, ffn in unit]
+                for unit, count in layer_groups(c)]
+
     embed = {"tok": meta((cfg.padded_vocab, D))}
     if not cfg.tie_embeddings:
         embed["unembed"] = meta((D, cfg.padded_vocab))
-    return {"embed": embed, "groups": groups, "final_norm": meta((D,))}
+    out = {"embed": embed, "groups": groups(cfg), "final_norm": meta((D,))}
+    if cfg.enc_layers:
+        out["enc"] = {"groups": groups(_encoder_cfg(cfg)),
+                      "final_norm": meta((D,))}
+    return out
 
 
 def _init_leaf(gen: torch.Generator, name: str, like: Tensor, device):
@@ -218,8 +251,11 @@ def _apply_ffn(x: Tensor, up: Params, ffn: str, cfg: ModelConfig
 
 
 def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
-                 positions: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
-    """Returns (x, the layer's MoE aux, or None for a dense FFN)."""
+                 positions: Tensor, enc: Optional[Tensor] = None,
+                 causal: bool = True) -> Tuple[Tensor, Optional[Tensor]]:
+    """Returns (x, the layer's MoE aux, or None for a dense FFN).  ``enc``:
+    the encoder output an ``xdec`` layer cross-attends to; ``causal=False``:
+    an encoder layer's bidirectional self-attention."""
     mixer, ffn = kinds
     h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
     if mixer == "ssd":
@@ -230,8 +266,12 @@ def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
         o = L.mla_fwd(up["mixer"], h, cfg, positions=positions)
     else:
         o = L.attention_fwd(up["mixer"], h, cfg, kind=mixer,
-                            positions=positions)
-    return _apply_ffn(x + o, up, ffn, cfg)
+                            positions=positions, causal=causal)
+    x = x + o
+    if mixer == "xdec":
+        hx = L.rms_norm(x, up["lnx"], cfg.norm_eps)
+        x = x + L.cross_attention_fwd(up["xattn"], hx, enc, cfg)
+    return _apply_ffn(x, up, ffn, cfg)
 
 
 # the cached modes' mixer functions: dense per-slot caches ('prefill',
@@ -251,34 +291,50 @@ _RECURRENT = {"ssd": {"prefill": S.mamba2_prefill,
 
 
 def _apply_layer_cached(x: Tensor, up: Params, kinds, cfg: ModelConfig,
-                        cache: Params, mode: str, kw: Dict[str, Any]
-                        ) -> Tensor:
+                        cache: Params, mode: str, kw: Dict[str, Any],
+                        enc: Optional[Tensor] = None) -> Tensor:
     """One layer of a cached mode; its cache is updated in place.  ``kw``:
     the mode's position arguments (``positions`` or ``pos``, plus the
-    page table and the mask in the serve modes)."""
+    page table and the mask in the serve modes).  An ``xdec`` layer's
+    prefill fills its ``cross`` cache from the encoder output ``enc``; its
+    decode reads it."""
     mixer, ffn = kinds
     h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
+    if mode.startswith("serve_") and mixer in ("ssd", "rglru", "xdec"):
+        raise NotImplementedError(
+            f"mixer {mixer!r} has no paged serve path (kvcache.supports)")
     if mixer in _RECURRENT:
-        if mode.startswith("serve_"):
-            raise NotImplementedError(
-                f"mixer {mixer!r} has no paged serve path (kvcache.supports)")
         o, _ = _RECURRENT[mixer][mode](up["mixer"], h, cfg, cache["self"])
     elif mixer == "mla":
         o, _ = _MLA[mode](up["mixer"], h, cfg, cache=cache["self"], **kw)
     else:
         o, _ = _ATTN[mode](up["mixer"], h, cfg, kind=mixer,
                            cache=cache["self"], **kw)
-    return _apply_ffn(x + o, up, ffn, cfg)[0]
+    x = x + o
+    if mixer == "xdec":
+        hx = L.rms_norm(x, up["lnx"], cfg.norm_eps)
+        cross = cache["cross"]
+        if mode == "prefill":
+            for name, t in zip(("k", "v"), L.cross_kv(up["xattn"], enc, cfg)):
+                cross[name].copy_(t)
+            xo = L.cross_attention_fwd(up["xattn"], hx, enc, cfg)
+        else:
+            xo = L.cross_attention_decode(up["xattn"], hx, cfg,
+                                          (cross["k"], cross["v"]))
+        x = x + xo
+    return _apply_ffn(x, up, ffn, cfg)[0]
 
 
 def _run_group_train(x: Tensor, aux: Tensor, gparams, unit,
-                     cfg: ModelConfig, positions: Tensor
+                     cfg: ModelConfig, positions: Tensor,
+                     enc: Optional[Tensor] = None, causal: bool = True
                      ) -> Tuple[Tensor, Tensor]:
     count = tree_leaves(gparams)[0].shape[0]
     per_unit = [_unbind(up, count) for up in gparams]
     for r in range(count):
         for u in range(len(unit)):
-            x, a = _apply_layer(x, per_unit[u][r], unit[u], cfg, positions)
+            x, a = _apply_layer(x, per_unit[u][r], unit[u], cfg, positions,
+                                enc, causal)
             if a is not None:
                 aux = aux + a
     return x, aux
@@ -290,52 +346,91 @@ def _split_group(gparams, n_frozen_units: int):
     return frozen, live
 
 
-def _run_frozen(x: Tensor, aux: Tensor, gparams, unit, cfg, positions
+def _run_frozen(x: Tensor, aux: Tensor, gparams, unit, cfg, positions,
+                enc: Optional[Tensor] = None, causal: bool = True
                 ) -> Tuple[Tensor, Tensor]:
     """The frozen layers under ``no_grad``: their aux still counts in the
-    loss, as a value with no graph (the reference's ``stop_gradient``)."""
+    loss, as a value with no graph (the reference's ``stop_gradient``);
+    the encoder output ``enc`` is a value there too."""
     with torch.no_grad():
         return _run_group_train(x.detach(), aux.detach(), gparams, unit, cfg,
-                                positions)
+                                positions, enc, causal)
 
 
 def _run_stack(x: Tensor, aux: Tensor, groups, cfg: ModelConfig,
-               positions: Tensor, boundary: int) -> Tuple[Tensor, Tensor]:
-    """Run all groups, freezing flat layers < boundary."""
-    off = 0
+               positions: Tensor, boundary: int, base: int = 0,
+               enc: Optional[Tensor] = None, causal: bool = True
+               ) -> Tuple[Tensor, Tensor]:
+    """Run all groups of a stack whose first layer is flat layer ``base``
+    of the combined stack, freezing flat layers < boundary."""
+    off = base
     for (unit, count), gparams in zip(layer_groups(cfg), groups):
         p = len(unit)
         lo, hi = off, off + p * count
         off = hi
+        args = (unit, cfg, positions, enc, causal)
         if boundary >= hi:          # fully frozen group
-            x, aux = _run_frozen(x, aux, gparams, unit, cfg, positions)
+            x, aux = _run_frozen(x, aux, gparams, *args)
         elif boundary <= lo:        # fully differentiable
-            x, aux = _run_group_train(x, aux, gparams, unit, cfg, positions)
+            x, aux = _run_group_train(x, aux, gparams, *args)
         else:                       # split at a unit boundary
             frozen, live = _split_group(gparams, (boundary - lo) // p)
-            x, aux = _run_frozen(x, aux, frozen, unit, cfg, positions)
-            x, aux = _run_group_train(x, aux, live, unit, cfg, positions)
+            x, aux = _run_frozen(x, aux, frozen, *args)
+            x, aux = _run_group_train(x, aux, live, *args)
     return x, aux
+
+
+def _encode(enc_params: Params, frames: Tensor, cfg: ModelConfig,
+            boundary: int = 0) -> Tensor:
+    """The bidirectional encoder (flat layers [0, enc_layers), frozen below
+    ``boundary``) and its final norm: the decoder's cross-attention
+    input."""
+    ecfg = _encoder_cfg(cfg)
+    with record_function(ENCODER_RANGE):
+        x = frames.to(_dtype(cfg))
+        positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE
+        x, _ = _run_stack(x, aux, enc_params["groups"], ecfg, positions,
+                          boundary, causal=False)
+        return L.rms_norm(x, enc_params["final_norm"], cfg.norm_eps)
+
+
+def _decoder_input(params: Params, batch: Dict[str, Tensor],
+                   cfg: ModelConfig) -> Tensor:
+    """The token embeddings, after the frontend's embeddings if the batch
+    holds them."""
+    x = L.embed(params["embed"], batch["tokens"], cfg)
+    if cfg.frontend and "frontend" in batch:
+        x = torch.cat([batch["frontend"].to(x.dtype), x], dim=1)
+    return x
 
 
 def forward_train(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
                   *, bwd_layers: Optional[int] = None
                   ) -> Tuple[Tensor, Tensor]:
-    """Returns (logits, moe_aux).  ``bwd_layers`` = SPB suffix depth (None =
-    full backprop)."""
+    """Returns (logits, moe_aux).  ``batch``: tokens (B, S_text), plus
+    ``frames`` (B, T, d_model) for an encoder-decoder or ``frontend``
+    (B, frontend_tokens, d_model) for a frontend config; the logits cover
+    the text positions.  ``bwd_layers`` = SPB suffix depth over the
+    combined stack (None = full backprop)."""
     _check_supported(cfg)
-    tokens = batch["tokens"]
-    depth = cfg.num_layers if bwd_layers is None else bwd_layers
-    boundary = cfg.num_layers - depth
-    # below a frozen prefix the embedding lookup gets no gradient either
-    with torch.set_grad_enabled(torch.is_grad_enabled() and boundary == 0):
-        x = L.embed(params["embed"], tokens, cfg)
+    total = total_layers(cfg)
+    depth = total if bwd_layers is None else bwd_layers
+    boundary = total - depth
+    enc = None
+    if cfg.enc_layers:
+        enc = _encode(params["enc"], batch["frames"], cfg, boundary)
+    # the decoder's input gets no gradient once a decoder layer is frozen
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and boundary <= cfg.enc_layers):
+        x = _decoder_input(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x, aux = _run_stack(x, aux, params["groups"], cfg, positions, boundary)
+    x, aux = _run_stack(x, aux, params["groups"], cfg, positions, boundary,
+                        cfg.enc_layers, enc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, cfg)
-    return logits, aux
+    x = x[:, -batch["tokens"].shape[1]:]        # the text, after a frontend
+    return L.unembed(params["embed"], x, cfg), aux
 
 
 def loss_fn(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
@@ -352,8 +447,14 @@ def loss_fn(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def _init_layer_cache(kinds, cfg: ModelConfig, batch: int, max_len: int,
-                      dtype: torch.dtype, device) -> Params:
+                      enc_len: int, dtype: torch.dtype, device) -> Params:
     mixer, _ = kinds
+    if mixer == "xdec":
+        cross = (batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"self": L.init_attention_cache(cfg, batch, max_len, "attn",
+                                               dtype, device),
+                "cross": {k: torch.zeros(cross, dtype=dtype, device=device)
+                          for k in ("k", "v")}}
     if mixer in ("attn", "local"):
         c = L.init_attention_cache(cfg, batch, max_len, mixer, dtype, device)
     elif mixer == "mla":
@@ -378,12 +479,14 @@ def stacked_zeros(tree: Params, count: int, device) -> Params:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
                device=None) -> Params:
     """The dense per-slot caches, grouped like the params: each leaf has a
-    leading ``count`` dim.  ``pos`` (a 0-dim int64 tensor) is the next
-    position to decode."""
+    leading ``count`` dim; an ``xdec`` layer's ``cross`` k, v hold the
+    ``enc_len`` encoder positions.  ``pos`` (a 0-dim int64 tensor) is the
+    next position to decode."""
     _check_supported(cfg)
     dtype = _dtype(cfg)
     groups = [[stacked_zeros(_init_layer_cache(kinds, cfg, batch, max_len,
-                                               dtype, "meta"), count, device)
+                                               enc_len, dtype, "meta"),
+                             count, device)
                for kinds in unit] for unit, count in layer_groups(cfg)]
     return {"groups": groups,
             "pos": torch.zeros((), dtype=torch.int64, device=device)}
@@ -403,20 +506,22 @@ def _select(tree: Params, r: int) -> Params:
 
 
 def _run_group_cached(x: Tensor, gparams, gcache, unit, cfg: ModelConfig,
-                      mode: str, kw: Dict[str, Any]) -> Tensor:
+                      mode: str, kw: Dict[str, Any],
+                      enc: Optional[Tensor]) -> Tensor:
     count = tree_leaves(gparams)[0].shape[0]
     per_unit = [_unbind(up, count) for up in gparams]
     for r in range(count):
         for u in range(len(unit)):
             x = _apply_layer_cached(x, per_unit[u][r], unit[u], cfg,
-                                    _select(gcache[u], r), mode, kw)
+                                    _select(gcache[u], r), mode, kw, enc)
     return x
 
 
 def _run_cached(x: Tensor, params: Params, groups, cfg: ModelConfig,
-                mode: str, kw: Dict[str, Any]) -> Tensor:
+                mode: str, kw: Dict[str, Any],
+                enc: Optional[Tensor] = None) -> Tensor:
     for (unit, _), gp, gc in zip(layer_groups(cfg), params["groups"], groups):
-        x = _run_group_cached(x, gp, gc, unit, cfg, mode, kw)
+        x = _run_group_cached(x, gp, gc, unit, cfg, mode, kw, enc)
     return x
 
 
@@ -424,12 +529,17 @@ def _run_cached(x: Tensor, params: Params, groups, cfg: ModelConfig,
 def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
             cache: Params) -> Tuple[Tensor, Params]:
     """Fill the cache from a prompt; returns (last-token logits (B, 1, V),
-    cache)."""
+    cache).  ``batch`` as :func:`forward_train`'s: an encoder-decoder's
+    ``frames`` run through the encoder into the ``cross`` caches; a
+    frontend's embeddings come before the tokens and take the first
+    positions."""
     _check_supported(cfg)
-    x = L.embed(params["embed"], batch["tokens"], cfg)
+    enc = _encode(params["enc"], batch["frames"], cfg) if cfg.enc_layers \
+        else None
+    x = _decoder_input(params, batch, cfg)
     S_ = x.shape[1]
     x = _run_cached(x, params, cache["groups"], cfg, "prefill",
-                    {"positions": torch.arange(S_, device=x.device)})
+                    {"positions": torch.arange(S_, device=x.device)}, enc)
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     pos = torch.full((), S_, dtype=torch.int64, device=x.device)
     return L.unembed(params["embed"], x, cfg), {"groups": cache["groups"],

@@ -1,7 +1,8 @@
 """The port's config and SPB schedule code must equal the JAX package's:
 same fields, layer groups, snapping, depth cycles, rebalancing and
 per-block scales, for yi-6b at full and reduced size and cut depths, and
-the fields of every registered arch; the full-width cuts."""
+the fields of every registered arch (the encoder-decoder's combined
+stack and its pipeline-stage cuts among them); the full-width cuts."""
 import dataclasses
 
 import jax
@@ -169,7 +170,9 @@ def test_recurrentgemma_full_width_cut():
     ("gemma3-4b", 12, (12, 6, 12, 6), None),
     ("qwen3-moe-235b-a22b", 4, (4, 1, 3, 2), 8),
     ("deepseek-v2-lite-16b", 4, (4, 1, 3, 2), None),
-    ("minicpm3-4b", 24, (24, 6, 18, 12), None)])
+    ("minicpm3-4b", 24, (24, 6, 18, 12), None),
+    ("seamless-m4t-medium", 12, (24, 6, 18, 12), None),
+    ("internvl2-26b", 4, (4, 1, 3, 2), None)])
 def test_full_width_config_per_arch(arch, layers, cycle, held):
     from repro_torch.configs import full_width_config
     cfg = full_width_config(arch)
@@ -195,14 +198,16 @@ def test_deepseek_67b_has_no_full_width_cut():
 # deepseek-v2-lite-16b holds all 64)
 @pytest.mark.parametrize("arch,n_params", [
     ("gemma3-4b", 1_803_614_720), ("qwen3-moe-235b-a22b", 2_137_034_752),
-    ("deepseek-v2-lite-16b", 2_045_267_968), ("minicpm3-4b", 1_692_289_536)])
+    ("deepseek-v2-lite-16b", 2_045_267_968), ("minicpm3-4b", 1_692_289_536),
+    ("seamless-m4t-medium", 715_454_464), ("internvl2-26b", 2_129_713_152)])
 def test_full_width_parameter_count(arch, n_params):
     from repro_torch.configs import full_width_config
     from repro_torch.tree import tree_leaves
     cfg = full_width_config(arch)
     assert sum(t.numel() for t in tree_leaves(tlm.param_shapes(cfg))) == \
         n_params
-    j = j_get(arch).scaled(num_layers=cfg.num_layers)
+    j = j_get(arch).scaled(num_layers=cfg.num_layers,
+                           enc_layers=cfg.enc_layers)
     held = cfg.moe is not None and cfg.moe.experts_held
     if held:
         j = j.scaled(moe=dataclasses.replace(j.moe, num_experts=held))
@@ -215,7 +220,8 @@ NEW_ARCHS = [("gemma3-4b", None), ("gemma3-4b", 12), ("deepseek-67b", None),
              ("deepseek-67b", 2), ("qwen3-moe-235b-a22b", None),
              ("qwen3-moe-235b-a22b", 4), ("deepseek-v2-lite-16b", None),
              ("deepseek-v2-lite-16b", 4), ("minicpm3-4b", None),
-             ("minicpm3-4b", 24)]
+             ("minicpm3-4b", 24), ("seamless-m4t-medium", None),
+             ("internvl2-26b", None), ("internvl2-26b", 4)]
 
 
 @pytest.mark.parametrize("size", ["full", "reduced"])
@@ -246,18 +252,89 @@ def test_new_arch_config_and_spb_schedules_match(arch, layers, size):
 
 
 def test_registry_holds_eight_archs_and_serving_sizes():
-    """The eight registered archs; at published widths and full depth the
-    three serving archs have the reference's parameter counts."""
+    """All ten of the reference's archs are registered; at published
+    widths and full depth the three serving archs and the two frontend
+    archs have the reference's parameter counts."""
+    from repro.configs import ARCHS as J_ARCHS
     from repro_torch.configs import ARCHS
     from repro_torch.tree import tree_leaves
-    assert sorted(ARCHS) == sorted([
+    assert sorted(ARCHS) == sorted(J_ARCHS) == sorted([
         "yi-6b", "mamba2-2.7b", "recurrentgemma-2b", "gemma3-4b",
         "deepseek-67b", "qwen3-moe-235b-a22b", "deepseek-v2-lite-16b",
-        "minicpm3-4b"])
+        "minicpm3-4b", "seamless-m4t-medium", "internvl2-26b"])
     for arch, n in (("yi-6b", 5_798_891_520), ("gemma3-4b", 3_879_907_840),
-                    ("deepseek-v2-lite-16b", 15_496_769_024)):
+                    ("deepseek-v2-lite-16b", 15_496_769_024),
+                    ("seamless-m4t-medium", 715_454_464),
+                    ("internvl2-26b", 19_293_345_792)):
         got = sum(t.numel() for t in tree_leaves(tlm.param_shapes(
             t_get(arch))))
         want = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(
             jlm.param_shapes(j_get(arch))))
         assert got == want == n
+
+
+FRONTEND_ARCHS = [(a, size) for a in ("seamless-m4t-medium", "internvl2-26b")
+                  for size in ("full", "cut", "reduced")]
+
+
+def _frontend_pair(arch, size):
+    from repro_torch.configs import full_width_config
+    if size == "reduced":
+        return j_reduced(arch), t_reduced(arch)
+    j, t = j_get(arch), t_get(arch)
+    if size == "cut":
+        cut = full_width_config(arch)
+        j = j.scaled(num_layers=cut.num_layers, enc_layers=cut.enc_layers)
+        t = t.scaled(num_layers=cut.num_layers, enc_layers=cut.enc_layers)
+    return j, t
+
+
+@pytest.mark.parametrize("arch,size", FRONTEND_ARCHS)
+def test_frontend_arch_spb_and_stage_cuts_match(arch, size):
+    """seamless-m4t-medium (the encoder first in the combined stack) and
+    internvl2-26b: the same combined groups, snapped depths, contributors,
+    per-block scales and pipeline-stage cuts, stage snapping and live
+    stages at every depth, as the JAX package."""
+    j, t = _frontend_pair(arch, size)
+    assert jc.combined_layer_groups(j) == tc.combined_layer_groups(t)
+    L = jc.total_layers(j)
+    assert L == tc.total_layers(t) == j.num_layers + j.enc_layers
+    js, ts = jc.SPBConfig(mode="temporal", k=4), tc.SPBConfig(mode="temporal",
+                                                             k=4)
+    assert jspb.snapped_depths(j, js) == tspb.snapped_depths(t, ts)
+    assert jspb.layer_contributors(j, js) == tspb.layer_contributors(t, ts)
+    for a, b in zip(jspb.group_layer_scales(j, js),
+                    tspb.group_layer_scales(t, ts), strict=True):
+        for x, y in zip(a, b, strict=True):
+            np.testing.assert_array_equal(np.asarray(x), y.numpy())
+    for n in range(1, min(4, len(tc._flat_unit_lens(t))) + 1):
+        assert jc.stage_unit_cuts(j, n) == tc.stage_unit_cuts(t, n)
+        for d in list(range(0, L + 2)) + [None]:
+            if d is not None:
+                assert jc.snap_depth_to_stages(j, d, n) == \
+                    tc.snap_depth_to_stages(t, d, n)
+            assert jc.depth_to_bwd_stages(j, d, n) == \
+                tc.depth_to_bwd_stages(t, d, n)
+        ps = dataclasses.replace(ts, pipeline_stages=n)
+        assert tspb.snapped_depths(t, ps) == jspb.snapped_depths(
+            j, dataclasses.replace(js, pipeline_stages=n))
+
+
+@pytest.mark.parametrize("lr_rescale", [True, False])
+def test_scale_params_tree_scales_the_encoder_as_the_reference(lr_rescale):
+    """An encoder-decoder's gradient tree: the encoder's groups take the
+    first group's scales, the decoder's the rest; equal to the bit."""
+    j, t = j_reduced("seamless-m4t-medium"), t_reduced("seamless-m4t-medium")
+    js = jc.SPBConfig(mode="temporal", k=4, lr_rescale=lr_rescale)
+    ts = tc.SPBConfig(mode="temporal", k=4, lr_rescale=lr_rescale)
+    rng = np.random.default_rng(1)
+    tree = jax.tree.map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32),
+        jlm.param_shapes(j))
+    want = jax.tree.map(np.asarray, jspb.scale_params_tree(tree, j, js))
+    got = tspb.scale_params_tree(jax.tree.map(torch.from_numpy, tree), t, ts)
+    for w, g in zip(jax.tree.leaves(want), jax.tree.leaves(got), strict=True):
+        np.testing.assert_array_equal(w, g.numpy())
+    if lr_rescale:      # only depth 4 of 4 reaches encoder layer 0: x 4
+        assert not np.array_equal(want["enc"]["groups"][0][0]["ln1"],
+                                  tree["enc"]["groups"][0][0]["ln1"])

@@ -4,7 +4,10 @@ prefill plus a one-token decode reproduce the train forward's next-token
 logits (with the kernels' plain versions and without), a greedy
 multi-token decode equals the teacher-forced forward, a local layer's ring
 buffer survives decoding far past its window, and the port's prefill and
-decode logits equal the reference's on bridged weights.
+decode logits equal the reference's on bridged weights.  An
+encoder-decoder's batch carries seeded ``frames`` for its encoder (its
+``cross`` caches hold their K/V); a frontend config's carries seeded
+``frontend`` embeddings before S - frontend_tokens text positions.
 
 Tolerance 2e-4, the reference's (3e-4 for the ring buffer)."""
 import dataclasses
@@ -25,12 +28,44 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 def _setup(arch, seed=0, B=2, S=64, use_pallas=True):
+    """Configs, numpy params and a numpy batch of S positions in all:
+    tokens, plus frames (B, S, d) or frontend (B, frontend_tokens, d)."""
     jcfg = j_reduced(arch)
     tcfg = dataclasses.replace(t_reduced(arch), use_pallas=use_pallas)
     params = jax.tree.map(np.asarray, jlm.init_lm(jax.random.key(seed), jcfg))
-    toks = np.random.default_rng(seed).integers(
-        0, jcfg.vocab_size, (B, S)).astype(np.int32)
-    return jcfg, tcfg, params, toks
+    rng = np.random.default_rng(seed)
+    batch = {}
+    if jcfg.enc_layers:
+        batch["frames"] = rng.normal(size=(B, S, jcfg.d_model))
+    elif jcfg.frontend:
+        batch["frontend"] = rng.normal(size=(B, jcfg.frontend_tokens,
+                                             jcfg.d_model))
+        S -= jcfg.frontend_tokens
+    batch = {k: v.astype(np.float32) for k, v in batch.items()}
+    batch["tokens"] = rng.integers(0, jcfg.vocab_size, (B, S)).astype(
+        np.int32)
+    return jcfg, tcfg, params, batch
+
+
+def _enc_len(cfg, batch):
+    return batch["frames"].shape[1] if cfg.enc_layers else 0
+
+
+def _positions(batch):
+    """All the positions a batch fills: its text and frontend tokens."""
+    return batch["tokens"].shape[1] + (batch["frontend"].shape[1]
+                                       if "frontend" in batch else 0)
+
+
+def _tb(batch, stop=None):
+    """The batch as torch tensors, its tokens cut to [:stop]."""
+    out = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out["tokens"] = out["tokens"][:, :stop].long()
+    return out
+
+
+def _jb(batch, stop=None):
+    return dict(batch, tokens=batch["tokens"][:, :stop])
 
 
 def _np(t):
@@ -40,14 +75,14 @@ def _np(t):
 @pytest.mark.parametrize("use_pallas", [True, False])
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_prefill_decode_matches_forward(arch, use_pallas):
-    _, tcfg, params, toks = _setup(arch, use_pallas=use_pallas)
-    B, S = toks.shape
+    _, tcfg, params, batch = _setup(arch, use_pallas=use_pallas)
+    B, S = batch["tokens"].shape[0], _positions(batch)
     tp = bridge.params_from_numpy(params, tcfg)
-    t = torch.from_numpy(toks).long()
+    t = _tb(batch)["tokens"]
     with torch.no_grad():
-        logits_train, _ = tlm.forward_train(tp, {"tokens": t}, tcfg)
-    cache = tlm.init_cache(tcfg, B, S)
-    logits_pre, cache = tlm.prefill(tp, {"tokens": t[:, :-1]}, tcfg, cache)
+        logits_train, _ = tlm.forward_train(tp, _tb(batch), tcfg)
+    cache = tlm.init_cache(tcfg, B, S, _enc_len(tcfg, batch))
+    logits_pre, cache = tlm.prefill(tp, _tb(batch, -1), tcfg, cache)
     logits_dec, cache = tlm.decode_step(tp, cache, t[:, -1:], tcfg)
     assert int(cache["pos"]) == S
     np.testing.assert_allclose(_np(logits_pre[:, 0]),
@@ -58,20 +93,23 @@ def test_prefill_decode_matches_forward(arch, use_pallas):
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_prefill_and_decode_logits_equal_the_reference(arch):
-    jcfg, tcfg, params, toks = _setup(arch, seed=1)
-    B, S = toks.shape
-    jc = jlm.init_cache(jcfg, B, S)
-    jpre, jc = jlm.prefill(params, {"tokens": toks[:, :-1]}, jcfg, jc)
+    jcfg, tcfg, params, batch = _setup(arch, seed=1)
+    B, S, T = batch["tokens"].shape[0], _positions(batch), \
+        _enc_len(jcfg, batch)
+    toks = batch["tokens"]
+    jc = jlm.init_cache(jcfg, B, S, enc_len=T)
+    jpre, jc = jlm.prefill(params, _jb(batch, -1), jcfg, jc)
     jdec, jc = jlm.decode_step(params, jc, toks[:, -1:], jcfg)
     tp = bridge.params_from_numpy(params, tcfg)
-    t = torch.from_numpy(toks).long()
-    cache = tlm.init_cache(tcfg, B, S)
-    pre, cache = tlm.prefill(tp, {"tokens": t[:, :-1]}, tcfg, cache)
+    t = _tb(batch)["tokens"]
+    cache = tlm.init_cache(tcfg, B, S, T)
+    pre, cache = tlm.prefill(tp, _tb(batch, -1), tcfg, cache)
     dec, cache = tlm.decode_step(tp, cache, t[:, -1:], tcfg)
     np.testing.assert_allclose(_np(pre), np.asarray(jpre), **TOL)
     np.testing.assert_allclose(_np(dec), np.asarray(jdec), **TOL)
-    # the caches, leaf by leaf, in the reference's grouped layout
-    shapes = tlm.cache_shapes(tcfg, B, S)
+    # the caches (an xdec layer's cross K/V among them), leaf by leaf, in
+    # the reference's grouped layout
+    shapes = tlm.cache_shapes(tcfg, B, S, T)
     for w, g, s in zip(jax.tree.leaves(jc["groups"]),
                        jax.tree.leaves(cache["groups"]),
                        jax.tree.leaves(shapes["groups"])):
@@ -81,17 +119,19 @@ def test_prefill_and_decode_logits_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "yi-6b", "mamba2-2.7b",
                                   "recurrentgemma-2b", "minicpm3-4b",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b",
+                                  "seamless-m4t-medium", "internvl2-26b"])
 def test_multi_step_decode_matches_forward(arch):
-    """Greedy multi-token decode equals teacher-forced forward logits."""
-    _, tcfg, params, toks = _setup(arch, seed=1, B=1, S=48)
-    S, gen = 48, 8
+    """Greedy multi-token decode equals teacher-forced forward logits (the
+    text positions', after a frontend)."""
+    _, tcfg, params, batch = _setup(arch, seed=1, B=1, S=48)
+    S, gen = batch["tokens"].shape[1], 8
     tp = bridge.params_from_numpy(params, tcfg)
-    t = torch.from_numpy(toks).long()
+    t = _tb(batch)["tokens"]
     with torch.no_grad():
-        logits_train, _ = tlm.forward_train(tp, {"tokens": t}, tcfg)
-    cache = tlm.init_cache(tcfg, 1, S)
-    _, cache = tlm.prefill(tp, {"tokens": t[:, :S - gen]}, tcfg, cache)
+        logits_train, _ = tlm.forward_train(tp, _tb(batch), tcfg)
+    cache = tlm.init_cache(tcfg, 1, _positions(batch), _enc_len(tcfg, batch))
+    _, cache = tlm.prefill(tp, _tb(batch, S - gen), tcfg, cache)
     for i in range(gen):
         pos = S - gen + i
         logits, cache = tlm.decode_step(tp, cache, t[:, pos:pos + 1], tcfg)
@@ -102,11 +142,11 @@ def test_multi_step_decode_matches_forward(arch):
 def test_local_ring_buffer_eviction():
     """Decode far past the window: the ring buffer holds exactly the last W
     positions and the output stays equal to the train path."""
-    _, tcfg, params, toks = _setup("gemma3-4b", seed=2, B=1, S=96)
+    _, tcfg, params, batch = _setup("gemma3-4b", seed=2, B=1, S=96)
     W = tcfg.window                               # 32: S = 3 W
     S = 3 * W
     tp = bridge.params_from_numpy(params, tcfg)
-    t = torch.from_numpy(toks).long()
+    t = _tb(batch)["tokens"]
     with torch.no_grad():
         logits_train, _ = tlm.forward_train(tp, {"tokens": t}, tcfg)
     cache = tlm.init_cache(tcfg, 1, S)
@@ -121,8 +161,8 @@ def test_local_ring_buffer_eviction():
 
 def test_cache_shapes_equal_the_reference():
     for arch in sorted(ARCHS):
-        j = jlm.cache_shapes(j_reduced(arch), 2, 40)
-        t = tlm.cache_shapes(t_reduced(arch), 2, 40)
+        j = jlm.cache_shapes(j_reduced(arch), 2, 40, enc_len=24)
+        t = tlm.cache_shapes(t_reduced(arch), 2, 40, 24)
         assert [w.shape for w in jax.tree.leaves(j["groups"])] == \
             [tuple(s.shape) for s in jax.tree.leaves(t["groups"])]
         assert [str(w.dtype) for w in jax.tree.leaves(j["groups"])] == \

@@ -151,11 +151,16 @@ def test_ep_impl_and_unported_mixers_raise():
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
     with pytest.raises(NotImplementedError, match="item 11"):
         tlm.forward_train(params, batch, ep)
-    for bad, item in ((dict(pattern=("xdec",)), "10d"),
-                      (dict(frontend="vision"), "10d"),
-                      (dict(enc_layers=2), "10d")):
-        with pytest.raises(NotImplementedError, match=item):
-            tlm.param_shapes(dataclasses.replace(cfg, **bad))
+    # xdec layers (here with MoE FFNs), a frontend and an encoder now
+    # build, as the reference's param trees
+    for change in (dict(pattern=("xdec",)), dict(frontend="vision"),
+                   dict(enc_layers=2)):
+        jcfg = dataclasses.replace(j_reduced("qwen3-moe-235b-a22b"), **change)
+        want = jax.eval_shape(lambda k: jlm.init_lm(k, jcfg),
+                              jax.random.key(0))
+        got = tlm.param_shapes(dataclasses.replace(cfg, **change))
+        assert [tuple(w.shape) for w in jax.tree.leaves(want)] == \
+            [tuple(t.shape) for t in jax.tree.leaves(got)]
 
 
 def test_bridge_keeps_the_router_f32_and_rejects_a_wrong_expert_count():

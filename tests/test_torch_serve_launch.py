@@ -2,7 +2,8 @@
 --device cpu`` replays its trace to the end and prints the reference
 driver's summary lines; the flags of the reference's AOT and compilation
 caches raise naming ROADMAP.md Queue 1 B item 9; the reduced configs'
-prompts are the reference's."""
+prompts are the reference's; the encoder-decoder and frontend archs are
+refused, by the engine and the client, with the reference's reason."""
 import os
 import subprocess
 import sys
@@ -11,9 +12,13 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from repro.configs import reduced_config as j_reduced
 from repro.data.pipeline import MarkovLM as JMarkovLM
+from repro.serve import kvcache as j_kvcache
 from repro_torch.configs import reduced_config
 from repro_torch.launch import serve as serve_mod
+from repro_torch.serve import ServeEngine, default_geometry
+from repro_torch.serve import kvcache
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -59,3 +64,15 @@ def test_reduced_prompts_are_the_reference_markov_stream():
     Args.reduced = False                     # --full: make_batch's tokens
     got = np.asarray(serve_mod._prompts(cfg, Args))
     assert got.shape == (3, 16) and got.max() < cfg.vocab_size
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
+def test_frontend_archs_are_refused_with_the_reference_reason(arch):
+    reason = j_kvcache.supports(j_reduced(arch))
+    assert reason and kvcache.supports(reduced_config(arch)) == reason
+    with pytest.raises(NotImplementedError, match=reason):
+        ServeEngine(reduced_config(arch), device="cpu",
+                    geom=default_geometry(num_slots=2, page_size=8,
+                                          max_context=48))
+    with pytest.raises(NotImplementedError, match=reason):
+        serve_mod.serve(["--device", "cpu", "--arch", arch])

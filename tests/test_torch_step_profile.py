@@ -4,13 +4,13 @@ them): every kernel of the port lands in its own class, the bf16
 tensor-core kernels and the chunk-parallel SSD backward included; the two
 bf16 SSD forwards share their chunk-parallel kernels and so one class.
 ``range_device_ms`` on a small chrome trace of the same form, and the
-ranges the RG-LRU block and the MoE layer open."""
+ranges the RG-LRU block, the MoE layer and the encoder-decoder open."""
 import pytest
 import torch
 
 from repro_torch.analysis.step_profile import kernel_class, range_device_ms
 from repro_torch.configs import reduced_config
-from repro_torch.models import lm, moe, ssm
+from repro_torch.models import layers, lm, moe, ssm
 
 
 @pytest.mark.parametrize("name,cls", [
@@ -94,7 +94,8 @@ def test_range_device_ms_takes_the_range_s_launches_and_its_backward():
         "rglru_scan": {"fwd": 0.008, "bwd": 0.0, "fwd_matmul": 0.0,
                        "bwd_matmul": 0.0},
         **{n: dict.fromkeys(("fwd", "bwd", "fwd_matmul", "bwd_matmul"), 0.0)
-           for n in (moe.ROUTE_RANGE, moe.EXPERTS_RANGE, moe.COMBINE_RANGE)}}
+           for n in (moe.ROUTE_RANGE, moe.EXPERTS_RANGE, moe.COMBINE_RANGE,
+                     lm.ENCODER_RANGE, layers.CROSS_RANGE)}}
 
 
 def test_rglru_block_opens_the_gates_and_scan_ranges():
@@ -126,3 +127,18 @@ def test_moe_layer_opens_the_route_experts_and_combine_ranges():
     counts = {e.key: e.count for e in prof.key_averages()}
     for rng in (moe.ROUTE_RANGE, moe.EXPERTS_RANGE, moe.COMBINE_RANGE):
         assert counts.get(rng) == 1
+
+
+def test_encoder_decoder_opens_the_encoder_and_cross_attention_ranges():
+    """One seamless-reduced forward opens the encoder range once and the
+    cross-attention range once per decoder layer."""
+    cfg = reduced_config("seamless-m4t-medium")
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
+             "frames": torch.randn(1, 8, cfg.d_model)}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        lm.forward_train(params, batch, cfg)
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert counts.get(lm.ENCODER_RANGE) == 1
+    assert counts.get(layers.CROSS_RANGE) == cfg.num_layers
