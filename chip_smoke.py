@@ -109,9 +109,28 @@ Phases, each printing a line; any failure exits non-zero:
      checkpointed every iteration: both jobs done, a restore, exactly one
      retry; then a ``KernelError`` raised inside one attempt leaves
      ``ClusterRuntime.run()`` with no retry counted;
+  14. horizontal fusion (run after phase 10): ``FusedEngine`` of two
+     tenants of yi-6b (cut to 4 layers), mamba2-2.7b (16) and
+     recurrentgemma-2b (6) at published widths, batch 2 x 2048 each,
+     temporal k=4, 8 steps (two cycles), beside two solo ``SPBEngine``s
+     with the same seeds and batches: each tenant's loss and grad_norm
+     within 1e-3 relative of its solo engine at every step of the first
+     cycle (the second's deviations printed) and finite, each fused
+     step's launches those of one solo step at its depth (all nine
+     kernels, each once a layer, at J x B rows), the first step's
+     forward kernels at J x B = 4 rows (read at the wrappers), the
+     stacked group's peak leaving ``HEADROOM_GB``; the fused step's ms
+     beside the sum of the two solo steps', per depth, over the warm
+     second cycle.  Then a JigSaw session with ``LiveBackend(fuse=True)``:
+     two identical yi-6b tenants (one fused group) and a mamba2-2.7b
+     tenant at the same cuts, two workers, 2 iterations: both scheduled
+     jobs done, the group's ``fused_with``, every member's 4 steps and a
+     finite last xent, each task's launches one solo step's;
   13. a ``{"kernels": [...]}`` line (launches by path, among them
-     ``launches_decode`` and ``launches_serve``), the card's name and
-     power limit, and last the ``{"ok": true, ...}`` line.
+     ``launches_decode``, ``launches_serve``, ``launches_fused`` and
+     ``launches_fused_jigsaw``, and the fused phase's ms by depth and
+     peak), the card's name and power limit, and last the
+     ``{"ok": true, ...}`` line.
 
 Needs a CUDA card: without one it exits 1 and prints no result.
 """
@@ -1136,11 +1155,13 @@ def _task_log_backend(feed_random: bool):
     """A ``LiveBackend`` that logs each task's (job, worker, iteration,
     depth, measured s, launches, peak allocated and reserved bytes).
     With ``feed_random`` its batches come from ``configs.make_batch`` on
-    the card: the ``MarkovLM`` pipeline would build a (vocab, vocab)
-    float64 table of ~33 GB at yi-6b's vocabulary."""
+    the card (a fused group's stacked, one a member): the ``MarkovLM``
+    pipeline would build a (vocab, vocab) float64 table of ~33 GB at
+    yi-6b's vocabulary."""
     import torch
     from repro_torch.cluster.live import LiveBackend
     from repro_torch.configs import make_batch
+    from repro_torch.engine import stack_batches
 
     class TaskLogBackend(LiveBackend):
         def __init__(self, *a, **kw):
@@ -1169,8 +1190,11 @@ def _task_log_backend(feed_random: bool):
             if not feed_random:
                 return super()._stacked_batch(jid, step)
             lj = self.jobs[jid]
-            return make_batch(lj.cfg, lj.batch, lj.seq, seed=1000 * jid + step,
-                              device=self.device)
+            batches = [make_batch(lj.cfg, lj.batch, lj.seq,
+                                  seed=1000 * m + step, device=self.device)
+                       for m in self._members(jid)]
+            return (batches[0] if len(batches) == 1
+                    else stack_batches(batches))
 
     return TaskLogBackend
 
@@ -1434,6 +1458,264 @@ def phase_cluster_faults() -> None:
         f"sleeps={naps} failed={backend.failed}")
     if backend.retries or naps or backend.failed:
         raise AssertionError("cluster-faults: a device fault was retried")
+
+
+# horizontal fusion (phase 14): J tenants of each arch at published widths,
+# each cut to these layers so that the stacked group's peak allocation
+# leaves HEADROOM_GB of the card (bf16 params with f32 master and moments:
+# ~14 B a parameter of state, two f32 gradient copies in the optimizer)
+FUSED_LAYERS = {"yi-6b": 4, "mamba2-2.7b": 16, "recurrentgemma-2b": 6}
+FUSED_J = 2
+FUSED_STEPS = 8         # two k=4 cycles; the second is timed warm
+# per tenant and step of the first cycle, loss and grad_norm against the
+# solo engine: the card-vs-CPU check's relative tolerance (a fused step
+# batches each product over the J jobs and, at J x B rows, may split the
+# dkv kernel's GQA heads over other blocks, so its bf16 sums round in
+# another order).  The second cycle's deviations are printed, not held:
+# recurrentgemma-2b's early steps move its loss from 35 to 20 at grad
+# norms up to 64, and such steps amplify the first cycle's rounding.
+FUSED_TOL = 1e-3
+FUSED_HELD = 4
+# the kernel wrappers whose first call in a fused step is held at J x B rows
+FUSED_ENTRY = {"flash_fwd": ("flash_attention", "fwd_kernel_layout"),
+               "ssd_fwd": ("ssd", "ssd_fwd_kernel_layout"),
+               "ssd_fwd_res": ("ssd_bwd", "fwd_res_kernel_layout"),
+               "rglru_fwd": ("rglru", "rglru_scan")}
+
+
+def fused_config(arch: str):
+    from repro_torch.configs import full_width_config
+    return dataclasses.replace(full_width_config(arch),
+                               num_layers=FUSED_LAYERS[arch])
+
+
+class _RowsSpy:
+    """Stands in for a kernel wrapper in its module and records the
+    leading dim of each call's first operand; ``.launches`` reads and
+    writes the wrapper's own count, which the wrapper bumps by its module
+    global (now this spy)."""
+
+    def __init__(self, real, rows: list):
+        self.__dict__.update(_real=real, _rows=rows)
+
+    def __call__(self, *a, **kw):
+        self._rows.append(a[0].shape[0])
+        return self._real(*a, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._real, name, value)
+
+
+def _spy_rows(fn):
+    """Run ``fn()`` with the forward kernels' wrappers spied on; returns
+    (fn's result, {kernel: leading dims of its calls})."""
+    import importlib
+    rows = {n: [] for n in FUSED_ENTRY}
+    mods = {n: importlib.import_module(f"repro_torch.kernels.{m}")
+            for n, (m, _) in FUSED_ENTRY.items()}
+    real = {n: getattr(mods[n], attr) for n, (_, attr) in FUSED_ENTRY.items()}
+    try:
+        for n, (_, attr) in FUSED_ENTRY.items():
+            setattr(mods[n], attr, _RowsSpy(real[n], rows[n]))
+        return fn(), rows
+    finally:
+        for n, (_, attr) in FUSED_ENTRY.items():
+            setattr(mods[n], attr, real[n])
+
+
+def _timed_steps(eng, batches, cfg, phase, start: int = 0):
+    """Run ``eng`` over ``batches`` (one a step, from step ``start``),
+    each step's launches checked against one solo step at its depth;
+    returns per step (depth, ms, metrics on the host, peak GB)."""
+    import torch
+    out = []
+    for s, batch in enumerate(batches, start):
+        before = launches_now()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eng.train_step(batch, s)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        d = eng.last_depth
+        check_launches(f"{phase} step {s}", before, [d], cfg)
+        out.append((d, ms, {k: v.detach().cpu() for k, v in m.items()},
+                    torch.cuda.max_memory_allocated() / 1e9))
+    return out
+
+
+def phase_fused(arch: str) -> dict:
+    """Phase 14: ``FusedEngine`` of ``FUSED_J`` tenants of ``arch`` at
+    published widths, cut to ``FUSED_LAYERS``, batch 2 x 2048 each,
+    temporal k=4, ``FUSED_STEPS`` steps, beside ``FUSED_J`` solo
+    ``SPBEngine``s with the same seeds and batches (run first, one at a
+    time: the stacked group and a solo pair do not fit the card
+    together).  Holds each tenant's loss and grad_norm against its solo
+    engine at ``FUSED_TOL`` over the first ``FUSED_HELD`` steps (one
+    cycle) and finite after, each fused step's launches against one solo
+    step's, and the first fused step's forward kernels at J x B rows.
+    Returns the fused run's launch counts, zeroed just before it and read
+    just after."""
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
+                                     make_batch)
+    from repro_torch.engine import FusedEngine, SPBEngine, stack_batches
+    from repro_torch.tree import tree_leaves
+
+    cfg = fused_config(arch)
+    tcfg = TrainConfig(num_steps=FUSED_STEPS)
+    spb = SPBConfig(mode="temporal", k=4)
+    total_gb = torch.cuda.mem_get_info()[1] / 1e9
+    seeds = list(range(FUSED_J))
+    batches = [[make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
+                           seed=100 * j + s, device="cuda")
+                for s in range(FUSED_STEPS)] for j in seeds]
+    solo = []
+    for j in seeds:
+        eng = SPBEngine(cfg, tcfg, spb, device="cuda")
+        eng.init_state(j)
+        solo.append(_timed_steps(eng, batches[j], cfg,
+                                 f"fused {arch} solo {j}"))
+        del eng
+        torch.cuda.empty_cache()
+    eng = FusedEngine(cfg, tcfg, spb, num_jobs=FUSED_J, device="cuda")
+    eng.init_states(seeds)
+    n_params = sum(t[0].numel() for t in tree_leaves(eng.state["params"]))
+    stacked = [stack_batches([batches[j][s] for j in seeds])
+               for s in range(FUSED_STEPS)]
+    zero_launches()
+    first, rows = _spy_rows(lambda: _timed_steps(
+        eng, stacked[:1], cfg, f"fused {arch}"))
+    fused = first + _timed_steps(eng, stacked[1:], cfg, f"fused {arch}",
+                                 start=1)
+    grew = launches_now()
+    want_rows = FUSED_J * FULL_WIDTH_BATCH
+    seen = {n: r[0] for n, r in rows.items() if r}
+    if not seen or any(r != want_rows for r in seen.values()):
+        raise AssertionError(f"fused {arch}: the first step's forward "
+                             f"kernels saw batches {seen}, not {want_rows}")
+    rel = {}            # (step, tenant, metric): |fused / solo - 1|
+    for s, (d, ms, m, peak) in enumerate(fused):
+        for j in seeds:
+            sd, sms, sm, _ = solo[j][s]
+            if sd != d:
+                raise AssertionError(f"fused {arch} step {s}: depth {d}, "
+                                     f"solo {sd}")
+            for k in ("loss", "grad_norm"):
+                got, want = float(m[k][j]), float(sm[k])
+                rel[s, j, k] = abs(got / want - 1)
+                if not math.isfinite(got) or (
+                        s < FUSED_HELD and rel[s, j, k] > FUSED_TOL):
+                    raise AssertionError(
+                        f"fused {arch} step {s} tenant {j}: {k} {got} "
+                        f"against solo {want} (rel tol {FUSED_TOL})")
+        solo_ms = [solo[j][s][1] for j in seeds]
+        solo_loss = [round(float(solo[j][s][2]["loss"]), 4) for j in seeds]
+        log(f"[fused] {arch} step={s} depth={d} "
+            f"loss={[round(float(m['loss'][j]), 4) for j in seeds]} "
+            f"solo_loss={solo_loss}"
+            f" gnorm={[round(float(m['grad_norm'][j]), 4) for j in seeds]} "
+            f"fused_ms={ms:.1f} solo_ms={[round(x, 1) for x in solo_ms]} "
+            f"sum_solo_ms={sum(solo_ms):.1f} max_mem_gb={peak:.2f} "
+            f"solo_max_mem_gb="
+            f"{[round(solo[j][s][3], 2) for j in seeds]}")
+    peak = max(p for _, _, _, p in fused)
+    half = FUSED_STEPS // 2         # the second cycle: every depth warm
+    by_depth = {}
+    for s in range(half, FUSED_STEPS):
+        d = fused[s][0]
+        by_depth[d] = (round(fused[s][1], 2),
+                       round(sum(solo[j][s][1] for j in seeds), 2))
+    held = max(v for (s, _, _), v in rel.items() if s < FUSED_HELD)
+    after = max(v for (s, _, _), v in rel.items() if s >= FUSED_HELD)
+    log(f"[fused] {arch} num_layers={cfg.num_layers} J={FUSED_J} "
+        f"params_per_tenant={n_params} warm fused_ms_vs_sum_solo_ms_by_depth"
+        f"={by_depth} max_rel_dev_first_cycle={held:.3e} (held at "
+        f"{FUSED_TOL}) max_rel_dev_second_cycle={after:.3e} "
+        f"peak_gb={peak:.2f} card_gb={total_gb:.2f} "
+        f"rows_seen={seen} launches={ {n: c for n, c in grew.items() if c} }")
+    if total_gb - peak < HEADROOM_GB:
+        raise AssertionError(f"fused {arch}: peak {peak:.2f} GB leaves under "
+                             f"{HEADROOM_GB} of the card's {total_gb:.2f}; "
+                             f"cut a depth in FUSED_LAYERS")
+    del eng
+    torch.cuda.empty_cache()
+    return {"launches": {n: c for n, c in grew.items() if c},
+            "ms_by_depth": by_depth, "peak_gb": round(peak, 2),
+            "first_step_ms": round(fused[0][1], 1),
+            "max_rel_dev": [held, after]}
+
+
+def phase_fused_jigsaw() -> dict:
+    """Phase 14b: a JigSaw session with ``LiveBackend(fuse=True)`` on the
+    card: two identical yi-6b tenants (one fused group) and one
+    mamba2-2.7b tenant at the ``FUSED_LAYERS`` cuts, two workers each, 2
+    iterations on 2 machine slots: every job done, the group's
+    ``fused_with``, each member's steps its iterations' tasks, a finite
+    last xent for each, each task's launches one solo step's at its
+    depth.  Returns the launches by scheduled job's arch, zeroed just
+    before the session and read just after."""
+    import torch
+    from repro_torch.cluster import ClusterRuntime, make_live_job
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import FULL_WIDTH_BATCH, FULL_WIDTH_SEQ
+    from repro_torch.jigsaw.schedulers import JigsawScheduler
+
+    iters, workers = 2, 2
+    archs = ("yi-6b", "yi-6b", "mamba2-2.7b")
+    jobs = [make_live_job(
+        jid, arrival=0.0, cfg=fused_config(arch), iterations=iters,
+        num_workers=workers, batch=FULL_WIDTH_BATCH, seq=FULL_WIDTH_SEQ,
+        est_step_s=0.2, est_mem_gb=20.0, model_size_gb=0.01,
+        tcfg=TrainConfig(num_steps=iters * workers, seed=jid),
+        spb=SPBConfig(mode="temporal", k=workers))
+        for jid, arch in enumerate(archs)]
+    backend = _task_log_backend(feed_random=True)(jobs, device="cuda",
+                                                  fuse=True)
+    runtime = ClusterRuntime(backend.specs(), JigsawScheduler(), backend,
+                             num_machines=2, machine_mem_gb=80.0, gamma=0.1,
+                             horizon=60.0, record_schedule=True)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = runtime.run()
+    wall = time.perf_counter() - t0
+    grew = launches_now()
+    by_job = check_task_launches("fused-jigsaw", backend)
+    want = dict.fromkeys(grew, 0)
+    for acc in by_job.values():
+        for n, c in acc.items():
+            want[n] += c
+    if grew != want:
+        raise AssertionError(f"fused-jigsaw: launches {grew} != {want}")
+    summary = backend.summary()
+    for t in backend.task_log:
+        log(f"[fused-jigsaw] job={t['job']} worker={t['worker']} "
+            f"iter={t['it']} depth={t['depth']} measured_ms="
+            f"{t['s'] * 1e3:.1f} max_mem_gb={t['alloc'] / 1e9:.2f} "
+            f"launches={ {n: c for n, c in t['launches'].items() if c} }")
+    xent = {j: round(s["final_xent"], 4) for j, s in summary.items()}
+    log(f"[fused-jigsaw] jobs_done={len(res.jct)}/{len(backend.specs())} "
+        f"fused={backend.fused} steps_run={backend.steps_run} "
+        f"final_xent={xent} makespan={res.makespan:.3f}s wall={wall:.3f}s")
+    if backend.fused != {0: [0, 1]} or len(res.jct) != 2 or res.failed_jobs:
+        raise AssertionError(f"fused-jigsaw: fused {backend.fused}, jobs "
+                             f"done {sorted(res.jct)}")
+    for jid, s in summary.items():
+        if s["fused_with"] != ([0, 1] if jid < 2 else None):
+            raise AssertionError(f"fused-jigsaw: job {jid} fused_with "
+                                 f"{s['fused_with']}")
+        if s["steps_run"] != iters * workers:
+            raise AssertionError(f"fused-jigsaw: job {jid} ran "
+                                 f"{s['steps_run']} steps")
+        if not math.isfinite(s["final_xent"]):
+            raise AssertionError(f"fused-jigsaw: job {jid} xent not finite")
+    backend.close()
+    return {archs[jid]: {n: c for n, c in acc.items() if c}
+            for jid, acc in by_job.items()}
 
 
 def phase_decode(arch: str) -> dict:
@@ -1774,6 +2056,16 @@ def main() -> int:
         raise AssertionError(f"kernels the JigSaw session never launched: "
                              f"{idle}")
     phase_cluster_faults()
+    torch.cuda.empty_cache()
+    # the fused paths' own launches: zeroed before each arch's fused run
+    fused_by_arch = {arch: phase_fused(arch) for arch in ARCHS}
+    idle = [n for n in KERNELS
+            if not any(g["launches"].get(n) for g in fused_by_arch.values())]
+    if idle:
+        raise AssertionError(f"kernels the fused paths never launched: "
+                             f"{idle}")
+    fused_jigsaw = phase_fused_jigsaw()
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1793,6 +2085,12 @@ def main() -> int:
                                      if g.get(name)},
                  "launches_serve": {a: g.get(name, 0)
                                     for a, g in serve_by_arch.items()},
+                 "launches_fused": {a: g["launches"][name]
+                                    for a, g in fused_by_arch.items()
+                                    if name in g["launches"]},
+                 "launches_fused_jigsaw": {a: g[name]
+                                           for a, g in fused_jigsaw.items()
+                                           if name in g},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],
@@ -1816,7 +2114,18 @@ def main() -> int:
                     "rglru_many_tiles_ms": {
                         n: records[f"_{n}_many_tiles_ms"]
                         for n in ("rglru_fwd", "rglru_bwd")},
-                    "tensor_core_sass": tensor_cores}))
+                    "tensor_core_sass": tensor_cores,
+                    "fused_ms_vs_sum_solo_ms_by_depth": {
+                        a: {str(d): t for d, t in g["ms_by_depth"].items()}
+                        for a, g in fused_by_arch.items()},
+                    "fused_peak_gb": {a: g["peak_gb"]
+                                      for a, g in fused_by_arch.items()},
+                    "fused_first_step_ms": {
+                        a: g["first_step_ms"]
+                        for a, g in fused_by_arch.items()},
+                    "fused_max_rel_dev_by_cycle": {
+                        a: g["max_rel_dev"]
+                        for a, g in fused_by_arch.items()}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,13 +15,13 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import lm
+from repro_torch.tree import tree_leaves, tree_map
 
 
-def params_from_numpy(tree: Any, cfg: ModelConfig, device="cpu") -> Any:
-    """The port's params from a numpy tree in the JAX layout, as leaf
-    tensors that require grad, each in the dtype that
-    :func:`lm.param_shapes` gives it (the f32 SSM leaves stay f32 in a
-    bf16 model)."""
+def _from_numpy(tree: Any, cfg: ModelConfig, device, lead: tuple) -> Any:
+    """The port's params from a numpy tree in the JAX layout whose every
+    leaf carries the leading dims ``lead`` before its own shape; raises on
+    any missing, extra or mis-shaped leaf."""
 
     def copy(expected, got, path):
         if isinstance(expected, dict):
@@ -37,10 +37,34 @@ def params_from_numpy(tree: Any, cfg: ModelConfig, device="cpu") -> Any:
             return [copy(e, g, f"{path}[{i}]")
                     for i, (e, g) in enumerate(zip(expected, got))]
         arr = np.asarray(got)
-        if tuple(arr.shape) != tuple(expected.shape):
-            raise ValueError(f"{path}: expected shape "
-                             f"{tuple(expected.shape)}, got {tuple(arr.shape)}")
+        want = lead + tuple(expected.shape)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"{path}: expected shape {want}, got "
+                             f"{tuple(arr.shape)}")
         return torch.tensor(arr.astype(np.float32), dtype=expected.dtype,
-                            device=device).requires_grad_(True)
+                            device=device)
 
     return copy(lm.param_shapes(cfg), tree, "")
+
+
+def params_from_numpy(tree: Any, cfg: ModelConfig, device="cpu") -> Any:
+    """The port's params from a numpy tree in the JAX layout, as leaf
+    tensors that require grad, each in the dtype that
+    :func:`lm.param_shapes` gives it (the f32 SSM leaves stay f32 in a
+    bf16 model)."""
+    return tree_map(lambda t: t.requires_grad_(True),
+                    _from_numpy(tree, cfg, device, ()))
+
+
+def stacked_params_from_numpy(trees: Any, cfg: ModelConfig,
+                              device="cpu") -> Any:
+    """The port's stacked params (a leading jobs axis on every leaf, as
+    ``engine.fused.FusedEngine`` holds them) from J numpy trees in the JAX
+    layout, or from one such tree already stacked (the reference's
+    ``FusedEngine`` state).  Plain tensors in the dtypes of
+    :func:`params_from_numpy`; raises as it does on a mismatched leaf."""
+    if isinstance(trees, dict):
+        J = np.shape(tree_leaves(trees)[0])[0]
+        return _from_numpy(trees, cfg, device, (J,))
+    return tree_map(lambda *ts: torch.stack(ts),
+                    *(_from_numpy(t, cfg, device, ()) for t in trees))

@@ -28,12 +28,14 @@ the allocator's growth; it is excluded from the feedback EMA (the virtual
 clock still charges it — a real session pays it too) so steady-state
 estimates are not poisoned.
 
-Not ported: spatial submeshes (several GPUs), horizontal fusion and the
-AOT step-table cache; the arguments that ask for them raise
-``NotImplementedError``.
+Not ported: spatial submeshes (several GPUs) and the AOT step-table
+cache; the arguments that ask for them raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
 import os
 import time
 from dataclasses import dataclass
@@ -49,6 +51,7 @@ from repro_torch.config import ModelConfig, SPBConfig, TrainConfig
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.device import device_fault, resolve_device
 from repro_torch.engine.engine import SPBEngine
+from repro_torch.engine.fused import FusedEngine, stack_batches
 from repro_torch.engine.policies import CyclePolicy, SchedulerHookPolicy
 
 
@@ -101,6 +104,13 @@ class LiveBackend(ExecutionBackend):
     card has run the step, and the EMA must learn the card's time, not
     the host's dispatch time.
 
+    **Horizontal fusion** (``fuse=True``): jobs with identical
+    (config, train, SPB, batch, workers, iterations) signatures stack
+    into one :class:`~repro_torch.engine.fused.FusedEngine` running a
+    single vmapped train step; only the group leader's JobSpec is
+    scheduled (its worker memory scaled by the group size), and
+    per-member metrics and steps are unstacked after every fused step.
+
     ``ema``: weight of the newest measurement when updating the
     ``WorkerSpec.duration`` estimate.  ``timer`` is injectable for
     deterministic tests.
@@ -122,8 +132,7 @@ class LiveBackend(ExecutionBackend):
     simulate a step failure.
 
     ``submeshes=`` (spatial co-location, several GPUs: ROADMAP.md Queue 1 B
-    item 11), ``fuse=True`` (horizontal fusion: item 13) and
-    ``aot_cache=`` (item 9) are not ported and raise
+    item 11) and ``aot_cache=`` (item 9) are not ported and raise
     ``NotImplementedError``.
     """
     name = "live"
@@ -141,11 +150,6 @@ class LiveBackend(ExecutionBackend):
             raise NotImplementedError(
                 "spatial submeshes need several GPUs: multi-GPU is "
                 "ROADMAP.md Queue 1 B item 11")
-        if fuse:
-            raise NotImplementedError(
-                "horizontal fusion (engine/fused.py) needs a vmap rule on "
-                "every kernel's autograd.Function: ROADMAP.md Queue 1 B "
-                "item 13")
         if aot_cache is not None:
             raise NotImplementedError(
                 "the AOT step-table cache is ROADMAP.md Queue 1 B item 9")
@@ -188,25 +192,93 @@ class LiveBackend(ExecutionBackend):
         # run_task from one thread (concurrent_rounds is False), so 1
         self._active = 0
         self.max_concurrent_tasks = 0
+        # horizontal fusion: leader jid -> ordered member jids
+        self.fused: Dict[int, List[int]] = {}
+        self._leader: Dict[int, int] = {}         # member jid -> leader
+        if fuse:
+            self._build_fusion_groups()
+
+    # -- horizontal fusion -------------------------------------------------
+
+    @staticmethod
+    def _fuse_signature(lj: LiveJob) -> str:
+        """Jobs fuse iff everything that shapes the vmapped step AND the
+        scheduling footprint matches: the model, train and SPB configs
+        less the checkpoint and logging knobs (and, without gradient
+        compression, the seed, which then reaches only the data stream),
+        the batch shape, the iterations and the workers."""
+        train = dataclasses.asdict(lj.tcfg)
+        for k in ("checkpoint_every", "checkpoint_dir", "keep_checkpoints",
+                  "log_every"):
+            train.pop(k)
+        if train["compression"] == "none":
+            train.pop("seed")
+        ident = {"model": dataclasses.asdict(lj.cfg), "train": train,
+                 "spb": dataclasses.asdict(lj.spb), "batch": lj.batch,
+                 "seq": lj.seq, "iterations": lj.spec.iterations,
+                 "workers": [(w.duration, w.memory, w.frac)
+                             for w in lj.spec.workers]}
+        blob = json.dumps(ident, sort_keys=True, default=str).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+    def _build_fusion_groups(self) -> None:
+        groups: Dict[str, List[int]] = {}
+        for jid in self.jobs:           # insertion order = caller order
+            groups.setdefault(self._fuse_signature(self.jobs[jid]),
+                              []).append(jid)
+        for members in groups.values():
+            if len(members) < 2:
+                continue
+            leader = members[0]
+            self.fused[leader] = members
+            for m in members:
+                self._leader[m] = leader
+            # the group schedules as ONE job: the leader's workers carry
+            # the stacked state's memory footprint
+            lead = self.jobs[leader].spec
+            lead.workers = [dataclasses.replace(
+                w, memory=w.memory * len(members)) for w in lead.workers]
+
+    def _members(self, jid: int) -> List[int]:
+        """Member jobs advanced by one scheduled task of ``jid``."""
+        return self.fused.get(jid, [jid])
+
+    def _init(self, jid: int) -> None:
+        """(Re)start the engine of ``jid`` from its members' seeds."""
+        members = self._members(jid)
+        engine = self.engines[jid]
+        engine.state = None     # free a lost state before the new one
+        if len(members) > 1:
+            engine.init_states([self.jobs[m].tcfg.seed for m in members])
+        else:
+            engine.init_state(self.jobs[jid].tcfg.seed)
 
     # -- runtime hooks -----------------------------------------------------
 
     def specs(self) -> List[JobSpec]:
-        """The scheduling-facing JobSpecs (hand these to ClusterRuntime)."""
-        return [lj.spec for lj in self.jobs.values()]
+        """The scheduling-facing JobSpecs (hand these to ClusterRuntime):
+        fused groups surface only their leader."""
+        return [lj.spec for jid, lj in self.jobs.items()
+                if self._leader.get(jid, jid) == jid]
 
     def job_arrived(self, job: JobSpec, now: float) -> None:
         jid = job.job_id
         lj = self.jobs[jid]
+        members = self._members(jid)
         hook = SchedulerHookPolicy(lj.cfg, lj.spb,
                                    default=CyclePolicy(lj.cfg, lj.spb))
-        engine = SPBEngine(lj.cfg, lj.tcfg, lj.spb, policy=hook,
-                           device=self.device)
-        engine.init_state(lj.tcfg.seed)
+        if len(members) > 1:
+            engine = FusedEngine(lj.cfg, lj.tcfg, lj.spb, policy=hook,
+                                 device=self.device, num_jobs=len(members))
+        else:
+            engine = SPBEngine(lj.cfg, lj.tcfg, lj.spb, policy=hook,
+                               device=self.device)
         self.engines[jid] = engine
+        self._init(jid)
         self.hooks[jid] = hook
-        self.steps_run[jid] = 0
-        self.observed_depths[jid] = set()
+        for m in members:
+            self.steps_run[m] = 0
+            self.observed_depths[m] = set()
         if self.ckpt_dir:
             # iteration-0 snapshot: a crash before the first cadence tick
             # still has something to roll back to
@@ -216,9 +288,10 @@ class LiveBackend(ExecutionBackend):
             self.ckpt_mgrs[jid] = mgr
             self._ckpt_steps[(jid, 0)] = 0
         if self.verbose:
+            fused = f" fused={members}" if len(members) > 1 else ""
             print(f"[live] job={jid} model={lj.cfg.name} "
                   f"workers={job.num_workers} arrived t={now:.2f}s "
-                  f"device={self.device}", flush=True)
+                  f"device={self.device}{fused}", flush=True)
 
     def run_task(self, job: JobSpec, task: Task, machine: int,
                  start: float, migrated: bool,
@@ -241,9 +314,13 @@ class LiveBackend(ExecutionBackend):
             measured, metrics = self._attempt(job, task, ctx)
         finally:
             self._active -= 1
-        self.steps_run[jid] += 1
-        self.observed_depths[jid].add(engine.last_depth)
-        self.last_xent[jid] = float(metrics["xent"])
+        members = self._members(jid)
+        per_job = (engine.per_job_metrics(metrics) if len(members) > 1
+                   else [metrics])
+        for m, mm in zip(members, per_job):
+            self.steps_run[m] += 1
+            self.observed_depths[m].add(engine.last_depth)
+            self.last_xent[m] = float(mm["xent"])
         self.task_measured[(jid, task.worker_id, task.iteration)] = measured
         warm_key = (jid, engine.last_depth)
         if warm_key in self._warmed:
@@ -352,9 +429,12 @@ class LiveBackend(ExecutionBackend):
             engine.state = None     # free the lost state before the copy
             engine.attach_state(state)
         else:
-            engine.state = None
-            engine.init_state(self.jobs[jid].tcfg.seed)
-        self.steps_run[jid] = self._ckpt_steps.get((jid, to_iteration), 0)
+            # no durable checkpoints: restart the job (a fused group
+            # whole) from its members' initial states
+            self._init(jid)
+        rewind = self._ckpt_steps.get((jid, to_iteration), 0)
+        for m in self._members(jid):
+            self.steps_run[m] = rewind
         self.restores[jid] = self.restores.get(jid, 0) + 1
         if self.verbose:
             print(f"[live] job={jid} restored from checkpoint "
@@ -392,16 +472,24 @@ class LiveBackend(ExecutionBackend):
 
     def _stacked_batch(self, jid: int, step: int):
         """The batch one scheduled task of ``jid`` consumes: the job's own
-        seeded pipeline output for ``step``."""
-        return self._pipe(jid).get_batch(step)
+        pipeline output, or the members' batches stacked on the jobs axis
+        for a fused group (each member keeps its own seeded stream)."""
+        members = self._members(jid)
+        if len(members) == 1:
+            return self._pipe(jid).get_batch(step)
+        return stack_batches([self._pipe(m).get_batch(step)
+                              for m in members])
 
     def summary(self) -> Dict[int, dict]:
-        """Per job: the reference's summary less its fusion, resize and
-        AOT entries, which this backend does not have."""
+        """Per job: the reference's summary less its resize and AOT
+        entries, which this backend does not have.  A fused member's
+        task-level stats live under its leader (the only job the
+        scheduler saw)."""
         out = {}
         for jid, lj in self.jobs.items():
+            leader = self._leader.get(jid, jid)
             meas = [v for (j, _, _), v in self.task_measured.items()
-                    if j == jid]
+                    if j == leader]
             out[jid] = {
                 "model": lj.cfg.name,
                 "workers": lj.spec.num_workers,
@@ -412,9 +500,10 @@ class LiveBackend(ExecutionBackend):
                 "final_xent": self.last_xent.get(jid),
                 "mean_step_ms": (sum(meas) / len(meas) * 1e3 if meas
                                  else None),
-                "retries": self.retries.get(jid, 0),
-                "restores": self.restores.get(jid, 0),
-                "degraded_steps": self.degraded_steps.get(jid, 0),
-                "failed": self.failed.get(jid),
+                "retries": self.retries.get(leader, 0),
+                "restores": self.restores.get(leader, 0),
+                "degraded_steps": self.degraded_steps.get(leader, 0),
+                "failed": self.failed.get(leader),
+                "fused_with": self.fused.get(leader),
             }
         return out

@@ -1,13 +1,25 @@
 """Depth-specialized SPB training steps (the single-device part of
 ``repro/dist/steps.py``).
 
-For temporal SPB, :func:`build_spb_train_steps` makes one step per snapped
-suffix depth; for ``temporal-mb`` one step that runs the whole depth cycle
-as accumulated microbatches.  PyTorch runs eagerly, so a "step" is a plain
+For temporal SPB, :func:`build_spb_train_steps` makes one step per
+snapped suffix depth; for ``temporal-mb`` one step that runs the whole
+depth cycle as accumulated microbatches.  PyTorch runs eagerly, so a "step" is a plain
 function: the depth decides which layers run under ``torch.no_grad()`` in
 ``lm.loss_fn``, and autograd then has no backward to run for them -- the
 prefix's backward kernels are never launched and its activations are
 never kept.
+
+:func:`make_functional_train_step` and
+:func:`make_functional_temporal_mb_step` are the same steps as pure
+functions of ``(params, opt, step, batch)``: the gradients come from
+``torch.func.vjp`` over the params tree instead of ``.grad``, so
+``torch.func.vmap`` can batch them over a leading jobs axis
+(``engine/fused.py``).  There a frozen leaf's gradient is a zero tensor
+where autograd leaves ``None``; the optimizer treats the two alike.  The
+backward runs under ``no_grad`` with ``retain_graph=False``, so it frees
+the forward's activations as it goes, as ``loss.backward()`` does
+(``torch.func.grad`` builds a differentiable backward that keeps them
+all until it ends).
 """
 from __future__ import annotations
 
@@ -131,12 +143,75 @@ def make_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
     return step
 
 
-def build_spb_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
-                          spb_cfg: SPBConfig) -> Dict[Any, Callable]:
-    """Step functions keyed by suffix depth: always ``None`` (full
-    backprop), plus one per snapped depth of the cycle for ``temporal``, or
-    ``"mb"`` (the whole cycle as accumulated microbatches) for
-    ``temporal-mb``."""
+def _functional_step(cfg: ModelConfig, tcfg: TrainConfig,
+                     spb_cfg: Optional[SPBConfig], depths) -> Callable:
+    """A pure (params, opt, step, batch) -> (params, opt, metrics) step:
+    the batch splits into ``len(depths)`` microbatches, microbatch j
+    backprops suffix depth ``depths[j]``, and the summed gradients, scaled
+    by ``1 / len(depths)``, go through the compressor (if any) and the
+    optimizer.  The optimizer updates ``params`` and ``opt`` in place and
+    returns them; the metrics are 0-d tensors, so ``vmap`` stacks them.
+    ``params`` are plain tensors (no ``requires_grad``)."""
+    n = len(depths)
+
+    def grad_at(depth):
+        def grad_fn(params, chunk):
+            loss, vjp_fn, mm = torch.func.vjp(
+                lambda p: lm.loss_fn(p, chunk, cfg, bwd_layers=depth),
+                params, has_aux=True)
+            with torch.no_grad():
+                (g,) = vjp_fn(torch.ones_like(loss), retain_graph=False)
+            return g, mm
+        return grad_fn
+
+    grad_at = [grad_at(d) for d in depths]
+
+    def step(params, opt, step: int, batch):
+        chunks = _microbatches(batch, n) if n > 1 else [batch]
+        grads = metrics = None
+        for chunk, grad_fn in zip(chunks, grad_at):
+            g, mm = grad_fn(params, chunk)
+            if grads is None:
+                grads, metrics = g, mm
+            else:
+                grads = tree_map(torch.add, grads, g)
+                metrics = {k: metrics[k] + mm[k] for k in metrics}
+        if n > 1:
+            grads = tree_map(lambda t: t * (1.0 / n), grads)
+            metrics = {k: v * (1.0 / n) for k, v in metrics.items()}
+        if tcfg.compression != "none":
+            grads = compress.compress_tree(
+                grads, tcfg.compression, tcfg.compression_ratio,
+                compression_generator(tcfg, step))
+        _, _, opt_metrics = optimizers.apply_updates(
+            params, grads, opt, step, tcfg, cfg=cfg, spb_cfg=spb_cfg)
+        return params, opt, {**metrics, **opt_metrics}
+
+    return step
+
+
+def make_functional_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                               spb_cfg: Optional[SPBConfig] = None, *,
+                               depth: Optional[int] = None) -> Callable:
+    """:func:`make_train_step` as a pure (params, opt, step, batch) ->
+    (params, opt, metrics) function over ``tcfg.microbatches`` chunks."""
+    return _functional_step(cfg, tcfg, spb_cfg,
+                            [depth] * max(1, tcfg.microbatches))
+
+
+def make_functional_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
+                                     spb_cfg: SPBConfig) -> Callable:
+    """:func:`make_temporal_mb_step` as a pure (params, opt, step, batch)
+    -> (params, opt, metrics) function."""
+    sched = spb_lib.make_schedule(cfg, spb_cfg)
+    return _functional_step(cfg, tcfg, spb_cfg,
+                            [sched.depths[i] for i in sched.order])
+
+
+def spb_step_keys(cfg: ModelConfig, spb_cfg: SPBConfig) -> list:
+    """The step table's keys: always ``None`` (full backprop), plus each
+    snapped depth of the cycle for ``temporal``, or ``"mb"`` (the whole
+    cycle as accumulated microbatches) for ``temporal-mb``."""
     if spb_cfg.mode == "spatial":
         raise NotImplementedError(
             "SPB mode 'spatial' runs one depth per data-parallel worker and "
@@ -145,11 +220,18 @@ def build_spb_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
     if spb_cfg.mode not in ("off", "temporal", "temporal-mb"):
         raise ValueError(f"unknown SPB mode {spb_cfg.mode!r}; known: off, "
                          f"temporal, temporal-mb, spatial")
-    steps: Dict[Any, Callable] = {
-        None: make_train_step(cfg, tcfg, spb_cfg, depth=None)}
+    keys: list = [None]
     if spb_cfg.mode == "temporal":
-        for d in sorted(set(spb_lib.snapped_depths(cfg, spb_cfg))):
-            steps[d] = make_train_step(cfg, tcfg, spb_cfg, depth=d)
+        keys += sorted(set(spb_lib.snapped_depths(cfg, spb_cfg)))
     elif spb_cfg.mode == "temporal-mb":
-        steps["mb"] = make_temporal_mb_step(cfg, tcfg, spb_cfg)
-    return steps
+        keys.append("mb")
+    return keys
+
+
+def build_spb_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
+                          spb_cfg: SPBConfig) -> Dict[Any, Callable]:
+    """Step functions keyed by :func:`spb_step_keys`: ``"mb"`` runs
+    :func:`make_temporal_mb_step`, a depth :func:`make_train_step`."""
+    return {k: make_temporal_mb_step(cfg, tcfg, spb_cfg) if k == "mb"
+            else make_train_step(cfg, tcfg, spb_cfg, depth=k)
+            for k in spb_step_keys(cfg, spb_cfg)}

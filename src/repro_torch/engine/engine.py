@@ -41,8 +41,9 @@ class SPBEngine:
         self.spb = spb_cfg or SPBConfig()
         self.device = resolve_device(device)
         self.policy = policy or make_policy("cycle", cfg, self.spb)
-        self._steps: Dict[Any, Callable] = steps_lib.build_spb_train_steps(
-            cfg, tcfg, self.spb)
+        self._steps: Dict[Any, Callable] = {
+            k: self._make_step(k)
+            for k in steps_lib.spb_step_keys(cfg, self.spb)}
         self.state: Optional[State] = None
         self.last_depth: Any = None
         self._auto_step = 0
@@ -79,11 +80,18 @@ class SPBEngine:
     def depth_keys(self):
         return list(self._steps)
 
+    def _make_step(self, key: Any) -> Callable:
+        """The (state, batch) -> (state, metrics) step of one table key."""
+        if key == "mb":
+            return steps_lib.make_temporal_mb_step(self.cfg, self.tcfg,
+                                                   self.spb)
+        return steps_lib.make_train_step(self.cfg, self.tcfg, self.spb,
+                                         depth=key)
+
     def step_fn(self, key: Any) -> Callable:
         if key not in self._steps:
             # off-cycle depths extend the table on demand
-            self._steps[key] = steps_lib.make_train_step(
-                self.cfg, self.tcfg, self.spb, depth=key)
+            self._steps[key] = self._make_step(key)
         return self._steps[key]
 
     def resolve_depth(self, depth: Optional[int]) -> Any:

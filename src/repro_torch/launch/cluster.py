@@ -13,11 +13,15 @@ observed hardware behavior.
   python -m repro_torch.launch.cluster --archs yi-6b,mamba2-2.7b \\
       --device cpu          # reduced configs, the kernels' plain versions
   python -m repro_torch.launch.cluster --sim ...   # same session, DES only
+  python -m repro_torch.launch.cluster --fuse ...  # same-shaped jobs stack
+                                                   # into one vmapped step
 
 Prints the reference's ``[cluster] job=...`` and ``[cluster]
-scheduler=... jobs_done=...`` lines.  ``--spatial``, ``--round-quantum``,
-``--fuse``, ``--aot-cache`` and ``--compilation-cache-dir`` are not
-ported and raise ``NotImplementedError``.  ``--reduced`` is the default:
+scheduler=... jobs_done=...`` lines; with ``--fuse`` a fused group is
+scheduled as one job and ``fused_groups=`` counts the groups.
+``--spatial``, ``--round-quantum``, ``--aot-cache`` and
+``--compilation-cache-dir`` are not ported and raise
+``NotImplementedError``.  ``--reduced`` is the default:
 ``--full`` asks for the published depth as well as the published widths.
 """
 from __future__ import annotations
@@ -42,9 +46,6 @@ _NOT_PORTED = {
                      "runs tasks concurrently (disjoint submeshes); the "
                      "one-device backend runs them one after another: "
                      "multi-GPU is ROADMAP.md Queue 1 B item 11",
-    "fuse": "--fuse (horizontal fusion, engine/fused.py) needs a vmap rule "
-            "on every kernel's autograd.Function: ROADMAP.md Queue 1 B "
-            "item 13",
     "aot_cache": "--aot-cache (the AOT step-table cache) is ROADMAP.md "
                  "Queue 1 B item 9",
     "compilation_cache_dir": "--compilation-cache-dir (a persistent "
@@ -88,6 +89,7 @@ def build_session(args):
     else:
         backend = LiveBackend(live_jobs, device=args.device,
                               verbose=not args.quiet,
+                              fuse=getattr(args, "fuse", False),
                               ckpt_dir=getattr(args, "ckpt_dir", "") or None,
                               max_retries=getattr(args, "max_retries", 2))
         specs = backend.specs()
@@ -135,8 +137,10 @@ def main(argv=None):
     ap.add_argument("--round-quantum", type=float, default=None,
                     help="not ported (concurrent rounds, several GPUs): "
                          "raises")
-    ap.add_argument("--fuse", action="store_true", default=None,
-                    help="not ported (horizontal fusion): raises")
+    ap.add_argument("--fuse", action="store_true",
+                    help="HFTA-style horizontal fusion: same-shaped jobs "
+                         "stack into one vmapped train step scheduled as "
+                         "the group leader")
     ap.add_argument("--compilation-cache-dir", default=None,
                     help="not ported: raises")
     ap.add_argument("--aot-cache", default=None, help="not ported: raises")
@@ -197,7 +201,7 @@ def main(argv=None):
     distinct = sorted(set().union(
         *(set(s["depths"]) for s in summary.values())) if summary else set(),
         key=str)
-    scheduled = len(runtime.jobs)
+    scheduled = len(runtime.jobs)     # fused groups schedule as one job
     print(f"[cluster] scheduler={args.scheduler} "
           f"jobs_done={len(res.jct)}/{scheduled} "
           f"distinct_depths={distinct} makespan={res.makespan:.2f}s "
@@ -205,8 +209,8 @@ def main(argv=None):
           f"migrations={sum(res.migrations.values())} wall={wall:.1f}s",
           flush=True)
     if live:
-        print(f"[cluster] max_concurrent={backend.max_concurrent_tasks}",
-              flush=True)
+        print(f"[cluster] max_concurrent={backend.max_concurrent_tasks} "
+              f"fused_groups={len(backend.fused)}", flush=True)
     if res.crashes or res.task_retries or res.failed_jobs:
         print(f"[cluster] faults: crashes={res.crashes} "
               f"retries={res.task_retries} "
@@ -229,7 +233,8 @@ def main(argv=None):
                "wall_s": wall}
         if live:
             rec.update(device=str(backend.device),
-                       max_concurrent_tasks=backend.max_concurrent_tasks)
+                       max_concurrent_tasks=backend.max_concurrent_tasks,
+                       fused={str(k): v for k, v in backend.fused.items()})
         with open(args.json_out, "w") as f:
             json.dump(rec, f, indent=2, default=str)
     backend.close()

@@ -579,16 +579,23 @@ def _xent_parts(logits: Tensor, valid_vocab: Optional[int]):
 
 class _SoftmaxXent(torch.autograd.Function):
     """The JAX custom VJP of ``softmax_xent``: d(logits) = (softmax -
-    onehot) / N, produced in the logits' dtype; reductions in f32."""
+    onehot) / N, produced in the logits' dtype; reductions in f32.  Plain
+    PyTorch both ways, so ``torch.func.vmap`` batches it by running
+    ``forward`` and ``backward`` under itself (``generate_vmap_rule``)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, logits, labels, valid_vocab):
+    def forward(logits, labels, valid_vocab):
         lm, m, _, z = _xent_parts(logits, valid_vocab)
         lse = torch.log(z) + m[..., 0].float()
         gold = torch.gather(lm, -1, labels[..., None])[..., 0]
-        ctx.save_for_backward(logits, labels)
-        ctx.valid_vocab = valid_vocab
         return (lse - gold.float()).mean()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        logits, labels, ctx.valid_vocab = inputs
+        ctx.save_for_backward(logits, labels)
 
     @staticmethod
     def backward(ctx, g):

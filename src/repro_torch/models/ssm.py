@@ -36,21 +36,29 @@ def _conv_sum(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     K, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))
     wf = w.float()
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    out = torch.zeros_like(x, dtype=torch.float32)
     for k in range(K):
-        out += xp[:, k:k + S].float() * wf[k]
+        out = out + xp[:, k:k + S].float() * wf[k]
     return out + b.float()
 
 
 class _CausalConv(torch.autograd.Function):
     """Autograd keeps only x (storage dtype) and the weights; the f32 sums
-    are rebuilt in the backward."""
+    are rebuilt in the backward.  Out-of-place plain PyTorch both ways, so
+    ``torch.func.vmap`` batches it by running ``forward`` and ``backward``
+    under itself (``generate_vmap_rule``)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(x, w, b):
+        return _conv_sum(x, w, b).to(x.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, b = inputs
         ctx.save_for_backward(x, w)
         ctx.b_dtype = b.dtype
-        return _conv_sum(x, w, b).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -60,12 +68,13 @@ class _CausalConv(torch.autograd.Function):
         xp = F.pad(x, (0, 0, K - 1, 0))
         gp = F.pad(gf, (0, 0, 0, K - 1))
         wf = w.float()
-        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        dw = torch.empty(w.shape, dtype=torch.float32, device=x.device)
+        dx = torch.zeros_like(x, dtype=torch.float32)
         for k in range(K):
             # out[s] += x[s + k - K + 1] * w[k]
-            dx += gp[:, K - 1 - k:K - 1 - k + S] * wf[k]
-            dw[k] = torch.einsum("bsc,bsc->c", gf, xp[:, k:k + S].float())
+            dx = dx + gp[:, K - 1 - k:K - 1 - k + S] * wf[k]
+        dw = torch.stack([
+            torch.einsum("bsc,bsc->c", gf, xp[:, k:k + S].float())
+            for k in range(K)])
         return (dx.to(x.dtype), dw.to(w.dtype),
                 gf.sum(dim=(0, 1)).to(ctx.b_dtype))
 

@@ -1,8 +1,10 @@
 """The port's cluster driver (``python -m repro_torch.launch.cluster``)
 against the reference's: the live CPU session ends on the reference's
 summary line, ``--sim --json-out`` writes the reference's makespan,
-utilization, completion times and migrations, and the flags that are not
-ported raise."""
+utilization, completion times and migrations, ``--fuse`` fuses the same
+jobs as the reference's (both driven by one scripted clock, so their
+completion times agree), and the flags that are not ported raise."""
+import itertools
 import json
 import os
 import re
@@ -59,10 +61,67 @@ def test_sim_json_equals_reference(tmp_path, capsys, scheduler):
 
 
 @pytest.mark.parametrize("flag", [["--spatial"], ["--round-quantum", "0"],
-                                  ["--fuse"], ["--aot-cache", "cache"],
+                                  ["--aot-cache", "cache"],
                                   ["--compilation-cache-dir", "cc"]],
-                         ids=["spatial", "round-quantum", "fuse",
-                              "aot-cache", "compilation-cache-dir"])
+                         ids=["spatial", "round-quantum", "aot-cache",
+                              "compilation-cache-dir"])
 def test_flags_that_are_not_ported_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 B"):
         cluster_mod.main(["--device", "cpu", *FLAGS, *flag])
+
+
+class _StepClock:
+    """Each (start, end) pair of calls measures the next scripted
+    duration, so two sessions see the same virtual clock."""
+
+    def __init__(self):
+        self.durations = itertools.cycle((0.3, 0.1, 0.25, 0.15))
+        self.t, self.mid = 0.0, False
+
+    def __call__(self):
+        if self.mid:
+            self.t += next(self.durations)
+        self.mid = not self.mid
+        return self.t
+
+
+def _scripted(backend_cls):
+    class Scripted(backend_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, timer=_StepClock(), **kw)
+    return Scripted
+
+
+@pytest.mark.parametrize("archs,groups", [("yi-6b", {"0": [0, 1, 2]}),
+                                          ("yi-6b,yi-6b,mamba2-2.7b",
+                                           {"0": [0, 1]})],
+                         ids=["one_group", "group_and_solo"])
+def test_fuse_json_equals_reference(tmp_path, capsys, monkeypatch, archs,
+                                    groups):
+    """``--fuse`` on the CPU: the fused groups, their count and the
+    completion times of the scheduled jobs are the reference's; every
+    member runs every step of its iterations."""
+    monkeypatch.setattr(cluster_mod, "LiveBackend",
+                        _scripted(cluster_mod.LiveBackend))
+    monkeypatch.setattr(j_cluster, "LiveBackend",
+                        _scripted(j_cluster.LiveBackend))
+    flags = ["--jobs", "3", "--machines", "2", "--iters", "2", "--workers",
+             "2", "--batch", "2", "--seq", "16", "--archs", archs, "--fuse",
+             "--quiet"]
+    cluster_mod.main(["--device", "cpu", *flags,
+                      "--json-out", str(tmp_path / "ours.json")])
+    ours_out = capsys.readouterr().out
+    j_cluster.main(flags + ["--json-out", str(tmp_path / "ref.json")])
+    ref_out = capsys.readouterr().out
+    ours, ref = (json.loads((tmp_path / n).read_text())
+                 for n in ("ours.json", "ref.json"))
+    assert ours["fused"] == ref["fused"] == groups
+    assert ours["jct"] == ref["jct"]
+    assert len(ours["jct"]) == 3 - len(groups["0"]) + 1
+    count = re.compile(r"fused_groups=(\d+)")
+    assert count.findall(ours_out) == count.findall(ref_out) == ["1"]
+    assert SUMMARY.findall(ours_out) == SUMMARY.findall(ref_out)
+    for jid, s in ours["summary"].items():
+        assert s["steps_run"] == 4
+        assert s["fused_with"] == ref["summary"][jid]["fused_with"]
+        assert s["depths"] == ref["summary"][jid]["depths"] == [2, 4]

@@ -9,7 +9,17 @@ feedback into later placements, one retry for a transient error, a
 graceful job failure when the retries run out, a device fault that
 leaves ``run()`` unretried, a rollback that restores the checkpoint
 exactly, a restore of another snapshot raising, the arguments that are
-not ported, and the default device."""
+not ported, and the default device.
+
+Horizontal fusion (``fuse=True``) against the reference's: two
+same-shaped yi-6b-reduced jobs fuse into one ``FusedEngine`` beside a
+third job of another shape, from the reference's initial weights: the
+leaders-only specs with the group's memory scaled, the schedule, each
+member's steps, depths and ``fused_with``, last xent at rtol 1e-4; and a
+fused group's rollback under a machine crash, with checkpoints (the
+stacked state restored bit for bit) and without (the group restarted
+from its members' initial states), the same as the reference's."""
+import dataclasses
 import itertools
 
 import jax
@@ -31,8 +41,10 @@ from repro_torch.config import SPBConfig, TrainConfig
 from repro_torch.configs import reduced_config
 from repro_torch.dist import steps as steps_lib
 from repro_torch.engine.engine import SPBEngine
+from repro_torch.engine.fused import FusedEngine
 from repro_torch.jigsaw.schedulers import JigsawScheduler
 from repro_torch.kernels import _build
+from repro_torch.optim import optimizers
 from repro_torch.tree import tree_leaves
 
 EPS = 1e-9
@@ -340,8 +352,8 @@ def test_a_rollback_to_another_snapshot_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(submeshes=[object()]),
-                                dict(fuse=True), dict(aot_cache="cache")],
-                         ids=["submeshes", "fuse", "aot_cache"])
+                                dict(aot_cache="cache")],
+                         ids=["submeshes", "aot_cache"])
 def test_what_is_not_ported_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 B"):
         LiveBackend(_port_jobs(), device="cpu", **kw)
@@ -353,3 +365,130 @@ def test_the_default_device_is_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LiveBackend(_port_jobs())
 
+
+
+# ---------------------------------------------------------------------------
+# Horizontal fusion against the reference
+# ---------------------------------------------------------------------------
+
+def _reference_params(seed):
+    return jax.tree.map(np.asarray, j_steps.init_train_state(
+        jax.random.key(seed), j_reduced("yi-6b"), JTrain())["params"])
+
+
+def _reference_init_states(self, seeds):
+    """The port's fused state: the reference's initial params of each
+    member's seed, stacked."""
+    params = bridge.stacked_params_from_numpy(
+        [_reference_params(s) for s in seeds], self.cfg)
+    return self.attach_state({"params": params,
+                              "opt": optimizers.init_opt_state(params,
+                                                               self.tcfg),
+                              "step": 0})
+
+
+def _fused_jobs(make, spb_cls, train_cls, cfg, **kw):
+    """Jobs 0 and 1 share one signature (only their seeds differ); job 2
+    runs one more iteration, so it stays alone."""
+    jobs = _jobs(make, spb_cls, train_cls, cfg, n=2, **kw)
+    (extra,) = _jobs(make, spb_cls, train_cls, cfg, n=3, **kw)[2:]
+    extra.spec.iterations += 1
+    extra.tcfg = dataclasses.replace(extra.tcfg,
+                                     num_steps=extra.tcfg.num_steps + 2)
+    return jobs + [extra]
+
+
+def _specs_view(backend):
+    return [(s.job_id, [w.memory for w in s.workers])
+            for s in backend.specs()]
+
+
+@pytest.fixture(scope="module")
+def fused_sessions():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(SPBEngine, "init_state", _reference_init_state)
+        mp.setattr(FusedEngine, "init_states", _reference_init_states)
+        ours = LiveBackend(_fused_jobs(make_live_job, SPBConfig, TrainConfig,
+                                       reduced_config("yi-6b")),
+                           device="cpu", fuse=True,
+                           timer=_ScriptedTimer(itertools.cycle(DURATIONS)))
+        specs = _specs_view(ours)
+        res = _run(ours)
+    theirs = JLiveBackend(_fused_jobs(j_make_live_job, JSPB, JTrain,
+                                      j_reduced("yi-6b")), fuse=True,
+                          timer=_ScriptedTimer(itertools.cycle(DURATIONS)))
+    jspecs = _specs_view(theirs)
+    jres = JRuntime(theirs.specs(), JJigsaw(), theirs,
+                    num_machines=MACHINES, gamma=GAMMA, horizon=120.0,
+                    record_schedule=True).run()
+    return (res, ours, specs), (jres, theirs, jspecs)
+
+
+def test_fused_session_equals_reference(fused_sessions):
+    (res, ours, specs), (jres, theirs, jspecs) = fused_sessions
+    assert specs == jspecs
+    assert [j for j, _ in specs] == [0, 2]          # leaders only
+    assert specs[0][1] == [2 * m for m in specs[1][1]]
+    assert ours.fused == theirs.fused == {0: [0, 1]}
+    assert isinstance(ours.engines[0], FusedEngine)
+    assert not isinstance(ours.engines[2], FusedEngine)
+    assert res.schedule == jres.schedule
+    for f in ("jct", "makespan", "util", "migrations"):
+        assert getattr(res, f) == getattr(jres, f), f
+    assert ours.steps_run == theirs.steps_run == {0: 4, 1: 4, 2: 6}
+    assert ours.observed_depths == theirs.observed_depths
+    assert ours.observed_depths[0] == ours.observed_depths[1] == {2, 4}
+    check_invariants(res, ours.specs(), num_machines=MACHINES, gamma=GAMMA)
+    mine, ref = ours.summary(), theirs.summary()
+    assert set(mine) == set(ref) == {0, 1, 2}
+    for jid, s in mine.items():
+        for key, value in s.items():
+            if key == "final_xent":
+                np.testing.assert_allclose(value, ref[jid][key], rtol=1e-4)
+            else:
+                assert value == ref[jid][key], (jid, key)
+    assert mine[0]["fused_with"] == mine[1]["fused_with"] == [0, 1]
+    assert mine[2]["fused_with"] is None
+    # the two members trained on their own streams
+    assert mine[0]["final_xent"] != mine[1]["final_xent"]
+
+
+@pytest.mark.parametrize("ckpt", [True, False], ids=["ckpt_dir", "no_ckpt"])
+def test_fused_rollback_equals_reference(tmp_path, ckpt):
+    """Machine 0 dies at t=3.5 (back at 4.5) under a fused group of two
+    one-worker jobs: with checkpoints every 2 iterations the stacked state
+    rolls back to the snapshot bit for bit, without them to the members'
+    initial states; the schedule, the restores and both members' step
+    counts are the reference's."""
+    plan = FaultPlan.parse("crash:0@3.5+1.0", restore_s=0.25)
+    kw = dict(horizon=1e9, faults=plan, ckpt_every=2 if ckpt else 0)
+    jobs = dict(n=2, workers=1, iterations=6, est=1.0, arrival=0.0)
+    ours = _RecordingBackend(
+        _jobs(make_live_job, SPBConfig, TrainConfig,
+              reduced_config("yi-6b"), **jobs),
+        device="cpu", fuse=True, timer=_ScriptedTimer(itertools.repeat(1.0)),
+        ckpt_dir=str(tmp_path / "ours") if ckpt else None)
+    res = _run(ours, **kw)
+    ours.close()
+    theirs = JLiveBackend(
+        _jobs(j_make_live_job, JSPB, JTrain, j_reduced("yi-6b"), **jobs),
+        fuse=True, timer=_ScriptedTimer(itertools.repeat(1.0)),
+        ckpt_dir=str(tmp_path / "ref") if ckpt else None)
+    jres = JRuntime(theirs.specs(), JJigsaw(), theirs,
+                    num_machines=MACHINES, gamma=GAMMA,
+                    record_schedule=True, **kw).run()
+    theirs.close()
+    assert ours.fused == theirs.fused == {0: [0, 1]}
+    assert ours.rolled and res.lost_iterations
+    assert res.schedule == jres.schedule
+    assert res.lost_iterations == jres.lost_iterations
+    assert ours.restores == theirs.restores == {0: len(ours.rolled)}
+    assert ours.steps_run == theirs.steps_run == {0: 6, 1: 6}
+    for jid, it, state in ours.rolled:
+        assert ckpt or it == 0
+        for got, exp in zip(state, ours.snapshots[(jid, it)]):
+            if isinstance(got, torch.Tensor):
+                assert got.dtype == exp.dtype and torch.equal(got, exp)
+            else:
+                assert got == exp
+    assert ours.summary()[1]["restores"] == len(ours.rolled)
