@@ -30,7 +30,10 @@ Phases, each printing a line; any failure exits non-zero:
      its kernels' device time from ``torch.profiler`` over 20), the plain
      version's and a library call's time (SDPA at MLA's unpadded dims) at
      the yi-6b, recurrentgemma-2b, gemma3-4b (local), qwen3, the two
-     MLA, the seamless and the internvl2 shapes;
+     MLA, the seamless and the internvl2 shapes; every bound of phases 3,
+     3b and 3c is its kernel's work function (beside its wrapper in
+     ``kernels/``, ``analysis/cost.WORK``) at the case's shape, the one a
+     dry run counts the kernel by;
   3b. the same for the SSD kernels: at the mamba2-2.7b main-path shape
      (B 2, S 2048, H 80, P 64, N 128, chunk 256, bf16 x/B/C with B and C
      broadcast over heads, f32 dA), f32 reduced and ragged cases and bf16
@@ -126,10 +129,25 @@ Phases, each printing a line; any failure exits non-zero:
      tenant at the same cuts, two workers, 2 iterations: both scheduled
      jobs done, the group's ``fused_with``, every member's 4 steps and a
      finite last xent, each task's launches one solo step's;
+  15. (run last, after 14, on the host) the dry run of each phase-5 path:
+     every depth of its cycle counted on the meta device at batch
+     2 x 2048 with the kernels' meta entries (``launch/dryrun.py``):
+     counted TFLOP and GB, the three H100 roofline terms
+     (``analysis/roofline.py``), MFU against phase 5's warm steps, the
+     predicted peak (state + temporaries) beside ``max_memory_allocated``;
+     fails when a compute term exceeds a measured step, when counted
+     FLOPs or bytes do not fall strictly with depth, when a kernel's
+     counted work differs from its phase 3/3b/3c bound's at the same
+     shape, or when a kernel was launched (the records go to a temporary
+     directory); then the JigSaw cost model's profile of yi-6b's cut from
+     those records, its forward:backward split fitted over the cycle's
+     depths (no resnet50 fallback, no assumed split), beside the measured
+     steps;
   13. a ``{"kernels": [...]}`` line (launches by path, among them
      ``launches_decode``, ``launches_serve``, ``launches_fused`` and
-     ``launches_fused_jigsaw``, and the fused phase's ms by depth and
-     peak), the card's name and power limit, and last the
+     ``launches_fused_jigsaw``, the fused phase's ms by depth and peak,
+     and phase 15's ``dryrun_by_arch``), the card's name and power
+     limit, and last the
      ``{"ok": true, ...}`` line.
 
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -145,8 +163,6 @@ import sys
 import time
 from pathlib import Path
 
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
-PEAK_BYTES = 3.35e12
 # (atol, rtol) by the kernel output's dtype: a bf16 output against the f32
 # plain version is off by bf16 rounding (2^-8 relative) plus the f32 sums'
 # order; an f32 output (lse, delta, every output of f32 inputs) is f32 math
@@ -293,13 +309,22 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def bound(flops: float, nbytes: float, dtype: str):
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    """(least ms, what bounds it) at the H100's peaks
+    (``analysis/roofline.py``)."""
+    from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS_BY_DTYPE
+    t_ops, t_bytes = flops / PEAK_FLOPS_BY_DTYPE[dtype], nbytes / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+def set_bound(record: dict, name: str, shape: dict, dtype: str) -> None:
+    """A kernel's bound at ``shape`` from its work function
+    (``analysis/cost.WORK``, the one a dry run counts it by); the record
+    keeps the work as ``work`` = [shape key, flops, bytes]."""
+    from repro_torch.analysis import cost
+    flops, nb = cost.WORK[name](**shape)
+    record["work"] = [cost.shape_key(shape), flops, nb]
+    record["bound_ms"], record["bound_by"] = bound(flops, nb, dtype)
 
 
 def check_close(name: str, got, want):
@@ -568,27 +593,20 @@ def phase_kernels():
                 raise AssertionError(f"{case}: the profiler saw no kernel "
                                      f"of {name}")
             records[name]["device_ms"] = round(sum(mine), 4)
-        # bounds from this run's inputs: each input read once, each output
-        # written once; operations over the pairs the mask lets in.  An MLA
-        # case counts the unpadded work (q, k at dqk, v, o at dv): the
+        # bounds from this run's inputs (the kernels' work functions, the
+        # ones a dry run counts): each input read once, each output
+        # written once; operations over the pairs the mask lets in.  An
+        # MLA case counts the unpadded work (q, k at dqk, v, o at dv): the
         # padding's cost shows in x_bound
-        pairs = int(fa.pair_mask(Sq, Sk, c["causal"], c["window"],
-                                 "cpu").sum()) * B * H
-        qk, pv = 2.0 * dqk * pairs, 2.0 * dv * pairs   # S = Q K^T, O = P V
-        o_k, do_k = ot_k[..., :dv], dot_[..., :dv]
-        work = {
-            "flash_fwd": (qk + pv, nbytes(q0, k0, v0, o_k, lse_k)),
-            "flash_delta": (2.0 * B * H * Sq * dv,
-                            nbytes(o_k, do_k, delta_p)),
-            "flash_dq": (2 * qk + pv, nbytes(q0, k0, v0, do0, lse_p, delta_p,
-                                             dq_k[..., :dqk])),
-            "flash_dkv": (2 * qk + 2 * pv,
-                          nbytes(q0, k0, v0, do0, lse_p, delta_p,
-                                 dk_k[..., :dqk], dv_k[..., :dv])),
-        }
-        for name, (flops, nb) in work.items():
-            records[name]["bound_ms"], records[name]["bound_by"] = bound(
-                flops, nb, c["dtype"])
+        at = dict(B=B, H=H, K=K, Sq=Sq, Sk=Sk, dqk=dqk, dv=dv,
+                  causal=c["causal"], window=c["window"],
+                  itemsize=q0.element_size())
+        shapes = {"flash_fwd": dict(at, with_lse=True),
+                  "flash_delta": dict(B=B, H=H, Sq=Sq, dv=dv,
+                                      itemsize=q0.element_size()),
+                  "flash_dq": at, "flash_dkv": at}
+        for name, sh in shapes.items():
+            set_bound(records[name], name, sh, c["dtype"])
         # library yardsticks, never called by the port: SDPA forward (its
         # causal mask is the whole mask where the window masks nothing
         # more, else the kernels' own pair mask as a boolean attn_mask);
@@ -645,8 +663,7 @@ def phase_kernels():
 def ssd_inputs(c: dict):
     """Public-layout SSD operands on the card for one case: x (B,S,H,P),
     dA (B,S,H) f32, b and c (B,S,H,N) (head-stride-0 views when
-    ``grouped``, as the main path passes them), dy, dstate; plus the
-    tensors b and c are views of."""
+    ``grouped``, as the main path passes them), dy, dstate."""
     import torch
     dt = getattr(torch, c["dtype"])
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -657,7 +674,7 @@ def ssd_inputs(c: dict):
     heads = 1 if c["grouped"] else H
     b_src, c_src = mk(B, S, heads, N).to(dt), mk(B, S, heads, N).to(dt)
     b, cm = b_src.expand(B, S, H, N), c_src.expand(B, S, H, N)
-    return x, dA, b, cm, mk(B, S, H, P), mk(B, H, P, N), (b_src, c_src)
+    return x, dA, b, cm, mk(B, S, H, P), mk(B, H, P, N)
 
 
 def check_rel(name: str, got, want) -> float:
@@ -712,7 +729,7 @@ def phase_ssd_kernels():
 
     records = {}
     for case, c in SSD_CASES.items():
-        x, dA, b, cm, dy, dstate, srcs = ssd_inputs(c)
+        x, dA, b, cm, dy, dstate = ssd_inputs(c)
         Q = c["chunk"]
         _, _, cs_p = ssd_bwd.fwd_res_plain(x, dA, b, cm, chunk=Q)
         bwd = (x, dA, b, cm, cs_p, dy, dstate)
@@ -750,33 +767,22 @@ def phase_ssd_kernels():
                     f"{records[f'_{name}_phase_ms']}")
         # the chain the main path runs: the backward kernel on the forward
         # kernel's own chunk states, against the plain chain
-        y_k, st_k, cs_k = ssd_bwd.fwd_res_kernel_layout(x, dA, b, cm, chunk=Q)
+        _, _, cs_k = ssd_bwd.fwd_res_kernel_layout(x, dA, b, cm, chunk=Q)
         check_rel(f"{case} fwd_res->bwd",
                   ssd_bwd.bwd_kernel_layout(x, dA, b, cm, cs_k, dy, dstate,
                                             chunk=Q),
                   ssd_bwd.bwd_plain(*bwd, chunk=Q))
         if case != "main":
             continue
-        # bounds from this run's inputs: each input read once (B and C as
-        # the one group they broadcast), each output written once;
-        # operations over the causal pairs of each chunk
-        B, S, H, P, N = (c[k] for k in ("B", "S", "H", "P", "N"))
-        nc = -(-S // Q)
-        pairs = Q * (Q + 1) // 2 * nc * B * H
-        qpn = 2.0 * Q * P * N * nc * B * H          # one Q x P x N product
-        ins = nbytes(x, dA, *srcs)
-        grads = ssd_bwd.bwd_kernel_layout(*bwd, chunk=Q)
-        work = {
-            "ssd_fwd": (2.0 * pairs * (N + P) + 2 * qpn,
-                        ins + nbytes(y_k, st_k)),
-            "ssd_fwd_res": (2.0 * pairs * (N + P) + 2 * qpn,
-                            ins + nbytes(y_k, st_k, cs_k)),
-            "ssd_bwd": (2.0 * pairs * (3 * N + 2 * P) + 4 * qpn,
-                        ins + nbytes(cs_k, dy, dstate, *grads)),
-        }
-        for name, (flops, nb) in work.items():
-            records[name]["bound_ms"], records[name]["bound_by"] = bound(
-                flops, nb, c["dtype"])
+        # bounds from this run's inputs (ssd.ssd_fwd_work and the others):
+        # each input read once (B and C as the one group they broadcast),
+        # each output written once; operations over the causal pairs of
+        # each chunk
+        sh = dict(B=c["B"], S=c["S"], H=c["H"], P=c["P"], N=c["N"], chunk=Q,
+                  itemsize=x.element_size(),
+                  groups=1 if c["grouped"] else c["H"])
+        for name in runs:
+            set_bound(records[name], name, sh, c["dtype"])
             r = records[name]
             log(f"[kernels] main   {name:11s} ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -840,14 +846,12 @@ def phase_rglru_kernels():
                 sum(records[f"_{name}_device_ms"].values()), 4)
             log(f"[kernels] main   {name} device ms by kernel: "
                 f"{records[f'_{name}_device_ms']}")
-        # bounds from this run's inputs: each tensor read or written once;
-        # one multiply-add per channel and step (two in the backward)
-        n = a.numel()
-        work = {"rglru_fwd": (2.0 * n, nbytes(a, b, h_k)),
-                "rglru_bwd": (4.0 * n, nbytes(a, h_k, dy, *grads))}
-        for name, (flops, nb) in work.items():
-            records[name]["bound_ms"], records[name]["bound_by"] = bound(
-                flops, nb, "float32")
+        # bounds from this run's inputs (rglru.rglru_fwd_work and
+        # rglru_bwd's): each tensor read or written once; one multiply-add
+        # per channel and step (two in the backward)
+        for name in runs:
+            set_bound(records[name], name, dict(B=c["B"], S=c["S"],
+                                                W=c["W"]), "float32")
             r = records[name]
             log(f"[kernels] main   {name:11s} ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -900,7 +904,7 @@ def phase_card_vs_cpu(arch: str):
 def phase_full_width(arch: str):
     """Phase 5: one path at full width; returns its launch counts per
     kernel, zeroed just before the run and read just after, and each
-    step's ms and depth."""
+    step's ms, depth and peak allocation (GB)."""
     import torch
     from repro_torch.config import SPBConfig, TrainConfig
     from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
@@ -924,7 +928,7 @@ def phase_full_width(arch: str):
     batches = [make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=s,
                           device="cuda") for s in range(steps)]
     zero_launches()
-    times, depths = [], []
+    times, depths, peaks = [], [], []
     for s in range(steps):
         before = launches_now()
         torch.cuda.reset_peak_memory_stats()
@@ -951,7 +955,141 @@ def phase_full_width(arch: str):
                 f"depth in configs.FULL_WIDTH_LAYERS")
         times.append(ms)
         depths.append(d)
-    return launches_now(), times, depths
+        peaks.append(peak_gb)
+    return launches_now(), times, depths, peaks
+
+
+def check_counted_work(records, bounds) -> set:
+    """Each kernel's counted work in the dry-run ``records`` against the
+    work its phase 2/3 bound used at the same shape (``bounds``: {kernel:
+    [shape key, flops, bytes]}).  Returns the kernels matched; raises on a
+    difference."""
+    matched = set()
+    for rec in records:
+        for name, by_shape in rec["kernel_shapes"].items():
+            key, flops, nb = bounds[name]
+            if key in by_shape:
+                got = by_shape[key]
+                if (got["flops"], got["bytes"]) != (flops, nb):
+                    raise AssertionError(
+                        f"dry run: {name} at {key} counts {got}, its bound "
+                        f"used {flops} flops and {nb} bytes")
+                matched.add(name)
+    return matched
+
+
+def phase_dryrun(phase5: dict, peaks: dict, bounds: dict) -> dict:
+    """Phase 15 (host only, run last): each full-width path at every
+    depth of its cycle dry-run on the meta device at phase 5's batch
+    (``launch/dryrun.py``, ``use_pallas`` on, so the kernels' meta
+    entries count them) beside phase 5's measured steps of the second
+    cycle: counted TFLOP and GB, the three roofline terms, MFU against
+    the measured step, the predicted peak (state + temporaries) against
+    ``max_memory_allocated``.  Fails when a compute term exceeds a
+    measured step, when the counted FLOPs or bytes do not fall strictly
+    with depth, when a kernel's counted work differs from its bound's
+    at the same shape, or when the dry run launched a kernel.  The
+    records go to a temporary directory, not the checkout's
+    ``results/``.  Then the JigSaw cost model's profile of yi-6b's cut
+    from these records, its forward:backward split fitted over the
+    cycle's depths, with no fallback.  Returns {arch: {depth: row}}."""
+    import tempfile
+    import warnings
+    from repro_torch.analysis import roofline
+    from repro_torch.config import SPBConfig
+    from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
+                                     full_width_config)
+    from repro_torch.engine.policies import make_policy
+    from repro_torch.jigsaw import costmodel
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    before = launches_now()
+    out, recs, matched = {}, [], set()
+    tmp = tempfile.TemporaryDirectory(prefix="dryrun_")
+    for arch, (times, depths) in phase5.items():
+        cfg = full_width_config(arch)
+        counted, rows = [], {}
+        for d in sorted(set(depths)):
+            rec = dryrun.run_cell(arch, "train_4k", cut="full_width",
+                                  depth=d, batch=FULL_WIDTH_BATCH,
+                                  seq_len=FULL_WIDTH_SEQ, force=True,
+                                  out_dir=tmp.name)
+            if not rec.get("ok"):
+                raise AssertionError(f"dry run of {arch} at depth {d}: "
+                                     f"{rec.get('error')}")
+            recs.append(rec)
+            row = roofline.roofline_row(rec, cfg)
+            # phase 5's second (warm) cycle at this depth
+            warm = [i for i in range(len(depths) // 2, len(depths))
+                    if depths[i] == d]
+            ms = [times[i] for i in warm]
+            peak = max(peaks[arch][i] for i in warm)
+            ma = rec["memory_analysis"]
+            pred_gb = (ma["argument_size_in_bytes"]
+                       + ma["temp_size_in_bytes"]) / 1e9
+            mfu = [row.model_flops / (roofline.PEAK_FLOPS * t / 1e3)
+                   for t in ms]
+            rows[d] = {"tflop": rec["flops_per_device"] / 1e12,
+                       "gb": rec["bytes_per_device"] / 1e9,
+                       "compute_ms": row.compute_s * 1e3,
+                       "memory_ms": row.memory_s * 1e3,
+                       "collective_ms": row.collective_s * 1e3,
+                       "dominant": row.dominant,
+                       "model_tflop": row.model_flops / 1e12,
+                       "measured_ms": ms, "mfu": mfu,
+                       "predicted_peak_gb": pred_gb, "max_mem_gb": peak,
+                       "saved_gb": rec["saved_bytes"] / 1e9,
+                       "count_s": rec["count_s"]}
+            log(f"[dryrun] {arch} depth={d} tflop={rows[d]['tflop']:.3f} "
+                f"gb={rows[d]['gb']:.2f} compute_ms={rows[d]['compute_ms']:.2f}"
+                f" memory_ms={rows[d]['memory_ms']:.2f} collective_ms=0 "
+                f"bound={row.dominant} measured_ms="
+                f"{[round(t, 1) for t in ms]} model_tflop="
+                f"{rows[d]['model_tflop']:.3f} mfu={[round(m, 4) for m in mfu]}"
+                f" predicted_peak_gb={pred_gb:.2f} max_mem_gb={peak:.2f} "
+                f"saved_gb={rows[d]['saved_gb']:.2f} "
+                f"kernels={ {k: int(v['calls']) for k, v in rec['kernels'].items()} }"
+                + (" (bytes term above the measured step: L2 serves "
+                   "re-reads)" if row.memory_s * 1e3 > min(ms) else ""))
+            if not ms or row.compute_s * 1e3 > min(ms):
+                raise AssertionError(f"{arch} depth {d}: counted compute "
+                                     f"{row.compute_s * 1e3:.2f} ms exceeds "
+                                     f"the measured step {ms}")
+            counted.append((rec["flops_per_device"], rec["bytes_per_device"]))
+        for i, what in enumerate(("FLOPs", "bytes")):
+            seq = [c[i] for c in counted]
+            if not all(a < b for a, b in zip(seq, seq[1:])):
+                raise AssertionError(f"{arch}: counted {what} do not fall "
+                                     f"strictly with depth: {seq}")
+        out[arch] = rows
+    matched = check_counted_work(recs, bounds)
+    if matched != set(KERNELS):
+        raise AssertionError(f"dry runs never counted {set(KERNELS) - matched}"
+                             f" at their bound's shape")
+    if launches_since(before) != dict.fromkeys(KERNELS, 0):
+        raise AssertionError("the dry run launched a kernel")
+    # the cost model's profile of yi-6b's cut, from these records
+    cfg = full_width_config("yi-6b")
+    prof, split_counted = costmodel.h100_profile(cfg, results_dir=tmp.name)
+    tmp.cleanup()
+    if prof is None or not split_counted:
+        raise AssertionError(f"no counted cost-model profile of yi-6b's cut "
+                             f"from the dry runs: {prof}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        pol = make_policy("costmodel", cfg, SPBConfig(mode="temporal", k=4),
+                          profile=prof)
+    prof = pol.profile
+    L = cfg.num_layers
+    log(f"[dryrun] costmodel yi-6b profile fwd_ms={prof.fwd_s * 1e3:.2f} "
+        f"bwd_ms={prof.bwd_s * 1e3:.2f} by depth (profile vs measured ms): "
+        + " ".join(f"{d}: {prof.task_time(d / L) * 1e3:.2f} vs "
+                   f"{[round(t, 1) for t in out['yi-6b'][d]['measured_ms']]}"
+                   for d in sorted(out["yi-6b"])))
+    log(f"[dryrun] {len(recs)} dry runs, every kernel counted at its bound's "
+        f"shape, none launched, {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 class _TimedFullBackprop:
@@ -1842,7 +1980,8 @@ def serve_bound(engine):
     per_token = sum(t.shape[0] * t[0, 0, 0].numel() * t.element_size()
                     for t in tree_leaves(engine.state["groups"]))
     view = per_token * engine.geom.num_slots * engine.geom.max_context
-    return (weights + view) / PEAK_BYTES * 1e3, weights, view
+    from repro_torch.analysis.roofline import HBM_BW
+    return (weights + view) / HBM_BW * 1e3, weights, view
 
 
 SERVE_MAX_NEW = 16
@@ -2023,9 +2162,9 @@ def main() -> int:
         phase_card_vs_cpu(arch)
         torch.cuda.empty_cache()
     # each path's own launches: its kernels' counts from its own run
-    by_arch, temporal_ms, phase5 = {}, {}, {}
+    by_arch, temporal_ms, phase5, peaks = {}, {}, {}, {}
     for arch in FULL_WIDTH_ARCHS:
-        grew, temporal_ms[arch], depths = phase_full_width(arch)
+        grew, temporal_ms[arch], depths, peaks[arch] = phase_full_width(arch)
         phase5[arch] = (temporal_ms[arch], depths)
         by_arch[arch] = {n: c for n, c in grew.items() if c}
         torch.cuda.empty_cache()
@@ -2066,6 +2205,11 @@ def main() -> int:
                              f"{idle}")
     fused_jigsaw = phase_fused_jigsaw()
     torch.cuda.empty_cache()
+    # host only, so it runs last: every timed phase then runs as it did
+    # before the dry run existed, without its modules (~100k more Python
+    # objects) and its own garbage collections
+    dryrun_by_arch = phase_dryrun(phase5, peaks,
+                                  {n: records[n]["work"] for n in KERNELS})
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2100,6 +2244,9 @@ def main() -> int:
                 entry["at_" + re.sub(r"\W", "_", arch)] = timed[case][name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels,
+                    "dryrun_by_arch": {
+                        a: {str(d): r for d, r in rows.items()}
+                        for a, rows in dryrun_by_arch.items()},
                     "sdpa_fwd_bwd_ms": {TIMED[c]: t["_sdpa_fwd_bwd_ms"]
                                         for c, t in timed.items()},
                     "dkv_ms_by_head_split": {

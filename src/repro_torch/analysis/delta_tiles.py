@@ -34,12 +34,12 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis.roofline import HBM_BW
 from repro_torch.analysis.step_profile import range_device_ms
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
 
-PEAK_BYTES = 3.35e12    # H100 SXM
 SHAPES = {"yi-6b": (2, 2048, 32, 128),            # (B, S, H, D), bf16
           "recurrentgemma-2b": (2, 2048, 10, 256)}
 GRID = tuple((nt, rpt) for nt in (128, 256, 512) for rpt in (1, 2, 4, 8))
@@ -156,7 +156,7 @@ def main(parent: str = None, rounds: int = 3) -> None:
         o, do = (torch.randn((B, S, H, D), generator=gen, device="cuda")
                  .to(torch.bfloat16).transpose(1, 2) for _ in "od")
         want = fab.delta_plain(o, do)
-        bounds[shape] = (2 * o.numel() * 2 + want.numel() * 4) / PEAK_BYTES
+        bounds[shape] = (2 * o.numel() * 2 + want.numel() * 4) / HBM_BW
         calls[shape] = {"vecdot": lambda o=o, do=do: torch.linalg.vecdot(
             o, do)}
         for name, (entry, _) in built.items():

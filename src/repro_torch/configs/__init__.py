@@ -1,14 +1,15 @@
-"""Architecture registry of the port (the JAX package's ten archs) and
-its random-batch maker."""
+"""Architecture registry of the port (the JAX package's ten archs), the
+(arch x shape) cell matrix with its documented skips, input specs (meta
+tensors, never allocated) and the random-batch maker."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 
 ARCHS: Dict[str, str] = {
@@ -114,6 +115,69 @@ def full_width_config(arch: str) -> ModelConfig:
         over["moe"] = dataclasses.replace(
             cfg.moe, experts_held=FULL_WIDTH_EXPERTS[arch])
     return dataclasses.replace(cfg, **over)
+
+
+def cut_config(arch: str, cut: str = "published") -> ModelConfig:
+    """``arch``'s config at a cut: ``published`` (:func:`get_config`),
+    ``full_width`` (:func:`full_width_config`) or ``reduced``."""
+    cuts = {"published": get_config, "full_width": full_width_config,
+            "reduced": reduced_config}
+    if cut not in cuts:
+        raise KeyError(f"unknown cut {cut!r}; known: {sorted(cuts)}")
+    return cuts[cut](arch)
+
+
+# ---------------------------------------------------------------------------
+# Cell matrix: which shapes run per arch (the reference's skips)
+# ---------------------------------------------------------------------------
+
+def shape_skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return ("pure full-attention arch: 500k-context decode needs "
+                "sub-quadratic attention (see DESIGN.md §4)")
+    return None
+
+
+def cells(include_skipped: bool = False
+          ) -> List[Tuple[str, str, Optional[str]]]:
+    """All (arch, shape, skip_reason) cells -- 10 x 4 = 40 total."""
+    out = []
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for sname, shape in SHAPES.items():
+            reason = shape_skip_reason(cfg, shape)
+            if reason is None or include_skipped:
+                out.append((arch, sname, reason))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Input specs: meta tensors in place of jax.ShapeDtypeStruct
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Dict[str, torch.Tensor]:
+    """Meta stand-ins for a train/prefill batch, as :func:`make_batch`
+    lays it out (int64 tokens).  ``seq_len`` counts the *total* sequence
+    (frontend tokens + text for a VLM); an encoder-decoder's frames and
+    text both take ``seq_len``."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+    meta = lambda *s, dtype=torch.int64: torch.empty(s, dtype=dtype,
+                                                    device="meta")
+    out = {}
+    if cfg.enc_layers:
+        out["frames"] = meta(B, S, cfg.d_model, dtype=dt)
+    elif cfg.frontend:
+        out["frontend"] = meta(B, cfg.frontend_tokens, cfg.d_model, dtype=dt)
+        S -= cfg.frontend_tokens
+    out.update(tokens=meta(B, S), labels=meta(B, S))
+    return out
+
+
+def decode_token_specs(cfg: ModelConfig, shape: ShapeConfig) -> torch.Tensor:
+    return torch.empty((shape.global_batch, 1), dtype=torch.int64,
+                       device="meta")
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0, *,

@@ -22,7 +22,7 @@ from typing import Optional, Protocol, Sequence, runtime_checkable
 from repro_torch.config import (ModelConfig, SPBConfig, snap_depth,
                                 total_layers)
 from repro_torch.core import spb as spb_lib
-from repro_torch.jigsaw.costmodel import profile_db
+from repro_torch.jigsaw import costmodel
 
 
 @runtime_checkable
@@ -162,15 +162,26 @@ def make_policy(name: str, cfg: ModelConfig, spb: SPBConfig, *,
         return CyclePolicy(cfg, spb)
     if name == "costmodel":
         if profile is None:
-            db = profile_db()
-            profile = db.get(cfg.name)
+            # the dry run's profile of this very config (its layers and
+            # experts too: a cut keeps its arch's name), else the paper's
+            profile, counted = costmodel.h100_profile(cfg)
+            db = costmodel.v100_profiles()
+            if profile is not None and not counted:
+                warnings.warn(
+                    f"the cost-model profile of {cfg.name!r} comes from one "
+                    f"dry-run depth, its forward:backward split assumed 1:2 "
+                    f"-- dry-run two depths of it (launch/dryrun.py) to "
+                    f"count the split", stacklevel=2)
+            elif profile is None:
+                profile = db.get(cfg.name)
             if profile is None:
                 # a paper V100 profile keeps the policy usable, but its
                 # forward:backward ratio is not this model's
                 profile = db["resnet50"]
                 warnings.warn(
                     f"no cost-model profile for {cfg.name!r}; falling back "
-                    f"to the paper's resnet50 V100 profile", stacklevel=2)
+                    f"to the paper's resnet50 V100 profile -- run "
+                    f"launch/dryrun.py to derive a real one", stacklevel=2)
         return CostModelPolicy(cfg, spb, profile,
                                time_budget_frac=time_budget_frac,
                                warmup_steps=spb.warmup_steps)

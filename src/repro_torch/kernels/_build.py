@@ -11,6 +11,13 @@ entry that every source gets from ``csrc/kernel_common.cuh``.  Builds happen at 
 never at import, and only from the sources in this package.  The
 compiler's output (``-Xptxas -v``: each kernel's registers, spills and
 static shared memory) is kept beside the library, :func:`build_log`.
+
+The meta device: while a dry run counts a step on a host with no card
+(``launch/dryrun.py``, a sink in :data:`META_SINKS`), a wrapper given
+meta tensors runs its own checks and allocates its outputs as on the
+card, then reports the launch to :func:`meta_launch` in place of making
+it.  Nothing is computed and nothing runs in the kernel's place; with no
+sink a meta tensor is refused as any other device (:func:`kernel_device`).
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
@@ -33,6 +40,10 @@ SOURCES = ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv", "ssd_fwd",
            "ssd_bwd", "rglru")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+# who hears of a launch on the meta device, innermost last: a callable of
+# (kernel name, its work function's arguments, (flops, bytes))
+META_SINKS: List[Callable[[str, dict, Tuple[float, float]], None]] = []
 
 
 class KernelError(RuntimeError):
@@ -155,3 +166,21 @@ def stream_of(t: torch.Tensor) -> int:
     """The handle of the current CUDA stream on ``t``'s device, the last
     argument of every C entry."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def kernel_device(t: torch.Tensor, what: str) -> str:
+    """The type of ``t``'s device where a ``what`` kernel takes it:
+    ``cuda``, or ``meta`` while a sink counts launches; raises for any
+    other."""
+    kind = t.device.type
+    if kind == "cuda" or (kind == "meta" and META_SINKS):
+        return kind
+    raise ValueError(f"no {what} kernel for device {t.device}")
+
+
+def meta_launch(name: str, work: Callable[..., Tuple[float, float]],
+                **shape) -> None:
+    """A wrapper's launch of kernel ``name`` on meta tensors: hands the
+    innermost of :data:`META_SINKS` the kernel's ``work(**shape)``."""
+    if META_SINKS:
+        META_SINKS[-1](name, shape, work(**shape))

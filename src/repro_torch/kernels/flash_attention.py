@@ -9,7 +9,9 @@ f32 as f32 FMAs.  Its source note says what bounds it on the card.
 
 Dispatch: a CPU tensor takes :func:`fwd_plain`; a CUDA tensor launches the
 kernel or raises.  Nothing falls back to the plain version on the card.
-``fwd_kernel_layout.launches`` counts kernel launches.
+``fwd_kernel_layout.launches`` counts kernel launches.  In a dry run a
+meta tensor passes the same checks and reports its launch's
+:func:`flash_fwd_work` (``_build.meta_launch``).
 
 Masking follows the Pallas conventions: masked scores are ``NEG_INF``
 (-1e30), the row max starts at ``NEG_INF``, masked probabilities are 0 and
@@ -72,6 +74,27 @@ def check_layout(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     return B, H, K, Sq, Sk, D
 
 
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """The (q, k) pairs :func:`pair_mask` lets in."""
+    n = 0
+    for q in range(Sq):
+        hi = min(q, Sk - 1) if causal else Sk - 1
+        lo = max(0, q - window + 1) if window > 0 else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def flash_fwd_work(*, B, H, K, Sq, Sk, dqk, dv, causal, window, itemsize,
+                   with_lse=True) -> Tuple[float, float]:
+    """(flops, bytes) of one forward launch: S = Q K^T and O = P V over
+    the visible pairs; reads q, k, v, writes o and (with ``with_lse``) the
+    f32 lse.  ``dqk`` and ``dv`` are the score and value head dims."""
+    pairs = visible_pairs(Sq, Sk, causal, window) * B * H
+    nbytes = itemsize * (B * Sq * H * (dqk + dv) + B * Sk * K * (dqk + dv))
+    return 2.0 * (dqk + dv) * pairs, nbytes + (4 * B * H * Sq if with_lse
+                                               else 0)
+
+
 def padded_head_dim(need: int) -> int:
     """The smallest head_dim the kernels dispatch that holds ``need``
     columns: MLA's attention pads its (dn + dr, dv) heads to it with zeros
@@ -89,9 +112,9 @@ def softmax_scale(D: int, scale: Optional[float]) -> float:
 
 
 def kernel_dtype_code(qt: torch.Tensor, D: int) -> int:
-    """The kernels' dtype code; raises for what they do not take."""
-    if qt.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {qt.device}")
+    """The kernels' dtype code; raises for what they do not take (on the
+    meta device, what they would not)."""
+    _build.kernel_device(qt, "attention")
     if qt.dtype not in _HEAD_DIMS.get(D, ()):
         raise ValueError(f"attention kernels take float32/bfloat16 with "
                          f"head_dim in (16, 32, 64, 128) and bfloat16 at "
@@ -171,6 +194,11 @@ def fwd_kernel_layout(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, *,
     lse: Optional[torch.Tensor] = (
         torch.empty((B, H, Sq), dtype=torch.float32, device=qt.device)
         if with_lse else None)
+    if qt.device.type == "meta":
+        _build.meta_launch("flash_fwd", flash_fwd_work, B=B, H=H, K=K, Sq=Sq,
+                           Sk=Sk, dqk=D, dv=D, causal=causal, window=window,
+                           itemsize=qt.element_size(), with_lse=with_lse)
+        return (ot, lse) if with_lse else ot
     fn = _build.function("flash_fwd", "flash_fwd", _FWD_ARGTYPES)
     code = fn(dtype, D, qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
               ot.data_ptr(), lse.data_ptr() if lse is not None else None,

@@ -17,7 +17,9 @@ plain versions (counterpart of ``repro/kernels/flash_attention_bwd.py``).
 All three recompute ``P = exp(S - lse)`` from the forward's logsumexp; no
 (Sq, Sk) matrix reaches device memory.  Dispatch as in the forward: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its launches in ``.launches``.
+raises, and in a dry run a meta tensor reports its launch's work
+(``*_work`` below, ``_build.meta_launch``).  Each wrapper counts its
+launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from repro_torch.kernels.flash_attention import (check_aligned, check_layout,
                                                  empty_kernel_layout,
                                                  kernel_dtype_code,
                                                  pair_mask, softmax_scale,
-                                                 strides)
+                                                 strides, visible_pairs)
 
 Tensor = torch.Tensor
 
@@ -112,6 +114,38 @@ def dkv_head_splits(B: int, K: int, G: int, Sk: int, D: int, sms: int
     return next(s for s in divisors if cost[s] <= 1.25 * least)
 
 
+def flash_delta_work(*, B, H, Sq, dv, itemsize) -> Tuple[float, float]:
+    """(flops, bytes) of one delta launch: rowsum(dO * O) reads o and dO
+    and writes the f32 delta."""
+    return 2.0 * B * H * Sq * dv, 2 * itemsize * B * H * Sq * dv + 4 * B * H * Sq
+
+
+def _bwd_io(B, H, K, Sq, Sk, dqk, dv, itemsize) -> int:
+    """q, k, v, dO and the f32 lse and delta, read by dq and by dkv."""
+    return (itemsize * (B * Sq * H * (dqk + dv) + B * Sk * K * (dqk + dv))
+            + 2 * 4 * B * H * Sq)
+
+
+def flash_dq_work(*, B, H, K, Sq, Sk, dqk, dv, causal, window, itemsize
+                  ) -> Tuple[float, float]:
+    """(flops, bytes) of one dq launch: the S and dS Q-side products
+    (2 x qk) and dP = dO V^T (pv) over the visible pairs; writes dq."""
+    pairs = visible_pairs(Sq, Sk, causal, window) * B * H
+    return (2.0 * pairs * (2 * dqk + dv),
+            _bwd_io(B, H, K, Sq, Sk, dqk, dv, itemsize)
+            + itemsize * B * Sq * H * dqk)
+
+
+def flash_dkv_work(*, B, H, K, Sq, Sk, dqk, dv, causal, window, itemsize
+                   ) -> Tuple[float, float]:
+    """(flops, bytes) of one dkv launch: S, dK = dS^T Q (2 x qk), dP and
+    dV = P^T dO (2 x pv) over the visible pairs; writes dk and dv."""
+    pairs = visible_pairs(Sq, Sk, causal, window) * B * H
+    return (2.0 * pairs * (2 * dqk + 2 * dv),
+            _bwd_io(B, H, K, Sq, Sk, dqk, dv, itemsize)
+            + itemsize * B * Sk * K * (dqk + dv))
+
+
 def _check_rows(lse: Tensor, delta: Tensor, B: int, H: int, Sq: int) -> None:
     for t in (lse, delta):
         if (t.shape != (B, H, Sq) or t.dtype != torch.float32
@@ -132,6 +166,10 @@ def compute_delta(ot: Tensor, dot_: Tensor) -> Tensor:
     dtype = kernel_dtype_code(ot, D)
     check_aligned(ot, dot_)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=ot.device)
+    if ot.device.type == "meta":
+        _build.meta_launch("flash_delta", flash_delta_work, B=B, H=H, Sq=Sq,
+                           dv=D, itemsize=ot.element_size())
+        return delta
     fn = _build.function("flash_delta", "flash_delta", _DELTA_ARGTYPES)
     code = fn(dtype, ot.data_ptr(), dot_.data_ptr(), delta.data_ptr(), B, H,
               Sq, D, *strides(ot), *strides(dot_), _build.stream_of(ot))
@@ -152,6 +190,11 @@ def compute_dq(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0,
     if qt.dtype == torch.bfloat16:
         check_aligned(qt, kt, vt, dot_)
     dq = empty_kernel_layout(B, H, Sq, D, qt)
+    if qt.device.type == "meta":
+        _build.meta_launch("flash_dq", flash_dq_work, B=B, H=H, K=K, Sq=Sq,
+                           Sk=Sk, dqk=D, dv=D, causal=causal, window=window,
+                           itemsize=qt.element_size())
+        return dq
     fn = _build.function("flash_dq", "flash_dq", _DQ_ARGTYPES)
     code = fn(dtype, D, qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
               dot_.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -178,6 +221,12 @@ def compute_dkv(qt, kt, vt, dot_, lse, delta, *, causal=True, window=0,
     splits, part = 1, None
     if qt.dtype == torch.bfloat16:
         check_aligned(qt, kt, vt, dot_)
+    if qt.device.type == "meta":
+        _build.meta_launch("flash_dkv", flash_dkv_work, B=B, H=H, K=K, Sq=Sq,
+                           Sk=Sk, dqk=D, dv=D, causal=causal, window=window,
+                           itemsize=qt.element_size())
+        return dk, dv
+    if qt.dtype == torch.bfloat16:
         splits = dkv_head_splits(
             B, K, H // K, Sk, D,
             torch.cuda.get_device_properties(qt.device).multi_processor_count)

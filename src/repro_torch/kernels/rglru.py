@@ -11,11 +11,14 @@ Any S and W work; the Pallas ``chunk`` and ``width_block`` have no
 counterpart.  Its source note says what bounds it.
 
 Dispatch: a CPU tensor takes :func:`rglru_plain`; a CUDA tensor launches
-the kernel or raises.  ``rglru_scan.launches`` counts launches.
+the kernel or raises; in a dry run a meta tensor passes the same checks
+and reports its launch's :func:`rglru_fwd_work` (``_build.meta_launch``).
+``rglru_scan.launches`` counts launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -25,8 +28,8 @@ Tensor = torch.Tensor
 
 
 def check_operands(*ts: Tensor) -> None:
-    """Same (B, S, W) shape and device, contiguous; on the card float32
-    (the kernels' only dtype)."""
+    """Same (B, S, W) shape and device, contiguous; on the card (and on
+    the meta device) float32, the kernels' only dtype."""
     first = ts[0]
     if first.dim() != 3:
         raise ValueError(f"expected (B, S, W) operands, got {tuple(first.shape)}")
@@ -35,12 +38,18 @@ def check_operands(*ts: Tensor) -> None:
             raise ValueError("RG-LRU operands must share shape and device")
         if not t.is_contiguous():
             raise ValueError("RG-LRU operands must be contiguous")
-    if first.device.type == "cuda":
+    if first.device.type != "cpu":
+        _build.kernel_device(first, "RG-LRU")
         if any(t.dtype != torch.float32 for t in ts):
             raise ValueError(f"RG-LRU kernels take float32, got "
                              f"{[str(t.dtype) for t in ts]}")
-    elif first.device.type != "cpu":
-        raise ValueError(f"no RG-LRU kernel for device {first.device}")
+
+
+def rglru_fwd_work(*, B, S, W) -> Tuple[float, float]:
+    """(flops, bytes) of one forward launch: h = a h + b over f32
+    (B, S, W) reads a, b and writes h."""
+    n = B * S * W
+    return 2.0 * n, 12.0 * n
 
 
 def rglru_plain(a: Tensor, b: Tensor) -> Tensor:
@@ -76,7 +85,11 @@ def rglru_scan(a: Tensor, b: Tensor) -> Tensor:
     if a.device.type == "cpu":
         return rglru_plain(a, b)
     B, S, W = a.shape
-    h, scratch = torch.empty_like(a), chain_scratch(a)
+    h = torch.empty_like(a)
+    if a.device.type == "meta":
+        _build.meta_launch("rglru_fwd", rglru_fwd_work, B=B, S=S, W=W)
+        return h
+    scratch = chain_scratch(a)
     fn = _build.function("rglru", "rglru_fwd", _ARGTYPES)
     code = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), scratch.data_ptr(),
               B, S, W, _build.stream_of(a))

@@ -13,7 +13,9 @@ before it.  It takes the forward's output ``h`` itself and reads
 ``y_prev``: the port never makes that copy.
 
 Dispatch: a CPU tensor takes :func:`bwd_plain`; a CUDA tensor launches the
-kernel or raises.  ``bwd_kernel_layout.launches`` counts launches.
+kernel or raises; in a dry run a meta tensor reports its launch's
+:func:`rglru_bwd_work` (``_build.meta_launch``).
+``bwd_kernel_layout.launches`` counts launches.
 """
 from __future__ import annotations
 
@@ -26,6 +28,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.rglru import chain_scratch, check_operands
 
 Tensor = torch.Tensor
+
+
+def rglru_bwd_work(*, B, S, W) -> Tuple[float, float]:
+    """(flops, bytes) of one backward launch: reads a, h, dy and writes
+    da, db, all f32 (B, S, W)."""
+    n = B * S * W
+    return 4.0 * n, 20.0 * n
 
 
 def bwd_plain(a: Tensor, h: Tensor, dy: Tensor) -> Tuple[Tensor, Tensor]:
@@ -55,6 +64,9 @@ def bwd_kernel_layout(a: Tensor, h: Tensor, dy: Tensor
         return bwd_plain(a, h, dy)
     B, S, W = a.shape
     da, db = torch.empty_like(a), torch.empty_like(a)
+    if a.device.type == "meta":
+        _build.meta_launch("rglru_bwd", rglru_bwd_work, B=B, S=S, W=W)
+        return da, db
     scratch = chain_scratch(a)
     fn = _build.function("rglru", "rglru_bwd", _ARGTYPES)
     code = fn(a.data_ptr(), h.data_ptr(), dy.data_ptr(), da.data_ptr(),

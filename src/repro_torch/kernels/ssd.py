@@ -28,8 +28,9 @@ matrix.  (A float32 running sum over a 256-long chunk drifts by ~1e-4 at
 |csum| ~ 250, which would move ``L`` near the diagonal by as much.)
 
 Dispatch: a CPU tensor takes :func:`ssd_fwd_plain`; a CUDA tensor launches
-the kernels or raises.  ``ssd_fwd_kernel_layout.launches`` counts calls
-that launched them.
+the kernels or raises; in a dry run a meta tensor passes the same checks
+and reports its launch's :func:`ssd_fwd_work` (``_build.meta_launch``).
+``ssd_fwd_kernel_layout.launches`` counts calls that launched them.
 """
 from __future__ import annotations
 
@@ -75,9 +76,9 @@ def check_layout(x: Tensor, dA: Tensor, b: Tensor, c: Tensor,
 def kernel_dtype_code(x: Tensor, dA: Tensor, b: Tensor, c: Tensor, P: int,
                       N: int, chunk: int) -> int:
     """The kernels' dtype code for x, b and c; raises for what they do not
-    take (another device, dtype, (P, N) or chunk)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"no SSD kernel for device {x.device}")
+    take (another device, dtype, (P, N) or chunk; on the meta device, what
+    they would not)."""
+    _build.kernel_device(x, "SSD")
     if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype \
             or dA.dtype != torch.float32:
         raise ValueError(f"SSD kernels take x, b, c in one of float32 or "
@@ -96,6 +97,43 @@ def strides3(t: Tensor):
 
 def n_chunks(S: int, chunk: int) -> int:
     return -(-S // chunk)
+
+
+def work_shape(x: Tensor, b: Tensor, chunk: int) -> dict:
+    """The work functions' arguments for a call on x (B, S, H, P) and b
+    (B, S, H, N): b's (and c's) heads count once when they broadcast one
+    group (head stride 0)."""
+    Bb, S, H, P = x.shape
+    return dict(B=Bb, S=S, H=H, P=P, N=b.shape[-1], chunk=chunk,
+                itemsize=x.element_size(), groups=1 if b.stride(2) == 0 else H)
+
+
+def work_terms(B, S, H, P, N, chunk, itemsize, groups):
+    """(causal pairs within chunks, one Q x P x N product over all chunks,
+    the bytes of x, dA and the ``groups`` heads of b and c, chunks)."""
+    nc = n_chunks(S, chunk)
+    pairs = chunk * (chunk + 1) // 2 * nc * B * H
+    qpn = 2.0 * chunk * P * N * nc * B * H
+    ins = itemsize * (B * S * H * P + 2 * B * S * groups * N) + 4 * B * S * H
+    return pairs, qpn, ins, nc
+
+
+def ssd_fwd_work(*, B, S, H, P, N, chunk, itemsize, groups
+                 ) -> Tuple[float, float]:
+    """(flops, bytes) of one ``ssd_fwd`` launch: the chunked scan, which
+    writes f32 y and the final state."""
+    pairs, qpn, ins, _ = work_terms(B, S, H, P, N, chunk, itemsize, groups)
+    return (2.0 * pairs * (N + P) + 2 * qpn,
+            ins + 4 * (B * S * H * P + B * H * P * N))
+
+
+def ssd_fwd_res_work(*, B, S, H, P, N, chunk, itemsize, groups
+                     ) -> Tuple[float, float]:
+    """(flops, bytes) of one ``ssd_fwd_res`` launch: the scan that also
+    writes each chunk's entering state."""
+    flops, nbytes = ssd_fwd_work(B=B, S=S, H=H, P=P, N=N, chunk=chunk,
+                                 itemsize=itemsize, groups=groups)
+    return flops, nbytes + 4 * B * H * n_chunks(S, chunk) * P * N
 
 
 def check_aligned(kernel: str, **ts: Tensor) -> None:
@@ -234,6 +272,10 @@ def launch_fwd(x: Tensor, dA: Tensor, b: Tensor, c: Tensor, chunk: int,
     y = torch.empty((Bb, S, H, P), **f32)
     state = torch.empty((Bb, H, P, N), **f32)
     name = "ssd_fwd" if chunk_states is None else "ssd_fwd_res"
+    if x.device.type == "meta":
+        _build.meta_launch(name, ssd_fwd_work if chunk_states is None
+                           else ssd_fwd_res_work, **work_shape(x, b, chunk))
+        return y, state
     fn = _build.function("ssd_fwd", name, FWD_ARGTYPES)
     code = fn(dtype, P, N, x.data_ptr(), dA.data_ptr(), b.data_ptr(),
               c.data_ptr(), y.data_ptr(), state.data_ptr(),
@@ -253,7 +295,8 @@ def ssd_fwd_kernel_layout(x: Tensor, dA: Tensor, b: Tensor, c: Tensor, *,
     if x.device.type == "cpu":
         return ssd_fwd_plain(x, dA, b, c, chunk=chunk)
     out = launch_fwd(x, dA, b, c, chunk, None)
-    ssd_fwd_kernel_layout.launches += 1
+    if x.device.type == "cuda":
+        ssd_fwd_kernel_layout.launches += 1
     return out
 
 

@@ -26,8 +26,10 @@ G = (c b^T) * L and the state S_in entering the chunk, given (dy, dS_out):
 
 Layouts, the short last chunk and the float64 cumsums are as in
 ``kernels/ssd.py``.  Dispatch: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel or raises; each wrapper counts its
-launches in ``.launches``.
+CUDA tensor launches the kernel or raises, and in a dry run a meta
+tensor reports its launch's work (``ssd.ssd_fwd_res_work``,
+:func:`ssd_bwd_work`); each wrapper counts its launches in
+``.launches``.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd import (check_aligned, check_layout,
                                      chunk_csum, chunked, decay_matrix,
                                      kernel_dtype_code, launch_fwd, n_chunks,
-                                     ssd_fwd_plain, strides3, unchunk)
+                                     ssd_fwd_plain, strides3, unchunk,
+                                     work_shape, work_terms)
 
 Tensor = torch.Tensor
 
@@ -67,7 +70,8 @@ def fwd_res_kernel_layout(x: Tensor, dA: Tensor, b: Tensor, c: Tensor, *,
     chunk_states = torch.empty((Bb, H, n_chunks(S, chunk), P, N),
                                dtype=torch.float32, device=x.device)
     y, state = launch_fwd(x, dA, b, c, chunk, chunk_states)
-    fwd_res_kernel_layout.launches += 1
+    if x.device.type == "cuda":
+        fwd_res_kernel_layout.launches += 1
     return y, state, chunk_states
 
 
@@ -77,6 +81,17 @@ fwd_res_kernel_layout.launches = 0
 # ---------------------------------------------------------------------------
 # Backward
 # ---------------------------------------------------------------------------
+
+def ssd_bwd_work(*, B, S, H, P, N, chunk, itemsize, groups
+                 ) -> Tuple[float, float]:
+    """(flops, bytes) of one ``ssd_bwd`` launch: reads x, dA, b, c, the
+    chunk states and the f32 dy and dstate; writes f32 dx, ddA, db and
+    dc."""
+    pairs, qpn, ins, nc = work_terms(B, S, H, P, N, chunk, itemsize, groups)
+    f32 = 4 * (B * H * nc * P * N + B * S * H * P + B * H * P * N
+               + B * S * H * P + B * S * H + 2 * B * S * H * N)
+    return 2.0 * pairs * (3 * N + 2 * P) + 4 * qpn, ins + f32
+
 
 def bwd_plain(x: Tensor, dA: Tensor, b: Tensor, c: Tensor,
               chunk_states: Tensor, dy: Tensor, dstate: Tensor, *,
@@ -212,6 +227,10 @@ def bwd_kernel_layout(x: Tensor, dA: Tensor, b: Tensor, c: Tensor,
     u_scr = img_scr = rows_scr = None
     if x.dtype == torch.bfloat16:   # the chunk-parallel kernels' scratch
         check_aligned("backward", x=x, b=b, c=c, dy=dy)
+    if x.device.type == "meta":
+        _build.meta_launch("ssd_bwd", ssd_bwd_work, **work_shape(x, b, chunk))
+        return dx, ddA, db, dc
+    if x.dtype == torch.bfloat16:
         u_scr = torch.empty((Bb, H, nc, P, N), **f32)
         # S_in and dS_out, two bf16 parts each, as 64 x max(N, 64) tiles
         img_scr = torch.empty(Bb * H * nc * 4 * 64 * max(N, 64),

@@ -1,0 +1,218 @@
+"""Dry run: count one step of an (arch x shape) cell on the meta device and
+record its work, memory and roofline inputs (the counterpart of
+``repro/launch/dryrun.py``).
+
+  python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k \\
+      --full-width --batch 2 --seq 2048 --depth 2   # what one card runs
+  python -m repro_torch.launch.dryrun --arch yi-6b --reduced \\
+      --shape train_4k --batch 2 --seq 64 --depth 2
+  python -m repro_torch.launch.dryrun --all         # every cell, cached
+
+The step always runs on the meta device, as the reference's runs on fake
+host devices: nothing is computed or allocated, so it needs no card and
+touches none.  ``train`` counts ``dist/steps.make_train_step`` at the SPB
+suffix ``--depth`` (snapped to a unit boundary, as the engine snaps it;
+the full depth is recorded as None, full backprop) with the engine's
+temporal k=4 SPB config and AdamW; ``prefill`` counts ``lm.prefill`` and
+``decode`` ``lm.decode_step``, each over a dense cache of the shape's
+length.  Each runs the config's ``use_pallas``: on meta tensors the
+kernels' wrappers count their kernel's work
+(``kernels/_build.meta_launch``) and launch nothing.
+
+Records: one JSON a cell under ``results/dryrun_torch/``
+(``analysis/roofline.cell_path``; ``--force`` recomputes) with the
+reference's keys, ``mesh`` = ``"h100"`` and ``chips`` = 1, plus the cut,
+the batch and the per-kernel counts.  ``analysis/report.py`` renders
+them, ``jigsaw/costmodel.hlo_profiles`` and ``h100_profile`` read the
+train records.  The
+port exports no AOT executable (its step cache is ROADMAP.md Queue 1 B
+item 9); ``--multi-pod``, ``--no-zero1`` and sharding rules need several
+cards and raise, naming item 11.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+import traceback
+from pathlib import Path
+from typing import Optional
+
+from repro_torch.analysis import cost
+from repro_torch.analysis import roofline
+from repro_torch.config import (SHAPES, SPBConfig, TrainConfig, snap_depth,
+                                total_layers)
+from repro_torch.configs import (cells, cut_config, decode_token_specs,
+                                 get_config, input_specs, shape_skip_reason)
+from repro_torch.dist import steps as steps_lib
+from repro_torch.models import lm
+from repro_torch.tree import tree_map
+
+def one_card(multi_pod: bool = False, zero1: bool = True,
+             rules_extra=None) -> None:
+    """Raise for the reference's mesh options: the dry run counts one
+    card."""
+    what = ("the multi-pod mesh" if multi_pod else
+            "sharding the state (ZeRO-1, sharding rules)"
+            if not zero1 or rules_extra else None)
+    if what:
+        raise NotImplementedError(
+            f"{what} needs a mesh of several cards; it comes with the "
+            f"multi-GPU slice (ROADMAP.md Queue 1 B item 11)")
+
+
+def spb_depth(cfg, depth: Optional[int]) -> Optional[int]:
+    """``depth`` snapped as the engine snaps it; the full depth is None."""
+    if depth is None:
+        return None
+    depth = snap_depth(cfg, depth)
+    return None if depth == total_layers(cfg) else depth
+
+
+def count_cell(arch: str, shape_name: str, *, cut: str = "published",
+               depth: Optional[int] = None, batch: Optional[int] = None,
+               seq_len: Optional[int] = None, multi_pod: bool = False,
+               zero1: bool = True, rules_extra=None) -> dict:
+    """Count one cell on the meta device; returns its record (without
+    ``ok``/``tag``).  ``batch``/``seq_len`` default to the shape's."""
+    one_card(multi_pod, zero1, rules_extra)
+    cfg = cut_config(arch, cut)
+    sh = SHAPES[shape_name]
+    B = sh.global_batch if batch is None else batch
+    S = sh.seq_len if seq_len is None else seq_len
+    shape = dataclasses.replace(sh, global_batch=B, seq_len=S)
+    if depth is not None and shape.kind != "train":
+        raise ValueError(f"--depth is an SPB suffix of a train step; "
+                         f"{shape_name} is a {shape.kind} shape")
+    depth = spb_depth(cfg, depth)
+    params = lm.param_shapes(cfg)
+    t0 = time.time()
+    if shape.kind == "train":
+        tcfg = TrainConfig()
+        state = steps_lib.state_from_params(
+            tree_map(lambda t: t.requires_grad_(True), params), tcfg)
+        step = steps_lib.make_train_step(cfg, tcfg,
+                                         SPBConfig(mode="temporal", k=4),
+                                         depth=depth)
+        _, s = cost.count(step, state, input_specs(cfg, shape))
+    else:
+        enc_len = S if cfg.enc_layers else 0
+        cache = lm.init_cache(cfg, B, S, enc_len=enc_len, device="meta")
+        if shape.kind == "prefill":
+            inputs = {k: v for k, v in input_specs(cfg, shape).items()
+                      if k != "labels"}
+            _, s = cost.count(lm.prefill, params, inputs, cfg, cache)
+        else:
+            _, s = cost.count(lm.decode_step, params, cache,
+                              decode_token_specs(cfg, shape), cfg)
+    return {
+        "arch": arch, "shape": shape_name, "mesh": roofline.MESH,
+        "chips": 1, "depth": depth, "kind": shape.kind, "cut": cut,
+        "name": cfg.name, "layers": total_layers(cfg),
+        "experts_held": cfg.moe.experts_held if cfg.moe else None,
+        "batch": B, "seq_len": S,
+        "use_pallas": cfg.use_pallas, "count_s": round(time.time() - t0, 2),
+        "flops_per_device": s.flops,
+        "bytes_per_device": s.bytes,
+        "collective_bytes_per_device": s.collective_bytes,
+        "collective_breakdown": s.collective_breakdown,
+        "num_collectives": s.num_collectives,
+        "per_opcode_flops": {k: v for k, v in sorted(
+            s.per_opcode_flops.items(), key=lambda kv: -kv[1])[:8]},
+        "kernels": s.kernel_totals(),
+        "kernel_shapes": s.kernels,
+        "memory_analysis": s.memory_analysis,
+        "saved_bytes": s.saved_bytes,
+    }
+
+
+def run_cell(arch: str, shape_name: str, *, cut: str = "published",
+             depth: Optional[int] = None, batch: Optional[int] = None,
+             seq_len: Optional[int] = None, force: bool = False,
+             tag: str = "", out_dir: Optional[Path] = None, **kw) -> dict:
+    """:func:`count_cell`, cached as JSON under ``out_dir`` (default
+    ``roofline.RESULTS``); a failed count is recorded with ``ok`` False."""
+    one_card(**kw)
+    depth = spb_depth(cut_config(arch, cut), depth)
+    path = roofline.cell_path(arch, shape_name, roofline.MESH, depth, tag,
+                              cut=cut, batch=batch, seq_len=seq_len)
+    if out_dir is not None:
+        path = Path(out_dir) / path.name
+    if path.exists() and not force:
+        return json.loads(path.read_text())
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        rec = count_cell(arch, shape_name, cut=cut, depth=depth, batch=batch,
+                         seq_len=seq_len, **kw)
+        rec["ok"] = True
+        rec["tag"] = tag
+    except Exception as e:      # noqa: BLE001 -- recorded, as the reference's
+        rec = {"arch": arch, "shape": shape_name, "mesh": roofline.MESH,
+               "depth": depth, "cut": cut, "ok": False, "error": str(e),
+               "traceback": traceback.format_exc()[-4000:]}
+    path.write_text(json.dumps(rec, indent=2))
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--all", action="store_true",
+                    help="every cell of the cell matrix")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="SPB suffix depth (train shapes)")
+    cut = ap.add_mutually_exclusive_group()
+    cut.add_argument("--full-width", dest="cut", action="store_const",
+                     const="full_width", help="the cut one card trains "
+                     "(configs.full_width_config)")
+    cut.add_argument("--reduced", dest="cut", action="store_const",
+                     const="reduced")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="global batch (default: the shape's)")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="sequence length (default: the shape's)")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--tag", default="", help="variant tag for perf iters")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="records directory (default results/dryrun_torch)")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--no-zero1", action="store_true")
+    args = ap.parse_args(argv)
+    cut_name = args.cut or "published"
+
+    if args.all:
+        todo = [(a, s) for a, s, _ in cells(include_skipped=True)]
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch and --shape (or --all)")
+        todo = [(args.arch, args.shape)]
+    for arch, shape in todo:
+        skip = shape_skip_reason(get_config(arch), SHAPES[shape])
+        if skip:
+            print(f"SKIP {arch} x {shape}: {skip}")
+            continue
+        depth = args.depth if SHAPES[shape].kind == "train" else None
+        rec = run_cell(arch, shape, cut=cut_name, depth=depth,
+                       batch=args.batch, seq_len=args.seq, force=args.force,
+                       tag=args.tag, out_dir=args.out,
+                       multi_pod=args.multi_pod, zero1=not args.no_zero1)
+        if rec.get("ok"):
+            ma = rec.get("memory_analysis", {})
+            print(f"OK  {arch:24s} {shape:12s} {rec['mesh']:5s} "
+                  f"cut={rec['cut']} batch={rec['batch']}x{rec['seq_len']} "
+                  f"depth={rec['depth']} count={rec['count_s']:.2f}s "
+                  f"flops/dev={rec['flops_per_device']:.3e} "
+                  f"bytes/dev={rec['bytes_per_device']:.3e} "
+                  f"coll/dev={rec['collective_bytes_per_device']:.3e} "
+                  f"args={ma.get('argument_size_in_bytes', 0) / 2**30:.2f}GiB "
+                  f"temp={ma.get('temp_size_in_bytes', 0) / 2**30:.2f}GiB")
+        else:
+            print(f"ERR {arch:24s} {shape:12s} {rec['error'][:200]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -131,6 +131,8 @@ def _run(engine: SPBEngine, args, mgr, history):
     engine.state = None             # drop a failed attempt's state first
     engine.init_state(tcfg.seed)
     start_step = 0
+    if args.resume and mgr:
+        mgr.wait()      # the failed attempt's last write, still in flight
     if args.resume and mgr and mgr.latest_step() is not None:
         state, start_step = mgr.restore(engine.state)
         engine.attach_state(state)

@@ -6,6 +6,7 @@ driver's resume against straight training and against the reference's
 driver, and a kernel fault that the driver does not retry."""
 import dataclasses
 import json
+import time
 from pathlib import Path
 
 import jax
@@ -283,6 +284,23 @@ def test_driver_resume_matches_straight_training_and_the_reference(
     want = j_train.train(DRIVER + ["--checkpoint-dir", str(tmp_path / "j")])
     np.testing.assert_allclose(straight, want, rtol=1e-5)
     np.testing.assert_allclose(failed[-1], want[-1], rtol=1e-5)
+
+
+def test_driver_resume_waits_for_the_write_in_flight(tmp_path, capsys,
+                                                     monkeypatch):
+    """A failure right after a checkpoint is taken: the restore waits for
+    that async write (slowed here) and resumes from it, not from step 0."""
+    savez = np.savez
+
+    def slow_savez(*args, **kwargs):
+        time.sleep(0.5)
+        savez(*args, **kwargs)
+
+    monkeypatch.setattr(manager_mod.np, "savez", slow_savez)
+    failed = train_mod.train(DRIVER + ["--device", "cpu", "--checkpoint-dir",
+                                       str(tmp_path), "--fail-at", "5"])
+    assert "[train] resumed from step 4" in capsys.readouterr().out
+    assert len(failed) == 5 + 4
 
 
 def test_driver_without_a_checkpoint_dir_raises_at_once(capsys):

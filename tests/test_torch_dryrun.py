@@ -1,0 +1,291 @@
+"""The dry run on the CPU (``launch/dryrun.py``, ``analysis/cost.py``):
+
+  * (a) the elision proof: for yi-6b, mamba2-2.7b and recurrentgemma-2b
+    reduced, the counted backward FLOPs and bytes and the bytes autograd
+    saves for the backward (``saved_tensors_hooks``) fall strictly with
+    the SPB depth -- on the meta device with ``use_pallas`` on (the
+    kernels' meta entries count the kernels) and on the CPU with it off;
+  * (b) parity with the reference's HLO count: yi-6b reduced at batch
+    8 x 64, depths 1-4, ``repro.models.lm.REMAT`` set to ``"none"``.  The
+    port's matrix products plus the reference's attention recompute equal
+    the reference's matrix ``dot`` FLOPs exactly.  The recompute: the
+    reference's ``blockwise_attention`` checkpoints its kv-block scan body
+    (``jax.checkpoint(body)``, ``repro/models/layers.py``) whatever REMAT
+    says, so a live layer's backward recomputes S = Q K^T and P V: two
+    products of 2 * B * H * S * S * D (4,194,304 FLOPs here) a live layer,
+    one at depth 1, where the HLO keeps only the recomputed P V.  The
+    port's eager backward keeps P.  The rest are vector products (the
+    norms' and the cross-entropy's row sums, which the reference writes
+    as einsums): under 0.4% of either count;
+  * (c) the CLI writes a record that ``analysis/report.md_dryrun``
+    renders, and ``make_policy("costmodel", ...)`` then finds its profile
+    without the paper's resnet50 fallback.
+"""
+import dataclasses
+import warnings
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.analysis import hlo as j_hlo
+from repro.config import SPBConfig as JSPB, TrainConfig as JTrain
+from repro.configs import reduced_config as j_reduced
+from repro.engine import SPBEngine as JEngine
+from repro.models import lm as j_lm
+from repro_torch.analysis import cost, report, roofline
+from repro_torch.config import SHAPES, SPBConfig, TrainConfig
+from repro_torch.configs import input_specs, make_batch, reduced_config
+from repro_torch.core import spb as spb_lib
+from repro_torch.dist import steps as steps_lib
+from repro_torch.engine.policies import CostModelPolicy, make_policy
+from repro_torch.jigsaw import costmodel
+from repro_torch.launch import dryrun
+from repro_torch.models import lm
+from repro_torch.tree import tree_map
+
+aten = torch.ops.aten
+PRODUCTS = (aten.mm, aten.bmm, aten.addmm, aten.baddbmm)
+
+
+# ---------------------------------------------------------------------------
+# (a) the elision proof
+# ---------------------------------------------------------------------------
+
+def _backward_costs(cfg, device, depth):
+    """(backward FLOPs, backward bytes, saved bytes) of one loss at
+    ``depth``: the forward and the backward counted apart."""
+    if device == "meta":
+        params = tree_map(lambda t: t.requires_grad_(True),
+                          lm.param_shapes(cfg))
+        batch = input_specs(cfg, dataclasses.replace(
+            SHAPES["train_4k"], global_batch=2, seq_len=64))
+    else:
+        params = tree_map(lambda t: t.requires_grad_(True),
+                          lm.init_lm(torch.Generator().manual_seed(0), cfg,
+                                     "cpu"))
+        batch = make_batch(cfg, 2, 64, device="cpu")
+    with cost.CostMode((params, batch)) as fwd:
+        loss, _ = lm.loss_fn(params, batch, cfg, bwd_layers=depth)
+    with cost.CostMode(params) as bwd:
+        loss.backward()
+    return bwd.summary.flops, bwd.summary.bytes, fwd.summary.saved_bytes
+
+
+@pytest.mark.parametrize("device,use_pallas", [("meta", True),
+                                               ("cpu", False)])
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-2.7b",
+                                  "recurrentgemma-2b"])
+def test_backward_work_falls_with_depth(arch, device, use_pallas):
+    cfg = dataclasses.replace(reduced_config(arch), use_pallas=use_pallas)
+    depths = sorted(set(spb_lib.snapped_depths(
+        cfg, SPBConfig(mode="temporal", k=4))))
+    assert len(depths) >= 2
+    costs = [_backward_costs(cfg, device, d) for d in depths]
+    for i, what in enumerate(("backward flops", "backward bytes",
+                              "saved bytes")):
+        seq = [c[i] for c in costs]
+        assert all(a < b for a, b in zip(seq, seq[1:])), (what, depths, seq)
+
+
+def test_the_meta_count_is_the_cpu_count():
+    """The same step on the meta device counts what it counts on the CPU
+    with data: the same ops, the same bytes, the same saved tensors."""
+    cfg = reduced_config("yi-6b")
+    meta = _backward_costs(cfg, "meta", 2)
+    cpu = _backward_costs(cfg, "cpu", 2)
+    assert meta == cpu
+
+
+# ---------------------------------------------------------------------------
+# (b) against the reference's HLO count
+# ---------------------------------------------------------------------------
+
+B, S, DEPTHS = 8, 64, (1, 2, 3, 4)
+
+
+def _hlo_dots(text):
+    """(matrix dot FLOPs, vector dot FLOPs) of a compiled module, loop
+    bodies times their trip counts; a vector product has one side of
+    size 1 once batch and contracting dims are set aside."""
+    comps, entry = j_hlo.parse_module(text)
+    out = [0.0, 0.0]
+
+    def side(dims, batch, contract):
+        n = 1
+        for i, d in enumerate(dims):
+            if i not in batch and i not in contract:
+                n *= d
+        return n
+
+    def idx(op, key):
+        v = j_hlo._attr_braces(op.attrs, key)
+        return {int(i) for i in v.split(",") if i.strip()} if v else set()
+
+    def visit(name, count):
+        comp = comps.get(name)
+        if comp is None:
+            return
+        for op in comp.ops:
+            if op.opcode == "while":
+                trips = j_hlo._trip_count(comps, j_hlo._attr(op.attrs,
+                                                             "condition"))
+                visit(j_hlo._attr(op.attrs, "body"), count * trips)
+            elif op.opcode in ("call", "fusion", "async-start"):
+                visit(j_hlo._attr(op.attrs, "to_apply")
+                      or j_hlo._attr(op.attrs, "calls"), count)
+            elif op.opcode == "conditional":
+                for b in (j_hlo._attr_braces(op.attrs, "branch_computations")
+                          or "").split(","):
+                    visit(b.strip().lstrip("%"), count)
+            elif op.opcode == "dot":
+                lhs = j_hlo.first_shape_dims(comp.types[op.operands[0]])
+                rhs = j_hlo.first_shape_dims(comp.types[op.operands[1]])
+                m = side(lhs, idx(op, "lhs_batch_dims"),
+                         idx(op, "lhs_contracting_dims"))
+                n = side(rhs, idx(op, "rhs_batch_dims"),
+                         idx(op, "rhs_contracting_dims"))
+                out[m == 1 or n == 1] += count * j_hlo._dot_flops(op, comp)
+
+    visit(entry, 1.0)
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference_dots():
+    """The reference's compiled step table at depths 1-4 (one compile of
+    the module): {depth: (all dots, matrix dots, vector dots)}."""
+    token = j_lm.REMAT.set("none")
+    try:
+        eng = JEngine(j_reduced("yi-6b"), JTrain(optimizer="adamw"),
+                      JSPB(mode="temporal", k=4))
+        specs = {k: jax.ShapeDtypeStruct((B, S), jnp.int32)
+                 for k in ("tokens", "labels")}
+        out = {}
+        for d in DEPTHS:
+            text = eng.lower_step(specs, depth=d).compile().as_text()
+            mat, vec = _hlo_dots(text)
+            out[d] = (j_hlo.analyze(text).per_opcode_flops["dot"], mat, vec)
+        return out
+    finally:
+        j_lm.REMAT.reset(token)
+
+
+class _Products(cost.CostMode):
+    """Also splits the products' FLOPs into matrix and vector ones."""
+
+    def __init__(self, *a):
+        super().__init__(*a)
+        self.split = [0.0, 0.0]
+
+    def _count(self, func, packet, args, kwargs, out):
+        if packet in PRODUCTS:
+            from torch.utils.flop_counter import flop_registry
+            m, n = out.shape[-2], out.shape[-1]
+            self.split[m == 1 or n == 1] += flop_registry[packet](
+                *args, **kwargs, out_val=out)
+        super()._count(func, packet, args, kwargs, out)
+
+
+def _port_products(depth):
+    cfg = reduced_config("yi-6b")
+    tcfg = TrainConfig()
+    state = steps_lib.state_from_params(tree_map(
+        lambda t: t.requires_grad_(True), lm.param_shapes(cfg)), tcfg)
+    batch = input_specs(cfg, dataclasses.replace(
+        SHAPES["train_4k"], global_batch=B, seq_len=S))
+    step = steps_lib.make_train_step(cfg, tcfg, SPBConfig(mode="temporal",
+                                                          k=4), depth=depth)
+    with _Products((state, batch)) as mode:
+        step(state, batch)
+    return mode.split
+
+
+def test_matrix_products_equal_the_references_dots_but_its_recompute(
+        reference_dots):
+    cfg = reduced_config("yi-6b")
+    one = 2.0 * B * cfg.num_heads * S * S * cfg.head_dim   # Q K^T or P V
+    assert one == 4194304
+    ratios = []
+    for d in DEPTHS:
+        ref_all, ref_mat, ref_vec = reference_dots[d]
+        mat, vec = _port_products(d)
+        recompute = (2 * d - (d == 1)) * one
+        assert mat + recompute == ref_mat, (d, mat, recompute, ref_mat)
+        assert vec < 4e-3 * mat and ref_vec < 4e-3 * ref_all
+        ratios.append((mat + vec) / ref_all)
+    # the products' ratio to the reference's dots, as first measured
+    assert [round(r, 3) for r in ratios] == [0.988, 0.964, 0.956, 0.951]
+
+
+# ---------------------------------------------------------------------------
+# (c) the CLI, the report and the cost model
+# ---------------------------------------------------------------------------
+
+def test_cli_record_renders_and_feeds_the_cost_model(tmp_path, monkeypatch,
+                                                     capsys):
+    argv = ["--arch", "yi-6b", "--reduced", "--shape", "train_4k",
+            "--batch", "2", "--seq", "64", "--depth", "2", "--out",
+            str(tmp_path)]
+    assert dryrun.main(argv) == 0
+    assert "OK  yi-6b" in capsys.readouterr().out
+    (path,) = tmp_path.glob("*.json")
+    assert path.name == "yi-6b__train_4k__h100__reduced__b2x64__d2.json"
+    table = report.md_dryrun(tmp_path)
+    assert "| yi-6b | reduced 2x64 | train_4k | 2 |" in table
+    assert "| yi-6b | reduced 2x64 | 2/4 |" not in report.md_spb(tmp_path)
+
+    cfg = reduced_config("yi-6b")
+    spb = SPBConfig(mode="temporal", k=4)
+    monkeypatch.setattr(roofline, "RESULTS", tmp_path)
+    # one depth: the profile is found, its split the reference's 1:2
+    with pytest.warns(UserWarning, match="split assumed 1:2") as got:
+        pol = make_policy("costmodel", cfg, spb)
+    assert not [w for w in got if "resnet50" in str(w.message)]
+    assert isinstance(pol, CostModelPolicy)
+    assert vars(pol.profile) == vars(
+        costmodel.hlo_profiles(tmp_path)["yi-6b-reduced"])
+    assert pol.profile.fwd_s > 0 and pol.profile.bwd_s == pytest.approx(
+        2 * pol.profile.fwd_s)
+    # a second depth counts the split: no warning at all
+    depth = argv.index("--depth") + 1
+    assert dryrun.main(argv[:depth] + ["4"] + argv[depth + 1:]) == 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        pol = make_policy("costmodel", cfg, spb)
+    recs = {r["depth"]: r for r in roofline.records(tmp_path)}
+    t = {d: costmodel._roofline_step(recs[d]) for d in (2, None)}
+    assert pol.profile.task_time(2 / 4) == pytest.approx(t[2], rel=1e-12)
+    assert pol.profile.task_time(1.0) == pytest.approx(t[None], rel=1e-12)
+    # the published 32-layer yi-6b is not the 4-layer cut of the records
+    with pytest.warns(UserWarning, match="resnet50"):
+        make_policy("costmodel", dataclasses.replace(cfg, num_layers=32),
+                    spb)
+
+    with pytest.raises(NotImplementedError, match="item 11"):
+        dryrun.main(argv + ["--multi-pod"])
+    with pytest.raises(ValueError, match="SPB suffix"):
+        dryrun.count_cell("yi-6b", "decode_32k", cut="reduced", depth=2,
+                          batch=2, seq_len=64)
+
+
+def test_a_depth_sweep_renders(tmp_path, monkeypatch):
+    """A full record and a depth record of one cell make an SPB row; the
+    roofline's readers find them."""
+    monkeypatch.setattr(roofline, "RESULTS", tmp_path)
+    for depth in (None, 1):
+        dryrun.run_cell("yi-6b", "train_4k", cut="reduced", depth=depth,
+                        batch=2, seq_len=32)
+    rec = roofline.load_record("yi-6b", "train_4k", depth=1, cut="reduced",
+                               batch=2, seq_len=32)
+    assert rec["depth"] == 1 and rec["layers"] == 4 and rec["ok"]
+    (row,) = roofline.full_table()
+    assert row.arch == "yi-6b" and row.dominant in ("compute", "memory")
+    assert "yi-6b" in roofline.format_table([row])
+    table = report.md_spb(tmp_path)
+    assert "| yi-6b | reduced 2x32 | 1/4 |" in table
+    assert "| yi-6b | reduced 2x32 | 4/4 |" in table
+    assert "| yi-6b | reduced 2x32 | train_4k | chips" not in table
+    roof = report.md_roofline(results_dir=tmp_path)
+    assert "| yi-6b | reduced 2x32 | train_4k | 1 |" in roof

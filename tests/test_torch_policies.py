@@ -21,6 +21,7 @@ from repro_torch.engine.engine import SPBEngine
 from repro_torch.engine.policies import (CostModelPolicy, CyclePolicy,
                                          DepthPolicy, FullBackpropPolicy,
                                          SchedulerHookPolicy, make_policy)
+from repro_torch.analysis import roofline
 from repro_torch.jigsaw import costmodel
 
 ARCH = "yi-6b"
@@ -113,7 +114,10 @@ def test_costmodel_policy_refuses_an_empty_budget():
                         time_budget_frac=0.0)
 
 
-def test_make_policy_factory():
+def test_make_policy_factory(tmp_path, monkeypatch):
+    # no dry-run records: whatever a dry run left in the checkout is not
+    # this test's input
+    monkeypatch.setattr(roofline, "RESULTS", tmp_path)
     cfg, _, spb = _setup()
     assert isinstance(make_policy("cycle", cfg, spb), CyclePolicy)
     assert isinstance(make_policy("hook", cfg, spb), SchedulerHookPolicy)
@@ -131,7 +135,8 @@ def test_make_policy_factory():
         make_policy("nope", cfg, spb)
 
 
-def test_cost_profiles_equal_the_references():
+def test_cost_profiles_equal_the_references(tmp_path, monkeypatch):
+    monkeypatch.setattr(roofline, "RESULTS", tmp_path)   # no dry-run records
     got, want = costmodel.profile_db(), j_cost.profile_db()
     assert set(got) == set(want)
     for name, p in got.items():
