@@ -129,7 +129,25 @@ Phases, each printing a line; any failure exits non-zero:
      tenant at the same cuts, two workers, 2 iterations: both scheduled
      jobs done, the group's ``fused_with``, every member's 4 steps and a
      finite last xent, each task's launches one solo step's;
-  15. (run last, after 14, on the host) the dry run of each phase-5 path:
+  16. (run after 14) CUDA-graph step tables (``engine/graphs.py``,
+     ``engine/aot.py``): (a) yi-6b's ``ServeEngine`` at published widths
+     and full depth (phase 12's geometry and prompts), eager and then
+     with ``compile_table()`` in the same call: greedy outputs equal
+     token for token, the same launches, decode ms at 1 and 4 active
+     slots, host enqueue and device busy ms, kernels a step and prefill
+     ms per bucket, both ways; (b) yi-6b at phase 5's cut, temporal k=4
+     at depths 2, 4, 6 and 8, batch 2 x 2048, eager and graphed from the
+     same seeded state and batches over 8 steps whose learning rate
+     changes every step: loss, grad_norm, lr and every parameter
+     bit-equal, each replay's launches an eager step's at its depth,
+     warm step ms both ways, each entry's pool bytes beside the peak
+     allocation; (c) the table stored, then loaded by a fresh process
+     with ``nvcc`` out of reach and every build refused: its libraries
+     come from the table and its first step's loss equals (b)'s; (d)
+     ``launch/train.py --compilation-cache-dir`` twice: a miss, then a
+     hit; (e) a step that reads a device value on the host cannot be
+     captured: ``compile_table`` raises and the eager entry stays;
+  15. (run last, after 16, on the host) the dry run of each phase-5 path:
      every depth of its cycle counted on the meta device at batch
      2 x 2048 with the kernels' meta entries (``launch/dryrun.py``):
      counted TFLOP and GB, the three H100 roofline terms
@@ -145,7 +163,8 @@ Phases, each printing a line; any failure exits non-zero:
      steps;
   13. a ``{"kernels": [...]}`` line (launches by path, among them
      ``launches_decode``, ``launches_serve``, ``launches_fused`` and
-     ``launches_fused_jigsaw``, the fused phase's ms by depth and peak,
+     ``launches_fused_jigsaw``, ``launches_graphs`` (phase 16's graph
+     replays), the fused phase's ms by depth and peak,
      and phase 15's ``dryrun_by_arch``), the card's name and power
      limit, and last the
      ``{"ok": true, ...}`` line.
@@ -428,17 +447,8 @@ def phase_tensor_cores() -> dict:
 
 def counters():
     """The kernel wrappers, each with its launch count in ``.launches``."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_attention_bwd as fab
-    from repro_torch.kernels import rglru, rglru_bwd, ssd, ssd_bwd
-    return {"flash_fwd": fa.fwd_kernel_layout,
-            "flash_delta": fab.compute_delta,
-            "flash_dq": fab.compute_dq, "flash_dkv": fab.compute_dkv,
-            "ssd_fwd": ssd.ssd_fwd_kernel_layout,
-            "ssd_fwd_res": ssd_bwd.fwd_res_kernel_layout,
-            "ssd_bwd": ssd_bwd.bwd_kernel_layout,
-            "rglru_fwd": rglru.rglru_scan,
-            "rglru_bwd": rglru_bwd.bwd_kernel_layout}
+    from repro_torch.engine.graphs import launch_counters
+    return launch_counters()
 
 
 def zero_launches() -> None:
@@ -2124,6 +2134,377 @@ def phase_serve(arch: str) -> dict:
     return {n: c for n, c in grew.items() if c}
 
 
+# the graphs phase's training check: yi-6b at phase 5's cut, one cycle of
+# k = 4 twice (the first cycle warms up), batch 2 x 2048
+GRAPH_STEPS = 8
+GRAPH_DEPTHS = (2, 4, 6, 8)
+
+# run in a fresh process by the graphs phase: load a stored step table with
+# nvcc out of reach and every build refused, run one graphed step, print
+# the loss's bits and the libraries' files as JSON
+_FRESH_LOAD = r'''
+import json, sys
+sys.path.insert(0, "src")
+import torch
+from repro_torch.kernels import _build
+
+def refuse(*a, **k):
+    raise RuntimeError("a kernel library was built")
+
+_build.build = refuse
+_build.BUILD_DIR = _build.BUILD_DIR.parent / "nothing_here"
+from repro_torch.config import SPBConfig, TrainConfig
+from repro_torch.configs import full_width_config, make_batch
+from repro_torch.engine.engine import SPBEngine
+cfg = full_width_config("yi-6b")
+eng = SPBEngine(cfg, TrainConfig(num_steps=int(sys.argv[2])),
+                SPBConfig(mode="temporal", k=4), device="cuda")
+eng.init_state(0)
+loaded = eng.load_aot(sys.argv[1])
+m = eng.train_step(make_batch(cfg, 2, 2048, seed=0, device="cuda"), 0)
+print(json.dumps({"loaded": loaded, "depth": eng.last_depth,
+                  "loss": float(m["loss"]),
+                  "libs": {n: str(p) for n, p in _build._LIB_FILES.items()},
+                  "keys": sorted(eng.depth_keys())}))
+'''
+
+# run in a fresh process by the graphs phase: a step that syncs the host
+# cannot be captured; compile_table must raise and leave the eager entry
+_CAPTURE_FAILS = r'''
+import json, sys
+sys.path.insert(0, "src")
+import torch
+from repro_torch.config import SPBConfig, TrainConfig
+from repro_torch.configs import make_batch, reduced_config
+from repro_torch.engine.engine import SPBEngine
+cfg = reduced_config("yi-6b")
+eng = SPBEngine(cfg, TrainConfig(), SPBConfig(mode="temporal", k=2),
+                shared_cache=False, device="cuda")
+eng.init_state(0)
+eager = eng.step_fn(2)
+
+def syncing(state, batch, **kw):
+    out = eager(state, batch, **kw)
+    float(out[1]["loss"])          # a host read of a device value
+    return out
+
+eng._eager_step = lambda key: syncing
+batch = make_batch(cfg, 2, 64, seed=0, device="cpu")
+try:
+    eng.compile_table(eng.batch_specs_like(batch), depths=[2])
+    print(json.dumps({"raised": None}))
+except RuntimeError as e:
+    print(json.dumps({"raised": type(e).__name__ + ": " + str(e)[:200],
+                      "compiled": len(eng._compiled),
+                      "eager_kept": eng.step_fn(2) is eager,
+                      "step_after": float(eng.train_step(batch, 0,
+                                                         depth=2)["loss"])}))
+'''
+
+
+def _serve_measure(eng, prompts, label: str) -> dict:
+    """Phase 12's measurements of ``eng`` (eager, or with its step table):
+    the staggered trace under sync-debug "error" (outputs and launches),
+    prefill ms per bucket and decode ms by CUDA events, the decode step's
+    host enqueue and the card's busy time and kernels (``torch.profiler``).
+    """
+    import collections
+
+    import torch
+
+    events = _EventLog(eng)
+    start, pending, reqs = eng.clock, collections.deque(
+        (at, p) for (_, at), p in zip(SERVE_TRACE, prompts)), []
+    before = launches_now()
+    torch.cuda.synchronize()
+    while pending or eng._live or eng.scheduler.queue:
+        while pending and pending[0][0] <= eng.clock - start:
+            reqs.append(eng.submit(pending.popleft()[1],
+                                   max_new=SERVE_MAX_NEW))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        eng.poll()
+    grew = launches_since(before)
+    prefill = {int(k.split("_")[1]): v
+               for k, v in events.ms("prefill_").items()}
+    raw = lambda: events.raw["decode"](eng.params, eng.state, None)
+    step_ms = {}
+    for n in (1, 4):
+        for _ in range(n):
+            eng.submit(prompts[1], max_new=SERVE_MAX_NEW)
+        eng.step(1)
+        step_ms[n] = time_ms(raw, iters=10, warmup=2)
+        eng.drain()
+    eng.submit(prompts[1], max_new=SERVE_MAX_NEW)
+    eng.step(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, kernels = device_busy(raw, iters=3)
+    eng.drain()
+    eng._steps.update(events.raw)
+    out = {"outputs": [r.output for r in reqs], "launches": grew,
+           "prefill_ms": dict(sorted(prefill.items())),
+           "decode_ms_1": step_ms[1], "decode_ms_4": step_ms[4],
+           "host_enqueue_ms": host_ms, "device_busy_ms": busy_ms,
+           "kernels_per_step": kernels}
+    log(f"[graphs] serve yi-6b {label} decode_step_ms "
+        f"slots_active_1={step_ms[1]:.4f} slots_active_4={step_ms[4]:.4f} "
+        f"host_enqueue_ms={host_ms:.4f} device_busy_ms={busy_ms:.4f} "
+        f"kernels_per_step={kernels} prefill_ms_by_bucket "
+        f"{out['prefill_ms']} launches="
+        f"{ {n: c for n, c in grew.items() if c} }")
+    return out
+
+
+def phase_graphs_serve() -> dict:
+    """Graphs phase (a): yi-6b's ``ServeEngine`` at published widths and
+    full depth (phase 12's geometry, params and prompts), eager (once
+    cold, then measured) and then with ``compile_table()``, in the same
+    call: greedy outputs equal token
+    for token, the same launches; decode ms at 1 and 4 active slots, host
+    enqueue, busy ms and kernels a step, prefill ms per bucket.  Returns
+    the launches of the graphed trace."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine, default_geometry
+
+    cfg = dataclasses.replace(get_config("yi-6b"), use_pallas=True)
+    geom = default_geometry(num_slots=4, page_size=16, max_context=2048)
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        "cuda")
+    eng = ServeEngine(cfg, geom=geom, params=params, device="cuda")
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n, _ in SERVE_TRACE]
+    _serve_measure(eng, prompts, "eager (cold: first calls)")
+    eager = _serve_measure(eng, prompts, "eager")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.compile_table()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    graphed = _serve_measure(eng, prompts, "graphed")
+    if graphed["outputs"] != eager["outputs"]:
+        raise AssertionError(f"graphs: graphed greedy outputs "
+                             f"{graphed['outputs']} != eager "
+                             f"{eager['outputs']}")
+    if graphed["launches"] != eager["launches"]:
+        raise AssertionError(f"graphs: graphed serve launches "
+                             f"{graphed['launches']} != eager "
+                             f"{eager['launches']}")
+    log(f"[graphs] serve yi-6b greedy_outputs_equal=True "
+        f"capture_s={capture_s:.2f} entries={sorted(eng._compiled)} "
+        f"decode_x_eager_1={graphed['decode_ms_1'] / eager['decode_ms_1']:.4f}"
+        f" decode_x_eager_4="
+        f"{graphed['decode_ms_4'] / eager['decode_ms_4']:.4f} "
+        f"max_memory_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return {n: c for n, c in graphed["launches"].items() if c}
+
+
+def _train_run(eng, batches, label: str) -> list:
+    """Each step's (depth, loss, grad_norm, lr as host tensors, ms,
+    launches) over ``batches``."""
+    import torch
+    rows = []
+    for s, batch in enumerate(batches):
+        before = launches_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eng.train_step(batch, s)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"depth": eng.last_depth, "ms": ms,
+                     "launches": launches_since(before),
+                     **{k: m[k].detach().cpu()
+                        for k in ("loss", "grad_norm", "lr")}})
+        log(f"[graphs] train yi-6b {label} step={s} depth={eng.last_depth} "
+            f"loss={float(m['loss']):.6f} gnorm={float(m['grad_norm']):.6f} "
+            f"lr={float(m['lr']):.6e} step_ms={ms:.1f}")
+    return rows
+
+
+def phase_graphs_train(table_dir: Path) -> dict:
+    """Graphs phase (b): yi-6b at phase 5's cut (8 layers), temporal k=4,
+    batch 2 x 2048, eager and then graphed from the same seeded state and
+    batches over ``GRAPH_STEPS`` steps, the learning rate changing every
+    step (warm-up): loss, grad_norm, lr and every parameter bit-equal; each
+    replay's launches those of an eager step at its depth; warm step ms of
+    the second cycle, graphed against eager; the pool's bytes beside the
+    peak allocation.  Stores the table at ``table_dir`` for (c).  Returns
+    the launches of the graphed steps."""
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
+                                     full_width_config, make_batch)
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.tree import tree_leaves
+
+    cfg = full_width_config("yi-6b")
+    tcfg, spb = TrainConfig(num_steps=GRAPH_STEPS), SPBConfig(mode="temporal",
+                                                               k=4)
+    batches = [make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=s,
+                          device="cuda") for s in range(GRAPH_STEPS)]
+    runs, peaks = {}, {}
+    for label in ("eager", "graphed"):
+        torch.cuda.empty_cache()
+        eng = SPBEngine(cfg, tcfg, spb, device="cuda")
+        eng.init_state(0)
+        if label == "graphed":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.compile_table(eng.batch_specs_like(batches[0]),
+                              depths=GRAPH_DEPTHS)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            pools = {d: eng.memory_analysis(d) for d in GRAPH_DEPTHS}
+            replay = {d: eng._graphs[d].graph.launches for d in GRAPH_DEPTHS}
+        torch.cuda.reset_peak_memory_stats()
+        runs[label] = _train_run(eng, batches, label)
+        peaks[label] = torch.cuda.max_memory_allocated()
+        params = [t.detach().cpu() for t in tree_leaves(eng.state["params"])]
+        runs[label + "_params"] = params
+        if label == "graphed":
+            eng.export_aot(table_dir)
+        del eng
+    eager, graphed = runs["eager"], runs["graphed"]
+    for e, g in zip(eager, graphed):
+        if e["depth"] != g["depth"]:
+            raise AssertionError(f"graphs: depth {g['depth']} != eager "
+                                 f"{e['depth']}")
+        for k in ("loss", "grad_norm", "lr"):
+            if not torch.equal(e[k], g[k]):
+                raise AssertionError(f"graphs: depth {e['depth']} {k} "
+                                     f"{g[k].item()!r} != eager "
+                                     f"{e[k].item()!r}")
+        if g["launches"] != e["launches"] or \
+                g["launches"] != expected_launches(cfg, [g["depth"]]):
+            raise AssertionError(f"graphs: a graphed step launched "
+                                 f"{g['launches']}, eager {e['launches']}")
+    for d, got in replay.items():
+        eager_d = next(r["launches"] for r in eager if r["depth"] == d)
+        if got != {n: c for n, c in eager_d.items() if c}:
+            raise AssertionError(f"graphs: depth {d}'s replay launches "
+                                 f"{got} != an eager step's {eager_d}")
+    differ = [i for i, (a, b) in enumerate(zip(runs["eager_params"],
+                                               runs["graphed_params"]))
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"graphs: {len(differ)} parameter leaves "
+                             f"differ from eager after {GRAPH_STEPS} steps")
+    warm = {label: {d: [r["ms"] for r in rows[4:] if r["depth"] == d]
+                    for d in GRAPH_DEPTHS}
+            for label, rows in (("eager", eager), ("graphed", graphed))}
+    log(f"[graphs] train yi-6b bit_equal=True steps={GRAPH_STEPS} "
+        f"lrs={[float(r['lr']) for r in graphed]} params_equal="
+        f"{len(runs['eager_params'])}/{len(runs['eager_params'])} "
+        f"replay_launches={ {d: l for d, l in replay.items()} } "
+        f"capture_s={capture_s:.2f}")
+    log(f"[graphs] train yi-6b warm_step_ms eager={warm['eager']} "
+        f"graphed={warm['graphed']}")
+    log(f"[graphs] train yi-6b pool_bytes={pools} "
+        f"max_memory_allocated_gb eager={peaks['eager'] / 1e9:.2f} "
+        f"graphed={peaks['graphed'] / 1e9:.2f}")
+    grew = {}
+    for r in graphed:
+        for n, c in r["launches"].items():
+            grew[n] = grew.get(n, 0) + c
+    return {"launches": {n: c for n, c in grew.items() if c},
+            "first_loss": float(graphed[0]["loss"]),
+            "warm_ms": warm, "pools": pools,
+            "peak_gb": {k: v / 1e9 for k, v in peaks.items()}}
+
+
+def _run_child(code: str, *args: str, env=None, timeout: int = 300) -> dict:
+    """Run ``code`` in a fresh Python from the repository root; its last
+    output line is JSON."""
+    res = subprocess.run([sys.executable, "-c", code, *args], env=env,
+                         cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode:
+        raise AssertionError(f"graphs: child failed ({res.returncode}):\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def phase_graphs() -> dict:
+    """The graphs phase (run after 14, before 15): (a) serving and (b)
+    training, eager against the step table (:func:`phase_graphs_serve`,
+    :func:`phase_graphs_train`); (c) a fresh process with ``nvcc`` out of
+    reach (``CUDA_HOME`` unset, ``PATH`` without the toolkit, every build
+    refused, an empty build directory) loads (b)'s stored table, its
+    libraries from the table, and its first graphed step's loss equals
+    (b)'s; (d) ``launch/train.py --compilation-cache-dir`` twice into an
+    empty directory: first a miss, then a hit; (e) a step that syncs the
+    host fails to capture and ``compile_table`` raises, the eager entry
+    kept.  Returns the launches of the graphed runs by part."""
+    import os
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.TemporaryDirectory(prefix="graphs_")
+    root = Path(tmp.name)
+    serve = phase_graphs_serve()
+    train = phase_graphs_train(root / "table")
+    torch.cuda.empty_cache()
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = os.pathsep.join(p for p in env.get("PATH", "").split(
+        os.pathsep) if "cuda" not in p.lower())
+    got = _run_child(_FRESH_LOAD, str(root / "table"), str(GRAPH_STEPS),
+                     env=env)
+    stray = {n: p for n, p in got["libs"].items()
+             if Path(p).parent != root / "table"}
+    if not got["loaded"] or stray or got["loss"] != train["first_loss"]:
+        raise AssertionError(f"graphs: the fresh process loaded={got} "
+                             f"(libraries off the table: {stray}; loss "
+                             f"{got['loss']} against {train['first_loss']})")
+    log(f"[graphs] fresh_process load_aot=True nvcc_reachable=False "
+        f"builds=0 keys={got['keys']} libs={sorted(got['libs'])} "
+        f"first_loss_equal=True")
+
+    cc = root / "cc"
+    flags = ["-m", "repro_torch.launch.train", "--arch", "yi-6b", "--steps",
+             "1", "--batch", "2", "--seq", "64", "--spb-mode", "temporal",
+             "--use-pallas", "--compilation-cache-dir", str(cc)]
+    lines = []
+    for _ in range(2):
+        res = subprocess.run(
+            [sys.executable, *flags], capture_output=True, text=True,
+            timeout=600, cwd=Path(__file__).resolve().parent,
+            env=dict(os.environ, PYTHONPATH=str(
+                Path(__file__).resolve().parent / "src")))
+        cc_line = [ln for ln in res.stdout.splitlines()
+                   if ln.startswith("[cc]")]
+        if res.returncode or len(cc_line) != 1:
+            raise AssertionError(f"graphs: --compilation-cache-dir run "
+                                 f"failed:\n{res.stdout[-2000:]}\n"
+                                 f"{res.stderr[-2000:]}")
+        lines.append(cc_line[0])
+        log(f"[graphs] {cc_line[0]}")
+    if "(miss)" not in lines[0] or "(hit" not in lines[1]:
+        raise AssertionError(f"graphs: the compilation cache went {lines}, "
+                             f"not a miss then a hit")
+
+    fails = _run_child(_CAPTURE_FAILS)
+    if not fails.get("raised") or fails["compiled"] or \
+            not fails["eager_kept"]:
+        raise AssertionError(f"graphs: a failed capture gave {fails}")
+    log(f"[graphs] capture_failure raised={fails['raised']!r} "
+        f"compiled={fails['compiled']} eager_entry_kept=True")
+    tmp.cleanup()
+    return {"serve_yi-6b": serve, "train_yi-6b": train["launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2205,6 +2586,13 @@ def main() -> int:
                              f"{idle}")
     fused_jigsaw = phase_fused_jigsaw()
     torch.cuda.empty_cache()
+    graphs_by_path = phase_graphs()
+    idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
+            if not graphs_by_path["train_yi-6b"].get(n)]
+    if idle or not graphs_by_path["serve_yi-6b"].get("flash_fwd"):
+        raise AssertionError(f"graph replays never launched {idle}: "
+                             f"{graphs_by_path}")
+    torch.cuda.empty_cache()
     # host only, so it runs last: every timed phase then runs as it did
     # before the dry run existed, without its modules (~100k more Python
     # objects) and its own garbage collections
@@ -2235,6 +2623,9 @@ def main() -> int:
                  "launches_fused_jigsaw": {a: g[name]
                                            for a, g in fused_jigsaw.items()
                                            if name in g},
+                 "launches_graphs": {p: g[name]
+                                     for p, g in graphs_by_path.items()
+                                     if name in g},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],

@@ -17,7 +17,9 @@ times every collection, and every ``SPBEngine.train_step`` call records
 its host time to return (the enqueue), its span on the stream by CUDA
 events, the device segments the allocator mapped and unmapped
 (``torch.cuda.memory_stats``: ``segment.all.allocated`` / ``freed``, a
-``cudaMalloc`` / ``cudaFree`` each) and its retries, and the
+``cudaMalloc`` / ``cudaFree`` each), the bytes it reserved
+(``reserved_bytes.all.allocated``: new segments, or an expandable
+segment's growth) and its retries, and the
 collections that start inside it.  A phase-5 step is matched to the
 call that ends last before phase 5 logs it.  Phase 9's failure, if any,
 is recorded, not raised.
@@ -68,6 +70,7 @@ def child(tree: Path, dryrun_first: bool, full: bool, out: Path) -> None:
     train_step = SPBEngine.train_step
     stats = {"allocated": "segment.all.allocated",
              "freed": "segment.all.freed",
+             "mapped_bytes": "reserved_bytes.all.allocated",
              "num_alloc_retries": "num_alloc_retries"}
 
     def timed_step(self, *args, **kwargs):
@@ -171,16 +174,36 @@ def summary(label: str, rec: dict) -> str:
         {(c["arch"], c["layers"], c["device"], c["depth"])
          for c in rec["calls"]})
     mallocs = sum(c["allocated"] for c in rec["calls"])
+    warm = _warm(rec)
+    mapping = [c for c in warm if c.get("mapped_bytes", 0) > 0]
     return (f"{label:3s} {rec['main'][:120]} | train steps "
             f"{len(rec['calls'])} ({n_warm} warm), device mallocs in them "
-            f"{mallocs} | warm steps 15% over their median: "
+            f"{mallocs}; warm steps that mapped device memory "
+            f"{len(mapping)} ({sum(c['mapped_bytes'] for c in mapping) / 1e9:.2f}"
+            f" GB, {sum(c['allocated'] for c in warm)} segments), allocator "
+            f"retries in warm steps "
+            f"{sum(c['num_alloc_retries'] for c in warm)} | warm steps 15% "
+            f"over their median: "
             + "; ".join(f"{c['arch']}/{c['layers']} d{c['depth']} span "
                         f"{c['span_ms']:.1f} (median {c['median_ms']:.1f}) "
                         f"enqueue {c['enqueue_ms']:.1f} mallocs "
-                        f"{c['allocated']} frees {c['freed']} retries "
+                        f"{c['allocated']} mapped_mb "
+                        f"{c.get('mapped_bytes', 0) / 1e6:.0f} frees "
+                        f"{c['freed']} retries "
                         f"{c['num_alloc_retries']} gc {c['gc']}"
                         for c in slow)
             + f" | gc max ms by gen {rec['gc_max_ms_by_gen']}")
+
+
+def _warm(rec: dict) -> list:
+    """The calls after the first of their (config, device, depth)."""
+    seen, warm = set(), []
+    for c in rec["calls"]:
+        key = (c["arch"], c["layers"], c["device"], c["depth"])
+        if key in seen:
+            warm.append(c)
+        seen.add(key)
+    return warm
 
 
 def main(argv=None) -> int:

@@ -28,8 +28,19 @@ the allocator's growth; it is excluded from the feedback EMA (the virtual
 clock still charges it — a real session pays it too) so steady-state
 estimates are not poisoned.
 
-Not ported: spatial submeshes (several GPUs) and the AOT step-table
-cache; the arguments that ask for them raise ``NotImplementedError``.
+``aot_cache``: a directory of stored step tables (``engine/aot.py``);
+each arriving job loads its table (the kernel libraries without ``nvcc``,
+its graphs captured in-process) or, on a miss, builds and stores it, so
+every later job or process with the same scrubbed key shares one table.
+A job whose table is built runs every step as a CUDA graph.
+
+Two tenants on one card: on a CUDA device the backend gives the caching
+allocator expandable segments (:func:`~repro_torch.device.share_card`),
+so a warm task grows the one segment it has instead of mapping new ones
+mid-step.
+
+Not ported: spatial submeshes (several GPUs); the argument raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,7 +60,8 @@ from repro_torch.cluster.runtime import (ExecutionBackend, JobSpec, Task,
                                          WorkerSpec)
 from repro_torch.config import ModelConfig, SPBConfig, TrainConfig
 from repro_torch.data.pipeline import Pipeline
-from repro_torch.device import device_fault, resolve_device
+from repro_torch.device import device_fault, resolve_device, share_card
+from repro_torch.engine.aot import step_ident
 from repro_torch.engine.engine import SPBEngine
 from repro_torch.engine.fused import FusedEngine, stack_batches
 from repro_torch.engine.policies import CyclePolicy, SchedulerHookPolicy
@@ -131,8 +143,9 @@ class LiveBackend(ExecutionBackend):
     attempt)`` is a test seam: it runs inside each attempt and may raise to
     simulate a step failure.
 
-    ``submeshes=`` (spatial co-location, several GPUs: ROADMAP.md Queue 1 B
-    item 11) and ``aot_cache=`` (item 9) are not ported and raise
+    ``aot_cache``: as the module docstring says; ``aot_events[jid]`` is
+    ``"loaded"`` or ``"exported"``.  ``submeshes=`` (spatial co-location,
+    several GPUs: ROADMAP.md Queue 1 B item 11) is not ported and raises
     ``NotImplementedError``.
     """
     name = "live"
@@ -150,9 +163,6 @@ class LiveBackend(ExecutionBackend):
             raise NotImplementedError(
                 "spatial submeshes need several GPUs: multi-GPU is "
                 "ROADMAP.md Queue 1 B item 11")
-        if aot_cache is not None:
-            raise NotImplementedError(
-                "the AOT step-table cache is ROADMAP.md Queue 1 B item 9")
         if not 0.0 < ema <= 1.0:
             raise ValueError(f"ema must be in (0, 1], got {ema}")
         if max_retries < 0:
@@ -161,6 +171,10 @@ class LiveBackend(ExecutionBackend):
         if len(self.jobs) != len(jobs):
             raise ValueError("duplicate job_id in LiveJob list")
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            share_card()
+        self.aot_cache = aot_cache
+        self.aot_events: Dict[int, str] = {}      # jid -> loaded|exported
         self.ema = ema
         self.verbose = verbose
         self.timer = timer
@@ -203,21 +217,15 @@ class LiveBackend(ExecutionBackend):
     @staticmethod
     def _fuse_signature(lj: LiveJob) -> str:
         """Jobs fuse iff everything that shapes the vmapped step AND the
-        scheduling footprint matches: the model, train and SPB configs
-        less the checkpoint and logging knobs (and, without gradient
-        compression, the seed, which then reaches only the data stream),
-        the batch shape, the iterations and the workers."""
-        train = dataclasses.asdict(lj.tcfg)
-        for k in ("checkpoint_every", "checkpoint_dir", "keep_checkpoints",
-                  "log_every"):
-            train.pop(k)
-        if train["compression"] == "none":
-            train.pop("seed")
-        ident = {"model": dataclasses.asdict(lj.cfg), "train": train,
-                 "spb": dataclasses.asdict(lj.spb), "batch": lj.batch,
-                 "seq": lj.seq, "iterations": lj.spec.iterations,
-                 "workers": [(w.duration, w.memory, w.frac)
-                             for w in lj.spec.workers]}
+        scheduling footprint matches: the step's identity
+        (``engine/aot.step_ident``: without gradient compression the seed
+        reaches only the data stream), the batch shape, the iterations and
+        the workers."""
+        ident = step_ident(lj.cfg, lj.tcfg, lj.spb)
+        ident.update(batch=lj.batch, seq=lj.seq,
+                     iterations=lj.spec.iterations,
+                     workers=[(w.duration, w.memory, w.frac)
+                              for w in lj.spec.workers])
         blob = json.dumps(ident, sort_keys=True, default=str).encode()
         return hashlib.sha256(blob).hexdigest()[:16]
 
@@ -275,6 +283,8 @@ class LiveBackend(ExecutionBackend):
                                device=self.device)
         self.engines[jid] = engine
         self._init(jid)
+        if self.aot_cache:
+            self._step_table(jid, engine)
         self.hooks[jid] = hook
         for m in members:
             self.steps_run[m] = 0
@@ -292,6 +302,24 @@ class LiveBackend(ExecutionBackend):
             print(f"[live] job={jid} model={lj.cfg.name} "
                   f"workers={job.num_workers} arrived t={now:.2f}s "
                   f"device={self.device}{fused}", flush=True)
+
+    def _step_table(self, jid: int, engine: SPBEngine) -> None:
+        """Load the job's stored step table, or build and store it on a
+        miss; every depth of it then counts as warm."""
+        specs = engine.batch_specs_like(self._stacked_batch(jid, 0))
+        path = engine.aot_cache_path(specs, self.aot_cache)
+        if engine.load_aot(path):
+            self.aot_events[jid] = "loaded"
+        else:
+            engine.compile_table(specs)
+            engine.export_aot(path)
+            self.aot_events[jid] = "exported"
+        self._warmed.update((jid, k) for k in engine.depth_keys())
+        if self.verbose:
+            print(f"[live] job={jid} AOT step table loaded"
+                  if self.aot_events[jid] == "loaded" else
+                  f"[live] job={jid} AOT step table compiled + exported "
+                  f"to {path}", flush=True)
 
     def run_task(self, job: JobSpec, task: Task, machine: int,
                  start: float, migrated: bool,
@@ -481,10 +509,9 @@ class LiveBackend(ExecutionBackend):
                               for m in members])
 
     def summary(self) -> Dict[int, dict]:
-        """Per job: the reference's summary less its resize and AOT
-        entries, which this backend does not have.  A fused member's
-        task-level stats live under its leader (the only job the
-        scheduler saw)."""
+        """Per job: the reference's summary less its resize entry (one
+        device).  A fused member's task-level stats live under its leader
+        (the only job the scheduler saw)."""
         out = {}
         for jid, lj in self.jobs.items():
             leader = self._leader.get(jid, jid)
@@ -505,5 +532,6 @@ class LiveBackend(ExecutionBackend):
                 "degraded_steps": self.degraded_steps.get(leader, 0),
                 "failed": self.failed.get(leader),
                 "fused_with": self.fused.get(leader),
+                "aot": self.aot_events.get(leader),
             }
         return out

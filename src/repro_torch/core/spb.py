@@ -114,12 +114,31 @@ def group_layer_scales(cfg: ModelConfig, spb: SPBConfig
     return out
 
 
-def _scale_rows(tree, s: torch.Tensor):
+# (cfg, spb, device, dtype) -> group_layer_scales there: a step copies its
+# scales to the card once, not every step (a CUDA graph cannot capture a
+# copy from pageable host memory)
+_PLACED: Dict[tuple, List[List[torch.Tensor]]] = {}
+
+
+def placed_scales(cfg: ModelConfig, spb: SPBConfig, device: torch.device,
+                   dtype: torch.dtype) -> List[List[torch.Tensor]]:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (cfg, spb, device, dtype)
+    if key not in _PLACED:
+        _PLACED[key] = [[s.to(device, dtype) for s in unit]
+                        for unit in group_layer_scales(cfg, spb)]
+    return _PLACED[key]
+
+
+def _scale_rows(tree, scale):
+    """``tree``'s leaves times ``scale(device, dtype)`` row by row."""
     if isinstance(tree, dict):
-        return {k: _scale_rows(v, s) for k, v in tree.items()}
+        return {k: _scale_rows(v, scale) for k, v in tree.items()}
     if tree is None:
         return None
-    return tree * s.to(tree.device, tree.dtype).reshape(
+    return tree * scale(tree.device, tree.dtype).reshape(
         (-1,) + (1,) * (tree.dim() - 1))
 
 
@@ -132,15 +151,16 @@ def scale_params_tree(params: Dict[str, Any], cfg: ModelConfig,
     if spb.mode == "off" or not spb.lr_rescale:
         return params
 
-    def scaled(groups, scales):
-        return [[_scale_rows(up, s) for up, s in zip(gp, gs)]
-                for gp, gs in zip(groups, scales)]
+    def scaled(groups, first):
+        return [[_scale_rows(up, lambda dev, dt, g=g, u=u: placed_scales(
+                    cfg, spb, dev, dt)[g][u]) for u, up in enumerate(gp)]
+                for g, gp in enumerate(groups, first)]
 
-    scales = group_layer_scales(cfg, spb)
     out = dict(params)
+    first = 0
     if cfg.enc_layers:
         out["enc"] = dict(params["enc"],
-                          groups=scaled(params["enc"]["groups"], scales[:1]))
-        scales = scales[1:]
-    out["groups"] = scaled(params["groups"], scales)
+                          groups=scaled(params["enc"]["groups"][:1], 0))
+        first = 1
+    out["groups"] = scaled(params["groups"], first)
     return out

@@ -62,12 +62,18 @@ def _microbatches(batch: Dict[str, torch.Tensor], m: int):
 
 
 def _finish_step(state: State, metrics, tcfg: TrainConfig, cfg: ModelConfig,
-                 spb_cfg: Optional[SPBConfig], scale: float = 1.0
+                 spb_cfg: Optional[SPBConfig], scale: float = 1.0,
+                 sched: Optional[torch.Tensor] = None, update: bool = True
                  ) -> Tuple[State, Dict[str, torch.Tensor]]:
     """Collect the gradients (``None`` where autograd left none), compress
-    them if ``tcfg.compression`` asks, run the optimizer and advance the
-    step."""
+    them if ``tcfg.compression`` asks, run the optimizer (reading the
+    schedule from ``sched`` when given, ``optim.apply_updates``) and
+    advance the step.  With ``update=False`` the gradients are dropped and
+    the state is left as it was: a CUDA graph's warm-up."""
     params = state["params"]
+    if not update:
+        tree_map(lambda p: setattr(p, "grad", None), params)
+        return state, metrics
 
     def take(p):
         g, p.grad = p.grad, None
@@ -80,7 +86,7 @@ def _finish_step(state: State, metrics, tcfg: TrainConfig, cfg: ModelConfig,
                                        tcfg.compression_ratio, gen)
     _, _, opt_metrics = optimizers.apply_updates(
         params, grads, state["opt"], state["step"], tcfg, cfg=cfg,
-        spb_cfg=spb_cfg)
+        spb_cfg=spb_cfg, sched=sched)
     state["step"] += 1
     return state, {**metrics, **opt_metrics}
 
@@ -113,14 +119,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     depth: Optional[int] = None) -> Callable:
     """A (state, batch) -> (state, metrics) step at SPB suffix ``depth``
     (None = full backprop), over ``tcfg.microbatches`` accumulated chunks.
-    The state is updated in place."""
+    The state is updated in place; ``sched`` and ``update`` as
+    :func:`_finish_step` takes them."""
 
-    def step(state: State, batch) -> Tuple[State, Dict[str, torch.Tensor]]:
+    def step(state: State, batch, *, sched=None, update: bool = True
+             ) -> Tuple[State, Dict[str, torch.Tensor]]:
         m = max(1, tcfg.microbatches)
         chunks = _microbatches(batch, m) if m > 1 else [batch]
         metrics = _accumulate(state, chunks, [depth] * m, cfg)
         return _finish_step(state, metrics, tcfg, cfg, spb_cfg,
-                            scale=1.0 / m)
+                            scale=1.0 / m, sched=sched, update=update)
 
     return step
 
@@ -131,14 +139,16 @@ def make_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``len(cycle)`` microbatches, microbatch j backprops suffix depth
     ``depths[order[j]]``, and one optimizer step takes the mean gradient
     (``tcfg.microbatches`` is not used)."""
-    sched = spb_lib.make_schedule(cfg, spb_cfg)
-    cycle = [sched.depths[i] for i in sched.order]
+    schedule = spb_lib.make_schedule(cfg, spb_cfg)
+    cycle = [schedule.depths[i] for i in schedule.order]
 
-    def step(state: State, batch) -> Tuple[State, Dict[str, torch.Tensor]]:
+    def step(state: State, batch, *, sched=None, update: bool = True
+             ) -> Tuple[State, Dict[str, torch.Tensor]]:
         chunks = _microbatches(batch, len(cycle))
         metrics = _accumulate(state, chunks, cycle, cfg)
         return _finish_step(state, metrics, tcfg, cfg, spb_cfg,
-                            scale=1.0 / len(cycle))
+                            scale=1.0 / len(cycle), sched=sched,
+                            update=update)
 
     return step
 
@@ -151,7 +161,8 @@ def _functional_step(cfg: ModelConfig, tcfg: TrainConfig,
     by ``1 / len(depths)``, go through the compressor (if any) and the
     optimizer.  The optimizer updates ``params`` and ``opt`` in place and
     returns them; the metrics are 0-d tensors, so ``vmap`` stacks them.
-    ``params`` are plain tensors (no ``requires_grad``)."""
+    ``params`` are plain tensors (no ``requires_grad``).  ``sched`` and
+    ``update`` as :func:`_finish_step` takes them."""
     n = len(depths)
 
     def grad_at(depth):
@@ -166,7 +177,7 @@ def _functional_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     grad_at = [grad_at(d) for d in depths]
 
-    def step(params, opt, step: int, batch):
+    def step(params, opt, step: int, batch, sched=None, update=True):
         chunks = _microbatches(batch, n) if n > 1 else [batch]
         grads = metrics = None
         for chunk, grad_fn in zip(chunks, grad_at):
@@ -179,12 +190,15 @@ def _functional_step(cfg: ModelConfig, tcfg: TrainConfig,
         if n > 1:
             grads = tree_map(lambda t: t * (1.0 / n), grads)
             metrics = {k: v * (1.0 / n) for k, v in metrics.items()}
+        if not update:
+            return params, opt, metrics
         if tcfg.compression != "none":
             grads = compress.compress_tree(
                 grads, tcfg.compression, tcfg.compression_ratio,
                 compression_generator(tcfg, step))
         _, _, opt_metrics = optimizers.apply_updates(
-            params, grads, opt, step, tcfg, cfg=cfg, spb_cfg=spb_cfg)
+            params, grads, opt, step, tcfg, cfg=cfg, spb_cfg=spb_cfg,
+            sched=sched)
         return params, opt, {**metrics, **opt_metrics}
 
     return step

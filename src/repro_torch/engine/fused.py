@@ -67,17 +67,21 @@ class FusedEngine(SPBEngine):
         else:
             fn = steps_lib.make_functional_train_step(
                 self.cfg, self.tcfg, self.spb, depth=key)
-        # the step count is one int for the group: no jobs axis
-        fused = torch.func.vmap(fn, in_dims=(0, 0, None, 0),
+        # the step count, the schedule and the update flag are one for the
+        # group: no jobs axis
+        fused = torch.func.vmap(fn, in_dims=(0, 0, None, 0, None, None),
                                 randomness="same")
 
-        def step(state: State, batch):
+        def step(state: State, batch, *, sched=None, update: bool = True):
             params, opt, metrics = fused(state["params"], state["opt"],
-                                         state["step"], batch)
+                                         state["step"], batch, sched, update)
             return {"params": params, "opt": opt,
-                    "step": state["step"] + 1}, metrics
+                    "step": state["step"] + int(update)}, metrics
 
         return step
+
+    def step_cache_key(self, key: Any):
+        return super().step_cache_key(key) + (("fused", self.num_jobs),)
 
     # -- stacked state lifecycle -------------------------------------------
 
@@ -107,8 +111,7 @@ class FusedEngine(SPBEngine):
             tree_map(lambda dst, src: dst[j].copy_(src.detach()), stacked,
                      solo)
             del solo
-        self.state = {**stacked, "step": 0}
-        return self.state
+        return self._adopt({**stacked, "step": 0})
 
     def attach_state(self, state: State) -> State:
         """Adopt a stacked state, moved to the session's device.  The
@@ -119,10 +122,9 @@ class FusedEngine(SPBEngine):
             raise ValueError(f"expected a jobs axis of {self.num_jobs}, got "
                              f"leading dims {sorted(J)}")
         move = lambda t: t.detach().to(self.device)
-        self.state = {"params": tree_map(move, state["params"]),
-                      "opt": tree_map(move, state["opt"]),
-                      "step": int(state["step"])}
-        return self.state
+        return self._adopt({"params": tree_map(move, state["params"]),
+                            "opt": tree_map(move, state["opt"]),
+                            "step": int(state["step"])})
 
     # -- per-job views ------------------------------------------------------
 

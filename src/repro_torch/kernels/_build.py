@@ -40,6 +40,7 @@ SOURCES = ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv", "ssd_fwd",
            "ssd_bwd", "rglru")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LIB_FILES: Dict[str, Path] = {}        # the file each loaded library came from
 
 # who hears of a launch on the meta device, innermost last: a callable of
 # (kernel name, its work function's arguments, (flops, bytes))
@@ -139,16 +140,30 @@ def nvcc_tool(tool: str) -> str:
     return str(Path(_nvcc()).parent / tool)
 
 
+def load_library(lib_name: str, path: Path) -> ctypes.CDLL:
+    """Load the library of ``csrc/<lib_name>.cu`` from ``path`` (a build,
+    or a stored step table's copy) as the one this process launches."""
+    lib = ctypes.CDLL(str(path))
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    _LIBS[lib_name] = lib
+    _LIB_FILES[lib_name] = Path(path)
+    return lib
+
+
+def loaded_file(lib_name: str) -> Path:
+    """The file this process loaded ``lib<lib_name>`` from (its build
+    when it has not been loaded yet)."""
+    return _LIB_FILES.get(lib_name, lib_path(lib_name))
+
+
 def function(lib_name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C entry ``fn_name`` of ``lib<lib_name>``, building and loading
     the library on first use."""
     lib = _LIBS.get(lib_name)
     if lib is None:
         build([lib_name])
-        lib = ctypes.CDLL(str(lib_path(lib_name)))
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        _LIBS[lib_name] = lib
+        lib = load_library(lib_name, lib_path(lib_name))
     fn = getattr(lib, fn_name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int

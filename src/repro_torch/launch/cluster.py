@@ -19,8 +19,10 @@ observed hardware behavior.
 Prints the reference's ``[cluster] job=...`` and ``[cluster]
 scheduler=... jobs_done=...`` lines; with ``--fuse`` a fused group is
 scheduled as one job and ``fused_groups=`` counts the groups.
-``--spatial``, ``--round-quantum``, ``--aot-cache`` and
-``--compilation-cache-dir`` are not ported and raise
+``--aot-cache DIR`` gives every job a step table from ``DIR`` (loaded, or
+built and stored there); ``--compilation-cache-dir DIR`` builds and loads
+the kernel libraries in ``DIR`` and reports what it found (``[cc] ...``).
+``--spatial`` and ``--round-quantum`` need several GPUs and raise
 ``NotImplementedError``.  ``--reduced`` is the default:
 ``--full`` asks for the published depth as well as the published widths.
 """
@@ -36,6 +38,7 @@ from repro_torch.cluster import (ClusterRuntime, DegradePolicy, FaultPlan,
                                  make_live_job)
 from repro_torch.config import SPBConfig, TrainConfig
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.engine import stepcache
 from repro_torch.jigsaw.schedulers import ALL_SCHEDULERS
 
 # flag: why it raises (the ROADMAP.md item that brings it)
@@ -46,11 +49,6 @@ _NOT_PORTED = {
                      "runs tasks concurrently (disjoint submeshes); the "
                      "one-device backend runs them one after another: "
                      "multi-GPU is ROADMAP.md Queue 1 B item 11",
-    "aot_cache": "--aot-cache (the AOT step-table cache) is ROADMAP.md "
-                 "Queue 1 B item 9",
-    "compilation_cache_dir": "--compilation-cache-dir (a persistent "
-                             "compilation cache) is ROADMAP.md Queue 1 B "
-                             "item 9",
 }
 
 
@@ -90,6 +88,7 @@ def build_session(args):
         backend = LiveBackend(live_jobs, device=args.device,
                               verbose=not args.quiet,
                               fuse=getattr(args, "fuse", False),
+                              aot_cache=getattr(args, "aot_cache", "") or None,
                               ckpt_dir=getattr(args, "ckpt_dir", "") or None,
                               max_retries=getattr(args, "max_retries", 2))
         specs = backend.specs()
@@ -141,9 +140,12 @@ def main(argv=None):
                     help="HFTA-style horizontal fusion: same-shaped jobs "
                          "stack into one vmapped train step scheduled as "
                          "the group leader")
-    ap.add_argument("--compilation-cache-dir", default=None,
-                    help="not ported: raises")
-    ap.add_argument("--aot-cache", default=None, help="not ported: raises")
+    ap.add_argument("--compilation-cache-dir", default="",
+                    help="kernel-library directory: libraries persist "
+                         "across processes")
+    ap.add_argument("--aot-cache", default="",
+                    help="step-table root: each job loads its table, or "
+                         "builds and stores it")
     ap.add_argument("--fault-plan", default="",
                     help="inject faults, ';'-separated (virtual seconds): "
                          "crash:M@T+R | slow:M@A-BxF | fail:J.W@I")
@@ -179,6 +181,10 @@ def main(argv=None):
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
+    cc_before = None
+    if args.compilation_cache_dir:
+        cc_before = stepcache.enable_persistent_compilation_cache(
+            args.compilation_cache_dir)
     runtime, backend = build_session(args)
     t0 = time.time()
     res = runtime.run()
@@ -209,8 +215,15 @@ def main(argv=None):
           f"migrations={sum(res.migrations.values())} wall={wall:.1f}s",
           flush=True)
     if live:
+        cache_stats = stepcache.GLOBAL.stats()
+        print(f"[cluster] stepcache hits={cache_stats['hits']} "
+              f"misses={cache_stats['misses']} "
+              f"entries={cache_stats['entries']}", flush=True)
         print(f"[cluster] max_concurrent={backend.max_concurrent_tasks} "
               f"fused_groups={len(backend.fused)}", flush=True)
+    if cc_before is not None:
+        print(stepcache.persistent_cache_report(
+            args.compilation_cache_dir, cc_before), flush=True)
     if res.crashes or res.task_retries or res.failed_jobs:
         print(f"[cluster] faults: crashes={res.crashes} "
               f"retries={res.task_retries} "

@@ -26,8 +26,10 @@ reference's keys, ``mesh`` = ``"h100"`` and ``chips`` = 1, plus the cut,
 the batch and the per-kernel counts.  ``analysis/report.py`` renders
 them, ``jigsaw/costmodel.hlo_profiles`` and ``h100_profile`` read the
 train records.  The
-port exports no AOT executable (its step cache is ROADMAP.md Queue 1 B
-item 9); ``--multi-pod``, ``--no-zero1`` and sharding rules need several
+dry run runs on the meta device, where nothing executes, so it captures
+no CUDA graph and stores no step table (the reference exports its AOT
+executables; the port's table is built on the card, ``engine/aot.py``);
+``--multi-pod``, ``--no-zero1`` and sharding rules need several
 cards and raise, naming item 11.
 """
 from __future__ import annotations

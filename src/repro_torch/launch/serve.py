@@ -16,8 +16,13 @@ The reduced configs' prompts come from the same ``MarkovLM`` stream as
 the reference's, so both drivers serve the same prompts.  With ``--full``
 they are uniform random tokens from ``configs.make_batch``'s seeded
 generator instead: ``MarkovLM`` builds a vocab x vocab float64 table
-(33 GB at yi-6b's 64000).  The AOT and compilation caches are not
-ported (ROADMAP.md Queue 1 B item 9).
+(33 GB at yi-6b's 64000).
+
+``--aot-cache DIR`` serves through the step table: a stored table under
+``DIR`` is loaded (its kernel libraries without ``nvcc``, its CUDA graphs
+captured in-process), else the table is built and stored there.
+``--compilation-cache-dir DIR`` builds and loads the kernel libraries in
+``DIR`` and reports what it found there (``[cc] ...``).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import numpy as np
 
 from repro_torch.configs import get_config, make_batch, reduced_config
 from repro_torch.data.pipeline import MarkovLM
+from repro_torch.engine import stepcache
 from repro_torch.serve import ServeEngine, default_geometry
 
 
@@ -74,10 +80,11 @@ def serve(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--poll-every", type=int, default=2)
     ap.add_argument("--aot-cache", default=None,
-                    help="not ported: the serve step table waits for the "
-                         "step cache (ROADMAP.md Queue 1 B item 9)")
+                    help="step-table root: load the serve table if "
+                         "present, else build (capture) and store it")
     ap.add_argument("--compilation-cache-dir", default="",
-                    help="not ported (item 9, as --aot-cache)")
+                    help="kernel-library directory: libraries persist "
+                         "across processes")
     ap.add_argument("--use-pallas", action="store_true",
                     help="prefill attention through the hand-written "
                          "kernels (their plain versions on the CPU)")
@@ -85,12 +92,10 @@ def serve(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    for flag in ("aot_cache", "compilation_cache_dir"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: the port runs its serve steps "
-                f"eagerly, with no executable to cache; the step cache is "
-                f"ROADMAP.md Queue 1 B item 9")
+    cc_before = None
+    if args.compilation_cache_dir:
+        cc_before = stepcache.enable_persistent_compilation_cache(
+            args.compilation_cache_dir)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.use_pallas:
         cfg = dataclasses.replace(cfg, use_pallas=True)
@@ -102,6 +107,17 @@ def serve(argv=None):
           f"slots={geom.num_slots} page={geom.page_size} "
           f"pool={geom.num_pages - 1} pages buckets={list(engine.buckets)}",
           flush=True)
+
+    if args.aot_cache:
+        path = engine.aot_cache_path(args.aot_cache)
+        if engine.load_aot(path):
+            print(f"[serve] serve AOT table loaded from {path} (no retrace)",
+                  flush=True)
+        else:
+            engine.compile_table()
+            engine.export_aot(path)
+            print(f"[serve] serve AOT table compiled + exported to {path}",
+                  flush=True)
 
     pending = deque(zip(_arrival_steps(args), _prompts(cfg, args)))
     done, total = [], args.requests
@@ -131,6 +147,9 @@ def serve(argv=None):
           f"slot_uses={st['slot_uses']} pages_alloc={st['page_allocs']} "
           f"pages_freed={st['page_frees']} free_pages={st['free_pages']}",
           flush=True)
+    if cc_before is not None:
+        print(stepcache.persistent_cache_report(
+            args.compilation_cache_dir, cc_before), flush=True)
     return done
 
 

@@ -20,8 +20,12 @@ engine owns the state and the step table; this driver owns the loop: data,
 logging, checkpoints, and the supervision loop that catches a failed step
 (or the ``--fail-at`` injection), restores the latest checkpoint and
 resumes.  A kernel or CUDA fault is never retried: it is raised at once.
-The spatial mode, the pipeline and mesh flags and the AOT and compile
-caches are not ported.
+``--aot-cache DIR`` trains through the step table: a stored table under
+``DIR`` is loaded (the kernel libraries without ``nvcc``; on the card one
+CUDA graph a depth, captured in-process), else it is built and stored
+there.  ``--compilation-cache-dir DIR`` builds and loads the kernel
+libraries in ``DIR`` and reports what it found there (``[cc] ...``).  The
+spatial mode and the pipeline and mesh flags are not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from repro_torch.config import SPBConfig, TrainConfig
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.device import device_fault
+from repro_torch.engine import stepcache
 from repro_torch.engine.engine import SPBEngine
 from repro_torch.engine.policies import make_policy
 
@@ -69,6 +74,13 @@ def train(argv=None):
     ap.add_argument("--time-budget", type=float, default=0.75,
                     help="costmodel policy: step-time budget as a fraction "
                          "of a full-backprop step")
+    ap.add_argument("--aot-cache", default="",
+                    help="step-table root: a process with the same config "
+                         "and device loads the stored table instead of "
+                         "building it")
+    ap.add_argument("--compilation-cache-dir", default="",
+                    help="kernel-library directory: libraries persist "
+                         "across processes")
     ap.add_argument("--compression", default="none",
                     choices=["none", "topk", "randk", "lowrank"])
     ap.add_argument("--checkpoint-dir", default="")
@@ -87,6 +99,10 @@ def train(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
+    cc_before = None
+    if args.compilation_cache_dir:
+        cc_before = stepcache.enable_persistent_compilation_cache(
+            args.compilation_cache_dir)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.use_pallas:
         cfg = dataclasses.replace(cfg, use_pallas=True)
@@ -120,6 +136,9 @@ def train(argv=None):
             args.resume = True
     if mgr:
         mgr.wait()
+    if cc_before is not None:
+        print(stepcache.persistent_cache_report(
+            args.compilation_cache_dir, cc_before), flush=True)
     return history
 
 
@@ -139,6 +158,17 @@ def _run(engine: SPBEngine, args, mgr, history):
         print(f"[train] resumed from step {start_step}", flush=True)
 
     pipe = Pipeline(cfg, args.batch, args.seq, seed=tcfg.seed)
+    if args.aot_cache and not engine._compiled:
+        specs = engine.batch_specs_like(pipe.get_batch(0))
+        path = engine.aot_cache_path(specs, args.aot_cache)
+        if engine.load_aot(path):
+            print(f"[train] AOT step table loaded from {path} "
+                  f"(no re-trace)", flush=True)
+        else:
+            engine.compile_table(specs)
+            engine.export_aot(path)
+            print(f"[train] AOT step table compiled + exported to {path}",
+                  flush=True)
     t0 = time.time()
     for step in range(start_step, tcfg.num_steps):
         if step == args.fail_at:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, SPBConfig, TrainConfig
@@ -30,6 +31,16 @@ def lr_at(tcfg: TrainConfig, step: int) -> float:
     warm = min(1.0, (step + 1) / max(tcfg.warmup_steps, 1))
     frac = min(max(step / max(tcfg.num_steps, 1), 0.0), 1.0)
     return tcfg.learning_rate * warm * (0.55 + 0.45 * math.cos(math.pi * frac))
+
+
+def schedule_values(tcfg: TrainConfig, step: int) -> np.ndarray:
+    """What a graphed step reads at ``step`` in place of the host scalars
+    of :func:`apply_updates`: the learning rate and AdamW's inverse bias
+    corrections, f32, as the card rounds a host scalar (a division by a
+    host scalar is a product with its f32 reciprocal, taken in f64)."""
+    t = step + 1.0
+    return np.array([lr_at(tcfg, step), 1.0 / (1 - tcfg.beta1 ** t),
+                     1.0 / (1 - tcfg.beta2 ** t)], np.float32)
 
 
 def init_opt_state(params, tcfg: TrainConfig) -> Dict[str, Any]:
@@ -62,11 +73,17 @@ def global_norm(tree) -> torch.Tensor:
 @torch.no_grad()
 def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
                   cfg: Optional[ModelConfig] = None,
-                  spb_cfg: Optional[SPBConfig] = None
+                  spb_cfg: Optional[SPBConfig] = None, *,
+                  sched: Optional[torch.Tensor] = None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One optimizer step, in place.  ``grads`` matches ``params`` with
     ``None`` for a parameter that got no gradient.  Returns (params,
-    opt_state, metrics)."""
+    opt_state, metrics).
+
+    ``sched``: a device tensor holding :func:`schedule_values` of ``step``
+    (a CUDA graph's static input, refilled before each replay), read in
+    place of the host scalars a capture would bake in; the card gives the
+    same bits either way."""
     gnorm = global_norm(grads)
     if tcfg.grad_clip > 0:
         clip = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-9),
@@ -80,7 +97,10 @@ def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
     if spb_cfg is not None and cfg is not None and spb_cfg.mode != "off":
         grads = spb_lib.scale_params_tree(grads, cfg, spb_cfg)
 
-    lr = lr_at(tcfg, step)
+    if sched is None:
+        lr = lr_at(tcfg, step)
+    else:
+        lr, inv_bc1, inv_bc2 = sched[0], sched[1], sched[2]
     master = opt_state.get("master", params)
 
     if tcfg.optimizer == "adamw":
@@ -88,13 +108,19 @@ def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
         b1, b2, eps, wd = tcfg.beta1, tcfg.beta2, tcfg.eps, tcfg.weight_decay
         bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
 
+        def debias(mu, nu):
+            if sched is None:
+                return mu / bc1, nu / bc2
+            return mu * inv_bc1, nu * inv_bc2
+
         def adamw(p, m, mu, nu, g):
             mu.mul_(b1)
             nu.mul_(b2)
             if g is not None:
                 mu.add_(g, alpha=1 - b1)
                 nu.add_(g * g, alpha=1 - b2)
-            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            mu_hat, nu_hat = debias(mu, nu)
+            upd = mu_hat / (torch.sqrt(nu_hat) + eps)
             m.sub_(lr * (upd + wd * m))
             if m is not p:
                 p.copy_(m)
@@ -113,5 +139,6 @@ def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
         tree_map(sgdm, params, master, opt_state["mom"], grads)
 
     metrics = {"grad_norm": gnorm,
-               "lr": torch.tensor(lr, dtype=torch.float32)}
+               "lr": torch.tensor(lr, dtype=torch.float32)
+               if sched is None else lr}
     return params, opt_state, metrics

@@ -21,10 +21,16 @@ engine owns params + a fixed-capacity paged KV cache
   finished slots deactivate themselves on the device (EOS / max-new),
   and the host reads device state only in :meth:`poll`.
 
-The port runs the step functions eagerly: there is no ``jit``, so the
-reference's AOT step table (``compile_table``, ``export_aot``,
-``load_aot``) waits for the step cache (ROADMAP.md Queue 1 B item 9), and
-a device mesh for the multi-GPU slice (item 11).
+The port runs the step functions eagerly unless the caller asks for the
+step table: ``compile_table()`` captures each entry as CUDA graphs
+(``engine/graphs.py``) -- ``decode`` and one ``prefill_<bucket>`` a
+bucket, each twice: greedy, and sampled with the engine's generator
+registered with the graph -- so one host call replays the step's few
+thousand launches.  The prefill's packed ``desc`` is then a static buffer
+of its bucket's size that :meth:`ServeEngine._to_device` fills without a
+sync.  ``export_aot`` / ``load_aot`` store and restore the table
+(``engine/aot.py``).  On the CPU the table holds the eager functions.  A
+device mesh waits for the multi-GPU slice (ROADMAP.md Queue 1 B item 11).
 
 Determinism: greedy slots (temperature 0) consume no randomness, so
 their outputs are the same token for token whether a request runs solo
@@ -36,6 +42,7 @@ reference's, whose JAX key a torch generator cannot reproduce).
 """
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +51,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.engine import aot, graphs
 from repro_torch.models import lm
 from repro_torch.serve import kvcache
 from repro_torch.serve.kvcache import TRASH_PAGE, PageGeometry
@@ -146,6 +154,51 @@ def _make_admit_fn(cfg: ModelConfig, *, eos_id: int, bucket: int,
     return admit
 
 
+class _GraphedServeStep:
+    """One step-table key as two CUDA graphs, greedy and sampled, bound to
+    the engine's params and state; called as the eager step is.  The
+    warm-up admits a one-token request with ``max_new`` 1 into slot 0 whose
+    pages are all the trash page (prefill), or decodes an idle batch, and
+    the small per-slot state is restored after the capture, so capturing
+    changes nothing a request can see."""
+
+    def __init__(self, engine: "ServeEngine", key: str):
+        fn, dev = engine._raw[key], engine.device
+        self.params, self.state = engine.params, engine.state
+        self.desc = None
+        if key.startswith("prefill_"):
+            bucket = int(key.split("_")[1])
+            P = engine.geom.pages_per_slot
+            desc = np.zeros((bucket + P + 4,), np.int32)
+            desc[bucket:bucket + P] = TRASH_PAGE
+            desc[bucket + P:bucket + P + 3] = (1, 0, 1)
+            self.desc = torch.from_numpy(desc).to(dev)
+        small = {k: v.clone() for k, v in self.state.items()
+                 if k != "groups"}
+        warm_gen = torch.Generator(device=dev).manual_seed(0)
+        self.graphs = {}
+        for sampled in (False, True):
+            def call(gen, sampled=sampled):
+                args = (() if self.desc is None else (self.desc,))
+                fn(self.params, self.state, *args, gen if sampled else None)
+            self.graphs[sampled] = graphs.capture(
+                lambda: call(engine.generator), device=dev,
+                pool=engine._graph_pool(), warmup=lambda: call(warm_gen),
+                generators=(engine.generator,) if sampled else ())
+            for k, v in small.items():
+                self.state[k].copy_(v)
+        self.launches = self.graphs[False].launches
+
+    def __call__(self, params, state, *args) -> None:
+        if params is not self.params or state is not self.state:
+            raise RuntimeError("a graphed serve step runs on the params and "
+                               "state it was captured on")
+        *desc, generator = args
+        if desc and desc[0] is not self.desc:
+            self.desc.copy_(desc[0])
+        self.graphs[generator is not None].replay()
+
+
 class ServeEngine:
     """A serving session: params + paged cache + scheduler + step functions.
 
@@ -214,12 +267,16 @@ class ServeEngine:
         # the sampled slots' draws; greedy slots never touch it
         self.generator = torch.Generator(device=dev).manual_seed(seed + 1)
 
-        self._steps: Dict[str, Callable] = {
+        self._raw: Dict[str, Callable] = {
             "decode": _make_decode_fn(cfg, eos_id=eos_id,
                                       out_cap=self.max_new_cap)}
         for b in self.buckets:
-            self._steps[f"prefill_{b}"] = _make_admit_fn(
+            self._raw[f"prefill_{b}"] = _make_admit_fn(
                 cfg, eos_id=eos_id, bucket=b, pages_per_slot=Pmax)
+        self._steps: Dict[str, Callable] = dict(self._raw)
+        self._compiled: Dict[str, Callable] = {}
+        self._pool = None
+        self._frozen = False
 
         # host-side bookkeeping
         self._live: Dict[int, Request] = {}       # slot -> in-flight req
@@ -248,12 +305,16 @@ class ServeEngine:
                 return b
         raise ValueError(f"no bucket holds a {n}-token prompt")
 
-    def _to_device(self, desc: np.ndarray) -> Tensor:
-        """One host-to-device copy, from pinned memory without a sync."""
+    def _to_device(self, desc: np.ndarray, key: str) -> Tensor:
+        """One host-to-device copy, from pinned memory without a sync --
+        into the static buffer of ``key``'s graphs when it has them."""
         t = torch.from_numpy(desc)
         if self.device.type != "cuda":
             return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        static = getattr(self._steps[key], "desc", None)
+        if static is None:
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return static.copy_(t.pin_memory(), non_blocking=True)
 
     def _admit_ready(self) -> int:
         free = sorted(set(range(self.geom.num_slots)) - set(self._live))
@@ -267,8 +328,9 @@ class ServeEngine:
             desc[bucket + Pmax:] = [
                 len(req.prompt), slot, req.max_new,
                 np.float32(req.temperature).view(np.int32)]
-            self.step_fn(f"prefill_{bucket}")(
-                self.params, self.state, self._to_device(desc),
+            key = f"prefill_{bucket}"
+            self.step_fn(key)(
+                self.params, self.state, self._to_device(desc, key),
                 self.generator if req.temperature > 0 else None)
             self._live[slot] = req
             self._slot_uses[slot] += 1
@@ -350,24 +412,78 @@ class ServeEngine:
     def step_fn(self, key: str) -> Callable:
         """The step function ``decode`` or ``prefill_<bucket>``."""
         if key not in self._steps:
-            raise KeyError(f"serve step table has no entry {key!r}; "
+            table = "AOT serve table" if self._frozen else "serve step table"
+            raise KeyError(f"{table} has no entry {key!r}; "
                            f"available: {sorted(self._steps)}")
         return self._steps[key]
 
-    def _no_aot(self, what: str):
-        raise NotImplementedError(
-            f"ServeEngine.{what}: the port runs its step functions eagerly; "
-            f"a serialized step table waits for the step cache (ROADMAP.md "
-            f"Queue 1 B item 9)")
+    def _graph_pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _capture(self, key: str) -> Callable:
+        if self.device.type != "cuda":
+            return self._raw[key]
+        return _GraphedServeStep(self, key)
 
     def compile_table(self) -> Dict[str, Any]:
-        self._no_aot("compile_table")
+        """Build the step table: on a CUDA device, CUDA graphs of decode
+        and of every prefill bucket (greedy and sampled each), which
+        replace the eager entries; on the CPU the eager functions.  The
+        capture warms each step up on the idle slots, so no request may be
+        in flight."""
+        if self._live:
+            raise RuntimeError("compile_table: requests are in flight; "
+                               "build the table on an idle engine")
+        for key in self._raw:
+            if key not in self._compiled:
+                self._compiled[key] = self._steps[key] = self._capture(key)
+        return dict(self._compiled)
 
     def aot_cache_path(self, cache_root=None) -> Path:
-        self._no_aot("aot_cache_path")
+        root = Path(cache_root) if cache_root else aot.DEFAULT_CACHE
+        extra = {"mode": "serve", "geom": dataclasses.asdict(self.geom),
+                 "buckets": list(self.buckets), "eos_id": self.eos_id,
+                 "out_cap": self.max_new_cap, "chunk": self.chunk}
+        return root / aot.cache_key(self.cfg, None, None, self.device,
+                                    self.state, extra=extra)
 
     def export_aot(self, path) -> Path:
-        self._no_aot("export_aot")
+        if not self._compiled:
+            self.compile_table()
+        records = {}
+        for key, entry in self._compiled.items():
+            launches = getattr(entry, "launches", {})
+            desc = getattr(entry, "desc", None)
+            records[key] = {"inputs": aot._shape_sig({"desc": desc}),
+                            "launches": launches,
+                            "libs": aot.entry_libs(launches)}
+        return aot.export_table(records, Path(path), device=self.device,
+                                meta={"arch": self.cfg.name, "mode": "serve"})
 
     def load_aot(self, path) -> bool:
-        self._no_aot("load_aot")
+        """Restore a stored serve table (its kernel libraries load without
+        ``nvcc``; on a CUDA device every entry is captured, its launches
+        checked against the stored ones).  False on a miss or a damaged
+        table, ``AOTCompatError`` for a table of another env."""
+        if not aot.table_exists(path):
+            return False
+        try:
+            table = aot.import_table(path, expect_device=self.device)
+        except (aot.AOTCorruptError, FileNotFoundError):
+            return False
+        if self._live:
+            raise RuntimeError("load_aot: requests are in flight")
+        steps = {}
+        for key, record in table.items():
+            if key not in self._raw:
+                raise aot.AOTCompatError(f"the stored serve table has an "
+                                         f"entry {key!r} this engine lacks")
+            entry = self._capture(key)
+            aot.check_launches(key, getattr(entry, "launches", {}),
+                                  record["launches"])
+            steps[key] = self._compiled[key] = entry
+        self._steps = steps
+        self._frozen = True
+        return True

@@ -3,7 +3,8 @@ against the reference's: the live CPU session ends on the reference's
 summary line, ``--sim --json-out`` writes the reference's makespan,
 utilization, completion times and migrations, ``--fuse`` fuses the same
 jobs as the reference's (both driven by one scripted clock, so their
-completion times agree), and the flags that are not ported raise."""
+completion times agree), ``--aot-cache`` and ``--compilation-cache-dir``
+work, and the flags that are not ported raise."""
 import itertools
 import json
 import os
@@ -60,14 +61,30 @@ def test_sim_json_equals_reference(tmp_path, capsys, scheduler):
     assert len(faults) == 2 and faults[0] == faults[1]
 
 
-@pytest.mark.parametrize("flag", [["--spatial"], ["--round-quantum", "0"],
-                                  ["--aot-cache", "cache"],
-                                  ["--compilation-cache-dir", "cc"]],
-                         ids=["spatial", "round-quantum", "aot-cache",
-                              "compilation-cache-dir"])
+@pytest.mark.parametrize("flag", [["--spatial"], ["--round-quantum", "0"]],
+                         ids=["spatial", "round-quantum"])
 def test_flags_that_are_not_ported_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 B"):
         cluster_mod.main(["--device", "cpu", *FLAGS, *flag])
+
+
+@pytest.mark.parametrize("flag", ["--aot-cache", "--compilation-cache-dir"])
+def test_cache_flags_work(flag, tmp_path, capsys):
+    """``--aot-cache``: the first job stores its table and the second,
+    with the same scrubbed key, loads it; the reference's stepcache line.
+    ``--compilation-cache-dir``: the reference's ``[cc]`` line."""
+    cluster_mod.main(["--device", "cpu", *FLAGS, "--iters", "1", flag,
+                      str(tmp_path / "cache")])
+    out = capsys.readouterr().out
+    assert "[cluster] scheduler=jigsaw jobs_done=2/2" in out
+    assert re.search(r"\[cluster\] stepcache hits=\d+ misses=\d+ "
+                     r"entries=\d+", out)
+    if flag == "--aot-cache":
+        assert "[live] job=0 AOT step table compiled + exported to" in out
+        assert "[live] job=1 AOT step table loaded" in out
+    else:
+        assert f"[cc] persistent compilation cache {tmp_path / 'cache'}: " \
+               f"0 new entries (hit" in out
 
 
 class _StepClock:

@@ -351,12 +351,32 @@ def test_a_rollback_to_another_snapshot_raises(tmp_path, monkeypatch):
     backend.close()
 
 
-@pytest.mark.parametrize("kw", [dict(submeshes=[object()]),
-                                dict(aot_cache="cache")],
-                         ids=["submeshes", "aot_cache"])
+@pytest.mark.parametrize("kw", [dict(submeshes=[object()])],
+                         ids=["submeshes"])
 def test_what_is_not_ported_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 B"):
         LiveBackend(_port_jobs(), device="cpu", **kw)
+
+
+def test_aot_cache_loads_or_exports_each_job(tmp_path):
+    """``aot_cache=``: as the reference's backend, the first job of a
+    config stores its table ("exported"), the next with the same
+    scrubbed key loads it ("loaded"), both show in ``summary()["aot"]``,
+    and the session's schedule and xent are those of a session without
+    the cache."""
+    results = {}
+    for cache in (None, str(tmp_path)):
+        backend = LiveBackend(_port_jobs(), device="cpu", aot_cache=cache,
+                              timer=_ScriptedTimer(itertools.repeat(1.0)))
+        res = _run(backend, horizon=1e9)
+        results[cache] = (res.jct, {j: s["final_xent"]
+                                    for j, s in backend.summary().items()})
+        if cache:
+            assert backend.aot_events == {0: "exported", 1: "loaded"}
+            assert [s["aot"] for s in backend.summary().values()] == [
+                "exported", "loaded"]
+        backend.close()
+    assert results[None] == results[str(tmp_path)]
 
 
 def test_the_default_device_is_the_card():

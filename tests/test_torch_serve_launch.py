@@ -1,7 +1,8 @@
 """The port's serving client: ``python -m repro_torch.launch.serve
 --device cpu`` replays its trace to the end and prints the reference
-driver's summary lines; the flags of the reference's AOT and compilation
-caches raise naming ROADMAP.md Queue 1 B item 9; the reduced configs'
+driver's summary lines; the reference's AOT and compilation-cache flags
+store and load the serve table and report the kernel-library cache; the
+reduced configs'
 prompts are the reference's; the encoder-decoder and frontend archs are
 refused, by the engine and the client, with the reference's reason."""
 import os
@@ -47,11 +48,25 @@ def test_mla_archs_serve_in_process(arch, capsys):
     assert "[serve] completed=3/3 " in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--aot-cache", "x"],
-                                  ["--compilation-cache-dir", "x"]])
-def test_cache_flags_raise_naming_item_9(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 B item 9"):
-        serve_mod.serve(["--device", "cpu"] + flag)
+@pytest.mark.parametrize("flag", ["--aot-cache",
+                                  "--compilation-cache-dir"])
+def test_cache_flags_work(flag, tmp_path, capsys):
+    """Run twice: ``--aot-cache`` stores the table, then loads it (the
+    reference's lines); ``--compilation-cache-dir`` reports the library
+    directory (no library on the CPU: a hit with 0 entries)."""
+    argv = ["--device", "cpu", "--requests", "2", "--max-new", "3",
+            flag, str(tmp_path / "cache")]
+    outs = []
+    for _ in range(2):
+        done = serve_mod.serve(argv)
+        assert sorted(len(r.output) for r in done) == [3, 3]
+        outs.append(capsys.readouterr().out)
+    if flag == "--aot-cache":
+        assert "serve AOT table compiled + exported to" in outs[0]
+        assert "serve AOT table loaded from" in outs[1]
+    else:
+        assert all(f"[cc] persistent compilation cache {tmp_path / 'cache'}"
+                   f": 0 new entries (hit" in o for o in outs)
 
 
 def test_reduced_prompts_are_the_reference_markov_stream():
