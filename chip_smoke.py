@@ -147,7 +147,22 @@ Phases, each printing a line; any failure exits non-zero:
      ``launch/train.py --compilation-cache-dir`` twice: a miss, then a
      hit; (e) a step that reads a device value on the host cannot be
      captured: ``compile_table`` raises and the eager entry stays;
-  15. (run last, after 16, on the host) the dry run of each phase-5 path:
+  17. (run after 16) the layer recompute (``remat``; ``models/lm.py``):
+     yi-6b at phase 5's cut, batch 2 x 2048, from one seed over the same
+     batches at depths 2 (three steps) and 8 (three), under 'none',
+     'dots' and 'full'; mamba2-2.7b at 8 then 32 (three), recurrentgemma-2b
+     at 3 then 12 and seamless-m4t-medium at 6 then 24, under 'none' and
+     'full': every step's launches exactly ``expected_launches(...,
+     remat=)`` (a live layer's forward kernel twice), warm step ms and
+     ``max_memory_allocated`` by depth, losses, grad norms and updated
+     parameters bit-equal to 'none''s (a leaf that differs is named and
+     held within ``TOL``); then yi-6b's step table captured under 'full'
+     and under 'none' at depths 2 and 8: each replay bit-equal to the
+     eager run of its policy, the pools' GB; with phase 15 the dry run of
+     each of these configs, depths and policies (counted TFLOP, saved GB,
+     predicted peak beside the measured one; FLOPs must rise and saved
+     bytes fall from 'none' to 'dots' to 'full');
+  15. (run last, after 17, on the host) the dry run of each phase-5 path:
      every depth of its cycle counted on the meta device at batch
      2 x 2048 with the kernels' meta entries (``launch/dryrun.py``):
      counted TFLOP and GB, the three H100 roofline terms
@@ -164,7 +179,8 @@ Phases, each printing a line; any failure exits non-zero:
   13. a ``{"kernels": [...]}`` line (launches by path, among them
      ``launches_decode``, ``launches_serve``, ``launches_fused`` and
      ``launches_fused_jigsaw``, ``launches_graphs`` (phase 16's graph
-     replays), the fused phase's ms by depth and peak,
+     replays), ``launches_remat`` (phase 17's runs, by arch and policy),
+     the fused phase's ms by depth and peak, phase 17's figures,
      and phase 15's ``dryrun_by_arch``), the card's name and power
      limit, and last the
      ``{"ok": true, ...}`` line.
@@ -464,7 +480,7 @@ def launches_since(before: dict) -> dict:
     return {n: c - before[n] for n, c in launches_now().items()}
 
 
-def expected_launches(cfg, depths) -> dict:
+def expected_launches(cfg, depths, remat: str = "none") -> dict:
     """Launches of ``len(depths)`` steps at these SPB depths, layer by
     layer: an attention layer runs the flash forward always and the delta,
     dq and dkv kernels when it is in the suffix; an SSD layer runs the
@@ -475,33 +491,44 @@ def expected_launches(cfg, depths) -> dict:
     as an attention layer.  An encoder layer and a cross-attention run the
     plain blockwise path and launch nothing, so only the decoder's layers
     count, live when the suffix (counted over the encoder and the decoder)
-    reaches them.  Depth 0 is a forward alone (prefill)."""
+    reaches them.  Depth 0 is a forward alone (prefill).
+
+    Under the layer recompute (``remat`` 'dots' or 'full', the eager and
+    graphed steps) a live layer's forward runs twice, both times with
+    grad on: its first pass under the checkpoint and its recompute in the
+    backward each launch the forward kernel of the differentiable path
+    (the flash forward with ``lse``, the SSD forward-with-residuals, the
+    RG-LRU scan); the first pass's residuals are dropped.  A frozen layer
+    runs once, as under 'none'."""
     from repro_torch.config import layer_kinds
     want = dict.fromkeys(counters(), 0)
     kinds = layer_kinds(cfg)
+    twice = remat != "none"
     for d in depths:
         for i, (mixer, _) in enumerate(kinds):
             live = i >= len(kinds) - d
             if mixer == "ssd":
-                names = ("ssd_fwd_res", "ssd_bwd") if live else ("ssd_fwd",)
+                fwd, bwd = (("ssd_fwd_res",), ("ssd_bwd",)) if live else \
+                    (("ssd_fwd",), ())
             elif mixer == "rglru":
-                names = ("rglru_fwd", "rglru_bwd") if live else ("rglru_fwd",)
+                fwd, bwd = ("rglru_fwd",), (("rglru_bwd",) if live else ())
             elif mixer in ("attn", "local", "mla", "xdec"):
                 # MLA's attention runs the same kernels on padded heads
-                names = ("flash_fwd",) + (("flash_delta", "flash_dq",
-                                           "flash_dkv") if live else ())
+                fwd, bwd = ("flash_fwd",), (("flash_delta", "flash_dq",
+                                             "flash_dkv") if live else ())
             else:
                 raise ValueError(f"no kernels known for mixer {mixer!r}")
-            for n in names:
+            for n in fwd * (2 if live and twice else 1) + bwd:
                 want[n] += 1
     return want
 
 
-def check_launches(phase: str, before: dict, depths, cfg) -> dict:
+def check_launches(phase: str, before: dict, depths, cfg,
+                   remat: str = "none") -> dict:
     """The launches since ``before`` against :func:`expected_launches`.
     Returns them."""
     grew = launches_since(before)
-    want = expected_launches(cfg, depths)
+    want = expected_launches(cfg, depths, remat)
     if grew != want:
         raise AssertionError(f"{phase}: launches {grew} != {want}")
     return grew
@@ -2505,6 +2532,234 @@ def phase_graphs() -> dict:
     return {"serve_yi-6b": serve, "train_yi-6b": train["launches"]}
 
 
+# the recompute phase: per arch, the SPB depths its steps run, in order,
+# at phase 5's cut and batch (the first step warms up; a shallow depth
+# first, so the frozen prefix's kernels run too) and the policies held
+# against 'none'
+REMAT_RUNS = {
+    "yi-6b": ((2, 2, 2, 8, 8, 8), ("none", "dots", "full")),
+    "mamba2-2.7b": ((8, 32, 32, 32), ("none", "full")),
+    "recurrentgemma-2b": ((3, 12, 12, 12), ("none", "full")),
+    "seamless-m4t-medium": ((6, 24, 24, 24), ("none", "full")),
+}
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [n for k in tree for n in _leaf_names(tree[k],
+                                                     f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def _remat_run(cfg, depths, batches, remat: str, *, graphed: bool = False):
+    """One engine under ``remat`` from seed 0 over ``batches`` at
+    ``depths`` (graphed: its step table captured at those depths first);
+    each step's loss, grad norm, ms, peak and launches, checked against
+    :func:`expected_launches`; the params after the run (host copies)."""
+    import gc
+
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.tree import tree_leaves
+
+    gc.collect()        # an earlier engine's graphs and state, in cycles
+    torch.cuda.empty_cache()
+    # what earlier phases leave allocated: in every step's peak, none of
+    # the step's own
+    leftover = torch.cuda.memory_allocated()
+    eng = SPBEngine(cfg, TrainConfig(num_steps=len(depths)),
+                    SPBConfig(mode="temporal", k=4), device="cuda",
+                    remat=remat)
+    eng.init_state(0)
+    out = {"pool_gb": None, "leftover_gb": leftover / 1e9}
+    if graphed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.compile_table(eng.batch_specs_like(batches[0]),
+                          depths=sorted(set(depths)))
+        torch.cuda.synchronize()
+        out["capture_s"] = time.perf_counter() - t0
+        out["pool_gb"] = eng.memory_analysis(depths[-1])[
+            "pool_total_bytes"] / 1e9
+    label = f"{cfg.name} {remat}{' graphed' if graphed else ''}"
+    zero_launches()
+    rows = []
+    for s, (d, batch) in enumerate(zip(depths, batches)):
+        before = launches_now()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eng.train_step(batch, s, depth=d)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        grew = check_launches(f"remat {label} step {s}", before, [d], cfg,
+                              remat)
+        row = {"depth": d, "ms": ms,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": {n: c for n, c in grew.items() if c},
+               **{k: m[k].detach().cpu() for k in ("loss", "grad_norm")}}
+        if not math.isfinite(float(row["loss"])):
+            raise AssertionError(f"remat {label}: loss not finite at {s}")
+        rows.append(row)
+    out["launches"] = {n: c for n, c in launches_now().items() if c}
+    out["rows"] = rows
+    out["params"] = [t.detach().cpu() for t in tree_leaves(
+        eng.state["params"])]
+    out["names"] = _leaf_names(eng.state["params"])
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hold_to(label: str, got: dict, want: dict) -> dict:
+    """``got``'s losses, grad norms and params against ``want``'s: bit
+    for bit, or, where a value differs, within ``TOL`` (named in the
+    result)."""
+    import torch
+    differ = {}
+    pairs = [(f"step {i} {k}", a[k], b[k])
+             for i, (a, b) in enumerate(zip(got["rows"], want["rows"]))
+             for k in ("loss", "grad_norm")]
+    pairs += list(zip(got["names"], got["params"], want["params"]))
+    for name, a, b in pairs:
+        if torch.equal(a, b):
+            continue
+        a32, b32 = a.float(), b.float()
+        atol, rtol = TOL[str(b.dtype).replace("torch.", "")]
+        err = float((a32 - b32).abs().max())
+        if not torch.allclose(a32, b32, atol=atol, rtol=rtol):
+            raise AssertionError(f"remat {label}: {name} differs by {err} "
+                                 f"beyond {(atol, rtol)}")
+        differ[name] = err
+    return differ
+
+
+def phase_remat() -> dict:
+    """Phase 17 (run after 16): the layer recompute at phase 5's cuts,
+    batch 2 x 2048.  Each arch of :data:`REMAT_RUNS` trains from one seed
+    over the same batches and depths under each policy: every step's
+    launches exactly :func:`expected_launches` under that policy (a live
+    layer's forward kernel twice), its ms and ``max_memory_allocated``,
+    and the losses, grad norms and updated parameters bit-equal to
+    'none''s (a difference is named and held within ``TOL``).  Then
+    yi-6b's step table captured under 'full' (and under 'none', for its
+    pool) at depths 2 and 8: each replay bit-equal to the eager 'full'
+    run, and the pools' bytes.  Returns {arch: {policy: figures}}."""
+    from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
+                                     full_width_config, make_batch)
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch, (depths, policies) in REMAT_RUNS.items():
+        cfg = full_width_config(arch)
+        batches = [make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=s,
+                              device="cuda") for s in range(len(depths))]
+        runs = {}
+        for remat in policies:
+            runs[remat] = _remat_run(cfg, depths, batches, remat)
+        if arch == "yi-6b":
+            for remat in ("full", "none"):
+                runs[remat + "_graphed"] = _remat_run(
+                    cfg, depths, batches, remat, graphed=True)
+        out[arch] = {}
+        for label, run in runs.items():
+            base = runs[label.split("_")[0]] if "graphed" in label \
+                else runs["none"]
+            differ = _hold_to(f"{arch} {label}", run, base)
+            # a step after one at its own depth is warm; a depth run once
+            # (the shallow one of the SSD, RG-LRU and encoder paths) keeps
+            # its only step for its peak
+            warm, every = {}, {}
+            for i, r in enumerate(run["rows"]):
+                every.setdefault(r["depth"], []).append(r)
+                if i and r["depth"] == run["rows"][i - 1]["depth"]:
+                    warm.setdefault(r["depth"], []).append(r)
+            fig = {"warm_ms": {d: [round(r["ms"], 2) for r in rs]
+                               for d, rs in warm.items()},
+                   "peak_gb": {d: round(max(r["peak_gb"] for r in
+                                            warm.get(d, rs)), 3)
+                               for d, rs in every.items()},
+                   "launches_a_step": {d: rs[0]["launches"]
+                                       for d, rs in every.items()},
+                   "launches": run["launches"], "differ": differ,
+                   "pool_gb": run["pool_gb"],
+                   "leftover_gb": round(run["leftover_gb"], 3)}
+            out[arch][label] = fig
+            base_label = ("eager " + label.split("_")[0]
+                          if "graphed" in label else "none")
+            log(f"[remat] {arch} {label} depths={list(depths)} "
+                f"warm_step_ms={fig['warm_ms']} max_mem_gb={fig['peak_gb']} "
+                f"leftover_gb={fig['leftover_gb']} "
+                f"launches_a_step={fig['launches_a_step']} "
+                f"bit_equal_to_{base_label.replace(' ', '_')}={not differ} "
+                f"differ={differ}"
+                + (f" pool_gb={run['pool_gb']:.2f} "
+                   f"capture_s={run['capture_s']:.2f}"
+                   if run["pool_gb"] is not None else ""))
+        del runs
+    log(f"[remat] phase {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def phase_remat_dryrun(remat: dict) -> dict:
+    """With phase 15 (host only): the dry run of each recompute run's
+    config and depths under each policy (``launch/dryrun.py --remat``):
+    counted TFLOP, predicted peak (state + temporaries) and saved GB
+    beside phase 17's ``max_memory_allocated``, also less what earlier
+    phases left allocated before the run.  Fails when the counted
+    FLOPs do not rise or the saved bytes do not fall from 'none' to
+    'dots' to 'full', or a kernel was launched."""
+    import tempfile
+    from repro_torch.configs import FULL_WIDTH_BATCH, FULL_WIDTH_SEQ
+    from repro_torch.launch import dryrun
+
+    before = launches_now()
+    tmp = tempfile.TemporaryDirectory(prefix="dryrun_remat_")
+    out = {}
+    for arch, (depths, policies) in REMAT_RUNS.items():
+        out[arch] = {}
+        for d in sorted(set(depths)):
+            counted = []
+            for pol in policies:
+                rec = dryrun.run_cell(arch, "train_4k", cut="full_width",
+                                      depth=d, batch=FULL_WIDTH_BATCH,
+                                      seq_len=FULL_WIDTH_SEQ, force=True,
+                                      out_dir=tmp.name, remat=pol)
+                if not rec.get("ok"):
+                    raise AssertionError(f"dry run of {arch} at {d} under "
+                                         f"{pol}: {rec.get('error')}")
+                ma = rec["memory_analysis"]
+                row = {"tflop": rec["flops_per_device"] / 1e12,
+                       "gb": rec["bytes_per_device"] / 1e9,
+                       "saved_gb": rec["saved_bytes"] / 1e9,
+                       "predicted_peak_gb": (ma["argument_size_in_bytes"]
+                                             + ma["temp_size_in_bytes"]) / 1e9,
+                       "max_mem_gb": remat[arch][pol]["peak_gb"][d],
+                       "leftover_gb": remat[arch][pol]["leftover_gb"]}
+                out[arch][f"{pol}@{d}"] = row
+                counted.append((rec["flops_per_device"], rec["saved_bytes"]))
+                log(f"[remat-dryrun] {arch} depth={d} remat={pol} "
+                    f"tflop={row['tflop']:.3f} gb={row['gb']:.2f} "
+                    f"saved_gb={row['saved_gb']:.2f} predicted_peak_gb="
+                    f"{row['predicted_peak_gb']:.2f} max_mem_gb="
+                    f"{row['max_mem_gb']} less_leftover_gb="
+                    f"{row['max_mem_gb'] - row['leftover_gb']:.3f}")
+            flops, saved = zip(*counted)
+            if not (all(a < b for a, b in zip(flops, flops[1:]))
+                    and all(a > b for a, b in zip(saved, saved[1:]))):
+                raise AssertionError(f"dry run of {arch} at {d}: FLOPs "
+                                     f"{flops} and saved bytes {saved} over "
+                                     f"{policies}")
+    tmp.cleanup()
+    if launches_since(before) != dict.fromkeys(KERNELS, 0):
+        raise AssertionError("the recompute's dry run launched a kernel")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2593,11 +2848,20 @@ def main() -> int:
         raise AssertionError(f"graph replays never launched {idle}: "
                              f"{graphs_by_path}")
     torch.cuda.empty_cache()
+    remat_by_arch = phase_remat()
+    idle = [n for n in KERNELS if not any(
+        f["launches"].get(n) for runs in remat_by_arch.values()
+        for f in runs.values())]
+    if idle:
+        raise AssertionError(f"kernels the recompute runs never launched: "
+                             f"{idle}")
+    torch.cuda.empty_cache()
     # host only, so it runs last: every timed phase then runs as it did
     # before the dry run existed, without its modules (~100k more Python
     # objects) and its own garbage collections
     dryrun_by_arch = phase_dryrun(phase5, peaks,
                                   {n: records[n]["work"] for n in KERNELS})
+    remat_dryrun = phase_remat_dryrun(remat_by_arch)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2626,6 +2890,10 @@ def main() -> int:
                  "launches_graphs": {p: g[name]
                                      for p, g in graphs_by_path.items()
                                      if name in g},
+                 "launches_remat": {f"{a}/{label}": f["launches"][name]
+                                    for a, runs in remat_by_arch.items()
+                                    for label, f in runs.items()
+                                    if name in f["launches"]},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],
@@ -2663,7 +2931,12 @@ def main() -> int:
                         for a, g in fused_by_arch.items()},
                     "fused_max_rel_dev_by_cycle": {
                         a: g["max_rel_dev"]
-                        for a, g in fused_by_arch.items()}}))
+                        for a, g in fused_by_arch.items()},
+                    "remat": {a: {label: {k: v for k, v in f.items()
+                                          if k != "launches"}
+                                  for label, f in runs.items()}
+                              for a, runs in remat_by_arch.items()},
+                    "remat_dryrun": remat_dryrun}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,14 @@ Conventions (the reference's, at aten-op granularity):
     peak of the bytes of the other storages alive during the call, tracked
     by storage; an in-place update of an argument (AdamW's) adds nothing.
     ``saved_bytes`` counts the storages autograd saved for the backward
-    (``saved_tensors_hooks``), arguments excepted.
+    (``saved_tensors_hooks``), arguments excepted.  Under the layer
+    recompute (``lm``'s ``remat``) a checkpoint's own hooks take the
+    place of this count's inside each live repeat, so the repeats report
+    what the backward keeps of them instead (``lm.KEPT_SINKS``): each
+    repeat's inputs (the (x, aux) carry, the positions and the encoder
+    output; a storage once), plus under 'dots' each product output the
+    policy keeps.  The recompute runs in the backward under this mode, so
+    its FLOPs and bytes are counted, and its tensors in the peak.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import rglru, rglru_bwd, ssd, ssd_bwd
+from repro_torch.models import lm
 
 aten = torch.ops.aten
 
@@ -227,8 +235,15 @@ class CostMode(TorchDispatchMode):
             self.summary.saved_bytes += t.untyped_storage().nbytes()
         return t
 
+    def _kept(self, tensors: List[torch.Tensor], nbytes: int) -> None:
+        """What a recomputed repeat keeps (``lm.KEPT_SINKS``)."""
+        for t in tensors:
+            self._pack(t)
+        self.summary.saved_bytes += nbytes
+
     def __enter__(self):
         _build.META_SINKS.append(self.summary.add_kernel)
+        lm.KEPT_SINKS.append(self._kept)
         self._hooks.__enter__()
         return super().__enter__()
 
@@ -237,6 +252,7 @@ class CostMode(TorchDispatchMode):
             return super().__exit__(*exc)
         finally:
             self._hooks.__exit__(*exc)
+            lm.KEPT_SINKS.remove(self._kept)
             _build.META_SINKS.remove(self.summary.add_kernel)
             self.summary.memory_analysis["temp_size_in_bytes"] = \
                 self._live.peak

@@ -34,7 +34,9 @@ ADVICE = {
 
 
 def _variant(rec: dict) -> str:
-    return f"{rec.get('cut', 'published')} {rec['batch']}x{rec['seq_len']}"
+    remat = rec.get("remat", "none")
+    return (f"{rec.get('cut', 'published')} {rec['batch']}x{rec['seq_len']}"
+            + (f" remat-{remat}" if remat != "none" else ""))
 
 
 def md_roofline(mesh: str = MESH, results_dir: Optional[Path] = None) -> str:
@@ -74,7 +76,8 @@ def md_dryrun(results_dir: Optional[Path] = None) -> str:
 
 def _cell(rec: dict):
     return (rec["arch"], rec["shape"], rec["mesh"], rec.get("cut"),
-            rec["batch"], rec["seq_len"], rec.get("depth"))
+            rec["batch"], rec["seq_len"], rec.get("remat", "none"),
+            rec.get("depth"))
 
 
 def md_perf(results_dir: Optional[Path] = None) -> str:

@@ -326,16 +326,20 @@ class RooflineRow:
 def cell_path(arch: str, shape: str, mesh: str = MESH, depth=None,
               tag: str = "", *, cut: str = "published",
               batch: Optional[int] = None,
-              seq_len: Optional[int] = None) -> Path:
+              seq_len: Optional[int] = None, remat: str = "none") -> Path:
     """A record's file: the reference's ``arch__shape__mesh[__dD][__tag]``
     with the config's cut and any batch other than the shape's after the
-    mesh (one card runs a cut of the published depth at its own batch)."""
+    mesh (one card runs a cut of the published depth at its own batch),
+    and a layer-recompute policy other than 'none' after the depth (the
+    reference's files do not tell policies apart)."""
     sh = SHAPES[shape]
     v = "" if cut == "published" else f"__{cut}"
     if (batch, seq_len) != (None, None) and \
             (batch, seq_len) != (sh.global_batch, sh.seq_len):
         v += f"__b{batch}x{seq_len}"
     d = f"__d{depth}" if depth is not None else ""
+    if remat != "none":
+        d += f"__remat-{remat}"
     t = f"__{tag}" if tag else ""
     return RESULTS / f"{arch}__{shape}__{mesh}{v}{d}{t}.json"
 

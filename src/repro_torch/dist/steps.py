@@ -20,6 +20,15 @@ backward runs under ``no_grad`` with ``retain_graph=False``, so it frees
 the forward's activations as it goes, as ``loss.backward()`` does
 (``torch.func.grad`` builds a differentiable backward that keeps them
 all until it ends).
+
+Every step takes the layer-recompute policy ``remat`` ('none', 'dots',
+'full'; None: ``lm.REMAT``'s value), resolved when the step is built and
+closed over: a CUDA graph bakes it in at capture, and a context variable
+does not follow a step into another thread.  The eager steps run it as
+``lm.loss_fn`` does (a checkpoint a live repeat).  A checkpoint's
+saved-tensor hooks cannot run under ``torch.func``, so the functional
+steps take 'full' as ``lm.swept_grads``, a sweep of ``torch.func.vjp``
+over the live repeats; 'dots' has no such form yet and raises there.
 """
 from __future__ import annotations
 
@@ -100,12 +109,14 @@ def compression_generator(tcfg: TrainConfig, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed))
 
 
-def _accumulate(state: State, chunks, depths, cfg: ModelConfig):
+def _accumulate(state: State, chunks, depths, cfg: ModelConfig,
+                remat: str = "none"):
     """Backward of each chunk at its depth, the gradients accumulating in
     ``.grad``; returns the chunks' mean metrics."""
     metrics = None
     for chunk, depth in zip(chunks, depths):
-        loss, mm = lm.loss_fn(state["params"], chunk, cfg, bwd_layers=depth)
+        loss, mm = lm.loss_fn(state["params"], chunk, cfg, bwd_layers=depth,
+                              remat=remat)
         loss.backward()
         mm = {k: v.detach() for k, v in mm.items()}
         metrics = mm if metrics is None else {
@@ -116,17 +127,19 @@ def _accumulate(state: State, chunks, depths, cfg: ModelConfig):
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     spb_cfg: Optional[SPBConfig] = None, *,
-                    depth: Optional[int] = None) -> Callable:
+                    depth: Optional[int] = None,
+                    remat: Optional[str] = None) -> Callable:
     """A (state, batch) -> (state, metrics) step at SPB suffix ``depth``
-    (None = full backprop), over ``tcfg.microbatches`` accumulated chunks.
-    The state is updated in place; ``sched`` and ``update`` as
-    :func:`_finish_step` takes them."""
+    (None = full backprop), over ``tcfg.microbatches`` accumulated chunks,
+    under the recompute policy ``remat``.  The state is updated in place;
+    ``sched`` and ``update`` as :func:`_finish_step` takes them."""
+    remat = lm.resolve_remat(remat)
 
     def step(state: State, batch, *, sched=None, update: bool = True
              ) -> Tuple[State, Dict[str, torch.Tensor]]:
         m = max(1, tcfg.microbatches)
         chunks = _microbatches(batch, m) if m > 1 else [batch]
-        metrics = _accumulate(state, chunks, [depth] * m, cfg)
+        metrics = _accumulate(state, chunks, [depth] * m, cfg, remat)
         return _finish_step(state, metrics, tcfg, cfg, spb_cfg,
                             scale=1.0 / m, sched=sched, update=update)
 
@@ -134,18 +147,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
 
 def make_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
-                          spb_cfg: SPBConfig) -> Callable:
+                          spb_cfg: SPBConfig, *,
+                          remat: Optional[str] = None) -> Callable:
     """One step over the whole depth cycle: the batch splits into
     ``len(cycle)`` microbatches, microbatch j backprops suffix depth
     ``depths[order[j]]``, and one optimizer step takes the mean gradient
     (``tcfg.microbatches`` is not used)."""
+    remat = lm.resolve_remat(remat)
     schedule = spb_lib.make_schedule(cfg, spb_cfg)
     cycle = [schedule.depths[i] for i in schedule.order]
 
     def step(state: State, batch, *, sched=None, update: bool = True
              ) -> Tuple[State, Dict[str, torch.Tensor]]:
         chunks = _microbatches(batch, len(cycle))
-        metrics = _accumulate(state, chunks, cycle, cfg)
+        metrics = _accumulate(state, chunks, cycle, cfg, remat)
         return _finish_step(state, metrics, tcfg, cfg, spb_cfg,
                             scale=1.0 / len(cycle), sched=sched,
                             update=update)
@@ -154,7 +169,8 @@ def make_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
 
 
 def _functional_step(cfg: ModelConfig, tcfg: TrainConfig,
-                     spb_cfg: Optional[SPBConfig], depths) -> Callable:
+                     spb_cfg: Optional[SPBConfig], depths,
+                     remat: Optional[str]) -> Callable:
     """A pure (params, opt, step, batch) -> (params, opt, metrics) step:
     the batch splits into ``len(depths)`` microbatches, microbatch j
     backprops suffix depth ``depths[j]``, and the summed gradients, scaled
@@ -162,10 +178,22 @@ def _functional_step(cfg: ModelConfig, tcfg: TrainConfig,
     optimizer.  The optimizer updates ``params`` and ``opt`` in place and
     returns them; the metrics are 0-d tensors, so ``vmap`` stacks them.
     ``params`` are plain tensors (no ``requires_grad``).  ``sched`` and
-    ``update`` as :func:`_finish_step` takes them."""
+    ``update`` as :func:`_finish_step` takes them.  ``remat`` 'full'
+    takes the gradients from ``lm.swept_grads``; 'dots' raises."""
     n = len(depths)
+    remat = lm.resolve_remat(remat)
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' in a functional (fused) step: the recompute runs "
+            "there as a sweep of torch.func.vjp, which keeps no product "
+            "outputs yet (ROADMAP.md Queue 1 B item 16); use 'full' or "
+            "'none'")
 
     def grad_at(depth):
+        if remat == "full":
+            return lambda params, chunk: lm.swept_grads(
+                params, chunk, cfg, bwd_layers=depth)
+
         def grad_fn(params, chunk):
             loss, vjp_fn, mm = torch.func.vjp(
                 lambda p: lm.loss_fn(p, chunk, cfg, bwd_layers=depth),
@@ -206,20 +234,23 @@ def _functional_step(cfg: ModelConfig, tcfg: TrainConfig,
 
 def make_functional_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                                spb_cfg: Optional[SPBConfig] = None, *,
-                               depth: Optional[int] = None) -> Callable:
+                               depth: Optional[int] = None,
+                               remat: Optional[str] = None) -> Callable:
     """:func:`make_train_step` as a pure (params, opt, step, batch) ->
     (params, opt, metrics) function over ``tcfg.microbatches`` chunks."""
     return _functional_step(cfg, tcfg, spb_cfg,
-                            [depth] * max(1, tcfg.microbatches))
+                            [depth] * max(1, tcfg.microbatches), remat)
 
 
 def make_functional_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
-                                     spb_cfg: SPBConfig) -> Callable:
+                                     spb_cfg: SPBConfig, *,
+                                     remat: Optional[str] = None
+                                     ) -> Callable:
     """:func:`make_temporal_mb_step` as a pure (params, opt, step, batch)
     -> (params, opt, metrics) function."""
     sched = spb_lib.make_schedule(cfg, spb_cfg)
     return _functional_step(cfg, tcfg, spb_cfg,
-                            [sched.depths[i] for i in sched.order])
+                            [sched.depths[i] for i in sched.order], remat)
 
 
 def spb_step_keys(cfg: ModelConfig, spb_cfg: SPBConfig) -> list:
@@ -243,9 +274,13 @@ def spb_step_keys(cfg: ModelConfig, spb_cfg: SPBConfig) -> list:
 
 
 def build_spb_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
-                          spb_cfg: SPBConfig) -> Dict[Any, Callable]:
+                          spb_cfg: SPBConfig, *, remat: Optional[str] = None
+                          ) -> Dict[Any, Callable]:
     """Step functions keyed by :func:`spb_step_keys`: ``"mb"`` runs
-    :func:`make_temporal_mb_step`, a depth :func:`make_train_step`."""
-    return {k: make_temporal_mb_step(cfg, tcfg, spb_cfg) if k == "mb"
-            else make_train_step(cfg, tcfg, spb_cfg, depth=k)
+    :func:`make_temporal_mb_step`, a depth :func:`make_train_step`, each
+    under the recompute policy ``remat``."""
+    remat = lm.resolve_remat(remat)
+    return {k: make_temporal_mb_step(cfg, tcfg, spb_cfg, remat=remat)
+            if k == "mb"
+            else make_train_step(cfg, tcfg, spb_cfg, depth=k, remat=remat)
             for k in spb_step_keys(cfg, spb_cfg)}

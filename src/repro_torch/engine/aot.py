@@ -101,7 +101,7 @@ def _env_sig(device) -> Dict[str, Any]:
 
 
 def step_ident(cfg, tcfg, spb, *, zero1: bool = False,
-               donate: bool = False) -> Dict[str, Any]:
+               donate: bool = False, remat: str = "none") -> Dict[str, Any]:
     """The config component shared by every step-identity key (the step
     table on disk, the process-wide step cache): the model, train and SPB
     configs with the fields that never reach a step scrubbed out.
@@ -109,7 +109,10 @@ def step_ident(cfg, tcfg, spb, *, zero1: bool = False,
     gradient compression the data seed doesn't either, so same-config
     jobs that differ only by seed share one step.  ``zero1`` and
     ``donate`` keep the reference's key layout (the port has one device
-    and updates in place)."""
+    and updates in place).  ``remat``, the layer-recompute policy a step
+    closes over, is the port's own: the reference's is a context variable
+    its key does not read, so a table captured under one policy would
+    replay under another."""
     train = dataclasses.asdict(tcfg) if tcfg is not None else {}
     for k in ("checkpoint_every", "checkpoint_dir", "keep_checkpoints",
               "log_every"):
@@ -123,17 +126,19 @@ def step_ident(cfg, tcfg, spb, *, zero1: bool = False,
         "spb": dataclasses.asdict(spb) if spb is not None else {},
         "zero1": zero1,
         "donate": donate,
+        "remat": remat,
     }
 
 
 def cache_key(cfg, tcfg, spb, device, batch_shapes, *, zero1: bool = False,
-              donate: bool = False, extra=None) -> str:
+              donate: bool = False, remat: str = "none", extra=None) -> str:
     """Digest identifying one step table: ``fmt``, :func:`step_ident`, the
     batch's shape signature and the env signature.  ``tcfg``/``spb`` may be
     None for tables with no training or SPB leg (the serve engine)."""
     ident = {
         "fmt": _FMT_VERSION,
-        **step_ident(cfg, tcfg, spb, zero1=zero1, donate=donate),
+        **step_ident(cfg, tcfg, spb, zero1=zero1, donate=donate,
+                     remat=remat),
         "batch": _shape_sig(batch_shapes),
         "env": _env_sig(device),
     }

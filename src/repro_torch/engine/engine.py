@@ -15,6 +15,12 @@ buffers, so later states are copied into them (``init_state``,
 the plain version, so its semantics are testable there.  ``export_aot`` /
 ``load_aot`` store and restore the table (``engine/aot.py``); a loaded
 table is frozen: a depth it lacks resolves to the nearest deeper entry.
+
+The layer-recompute policy (``remat=``: 'none', 'dots', 'full'; None
+takes ``lm.REMAT``'s value) is resolved when the engine is built and
+closed over by every step; it is part of the step-cache key and of a
+stored table's key, so a table captured under one policy is a miss under
+another.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import steps as steps_lib
 from repro_torch.engine import aot, graphs, stepcache
 from repro_torch.engine.policies import DepthPolicy, make_policy
+from repro_torch.models import lm
 from repro_torch.optim import optimizers
 from repro_torch.tree import tree_map
 
@@ -122,10 +129,11 @@ class SPBEngine:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
                  spb_cfg: Optional[SPBConfig] = None, *,
                  policy: Optional[DepthPolicy] = None, device=None,
-                 shared_cache: bool = True):
+                 shared_cache: bool = True, remat: Optional[str] = None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.spb = spb_cfg or SPBConfig()
+        self.remat = lm.resolve_remat(remat)
         self.device = resolve_device(device)
         self.policy = policy or make_policy("cycle", cfg, self.spb)
         self.shared_cache = shared_cache
@@ -200,9 +208,9 @@ class SPBEngine:
         """The (state, batch) -> (state, metrics) step of one table key."""
         if key == "mb":
             return steps_lib.make_temporal_mb_step(self.cfg, self.tcfg,
-                                                   self.spb)
+                                                   self.spb, remat=self.remat)
         return steps_lib.make_train_step(self.cfg, self.tcfg, self.spb,
-                                         depth=key)
+                                         depth=key, remat=self.remat)
 
     def _eager_step(self, key: Any) -> Callable:
         if self.shared_cache:
@@ -214,7 +222,8 @@ class SPBEngine:
         """Digest of everything that determines a step except (depth,
         device): the step-cache key's config component, with the AOT key's
         train-config scrub."""
-        ident = aot.step_ident(self.cfg, self.tcfg, self.spb)
+        ident = aot.step_ident(self.cfg, self.tcfg, self.spb,
+                               remat=self.remat)
         blob = json.dumps(ident, sort_keys=True, default=str).encode()
         return hashlib.sha256(blob).hexdigest()[:16]
 
@@ -369,7 +378,8 @@ class SPBEngine:
     def aot_cache_path(self, batch_specs, cache_root=None) -> Path:
         root = Path(cache_root) if cache_root else aot.DEFAULT_CACHE
         return root / aot.cache_key(self.cfg, self.tcfg, self.spb,
-                                    self.device, batch_specs)
+                                    self.device, batch_specs,
+                                    remat=self.remat)
 
     def export_aot(self, path, batch_specs=None) -> Path:
         """Store the step table at ``path`` (building it first if needed,
@@ -387,15 +397,17 @@ class SPBEngine:
                             "libs": aot.entry_libs(launches)}
         return aot.export_table(
             records, Path(path), device=self.device,
-            meta={"arch": self.cfg.name, "spb_mode": self.spb.mode})
+            meta={"arch": self.cfg.name, "spb_mode": self.spb.mode,
+                  "remat": self.remat})
 
     def load_aot(self, path) -> bool:
         """Restore a stored step table: its kernel libraries load from the
         table (no ``nvcc``), and on a CUDA device each entry is captured
         on the session's state (``init_state`` first), its launches
         checked against the stored ones.  The table is then frozen.
-        Returns False when ``path`` has no table or what is there is
-        damaged (a miss: the caller builds the table); raises
+        Returns False when ``path`` has no table, what is there is
+        damaged, or it was stored under another recompute policy (a miss:
+        the caller builds the table); raises
         ``AOTCompatError`` when the table is intact but was stored by
         another env."""
         if not aot.table_exists(path):
@@ -404,6 +416,8 @@ class SPBEngine:
             table = aot.import_table(path, expect_device=self.device)
         except (aot.AOTCorruptError, FileNotFoundError):
             return False
+        if aot.read_manifest(path)["env"].get("remat", "none") != self.remat:
+            return False        # stored under another recompute policy
         if self.device.type == "cuda" and self.state is None:
             raise RuntimeError("load_aot captures on the session's state: "
                                "call init_state() or attach_state() first")

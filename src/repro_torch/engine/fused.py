@@ -14,7 +14,11 @@ Each step-table entry is ``vmap`` of a functional step of
 tree).  Every hand-written kernel's ``autograd.Function`` has a vmap rule
 that folds the jobs axis into the batch axis (``kernels/ops.py``), so a
 fused step launches each kernel as often as one solo step does, at J x B
-rows.  The optimizer updates the stacked state in place.  The group
+rows.  The optimizer updates the stacked state in place.  Under
+``remat="full"`` each step sweeps the live repeats with
+``torch.func.vjp`` (``lm.swept_grads``), which ``vmap`` batches as it
+batches the plain step; ``"dots"`` raises (ROADMAP.md Queue 1 B item
+16).  The group
 shares each iteration's SPB depth (one step runs all J jobs), so the
 scheduler degrades or deepens the group as a unit.  ``randomness="same"``:
 the compressors draw one stream for every job, as the reference's
@@ -63,10 +67,10 @@ class FusedEngine(SPBEngine):
     def _make_step(self, key: Any) -> Callable:
         if key == "mb":
             fn = steps_lib.make_functional_temporal_mb_step(
-                self.cfg, self.tcfg, self.spb)
+                self.cfg, self.tcfg, self.spb, remat=self.remat)
         else:
             fn = steps_lib.make_functional_train_step(
-                self.cfg, self.tcfg, self.spb, depth=key)
+                self.cfg, self.tcfg, self.spb, depth=key, remat=self.remat)
         # the step count, the schedule and the update flag are one for the
         # group: no jobs axis
         fused = torch.func.vmap(fn, in_dims=(0, 0, None, 0, None, None),

@@ -153,8 +153,11 @@ class SchedulerHookPolicy(_ObserveMixin):
 
 
 def make_policy(name: str, cfg: ModelConfig, spb: SPBConfig, *,
-                profile=None, time_budget_frac: float = 0.75) -> DepthPolicy:
-    """CLI-level factory: 'cycle' | 'costmodel' | 'hook' | 'full'."""
+                profile=None, time_budget_frac: float = 0.75,
+                remat: str = "none") -> DepthPolicy:
+    """CLI-level factory: 'cycle' | 'costmodel' | 'hook' | 'full'.  A
+    'costmodel' policy reads the dry run's records of the layer-recompute
+    policy ``remat``."""
     if spb.mode in ("off", "spatial", "temporal-mb") or name == "full":
         # the depth lives inside the step, or there is none to pick
         return FullBackpropPolicy()
@@ -164,7 +167,7 @@ def make_policy(name: str, cfg: ModelConfig, spb: SPBConfig, *,
         if profile is None:
             # the dry run's profile of this very config (its layers and
             # experts too: a cut keeps its arch's name), else the paper's
-            profile, counted = costmodel.h100_profile(cfg)
+            profile, counted = costmodel.h100_profile(cfg, remat=remat)
             db = costmodel.v100_profiles()
             if profile is not None and not counted:
                 warnings.warn(

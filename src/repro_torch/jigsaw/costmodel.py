@@ -10,7 +10,12 @@ Two sources:
     the max of the three roofline terms at one H100's peaks
     (``analysis/roofline.py``), counted, not measured; its
     forward:backward split is fitted over the records' SPB depths where
-    there are two or more, else the reference's assumed 1:2.
+    there are two or more, else the reference's assumed 1:2.  Each
+    profile reads the records of one layer-recompute policy ('none'
+    unless asked), since the recompute moves both the step and the peak.
+    :func:`h100_profile` takes the counted peak (state + temporaries),
+    clamped at the card's 80 GB; :func:`hlo_profiles` keeps the
+    reference's 8 and 16 GB clamps of a 16 GB TPU.
 
 SPB scaling (paper Table 1, measured linear):
   time(frac) = fwd + frac * bwd
@@ -25,6 +30,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 from repro_torch.analysis import roofline
 from repro_torch.config import total_layers
 from repro_torch.configs import FULL_WIDTH_BATCH, FULL_WIDTH_SEQ
+
+# the reference's memory clamps (GB; a 16 GB TPU's): the state, the peak,
+# the gradients
+TPU_CLAMPS = (8.0, 16.0, 4.0)
+# an H100's: its 80 GB for each
+H100_CLAMPS = (80.0, 80.0, 80.0)
 
 # --- Paper Table 2 (V100, batch 128): times ms, mem GB, grad MB ---
 V100_PROFILES = {
@@ -94,14 +105,16 @@ def _config_key(rec: dict):
             rec.get("experts_held"))
 
 
-def _profile(name: str, recs: List[dict]) -> Tuple[ModelProfile, bool]:
+def _profile(name: str, recs: List[dict], clamps=TPU_CLAMPS
+             ) -> Tuple[ModelProfile, bool]:
     """The profile of one config at one batch from its records, and
     whether its forward:backward split was counted.  The records' SPB
     fractions f give steps t(f) = fwd + f bwd: two or more fractions fit
     fwd and bwd by least squares; one fraction takes the reference's
     split, forward a third of the full step and backward two thirds, so
-    a record at f is the full step times (1 + 2 f) / 3.  The memory
-    clamps are the reference's, from the deepest record."""
+    a record at f is the full step times (1 + 2 f) / 3.  The memory is
+    the deepest record's, state and state + temporaries, clamped at
+    ``clamps`` (state, peak, gradients; GB)."""
     pts = {}
     for rec in recs:
         pts[_fraction(rec)] = _roofline_step(rec)
@@ -121,27 +134,29 @@ def _profile(name: str, recs: List[dict]) -> Tuple[ModelProfile, bool]:
     ma = deepest.get("memory_analysis", {})
     temp = ma.get("temp_size_in_bytes", 8 * 2 ** 30) / 2 ** 30
     args = ma.get("argument_size_in_bytes", 4 * 2 ** 30) / 2 ** 30
+    state, peak, grad = clamps
     return ModelProfile(
         name=name, fwd_s=fwd, bwd_s=bwd,
-        mem_fwd_gb=min(args, 8.0), mem_peak_gb=min(args + temp, 16.0),
-        model_size_gb=min(args, 8.0), grad_gb=min(args / 3, 4.0)), counted
+        mem_fwd_gb=min(args, state), mem_peak_gb=min(args + temp, peak),
+        model_size_gb=min(args, state), grad_gb=min(args / 3, grad)), counted
 
 
 def _profiles(results_dir: Optional[Path], shape: str,
-              keep: Callable[[dict], bool]
-              ) -> Dict[str, Tuple[ModelProfile, bool]]:
+              keep: Callable[[dict], bool], remat: str = "none",
+              clamps=TPU_CLAMPS) -> Dict[str, Tuple[ModelProfile, bool]]:
     """By name, :func:`_profile` of the ``keep`` records of ``shape``:
     of a name's records, those of the config and batch that rank first
     (the batch a JigSaw tenant runs, FULL_WIDTH_BATCH x FULL_WIDTH_SEQ,
     ``chip_smoke.py`` phases 9 and 14; else the most tokens; then the
-    most layers)."""
+    most layers).  Only the records of the recompute policy ``remat``
+    count (a record before the policy was recorded is 'none')."""
     d = roofline.RESULTS if results_dir is None else Path(results_dir)
     if not d.exists():
         return {}
     groups: Dict[tuple, List[dict]] = {}
     for rec in roofline.records(d):
         if rec.get("shape") == shape and rec.get("mesh") == roofline.MESH \
-                and keep(rec):
+                and rec.get("remat", "none") == remat and keep(rec):
             key = _config_key(rec) + (rec.get("batch"), rec.get("seq_len"))
             groups.setdefault(key, []).append(rec)
 
@@ -154,7 +169,8 @@ def _profiles(results_dir: Optional[Path], shape: str,
     for key in groups:
         if key[0] not in best or rank(key) > rank(best[key[0]]):
             best[key[0]] = key
-    return {name: _profile(name, groups[key]) for name, key in best.items()}
+    return {name: _profile(name, groups[key], clamps)
+            for name, key in best.items()}
 
 
 def hlo_profiles(results_dir: Optional[Path] = None,
@@ -169,16 +185,19 @@ def hlo_profiles(results_dir: Optional[Path] = None,
 
 
 def h100_profile(cfg, results_dir: Optional[Path] = None,
-                 shape: str = "train_4k"
+                 shape: str = "train_4k", remat: str = "none"
                  ) -> Tuple[Optional[ModelProfile], bool]:
-    """``cfg``'s own profile from the dry run's records, those of its name,
-    its layers and its share of each MoE layer (None when there is none),
-    and whether its forward:backward split was counted (records at two
-    or more depths) rather than assumed."""
+    """``cfg``'s own profile from the dry run's records under the
+    recompute policy ``remat``, those of its name, its layers and its
+    share of each MoE layer (None when there is none), and whether its
+    forward:backward split was counted (records at two or more depths)
+    rather than assumed.  Its memory is the counted peak, clamped at the
+    card's 80 GB."""
     held = cfg.moe.experts_held if cfg.moe else None
     key = (cfg.name, total_layers(cfg), held)
     got = _profiles(results_dir, shape,
-                    lambda rec: _config_key(rec) == key).get(cfg.name)
+                    lambda rec: _config_key(rec) == key, remat,
+                    H100_CLAMPS).get(cfg.name)
     return got if got is not None else (None, False)
 
 

@@ -8,6 +8,8 @@ record its work, memory and roofline inputs (the counterpart of
   python -m repro_torch.launch.dryrun --arch yi-6b --reduced \\
       --shape train_4k --batch 2 --seq 64 --depth 2
   python -m repro_torch.launch.dryrun --all         # every cell, cached
+  python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k \
+      --full-width --batch 2 --seq 2048 --depth 8 --remat full
 
 The step always runs on the meta device, as the reference's runs on fake
 host devices: nothing is computed or allocated, so it needs no card and
@@ -18,12 +20,17 @@ temporal k=4 SPB config and AdamW; ``prefill`` counts ``lm.prefill`` and
 ``decode`` ``lm.decode_step``, each over a dense cache of the shape's
 length.  Each runs the config's ``use_pallas``: on meta tensors the
 kernels' wrappers count their kernel's work
-(``kernels/_build.meta_launch``) and launch nothing.
+(``kernels/_build.meta_launch``) and launch nothing.  ``--remat`` sets
+the train step's layer recompute ('none', the port's default, 'dots' or
+'full', the reference's values): the recompute runs in the counted
+backward, and ``saved_bytes`` counts what the checkpoints keep
+(``analysis/cost.py``).
 
 Records: one JSON a cell under ``results/dryrun_torch/``
 (``analysis/roofline.cell_path``; ``--force`` recomputes) with the
 reference's keys, ``mesh`` = ``"h100"`` and ``chips`` = 1, plus the cut,
-the batch and the per-kernel counts.  ``analysis/report.py`` renders
+the batch, the recompute policy (``remat``; a policy other than 'none'
+names its own file) and the per-kernel counts.  ``analysis/report.py`` renders
 them, ``jigsaw/costmodel.hlo_profiles`` and ``h100_profile`` read the
 train records.  The
 dry run runs on the meta device, where nothing executes, so it captures
@@ -76,10 +83,13 @@ def spb_depth(cfg, depth: Optional[int]) -> Optional[int]:
 def count_cell(arch: str, shape_name: str, *, cut: str = "published",
                depth: Optional[int] = None, batch: Optional[int] = None,
                seq_len: Optional[int] = None, multi_pod: bool = False,
-               zero1: bool = True, rules_extra=None) -> dict:
+               zero1: bool = True, rules_extra=None,
+               remat: str = "none") -> dict:
     """Count one cell on the meta device; returns its record (without
-    ``ok``/``tag``).  ``batch``/``seq_len`` default to the shape's."""
+    ``ok``/``tag``).  ``batch``/``seq_len`` default to the shape's;
+    ``remat`` is a train step's recompute policy."""
     one_card(multi_pod, zero1, rules_extra)
+    remat = lm.resolve_remat(remat)
     cfg = cut_config(arch, cut)
     sh = SHAPES[shape_name]
     B = sh.global_batch if batch is None else batch
@@ -97,7 +107,7 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
             tree_map(lambda t: t.requires_grad_(True), params), tcfg)
         step = steps_lib.make_train_step(cfg, tcfg,
                                          SPBConfig(mode="temporal", k=4),
-                                         depth=depth)
+                                         depth=depth, remat=remat)
         _, s = cost.count(step, state, input_specs(cfg, shape))
     else:
         enc_len = S if cfg.enc_layers else 0
@@ -112,6 +122,7 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
     return {
         "arch": arch, "shape": shape_name, "mesh": roofline.MESH,
         "chips": 1, "depth": depth, "kind": shape.kind, "cut": cut,
+        "remat": remat,
         "name": cfg.name, "layers": total_layers(cfg),
         "experts_held": cfg.moe.experts_held if cfg.moe else None,
         "batch": B, "seq_len": S,
@@ -133,13 +144,18 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
 def run_cell(arch: str, shape_name: str, *, cut: str = "published",
              depth: Optional[int] = None, batch: Optional[int] = None,
              seq_len: Optional[int] = None, force: bool = False,
-             tag: str = "", out_dir: Optional[Path] = None, **kw) -> dict:
+             tag: str = "", out_dir: Optional[Path] = None,
+             remat: str = "none", **kw) -> dict:
     """:func:`count_cell`, cached as JSON under ``out_dir`` (default
     ``roofline.RESULTS``); a failed count is recorded with ``ok`` False."""
     one_card(**kw)
+    # the recompute is a train step's: the other shapes run no backward
+    remat = lm.resolve_remat(remat) if SHAPES[shape_name].kind == "train" \
+        else "none"
     depth = spb_depth(cut_config(arch, cut), depth)
     path = roofline.cell_path(arch, shape_name, roofline.MESH, depth, tag,
-                              cut=cut, batch=batch, seq_len=seq_len)
+                              cut=cut, batch=batch, seq_len=seq_len,
+                              remat=remat)
     if out_dir is not None:
         path = Path(out_dir) / path.name
     if path.exists() and not force:
@@ -147,12 +163,13 @@ def run_cell(arch: str, shape_name: str, *, cut: str = "published",
     path.parent.mkdir(parents=True, exist_ok=True)
     try:
         rec = count_cell(arch, shape_name, cut=cut, depth=depth, batch=batch,
-                         seq_len=seq_len, **kw)
+                         seq_len=seq_len, remat=remat, **kw)
         rec["ok"] = True
         rec["tag"] = tag
     except Exception as e:      # noqa: BLE001 -- recorded, as the reference's
         rec = {"arch": arch, "shape": shape_name, "mesh": roofline.MESH,
-               "depth": depth, "cut": cut, "ok": False, "error": str(e),
+               "depth": depth, "cut": cut, "remat": remat, "ok": False,
+               "error": str(e),
                "traceback": traceback.format_exc()[-4000:]}
     path.write_text(json.dumps(rec, indent=2))
     return rec
@@ -180,6 +197,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="variant tag for perf iters")
     ap.add_argument("--out", type=Path, default=None,
                     help="records directory (default results/dryrun_torch)")
+    ap.add_argument("--remat", default="none", choices=lm.REMAT_POLICIES,
+                    help="train steps' layer recompute (the reference's "
+                         "values; its default is full, the port's none)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--no-zero1", action="store_true")
     args = ap.parse_args(argv)
@@ -199,13 +219,14 @@ def main(argv=None) -> int:
         depth = args.depth if SHAPES[shape].kind == "train" else None
         rec = run_cell(arch, shape, cut=cut_name, depth=depth,
                        batch=args.batch, seq_len=args.seq, force=args.force,
-                       tag=args.tag, out_dir=args.out,
+                       tag=args.tag, out_dir=args.out, remat=args.remat,
                        multi_pod=args.multi_pod, zero1=not args.no_zero1)
         if rec.get("ok"):
             ma = rec.get("memory_analysis", {})
             print(f"OK  {arch:24s} {shape:12s} {rec['mesh']:5s} "
                   f"cut={rec['cut']} batch={rec['batch']}x{rec['seq_len']} "
-                  f"depth={rec['depth']} count={rec['count_s']:.2f}s "
+                  f"depth={rec['depth']} remat={rec['remat']} "
+                  f"count={rec['count_s']:.2f}s "
                   f"flops/dev={rec['flops_per_device']:.3e} "
                   f"bytes/dev={rec['bytes_per_device']:.3e} "
                   f"coll/dev={rec['collective_bytes_per_device']:.3e} "

@@ -14,6 +14,8 @@ checkpointing and restart (the one-device surface of
       --use-pallas --device cpu     # the kernels' plain versions on the CPU
   python -m repro_torch.launch.train --arch seamless-m4t-medium --reduced \\
       --steps 2 --spb-mode temporal --use-pallas --device cpu  # enc-dec
+  python -m repro_torch.launch.train --spb-mode temporal --remat full \\
+      --device cpu          # recompute each live repeat in the backward
 
 Prints the JAX driver's ``[train] step=... depth=... loss=...`` lines.  The
 engine owns the state and the step table; this driver owns the loop: data,
@@ -24,8 +26,11 @@ resumes.  A kernel or CUDA fault is never retried: it is raised at once.
 ``DIR`` is loaded (the kernel libraries without ``nvcc``; on the card one
 CUDA graph a depth, captured in-process), else it is built and stored
 there.  ``--compilation-cache-dir DIR`` builds and loads the kernel
-libraries in ``DIR`` and reports what it found there (``[cc] ...``).  The
-spatial mode and the pipeline and mesh flags are not ported.
+libraries in ``DIR`` and reports what it found there (``[cc] ...``).
+``--remat {none,dots,full}`` is the layer recompute of every step the
+engine builds (default none; the reference's ``REMAT`` defaults to full,
+which this flag reaches).  The spatial mode and the pipeline and mesh
+flags are not ported.
 """
 from __future__ import annotations
 
@@ -41,14 +46,17 @@ from repro_torch.device import device_fault
 from repro_torch.engine import stepcache
 from repro_torch.engine.engine import SPBEngine
 from repro_torch.engine.policies import make_policy
+from repro_torch.models import lm
 
 
 def build_engine(cfg, tcfg, spb_cfg, *, depth_policy: str = "cycle",
-                 time_budget: float = 0.75, device=None) -> SPBEngine:
+                 time_budget: float = 0.75, device=None,
+                 remat: str = "none") -> SPBEngine:
     """The one construction path every entry point shares."""
-    return SPBEngine(cfg, tcfg, spb_cfg, device=device,
+    return SPBEngine(cfg, tcfg, spb_cfg, device=device, remat=remat,
                      policy=make_policy(depth_policy, cfg, spb_cfg,
-                                        time_budget_frac=time_budget))
+                                        time_budget_frac=time_budget,
+                                        remat=remat))
 
 
 def train(argv=None):
@@ -81,6 +89,9 @@ def train(argv=None):
     ap.add_argument("--compilation-cache-dir", default="",
                     help="kernel-library directory: libraries persist "
                          "across processes")
+    ap.add_argument("--remat", default="none", choices=lm.REMAT_POLICIES,
+                    help="layer recompute of the live layers in the "
+                         "backward (the reference's REMAT values)")
     ap.add_argument("--compression", default="none",
                     choices=["none", "topk", "randk", "lowrank"])
     ap.add_argument("--checkpoint-dir", default="")
@@ -116,7 +127,8 @@ def train(argv=None):
     # built once, outside the supervision loop: a configuration it refuses
     # is no step failure
     engine = build_engine(cfg, tcfg, spb_cfg, depth_policy=args.depth_policy,
-                          time_budget=args.time_budget, device=args.device)
+                          time_budget=args.time_budget, device=args.device,
+                          remat=args.remat)
     mgr = (CheckpointManager(tcfg.checkpoint_dir, keep=3)
            if tcfg.checkpoint_dir else None)
 

@@ -18,9 +18,24 @@ for it, so no backward runs there and none of its activations are kept.
 The live rows are a slice ``t[q:]`` of the stacked leaf, so the leaf's
 gradient holds zeros in the frozen rows, as ``jax.grad`` returns.  The
 MoE load-balancing aux of every layer, frozen or live, is summed in layer
-order into the loss; the frozen layers' part carries no graph.  The
-port keeps every live activation (the JAX ``REMAT="full"`` recomputes
-instead; it changes no numbers).
+order into the loss; the frozen layers' part carries no graph.
+
+The layer recompute (the reference's ``REMAT``): ``remat="none"`` keeps
+every live activation for the backward; ``"full"`` runs each repeat of a
+live group's unit (the reference's scan body) under a non-reentrant
+``torch.utils.checkpoint``, which keeps the repeat's inputs -- the
+``(x, aux)`` carry -- and recomputes the rest in the backward; ``"dots"``
+also keeps the outputs of the matrix products with no batch dims
+(``aten.mm``/``addmm``, the reference's
+``checkpoint_dots_with_no_batch_dims``) and recomputes everything else,
+the kernels' Functions included.  No policy changes a number.  The
+policy is resolved once, when a step is built, and passed down as
+``remat=``; :data:`REMAT` gives only the default, ``"none"`` (the
+reference's is ``"full"``, chosen for a 16 GB TPU).  Frozen layers run
+under ``no_grad`` and are never recomputed.  :func:`swept_grads` is the
+recompute in the form ``torch.func`` can batch: the forward under
+``no_grad`` keeps each live repeat's carry, and a ``torch.func.vjp`` of
+each repeat, last first, recomputes it.
 
 An encoder-decoder's SPB depth counts over the combined stack, the
 encoder's layers first (``config.combined_layer_groups``): one boundary
@@ -40,17 +55,20 @@ are device tensors, so a decode step reads nothing back to the host.
 """
 from __future__ import annotations
 
+import contextvars
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.config import ModelConfig, layer_groups, total_layers
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -325,18 +343,98 @@ def _apply_layer_cached(x: Tensor, up: Params, kinds, cfg: ModelConfig,
     return _apply_ffn(x, up, ffn, cfg)[0]
 
 
+# ---------------------------------------------------------------------------
+# The layer recompute (the reference's REMAT / _maybe_remat)
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("none", "dots", "full")
+# the default policy of a step built without ``remat=`` ('none' | 'dots' |
+# 'full'; the reference's REMAT, whose own default is 'full')
+REMAT: contextvars.ContextVar[str] = contextvars.ContextVar(
+    "remat", default="none")
+# what a recomputed repeat keeps for the backward, reported as it is kept:
+# each sink is called with (tensors, bytes) -- a repeat's inputs when its
+# first pass runs, and the bytes of each product output 'dots' keeps
+# (analysis/cost.CostMode counts them: the checkpoint's own saved-tensor
+# hooks hide them from any outer hook)
+KEPT_SINKS: List[Callable[[List[Tensor], int], None]] = []
+
+_aten = torch.ops.aten
+# the products with no batch dims: a 2-D ``x @ W`` of any rank dispatches
+# as ``mm`` (``addmm`` with a bias); ``bmm`` (attention scores, the MoE
+# experts, einsums) has a batch dim
+_DOTS = {_aten.mm.default: (0, 1), _aten.addmm.default: (1, 2)}
+
+
+def resolve_remat(remat: Optional[str] = None) -> str:
+    """``remat``, or :data:`REMAT`'s value when None; checked."""
+    pol = REMAT.get() if remat is None else remat
+    if pol not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {pol!r}; known: "
+                         f"{', '.join(REMAT_POLICIES)}")
+    return pol
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the products with no batch dims, recompute the rest."""
+    ab = _DOTS.get(op)
+    if ab is None:
+        return _checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+    if not ctx.is_recompute and KEPT_SINKS:
+        a, b = args[ab[0]], args[ab[1]]
+        nbytes = a.shape[0] * b.shape[1] * a.element_size()
+        for sink in KEPT_SINKS:
+            sink([], nbytes)
+    return _checkpoint.CheckpointPolicy.MUST_SAVE
+
+
+def _maybe_remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` run under the policy ``remat`` (the reference's
+    ``_maybe_remat``): as it is for 'none' or outside grad mode, else
+    under a non-reentrant checkpoint.  No layer of a train path draws
+    random numbers, so the RNG state is not stashed (reading the CUDA
+    generator's state would not be legal inside a graph capture)."""
+    if remat == "none":
+        return fn
+    context_fn = (functools.partial(
+        _checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+        if remat == "dots" else _checkpoint.noop_context_fn)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        for sink in KEPT_SINKS:
+            sink([t for t in tree_leaves(list(args))
+                  if isinstance(t, Tensor)], 0)
+        return _checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                      preserve_rng_state=False,
+                                      context_fn=context_fn)
+
+    return run
+
+
+def _run_repeat(x: Tensor, aux: Tensor, rows, positions: Tensor,
+                enc: Optional[Tensor], *, unit, cfg: ModelConfig,
+                causal: bool) -> Tuple[Tensor, Tensor]:
+    """One repeat of a group's unit (the reference's scan body): ``rows``
+    holds each layer's parameters; returns the (x, aux) carry."""
+    for u in range(len(unit)):
+        x, a = _apply_layer(x, rows[u], unit[u], cfg, positions, enc, causal)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def _run_group_train(x: Tensor, aux: Tensor, gparams, unit,
                      cfg: ModelConfig, positions: Tensor,
-                     enc: Optional[Tensor] = None, causal: bool = True
-                     ) -> Tuple[Tensor, Tensor]:
+                     enc: Optional[Tensor] = None, causal: bool = True,
+                     remat: str = "none") -> Tuple[Tensor, Tensor]:
     count = tree_leaves(gparams)[0].shape[0]
     per_unit = [_unbind(up, count) for up in gparams]
+    body = _maybe_remat(functools.partial(_run_repeat, unit=unit, cfg=cfg,
+                                          causal=causal), remat)
     for r in range(count):
-        for u in range(len(unit)):
-            x, a = _apply_layer(x, per_unit[u][r], unit[u], cfg, positions,
-                                enc, causal)
-            if a is not None:
-                aux = aux + a
+        x, aux = body(x, aux, [rows[r] for rows in per_unit], positions, enc)
     return x, aux
 
 
@@ -357,31 +455,40 @@ def _run_frozen(x: Tensor, aux: Tensor, gparams, unit, cfg, positions,
                                 positions, enc, causal)
 
 
+def _frozen_units(cfg: ModelConfig, boundary: int, base: int) -> List[int]:
+    """Per group of a stack whose first layer is flat layer ``base`` of the
+    combined stack: how many of its repeats lie below ``boundary``."""
+    out, off = [], base
+    for unit, count in layer_groups(cfg):
+        lo = off
+        off += len(unit) * count
+        out.append(min(count, max(0, (boundary - lo) // len(unit))))
+    return out
+
+
 def _run_stack(x: Tensor, aux: Tensor, groups, cfg: ModelConfig,
                positions: Tensor, boundary: int, base: int = 0,
-               enc: Optional[Tensor] = None, causal: bool = True
-               ) -> Tuple[Tensor, Tensor]:
+               enc: Optional[Tensor] = None, causal: bool = True,
+               remat: str = "none") -> Tuple[Tensor, Tensor]:
     """Run all groups of a stack whose first layer is flat layer ``base``
-    of the combined stack, freezing flat layers < boundary."""
-    off = base
-    for (unit, count), gparams in zip(layer_groups(cfg), groups):
-        p = len(unit)
-        lo, hi = off, off + p * count
-        off = hi
+    of the combined stack, freezing flat layers < boundary; the live
+    repeats run under the policy ``remat``."""
+    for (unit, count), gparams, q in zip(layer_groups(cfg), groups,
+                                         _frozen_units(cfg, boundary, base)):
         args = (unit, cfg, positions, enc, causal)
-        if boundary >= hi:          # fully frozen group
+        if q == count:              # fully frozen group
             x, aux = _run_frozen(x, aux, gparams, *args)
-        elif boundary <= lo:        # fully differentiable
-            x, aux = _run_group_train(x, aux, gparams, *args)
+        elif q == 0:                # fully differentiable
+            x, aux = _run_group_train(x, aux, gparams, *args, remat)
         else:                       # split at a unit boundary
-            frozen, live = _split_group(gparams, (boundary - lo) // p)
+            frozen, live = _split_group(gparams, q)
             x, aux = _run_frozen(x, aux, frozen, *args)
-            x, aux = _run_group_train(x, aux, live, *args)
+            x, aux = _run_group_train(x, aux, live, *args, remat)
     return x, aux
 
 
 def _encode(enc_params: Params, frames: Tensor, cfg: ModelConfig,
-            boundary: int = 0) -> Tensor:
+            boundary: int = 0, remat: str = "none") -> Tensor:
     """The bidirectional encoder (flat layers [0, enc_layers), frozen below
     ``boundary``) and its final norm: the decoder's cross-attention
     input."""
@@ -391,7 +498,7 @@ def _encode(enc_params: Params, frames: Tensor, cfg: ModelConfig,
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE
         x, _ = _run_stack(x, aux, enc_params["groups"], ecfg, positions,
-                          boundary, causal=False)
+                          boundary, causal=False, remat=remat)
         return L.rms_norm(x, enc_params["final_norm"], cfg.norm_eps)
 
 
@@ -406,20 +513,20 @@ def _decoder_input(params: Params, batch: Dict[str, Tensor],
 
 
 def forward_train(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
-                  *, bwd_layers: Optional[int] = None
-                  ) -> Tuple[Tensor, Tensor]:
+                  *, bwd_layers: Optional[int] = None,
+                  remat: Optional[str] = None) -> Tuple[Tensor, Tensor]:
     """Returns (logits, moe_aux).  ``batch``: tokens (B, S_text), plus
     ``frames`` (B, T, d_model) for an encoder-decoder or ``frontend``
     (B, frontend_tokens, d_model) for a frontend config; the logits cover
     the text positions.  ``bwd_layers`` = SPB suffix depth over the
-    combined stack (None = full backprop)."""
+    combined stack (None = full backprop); ``remat`` the recompute policy
+    of the live repeats (None: :data:`REMAT`)."""
     _check_supported(cfg)
-    total = total_layers(cfg)
-    depth = total if bwd_layers is None else bwd_layers
-    boundary = total - depth
+    remat = resolve_remat(remat)
+    boundary = total_layers(cfg) - _depth(cfg, bwd_layers)
     enc = None
     if cfg.enc_layers:
-        enc = _encode(params["enc"], batch["frames"], cfg, boundary)
+        enc = _encode(params["enc"], batch["frames"], cfg, boundary, remat)
     # the decoder's input gets no gradient once a decoder layer is frozen
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and boundary <= cfg.enc_layers):
@@ -427,19 +534,195 @@ def forward_train(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = _run_stack(x, aux, params["groups"], cfg, positions, boundary,
-                        cfg.enc_layers, enc)
+                        cfg.enc_layers, enc, remat=remat)
+    return _logits(params, x, batch, cfg), aux
+
+
+def _depth(cfg: ModelConfig, bwd_layers: Optional[int]) -> int:
+    return total_layers(cfg) if bwd_layers is None else bwd_layers
+
+
+def _logits(params: Params, x: Tensor, batch: Dict[str, Tensor],
+            cfg: ModelConfig) -> Tensor:
+    """The final norm and the unembedding of the text positions."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     x = x[:, -batch["tokens"].shape[1]:]        # the text, after a frontend
-    return L.unembed(params["embed"], x, cfg), aux
+    return L.unembed(params["embed"], x, cfg)
 
 
-def loss_fn(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
-            bwd_layers: Optional[int] = None, aux_weight: float = 0.01
-            ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    logits, aux = forward_train(params, batch, cfg, bwd_layers=bwd_layers)
+def _loss(logits: Tensor, aux: Tensor, batch: Dict[str, Tensor],
+          cfg: ModelConfig, aux_weight: float
+          ) -> Tuple[Tensor, Dict[str, Tensor]]:
     xent = L.softmax_xent(logits, batch["labels"], valid_vocab=cfg.vocab_size)
     loss = xent + aux_weight * aux
     return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
+
+
+def loss_fn(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
+            bwd_layers: Optional[int] = None, aux_weight: float = 0.01,
+            remat: Optional[str] = None
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    logits, aux = forward_train(params, batch, cfg, bwd_layers=bwd_layers,
+                                remat=remat)
+    return _loss(logits, aux, batch, cfg, aux_weight)
+
+
+# ---------------------------------------------------------------------------
+# The recompute as a sweep (the functional steps under torch.func)
+# ---------------------------------------------------------------------------
+
+def _sweep_forward(x: Tensor, aux: Tensor, groups, cfg: ModelConfig,
+                   positions: Tensor, boundary: int, base: int,
+                   enc: Optional[Tensor], causal: bool):
+    """A stack's forward under ``no_grad``; returns (x, aux, tape), the
+    tape holding (group, repeat, x, aux) at the input of each live
+    repeat, in order."""
+    tape = []
+    for g, ((unit, count), gparams, q) in enumerate(zip(
+            layer_groups(cfg), groups, _frozen_units(cfg, boundary, base))):
+        if q:
+            frozen = [_rows(up, 0, q) for up in gparams]
+            x, aux = _run_group_train(x, aux, frozen, unit, cfg, positions,
+                                      enc, causal)
+        for r in range(q, count):
+            tape.append((g, r, x, aux))
+            x, aux = _run_repeat(x, aux, [_select(up, r) for up in gparams],
+                                 positions, enc, unit=unit, cfg=cfg,
+                                 causal=causal)
+    return x, aux, tape
+
+
+def _sweep_backward(gx: Tensor, gaux: Tensor, tape, groups, cfg: ModelConfig,
+                    positions: Tensor, enc: Optional[Tensor], causal: bool,
+                    x_needs_grad: bool):
+    """The tape's repeats, last first: each recomputed under
+    ``torch.func.vjp`` from its carry and pulled back.  Returns (the
+    cotangent of the stack's input, or None when it needs none; the
+    summed cotangent of ``enc``, or None; {(group, repeat): the row
+    gradients of each layer of the unit})."""
+    rows_grads, genc = {}, None
+    units = [unit for unit, _ in layer_groups(cfg)]
+    for i in range(len(tape) - 1, -1, -1):
+        g, r, x_in, aux_in = tape[i]
+        unit = units[g]
+        grad_x = i > 0 or x_needs_grad
+        grad_enc = enc is not None and any(m == "xdec" for m, _ in unit)
+
+        def repeat(rows, *rest, x_in=x_in, aux_in=aux_in, unit=unit,
+                   grad_x=grad_x, grad_enc=grad_enc):
+            rest = list(rest)
+            x = rest.pop(0) if grad_x else x_in
+            e = rest.pop(0) if grad_enc else enc
+            return _run_repeat(x, aux_in, rows, positions, e, unit=unit,
+                               cfg=cfg, causal=causal)
+
+        primals = ([x_in] if grad_x else []) + ([enc] if grad_enc else [])
+        _, pull = torch.func.vjp(repeat, [_select(up, r) for up in groups[g]],
+                                 *primals)
+        with torch.no_grad():
+            cot = list(pull((gx, gaux), retain_graph=False))
+        rows_grads[(g, r)] = cot.pop(0)
+        gx = cot.pop(0) if grad_x else None
+        if grad_enc:
+            e = cot.pop(0)
+            genc = e if genc is None else genc + e
+    return gx, genc, rows_grads
+
+
+def _stack_grads(groups, cfg: ModelConfig, rows_grads) -> list:
+    """The stacked groups' gradients: each live row's from the sweep,
+    zeros in the frozen rows."""
+    out = []
+    for g, ((unit, count), gparams) in enumerate(zip(layer_groups(cfg),
+                                                     groups)):
+        live = [r for r in range(count) if (g, r) in rows_grads]
+        q = count - len(live)
+        grads = []
+        for u, up in enumerate(gparams):
+            def leaf(t, *rows):
+                parts = [torch.zeros_like(t[:q])] if q else []
+                if rows:
+                    parts.append(torch.stack(rows))
+                return torch.cat(parts) if len(parts) > 1 else parts[0]
+            grads.append(tree_map(leaf, up, *[rows_grads[(g, r)][u]
+                                             for r in live]))
+        out.append(grads)
+    return out
+
+
+def swept_grads(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
+                *, bwd_layers: Optional[int] = None, aux_weight: float = 0.01
+                ) -> Tuple[Params, Dict[str, Tensor]]:
+    """The gradient of :func:`loss_fn` under the 'full' recompute, in a
+    form ``torch.func.vmap`` can batch (a checkpoint's saved-tensor hooks
+    cannot run under ``torch.func``): the forward runs under ``no_grad``,
+    keeping the (x, aux) carry at each live repeat; then a
+    ``torch.func.vjp`` of the head (final norm, unembedding, loss), of
+    each live repeat, last first, recomputing it, of the encoder's final
+    norm and live repeats, whose output's cotangent sums over the live
+    decoder layers, and of the embedding last.  A frozen leaf's gradient
+    is zeros.  Returns (grads, the metrics of :func:`loss_fn`)."""
+    _check_supported(cfg)
+    boundary = total_layers(cfg) - _depth(cfg, bwd_layers)
+    grads: Params = {}
+    with torch.no_grad():
+        enc = None
+        if cfg.enc_layers:
+            ecfg = _encoder_cfg(cfg)
+            frames = batch["frames"].to(_dtype(cfg))
+            enc_pos = torch.arange(frames.shape[1], device=frames.device)
+            zero = torch.zeros((), dtype=torch.float32, device=frames.device)
+            enc_x, _, enc_tape = _sweep_forward(
+                frames, zero, params["enc"]["groups"], ecfg, enc_pos,
+                boundary, 0, None, False)
+            enc = L.rms_norm(enc_x, params["enc"]["final_norm"],
+                             cfg.norm_eps)
+        x = _decoder_input(params, batch, cfg)
+        positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux, tape = _sweep_forward(x, aux, params["groups"], cfg,
+                                      positions, boundary, cfg.enc_layers,
+                                      enc, True)
+
+    def head(final_norm, embed, x):
+        p = {"final_norm": final_norm, "embed": embed}
+        return _loss(_logits(p, x, batch, cfg), aux, batch, cfg, aux_weight)
+
+    loss, pull, metrics = torch.func.vjp(head, params["final_norm"],
+                                         params["embed"], x, has_aux=True)
+    with torch.no_grad():
+        grads["final_norm"], grads["embed"], gx = pull(
+            torch.ones_like(loss), retain_graph=False)
+    gaux = torch.full_like(aux, aux_weight)
+    dec_input_grad = boundary <= cfg.enc_layers
+    gx, genc, rows = _sweep_backward(gx, gaux, tape, params["groups"], cfg,
+                                     positions, enc, True, dec_input_grad)
+    grads["groups"] = _stack_grads(params["groups"], cfg, rows)
+    if dec_input_grad:
+        _, pull = torch.func.vjp(
+            lambda embed: _decoder_input({"embed": embed}, batch, cfg),
+            params["embed"])
+        with torch.no_grad():
+            (ge,) = pull(gx, retain_graph=False)
+            grads["embed"] = tree_map(torch.add, grads["embed"], ge)
+    if cfg.enc_layers:
+        ep = params["enc"]
+        grad_x = bool(enc_tape)
+        _, pull = torch.func.vjp(
+            lambda w, *xs: L.rms_norm(xs[0] if xs else enc_x, w,
+                                      cfg.norm_eps),
+            ep["final_norm"], *([enc_x] if grad_x else []))
+        with torch.no_grad():
+            cot = pull(torch.zeros_like(enc) if genc is None else genc,
+                       retain_graph=False)
+        rows = {}
+        if grad_x:
+            _, _, rows = _sweep_backward(cot[1], torch.zeros_like(aux),
+                                         enc_tape, ep["groups"], ecfg,
+                                         enc_pos, None, False, False)
+        grads["enc"] = {"groups": _stack_grads(ep["groups"], ecfg, rows),
+                        "final_norm": cot[0]}
+    return {k: grads[k] for k in params}, metrics
 
 
 # ---------------------------------------------------------------------------

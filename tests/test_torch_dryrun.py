@@ -17,9 +17,18 @@
     port's eager backward keeps P.  The rest are vector products (the
     norms' and the cross-entropy's row sums, which the reference writes
     as einsums): under 0.4% of either count;
+    With ``REMAT`` at ``"full"`` or ``"dots"`` on both sides (the port's
+    ``remat=``) the same relation holds with one product a live layer:
+    XLA merges the attention's own recompute into the layer's;
+  * (d) the layer recompute, counted: ``saved_bytes`` falls none > dots >
+    full at every depth, under 'full' it is the live repeats' carries
+    plus what is saved outside the stack, exactly, and each live
+    attention or SSD layer's forward kernel is counted twice;
   * (c) the CLI writes a record that ``analysis/report.md_dryrun``
     renders, and ``make_policy("costmodel", ...)`` then finds its profile
-    without the paper's resnet50 fallback.
+    without the paper's resnet50 fallback; ``--remat`` records go to
+    files of their own, and ``h100_profile`` reads one policy's records,
+    its memory the counted peak clamped at the card's 80 GB.
 """
 import dataclasses
 import warnings
@@ -188,7 +197,7 @@ class _Products(cost.CostMode):
         super()._count(func, packet, args, kwargs, out)
 
 
-def _port_products(depth):
+def _port_products(depth, remat="none"):
     cfg = reduced_config("yi-6b")
     tcfg = TrainConfig()
     state = steps_lib.state_from_params(tree_map(
@@ -196,7 +205,8 @@ def _port_products(depth):
     batch = input_specs(cfg, dataclasses.replace(
         SHAPES["train_4k"], global_batch=B, seq_len=S))
     step = steps_lib.make_train_step(cfg, tcfg, SPBConfig(mode="temporal",
-                                                          k=4), depth=depth)
+                                                          k=4), depth=depth,
+                                     remat=remat)
     with _Products((state, batch)) as mode:
         step(state, batch)
     return mode.split
@@ -217,6 +227,144 @@ def test_matrix_products_equal_the_references_dots_but_its_recompute(
         ratios.append((mat + vec) / ref_all)
     # the products' ratio to the reference's dots, as first measured
     assert [round(r, 3) for r in ratios] == [0.988, 0.964, 0.956, 0.951]
+
+
+REMAT_DEPTHS = (1, 3)
+
+
+@pytest.fixture(scope="module")
+def reference_dots_remat():
+    """The reference's matrix dots under ``REMAT`` 'full' and 'dots' at
+    depths 1 and 3: {(remat, depth): matrix dot FLOPs}."""
+    out = {}
+    for remat in ("full", "dots"):
+        token = j_lm.REMAT.set(remat)
+        try:
+            eng = JEngine(j_reduced("yi-6b"), JTrain(optimizer="adamw"),
+                          JSPB(mode="temporal", k=4))
+            specs = {k: jax.ShapeDtypeStruct((B, S), jnp.int32)
+                     for k in ("tokens", "labels")}
+            for d in REMAT_DEPTHS:
+                text = eng.lower_step(specs, depth=d).compile().as_text()
+                out[(remat, d)] = _hlo_dots(text)[0]
+        finally:
+            j_lm.REMAT.reset(token)
+    return out
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_matrix_products_under_the_recompute_equal_the_references(
+        reference_dots_remat, remat):
+    """Under 'full' the port recomputes every product of a live layer and
+    the reference too, whose attention then recomputes one product more
+    (its own checkpoint, merged by XLA with the layer's); under 'dots'
+    both keep the projections and recompute the attention products."""
+    cfg = reduced_config("yi-6b")
+    one = 2.0 * B * cfg.num_heads * S * S * cfg.head_dim
+    for d in REMAT_DEPTHS:
+        mat, _ = _port_products(d, remat)
+        none_mat, _ = _port_products(d)
+        assert mat > none_mat                   # the recompute, counted
+        assert mat + d * one == reference_dots_remat[(remat, d)], (remat, d)
+
+
+# ---------------------------------------------------------------------------
+# (d) the layer recompute, counted
+# ---------------------------------------------------------------------------
+
+def _loss_count(cfg, depth, remat, mode_cls=cost.CostMode):
+    params = tree_map(lambda t: t.requires_grad_(True), lm.param_shapes(cfg))
+    batch = input_specs(cfg, dataclasses.replace(
+        SHAPES["train_4k"], global_batch=B, seq_len=S))
+    with mode_cls((params, batch)) as mode:
+        loss, _ = lm.loss_fn(params, batch, cfg, bwd_layers=depth,
+                             remat=remat)
+        loss.backward()
+    return mode
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-2.7b",
+                                  "seamless-m4t-medium"])
+def test_saved_bytes_fall_none_dots_full(arch):
+    cfg = dataclasses.replace(reduced_config(arch), use_pallas=True)
+    for depth in (1, 2, None):
+        counts = {r: _loss_count(cfg, depth, r).summary
+                  for r in lm.REMAT_POLICIES}
+        saved = [counts[r].saved_bytes for r in ("none", "dots", "full")]
+        assert saved[0] > saved[1] > saved[2], (depth, saved)
+        flops = [counts[r].flops for r in ("none", "dots", "full")]
+        assert flops[0] < flops[1] < flops[2], (depth, flops)
+
+
+def test_full_keeps_the_carries_and_what_lies_outside_the_stack(
+        monkeypatch):
+    """Under 'none' the saves made inside a live repeat and outside the
+    stack are told apart; under 'full' the saves outside are the same
+    bytes and the repeats keep their carries: x (B x S x d_model f32) at
+    each live repeat, one aux scalar and the positions (S int64)."""
+    cfg = reduced_config("yi-6b")
+    run_repeat = lm._run_repeat
+
+    class Split(cost.CostMode):
+        inside = 0
+        outside_bytes = 0.0
+
+        def _pack(self, t):
+            before = self.summary.saved_bytes
+            out = super()._pack(t)
+            if not self.inside:
+                self.outside_bytes += self.summary.saved_bytes - before
+            return out
+
+        def _kept(self, tensors, nbytes):
+            self.inside += 1
+            try:
+                super()._kept(tensors, nbytes)
+            finally:
+                self.inside -= 1
+
+    modes = []
+
+    def repeat(*a, **k):
+        modes[-1].inside += 1
+        try:
+            return run_repeat(*a, **k)
+        finally:
+            modes[-1].inside -= 1
+
+    monkeypatch.setattr(lm, "_run_repeat", repeat)
+
+    def split(*a):
+        modes.append(Split(*a))
+        return modes[-1]
+
+    carry = B * S * cfg.d_model * 4
+    for depth in (1, 2, 3, 4):
+        none = _loss_count(cfg, depth, "none", split)
+        full = _loss_count(cfg, depth, "full", split)
+        assert full.outside_bytes == none.outside_bytes
+        assert full.summary.saved_bytes == (
+            none.outside_bytes + depth * carry + 4 + S * 8), depth
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-2.7b"])
+def test_full_counts_each_live_forward_kernel_twice(arch):
+    """A non-reentrant checkpoint runs a live layer's forward with grad
+    on, so its first pass takes the forward-with-residuals kernel, and
+    the recompute runs it again; frozen layers run once."""
+    cfg = dataclasses.replace(reduced_config(arch), use_pallas=True)
+    L = cfg.num_layers
+    for depth in (1, 2, L):
+        calls = {k: v["calls"] for k, v in
+                 _loss_count(cfg, depth, "full").summary.kernel_totals()
+                 .items()}
+        if arch == "yi-6b":
+            want = {"flash_fwd": L + depth, "flash_delta": depth,
+                    "flash_dq": depth, "flash_dkv": depth}
+        else:
+            want = {"ssd_fwd": L - depth, "ssd_fwd_res": 2 * depth,
+                    "ssd_bwd": depth}
+        assert calls == {k: n for k, n in want.items() if n}, depth
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +416,52 @@ def test_cli_record_renders_and_feeds_the_cost_model(tmp_path, monkeypatch,
     with pytest.raises(ValueError, match="SPB suffix"):
         dryrun.count_cell("yi-6b", "decode_32k", cut="reduced", depth=2,
                           batch=2, seq_len=64)
+
+
+def test_remat_records_and_the_h100_profile(tmp_path, monkeypatch, capsys):
+    """``--remat full`` writes a record of its own beside 'none''s; each
+    policy's profile reads its own records; an H100 profile's memory is
+    the counted peak, clamped at 80 GB where the reference's profile (and
+    ``hlo_profiles``) clamps at 8 and 16."""
+    monkeypatch.setattr(roofline, "RESULTS", tmp_path)
+    argv = ["--arch", "yi-6b", "--reduced", "--shape", "train_4k",
+            "--batch", "2", "--seq", "64", "--out", str(tmp_path)]
+    for remat in ("none", "full"):
+        for depth in ("2", "4"):
+            assert dryrun.main(argv + ["--depth", depth, "--remat",
+                                       remat]) == 0
+    assert "remat=full" in capsys.readouterr().out
+    stem = "yi-6b__train_4k__h100__reduced__b2x64"
+    assert sorted(p.name for p in tmp_path.glob("*.json")) == sorted(
+        f"{stem}{d}.json" for d in ("__d2", "__d2__remat-full", "",
+                                    "__remat-full"))
+    recs = {(r["remat"], r["depth"]): r for r in roofline.records(tmp_path)}
+    assert len(recs) == 4
+    assert recs[("full", 2)]["saved_bytes"] < recs[("none", 2)]["saved_bytes"]
+    assert recs[("full", 2)]["flops_per_device"] > \
+        recs[("none", 2)]["flops_per_device"]
+    assert "remat-full" in report.md_spb(tmp_path)
+    cfg = reduced_config("yi-6b")
+    prof = {r: costmodel.h100_profile(cfg, tmp_path, remat=r)
+            for r in ("none", "full")}
+    assert prof["none"][1] and prof["full"][1]          # split counted
+    # the recompute adds backward time and takes peak memory away
+    assert prof["full"][0].bwd_s > prof["none"][0].bwd_s
+    assert prof["full"][0].mem_peak_gb < prof["none"][0].mem_peak_gb
+    assert costmodel.h100_profile(cfg, tmp_path, remat="dots") == (None,
+                                                                   False)
+    ma = recs[("none", None)]["memory_analysis"]
+    peak = (ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]) / 2**30
+    assert prof["none"][0].mem_peak_gb == pytest.approx(peak, rel=1e-12)
+    # the clamps bite on a record whose state passes the reference's 8 GB
+    big = dict(recs[("none", None)], name="big", layers=99)
+    big["memory_analysis"] = {"argument_size_in_bytes": 30 * 2**30,
+                              "temp_size_in_bytes": 60 * 2**30}
+    h100, _ = costmodel._profile("big", [big], costmodel.H100_CLAMPS)
+    tpu, _ = costmodel._profile("big", [big])
+    assert (h100.mem_fwd_gb, h100.mem_peak_gb) == (30.0, 80.0)
+    assert (tpu.mem_fwd_gb, tpu.mem_peak_gb, tpu.grad_gb) == (8.0, 16.0,
+                                                              4.0)
 
 
 def test_a_depth_sweep_renders(tmp_path, monkeypatch):
