@@ -162,7 +162,29 @@ Phases, each printing a line; any failure exits non-zero:
      each of these configs, depths and policies (counted TFLOP, saved GB,
      predicted peak beside the measured one; FLOPs must rise and saved
      bytes fall from 'none' to 'dots' to 'full');
-  15. (run last, after 17, on the host) the dry run of each phase-5 path:
+  18. (run after 17) the data-parallel group and spatial SPB
+     (``launch/mesh.py``), every rank a process of its own
+     (``mesh.spawn``, start method spawn, a join timeout), the ranks
+     sharing the card over gloo: (a) four ranks of yi-6b-reduced, f32,
+     the kernels on, 2 steps each of spatial k 4, spatial k 2 with and
+     without the subgroup re-reduce, and temporal k 2, on the card and
+     then on the CPU over the same process group: every rank's
+     parameters bit-identical to rank 0's, losses card against CPU
+     within phase 4's 1e-3 relative, and, since 2 warm-up steps move
+     the loss and the weights too little for that to see a wrong
+     gradient, each step's grad norm and AdamW's first moment card
+     against CPU within 1e-4 relative and the parameters' change within
+     1e-3, each card step's launches ``expected_launches`` at the rank's
+     depth; (b) two ranks
+     of yi-6b at published widths cut to 4 layers (one row of 2048
+     each), bf16, k 2, in temporal (a cycle), spatial and spatial with
+     the re-reduce, one state carried through: the replicas bit-identical
+     after each mode, every step's launches exact, a line a rank and
+     mode with step ms, host ms inside the collectives and the peak
+     allocation; (c) one counted step a depth (``analysis/cost.CostMode``)
+     whose all-reduce calls and payload equal ``dp_reckoning`` exactly
+     and whose wire bytes are the ring model's;
+  15. (run last, after 18, on the host) the dry run of each phase-5 path:
      every depth of its cycle counted on the meta device at batch
      2 x 2048 with the kernels' meta entries (``launch/dryrun.py``):
      counted TFLOP and GB, the three H100 roofline terms
@@ -180,7 +202,9 @@ Phases, each printing a line; any failure exits non-zero:
      ``launches_decode``, ``launches_serve``, ``launches_fused`` and
      ``launches_fused_jigsaw``, ``launches_graphs`` (phase 16's graph
      replays), ``launches_remat`` (phase 17's runs, by arch and policy),
-     the fused phase's ms by depth and peak, phase 17's figures,
+     ``launches_data_parallel`` (phase 18's, by run and rank),
+     the fused phase's ms by depth and peak, phase 17's and phase 18's
+     figures,
      and phase 15's ``dryrun_by_arch``), the card's name and power
      limit, and last the
      ``{"ok": true, ...}`` line.
@@ -623,9 +647,11 @@ def phase_kernels():
         # one profiler session (kernel fwd_* is flash_fwd's, dkv_* dkv's)
         by_kernel = kernel_device_ms(
             lambda: [kern() for kern, _ in runs.values()], "flash", iters=20)
-        for name in runs:
+        for name, (kern, _) in runs.items():
             mine = [ms for k, ms in by_kernel.items()
                     if k.split("_")[0] == name.removeprefix("flash_")]
+            if CALL_MS in by_kernel:
+                mine = [time_ms(kern, iters=20, warmup=1)]
             if not mine:
                 raise AssertionError(f"{case}: the profiler saw no kernel "
                                      f"of {name}")
@@ -733,29 +759,58 @@ def check_rel(name: str, got, want) -> float:
     return max(e[0] for e in errs)
 
 
+PROFILER_TRIES = 3
+CALL_MS = "call_by_cuda_events"  # kernel_device_ms without a trace
+
+
+def cuda_trace(fn, iters: int, wanted, whole: bool = False):
+    """The ``key_averages()`` events that ``wanted`` accepts from one
+    ``torch.profiler`` trace of ``iters`` calls of ``fn``, or None.  CUPTI
+    now and then hands back a trace without the call's kernels (once on an
+    H100, in the SSD phase, after the flash phase's trace had worked in the
+    same process), or with some of their launches lost (another run's SSD
+    backward showed half its device time), so such a trace is logged and
+    taken again, up to ``PROFILER_TRIES`` traces.  ``whole``: every call
+    launches each kernel as often, so a count that ``iters`` does not
+    divide is a trace with launches lost."""
+    import torch
+    for attempt in range(1, PROFILER_TRIES + 1):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages() if wanted(ev)]
+        lost = [ev.key for ev in events if whole and ev.count % iters]
+        if events and not lost:
+            return events
+        log(f"[profiler] trace {attempt}/{PROFILER_TRIES} "
+            + (f"lost launches of {lost}" if lost
+               else "held none of the kernels looked for"))
+    return None
+
+
 def kernel_device_ms(kern, namespace: str = "ssd", iters: int = 5) -> dict:
     """The device ms of each CUDA kernel of ``namespace`` that one call of
     ``kern`` launches (the bf16 SSD path's chunk-parallel phases; an
     RG-LRU kernel without its scratch's zeroing; the attention kernels of
     the four flash wrappers, called in turn, without the wrappers' host
-    work), averaged over ``iters`` calls traced with ``torch.profiler``."""
-    import torch
+    work), averaged over ``iters`` calls traced with ``torch.profiler``.
+    When no trace holds them all, the whole call's ms from CUDA events, under
+    the one key ``CALL_MS`` (the wrappers' host work and any other kernel
+    of the call included)."""
     kern()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            kern()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        m = re.search(rf"{namespace}::(\w+)", ev.key)
-        if m and ev.device_time_total > 0:
-            out[m.group(1)] = round(ev.device_time_total / iters / 1e3, 4)
-    if not out:
-        raise AssertionError(f"the profiler saw no {namespace} kernel on "
-                             f"the card")
-    return out
+    events = cuda_trace(kern, iters, lambda ev: ev.device_time_total > 0
+                        and re.search(rf"{namespace}::\w+", ev.key),
+                        whole=True)
+    if events is None:
+        ms = time_ms(kern, iters=iters, warmup=1)
+        log(f"[profiler] no whole trace of the {namespace} kernels: the "
+            f"call's ms from CUDA events instead, {ms:.4f}")
+        return {CALL_MS: round(ms, 4)}
+    return {re.search(rf"{namespace}::(\w+)", ev.key).group(1):
+            round(ev.device_time_total / iters / 1e3, 4) for ev in events}
 
 
 def phase_ssd_kernels():
@@ -1961,17 +2016,9 @@ def device_busy(fn, iters: int = 3):
     """(the card's busy ms of one call of ``fn``: every kernel it launches,
     from a ``torch.profiler`` trace over ``iters`` calls; the kernels a
     call launches)."""
-    import torch
     from torch.autograd import DeviceType
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kern = [ev for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA]
-    if not kern:
+    kern = cuda_trace(fn, iters, lambda ev: ev.device_type == DeviceType.CUDA)
+    if kern is None:
         raise AssertionError("the profiler saw no kernel on the card")
     return (sum(ev.device_time_total for ev in kern) / iters / 1e3,
             sum(ev.count for ev in kern) // iters)
@@ -2760,6 +2807,384 @@ def phase_remat_dryrun(remat: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the data-parallel group and spatial SPB, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# phase 18 (a): (run, mode, k, subgroup_reduce) on yi-6b-reduced, f32, 4 ranks
+DP_REDUCED_RANKS = 4
+DP_REDUCED_RUNS = (("spatial_k4", "spatial", 4, False),
+                   ("spatial_k2", "spatial", 2, False),
+                   ("spatial_k2_sub", "spatial", 2, True),
+                   ("temporal_k2", "temporal", 2, False))
+# phase 18 (b): yi-6b at published widths cut to 4 layers, bf16, 2 ranks of
+# one row of 2048 each, k 2: (run, mode, subgroup_reduce).  The dry run
+# counts a rank's peak at 24.33 GB (state 13.36 GB and 10.97 GB of
+# temporaries), so two ranks and their contexts fit under 72 GB and three
+# do not (PERF.md, the data group's prediction).
+DP_FULL_RANKS = 2
+DP_FULL_LAYERS = 4
+DP_FULL_K = 2
+DP_FULL_RUNS = (("temporal", "temporal", False), ("spatial", "spatial", False),
+                ("spatial_sub", "spatial", True))
+DP_JOIN_S = 900.0
+# phase 18 (a), card against CPU after 2 steps: the relative gap of each
+# step's grad norm, and the relative L2 distance, over the whole tree, of
+# AdamW's first moment (the clipped gradients' running mean) and of the
+# parameters' change (params - init).  A loss moves ~4e-4 in 2 steps at
+# the warm-up lr and a parameter ~6e-5, so phase 4's 1e-3 on the loss
+# and on the parameters could not see a wrong gradient; these can.  The
+# change's limit is wider: AdamW's second step divides by a running RMS
+# that nearly cancels for a few elements, so the f32 rounding shows more
+# there (1.3e-4 at k 2 on an H100, against 1e-6 in the moment; a planted
+# weighting fault moves it 7e-3 and the moment 0.39; PERF.md, §6)
+DP_GNORM_TOL = 1e-4
+DP_MOMENT_TOL = 1e-4
+DP_UPDATE_TOL = 1e-3
+
+
+def _rank_depth(eng):
+    """The suffix depth of the engine's last step on this rank."""
+    if eng.spb.mode == "spatial":
+        from repro_torch.core import spb as spb_lib
+        return spb_lib.snapped_depths(eng.cfg, eng.spb)[
+            eng.group.rank % eng.spb.k]
+    return eng.last_depth
+
+
+def _params_numpy(params) -> dict:
+    """A param tree as f32 numpy arrays by leaf name."""
+    from repro_torch.tree import tree_leaves
+    return {n: t.detach().float().cpu().numpy()
+            for n, t in zip(_leaf_names(params), tree_leaves(params))}
+
+
+def _params_digest(params) -> str:
+    """sha256 of every parameter's bits, in leaf order."""
+    import hashlib
+    import torch
+    from repro_torch.tree import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(params):
+        t = t.detach().contiguous()
+        h.update(t.view(torch.uint8 if t.element_size() == 1 else
+                        {2: torch.int16, 4: torch.int32}[t.element_size()]
+                        ).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank_reduced(group) -> dict:
+    """Phase 18 (a), one rank: each run of :data:`DP_REDUCED_RUNS` for 2
+    steps from the seeded weights (:func:`dp_reduced_init`), on the card
+    and then on the CPU (the same process group), this rank's rows of each
+    global batch: each step's loss, grad norm, depth and launches, and
+    the final parameters and AdamW first moment."""
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(reduced_config("yi-6b"), use_pallas=True)
+    tcfg = TrainConfig(num_steps=2)
+    params = dp_reduced_init(cfg)
+    out = {}
+    for name, mode, k, sub in DP_REDUCED_RUNS:
+        spb = SPBConfig(mode=mode, k=k, subgroup_reduce=sub)
+        out[name] = {}
+        for dev in ("cuda", "cpu"):
+            # the same process group (and subgroups): gloo takes both
+            g = group if dev == "cuda" else dataclasses.replace(
+                group, device=torch.device("cpu"))
+            eng = SPBEngine(cfg, tcfg, spb, group=g, shared_cache=False)
+            eng.attach_state(steps_lib.state_from_params(
+                tree_map(torch.clone, params), tcfg))
+            pipe = Pipeline(cfg, DP_REDUCED_RANKS, 64, seed=0)
+            run = {"losses": [], "grad_norms": [], "depths": [],
+                   "launches": []}
+            for s in range(2):
+                before = launches_now()
+                m = eng.train_step(g.shard(pipe.get_batch(s)), s)
+                run["losses"].append(float(m["loss"]))
+                run["grad_norms"].append(float(m["grad_norm"]))
+                run["depths"].append(_rank_depth(eng))
+                run["launches"].append(launches_since(before))
+            run["params"] = _params_numpy(eng.state["params"])
+            run["mu"] = _params_numpy(eng.state["opt"]["mu"])
+            out[name][dev] = run
+    return out
+
+
+def dp_reduced_init(cfg):
+    """Phase 18 (a)'s initial weights, drawn on the CPU (the card's
+    generator draws other numbers from the same seed)."""
+    import torch
+    from repro_torch.models import lm
+    return lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    """||got - want|| / ||want||, over every leaf of two trees of numpy
+    arrays by leaf name, in f64."""
+    import numpy as np
+    num = sum(float(np.sum((got[n].astype(np.float64) - v) ** 2))
+              for n, v in want.items())
+    den = sum(float(np.sum(v.astype(np.float64) ** 2)) for v in want.values())
+    return math.sqrt(num / den)
+
+
+def phase_data_parallel_reduced() -> dict:
+    """Phase 18 (a): four ranks share the card over gloo (yi-6b-reduced,
+    f32, kernels on) in the runs of :data:`DP_REDUCED_RUNS`: every rank's
+    parameters bit-identical to rank 0's, on the card and on the CPU;
+    losses and parameters card against CPU within phase 4's 1e-3
+    relative; the parameters' change, AdamW's first moment and each
+    step's grad norm card against CPU within :data:`DP_UPDATE_TOL`,
+    :data:`DP_MOMENT_TOL` and :data:`DP_GNORM_TOL`; each card step's
+    launches ``expected_launches`` at the rank's depth (none on the CPU).
+    Logs every rank's figures before it raises at any that failed.
+    Returns each run's launches a rank."""
+    import numpy as np
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import mesh
+
+    cfg = dataclasses.replace(reduced_config("yi-6b"), use_pallas=True)
+    init = _params_numpy(dp_reduced_init(cfg))
+    t0 = time.perf_counter()
+    ranks = mesh.spawn("chip_smoke:dp_rank_reduced", DP_REDUCED_RANKS,
+                       device="cuda", threads=2, timeout_s=DP_JOIN_S)
+    launches, failed = {}, []
+    for name, mode, k, sub in DP_REDUCED_RUNS:
+        for dev in ("cuda", "cpu"):
+            want = ranks[0][name][dev]["params"]
+            for r, out in enumerate(ranks):
+                got = out[name][dev]["params"]
+                if not all(np.array_equal(got[n], want[n]) for n in want):
+                    failed.append(f"{name} {dev}: rank {r}'s parameters "
+                                  f"differ from rank 0's")
+        for r, out in enumerate(ranks):
+            card, cpu = out[name]["cuda"], out[name]["cpu"]
+            where = f"{name} rank {r}"
+            loss = max(abs(a - b) / abs(b)
+                       for a, b in zip(card["losses"], cpu["losses"]))
+            gnorm = max(abs(a - b) / b for a, b in zip(card["grad_norms"],
+                                                       cpu["grad_norms"]))
+            update = _rel_l2(
+                {n: card["params"][n] - v for n, v in init.items()},
+                {n: cpu["params"][n] - v for n, v in init.items()})
+            moment = _rel_l2(card["mu"], cpu["mu"])
+            for what, got, tol in (("loss", loss, 1e-3),
+                                   ("grad norm", gnorm, DP_GNORM_TOL),
+                                   ("parameter change", update,
+                                    DP_UPDATE_TOL),
+                                   ("first moment", moment, DP_MOMENT_TOL)):
+                if not got <= tol:
+                    failed.append(f"{where}: {what} card vs CPU {got:.3e} "
+                                  f"> {tol:g}")
+            for s, (d, grew) in enumerate(zip(card["depths"],
+                                              card["launches"])):
+                if grew != expected_launches(cfg, [d]):
+                    failed.append(f"{where} step {s}: launches {grew} != "
+                                  f"{expected_launches(cfg, [d])}")
+            if any(any(g.values()) for g in cpu["launches"]):
+                failed.append(f"{where}: a CPU step launched a kernel")
+            launches[f"{name}/rank{r}"] = {
+                n: sum(g[n] for g in card["launches"]) for n in KERNELS}
+            log(f"[data-parallel] {name} rank={r} depths={card['depths']} "
+                f"loss_cuda={card['losses']} loss_cpu={cpu['losses']} "
+                f"gnorm_cuda={card['grad_norms']} "
+                f"gnorm_cpu={cpu['grad_norms']} card_vs_cpu: "
+                f"loss={loss:.3e} (tol 1e-3) gnorm={gnorm:.3e} "
+                f"(tol {DP_GNORM_TOL:g}) update_l2={update:.3e} "
+                f"(tol {DP_UPDATE_TOL:g}) moment_l2={moment:.3e} "
+                f"(tol {DP_MOMENT_TOL:g}) launches="
+                f"{ {n: c for n, c in launches[f'{name}/rank{r}'].items() if c} }")
+    log(f"[data-parallel] reduced phase {time.perf_counter() - t0:.1f}s")
+    if failed:
+        raise AssertionError("data-parallel: " + "; ".join(failed))
+    return launches
+
+
+def dp_full_config():
+    from repro_torch.configs import full_width_config
+    return dataclasses.replace(full_width_config("yi-6b"),
+                               num_layers=DP_FULL_LAYERS)
+
+
+def dp_rank_full(group) -> dict:
+    """Phase 18 (b), one rank: yi-6b's 4-layer cut in each mode of
+    :data:`DP_FULL_RUNS` (one state carried through them), 2 timed steps
+    then the counted ones (one cycle of ``temporal``, one ``spatial``
+    step) under ``analysis/cost.CostMode``; each step's ms, host ms inside
+    the collectives, launches and depth, the counted all-reduces, the
+    peak allocation and a digest of the parameters after each mode."""
+    import gc
+    import torch
+    from repro_torch.analysis import cost
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import make_batch
+    from repro_torch.engine.engine import SPBEngine
+
+    cfg = dp_full_config()
+    tcfg = TrainConfig(num_steps=10)
+    rows = 1
+    state, out = None, {}
+    for name, mode, sub in DP_FULL_RUNS:
+        spb = SPBConfig(mode=mode, k=DP_FULL_K, subgroup_reduce=sub)
+        eng = SPBEngine(cfg, tcfg, spb, group=group, shared_cache=False)
+        if state is None:
+            eng.init_state(0)
+        else:
+            eng.attach_state(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = {"steps": [], "counted": []}
+        counted = DP_FULL_K if mode == "temporal" else 1
+        for i in range(2 + counted):
+            s = eng.state["step"]
+            batch = group.shard(make_batch(cfg, rows * group.size, 2048,
+                                           seed=s, device="cuda"))
+            before, r0 = launches_now(), group.reduce_s
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i < 2:
+                m = eng.train_step(batch, s)
+            else:
+                with cost.CostMode() as mode_:
+                    m = eng.train_step(batch, s)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            step = {"ms": (time.perf_counter() - t0) * 1e3,
+                    "reduce_ms": (group.reduce_s - r0) * 1e3,
+                    "depth": _rank_depth(eng), "loss": loss,
+                    "launches": launches_since(before)}
+            if i < 2:
+                run["steps"].append(step)
+            else:
+                step["collectives"] = mode_.summary.collectives()
+                run["counted"].append(step)
+        run["max_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        run["digest"] = _params_digest(eng.state["params"])
+        out[name] = run
+        state = eng.state
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_reckoning(cfg, mode: str, depth, sub: bool) -> dict:
+    """The all-reduce payload one rank's step should count (PERF.md's
+    reckoning): ``temporal`` at ``depth`` the non-layer leaves and the live rows
+    of every layer leaf plus the three f32 metrics; ``spatial`` every leaf
+    and the two f32 metrics (loss, xent), and with the re-reduce every
+    row whose contributor count is above 1 once more."""
+    import torch
+    from repro_torch.config import SPBConfig, total_layers
+    from repro_torch.core import spb as spb_lib
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    shapes = lm.param_shapes(cfg)
+    nbytes = lambda t: t.numel() * t.element_size()
+    row = sum(nbytes(t[0]) for t in tree_leaves(shapes["groups"]))
+    other = sum(nbytes(t) for t in tree_leaves(
+        {k: v for k, v in shapes.items() if k != "groups"}))
+    f32 = torch.tensor(0.0).element_size()
+    calls = len(tree_leaves(shapes)) + 1            # the leaves, the metrics
+    if mode == "temporal":
+        return {"count": calls,
+                "payload_bytes": other + depth * row + 3 * f32}
+    payload = other + total_layers(cfg) * row + 2 * f32
+    if sub:
+        spb = SPBConfig(mode="spatial", k=DP_FULL_K, subgroup_reduce=True)
+        per_level = max(1, DP_FULL_RANKS // DP_FULL_K)
+        live = [c * per_level for c in spb_lib.layer_contributors(cfg, spb)]
+        again = sum(1 for c in live if c > 1)
+        payload += again * row
+        calls += again * len(tree_leaves(shapes["groups"]))
+    return {"count": calls, "payload_bytes": payload}
+
+
+def phase_data_parallel_full() -> dict:
+    """Phase 18 (b) and (c): two ranks of yi-6b's 4-layer cut share the
+    card over gloo in each mode of :data:`DP_FULL_RUNS`: the replicas'
+    parameters bit-identical after every mode, every step's launches
+    ``expected_launches`` at the rank's depth, finite losses, and each
+    counted step's all-reduce calls and payload exactly
+    :func:`dp_reckoning`'s, its wire bytes the ring model's.  Prints a
+    line a rank and mode: step ms, host ms inside the collectives,
+    counts, peak allocation.  Returns the launches and the figures."""
+    from repro_torch.analysis import cost
+    from repro_torch.launch import mesh
+
+    cfg = dp_full_config()
+    t0 = time.perf_counter()
+    ranks = mesh.spawn("chip_smoke:dp_rank_full", DP_FULL_RANKS,
+                       device="cuda", timeout_s=DP_JOIN_S)
+    launches, figures = {}, {}
+    for name, mode, sub in DP_FULL_RUNS:
+        digests = {out[name]["digest"] for out in ranks}
+        if len(digests) != 1:
+            raise AssertionError(f"data-parallel full {name}: the replicas' "
+                                 f"parameters differ")
+        for r, out in enumerate(ranks):
+            run = out[name]
+            for step in run["steps"] + run["counted"]:
+                want = expected_launches(cfg, [step["depth"]])
+                if step["launches"] != want:
+                    raise AssertionError(
+                        f"data-parallel full {name} rank {r}: launches "
+                        f"{step['launches']} != {want}")
+                if not math.isfinite(step["loss"]):
+                    raise AssertionError(f"data-parallel full {name} rank "
+                                         f"{r}: loss not finite")
+            counted = []
+            for step in run["counted"]:
+                c = step["collectives"].get("all-reduce", {})
+                want = dp_reckoning(cfg, mode, step["depth"], sub)
+                wire = cost.wire_bytes("all-reduce", DP_FULL_RANKS,
+                                       want["payload_bytes"])
+                got = (c.get("count"), c.get("payload_bytes"),
+                       c.get("wire_bytes"))
+                if got != (want["count"], want["payload_bytes"], wire):
+                    raise AssertionError(
+                        f"data-parallel full {name} rank {r} depth "
+                        f"{step['depth']}: counted (calls, payload, wire) "
+                        f"{got} != the reckoning's "
+                        f"{(want['count'], want['payload_bytes'], wire)}")
+                counted.append({"depth": step["depth"], "calls": got[0],
+                                "payload_bytes": got[1],
+                                "wire_bytes": got[2]})
+            key = f"{name}/rank{r}"
+            launches[key] = {n: sum(s["launches"][n] for s in
+                                    run["steps"] + run["counted"])
+                             for n in KERNELS}
+            figures[key] = {
+                "depths": [s["depth"] for s in run["steps"]],
+                "step_ms": [round(s["ms"], 2) for s in run["steps"]],
+                "reduce_ms": [round(s["reduce_ms"], 2)
+                              for s in run["steps"]],
+                "counted": counted,
+                "max_mem_gb": round(run["max_mem_gb"], 3)}
+            log(f"[data-parallel] full yi-6b/{DP_FULL_LAYERS} {name} "
+                f"rank={r} depths={figures[key]['depths']} "
+                f"step_ms={figures[key]['step_ms']} "
+                f"reduce_host_ms={figures[key]['reduce_ms']} "
+                f"allreduce={counted} "
+                f"max_mem_gb={figures[key]['max_mem_gb']} "
+                f"losses={[round(s['loss'], 4) for s in run['steps']]} "
+                f"launches={ {n: c for n, c in launches[key].items() if c} } "
+                f"(each step expected_launches at its depth) "
+                f"replicas=bit-identical")
+    log(f"[data-parallel] full phase {time.perf_counter() - t0:.1f}s")
+    return {"launches": launches, "figures": figures}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2856,6 +3281,15 @@ def main() -> int:
         raise AssertionError(f"kernels the recompute runs never launched: "
                              f"{idle}")
     torch.cuda.empty_cache()
+    # the ranks run in processes of their own: the parent holds nothing
+    dp_launches = phase_data_parallel_reduced()
+    dp_full = phase_data_parallel_full()
+    dp_launches.update(dp_full["launches"])
+    idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
+            if not any(g.get(n) for g in dp_launches.values())]
+    if idle:
+        raise AssertionError(f"kernels the data-parallel ranks never "
+                             f"launched: {idle}")
     # host only, so it runs last: every timed phase then runs as it did
     # before the dry run existed, without its modules (~100k more Python
     # objects) and its own garbage collections
@@ -2894,6 +3328,9 @@ def main() -> int:
                                     for a, runs in remat_by_arch.items()
                                     for label, f in runs.items()
                                     if name in f["launches"]},
+                 "launches_data_parallel": {k: g[name]
+                                            for k, g in dp_launches.items()
+                                            if g.get(name)},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],
@@ -2936,7 +3373,8 @@ def main() -> int:
                                           if k != "launches"}
                                   for label, f in runs.items()}
                               for a, runs in remat_by_arch.items()},
-                    "remat_dryrun": remat_dryrun}))
+                    "remat_dryrun": remat_dryrun,
+                    "data_parallel": dp_full["figures"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

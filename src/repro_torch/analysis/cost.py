@@ -32,8 +32,17 @@ Conventions (the reference's, at aten-op granularity):
     from the work function beside it in its kernel module (:data:`WORK`,
     the functions ``chip_smoke.py`` takes its bounds from), which a
     :class:`CostMode` adds here.
-  * Collectives: none on one card (``collective_*`` stay 0; multi-GPU is
-    ROADMAP.md Queue 1 B item 11).
+  * Collectives: each ``c10d.allreduce_`` a data group's step dispatches
+    (``dist/group.DataGroup.all_reduce``), per rank, by the reference's
+    ring model over the size n of the op's process group: an all-reduce
+    moves ``2 (n - 1) / n`` times its payload in wire bytes
+    (:func:`wire_bytes`).  Its payload counts under ``collective_payload``,
+    its wire bytes under ``collective_bytes`` and ``collective_breakdown``,
+    the calls under ``collective_counts`` and ``num_collectives``; its
+    operands and results count as bytes too, as the reference's HLO count
+    does.  A collective over a group of one is never issued.  The dry run
+    counts one card (``launch/dryrun.py``), so its ``collective_*`` stay
+    0.
   * Memory: ``argument_size_in_bytes`` is the storages the call's
     arguments hold (the state and the batch), ``temp_size_in_bytes`` the
     peak of the bytes of the other storages alive during the call, tracked
@@ -55,6 +64,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -124,6 +134,22 @@ class CostSummary:
     def top_bytes(self, n: int = 15):
         return sorted(self.bytes_by_site.items(), key=lambda kv: -kv[1])[:n]
 
+    def add_collective(self, kind: str, n: int, payload: float,
+                       site: str = "") -> None:
+        """One collective of ``payload`` bytes over a group of ``n``."""
+        wire = wire_bytes(kind, n, payload)
+        self.collective_bytes += wire
+        self.collective_breakdown[kind] = \
+            self.collective_breakdown.get(kind, 0.0) + wire
+        self.collective_counts[kind] = \
+            self.collective_counts.get(kind, 0.0) + 1
+        self.collective_payload[kind] = \
+            self.collective_payload.get(kind, 0.0) + payload
+        key = f"{kind} {site}"
+        self.collective_by_site[key] = \
+            self.collective_by_site.get(key, 0.0) + wire
+        self.num_collectives += 1
+
     def add_kernel(self, name: str, shape: Dict[str, Any],
                    work: Tuple[float, float]) -> None:
         """One launch of kernel ``name`` at ``shape`` (its work function's
@@ -145,6 +171,17 @@ class CostSummary:
                 out[name][k] = sum(n * e[k] for n, e in zip(calls,
                                                             by.values()))
         return out
+
+
+def wire_bytes(kind: str, n: int, payload: float) -> float:
+    """Wire bytes a device sends for one collective of ``payload`` bytes
+    over a group of ``n`` (the reference's ring model,
+    ``repro/analysis/hlo.py``)."""
+    if kind == "all-reduce":
+        return 2.0 * (n - 1) / max(n, 1) * payload
+    if kind in ("all-gather", "reduce-scatter", "all-to-all"):
+        return (n - 1) / max(n, 1) * payload
+    return payload                      # collective-permute
 
 
 def shape_key(shape: Dict[str, Any]) -> str:
@@ -286,6 +323,12 @@ class CostMode(TorchDispatchMode):
             s.add_flops(name, ins[0].numel())
         for o in outs:
             self._live.track(o)
+        if func.namespace == "c10d" and name == "allreduce_":
+            tensors = args[0]
+            s.add_collective(
+                "all-reduce", dist.ProcessGroup.unbox(args[1]).size(),
+                sum(map(tensor_bytes, tensors)),
+                f"{tensors[0].dtype} {tuple(tensors[0].shape)}")
         if packet in FREE_OPS or not outs:
             return
         mutates = any(a.alias_info is not None and a.alias_info.is_write

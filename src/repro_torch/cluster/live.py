@@ -161,8 +161,9 @@ class LiveBackend(ExecutionBackend):
                                                None]] = None):
         if submeshes is not None:
             raise NotImplementedError(
-                "spatial submeshes need several GPUs: multi-GPU is "
-                "ROADMAP.md Queue 1 B item 11")
+                "spatial submeshes (a disjoint set of devices a job, "
+                "resized between rounds) are not ported: the cluster part "
+                "of ROADMAP.md Queue 1 B item 11")
         if not 0.0 < ema <= 1.0:
             raise ValueError(f"ema must be in (0, 1], got {ema}")
         if max_retries < 0:

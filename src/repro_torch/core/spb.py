@@ -1,23 +1,27 @@
 """Structured Partial Backpropagation: depth schedules and the weighted
-aggregation (the temporal half of ``repro/core/spb.py``).
+aggregation (the counterpart of ``repro/core/spb.py``).
 
 Paper semantics (k workers, L layers): worker j backprops only through the
 suffix of ceil(j*L/k) layers; the parameter server averages each layer's
 gradient over the workers that computed it.  Temporally, the suffix depth
 cycles over steps and layer block i receives i of k updates per cycle,
 which per-block scaling of the update turns back into the paper's
-weighted average.
+weighted average.  Spatially (:func:`spatial_grads`), each rank of a data
+group (``dist/group.DataGroup``) backpropagates its own depth and the
+partial gradients are summed over the group and weighted per layer.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
 from repro_torch.config import (ModelConfig, SPBConfig, combined_layer_groups,
-                                snap_depth, snap_depth_to_stages,
-                                total_layers)
+                                layer_groups, snap_depth,
+                                snap_depth_to_stages, total_layers)
+from repro_torch.tree import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -163,4 +167,101 @@ def scale_params_tree(params: Dict[str, Any], cfg: ModelConfig,
                           groups=scaled(params["enc"]["groups"][:1], 0))
         first = 1
     out["groups"] = scaled(params["groups"], first)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Spatial (paper-faithful) aggregation over a data group
+# ---------------------------------------------------------------------------
+
+def row_layers(cfg: ModelConfig):
+    """Yields (group, unit position, the flat layer index of each row) for
+    the stacked leaves of the decoder's stack."""
+    off = 0
+    for g, (unit, count) in enumerate(layer_groups(cfg)):
+        p = len(unit)
+        for u in range(p):
+            yield g, u, [off + r * p + u for r in range(count)]
+        off += p * count
+
+
+# (cfg, spb, n, device) -> spatial_grads' row scales there, placed once
+_SPATIAL: Dict[tuple, Dict[Tuple[int, int], torch.Tensor]] = {}
+
+
+def _spatial_scales(cfg: ModelConfig, spb: SPBConfig, n: int,
+                    device: torch.device) -> Dict[Tuple[int, int],
+                                                  torch.Tensor]:
+    """Per (group, unit position): each row's ``1 / (contributors * n /
+    k)``, f32, on ``device``."""
+    key = (cfg, spb, n, device)
+    if key not in _SPATIAL:
+        contrib = layer_contributors(cfg, spb)
+        groups_per_layer = n / spb.k
+        _SPATIAL[key] = {
+            (g, u): torch.tensor(
+                [1.0 / (contrib[i] * groups_per_layer) if contrib[i] > 0
+                 else 0.0 for i in idxs], dtype=torch.float32, device=device)
+            for g, u, idxs in row_layers(cfg)}
+    return _SPATIAL[key]
+
+
+def spatial_grads(loss: torch.Tensor, grads: Dict[str, Any], *, group,
+                  spb: SPBConfig, cfg: ModelConfig):
+    """The paper's weighted aggregation of the ranks' partial gradients:
+    ``loss`` (any shape) is averaged over ``group`` (a
+    ``dist/group.DataGroup``), every leaf of ``grads`` is summed over it
+    (in place), each row of a layer's stacked leaf is then scaled by
+    ``1 / (contributors[l] * n / k)`` (0 where no level covers layer l:
+    ``contributors[l] * n / k`` ranks computed it), and the other leaves
+    (``embed``, ``final_norm``: every rank computes them) are divided by
+    n.  Every rank hands over the same leaves in the same order: a frozen
+    leaf's gradient is a zero tensor, not ``None``.  Returns (loss,
+    grads)."""
+    if cfg.enc_layers:
+        raise ValueError("spatial SPB supports decoder-only stacks")
+    n = group.size
+    loss = group.all_reduce(loss.detach().clone()) / n
+    tree_map(group.all_reduce, grads)
+    out = {key: tree_map(lambda t: t / n, v)
+           for key, v in grads.items() if key != "groups"}
+    out["groups"] = [
+        [_scale_rows(up, lambda dev, dt, g=g, u=u: _spatial_scales(
+            cfg, spb, n, dev)[g, u].to(dt)) for u, up in enumerate(gp)]
+        for g, gp in enumerate(grads["groups"])]
+    return loss, out
+
+
+def subgroup_allreduce(x: torch.Tensor, group, contributors: int
+                       ) -> torch.Tensor:
+    """Sum ``x`` in place over the last ``contributors`` ranks of
+    ``group`` only, the ones that computed this block (their subgroup,
+    ``DataGroup.make_subgroups``); the identity on the others, whose
+    value the caller keeps.  Over all ranks when ``contributors`` covers
+    the group."""
+    return group.all_reduce(x, contributors)
+
+
+# ---------------------------------------------------------------------------
+# Estimator used by the theory tests (Lemma 7.3 structure)
+# ---------------------------------------------------------------------------
+
+def spb_estimator(per_worker_block_grads: torch.Tensor, k: int
+                  ) -> torch.Tensor:
+    """The paper's parameter-server estimate from per-worker per-block
+    gradients ``(k, L, ...)``: worker j (from 0) contributes the blocks
+    l >= L - ceil((j+1) L / k), and each block is the mean of its
+    contributions."""
+    kk, L = per_worker_block_grads.shape[:2]
+    if kk != k:
+        raise ValueError(f"{kk} workers' gradients for k={k}")
+    out = torch.zeros_like(per_worker_block_grads[0])
+    for l in range(L):
+        c = 0
+        acc = torch.zeros_like(per_worker_block_grads[0, l])
+        for j in range(k):
+            if l >= L - math.ceil((j + 1) * L / k):
+                acc = acc + per_worker_block_grads[j, l]
+                c += 1
+        out[l] = acc / max(c, 1)
     return out

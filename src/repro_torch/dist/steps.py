@@ -1,13 +1,26 @@
-"""Depth-specialized SPB training steps (the single-device part of
-``repro/dist/steps.py``).
+"""Depth-specialized SPB training steps (the counterpart of
+``repro/dist/steps.py`` without its pipeline, tensor-parallel and sharded
+steps).
 
 For temporal SPB, :func:`build_spb_train_steps` makes one step per
 snapped suffix depth; for ``temporal-mb`` one step that runs the whole
-depth cycle as accumulated microbatches.  PyTorch runs eagerly, so a "step" is a plain
+depth cycle as accumulated microbatches; for ``spatial`` one step in
+which each rank of a data group backpropagates its own depth
+(:func:`make_spatial_step`).  PyTorch runs eagerly, so a "step" is a plain
 function: the depth decides which layers run under ``torch.no_grad()`` in
 ``lm.loss_fn``, and autograd then has no backward to run for them -- the
 prefix's backward kernels are never launched and its activations are
 never kept.
+
+Under a data group of several ranks (``dist/group.DataGroup``) each rank
+runs the step on its rows of the global batch.  ``off``, ``temporal`` and
+``temporal-mb`` then average the gradients over the group before the
+optimizer (a sum, then ``/ n``), and only what has a gradient: no leaf
+that the depth froze whole and, of a group's stacked leaf that it split,
+only the live rows.  That is what GSPMD emits for the reference's
+temporal step, where the frozen prefix has no gradient and so no
+collective.  The metrics are averaged too.  Every rank then runs the same
+optimizer update on the same numbers, so the replicas stay equal.
 
 :func:`make_functional_train_step` and
 :func:`make_functional_temporal_mb_step` are the same steps as pure
@@ -32,6 +45,7 @@ over the live repeats; 'dots' has no such form yet and raises there.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -40,9 +54,10 @@ import torch
 from repro_torch.config import ModelConfig, SPBConfig, TrainConfig
 from repro_torch.core import compress
 from repro_torch.core import spb as spb_lib
+from repro_torch.dist.group import DataGroup
 from repro_torch.models import lm
 from repro_torch.optim import optimizers
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 State = Dict[str, Any]
 
@@ -72,13 +87,14 @@ def _microbatches(batch: Dict[str, torch.Tensor], m: int):
 
 def _finish_step(state: State, metrics, tcfg: TrainConfig, cfg: ModelConfig,
                  spb_cfg: Optional[SPBConfig], scale: float = 1.0,
-                 sched: Optional[torch.Tensor] = None, update: bool = True
+                 sched: Optional[torch.Tensor] = None, update: bool = True,
+                 group=None, depth: Optional[int] = None
                  ) -> Tuple[State, Dict[str, torch.Tensor]]:
-    """Collect the gradients (``None`` where autograd left none), compress
-    them if ``tcfg.compression`` asks, run the optimizer (reading the
-    schedule from ``sched`` when given, ``optim.apply_updates``) and
-    advance the step.  With ``update=False`` the gradients are dropped and
-    the state is left as it was: a CUDA graph's warm-up."""
+    """Collect the gradients (``None`` where autograd left none), average
+    them and the metrics over ``group`` when it has several ranks (the
+    live part at suffix ``depth``, the deepest the step ran), then
+    :func:`_apply` them.  With ``update=False`` the gradients are dropped
+    and the state is left as it was: a CUDA graph's warm-up."""
     params = state["params"]
     if not update:
         tree_map(lambda p: setattr(p, "grad", None), params)
@@ -89,12 +105,64 @@ def _finish_step(state: State, metrics, tcfg: TrainConfig, cfg: ModelConfig,
         return g if g is None or scale == 1.0 else g * scale
 
     grads = tree_map(take, params)
+    if group is not None and group.size > 1:
+        metrics = _average(group, metrics)
+        n = group.size
+        for part in _live_parts(grads, cfg, depth):
+            group.all_reduce(part).div_(n)
+    return _apply(state, grads, metrics, tcfg, cfg, spb_cfg, sched)
+
+
+def _average(group, metrics: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    """The metrics' means over ``group``, in one all-reduce."""
+    keys = sorted(metrics)
+    both = group.all_reduce(torch.stack([metrics[k].detach().float()
+                                         for k in keys])) / group.size
+    return dict(zip(keys, both.unbind()))
+
+
+def _live_parts(grads, cfg: ModelConfig, depth: Optional[int]) -> list:
+    """The parts of ``grads`` that a step at suffix ``depth`` can make
+    nonzero, in a fixed order: every leaf that has a gradient, and of a
+    group's stacked leaf only the rows ``depth`` left live, after the
+    frozen ones (``lm.frozen_units``).  Views, so reducing them in place
+    reduces the gradients."""
+    frozen = lm.frozen_units(cfg, depth)
+    parts = []
+
+    def add(tree, lo: int = 0):
+        for t in tree_leaves(tree):
+            if t is not None and t.shape[0] > lo:
+                parts.append(t[lo:] if lo else t)
+
+    def stack(tree, key):
+        for key2, v in tree.items():
+            if key2 == "groups":
+                for gp, q in zip(v, frozen[key]):
+                    add(gp, q)
+            else:
+                add(v)
+
+    stack({k: v for k, v in grads.items() if k != "enc"}, "groups")
+    if "enc" in grads:
+        stack(grads["enc"], "enc")
+    return parts
+
+
+def _apply(state: State, grads, metrics, tcfg: TrainConfig,
+           cfg: ModelConfig, spb_cfg: Optional[SPBConfig],
+           sched: Optional[torch.Tensor] = None
+           ) -> Tuple[State, Dict[str, torch.Tensor]]:
+    """Compress ``grads`` if ``tcfg.compression`` asks, run the optimizer
+    (reading the schedule from ``sched`` when given,
+    ``optim.apply_updates``) and advance the step."""
     if tcfg.compression != "none":
         gen = compression_generator(tcfg, state["step"])
         grads = compress.compress_tree(grads, tcfg.compression,
                                        tcfg.compression_ratio, gen)
     _, _, opt_metrics = optimizers.apply_updates(
-        params, grads, state["opt"], state["step"], tcfg, cfg=cfg,
+        state["params"], grads, state["opt"], state["step"], tcfg, cfg=cfg,
         spb_cfg=spb_cfg, sched=sched)
     state["step"] += 1
     return state, {**metrics, **opt_metrics}
@@ -128,10 +196,11 @@ def _accumulate(state: State, chunks, depths, cfg: ModelConfig,
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     spb_cfg: Optional[SPBConfig] = None, *,
                     depth: Optional[int] = None,
-                    remat: Optional[str] = None) -> Callable:
+                    remat: Optional[str] = None, group=None) -> Callable:
     """A (state, batch) -> (state, metrics) step at SPB suffix ``depth``
     (None = full backprop), over ``tcfg.microbatches`` accumulated chunks,
-    under the recompute policy ``remat``.  The state is updated in place;
+    under the recompute policy ``remat``, averaged over the data group
+    ``group`` when it has several ranks.  The state is updated in place;
     ``sched`` and ``update`` as :func:`_finish_step` takes them."""
     remat = lm.resolve_remat(remat)
 
@@ -141,21 +210,29 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         chunks = _microbatches(batch, m) if m > 1 else [batch]
         metrics = _accumulate(state, chunks, [depth] * m, cfg, remat)
         return _finish_step(state, metrics, tcfg, cfg, spb_cfg,
-                            scale=1.0 / m, sched=sched, update=update)
+                            scale=1.0 / m, sched=sched, update=update,
+                            group=group, depth=depth)
 
     return step
 
 
+def _mb_cycle(cfg: ModelConfig, spb_cfg: SPBConfig) -> list:
+    """The temporal-mb step's depths, one a microbatch, in order."""
+    schedule = spb_lib.make_schedule(cfg, spb_cfg)
+    return [schedule.depths[i] for i in schedule.order]
+
+
 def make_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
                           spb_cfg: SPBConfig, *,
-                          remat: Optional[str] = None) -> Callable:
+                          remat: Optional[str] = None, group=None
+                          ) -> Callable:
     """One step over the whole depth cycle: the batch splits into
     ``len(cycle)`` microbatches, microbatch j backprops suffix depth
     ``depths[order[j]]``, and one optimizer step takes the mean gradient
-    (``tcfg.microbatches`` is not used)."""
+    (``tcfg.microbatches`` is not used), averaged over ``group`` as
+    :func:`make_train_step` does."""
     remat = lm.resolve_remat(remat)
-    schedule = spb_lib.make_schedule(cfg, spb_cfg)
-    cycle = [schedule.depths[i] for i in schedule.order]
+    cycle = _mb_cycle(cfg, spb_cfg)
 
     def step(state: State, batch, *, sched=None, update: bool = True
              ) -> Tuple[State, Dict[str, torch.Tensor]]:
@@ -163,9 +240,95 @@ def make_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
         metrics = _accumulate(state, chunks, cycle, cfg, remat)
         return _finish_step(state, metrics, tcfg, cfg, spb_cfg,
                             scale=1.0 / len(cycle), sched=sched,
-                            update=update)
+                            update=update, group=group, depth=max(cycle))
 
     return step
+
+
+def make_spatial_step(cfg: ModelConfig, tcfg: TrainConfig,
+                      spb_cfg: SPBConfig, *, group,
+                      remat: Optional[str] = None) -> Callable:
+    """Spatial SPB, the paper's own form: rank r of ``group`` (a
+    ``dist/group.DataGroup``; its size n may be 1) backpropagates suffix
+    depth ``snapped_depths[r % k]`` on its rows, and
+    ``core/spb.spatial_grads`` sums the partial gradients over the group
+    and weights them per layer (the deepest rank gates the step).  With
+    ``spb_cfg.subgroup_reduce`` each layer row is then re-reduced over its
+    contributors (:func:`_subgroup_rereduce`).  The weighted average is
+    the whole of the SPB scaling, so the optimizer does not rescale again
+    (``lr_rescale`` off), and compression, if any, applies to the
+    aggregate, as in the reference.  Its metrics are the loss and xent
+    averaged over the group and a zero ``moe_aux``, as the reference's.
+
+    The reference weights each layer as if each of the k levels ran on
+    n / k ranks, which is exact when k divides n; otherwise the levels
+    ``r % k`` never reaches go unrun and the layers that only they cover
+    get no gradient, in both packages."""
+    remat = lm.resolve_remat(remat)
+    depth = spb_lib.snapped_depths(cfg, spb_cfg)[group.rank % spb_cfg.k]
+    no_rescale = dataclasses.replace(spb_cfg, lr_rescale=False)
+    if spb_cfg.subgroup_reduce:
+        # new_group is collective: every rank makes these here, in order
+        group.make_subgroups(_rereduce_counts(cfg, spb_cfg, group.size))
+
+    def step(state: State, batch, *, sched=None, update: bool = True
+             ) -> Tuple[State, Dict[str, torch.Tensor]]:
+        params = state["params"]
+        loss, mm = lm.loss_fn(params, batch, cfg, bwd_layers=depth,
+                              remat=remat)
+        loss.backward()
+        if not update:
+            tree_map(lambda p: setattr(p, "grad", None), params)
+            return state, {k: v.detach() for k, v in mm.items()}
+
+        def take(p):        # every rank reduces the same leaves
+            g, p.grad = p.grad, None
+            return torch.zeros_like(p) if g is None else g
+
+        both, grads = spb_lib.spatial_grads(
+            torch.stack([loss.detach(), mm["xent"].detach()]),
+            tree_map(take, params), group=group, spb=spb_cfg, cfg=cfg)
+        if spb_cfg.subgroup_reduce:
+            grads = _subgroup_rereduce(grads, cfg, spb_cfg, group)
+        metrics = {"loss": both[0], "xent": both[1],
+                   "moe_aux": torch.zeros((), device=both.device)}
+        return _apply(state, grads, metrics, tcfg, cfg, no_rescale, sched)
+
+    return step
+
+
+def _rereduce_counts(cfg: ModelConfig, spb_cfg: SPBConfig, n: int) -> list:
+    """Per flat layer: the ranks its re-reduce runs over, its
+    contributors ``contributors[l] * max(1, n // k)`` kept within [1, n]."""
+    per_level = max(1, n // spb_cfg.k)
+    return [min(max(c * per_level, 1), n)
+            for c in spb_lib.layer_contributors(cfg, spb_cfg)]
+
+
+def _subgroup_rereduce(grads, cfg: ModelConfig, spb_cfg: SPBConfig, group):
+    """The reference's wiring of ``subgroup_allreduce``: each row of a
+    layer's stacked leaf is re-reduced over the last ``c`` ranks only, its
+    contributor count (:func:`_rereduce_counts`), so that a prefix row
+    moves fewer wire bytes.
+
+    The values are already summed, weighted and equal on every rank after
+    ``spatial_grads``, so the re-reduce must leave them so on every rank:
+    contributors feed ``t / c``, whose subgroup sum restores ``t``, and
+    the other ranks, outside that subgroup, keep ``t`` undivided (dividing
+    everywhere would leave ``t / c`` on rank 0).  A row with one
+    contributor is left alone.  Because it follows a full sum, it adds
+    wire bytes instead of cutting them, as the reference's does."""
+    n = group.size
+    counts = _rereduce_counts(cfg, spb_cfg, n)
+    for g, u, layers in spb_lib.row_layers(cfg):
+        for t in tree_leaves(grads["groups"][g][u]):
+            for r, layer in enumerate(layers):
+                c = counts[layer]
+                if c > 1 and group.rank >= n - c:
+                    row = t[r] / c
+                    spb_lib.subgroup_allreduce(row, group, c)
+                    t[r].copy_(row)
+    return grads
 
 
 def _functional_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -248,21 +411,15 @@ def make_functional_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
                                      ) -> Callable:
     """:func:`make_temporal_mb_step` as a pure (params, opt, step, batch)
     -> (params, opt, metrics) function."""
-    sched = spb_lib.make_schedule(cfg, spb_cfg)
-    return _functional_step(cfg, tcfg, spb_cfg,
-                            [sched.depths[i] for i in sched.order], remat)
+    return _functional_step(cfg, tcfg, spb_cfg, _mb_cycle(cfg, spb_cfg), remat)
 
 
 def spb_step_keys(cfg: ModelConfig, spb_cfg: SPBConfig) -> list:
-    """The step table's keys: always ``None`` (full backprop), plus each
+    """The step table's keys: always ``None`` (full backprop; for
+    ``spatial`` the one step, whose depth is the rank's), plus each
     snapped depth of the cycle for ``temporal``, or ``"mb"`` (the whole
     cycle as accumulated microbatches) for ``temporal-mb``."""
-    if spb_cfg.mode == "spatial":
-        raise NotImplementedError(
-            "SPB mode 'spatial' runs one depth per data-parallel worker and "
-            "needs a process group of several GPUs; it comes with the "
-            "multi-GPU slice (ROADMAP.md Queue 1 B item 11)")
-    if spb_cfg.mode not in ("off", "temporal", "temporal-mb"):
+    if spb_cfg.mode not in ("off", "temporal", "temporal-mb", "spatial"):
         raise ValueError(f"unknown SPB mode {spb_cfg.mode!r}; known: off, "
                          f"temporal, temporal-mb, spatial")
     keys: list = [None]
@@ -274,13 +431,20 @@ def spb_step_keys(cfg: ModelConfig, spb_cfg: SPBConfig) -> list:
 
 
 def build_spb_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
-                          spb_cfg: SPBConfig, *, remat: Optional[str] = None
-                          ) -> Dict[Any, Callable]:
-    """Step functions keyed by :func:`spb_step_keys`: ``"mb"`` runs
-    :func:`make_temporal_mb_step`, a depth :func:`make_train_step`, each
-    under the recompute policy ``remat``."""
+                          spb_cfg: SPBConfig, *, remat: Optional[str] = None,
+                          group=None) -> Dict[Any, Callable]:
+    """Step functions keyed by :func:`spb_step_keys`, each under the
+    recompute policy ``remat`` over the data group ``group`` (None: one
+    rank): for ``spatial`` ``{None:`` :func:`make_spatial_step` ``}``;
+    otherwise ``"mb"`` runs :func:`make_temporal_mb_step`, a depth
+    :func:`make_train_step`."""
     remat = lm.resolve_remat(remat)
-    return {k: make_temporal_mb_step(cfg, tcfg, spb_cfg, remat=remat)
+    if spb_cfg.mode == "spatial":
+        return {None: make_spatial_step(cfg, tcfg, spb_cfg, remat=remat,
+                                        group=group or DataGroup())}
+    return {k: make_temporal_mb_step(cfg, tcfg, spb_cfg, remat=remat,
+                                     group=group)
             if k == "mb"
-            else make_train_step(cfg, tcfg, spb_cfg, depth=k, remat=remat)
+            else make_train_step(cfg, tcfg, spb_cfg, depth=k, remat=remat,
+                                 group=group)
             for k in spb_step_keys(cfg, spb_cfg)}

@@ -21,6 +21,17 @@ takes ``lm.REMAT``'s value) is resolved when the engine is built and
 closed over by every step; it is part of the step-cache key and of a
 stored table's key, so a table captured under one policy is a miss under
 another.
+
+``group=`` (a ``dist/group.DataGroup``) makes the engine one rank of a
+data group: its device is the group's, each ``train_step`` takes this
+rank's rows of the global batch, and the steps average the gradients
+over the group (``dist/steps.py``; spatial SPB weights them per layer).
+A depth policy that reads the clock could pick different depths on
+different ranks, whose collectives would then not match, so rank 0's
+depth is broadcast every step.  The step-cache key carries the group's
+size (and, for spatial, the rank's level).  A gloo collective runs on the
+host, which no CUDA graph can capture, so ``compile_table`` and
+``load_aot`` raise under a group of several ranks.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import steps as steps_lib
 from repro_torch.engine import aot, graphs, stepcache
 from repro_torch.engine.policies import DepthPolicy, make_policy
+from repro_torch.dist.group import DataGroup
 from repro_torch.models import lm
 from repro_torch.optim import optimizers
 from repro_torch.tree import tree_map
@@ -129,12 +141,22 @@ class SPBEngine:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
                  spb_cfg: Optional[SPBConfig] = None, *,
                  policy: Optional[DepthPolicy] = None, device=None,
-                 shared_cache: bool = True, remat: Optional[str] = None):
+                 shared_cache: bool = True, remat: Optional[str] = None,
+                 group: Optional[DataGroup] = None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.spb = spb_cfg or SPBConfig()
         self.remat = lm.resolve_remat(remat)
-        self.device = resolve_device(device)
+        if group is None:
+            self.device = resolve_device(device)
+            group = DataGroup(device=self.device)
+        elif device is not None and \
+                resolve_device(device).type != group.device.type:
+            raise ValueError(f"device={device!r} disagrees with the data "
+                             f"group's {group.device}")
+        else:
+            self.device = group.device
+        self.group = group
         self.policy = policy or make_policy("cycle", cfg, self.spb)
         self.shared_cache = shared_cache
         self._steps: Dict[Any, Callable] = {}
@@ -206,11 +228,17 @@ class SPBEngine:
 
     def _make_step(self, key: Any) -> Callable:
         """The (state, batch) -> (state, metrics) step of one table key."""
+        if self.spb.mode == "spatial":
+            return steps_lib.make_spatial_step(self.cfg, self.tcfg, self.spb,
+                                               remat=self.remat,
+                                               group=self.group)
+        group = self.group if self.group.size > 1 else None
         if key == "mb":
-            return steps_lib.make_temporal_mb_step(self.cfg, self.tcfg,
-                                                   self.spb, remat=self.remat)
+            return steps_lib.make_temporal_mb_step(
+                self.cfg, self.tcfg, self.spb, remat=self.remat, group=group)
         return steps_lib.make_train_step(self.cfg, self.tcfg, self.spb,
-                                         depth=key, remat=self.remat)
+                                         depth=key, remat=self.remat,
+                                         group=group)
 
     def _eager_step(self, key: Any) -> Callable:
         if self.shared_cache:
@@ -229,11 +257,19 @@ class SPBEngine:
 
     def step_cache_key(self, key: Any):
         """The process-wide step-cache key of one depth entry: (config
-        digest, depth tag, device fingerprint)."""
+        digest, depth tag, device fingerprint), and under a data group of
+        several ranks its size (and for spatial SPB the rank's level, which
+        picks the step's depth)."""
         if not hasattr(self, "_step_sig"):
             self._step_sig = self._step_signature()
-        return (self._step_sig, aot._depth_tag(key),
-                stepcache.device_fingerprint(self.device))
+        out = (self._step_sig, aot._depth_tag(key),
+               stepcache.device_fingerprint(self.device))
+        n = self.group.size
+        if self.spb.mode == "spatial":
+            out += (("group", n, self.group.rank % self.spb.k),)
+        elif n > 1:
+            out += (("group", n),)
+        return out
 
     def step_fn(self, key: Any) -> Callable:
         """The (state, batch) -> (state, metrics) step of a depth key (None
@@ -278,11 +314,12 @@ class SPBEngine:
         return deeper[0]
 
     def depth_key_for_step(self, step: int) -> Any:
-        if self.spb.mode == "off":
-            return None
+        if self.spb.mode in ("off", "spatial"):
+            return None             # spatial: the rank's depth is the step's
         if self.spb.mode == "temporal-mb":
             return "mb"             # the step runs the whole depth cycle
-        return self.resolve_depth(self.policy.depth_for_step(step))
+        return self.resolve_depth(
+            self.group.broadcast_int(self.policy.depth_for_step(step)))
 
     # -- training ----------------------------------------------------------
 
@@ -333,7 +370,10 @@ class SPBEngine:
 
         Gradient compression draws its indices from a CPU generator seeded
         per step on the host (``dist/steps.compression_generator``), which
-        no graph can capture: a table with it raises."""
+        no graph can capture: a table with it raises, and so does one
+        under a data group of several ranks, whose collectives run on the
+        host."""
+        self._refuse_group("compile_table")
         if self.tcfg.compression != "none":
             raise NotImplementedError(
                 f"compile_table: compression={self.tcfg.compression!r} "
@@ -356,6 +396,13 @@ class SPBEngine:
             self._steps[key] = entry
         self._specs = dict(batch_specs)
         return dict(self._compiled)
+
+    def _refuse_group(self, what: str) -> None:
+        if self.group.size > 1:
+            raise NotImplementedError(
+                f"{what} under a data group of {self.group.size} ranks: "
+                f"their collectives go through the host (gloo), which a CUDA "
+                f"graph cannot capture; run the group's steps eagerly")
 
     def memory_analysis(self, key: Any = None) -> Dict[str, int]:
         """What a captured entry holds on the card (``compile_table``
@@ -410,6 +457,7 @@ class SPBEngine:
         the caller builds the table); raises
         ``AOTCompatError`` when the table is intact but was stored by
         another env."""
+        self._refuse_group("load_aot")
         if not aot.table_exists(path):
             return False
         try:

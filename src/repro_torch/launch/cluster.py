@@ -43,12 +43,12 @@ from repro_torch.jigsaw.schedulers import ALL_SCHEDULERS
 
 # flag: why it raises (the ROADMAP.md item that brings it)
 _NOT_PORTED = {
-    "spatial": "--spatial (disjoint submeshes) needs several GPUs: "
-               "multi-GPU is ROADMAP.md Queue 1 B item 11",
+    "spatial": "--spatial (disjoint submeshes, one a job) is not ported: "
+               "the cluster part of ROADMAP.md Queue 1 B item 11",
     "round_quantum": "--round-quantum batches the rounds of a backend that "
                      "runs tasks concurrently (disjoint submeshes); the "
-                     "one-device backend runs them one after another: "
-                     "multi-GPU is ROADMAP.md Queue 1 B item 11",
+                     "one-device backend runs them one after another: the "
+                     "cluster part of ROADMAP.md Queue 1 B item 11",
 }
 
 

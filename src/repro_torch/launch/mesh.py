@@ -1,0 +1,192 @@
+"""The data-parallel group: whatever ranks the job has, one data axis
+(the counterpart of ``repro/launch/mesh.py``'s ``make_host_mesh``, whose
+role is "the data axis is whatever devices you have").
+
+:func:`init_data_group` makes this process's rank of the group, a
+``dist/group.DataGroup`` (a group of one needs no process group):
+
+* under ``torchrun`` it reads ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``
+  (``init_method="env://"``);
+* ranks that :func:`spawn` started on this machine meet in a ``file://``
+  store in a temporary directory.
+
+Rank r takes ``cuda:{local_rank % device_count}``.  The backend is
+``nccl`` only when every rank of the machine has a card of its own; ranks
+that share a card, and ranks on the CPU, take ``gloo`` (NCCL refuses two
+ranks on one device, while gloo moves CUDA tensors through the host).  The
+choice is printed once, by rank 0, and an error never changes it: a failed
+collective raises.  ``init_process_group`` gets a timeout, so a dead peer
+raises instead of hanging.
+
+The reference's submeshes (``split_devices``, ``make_submeshes``,
+``assert_disjoint``) and its pipeline mesh are not ported yet (ROADMAP.md
+Queue 1 B item 11).
+"""
+from __future__ import annotations
+
+import datetime
+import importlib
+import os
+import pickle
+import tempfile
+import time
+import traceback
+from pathlib import Path
+from typing import Any, Callable, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+from repro_torch.dist.group import DEFAULT_TIMEOUT_S, DataGroup
+
+
+def pick_backend(device: torch.device, local_world: int) -> str:
+    """``nccl`` when every rank of the machine (``local_world`` of them)
+    has a card of its own, ``gloo`` otherwise (ranks that share a card;
+    the CPU)."""
+    if device.type == "cuda" and torch.cuda.device_count() >= local_world:
+        return "nccl"
+    return "gloo"
+
+
+def init_data_group(size: Optional[int] = None, *, rank: Optional[int] = None,
+                    device=None, store_dir=None,
+                    timeout_s: float = DEFAULT_TIMEOUT_S) -> DataGroup:
+    """This process's rank of the data group.
+
+    Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) the group comes
+    from the environment and ``size``, if given, must agree with it.
+    Otherwise ``size`` ranks meet in a ``file://`` store under
+    ``store_dir`` (:func:`spawn` passes its temporary directory), this one
+    as ``rank``.  ``device``: ``cuda`` (default; raises without a card) or
+    ``cpu``."""
+    base = resolve_device(device)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        env_size = int(os.environ["WORLD_SIZE"])
+        if size is not None and size != env_size:
+            raise ValueError(f"--data-parallel {size} disagrees with "
+                             f"torchrun's WORLD_SIZE={env_size}")
+        size, rank = env_size, int(os.environ["RANK"])
+        local_rank = int(os.environ.get("LOCAL_RANK", rank))
+        init_method = "env://"
+    else:
+        size = 1 if size is None else size
+        rank = 0 if rank is None else rank
+        local_rank = rank
+        init_method = None if store_dir is None else \
+            f"file://{Path(store_dir).resolve()}/store"
+    if base.type == "cuda":
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:
+        dev = base
+    group = DataGroup(rank=rank, size=size, local_rank=local_rank,
+                      device=dev, timeout_s=timeout_s)
+    if size == 1:
+        return group
+    if init_method is None:
+        raise ValueError("a group of several ranks outside torchrun needs "
+                         "the store directory its ranks meet in")
+    # the ranks on this machine: torchrun's, else every rank (a spawn)
+    group.backend = pick_backend(
+        dev, int(os.environ.get("LOCAL_WORLD_SIZE", size)))
+    dist.init_process_group(group.backend, init_method=init_method,
+                            rank=rank, world_size=size,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    group.pg = dist.group.WORLD
+    if rank == 0:
+        cards = f" over {torch.cuda.device_count()} card(s)" \
+            if dev.type == "cuda" else ""
+        print(f"[mesh] data group of {size} ranks{cards}: "
+              f"backend={group.backend} device={dev.type}", flush=True)
+    return group
+
+
+def _resolve_target(target: str) -> Callable:
+    """The function named ``"module:function"``."""
+    module, _, name = target.partition(":")
+    if not name:
+        raise ValueError(f"target {target!r} is not 'module:function'")
+    return getattr(importlib.import_module(module), name)
+
+
+def _rank_main(target: str, rank: int, n: int, device, tmp: str,
+               threads: Optional[int], args, kwargs) -> None:
+    """One spawned rank: join the group, run ``target(group, *args,
+    **kwargs)``, leave its result (or its traceback) in ``tmp``."""
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        group = init_data_group(n, rank=rank, device=device, store_dir=tmp)
+        try:
+            out = _resolve_target(target)(group, *args, **kwargs)
+        finally:
+            group.close()
+        with open(Path(tmp) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        (Path(tmp) / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def spawn(target: str, n: int, *args, device=None,
+          timeout_s: float = 1800.0, threads: Optional[int] = None,
+          **kwargs) -> List[Any]:
+    """Run ``target(group, *args, **kwargs)`` on ``n`` ranks of a data
+    group on this machine, each a fresh process (start method ``spawn``:
+    never a fork of a process that may hold a CUDA context), and return
+    each rank's result, rank 0 first.  ``target`` names a function as
+    ``"module:function"``; the arguments and results are pickled.
+
+    A rank that fails ends the others and raises ``RuntimeError`` with its
+    traceback; ranks still running after ``timeout_s`` are ended and
+    ``TimeoutError`` is raised.  ``threads``: each rank's intra-op threads
+    (default: the CPU's cores shared out on the CPU, torch's default on
+    the card)."""
+    if threads is None and resolve_device(device).type == "cpu":
+        threads = max(1, (os.cpu_count() or 1) // n)
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="data_group_") as tmp:
+        procs = [ctx.Process(target=_rank_main,
+                             args=(target, r, n, device, tmp, threads, args,
+                                   kwargs))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        try:
+            _wait(procs, tmp, time.monotonic() + timeout_s, timeout_s)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+            for p in procs:
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        results = []
+        for r in range(n):
+            with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+def _wait(procs, tmp: str, deadline: float, timeout_s: float) -> None:
+    """Until every rank has exited 0; raise at the first that did not."""
+    while True:
+        codes = [p.exitcode for p in procs]
+        for r, code in enumerate(codes):
+            if code not in (None, 0):
+                err = Path(tmp) / f"rank{r}.err"
+                detail = err.read_text() if err.exists() else \
+                    f"exit code {code}"
+                raise RuntimeError(f"rank {r} of {len(procs)} failed:\n"
+                                   f"{detail}")
+        if all(code == 0 for code in codes):
+            return
+        if time.monotonic() > deadline:
+            running = [r for r, c in enumerate(codes) if c is None]
+            raise TimeoutError(f"ranks {running} still running after "
+                               f"{timeout_s:.0f} s")
+        time.sleep(0.05)

@@ -16,6 +16,10 @@ checkpointing and restart (the one-device surface of
       --steps 2 --spb-mode temporal --use-pallas --device cpu  # enc-dec
   python -m repro_torch.launch.train --spb-mode temporal --remat full \\
       --device cpu          # recompute each live repeat in the backward
+  python -m repro_torch.launch.train --spb-mode spatial --spb-k 2 \\
+      --data-parallel 4 --device cpu   # 4 ranks, a depth each, over gloo
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --spb-mode temporal --data-parallel 4   # the group from torchrun
 
 Prints the JAX driver's ``[train] step=... depth=... loss=...`` lines.  The
 engine owns the state and the step table; this driver owns the loop: data,
@@ -29,13 +33,25 @@ there.  ``--compilation-cache-dir DIR`` builds and loads the kernel
 libraries in ``DIR`` and reports what it found there (``[cc] ...``).
 ``--remat {none,dots,full}`` is the layer recompute of every step the
 engine builds (default none; the reference's ``REMAT`` defaults to full,
-which this flag reaches).  The spatial mode and the pipeline and mesh
-flags are not ported.
+which this flag reaches).
+
+``--data-parallel N`` trains on a data group of N ranks
+(``launch/mesh.py``): spawned on this machine, or, under ``torchrun``,
+the group it started (the flag must then agree with it).  Every rank
+draws the seeded global batch of ``--batch`` rows and takes its own rows
+(``DataGroup.shard``; ``--batch`` must divide by N, and by N x k for
+temporal-mb); only rank 0 logs.  ``--spb-mode spatial`` gives rank r the
+depth of level ``r % k`` and weights the gradients per layer; the other
+modes average what has a gradient.  Checkpoints, ``--resume``,
+``--fail-at`` and the step table (``--aot-cache``) are refused under a
+group of several ranks.  The pipeline and the other mesh flags are not
+ported.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 from repro_torch.checkpoint.manager import CheckpointManager
@@ -43,23 +59,27 @@ from repro_torch.config import SPBConfig, TrainConfig
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.device import device_fault
+from repro_torch.dist.group import DataGroup
 from repro_torch.engine import stepcache
 from repro_torch.engine.engine import SPBEngine
 from repro_torch.engine.policies import make_policy
+from repro_torch.launch import mesh
 from repro_torch.models import lm
 
 
 def build_engine(cfg, tcfg, spb_cfg, *, depth_policy: str = "cycle",
                  time_budget: float = 0.75, device=None,
-                 remat: str = "none") -> SPBEngine:
+                 remat: str = "none", group=None) -> SPBEngine:
     """The one construction path every entry point shares."""
-    return SPBEngine(cfg, tcfg, spb_cfg, device=device, remat=remat,
+    return SPBEngine(cfg, tcfg, spb_cfg,
+                     device=None if group is not None else device,
+                     remat=remat, group=group,
                      policy=make_policy(depth_policy, cfg, spb_cfg,
                                         time_budget_frac=time_budget,
                                         remat=remat))
 
 
-def train(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi-6b",
                     help="a registered arch (repro_torch.configs.ARCHS)")
@@ -73,9 +93,13 @@ def train(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--spb-mode", default="off",
                     choices=["off", "temporal", "temporal-mb", "spatial"],
-                    help="spatial needs several GPUs and is not ported")
+                    help="spatial: one depth a rank of --data-parallel")
     ap.add_argument("--spb-k", type=int, default=4)
     ap.add_argument("--spb-warmup", type=int, default=0)
+    ap.add_argument("--data-parallel", type=int, default=None,
+                    help="ranks of the data group (default: torchrun's "
+                         "WORLD_SIZE, else 1); spawned on this machine "
+                         "unless torchrun started them")
     ap.add_argument("--depth-policy", default="cycle",
                     choices=["cycle", "costmodel", "hook"],
                     help="who picks the per-step backprop depth")
@@ -108,8 +132,53 @@ def train(argv=None):
                          "versions on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def _check_group_args(args, n: int) -> None:
+    """What a data group of ``n`` ranks refuses, raised before any rank
+    starts."""
+    if n < 1:
+        raise ValueError(f"--data-parallel {n}: need at least one rank")
+    if n == 1:
+        return
+    refused = [flag for flag, on in (
+        ("--checkpoint-dir", bool(args.checkpoint_dir)),
+        ("--resume", args.resume), ("--fail-at", args.fail_at >= 0),
+        ("--aot-cache", bool(args.aot_cache))) if on]
+    if refused:
+        raise NotImplementedError(
+            f"{', '.join(refused)} with --data-parallel {n}: checkpoints, "
+            f"restart and the step table under a data group are not ported "
+            f"yet (ROADMAP.md Queue 1 B item 11)")
+    chunks = args.spb_k if args.spb_mode == "temporal-mb" else 1
+    if args.batch % (n * chunks):
+        raise ValueError(f"--batch {args.batch} does not split over "
+                         f"--data-parallel {n}" + (
+                             f" x {chunks} microbatches" if chunks > 1
+                             else ""))
+
+
+def train(argv=None):
+    """Parse ``argv`` and train; returns rank 0's per-step xent."""
+    args = parse_args(argv)
+    under_torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    n = int(os.environ["WORLD_SIZE"]) if under_torchrun and \
+        args.data_parallel is None else (args.data_parallel or 1)
+    _check_group_args(args, n)
+    if n > 1 and not under_torchrun:
+        return mesh.spawn("repro_torch.launch.train:rank_main", n, args,
+                          device=args.device)[0]
+    group = mesh.init_data_group(n, device=args.device)
+    try:
+        return rank_main(group, args)
+    finally:
+        group.close()
+
+
+def rank_main(group: DataGroup, args: argparse.Namespace) -> list:
+    """One rank's training run (the whole run on a group of one); returns
+    its per-step xent."""
     cc_before = None
     if args.compilation_cache_dir:
         cc_before = stepcache.enable_persistent_compilation_cache(
@@ -128,7 +197,7 @@ def train(argv=None):
     # is no step failure
     engine = build_engine(cfg, tcfg, spb_cfg, depth_policy=args.depth_policy,
                           time_budget=args.time_budget, device=args.device,
-                          remat=args.remat)
+                          remat=args.remat, group=group)
     mgr = (CheckpointManager(tcfg.checkpoint_dir, keep=3)
            if tcfg.checkpoint_dir else None)
 
@@ -148,7 +217,7 @@ def train(argv=None):
             args.resume = True
     if mgr:
         mgr.wait()
-    if cc_before is not None:
+    if cc_before is not None and group.rank == 0:
         print(stepcache.persistent_cache_report(
             args.compilation_cache_dir, cc_before), flush=True)
     return history
@@ -157,7 +226,8 @@ def train(argv=None):
 def _run(engine: SPBEngine, args, mgr, history):
     """Train from fresh weights, or from the latest checkpoint with
     ``--resume``; appends each step's xent to ``history`` (a failed
-    attempt's entries stay)."""
+    attempt's entries stay).  Each rank of a data group takes its rows of
+    every global batch."""
     cfg, tcfg = engine.cfg, engine.tcfg
     engine.state = None             # drop a failed attempt's state first
     engine.init_state(tcfg.seed)
@@ -181,12 +251,16 @@ def _run(engine: SPBEngine, args, mgr, history):
             engine.export_aot(path)
             print(f"[train] AOT step table compiled + exported to {path}",
                   flush=True)
+    group = engine.group
+    chunks = args.spb_k if args.spb_mode == "temporal-mb" else 1
     t0 = time.time()
     for step in range(start_step, tcfg.num_steps):
         if step == args.fail_at:
             raise RuntimeError("injected failure")
-        metrics = engine.train_step(pipe.get_batch(step), step)
-        if step % args.log_every == 0 or step == tcfg.num_steps - 1:
+        metrics = engine.train_step(
+            group.shard(pipe.get_batch(step), chunks), step)
+        if group.rank == 0 and (step % args.log_every == 0
+                                or step == tcfg.num_steps - 1):
             m = {k: float(v) for k, v in metrics.items()}
             print(f"[train] step={step:5d} depth={engine.last_depth!s:>4} "
                   f"loss={m['loss']:.4f} xent={m['xent']:.4f} "

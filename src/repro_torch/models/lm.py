@@ -466,6 +466,19 @@ def _frozen_units(cfg: ModelConfig, boundary: int, base: int) -> List[int]:
     return out
 
 
+def frozen_units(cfg: ModelConfig, bwd_layers: Optional[int] = None
+                 ) -> Dict[str, List[int]]:
+    """Per group of the decoder's stack (``"groups"``) and of an
+    encoder-decoder's encoder (``"enc"``): how many of its repeats the
+    suffix depth ``bwd_layers`` freezes, i.e. the leading rows of each
+    stacked leaf whose gradient is zero (all of them: no gradient)."""
+    boundary = total_layers(cfg) - _depth(cfg, bwd_layers)
+    out = {"groups": _frozen_units(cfg, boundary, cfg.enc_layers)}
+    if cfg.enc_layers:
+        out["enc"] = _frozen_units(_encoder_cfg(cfg), boundary, 0)
+    return out
+
+
 def _run_stack(x: Tensor, aux: Tensor, groups, cfg: ModelConfig,
                positions: Tensor, boundary: int, base: int = 0,
                enc: Optional[Tensor] = None, causal: bool = True,

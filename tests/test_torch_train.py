@@ -6,7 +6,8 @@ arithmetic, summed in another order, compounded over four AdamW updates.
 The same for mamba2-reduced (the SSD kernels' plain versions) and for
 recurrentgemma-reduced (the RG-LRU kernels' plain versions and flash at a
 window of 32 over 64 positions) and for qwen3-moe-reduced (MoE layers).  Also the port's train entry point, its
-steps on compressed gradients, and its refusals: of spatial SPB, and to
+steps on compressed gradients, spatial SPB's one-step table on a group of
+one (its ranks are ``tests/test_torch_spatial.py``'s), and its refusal to
 run on a missing card."""
 import dataclasses
 
@@ -293,18 +294,26 @@ def test_gradient_compression_builds_and_trains(compression, monkeypatch):
                 assert int(torch.linalg.matrix_rank(m)) <= 3
 
 
-def test_spatial_is_refused_when_the_step_is_built():
-    """spatial SPB runs one depth per data-parallel worker; it needs a
-    process group of several GPUs, and says so."""
+def test_spatial_builds_one_step_for_the_ranks_depth():
+    """spatial SPB's table is one step, whose depth is the rank's level:
+    on a group of one (no process group) the engine trains with it, its
+    metrics the reference's (a zero ``moe_aux``), and ``launch/train.py`` runs
+    it."""
     cfg = t_reduced("yi-6b")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        steps_lib.build_spb_train_steps(cfg, TrainConfig(),
-                                        SPBConfig(mode="spatial"))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        SPBEngine(cfg, TrainConfig(), SPBConfig(mode="spatial"), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        train_mod.train(["--steps", "1", "--spb-mode", "spatial",
-                         "--device", "cpu"])
+    built = steps_lib.build_spb_train_steps(cfg, TrainConfig(),
+                                            SPBConfig(mode="spatial"))
+    assert list(built) == [None]
+    eng = SPBEngine(cfg, TrainConfig(num_steps=2),
+                    SPBConfig(mode="spatial", k=2), device="cpu")
+    assert eng.depth_keys() == [None] and eng.group.size == 1
+    eng.init_state(0)
+    m = eng.train_step(Pipeline(cfg, 2, 32, seed=0).get_batch(0), 0)
+    assert eng.last_depth is None and float(m["moe_aux"]) == 0.0
+    assert np.isfinite(float(m["loss"]))
+    history = train_mod.train(["--steps", "1", "--batch", "2", "--seq",
+                               "32", "--spb-mode", "spatial", "--device",
+                               "cpu"])
+    assert len(history) == 1 and np.isfinite(history).all()
 
 
 def test_without_compression_the_engine_still_trains():
