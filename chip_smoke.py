@@ -184,6 +184,24 @@ Phases, each printing a line; any failure exits non-zero:
      allocation; (c) one counted step a depth (``analysis/cost.CostMode``)
      whose all-reduce calls and payload equal ``dp_reckoning`` exactly
      and whose wire bytes are the ring model's;
+  19. (run after 18) ZeRO-1 over the data group and restart under a
+     group (``SPBEngine(zero1=)``, ``dist/sharding.py``): (a) two ranks
+     of yi-6b-reduced, f32, the kernels on, temporal and spatial k 2 for
+     2 steps, replicated and with ZeRO-1, on the card and then on the CPU:
+     ZeRO-1's parameters and gathered moments bit-identical to the
+     replicated group's and across ranks, ZeRO-1 card against CPU within
+     phase 18's limits, launches exact; (b) two ranks of phase 18's
+     4-layer cut, temporal k 2 for 3 steps, replicated then ZeRO-1 from
+     one seed: bit-identical across ranks and runs, launches exact, the
+     last step's all-reduces and all-gathers counted exactly as
+     ``dp_reckoning`` and ``dp_gather_reckoning`` with the ring model's
+     wire bytes, ZeRO-1's peak at least 5 GB under the replicated one, a
+     line a rank and run with step ms, host ms inside the collectives and
+     the peak beside the dry run's count; (c) four ranks of that cut with
+     ZeRO-1 (batch 4 x 2048, 2 steps), the same checks; (d)
+     ``launch/train.py --data-parallel 2`` with a checkpoint every 2
+     steps, straight and with ``--fail-at 3``: the xent bit for bit, and
+     the last checkpoint restored into a one-process engine;
   15. (run last, after 18, on the host) the dry run of each phase-5 path:
      every depth of its cycle counted on the meta device at batch
      2 x 2048 with the kernels' meta entries (``launch/dryrun.py``):
@@ -203,6 +221,7 @@ Phases, each printing a line; any failure exits non-zero:
      ``launches_fused_jigsaw``, ``launches_graphs`` (phase 16's graph
      replays), ``launches_remat`` (phase 17's runs, by arch and policy),
      ``launches_data_parallel`` (phase 18's, by run and rank),
+     ``launches_zero`` (phase 19's),
      the fused phase's ms by depth and peak, phase 17's and phase 18's
      figures,
      and phase 15's ``dryrun_by_arch``), the card's name and power
@@ -2900,7 +2919,9 @@ def dp_rank_reduced(group) -> dict:
             # the same process group (and subgroups): gloo takes both
             g = group if dev == "cuda" else dataclasses.replace(
                 group, device=torch.device("cpu"))
-            eng = SPBEngine(cfg, tcfg, spb, group=g, shared_cache=False)
+            # replicated, as phase 18 ran before ZeRO-1 (phase 19)
+            eng = SPBEngine(cfg, tcfg, spb, group=g, shared_cache=False,
+                            zero1=False)
             eng.attach_state(steps_lib.state_from_params(
                 tree_map(torch.clone, params), tcfg))
             pipe = Pipeline(cfg, DP_REDUCED_RANKS, 64, seed=0)
@@ -3035,7 +3056,8 @@ def dp_rank_full(group) -> dict:
     state, out = None, {}
     for name, mode, sub in DP_FULL_RUNS:
         spb = SPBConfig(mode=mode, k=DP_FULL_K, subgroup_reduce=sub)
-        eng = SPBEngine(cfg, tcfg, spb, group=group, shared_cache=False)
+        eng = SPBEngine(cfg, tcfg, spb, group=group, shared_cache=False,
+                        zero1=False)
         if state is None:
             eng.init_state(0)
         else:
@@ -3185,6 +3207,417 @@ def phase_data_parallel_full() -> dict:
     return {"launches": launches, "figures": figures}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: ZeRO-1 over the data group, and restart under a group
+# ---------------------------------------------------------------------------
+
+# phase 19 (a): (run, mode, k) on yi-6b-reduced, f32, 2 ranks of 2 rows
+ZERO_REDUCED_RANKS = 2
+ZERO_REDUCED_RUNS = (("temporal_k2", "temporal", 2),
+                     ("spatial_k2", "spatial", 2))
+# phase 19 (b): phase 18's 4-layer cut, bf16, temporal k 2, 2 ranks of one
+# row of 2048, ZeRO-1 off then on; (c) 4 ranks of it with ZeRO-1 (a
+# replicated rank's 24.4 GB four times would not fit on the card)
+ZERO_FULL_K = 2
+ZERO_FOUR_RANKS = 4
+# the least a ZeRO-1 rank's peak must fall under the replicated rank's at
+# n 2 (the state falls by 5.7 GB: 12 of its 14 bytes a parameter halve)
+ZERO_PEAK_DROP_GB = 5.0
+
+
+def zero1_rank_reduced(group) -> dict:
+    """Phase 19 (a), one rank: each run of :data:`ZERO_REDUCED_RUNS` with
+    ZeRO-1 off, then on, from phase 18's seeded weights
+    (:func:`dp_reduced_init`), 2 steps on the card and then on the CPU
+    (the same process group), this rank's rows of each global batch:
+    each step's loss, grad norm, depth and launches, the parameters, and
+    on rank 0 the gathered state (parameters and AdamW's moments)."""
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(reduced_config("yi-6b"), use_pallas=True)
+    tcfg = TrainConfig(num_steps=2)
+    params = dp_reduced_init(cfg)
+    out = {}
+    for name, mode, k in ZERO_REDUCED_RUNS:
+        for dev in ("cuda", "cpu"):
+            g = group if dev == "cuda" else dataclasses.replace(
+                group, device=torch.device("cpu"))
+            for zero1 in (False, True):
+                eng = SPBEngine(cfg, tcfg, SPBConfig(mode=mode, k=k),
+                                group=g, shared_cache=False, zero1=zero1)
+                eng.attach_state(steps_lib.state_from_params(
+                    tree_map(torch.clone, params), tcfg))
+                pipe = Pipeline(cfg, 2 * ZERO_REDUCED_RANKS, 64, seed=0)
+                run = {"losses": [], "grad_norms": [], "depths": [],
+                       "launches": []}
+                for s in range(2):
+                    before = launches_now()
+                    m = eng.train_step(g.shard(pipe.get_batch(s)), s)
+                    run["losses"].append(float(m["loss"]))
+                    run["grad_norms"].append(float(m["grad_norm"]))
+                    run["depths"].append(_rank_depth(eng))
+                    run["launches"].append(launches_since(before))
+                run["params"] = _params_numpy(eng.state["params"])
+                whole = eng.gathered_state()
+                run["whole"] = None if whole is None else {
+                    key: _params_numpy(tree) for key, tree in (
+                        ("params", whole["params"]),
+                        ("mu", whole["opt"]["mu"]),
+                        ("nu", whole["opt"]["nu"]))}
+                out[name, dev, zero1] = run
+    return out
+
+
+def _same_arrays(got: dict, want: dict) -> bool:
+    """Two trees of numpy arrays by leaf name, bit for bit."""
+    import numpy as np
+    return set(got) == set(want) and all(
+        np.array_equal(got[n], want[n]) for n in want)
+
+
+def phase_zero1_reduced() -> dict:
+    """Phase 19 (a): two ranks share the card over gloo (yi-6b-reduced,
+    f32, kernels on) in the runs of :data:`ZERO_REDUCED_RUNS`, replicated
+    and with ZeRO-1, on the card and on the CPU: ZeRO-1's parameters and
+    gathered moments bit-identical to the replicated group's, and every
+    rank's parameters to rank 0's, on each device; ZeRO-1 card against
+    CPU within phase 18's limits (loss 1e-3, grad norm and first moment
+    1e-4, the parameters' change 1e-3); each card step's launches
+    ``expected_launches`` at the rank's depth, none on the CPU.  Logs
+    every figure before it raises at any that failed.  Returns each run's
+    launches a rank."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import mesh
+
+    cfg = dataclasses.replace(reduced_config("yi-6b"), use_pallas=True)
+    init = _params_numpy(dp_reduced_init(cfg))
+    t0 = time.perf_counter()
+    ranks = mesh.spawn("chip_smoke:zero1_rank_reduced", ZERO_REDUCED_RANKS,
+                       device="cuda", threads=2, timeout_s=DP_JOIN_S)
+    launches, failed = {}, []
+    for name, _, _ in ZERO_REDUCED_RUNS:
+        for dev in ("cuda", "cpu"):
+            for zero1 in (False, True):
+                want = ranks[0][name, dev, zero1]["params"]
+                for r, out in enumerate(ranks):
+                    if not _same_arrays(out[name, dev, zero1]["params"],
+                                        want):
+                        failed.append(f"{name} {dev} zero1={zero1}: rank "
+                                      f"{r}'s parameters differ from "
+                                      f"rank 0's")
+            zero, repl = (ranks[0][name, dev, z] for z in (True, False))
+            same = zero["losses"] == repl["losses"] and all(
+                _same_arrays(zero["whole"][key], repl["whole"][key])
+                for key in ("params", "mu", "nu"))
+            if not same:
+                failed.append(f"{name} {dev}: ZeRO-1 differs from the "
+                              f"replicated group")
+            log(f"[zero] {name} {dev} ZeRO-1 against replicated: losses, "
+                f"parameters and gathered moments "
+                f"{'bit-identical' if same else 'DIFFER'}")
+        card, cpu = (ranks[0][name, dev, True] for dev in ("cuda", "cpu"))
+        loss = max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], cpu["losses"]))
+        gnorm = max(abs(a - b) / b for a, b in zip(card["grad_norms"],
+                                                   cpu["grad_norms"]))
+        update = _rel_l2(
+            {n: card["whole"]["params"][n] - v for n, v in init.items()},
+            {n: cpu["whole"]["params"][n] - v for n, v in init.items()})
+        moment = _rel_l2(card["whole"]["mu"], cpu["whole"]["mu"])
+        for what, got, tol in (("loss", loss, 1e-3),
+                               ("grad norm", gnorm, DP_GNORM_TOL),
+                               ("parameter change", update, DP_UPDATE_TOL),
+                               ("first moment", moment, DP_MOMENT_TOL)):
+            if not got <= tol:
+                failed.append(f"{name}: {what} card vs CPU {got:.3e} > "
+                              f"{tol:g}")
+        for r, out in enumerate(ranks):
+            grew = {}
+            for zero1 in (False, True):
+                run = out[name, "cuda", zero1]
+                for s, (d, got) in enumerate(zip(run["depths"],
+                                                 run["launches"])):
+                    if got != expected_launches(cfg, [d]):
+                        failed.append(f"{name} rank {r} zero1={zero1} step "
+                                      f"{s}: launches {got} != "
+                                      f"{expected_launches(cfg, [d])}")
+                if any(any(g.values())
+                       for g in out[name, "cpu", zero1]["launches"]):
+                    failed.append(f"{name} rank {r}: a CPU step launched a "
+                                  f"kernel")
+                if zero1:
+                    grew = {n: sum(g[n] for g in run["launches"])
+                            for n in KERNELS}
+                    launches[f"{name}/zero1/rank{r}"] = grew
+            log(f"[zero] {name} rank={r} depths="
+                f"{out[name, 'cuda', True]['depths']} launches="
+                f"{ {n: c for n, c in grew.items() if c} }")
+        log(f"[zero] {name} ZeRO-1 card_vs_cpu: loss={loss:.3e} (tol 1e-3) "
+            f"gnorm={gnorm:.3e} (tol {DP_GNORM_TOL:g}) update_l2={update:.3e}"
+            f" (tol {DP_UPDATE_TOL:g}) moment_l2={moment:.3e} "
+            f"(tol {DP_MOMENT_TOL:g}) loss_cuda={card['losses']} "
+            f"loss_cpu={cpu['losses']}")
+    log(f"[zero] reduced phase {time.perf_counter() - t0:.1f}s")
+    if failed:
+        raise AssertionError("zero: " + "; ".join(failed))
+    return launches
+
+
+def zero1_rank_full(group, zero1_runs, steps: int) -> dict:
+    """Phase 19 (b) and (c), one rank: yi-6b's 4-layer cut, temporal k 2,
+    once a value of ``zero1_runs`` (ZeRO-1 off, then on), each from the
+    same seeded weights (``init_state(0)``) for ``steps`` steps, the last
+    under ``analysis/cost.CostMode``: each step's ms, host ms inside the
+    collectives, launches, depth and loss, the counted collectives, the
+    peak allocation and a digest of the parameters."""
+    import gc
+    import torch
+    from repro_torch.analysis import cost
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import make_batch
+    from repro_torch.engine.engine import SPBEngine
+
+    cfg = dp_full_config()
+    out = {}
+    for zero1 in zero1_runs:
+        eng = SPBEngine(cfg, TrainConfig(num_steps=10),
+                        SPBConfig(mode="temporal", k=ZERO_FULL_K),
+                        group=group, shared_cache=False, zero1=zero1)
+        eng.init_state(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = {"steps": []}
+        for i in range(steps):
+            s = eng.state["step"]
+            batch = group.shard(make_batch(cfg, group.size, 2048, seed=s,
+                                           device="cuda"))
+            before, r0 = launches_now(), group.reduce_s
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i < steps - 1:
+                m = eng.train_step(batch, s)
+            else:
+                with cost.CostMode() as counted:
+                    m = eng.train_step(batch, s)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            run["steps"].append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "reduce_ms": (group.reduce_s - r0) * 1e3,
+                "depth": _rank_depth(eng), "loss": loss,
+                "launches": launches_since(before)})
+        run["collectives"] = counted.summary.collectives()
+        run["max_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        run["digest"] = _params_digest(eng.state["params"])
+        out[zero1] = run
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_gather_reckoning(cfg, n: int) -> dict:
+    """The all-gathers one ZeRO-1 rank's step of ``cfg`` over ``n`` ranks
+    should count (the all-reduce's reckoning extended): one call a
+    parameter leaf that ``dist/sharding.dp_partition_plan`` shards, its
+    whole bytes as payload."""
+    from repro_torch.dist import sharding
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    shapes = lm.param_shapes(cfg)
+    mesh = sharding.Mesh((n, 1), ("data", "model"))
+    specs = tree_leaves(sharding.params_pspec(shapes, mesh),
+                        is_leaf=lambda x: isinstance(x, sharding.P))
+    planned = [t for t, spec in zip(tree_leaves(shapes), specs)
+               if sharding.dp_partition_plan(spec, t.shape, mesh)]
+    return {"count": len(planned),
+            "payload_bytes": sum(t.numel() * t.element_size()
+                                 for t in planned)}
+
+
+def _check_zero1_run(cfg, what: str, run: dict, zero1: bool, n: int) -> list:
+    """Phase 19 (b) and (c)'s checks of one rank's run: each step's
+    launches ``expected_launches`` at its depth and a finite loss, and the
+    counted step's all-reduces and all-gathers (calls, payload, the ring
+    model's wire bytes) exactly the reckoning's.  Returns the counted
+    collectives."""
+    from repro_torch.analysis import cost
+    for step in run["steps"]:
+        want = expected_launches(cfg, [step["depth"]])
+        if step["launches"] != want:
+            raise AssertionError(f"zero {what}: launches {step['launches']} "
+                                 f"!= {want}")
+        if not math.isfinite(step["loss"]):
+            raise AssertionError(f"zero {what}: loss not finite")
+    depth = run["steps"][-1]["depth"]
+    reduce = dp_reckoning(cfg, "temporal", depth, False)
+    gather = dp_gather_reckoning(cfg, n) if zero1 else None
+    counted = {}
+    for kind, want in (("all-reduce", reduce), ("all-gather", gather)):
+        c = run["collectives"].get(kind)
+        got = None if c is None else (c["count"], c["payload_bytes"],
+                                      c["wire_bytes"])
+        expect = None if want is None else (
+            want["count"], want["payload_bytes"],
+            cost.wire_bytes(kind, n, want["payload_bytes"]))
+        if got != expect:
+            raise AssertionError(f"zero {what} depth {depth}: counted {kind} "
+                                 f"(calls, payload, wire) {got} != the "
+                                 f"reckoning's {expect}")
+        counted[kind] = got
+    return counted
+
+
+def phase_zero1_full() -> dict:
+    """Phase 19 (b) and (c): two ranks of yi-6b's 4-layer cut share the
+    card over gloo, temporal k 2 for 3 steps, replicated and then with
+    ZeRO-1: the parameters bit-identical across ranks and runs, launches
+    and counted collectives exact (:func:`_check_zero1_run`), ZeRO-1's
+    peak at least :data:`ZERO_PEAK_DROP_GB` under the replicated one; then
+    four ranks of it with ZeRO-1 for 2 steps (batch 4 x 2048), the same
+    checks.  Prints, a rank and run, step ms, host ms inside the
+    collectives and the peak beside the dry run's count
+    (``launch/dryrun.count_cell(data_parallel=n)``), made first."""
+    from repro_torch.launch import dryrun, mesh
+
+    cfg = dp_full_config()
+    predicted = {}
+    for n, zero1 in ((DP_FULL_RANKS, False), (DP_FULL_RANKS, True),
+                     (ZERO_FOUR_RANKS, True)):
+        rec = dryrun.count_cell("yi-6b", "train_4k", cut="full_width",
+                                layers=DP_FULL_LAYERS, batch=n,
+                                seq_len=2048, data_parallel=n, zero1=zero1)
+        predicted[n, zero1] = {
+            "peak_gb": rec["predicted_peak_bytes"] / 1e9,
+            "state_gb": rec["state_bytes"]["zero1" if zero1
+                                           else "replicated"] / 1e9,
+            "collectives": rec["collective_breakdown"]}
+        log(f"[zero] dry run yi-6b/{DP_FULL_LAYERS} n={n} zero1={zero1} "
+            f"depth=4: predicted_peak_gb={predicted[n, zero1]['peak_gb']:.3f}"
+            f" state_gb={predicted[n, zero1]['state_gb']:.3f} "
+            f"wire_bytes={rec['collective_breakdown']}")
+    t0 = time.perf_counter()
+    two = mesh.spawn("chip_smoke:zero1_rank_full", DP_FULL_RANKS,
+                     (False, True), 3, device="cuda", timeout_s=DP_JOIN_S)
+    four = mesh.spawn("chip_smoke:zero1_rank_full", ZERO_FOUR_RANKS,
+                      (True,), 2, device="cuda", timeout_s=DP_JOIN_S)
+    launches, figures = {}, {}
+    for n, ranks, runs in ((DP_FULL_RANKS, two, (False, True)),
+                           (ZERO_FOUR_RANKS, four, (True,))):
+        if len({out[z]["digest"] for out in ranks for z in runs}) != 1:
+            raise AssertionError(f"zero n={n}: the parameters differ across "
+                                 f"ranks or runs")
+        for r, out in enumerate(ranks):
+            for zero1 in runs:
+                run = out[zero1]
+                key = f"n{n}/zero1={zero1}/rank{r}"
+                counted = _check_zero1_run(cfg, key, run, zero1, n)
+                launches[key] = {n_: sum(s["launches"][n_]
+                                         for s in run["steps"])
+                                 for n_ in KERNELS}
+                # the last step ran under CostMode: its ms are no timing
+                figures[key] = {
+                    "depths": [s["depth"] for s in run["steps"]],
+                    "step_ms": [round(s["ms"], 2) for s in run["steps"][:-1]],
+                    "collective_host_ms": [round(s["reduce_ms"], 2)
+                                           for s in run["steps"][:-1]],
+                    "counted_step_ms": round(run["steps"][-1]["ms"], 2),
+                    "counted": counted,
+                    "max_mem_gb": round(run["max_mem_gb"], 3),
+                    "predicted_peak_gb": round(predicted[n, zero1]
+                                               ["peak_gb"], 3)}
+                log(f"[zero] full yi-6b/{DP_FULL_LAYERS} n={n} "
+                    f"zero1={zero1} rank={r} "
+                    f"depths={figures[key]['depths']} "
+                    f"step_ms={figures[key]['step_ms']} "
+                    f"collective_host_ms="
+                    f"{figures[key]['collective_host_ms']} "
+                    f"counted_step_ms={figures[key]['counted_step_ms']} "
+                    f"counted={counted} "
+                    f"max_mem_gb={figures[key]['max_mem_gb']} "
+                    f"predicted_peak_gb="
+                    f"{figures[key]['predicted_peak_gb']} "
+                    f"losses={[round(s['loss'], 4) for s in run['steps']]} "
+                    f"launches="
+                    f"{ {k: c for k, c in launches[key].items() if c} } "
+                    f"replicas=bit-identical")
+        if n == DP_FULL_RANKS:
+            for r, out in enumerate(ranks):
+                drop = out[False]["max_mem_gb"] - out[True]["max_mem_gb"]
+                if drop < ZERO_PEAK_DROP_GB:
+                    raise AssertionError(
+                        f"zero rank {r}: ZeRO-1's peak is {drop:.3f} GB "
+                        f"under the replicated one, not "
+                        f"{ZERO_PEAK_DROP_GB} GB")
+    log(f"[zero] full phase {time.perf_counter() - t0:.1f}s")
+    return {"launches": launches, "figures": figures}
+
+
+def phase_zero1_restart() -> None:
+    """Phase 19 (d): ``launch/train.py --data-parallel 2`` on the card
+    (yi-6b-reduced, the kernels, temporal k 2, 4 steps, a checkpoint
+    every 2), straight and with ``--fail-at 3`` (restored from step 2),
+    the two runs side by side: the xent of every step bit for bit the
+    straight run's; the last checkpoint (step 4, the whole state) restores
+    into a one-process engine on the card with every tensor equal."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.launch import train as train_mod
+    from repro_torch.tree import tree_leaves
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_zero_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--device", "cuda", "--use-pallas", "--arch", "yi-6b",
+            "--steps", "4", "--checkpoint-every", "2", "--spb-mode",
+            "temporal", "--spb-k", "2", "--batch", "4", "--seq", "64",
+            "--log-every", "100", "--data-parallel", "2"]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        straight = pool.submit(train_mod.train, args + [
+            "--checkpoint-dir", str(root / "straight")])
+        failed = pool.submit(train_mod.train, args + [
+            "--checkpoint-dir", str(root / "failed"), "--fail-at", "3"])
+        straight, failed = straight.result(), failed.result()
+    mgr = CheckpointManager(root / "failed")
+    cfg = dataclasses.replace(reduced_config("yi-6b"), use_pallas=True)
+    eng = SPBEngine(cfg, TrainConfig(), SPBConfig(mode="temporal", k=2),
+                    device="cuda")
+    state, step = mgr.restore(eng.state_shapes)
+    eng.attach_state(state)
+    want = tree_leaves({"params": state["params"], "opt": state["opt"]})
+    got = tree_leaves({"params": eng.state["params"],
+                       "opt": eng.state["opt"]})
+    restored = step == 4 and eng.state["step"] == 4 and all(
+        g.is_cuda and torch.equal(g.detach().cpu(), w)
+        for g, w in zip(got, want))
+    shutil.rmtree(root, ignore_errors=True)
+    same = failed[:3] == straight[:3] and failed[3:] == straight[2:]
+    log(f"[zero-restart] straight_xent={straight} failed_xent={failed} "
+        f"resumed_equal_bit_for_bit={same} last_checkpoint_step={step} "
+        f"restores_into_one_process={restored} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    if not (same and len(straight) == 4 and len(failed) == 5):
+        raise AssertionError("zero restart: the resumed group's xent is not "
+                             "the straight run's")
+    if not restored:
+        raise AssertionError("zero restart: the group's checkpoint does not "
+                             "restore into one process")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3290,6 +3723,15 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels the data-parallel ranks never "
                              f"launched: {idle}")
+    zero1_by_run = phase_zero1_reduced()
+    zero1_full = phase_zero1_full()
+    zero1_by_run.update(zero1_full["launches"])
+    idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
+            if not any(g.get(n) for g in zero1_by_run.values())]
+    if idle:
+        raise AssertionError(f"kernels the ZeRO-1 ranks never launched: "
+                             f"{idle}")
+    phase_zero1_restart()
     # host only, so it runs last: every timed phase then runs as it did
     # before the dry run existed, without its modules (~100k more Python
     # objects) and its own garbage collections
@@ -3331,6 +3773,9 @@ def main() -> int:
                  "launches_data_parallel": {k: g[name]
                                             for k, g in dp_launches.items()
                                             if g.get(name)},
+                 "launches_zero": {k: g[name]
+                                   for k, g in zero1_by_run.items()
+                                   if g.get(name)},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],
@@ -3374,7 +3819,8 @@ def main() -> int:
                                   for label, f in runs.items()}
                               for a, runs in remat_by_arch.items()},
                     "remat_dryrun": remat_dryrun,
-                    "data_parallel": dp_full["figures"]}))
+                    "data_parallel": dp_full["figures"],
+                    "zero": zero1_full["figures"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

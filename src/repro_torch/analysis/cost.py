@@ -32,17 +32,23 @@ Conventions (the reference's, at aten-op granularity):
     from the work function beside it in its kernel module (:data:`WORK`,
     the functions ``chip_smoke.py`` takes its bounds from), which a
     :class:`CostMode` adds here.
-  * Collectives: each ``c10d.allreduce_`` a data group's step dispatches
-    (``dist/group.DataGroup.all_reduce``), per rank, by the reference's
-    ring model over the size n of the op's process group: an all-reduce
-    moves ``2 (n - 1) / n`` times its payload in wire bytes
-    (:func:`wire_bytes`).  Its payload counts under ``collective_payload``,
-    its wire bytes under ``collective_bytes`` and ``collective_breakdown``,
-    the calls under ``collective_counts`` and ``num_collectives``; its
-    operands and results count as bytes too, as the reference's HLO count
-    does.  A collective over a group of one is never issued.  The dry run
-    counts one card (``launch/dryrun.py``), so its ``collective_*`` stay
-    0.
+  * Collectives: each collective a data group's step dispatches
+    (``dist/group.DataGroup``), per rank, by the reference's ring model
+    over the size n of the op's process group: an all-reduce
+    (``c10d.allreduce_``) moves ``2 (n - 1) / n`` times its payload in
+    wire bytes, an all-gather (``c10d._allgather_base_``, ZeRO-1's
+    parameters) and a gather (``c10d.gather_``, a checkpoint's) ``(n - 1)
+    / n`` times theirs, their payload the gathered result's bytes as the
+    reference's ``analysis/hlo.py`` counts an all-gather, and a broadcast
+    (``c10d.broadcast_``) its payload (:func:`wire_bytes`).  The payload
+    counts under ``collective_payload``, the wire bytes under
+    ``collective_bytes`` and ``collective_breakdown``, the calls under
+    ``collective_counts`` and ``num_collectives``; the operands and
+    results count as bytes too, as the reference's HLO count does.  A
+    collective over a group of one is never issued.  On the meta device
+    (a dry run of one rank of a group, ``launch/dryrun.py``) the group
+    reports each collective here instead of running it
+    (``dist/group.META_SINKS``).
   * Memory: ``argument_size_in_bytes`` is the storages the call's
     arguments hold (the state and the batch), ``temp_size_in_bytes`` the
     peak of the bytes of the other storages alive during the call, tracked
@@ -69,6 +75,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.dist import group as group_lib
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
@@ -179,9 +186,9 @@ def wire_bytes(kind: str, n: int, payload: float) -> float:
     ``repro/analysis/hlo.py``)."""
     if kind == "all-reduce":
         return 2.0 * (n - 1) / max(n, 1) * payload
-    if kind in ("all-gather", "reduce-scatter", "all-to-all"):
+    if kind in ("all-gather", "gather", "reduce-scatter", "all-to-all"):
         return (n - 1) / max(n, 1) * payload
-    return payload                      # collective-permute
+    return payload                      # collective-permute, broadcast
 
 
 def shape_key(shape: Dict[str, Any]) -> str:
@@ -280,6 +287,7 @@ class CostMode(TorchDispatchMode):
 
     def __enter__(self):
         _build.META_SINKS.append(self.summary.add_kernel)
+        group_lib.META_SINKS.append(self.summary.add_collective)
         lm.KEPT_SINKS.append(self._kept)
         self._hooks.__enter__()
         return super().__enter__()
@@ -290,6 +298,7 @@ class CostMode(TorchDispatchMode):
         finally:
             self._hooks.__exit__(*exc)
             lm.KEPT_SINKS.remove(self._kept)
+            group_lib.META_SINKS.remove(self.summary.add_collective)
             _build.META_SINKS.remove(self.summary.add_kernel)
             self.summary.memory_analysis["temp_size_in_bytes"] = \
                 self._live.peak
@@ -323,12 +332,17 @@ class CostMode(TorchDispatchMode):
             s.add_flops(name, ins[0].numel())
         for o in outs:
             self._live.track(o)
-        if func.namespace == "c10d" and name == "allreduce_":
-            tensors = args[0]
-            s.add_collective(
-                "all-reduce", dist.ProcessGroup.unbox(args[1]).size(),
-                sum(map(tensor_bytes, tensors)),
-                f"{tensors[0].dtype} {tuple(tensors[0].shape)}")
+        if func.namespace == "c10d" and name in _COLLECTIVES:
+            kind, result, pg = _COLLECTIVES[name]
+            tensors = args[result]
+            if isinstance(tensors, torch.Tensor):
+                tensors = [tensors]
+            n = dist.ProcessGroup.unbox(args[pg]).size()
+            payload = sum(map(tensor_bytes, tensors))
+            if kind == "gather":    # the gathered tensor, on every rank
+                payload *= n
+            s.add_collective(kind, n, payload,
+                             f"{tensors[0].dtype} {tuple(tensors[0].shape)}")
         if packet in FREE_OPS or not outs:
             return
         mutates = any(a.alias_info is not None and a.alias_info.is_write
@@ -341,6 +355,15 @@ class CostMode(TorchDispatchMode):
             ins = ins[1:]
         s.add_bytes(name, str(tuple(outs[0].shape)),
                     sum(map(tensor_bytes, ins)) + sum(map(tensor_bytes, outs)))
+
+
+# c10d op -> (kind, the argument whose tensors are the payload, the
+# argument that is the process group): the result of an all-gather, what
+# a gather sends (times the group's size), the tensors of the others
+_COLLECTIVES = {"allreduce_": ("all-reduce", 0, 1),
+                "_allgather_base_": ("all-gather", 0, 2),
+                "gather_": ("gather", 1, 2),
+                "broadcast_": ("broadcast", 0, 1)}
 
 
 def count(fn: Callable, *args, **kwargs) -> Tuple[Any, CostSummary]:

@@ -136,37 +136,48 @@ def placed_scales(cfg: ModelConfig, spb: SPBConfig, device: torch.device,
     return _PLACED[key]
 
 
-def _scale_rows(tree, scale):
-    """``tree``'s leaves times ``scale(device, dtype)`` row by row."""
+def _scale_rows(tree, scale, parts=None):
+    """``tree``'s leaves times ``scale(device, dtype)`` row by row; a leaf
+    that is a rank's slice on dim 0 (its ``parts`` entry, as
+    ``dist/sharding.shard_slices`` gives it) takes its rows' scales."""
     if isinstance(tree, dict):
-        return {k: _scale_rows(v, scale) for k, v in tree.items()}
+        return {k: _scale_rows(v, scale, None if parts is None else parts[k])
+                for k, v in tree.items()}
     if tree is None:
         return None
-    return tree * scale(tree.device, tree.dtype).reshape(
-        (-1,) + (1,) * (tree.dim() - 1))
+    rows = scale(tree.device, tree.dtype)
+    if parts is not None and parts[0] == 0:
+        rows = rows.narrow(0, parts[1], parts[2])
+    return tree * rows.reshape((-1,) + (1,) * (tree.dim() - 1))
 
 
 def scale_params_tree(params: Dict[str, Any], cfg: ModelConfig,
-                      spb: SPBConfig) -> Dict[str, Any]:
+                      spb: SPBConfig, shards=None) -> Dict[str, Any]:
     """Apply SPB weighted-average scaling to a gradient tree shaped like the
     LM params (``None`` leaves stay ``None``).  An encoder-decoder's
     encoder is the first group of the combined stack, so its groups take
-    the first scales and the decoder's the rest."""
+    the first scales and the decoder's the rest.  ``shards``: when the
+    leaves are a rank's ZeRO-1 slices, where each lies
+    (``dist/sharding.shard_slices``)."""
     if spb.mode == "off" or not spb.lr_rescale:
         return params
 
-    def scaled(groups, first):
+    def scaled(groups, first, parts):
         return [[_scale_rows(up, lambda dev, dt, g=g, u=u: placed_scales(
-                    cfg, spb, dev, dt)[g][u]) for u, up in enumerate(gp)]
+                    cfg, spb, dev, dt)[g][u],
+                    None if parts is None else parts[g - first][u])
+                 for u, up in enumerate(gp)]
                 for g, gp in enumerate(groups, first)]
 
     out = dict(params)
     first = 0
     if cfg.enc_layers:
-        out["enc"] = dict(params["enc"],
-                          groups=scaled(params["enc"]["groups"][:1], 0))
+        out["enc"] = dict(params["enc"], groups=scaled(
+            params["enc"]["groups"][:1], 0,
+            None if shards is None else shards["enc"]["groups"]))
         first = 1
-    out["groups"] = scaled(params["groups"], first)
+    out["groups"] = scaled(params["groups"], first,
+                           None if shards is None else shards["groups"])
     return out
 
 

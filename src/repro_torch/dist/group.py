@@ -8,18 +8,43 @@ device, the backend, the ``ProcessGroup``, and the subgroups of the last
 (``core/spb.subgroup_allreduce``), keyed by ``c``.  A group of one needs
 no process group: every collective is then the identity.  A failed
 collective raises.
+
+Its collectives: the all-reduce of the gradients and metrics, the
+all-gather that rebuilds each parameter from the ranks' ZeRO-1 slices
+(``optim/optimizers.apply_updates`` updates a rank's slice only), the
+gather of a sharded optimizer leaf to rank 0 for a checkpoint, an int's
+broadcast and a barrier.  Each runs on the tensors where they lie: gloo
+takes CUDA tensors for every one of them (staging them through the host
+itself), as NCCL does.  On the meta device nothing moves: a dry run's
+``analysis/cost.CostMode`` counts the collective from :data:`META_SINKS`
+instead, and nothing else is done.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 300.0
+
+# who counts a collective on meta tensors: (kind, group size, payload bytes,
+# site); ``analysis/cost.CostMode`` pushes its own while it counts
+META_SINKS: List[Callable[[str, int, float, str], None]] = []
+
+
+def _counted_on_meta(kind: str, n: int, t: torch.Tensor,
+                     payload: float) -> bool:
+    """True when ``t`` is a meta tensor: the collective is reported to the
+    innermost sink, if one counts, and not run."""
+    if not t.is_meta:
+        return False
+    if META_SINKS:
+        META_SINKS[-1](kind, n, payload, f"{t.dtype} {tuple(t.shape)}")
+    return True
 
 
 @dataclasses.dataclass
@@ -60,11 +85,67 @@ class DataGroup:
                                                        self.size)
         if c <= 1 or self.rank < self.size - c:
             return t
+        if _counted_on_meta("all-reduce", c, t, t.numel() * t.element_size()):
+            return t
         pg = self.pg if c == self.size else self.subgroups[c]
         t0 = time.perf_counter()
         dist.all_reduce(t, group=pg)
         self.reduce_s += time.perf_counter() - t0
         return t
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Fill ``t`` in place from every rank's slice along ``dim``: rank
+        r holds ``t.narrow(dim, r s, s)`` with ``s = t.shape[dim] / n``
+        (:func:`dist.sharding.shard_slices`), written before the call; the
+        other ranks' slices arrive.  ``t`` must be contiguous.  A slice on
+        dim 0 is gathered into ``t`` itself; on another dim into a
+        temporary of ``t``'s size, then copied into place.  Returns
+        ``t``."""
+        n = self.size
+        if n == 1:
+            return t
+        s = t.shape[dim] // n
+        if _counted_on_meta("all-gather", n, t, t.numel() * t.element_size()):
+            return t
+        mine = t.narrow(dim, self.rank * s, s).clone(
+            memory_format=torch.contiguous_format)
+        t0 = time.perf_counter()
+        if dim == 0:
+            dist.all_gather_into_tensor(t, mine, group=self.pg)
+        else:
+            buf = torch.empty((n * mine.shape[0],) + tuple(mine.shape[1:]),
+                              dtype=t.dtype, device=t.device)
+            dist.all_gather_into_tensor(buf, mine, group=self.pg)
+            t.unflatten(dim, (n, s)).copy_(
+                buf.view((n,) + tuple(mine.shape)).movedim(0, dim))
+        self.reduce_s += time.perf_counter() - t0
+        return t
+
+    def gather(self, t: torch.Tensor, dim: int = 0
+               ) -> Optional[torch.Tensor]:
+        """Every rank's slice ``t`` (all of one shape), joined along
+        ``dim`` in rank order on rank 0: the whole tensor there, on
+        ``t``'s device; None on the other ranks.  A checkpoint's
+        gather."""
+        if self.size == 1:
+            return t
+        out = [torch.empty_like(t, memory_format=torch.contiguous_format)
+               for _ in range(self.size)] if self.rank == 0 else None
+        if _counted_on_meta("gather", self.size, t,
+                            self.size * t.numel() * t.element_size()):
+            return torch.cat(out, dim) if out is not None else None
+        t0 = time.perf_counter()
+        dist.gather(t.contiguous(), out, dst=0, group=self.pg)
+        self.reduce_s += time.perf_counter() - t0
+        return torch.cat(out, dim) if out is not None else None
+
+    def barrier(self) -> None:
+        """Wait until every rank of the group has reached this call."""
+        if self.size == 1:
+            return
+        t0 = time.perf_counter()
+        dist.barrier(group=self.pg)
+        self.reduce_s += time.perf_counter() - t0
 
     def shard(self, batch: Dict[str, torch.Tensor], chunks: int = 1
               ) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,465 @@
+"""Logical-axis sharding rules and the ZeRO train-state layout (the
+counterpart of ``repro/dist/sharding.py``): one rule table maps logical
+tensor roles to mesh axes, and the parameter, batch, cache and train-state
+specs all derive from it.
+
+Everything here is index logic: no tensor is placed and no collective
+runs.  A :class:`Mesh` (axis names and sizes) plays the reference's
+``AbstractMesh`` and a :class:`P` (a tuple, as ``PartitionSpec`` is) its
+spec.  Trees are the port's nested dicts and lists; a leaf's path is its
+keys as strings, list positions as ``str(i)``, which is what the
+reference's ``_path_keys`` yields on the same tree, so the rules that key
+on names (``_COL_KEYS``, ``_ROW_KEYS``, ``"ffn"``, ``"groups"``) agree
+leaf by leaf.
+
+Eager PyTorch has no ambient mesh: where the reference reads one, the
+port has none, so a spec keeps every axis its rule names unless a mesh is
+passed.  The reference's ``shard(x, *roles)``, a GSPMD layout constraint on
+an activation, has no counterpart: every rank's activations are its own.
+A data group places its shards by hand (``dist/group.DataGroup``,
+``optim/optimizers.apply_updates``), with :func:`shard_slices` saying which
+slice of each leaf a rank holds.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+
+Role = Union[str, None]
+
+
+class P(tuple):
+    """A partition spec: one entry a dim, each ``None``, an axis name or a
+    tuple of axis names (the counterpart of ``jax.sharding.PartitionSpec``;
+    trailing ``None`` entries are kept as given)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+class Mesh:
+    """Mesh axes by name and size, devices aside (the reference's
+    ``AbstractMesh``)."""
+
+    def __init__(self, axis_sizes: Sequence[int], axis_names: Sequence[str]):
+        if len(axis_sizes) != len(axis_names):
+            raise ValueError(f"{len(axis_sizes)} sizes for "
+                             f"{len(axis_names)} axes")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, map(int, axis_sizes)))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
+
+
+def mesh_for(group) -> Mesh:
+    """A data group's mesh: ``("data", "model")`` of ``(n, 1)``, as the
+    reference's ``make_host_mesh`` lays out its devices."""
+    return Mesh((group.size, 1), ("data", "model"))
+
+
+# logical role -> mesh axis (or tuple of axes).  'batch' expands over every
+# data-parallel axis of the mesh ('pod' outer axis included).
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "kv_seq": None,
+    "heads": "model",
+    "vocab": "model",
+    "model": "model",
+    "expert": "model",
+    "stage": "stage",       # dropped on meshes without a pipeline axis
+}
+
+_overrides: contextvars.ContextVar[Optional[Dict[str, Any]]] = \
+    contextvars.ContextVar("sharding_rules_overrides", default=None)
+
+
+@contextlib.contextmanager
+def rules(overrides: Optional[Dict[str, Any]] = None):
+    """Scoped rule overrides, e.g. ``rules({'batch': None})``."""
+    token = _overrides.set({**(_overrides.get() or {}), **(overrides or {})})
+    try:
+        yield
+    finally:
+        _overrides.reset(token)
+
+
+def _rule(role: str):
+    ov = _overrides.get()
+    if ov is not None and role in ov:
+        return ov[role]
+    return DEFAULT_RULES.get(role)
+
+
+def spec_for(roles: Sequence[Role], mesh: Optional[Mesh] = None) -> P:
+    """Resolve logical roles to a :class:`P`.
+
+    Axes absent from ``mesh`` are dropped (without a mesh, none is); an
+    axis already consumed by an earlier dim loses to the first user (keeps
+    specs valid when an override points two roles at the same axis)."""
+    mesh_axes = set(mesh.axis_names) if mesh is not None else None
+    used: set = set()
+    out = []
+    for role in roles:
+        axes = None if role is None else _rule(role)
+        if axes is None:
+            out.append(None)
+            continue
+        if isinstance(axes, str):
+            axes = (axes,)
+        keep = tuple(a for a in axes
+                     if (mesh_axes is None or a in mesh_axes)
+                     and a not in used)
+        used.update(keep)
+        if not keep:
+            out.append(None)
+        elif len(keep) == 1:
+            out.append(keep[0])
+        else:
+            out.append(keep)
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+# ---------------------------------------------------------------------------
+# Parameter / batch / cache specs
+# ---------------------------------------------------------------------------
+
+# weights whose LAST dim is tensor-parallel ("column" parallel)
+_COL_KEYS = {"wq", "wk", "wv", "wg", "wu", "wdkv", "wkr", "wuk", "wuv",
+             "wdq", "wuq", "in_proj", "in_x", "in_z", "unembed"}
+# weights whose SECOND-TO-LAST dim is tensor-parallel ("row" parallel)
+_ROW_KEYS = {"wo", "wd", "out_proj"}
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, P)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def _param_spec(keys: Tuple[str, ...], shape, mesh) -> P:
+    name = keys[-1] if keys else ""
+    nd = len(shape)
+    in_expert = name in ("wg", "wu", "wd") and "ffn" in keys and nd >= 4
+    if name == "tok":
+        return spec_for(("vocab",) + (None,) * (nd - 1), mesh=mesh)
+    if in_expert:
+        # stacked (count, E, D, F): experts over the EP axis
+        return spec_for((None,) * (nd - 3) + ("expert", None, None),
+                        mesh=mesh)
+    if name in _COL_KEYS and nd >= 2:
+        return spec_for((None,) * (nd - 1) + ("model",), mesh=mesh)
+    if name in _ROW_KEYS and nd >= 2:
+        return spec_for((None,) * (nd - 2) + ("model", None), mesh=mesh)
+    return P()
+
+
+def params_pspec(params_shapes: Any, mesh: Optional[Mesh] = None) -> Any:
+    """A spec tree for LM params (tensors, meta tensors or anything with a
+    ``shape``)."""
+    return tree_map_with_path(
+        lambda keys, leaf: _param_spec(keys, _shape(leaf), mesh),
+        params_shapes)
+
+
+def batch_pspec(batch: Any, mesh: Optional[Mesh] = None) -> Any:
+    """Batch inputs: leading dim over the DP axes, rest replicated."""
+    return tree_map(
+        lambda leaf: spec_for(("batch",) + (None,) * (len(_shape(leaf)) - 1),
+                              mesh=mesh), batch)
+
+
+def _cache_spec(keys: Tuple[str, ...], shape, mesh) -> P:
+    name = keys[-1] if keys else ""
+    nd = len(shape)
+    if name in ("k", "v") and nd >= 5:
+        # stacked (count, B, W, Hkv, Dh)
+        return spec_for((None,) * (nd - 4) + ("batch", "kv_seq", "heads",
+                                              None), mesh=mesh)
+    if name in ("ckv", "kr") and nd >= 4:
+        # stacked (count, B, S, r)
+        return spec_for((None,) * (nd - 3) + ("batch", "kv_seq", None),
+                        mesh=mesh)
+    if nd >= 2 and name not in ("pos",):
+        # generic stacked per-layer state: (count, B, ...)
+        return spec_for((None, "batch") + (None,) * (nd - 2), mesh=mesh)
+    return P()
+
+
+def cache_pspec(cache_shapes: Any, mesh: Optional[Mesh] = None) -> Any:
+    """A spec tree for a KV/state cache."""
+    return tree_map_with_path(
+        lambda keys, leaf: _cache_spec(keys, _shape(leaf), mesh),
+        cache_shapes)
+
+
+def _paged_spec(keys: Tuple[str, ...], shape, mesh) -> P:
+    """Paged pool leaves: any physical page can belong to any slot, so the
+    page dim must not shard over a data axis.  Only the KV-head dim
+    shards, over ``model``."""
+    name = keys[-1] if keys else ""
+    nd = len(shape)
+    if name in ("k", "v") and nd >= 4:
+        # stacked (count, pages, page_size, Hkv, Dh)
+        return spec_for((None,) * (nd - 2) + ("heads", None), mesh=mesh)
+    return P()                  # mla ckv/kr pages: latent dims, replicated
+
+
+def paged_cache_pspec(cache_shapes: Any, mesh: Optional[Mesh] = None) -> Any:
+    """A spec tree for a serve engine's paged KV pool."""
+    return tree_map_with_path(
+        lambda keys, leaf: _paged_spec(keys, _shape(leaf), mesh),
+        cache_shapes)
+
+
+def serve_state_pspec(state_shapes: Any, mesh: Optional[Mesh] = None) -> Any:
+    """Specs for a serve engine's state: the paged pool per
+    :func:`paged_cache_pspec`; the slot bookkeeping replicated."""
+    out = {}
+    for key, sub in state_shapes.items():
+        if key == "groups":
+            out[key] = paged_cache_pspec(sub, mesh=mesh)
+        else:
+            out[key] = tree_map(lambda _: P(), sub)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Train-state specs (ZeRO-1 optimizer-state sharding)
+# ---------------------------------------------------------------------------
+
+def _mesh_sizes(mesh) -> Dict[str, int]:
+    """axis name -> size, for a :class:`Mesh` and for anything with
+    ``axis_names`` and ``shape`` or ``devices`` (the reference's meshes)."""
+    shape = getattr(mesh, "shape", None)
+    if shape is not None:
+        return {str(k): int(v) for k, v in dict(shape).items()}
+    return dict(zip(mesh.axis_names, (int(d) for d in mesh.devices.shape)))
+
+
+def dp_partition_plan(spec: P, shape, mesh
+                      ) -> Optional[Tuple[int, Tuple[str, ...]]]:
+    """The per-leaf ZeRO partition plan: ``(dim, dp_axes)`` or ``None``.
+
+    Picks the dim a leaf's optimizer state shards over the data-parallel
+    axes.  Dims another mesh axis claims are never candidates; among the
+    free dims the largest one the DP size divides wins (ties go to the
+    earlier dim).  When the full ``('pod', 'data')`` product divides
+    nothing, the plan retries with ``pod`` dropped.  ``None``: the leaf
+    stays replicated (it already shards over a DP axis, or no dim fits)."""
+    dp = [a for a in ("pod", "data") if a in mesh.axis_names]
+    if not dp:
+        return None
+    sizes = _mesh_sizes(mesh)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used = {a for e in entries if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))}
+    if used & set(dp):
+        return None
+    free = [(i, d) for i, (e, d) in enumerate(zip(entries, shape))
+            if e is None]
+    for drop in range(len(dp)):
+        axes = tuple(dp[drop:])
+        n = math.prod(sizes[a] for a in axes)
+        if n <= 1:
+            continue
+        best_i, best_dim = None, 0
+        for i, d in free:
+            if d % n == 0 and d >= n and d > best_dim:
+                best_i, best_dim = i, d
+        if best_i is not None:
+            return best_i, axes
+    return None
+
+
+def _apply_plan(spec: P, shape, plan) -> P:
+    if plan is None:
+        return spec
+    i, axes = plan
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    entries[i] = axes if len(axes) > 1 else axes[0]
+    while entries and entries[-1] is None:
+        entries.pop()
+    return P(*entries)
+
+
+def zero1_spec(spec: P, shape, mesh) -> P:
+    """ZeRO-1: an optimizer-state leaf also shards over the DP axes on the
+    dim :func:`dp_partition_plan` picks."""
+    return _apply_plan(spec, shape, dp_partition_plan(spec, shape, mesh))
+
+
+def zero2_spec(spec: P, shape, mesh) -> P:
+    """ZeRO-2: gradients shard exactly like the ZeRO-1 moments (the same
+    plan), so the moment update is shard-local."""
+    return zero1_spec(spec, shape, mesh)
+
+
+def param_leaf_spec(path, shape, mesh: Optional[Mesh] = None) -> P:
+    """The tensor-parallel column/row rule of one param leaf, addressed by
+    its path and bare shape."""
+    return _param_spec(tuple(str(k) for k in path), tuple(shape), mesh)
+
+
+def _itemsize(leaf) -> int:
+    dt = getattr(leaf, "dtype", None)
+    return dt.itemsize if dt is not None else 4
+
+
+def sharded_state_bytes(state_shapes: Any, specs: Any, mesh) -> int:
+    """Per-device bytes of a state tree under its specs: each leaf's bytes
+    divided by the product of the mesh-axis sizes its spec consumes (a
+    leaf without a dtype, the step counter, counts 4 bytes an element)."""
+    sizes = _mesh_sizes(mesh)
+    total = 0
+
+    def leaf_bytes(spec, leaf):
+        nonlocal total
+        n = 1
+        for e in spec:
+            if e is None:
+                continue
+            for a in (e if isinstance(e, tuple) else (e,)):
+                n *= sizes.get(a, 1)
+        total += (math.prod(_shape(leaf)) * _itemsize(leaf)) // n
+        return spec
+
+    tree_map(leaf_bytes, specs, state_shapes, is_leaf=_is_spec)
+    return total
+
+
+def _zero1_opt(opt_specs: Dict[str, Any], opt_shapes: Dict[str, Any],
+               mesh) -> Dict[str, Any]:
+    return {key: tree_map(lambda s, leaf: zero1_spec(s, _shape(leaf), mesh),
+                          sub, opt_shapes[key], is_leaf=_is_spec)
+            for key, sub in opt_specs.items()}
+
+
+def state_pspec(state_shapes: Any, mesh: Optional[Mesh] = None, *,
+                zero1: bool = False) -> Dict[str, Any]:
+    """Specs for a full train state (``{'params', 'opt', 'step'}``)."""
+    opt = {key: params_pspec(sub, mesh=mesh)
+           for key, sub in state_shapes["opt"].items()}
+    if zero1 and mesh is not None:
+        opt = _zero1_opt(opt, state_shapes["opt"], mesh)
+    return {"params": params_pspec(state_shapes["params"], mesh=mesh),
+            "opt": opt, "step": P()}
+
+
+def _with_stage_dim0(spec: P, shape, stage_axes) -> P:
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    if entries and entries[0] is None:
+        entries[0] = stage_axes
+    while entries and entries[-1] is None:
+        entries.pop()
+    return P(*entries)
+
+
+def pipeline_state_pspec(state_shapes: Any, mesh: Optional[Mesh] = None, *,
+                         zero1: bool = False, uniform_groups=None
+                         ) -> Dict[str, Any]:
+    """Train-state specs for a pipeline session: every leaf under
+    ``groups`` (params and optimizer state) also shards its leading layer
+    axis over ``stage``, unless ``uniform_groups`` marks its group uneven
+    or the stage size does not divide it; ZeRO-1 then shards the optimizer
+    state over the DP axes on another dim."""
+    stage_spec = spec_for(("stage",), mesh=mesh)
+    if not len(stage_spec):                # no stage axis on this mesh
+        return state_pspec(state_shapes, mesh=mesh, zero1=zero1)
+    (stage_axes,) = stage_spec
+    sizes = dict(getattr(mesh, "shape", {}) or {})
+    ssize = math.prod(int(sizes.get(ax, 1)) for ax in (
+        stage_axes if isinstance(stage_axes, tuple) else (stage_axes,)))
+    base = state_pspec(state_shapes, mesh=mesh, zero1=False)
+
+    def add(keys, spec, leaf):
+        if "groups" not in keys:
+            return spec
+        if uniform_groups is not None:
+            g = int(keys[keys.index("groups") + 1])
+            if not (g < len(uniform_groups) and uniform_groups[g]):
+                return spec
+        shape = _shape(leaf)
+        if ssize > 1 and shape and shape[0] % ssize:
+            return spec                    # uneven leading dim: replicate
+        return _with_stage_dim0(spec, shape, stage_axes)
+
+    out = tree_map_with_path(add, base, state_shapes, is_leaf=_is_spec)
+    if zero1 and mesh is not None:
+        out["opt"] = _zero1_opt(out["opt"], state_shapes["opt"], mesh)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# A rank's slices (the port's placement by hand)
+# ---------------------------------------------------------------------------
+
+def _coords(mesh: Mesh, rank: int) -> Dict[str, int]:
+    """A rank's index on each mesh axis, devices laid out row-major."""
+    out = {}
+    for name in reversed(mesh.axis_names):
+        rank, out[name] = divmod(rank, mesh.shape[name])
+    return out
+
+
+def shard_slices(specs: Any, shapes: Any, mesh: Mesh, rank: int) -> Any:
+    """Which slice of each leaf a rank holds under ``specs``: a tree like
+    ``shapes`` of ``(dim, start, length)`` (a ``Tensor.narrow``'s
+    arguments) or ``None`` for a leaf the rank holds whole (an axis of size
+    1 shards nothing).  A leaf may shard on one dim only, which is all
+    ZeRO-1 over a data group makes.  The entries are tuples: walk the tree
+    with ``is_leaf=``:func:`is_slice`."""
+    at = _coords(mesh, rank)
+
+    def one(spec, leaf):
+        dims = [(i, axes) for i, axes in (
+            (i, e if isinstance(e, tuple) else (e,))
+            for i, e in enumerate(spec) if e is not None)
+            if math.prod(mesh.shape[a] for a in axes) > 1]
+        if not dims:
+            return None         # no axis of more than one device
+        if len(dims) > 1:
+            raise NotImplementedError(f"a leaf sharded on several dims "
+                                      f"({spec}) is not placed by hand")
+        i, axes = dims[0]
+        index = 0
+        for a in axes:          # row-major over the spec's axes
+            index = index * mesh.shape[a] + at[a]
+        length = _shape(leaf)[i] // math.prod(mesh.shape[a] for a in axes)
+        return (i, index * length, length)
+
+    return tree_map(one, specs, shapes, is_leaf=_is_spec)
+
+
+def is_slice(x) -> bool:
+    """A :func:`shard_slices` entry (a tuple), for ``is_leaf``."""
+    return isinstance(x, tuple)
+
+
+def opt_slices(state_shapes: Any, state_specs: Any, mesh: Mesh,
+               rank: int) -> Any:
+    """A rank's slice of each optimizer leaf under ``state_specs``
+    (:func:`shard_slices`; every optimizer key shares the parameters'
+    layout), or ``None`` when the rank holds every leaf whole."""
+    key = sorted(state_shapes["opt"])[0]
+    slices = shard_slices(state_specs["opt"][key], state_shapes["opt"][key],
+                          mesh, rank)
+    held = tree_map(lambda part: part is not None, slices, is_leaf=is_slice)
+    return slices if any(tree_leaves(held)) else None

@@ -22,6 +22,17 @@ temporal step, where the frozen prefix has no gradient and so no
 collective.  The metrics are averaged too.  Every rank then runs the same
 optimizer update on the same numbers, so the replicas stay equal.
 
+With ZeRO-1 (``shards=``, each leaf's slice of this rank from
+``dist/sharding.shard_slices``; ``engine.SPBEngine(zero1=True)``, the
+default, passes them) the optimizer state holds this rank's slices: after
+the same all-reduce and the same global norm, each rank updates its slice
+of every sharded leaf (``optim/optimizers.apply_updates``) and the
+parameters are then all-gathered (``DataGroup.all_gather``), one call a
+sharded leaf.  Every rank ends the step with the parameters a replicated
+group computes, bit for bit.  The gradients are not reduce-scattered: the
+reference's plain step keeps them replicated too (its ZeRO-2 is a
+pipeline knob).
+
 :func:`make_functional_train_step` and
 :func:`make_functional_temporal_mb_step` are the same steps as pure
 functions of ``(params, opt, step, batch)``: the gradients come from
@@ -54,6 +65,7 @@ import torch
 from repro_torch.config import ModelConfig, SPBConfig, TrainConfig
 from repro_torch.core import compress
 from repro_torch.core import spb as spb_lib
+from repro_torch.dist import sharding
 from repro_torch.dist.group import DataGroup
 from repro_torch.models import lm
 from repro_torch.optim import optimizers
@@ -63,16 +75,25 @@ State = Dict[str, Any]
 
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig,
-                     tcfg: TrainConfig, device=None) -> State:
-    """Params (leaf tensors requiring grad), optimizer state, step 0."""
+                     tcfg: TrainConfig, device=None, shards=None) -> State:
+    """Params (leaf tensors requiring grad), optimizer state (of this
+    rank's slices with ``shards``), step 0."""
     params = tree_map(lambda t: t.requires_grad_(True),
                       lm.init_lm(gen, cfg, device))
-    return state_from_params(params, tcfg)
+    return state_from_params(params, tcfg, shards)
 
 
-def state_from_params(params, tcfg: TrainConfig) -> State:
-    return {"params": params, "opt": optimizers.init_opt_state(params, tcfg),
+def state_from_params(params, tcfg: TrainConfig, shards=None) -> State:
+    return {"params": params,
+            "opt": optimizers.init_opt_state(params, tcfg, shards),
             "step": 0}
+
+
+def train_state_shapes(cfg: ModelConfig, tcfg: TrainConfig) -> State:
+    """The whole train state as meta tensors (the counterpart of the
+    reference's ``jax.eval_shape`` of its initial state), allocating
+    nothing; the step is the int 0."""
+    return state_from_params(lm.param_shapes(cfg), tcfg)
 
 
 def _microbatches(batch: Dict[str, torch.Tensor], m: int):
@@ -88,13 +109,14 @@ def _microbatches(batch: Dict[str, torch.Tensor], m: int):
 def _finish_step(state: State, metrics, tcfg: TrainConfig, cfg: ModelConfig,
                  spb_cfg: Optional[SPBConfig], scale: float = 1.0,
                  sched: Optional[torch.Tensor] = None, update: bool = True,
-                 group=None, depth: Optional[int] = None
+                 group=None, depth: Optional[int] = None, shards=None
                  ) -> Tuple[State, Dict[str, torch.Tensor]]:
     """Collect the gradients (``None`` where autograd left none), average
     them and the metrics over ``group`` when it has several ranks (the
     live part at suffix ``depth``, the deepest the step ran), then
-    :func:`_apply` them.  With ``update=False`` the gradients are dropped
-    and the state is left as it was: a CUDA graph's warm-up."""
+    :func:`_apply` them (to this rank's ZeRO-1 slices with ``shards``).
+    With ``update=False`` the gradients are dropped and the state is left
+    as it was: a CUDA graph's warm-up."""
     params = state["params"]
     if not update:
         tree_map(lambda p: setattr(p, "grad", None), params)
@@ -110,7 +132,8 @@ def _finish_step(state: State, metrics, tcfg: TrainConfig, cfg: ModelConfig,
         n = group.size
         for part in _live_parts(grads, cfg, depth):
             group.all_reduce(part).div_(n)
-    return _apply(state, grads, metrics, tcfg, cfg, spb_cfg, sched)
+    return _apply(state, grads, metrics, tcfg, cfg, spb_cfg, sched,
+                  group=group, shards=shards)
 
 
 def _average(group, metrics: Dict[str, torch.Tensor]
@@ -152,18 +175,27 @@ def _live_parts(grads, cfg: ModelConfig, depth: Optional[int]) -> list:
 
 def _apply(state: State, grads, metrics, tcfg: TrainConfig,
            cfg: ModelConfig, spb_cfg: Optional[SPBConfig],
-           sched: Optional[torch.Tensor] = None
+           sched: Optional[torch.Tensor] = None, *, group=None, shards=None
            ) -> Tuple[State, Dict[str, torch.Tensor]]:
     """Compress ``grads`` if ``tcfg.compression`` asks, run the optimizer
     (reading the schedule from ``sched`` when given,
-    ``optim.apply_updates``) and advance the step."""
+    ``optim.apply_updates``) and advance the step.  With ``shards`` the
+    optimizer updates this rank's slices, and each sharded parameter is
+    then all-gathered over ``group``."""
     if tcfg.compression != "none":
         gen = compression_generator(tcfg, state["step"])
         grads = compress.compress_tree(grads, tcfg.compression,
                                        tcfg.compression_ratio, gen)
     _, _, opt_metrics = optimizers.apply_updates(
         state["params"], grads, state["opt"], state["step"], tcfg, cfg=cfg,
-        spb_cfg=spb_cfg, sched=sched)
+        spb_cfg=spb_cfg, sched=sched, shards=shards)
+    if shards is not None:
+        with torch.no_grad():
+            for p, part in zip(tree_leaves(state["params"]),
+                               tree_leaves(shards,
+                                           is_leaf=sharding.is_slice)):
+                if part is not None:
+                    group.all_gather(p.detach(), part[0])
     state["step"] += 1
     return state, {**metrics, **opt_metrics}
 
@@ -196,11 +228,13 @@ def _accumulate(state: State, chunks, depths, cfg: ModelConfig,
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     spb_cfg: Optional[SPBConfig] = None, *,
                     depth: Optional[int] = None,
-                    remat: Optional[str] = None, group=None) -> Callable:
+                    remat: Optional[str] = None, group=None,
+                    shards=None) -> Callable:
     """A (state, batch) -> (state, metrics) step at SPB suffix ``depth``
     (None = full backprop), over ``tcfg.microbatches`` accumulated chunks,
     under the recompute policy ``remat``, averaged over the data group
-    ``group`` when it has several ranks.  The state is updated in place;
+    ``group`` when it has several ranks, the optimizer state this rank's
+    ZeRO-1 slices with ``shards``.  The state is updated in place;
     ``sched`` and ``update`` as :func:`_finish_step` takes them."""
     remat = lm.resolve_remat(remat)
 
@@ -211,7 +245,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         metrics = _accumulate(state, chunks, [depth] * m, cfg, remat)
         return _finish_step(state, metrics, tcfg, cfg, spb_cfg,
                             scale=1.0 / m, sched=sched, update=update,
-                            group=group, depth=depth)
+                            group=group, depth=depth, shards=shards)
 
     return step
 
@@ -224,13 +258,13 @@ def _mb_cycle(cfg: ModelConfig, spb_cfg: SPBConfig) -> list:
 
 def make_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
                           spb_cfg: SPBConfig, *,
-                          remat: Optional[str] = None, group=None
-                          ) -> Callable:
+                          remat: Optional[str] = None, group=None,
+                          shards=None) -> Callable:
     """One step over the whole depth cycle: the batch splits into
     ``len(cycle)`` microbatches, microbatch j backprops suffix depth
     ``depths[order[j]]``, and one optimizer step takes the mean gradient
-    (``tcfg.microbatches`` is not used), averaged over ``group`` as
-    :func:`make_train_step` does."""
+    (``tcfg.microbatches`` is not used), averaged over ``group`` and
+    applied to ``shards`` as :func:`make_train_step` does."""
     remat = lm.resolve_remat(remat)
     cycle = _mb_cycle(cfg, spb_cfg)
 
@@ -240,14 +274,15 @@ def make_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
         metrics = _accumulate(state, chunks, cycle, cfg, remat)
         return _finish_step(state, metrics, tcfg, cfg, spb_cfg,
                             scale=1.0 / len(cycle), sched=sched,
-                            update=update, group=group, depth=max(cycle))
+                            update=update, group=group, depth=max(cycle),
+                            shards=shards)
 
     return step
 
 
 def make_spatial_step(cfg: ModelConfig, tcfg: TrainConfig,
                       spb_cfg: SPBConfig, *, group,
-                      remat: Optional[str] = None) -> Callable:
+                      remat: Optional[str] = None, shards=None) -> Callable:
     """Spatial SPB, the paper's own form: rank r of ``group`` (a
     ``dist/group.DataGroup``; its size n may be 1) backpropagates suffix
     depth ``snapped_depths[r % k]`` on its rows, and
@@ -259,6 +294,8 @@ def make_spatial_step(cfg: ModelConfig, tcfg: TrainConfig,
     (``lr_rescale`` off), and compression, if any, applies to the
     aggregate, as in the reference.  Its metrics are the loss and xent
     averaged over the group and a zero ``moe_aux``, as the reference's.
+    With ``shards`` the optimizer updates this rank's ZeRO-1 slices
+    (:func:`_apply`).
 
     The reference weights each layer as if each of the k levels ran on
     n / k ranks, which is exact when k divides n; otherwise the levels
@@ -292,7 +329,8 @@ def make_spatial_step(cfg: ModelConfig, tcfg: TrainConfig,
             grads = _subgroup_rereduce(grads, cfg, spb_cfg, group)
         metrics = {"loss": both[0], "xent": both[1],
                    "moe_aux": torch.zeros((), device=both.device)}
-        return _apply(state, grads, metrics, tcfg, cfg, no_rescale, sched)
+        return _apply(state, grads, metrics, tcfg, cfg, no_rescale, sched,
+                      group=group, shards=shards)
 
     return step
 

@@ -32,6 +32,18 @@ depth is broadcast every step.  The step-cache key carries the group's
 size (and, for spatial, the rank's level).  A gloo collective runs on the
 host, which no CUDA graph can capture, so ``compile_table`` and
 ``load_aot`` raise under a group of several ranks.
+
+``zero1=True`` (the default, as the reference's) lays the state out as
+the reference's ``SPBEngine`` does: ``state_specs`` is
+``dist/sharding.state_pspec(state_shapes, mesh_for(group), zero1=)``, so
+over a data group of n ranks every optimizer leaf (the moments and the f32
+masters) is sharded on the dim ``dp_partition_plan`` picks, and each rank
+holds its slice (``shards``, from ``sharding.shard_slices``); the
+parameters stay whole on every rank.  ``init_state`` builds the slices
+directly, ``attach_state`` keeps this rank's slice of a whole state, and
+:meth:`gathered_state` gathers the whole state to rank 0 (a checkpoint's
+view).  At group size 1 there is no plan: the state and the steps are
+those of one device.  The step-cache key carries ``zero1``.
 """
 from __future__ import annotations
 
@@ -47,6 +59,7 @@ import torch
 from repro_torch.config import ModelConfig, SPBConfig, TrainConfig, snap_depth
 from repro_torch.core import spb as spb_lib
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.dist import steps as steps_lib
 from repro_torch.engine import aot, graphs, stepcache
 from repro_torch.engine.policies import DepthPolicy, make_policy
@@ -142,7 +155,7 @@ class SPBEngine:
                  spb_cfg: Optional[SPBConfig] = None, *,
                  policy: Optional[DepthPolicy] = None, device=None,
                  shared_cache: bool = True, remat: Optional[str] = None,
-                 group: Optional[DataGroup] = None):
+                 group: Optional[DataGroup] = None, zero1: bool = True):
         self.cfg = cfg
         self.tcfg = tcfg
         self.spb = spb_cfg or SPBConfig()
@@ -157,6 +170,13 @@ class SPBEngine:
         else:
             self.device = group.device
         self.group = group
+        self.zero1 = zero1
+        self.mesh = sharding.mesh_for(group)
+        self.state_shapes = steps_lib.train_state_shapes(cfg, tcfg)
+        self.state_specs = sharding.state_pspec(self.state_shapes, self.mesh,
+                                                zero1=zero1)
+        self.shards = sharding.opt_slices(self.state_shapes, self.state_specs,
+                                          self.mesh, group.rank)
         self.policy = policy or make_policy("cycle", cfg, self.spb)
         self.shared_cache = shared_cache
         self._steps: Dict[Any, Callable] = {}
@@ -175,26 +195,64 @@ class SPBEngine:
 
     def init_state(self, seed: int) -> State:
         """Random params from a generator seeded with ``seed`` on the
-        session's device, fresh optimizer state."""
+        session's device, fresh optimizer state (this rank's slices under
+        ZeRO-1)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return self._adopt(steps_lib.init_train_state(
-            gen, self.cfg, self.tcfg, self.device))
+            gen, self.cfg, self.tcfg, self.device, self.shards))
 
     def attach_state(self, state: State) -> State:
         """Adopt an externally built state, moved to the session's device
-        (params become leaves that require grad)."""
+        (params become leaves that require grad).  Under ZeRO-1 a whole
+        optimizer leaf is cut to this rank's slice (a copy); a leaf that
+        already has the slice's shape is taken as it is."""
         if self._bound() is not None:
             return self._adopt(state)
 
         def param(t):
             return t.detach().to(self.device).requires_grad_(True)
 
+        def own(t, part):
+            if part is None or t.shape[part[0]] == part[2]:
+                return t.to(self.device)
+            return t.narrow(*part).to(self.device, copy=True,
+                                      memory_format=torch.contiguous_format)
+
         self.state = {
             "params": tree_map(param, state["params"]),
-            "opt": tree_map(lambda t: t.to(self.device), state["opt"]),
+            "opt": {k: tree_map(own, sub, self.shards) if self.shards
+                    else tree_map(lambda t: t.to(self.device), sub)
+                    for k, sub in state["opt"].items()},
             "step": int(state["step"]),
         }
         return self.state
+
+    @torch.no_grad()
+    def gathered_state(self) -> Optional[State]:
+        """The whole state on the host, on rank 0; None on the other ranks.
+        Collective: every rank of the group calls it.  Each sharded
+        optimizer leaf is gathered to rank 0 (``DataGroup.gather``) and
+        copied to the host there, one leaf at a time."""
+        if self.state is None:
+            raise RuntimeError("call init_state()/attach_state() first")
+        root = self.group.rank == 0
+
+        def host(t):
+            return t.detach().to("cpu", copy=True) if root else None
+
+        def whole(t, part):
+            if part is None:
+                return host(t)
+            full = self.group.gather(t, part[0])
+            return full.cpu() if root else None
+
+        opt = {k: tree_map(whole, sub, self.shards) if self.shards
+               else tree_map(host, sub)
+               for k, sub in self.state["opt"].items()}
+        if not root:
+            return None
+        return {"params": tree_map(host, self.state["params"]), "opt": opt,
+                "step": int(self.state["step"])}
 
     def _bound(self) -> Optional[State]:
         """The state the captured graphs read and write, if any."""
@@ -231,14 +289,16 @@ class SPBEngine:
         if self.spb.mode == "spatial":
             return steps_lib.make_spatial_step(self.cfg, self.tcfg, self.spb,
                                                remat=self.remat,
-                                               group=self.group)
+                                               group=self.group,
+                                               shards=self.shards)
         group = self.group if self.group.size > 1 else None
         if key == "mb":
             return steps_lib.make_temporal_mb_step(
-                self.cfg, self.tcfg, self.spb, remat=self.remat, group=group)
+                self.cfg, self.tcfg, self.spb, remat=self.remat, group=group,
+                shards=self.shards)
         return steps_lib.make_train_step(self.cfg, self.tcfg, self.spb,
                                          depth=key, remat=self.remat,
-                                         group=group)
+                                         group=group, shards=self.shards)
 
     def _eager_step(self, key: Any) -> Callable:
         if self.shared_cache:
@@ -251,7 +311,7 @@ class SPBEngine:
         device): the step-cache key's config component, with the AOT key's
         train-config scrub."""
         ident = aot.step_ident(self.cfg, self.tcfg, self.spb,
-                               remat=self.remat)
+                               zero1=self.zero1, remat=self.remat)
         blob = json.dumps(ident, sort_keys=True, default=str).encode()
         return hashlib.sha256(blob).hexdigest()[:16]
 

@@ -10,6 +10,9 @@ record its work, memory and roofline inputs (the counterpart of
   python -m repro_torch.launch.dryrun --all         # every cell, cached
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k \
       --full-width --batch 2 --seq 2048 --depth 8 --remat full
+  python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k \
+      --full-width --layers 4 --batch 2 --seq 2048 --depth 4 \
+      --data-parallel 2         # one rank of two, ZeRO-1
 
 The step always runs on the meta device, as the reference's runs on fake
 host devices: nothing is computed or allocated, so it needs no card and
@@ -24,7 +27,14 @@ kernels' wrappers count their kernel's work
 the train step's layer recompute ('none', the port's default, 'dots' or
 'full', the reference's values): the recompute runs in the counted
 backward, and ``saved_bytes`` counts what the checkpoints keep
-(``analysis/cost.py``).
+(``analysis/cost.py``).  ``--data-parallel N`` counts one rank of a
+data group of N: its share of the batch, its state under the ZeRO-1
+layout (``--no-zero1``: replicated; ``dist/sharding.state_pspec``), and
+the group's collectives, which the group reports on the meta device
+instead of running them (``dist/group.META_SINKS``), by the ring model;
+the record then also holds the rank's state bytes both ways
+(``sharding.sharded_state_bytes``) and the predicted peak (state and
+batch plus the counted temporaries).
 
 Records: one JSON a cell under ``results/dryrun_torch/``
 (``analysis/roofline.cell_path``; ``--force`` recomputes) with the
@@ -36,8 +46,8 @@ train records.  The
 dry run runs on the meta device, where nothing executes, so it captures
 no CUDA graph and stores no step table (the reference exports its AOT
 executables; the port's table is built on the card, ``engine/aot.py``);
-``--multi-pod``, ``--no-zero1`` and sharding rules need several
-cards and raise, naming item 11.
+``--multi-pod`` and sharding-rule overrides need meshes the port does not
+build and raise, naming item 11.
 """
 from __future__ import annotations
 
@@ -55,21 +65,27 @@ from repro_torch.config import (SHAPES, SPBConfig, TrainConfig, snap_depth,
                                 total_layers)
 from repro_torch.configs import (cells, cut_config, decode_token_specs,
                                  get_config, input_specs, shape_skip_reason)
+import torch
+
+from repro_torch.dist import sharding
 from repro_torch.dist import steps as steps_lib
+from repro_torch.dist.group import DataGroup
 from repro_torch.models import lm
 from repro_torch.tree import tree_map
 
+
 def one_card(multi_pod: bool = False, zero1: bool = True,
              rules_extra=None) -> None:
-    """Raise for the reference's mesh options: the dry run counts one
-    card."""
+    """Raise for the reference's mesh options the port has no mesh for:
+    the dry run counts one card, or one rank of a data group (``zero1``
+    either way)."""
     what = ("the multi-pod mesh" if multi_pod else
-            "sharding the state (ZeRO-1, sharding rules)"
-            if not zero1 or rules_extra else None)
+            "sharding-rule overrides" if rules_extra else None)
     if what:
         raise NotImplementedError(
-            f"{what} needs a mesh of several cards; it comes with the "
-            f"multi-GPU slice (ROADMAP.md Queue 1 B item 11)")
+            f"{what} needs a mesh the port does not build yet; it comes "
+            f"with the rest of the multi-GPU slice (ROADMAP.md Queue 1 B "
+            f"item 11)")
 
 
 def spb_depth(cfg, depth: Optional[int]) -> Optional[int]:
@@ -84,13 +100,19 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
                depth: Optional[int] = None, batch: Optional[int] = None,
                seq_len: Optional[int] = None, multi_pod: bool = False,
                zero1: bool = True, rules_extra=None,
-               remat: str = "none") -> dict:
+               remat: str = "none", data_parallel: int = 1,
+               layers: Optional[int] = None) -> dict:
     """Count one cell on the meta device; returns its record (without
-    ``ok``/``tag``).  ``batch``/``seq_len`` default to the shape's;
-    ``remat`` is a train step's recompute policy."""
+    ``ok``/``tag``).  ``batch``/``seq_len`` default to the shape's (the
+    global batch); ``remat`` is a train step's recompute policy;
+    ``data_parallel`` n > 1 counts one rank of a data group of n, its
+    optimizer state ZeRO-1 sharded unless ``zero1`` is off; ``layers``
+    cuts the config's depth further (a dense decoder's)."""
     one_card(multi_pod, zero1, rules_extra)
     remat = lm.resolve_remat(remat)
     cfg = cut_config(arch, cut)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     sh = SHAPES[shape_name]
     B = sh.global_batch if batch is None else batch
     S = sh.seq_len if seq_len is None else seq_len
@@ -100,15 +122,42 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
                          f"{shape_name} is a {shape.kind} shape")
     depth = spb_depth(cfg, depth)
     params = lm.param_shapes(cfg)
+    n = data_parallel
+    if n > 1 and (shape.kind != "train" or B % n):
+        raise ValueError(f"--data-parallel {n} counts a train step whose "
+                         f"batch splits over the ranks ({shape_name}, "
+                         f"batch {B})")
+    group_rec: dict = {}
     t0 = time.time()
     if shape.kind == "train":
         tcfg = TrainConfig()
+        group = DataGroup(rank=0, size=n, device=torch.device("meta"))
+        shards = None
+        if n > 1:
+            shapes = steps_lib.train_state_shapes(cfg, tcfg)
+            mesh = sharding.mesh_for(group)
+            specs = {z: sharding.state_pspec(shapes, mesh, zero1=z)
+                     for z in (True, False)}
+            if zero1:
+                shards = sharding.opt_slices(shapes, specs[True], mesh, 0)
+            group_rec = {"state_bytes": {
+                "zero1": sharding.sharded_state_bytes(shapes, specs[True],
+                                                      mesh),
+                "replicated": sharding.sharded_state_bytes(
+                    shapes, specs[False], mesh)}}
         state = steps_lib.state_from_params(
-            tree_map(lambda t: t.requires_grad_(True), params), tcfg)
+            tree_map(lambda t: t.requires_grad_(True), params), tcfg, shards)
         step = steps_lib.make_train_step(cfg, tcfg,
                                          SPBConfig(mode="temporal", k=4),
-                                         depth=depth, remat=remat)
-        _, s = cost.count(step, state, input_specs(cfg, shape))
+                                         depth=depth, remat=remat,
+                                         group=group if n > 1 else None,
+                                         shards=shards)
+        _, s = cost.count(step, state, input_specs(
+            cfg, dataclasses.replace(shape, global_batch=B // n)))
+        if n > 1:
+            ma = s.memory_analysis
+            group_rec["predicted_peak_bytes"] = \
+                ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
     else:
         enc_len = S if cfg.enc_layers else 0
         cache = lm.init_cache(cfg, B, S, enc_len=enc_len, device="meta")
@@ -122,7 +171,7 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
     return {
         "arch": arch, "shape": shape_name, "mesh": roofline.MESH,
         "chips": 1, "depth": depth, "kind": shape.kind, "cut": cut,
-        "remat": remat,
+        "remat": remat, "data_parallel": n, "zero1": zero1,
         "name": cfg.name, "layers": total_layers(cfg),
         "experts_held": cfg.moe.experts_held if cfg.moe else None,
         "batch": B, "seq_len": S,
@@ -138,6 +187,7 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
         "kernel_shapes": s.kernels,
         "memory_analysis": s.memory_analysis,
         "saved_bytes": s.saved_bytes,
+        **group_rec,
     }
 
 
@@ -148,11 +198,20 @@ def run_cell(arch: str, shape_name: str, *, cut: str = "published",
              remat: str = "none", **kw) -> dict:
     """:func:`count_cell`, cached as JSON under ``out_dir`` (default
     ``roofline.RESULTS``); a failed count is recorded with ``ok`` False."""
-    one_card(**kw)
+    one_card(kw.get("multi_pod", False), kw.get("zero1", True),
+             kw.get("rules_extra"))
+    n = kw.get("data_parallel", 1)
+    if n > 1:       # one rank of a group: a record of its own
+        tag = f"{tag}dp{n}" + ("" if kw.get("zero1", True) else "-nozero1")
+    if kw.get("layers") is not None:
+        tag = f"{tag}L{kw['layers']}"
     # the recompute is a train step's: the other shapes run no backward
     remat = lm.resolve_remat(remat) if SHAPES[shape_name].kind == "train" \
         else "none"
-    depth = spb_depth(cut_config(arch, cut), depth)
+    cfg = cut_config(arch, cut)
+    if kw.get("layers") is not None:
+        cfg = dataclasses.replace(cfg, num_layers=kw["layers"])
+    depth = spb_depth(cfg, depth)
     path = roofline.cell_path(arch, shape_name, roofline.MESH, depth, tag,
                               cut=cut, batch=batch, seq_len=seq_len,
                               remat=remat)
@@ -201,7 +260,13 @@ def main(argv=None) -> int:
                     help="train steps' layer recompute (the reference's "
                          "values; its default is full, the port's none)")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--no-zero1", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers")
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="count one rank of a data group of N (train)")
+    ap.add_argument("--no-zero1", action="store_true",
+                    help="with --data-parallel: replicate the optimizer "
+                         "state instead of sharding it")
     args = ap.parse_args(argv)
     cut_name = args.cut or "published"
 
@@ -220,7 +285,9 @@ def main(argv=None) -> int:
         rec = run_cell(arch, shape, cut=cut_name, depth=depth,
                        batch=args.batch, seq_len=args.seq, force=args.force,
                        tag=args.tag, out_dir=args.out, remat=args.remat,
-                       multi_pod=args.multi_pod, zero1=not args.no_zero1)
+                       multi_pod=args.multi_pod, zero1=not args.no_zero1,
+                       data_parallel=args.data_parallel,
+                       layers=args.layers)
         if rec.get("ok"):
             ma = rec.get("memory_analysis", {})
             print(f"OK  {arch:24s} {shape:12s} {rec['mesh']:5s} "

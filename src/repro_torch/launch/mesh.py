@@ -18,6 +18,13 @@ choice is printed once, by rank 0, and an error never changes it: a failed
 collective raises.  ``init_process_group`` gets a timeout, so a dead peer
 raises instead of hanging.
 
+The sharding rules see the group as the reference's host mesh, axes
+``("data", "model")`` of sizes ``(n, 1)`` (``dist/sharding.mesh_for``),
+over which ``SPBEngine`` shards its optimizer state (ZeRO-1).  A rank that
+fails ends the group (:func:`spawn` ends the others, as torchrun does), so
+a group restarts only as a whole, from its last checkpoint
+(``launch/train.py``).
+
 The reference's submeshes (``split_devices``, ``make_submeshes``,
 ``assert_disjoint``) and its pipeline mesh are not ported yet (ROADMAP.md
 Queue 1 B item 11).

@@ -42,10 +42,21 @@ draws the seeded global batch of ``--batch`` rows and takes its own rows
 (``DataGroup.shard``; ``--batch`` must divide by N, and by N x k for
 temporal-mb); only rank 0 logs.  ``--spb-mode spatial`` gives rank r the
 depth of level ``r % k`` and weights the gradients per layer; the other
-modes average what has a gradient.  Checkpoints, ``--resume``,
-``--fail-at`` and the step table (``--aot-cache``) are refused under a
-group of several ranks.  The pipeline and the other mesh flags are not
-ported.
+modes average what has a gradient.  The engine keeps the reference's
+ZeRO-1 layout: each rank holds its slice of the optimizer state.
+
+Checkpoints and restart work under a group too.  Rank 0 writes the whole
+state (``SPBEngine.gathered_state``, collective) in the one-process
+format, so a group's checkpoint restores into one process or a group of
+another size.  On ``--resume`` rank 0 waits for its own write in flight,
+picks the step and broadcasts it; every rank then reads that checkpoint
+and keeps its slice.  ``--fail-at`` is raised by every rank at the same
+step, and the supervision loop restarts them together; any other failure
+of a rank is raised, which ends the group (``mesh.spawn`` ends the other
+ranks, as torchrun does), and a rerun with ``--resume`` continues.  The
+step table (``--aot-cache``) is refused under a group of several ranks,
+and the pipeline and the other mesh flags are not ported (ROADMAP.md
+Queue 1 B item 11).
 """
 from __future__ import annotations
 
@@ -124,7 +135,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--fail-at", type=int, default=-1,
-                    help="inject a failure at this step (tests)")
+                    help="inject a failure at this step (tests; every rank "
+                         "of a group raises it)")
     ap.add_argument("--max-restarts", type=int, default=2)
     ap.add_argument("--use-pallas", action="store_true",
                     help="run attention and the SSD and RG-LRU scans "
@@ -142,15 +154,12 @@ def _check_group_args(args, n: int) -> None:
         raise ValueError(f"--data-parallel {n}: need at least one rank")
     if n == 1:
         return
-    refused = [flag for flag, on in (
-        ("--checkpoint-dir", bool(args.checkpoint_dir)),
-        ("--resume", args.resume), ("--fail-at", args.fail_at >= 0),
-        ("--aot-cache", bool(args.aot_cache))) if on]
-    if refused:
+    if args.aot_cache:
         raise NotImplementedError(
-            f"{', '.join(refused)} with --data-parallel {n}: checkpoints, "
-            f"restart and the step table under a data group are not ported "
-            f"yet (ROADMAP.md Queue 1 B item 11)")
+            f"--aot-cache with --data-parallel {n}: the step table under a "
+            f"data group is not ported (its collectives run on the host, "
+            f"which a CUDA graph cannot capture; ROADMAP.md Queue 1 B item "
+            f"11)")
     chunks = args.spb_k if args.spb_mode == "temporal-mb" else 1
     if args.batch % (n * chunks):
         raise ValueError(f"--batch {args.batch} does not split over "
@@ -209,35 +218,52 @@ def rank_main(group: DataGroup, args: argparse.Namespace) -> list:
             break
         except RuntimeError as e:      # noqa: PERF203
             restarts += 1
-            if device_fault(e) or mgr is None or \
+            # a group restarts together only from what every rank raised
+            # at once; a failure of one rank ends the group
+            alone = group.size > 1 and not isinstance(e, InjectedFailure)
+            if device_fault(e) or alone or mgr is None or \
                     restarts > args.max_restarts:
                 raise
-            print(f"[train] FAILURE: {e}; restart {restarts}", flush=True)
+            if group.rank == 0:
+                print(f"[train] FAILURE: {e}; restart {restarts}",
+                      flush=True)
             args.fail_at = -1          # don't re-inject
             args.resume = True
     if mgr:
         mgr.wait()
+    group.barrier()         # every rank returns once the last write is done
     if cc_before is not None and group.rank == 0:
         print(stepcache.persistent_cache_report(
             args.compilation_cache_dir, cc_before), flush=True)
     return history
 
 
+class InjectedFailure(RuntimeError):
+    """The ``--fail-at`` failure, which every rank of a group raises at the
+    same step."""
+
+
 def _run(engine: SPBEngine, args, mgr, history):
     """Train from fresh weights, or from the latest checkpoint with
     ``--resume``; appends each step's xent to ``history`` (a failed
     attempt's entries stay).  Each rank of a data group takes its rows of
-    every global batch."""
+    every global batch; rank 0 writes the checkpoints."""
     cfg, tcfg = engine.cfg, engine.tcfg
+    group = engine.group
     engine.state = None             # drop a failed attempt's state first
     engine.init_state(tcfg.seed)
     start_step = 0
     if args.resume and mgr:
-        mgr.wait()      # the failed attempt's last write, still in flight
-    if args.resume and mgr and mgr.latest_step() is not None:
-        state, start_step = mgr.restore(engine.state)
-        engine.attach_state(state)
-        print(f"[train] resumed from step {start_step}", flush=True)
+        latest = None
+        if group.rank == 0:
+            mgr.wait()  # the failed attempt's last write, still in flight
+            latest = mgr.latest_step()
+        latest = group.broadcast_int(latest)    # one step for every rank
+        if latest is not None:
+            state, start_step = mgr.restore(engine.state_shapes, latest)
+            engine.attach_state(state)
+            if group.rank == 0:
+                print(f"[train] resumed from step {start_step}", flush=True)
 
     pipe = Pipeline(cfg, args.batch, args.seq, seed=tcfg.seed)
     if args.aot_cache and not engine._compiled:
@@ -251,12 +277,11 @@ def _run(engine: SPBEngine, args, mgr, history):
             engine.export_aot(path)
             print(f"[train] AOT step table compiled + exported to {path}",
                   flush=True)
-    group = engine.group
     chunks = args.spb_k if args.spb_mode == "temporal-mb" else 1
     t0 = time.time()
     for step in range(start_step, tcfg.num_steps):
         if step == args.fail_at:
-            raise RuntimeError("injected failure")
+            raise InjectedFailure("injected failure")
         metrics = engine.train_step(
             group.shard(pipe.get_batch(step), chunks), step)
         if group.rank == 0 and (step % args.log_every == 0
@@ -268,7 +293,9 @@ def _run(engine: SPBEngine, args, mgr, history):
                   f"({time.time()-t0:.1f}s)", flush=True)
         history.append(float(metrics["xent"]))
         if mgr and (step + 1) % tcfg.checkpoint_every == 0:
-            mgr.save(engine.state, step + 1)
+            whole = engine.gathered_state()         # collective
+            if group.rank == 0:
+                mgr.save(whole, step + 1)
     return history
 
 

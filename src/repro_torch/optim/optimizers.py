@@ -9,6 +9,14 @@ places its decay and eps differently).
   * A ``None`` gradient (a parameter the SPB step froze whole) counts as a
     zero gradient: its moments still decay and its weight decay still
     applies, exactly as with the zeros ``jax.grad`` returns.
+  * ZeRO-1 (``shards=``, a tree like the params of
+    ``dist/sharding.shard_slices`` entries): the optimizer state holds a
+    rank's slice of each sharded leaf, and the update after the global
+    norm (the clip, the SPB row scale, the moments, weight decay, the
+    master) runs on that slice of the gradient and writes that slice of
+    the parameter.  Every operation is elementwise, so a slice's numbers
+    are bit for bit those of the whole leaf's update; the caller gathers
+    the parameters (``dist/steps.py``).
 
 Updates are in place: the moments, the master copies and the params are
 overwritten, and ``apply_updates`` returns the same objects.
@@ -43,7 +51,18 @@ def schedule_values(tcfg: TrainConfig, step: int) -> np.ndarray:
                      1.0 / (1 - tcfg.beta2 ** t)], np.float32)
 
 
-def init_opt_state(params, tcfg: TrainConfig) -> Dict[str, Any]:
+def local(t, part):
+    """A rank's slice of ``t`` (``part``: a ``dist/sharding.shard_slices``
+    entry, ``(dim, start, length)``), a view; ``t`` itself for ``None``."""
+    return t if part is None or t is None else t.narrow(*part)
+
+
+def init_opt_state(params, tcfg: TrainConfig, shards=None) -> Dict[str, Any]:
+    """Fresh optimizer state for ``params``; with ``shards``, of this
+    rank's slice of each leaf only (built as such, never sliced from a
+    whole state)."""
+    if shards is not None:
+        params = tree_map(local, params, shards)
     zeros = lambda p: tree_map(
         lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device), p)
     state: Dict[str, Any] = {}
@@ -74,17 +93,22 @@ def global_norm(tree) -> torch.Tensor:
 def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
                   cfg: Optional[ModelConfig] = None,
                   spb_cfg: Optional[SPBConfig] = None, *,
-                  sched: Optional[torch.Tensor] = None
+                  sched: Optional[torch.Tensor] = None, shards=None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One optimizer step, in place.  ``grads`` matches ``params`` with
     ``None`` for a parameter that got no gradient.  Returns (params,
-    opt_state, metrics).
+    opt_state, metrics).  With ``shards`` (ZeRO-1) ``opt_state`` holds this
+    rank's slices, and only those slices of ``params`` are written.
 
     ``sched``: a device tensor holding :func:`schedule_values` of ``step``
     (a CUDA graph's static input, refilled before each replay), read in
     place of the host scalars a capture would bake in; the card gives the
     same bits either way."""
     gnorm = global_norm(grads)
+    updated = params
+    if shards is not None:          # views: the update writes through them
+        grads = tree_map(local, grads, shards)
+        updated = tree_map(local, params, shards)
     if tcfg.grad_clip > 0:
         clip = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                            max=1.0)
@@ -95,13 +119,13 @@ def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
 
     # SPB weighted-average / per-block LR scaling (paper §2)
     if spb_cfg is not None and cfg is not None and spb_cfg.mode != "off":
-        grads = spb_lib.scale_params_tree(grads, cfg, spb_cfg)
+        grads = spb_lib.scale_params_tree(grads, cfg, spb_cfg, shards)
 
     if sched is None:
         lr = lr_at(tcfg, step)
     else:
         lr, inv_bc1, inv_bc2 = sched[0], sched[1], sched[2]
-    master = opt_state.get("master", params)
+    master = opt_state.get("master", updated)
 
     if tcfg.optimizer == "adamw":
         t = step + 1.0
@@ -125,7 +149,7 @@ def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
             if m is not p:
                 p.copy_(m)
 
-        tree_map(adamw, params, master, opt_state["mu"], opt_state["nu"],
+        tree_map(adamw, updated, master, opt_state["mu"], opt_state["nu"],
                  grads)
     else:  # sgdm (paper: SGD with momentum + 1e-4 weight decay)
         def sgdm(p, m, mom, g):
@@ -136,7 +160,7 @@ def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
             if m is not p:
                 p.copy_(m)
 
-        tree_map(sgdm, params, master, opt_state["mom"], grads)
+        tree_map(sgdm, updated, master, opt_state["mom"], grads)
 
     metrics = {"grad_norm": gnorm,
                "lr": torch.tensor(lr, dtype=torch.float32)
