@@ -202,7 +202,22 @@ Phases, each printing a line; any failure exits non-zero:
      ``launch/train.py --data-parallel 2`` with a checkpoint every 2
      steps, straight and with ``--fail-at 3``: the xent bit for bit, and
      the last checkpoint restored into a one-process engine;
-  15. (run last, after 18, on the host) the dry run of each phase-5 path:
+  20. (run after 19) pipelines (``dist/pipeline``: ``SPBEngine(
+     parallelism="pipeline")``, one stage a rank, ``mesh.spawn(grid=)``),
+     two stage ranks sharing the card over gloo: (a) yi-6b at published
+     widths cut to 8 layers over 2 stages, bf16, 1F1B over 4 microbatches
+     of one row of 2048, temporal k 4 (bwd_stages 2, 1, 2, 1) for two
+     cycles: every step's launches on each rank exact (a frozen stage
+     launches its forward kernels alone, a live one its forward twice and
+     the backward kernels), finite losses, the first xent within 1e-3 of
+     one process's forward on the card, the bytes a rank sends a step
+     exact (activations, cotangents, the tied table); a line a rank and
+     bwd_stages with step ms, host ms inside the messages and the
+     collectives, the measured bubble beside the table's, the peak beside
+     the dry run's count; (b) reduced yi-6b and mamba2-2.7b (f32, the
+     kernels) for one cycle: xent within 1e-3 of one process on the CPU,
+     launches exact (no SSD backward on a frozen stage);
+  15. (run last, after 20, on the host) the dry run of each phase-5 path:
      every depth of its cycle counted on the meta device at batch
      2 x 2048 with the kernels' meta entries (``launch/dryrun.py``):
      counted TFLOP and GB, the three H100 roofline terms
@@ -221,7 +236,8 @@ Phases, each printing a line; any failure exits non-zero:
      ``launches_fused_jigsaw``, ``launches_graphs`` (phase 16's graph
      replays), ``launches_remat`` (phase 17's runs, by arch and policy),
      ``launches_data_parallel`` (phase 18's, by run and rank),
-     ``launches_zero`` (phase 19's),
+     ``launches_zero`` (phase 19's), ``launches_pipeline`` (phase 20's,
+     by run and stage),
      the fused phase's ms by depth and peak, phase 17's and phase 18's
      figures,
      and phase 15's ``dryrun_by_arch``), the card's name and power
@@ -3618,6 +3634,282 @@ def phase_zero1_restart() -> None:
                              "restore into one process")
 
 
+# phase 20: pipelines (``dist/pipeline``), one stage a rank, the ranks
+# sharing the card over gloo: yi-6b at published widths cut to 8 layers over
+# 2 stages of 4, 1F1B over 4 microbatches of one row of 2048, temporal k 4
+# (the cycle 8, 2, 6, 4 snaps to the stages as 8, 4, 8, 4: bwd_stages 2, 1,
+# 2, 1), two cycles; then reduced yi-6b and mamba2-2.7b (f32, the kernels)
+# over 2 stages for one cycle, held against one process on the CPU.  A
+# rank holds 4 layers and the table or the head: the dry run counts a
+# 4-layer cut of one row at 24.3 GB, so the two ranks fit the card.
+PIPE_STAGES = 2
+PIPE_M = 4
+PIPE_FULL_LAYERS = 8
+PIPE_FULL_STEPS = 8
+PIPE_REDUCED = ("yi-6b", "mamba2-2.7b")
+PIPE_REDUCED_STEPS = 4
+PIPE_TOL = 1e-3         # phase 4's card against CPU
+
+
+def pipe_config(what: str):
+    """Phase 20's configs: ``"full"`` (yi-6b's 8-layer cut), else the
+    arch's reduced config on the kernels."""
+    from repro_torch.configs import full_width_config, reduced_config
+    if what == "full":
+        return dataclasses.replace(full_width_config("yi-6b"),
+                                   num_layers=PIPE_FULL_LAYERS)
+    return dataclasses.replace(reduced_config(what), use_pallas=True)
+
+
+def _pipe_engine(cfg, group, steps: int):
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.engine.engine import SPBEngine
+    return SPBEngine(cfg, TrainConfig(num_steps=steps, microbatches=PIPE_M),
+                     SPBConfig(mode="temporal", k=4), group=group,
+                     parallelism="pipeline", shared_cache=False)
+
+
+def _pipe_steps(eng, group, batches) -> list:
+    """Each step of a pipeline rank: ms (host clock, synchronized), host
+    ms inside the point-to-point messages and inside the collectives, the
+    items' busy ms, bytes sent by kind, depth, bwd_stages, metrics and
+    launches."""
+    import torch
+    from repro_torch.dist.group import TAG_ACT, TAG_COT, TAG_TENSOR
+    kinds = {TAG_ACT: "act", TAG_COT: "cot", TAG_TENSOR: "table"}
+    out = []
+    for s, batch in enumerate(batches):
+        before = launches_now()
+        p0, sent0 = group.p2p_s, dict(group.p2p_by_tag)
+        r0, b0 = group.reduce_s + group.data.reduce_s, group.busy_s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eng.train_step(group.shard(batch, PIPE_M), s)
+        metrics = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        out.append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "p2p_ms": (group.p2p_s - p0) * 1e3,
+            "collective_ms": (group.reduce_s + group.data.reduce_s - r0) * 1e3,
+            "busy_ms": (group.busy_s - b0) * 1e3,
+            "sent": {name: group.p2p_by_tag.get(t, 0) - sent0.get(t, 0)
+                     for t, name in kinds.items()},
+            "depth": eng.last_depth,
+            "bwd_stages": eng.step_fn(eng.last_depth).bwd_stages,
+            "launches": launches_since(before), **metrics})
+    return out
+
+
+def pipe_rank(group) -> dict:
+    """Phase 20, one stage's rank: the full-width run from ``init_state(0)``
+    on the card's generator, then each reduced arch from weights drawn on
+    the CPU; each step's figures (:func:`_pipe_steps`) and the peaks."""
+    import gc
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import make_batch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = pipe_config("full")
+    eng = _pipe_engine(cfg, group, PIPE_FULL_STEPS)
+    eng.init_state(0)
+    batches = [make_batch(cfg, PIPE_M, 2048, seed=s, device="cuda")
+               for s in range(PIPE_FULL_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"full": {"steps": _pipe_steps(eng, group, batches),
+                    "max_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}
+    del eng, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in PIPE_REDUCED:
+        cfg = pipe_config(arch)
+        eng = _pipe_engine(cfg, group, PIPE_REDUCED_STEPS)
+        eng.attach_state(steps_lib.state_from_params(
+            lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu"),
+            TrainConfig()))
+        pipe = Pipeline(cfg, PIPE_M, 64, seed=0)
+        out[arch] = {"steps": _pipe_steps(
+            eng, group, [pipe.get_batch(s)
+                         for s in range(PIPE_REDUCED_STEPS)])}
+    return out
+
+
+def expected_stage_launches(cfg, stage: int, bwd_stages: int) -> dict:
+    """Launches of one pipeline step on ``stage``'s rank: each of the
+    :data:`PIPE_M` microbatches runs the stage's forward under no_grad
+    (:func:`expected_launches` at depth 0 of the stage's layers), and on a
+    live stage the backward tick's recompute and backward on top (the
+    stage's layers all live)."""
+    from repro_torch.config import stage_layer_counts
+    n = stage_layer_counts(cfg, PIPE_STAGES)[stage]
+    scfg = dataclasses.replace(cfg, num_layers=n)
+    want = {k: c * PIPE_M for k, c in expected_launches(scfg, [0]).items()}
+    if stage >= PIPE_STAGES - bwd_stages:
+        for k, c in expected_launches(scfg, [n]).items():
+            want[k] += c * PIPE_M
+    return want
+
+
+def _pipe_one_process(cfg, device: str, steps: int, batches) -> list:
+    """One process, the same cycle snapped to the stages, on ``device``
+    from the reduced run's CPU-drawn weights: each step's xent and depth."""
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.models import lm
+    eng = SPBEngine(cfg, TrainConfig(num_steps=steps, microbatches=PIPE_M),
+                    SPBConfig(mode="temporal", k=4,
+                              pipeline_stages=PIPE_STAGES),
+                    device=device, shared_cache=False)
+    eng.attach_state(steps_lib.state_from_params(
+        lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu"),
+        TrainConfig()))
+    return [(float(eng.train_step(b, s)["xent"]), eng.last_depth)
+            for s, b in enumerate(batches)]
+
+
+def phase_pipeline(smi: str) -> dict:
+    """Phase 20: two stage ranks share the card over gloo
+    (``launch/mesh.spawn(grid=(2, 1))``, ``SPBEngine(parallelism=
+    "pipeline")``): (a) yi-6b's 8-layer full-width cut, 1F1B over 4
+    microbatches, temporal k 4 for two cycles: every rank's launches a
+    step :func:`expected_stage_launches` (a frozen stage launches the
+    forward kernels alone: no delta, dq or dkv), finite losses, the first
+    step's xent within :data:`PIPE_TOL` of one process's forward on the
+    card, the bytes each rank sends a step exactly the activations'
+    (``B/M x S x d_model x 2`` a send), the cotangents' and the tied
+    table's; a line a rank and bwd_stages with step ms, host ms inside
+    the messages and the collectives, the measured bubble beside
+    ``analysis/roofline.pipeline_bubble_fraction``, and the peak beside
+    the dry run's count of a 4-layer rank; (b) reduced yi-6b and
+    mamba2-2.7b for one cycle: each step's xent within :data:`PIPE_TOL`
+    of one process on the CPU, launches exact (mamba2's frozen stage
+    launches no SSD backward).  Every line carries the card's name and
+    power limit.  Returns each run's launches a rank, and the figures."""
+    import torch
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import make_batch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.models import lm
+
+    cfg = pipe_config("full")
+    rec = dryrun.count_cell("yi-6b", "train_4k", cut="full_width",
+                            layers=PIPE_FULL_LAYERS // PIPE_STAGES, batch=1,
+                            seq_len=2048)
+    ma = rec["memory_analysis"]
+    predicted_gb = (ma["argument_size_in_bytes"]
+                    + ma["temp_size_in_bytes"]) / 1e9
+    log(f"[pipeline] dry run yi-6b/{PIPE_FULL_LAYERS // PIPE_STAGES} batch 1 "
+        f"x 2048 (one rank's layers, table and head): predicted_peak_gb="
+        f"{predicted_gb:.3f} card={smi}")
+    t0 = time.perf_counter()
+    ranks = mesh.spawn("chip_smoke:pipe_rank", PIPE_STAGES, device="cuda",
+                       grid=(PIPE_STAGES, 1), timeout_s=DP_JOIN_S)
+    failed, launches, figures = [], {}, {}
+    # (a) the full-width run
+    act = 1 * 2048 * cfg.d_model * 2            # one row of 2048, bf16
+    table = cfg.padded_vocab * cfg.d_model * 2
+    with torch.no_grad():
+        params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+        _, mm = lm.loss_fn(params, make_batch(cfg, PIPE_M, 2048, seed=0,
+                                              device="cuda"), cfg)
+        one_xent = float(mm["xent"])
+    del params
+    torch.cuda.empty_cache()
+    for stage, out in enumerate(ranks):
+        run = out["full"]
+        key = f"full/stage{stage}"
+        launches[key] = {n: sum(s["launches"][n] for s in run["steps"])
+                         for n in KERNELS}
+        for i, st in enumerate(run["steps"]):
+            b = st["bwd_stages"]
+            want = expected_stage_launches(cfg, stage, b)
+            if st["launches"] != want:
+                failed.append(f"{key} step {i}: launches {st['launches']} "
+                              f"!= {want}")
+            if not math.isfinite(st["loss"]):
+                failed.append(f"{key} step {i}: loss not finite")
+            sent = {"act": PIPE_M * act if stage < PIPE_STAGES - 1 else 0,
+                    "cot": PIPE_M * act if stage > 0 and
+                    stage - 1 >= PIPE_STAGES - b else 0,
+                    "table": table}
+            if st["sent"] != sent:
+                failed.append(f"{key} step {i}: sent {st['sent']} != {sent}")
+        rel = abs(run["steps"][0]["xent"] - one_xent) / abs(one_xent)
+        if not rel <= PIPE_TOL:
+            failed.append(f"{key}: first xent {run['steps'][0]['xent']} vs "
+                          f"one process {one_xent}: {rel:.3e}")
+        for b in sorted({st["bwd_stages"] for st in run["steps"]}):
+            warm = [st for st in run["steps"][PIPE_FULL_STEPS // 2:]
+                    if st["bwd_stages"] == b]
+            mean = lambda k: sum(st[k] for st in warm) / len(warm)
+            fig = {"step_ms": round(mean("ms"), 2),
+                   "p2p_host_ms": round(mean("p2p_ms"), 2),
+                   "collective_host_ms": round(mean("collective_ms"), 2),
+                   "busy_ms": round(mean("busy_ms"), 2),
+                   "bubble": round(1.0 - mean("busy_ms") / mean("ms"), 4),
+                   "bubble_table": round(roofline.pipeline_bubble_fraction(
+                       PIPE_STAGES, PIPE_M, kind="1f1b", bwd_stages=b), 4),
+                   "sent_bytes": warm[0]["sent"],
+                   "act_bytes_a_send": act,
+                   "max_mem_gb": round(run["max_mem_gb"], 3),
+                   "predicted_peak_gb": round(predicted_gb, 3),
+                   "launches": {k: c for k, c in
+                                warm[0]["launches"].items() if c}}
+            figures[f"{key}/bwd_stages{b}"] = fig
+            log(f"[pipeline] full yi-6b/{PIPE_FULL_LAYERS} S={PIPE_STAGES} "
+                f"M={PIPE_M} 1f1b stage={stage} bwd_stages={b} "
+                f"depths={[st['depth'] for st in run['steps']]} "
+                + " ".join(f"{k}={v}" for k, v in fig.items())
+                + f" first_xent={run['steps'][0]['xent']:.6f} "
+                f"one_process_xent={one_xent:.6f} card={smi}")
+    # (b) the reduced runs against one process on the CPU
+    for arch in PIPE_REDUCED:
+        rcfg = pipe_config(arch)
+        pipe = Pipeline(rcfg, PIPE_M, 64, seed=0)
+        want = _pipe_one_process(rcfg, "cpu", PIPE_REDUCED_STEPS,
+                                 [pipe.get_batch(s)
+                                  for s in range(PIPE_REDUCED_STEPS)])
+        for stage, out in enumerate(ranks):
+            run = out[arch]["steps"]
+            key = f"{arch}/stage{stage}"
+            launches[key] = {n: sum(s["launches"][n] for s in run)
+                             for n in KERNELS}
+            rel = max(abs(st["xent"] - w) / abs(w)
+                      for st, (w, _d) in zip(run, want))
+            if not rel <= PIPE_TOL:
+                failed.append(f"{key}: xent card vs one CPU process "
+                              f"{rel:.3e} > {PIPE_TOL:g}")
+            if [st["depth"] for st in run] != [d for _w, d in want]:
+                failed.append(f"{key}: depths differ from one process's")
+            for i, st in enumerate(run):
+                exp = expected_stage_launches(rcfg, stage, st["bwd_stages"])
+                if st["launches"] != exp:
+                    failed.append(f"{key} step {i}: launches "
+                                  f"{st['launches']} != {exp}")
+            log(f"[pipeline] reduced {arch} stage={stage} "
+                f"depths={[st['depth'] for st in run]} "
+                f"bwd_stages={[st['bwd_stages'] for st in run]} "
+                f"xent_card={[round(st['xent'], 6) for st in run]} "
+                f"xent_cpu_one_process={[round(w, 6) for w, _ in want]} "
+                f"card_vs_cpu={rel:.3e} (tol {PIPE_TOL:g}) "
+                f"step_ms={[round(st['ms'], 2) for st in run]} launches="
+                f"{ {k: c for k, c in launches[key].items() if c} } "
+                f"card={smi}")
+    log(f"[pipeline] phase {time.perf_counter() - t0:.1f}s")
+    if failed:
+        raise AssertionError("pipeline: " + "; ".join(failed))
+    return {"launches": launches, "figures": figures}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3732,6 +4024,13 @@ def main() -> int:
         raise AssertionError(f"kernels the ZeRO-1 ranks never launched: "
                              f"{idle}")
     phase_zero1_restart()
+    pipeline = phase_pipeline(smi)
+    idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv",
+                        "ssd_fwd", "ssd_fwd_res", "ssd_bwd")
+            if not any(g.get(n) for g in pipeline["launches"].values())]
+    if idle:
+        raise AssertionError(f"kernels the pipeline ranks never launched: "
+                             f"{idle}")
     # host only, so it runs last: every timed phase then runs as it did
     # before the dry run existed, without its modules (~100k more Python
     # objects) and its own garbage collections
@@ -3776,6 +4075,9 @@ def main() -> int:
                  "launches_zero": {k: g[name]
                                    for k, g in zero1_by_run.items()
                                    if g.get(name)},
+                 "launches_pipeline": {k: g[name]
+                                       for k, g in pipeline["launches"].items()
+                                       if g.get(name)},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],
@@ -3820,7 +4122,8 @@ def main() -> int:
                               for a, runs in remat_by_arch.items()},
                     "remat_dryrun": remat_dryrun,
                     "data_parallel": dp_full["figures"],
-                    "zero": zero1_full["figures"]}))
+                    "zero": zero1_full["figures"],
+                    "pipeline": pipeline["figures"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

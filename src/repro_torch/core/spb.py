@@ -152,20 +152,30 @@ def _scale_rows(tree, scale, parts=None):
 
 
 def scale_params_tree(params: Dict[str, Any], cfg: ModelConfig,
-                      spb: SPBConfig, shards=None) -> Dict[str, Any]:
+                      spb: SPBConfig, shards=None, rows=None
+                      ) -> Dict[str, Any]:
     """Apply SPB weighted-average scaling to a gradient tree shaped like the
     LM params (``None`` leaves stay ``None``).  An encoder-decoder's
     encoder is the first group of the combined stack, so its groups take
     the first scales and the decoder's the rest.  ``shards``: when the
     leaves are a rank's ZeRO-1 slices, where each lies
-    (``dist/sharding.shard_slices``)."""
+    (``dist/sharding.shard_slices``).  ``rows``: when the decoder's
+    groups are a pipeline stage's rows, the ``(first unit, count)`` of
+    each group it holds."""
     if spb.mode == "off" or not spb.lr_rescale:
         return params
 
+    def scale_of(g, u):
+        def scale(dev, dt):
+            out = placed_scales(cfg, spb, dev, dt)[g][u]
+            if rows is not None and g >= first:
+                out = out.narrow(0, *rows[g - first])
+            return out
+        return scale
+
     def scaled(groups, first, parts):
-        return [[_scale_rows(up, lambda dev, dt, g=g, u=u: placed_scales(
-                    cfg, spb, dev, dt)[g][u],
-                    None if parts is None else parts[g - first][u])
+        return [[_scale_rows(up, scale_of(g, u),
+                             None if parts is None else parts[g - first][u])
                  for u, up in enumerate(gp)]
                 for g, gp in enumerate(groups, first)]
 

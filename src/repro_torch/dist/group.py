@@ -1,6 +1,7 @@
-"""The data-parallel group at run time: one rank's view of it and its
-collectives (what the steps and the engine use; ``launch/mesh.py`` makes
-the group and spawns its ranks).
+"""The data-parallel group and the pipeline's ``(stage, data)`` grid at
+run time: one rank's view of each and its collectives (what the steps and
+the engine use; ``launch/mesh.py`` makes the groups and spawns their
+ranks).  :class:`PipeGroup` is the pipeline's (below).
 
 A :class:`DataGroup` holds its rank, the group's size, its local rank, its
 device, the backend, the ``ProcessGroup``, and the subgroups of the last
@@ -62,6 +63,9 @@ class DataGroup:
     subgroups: Dict[int, Any] = dataclasses.field(default_factory=dict)
     # host seconds spent inside this rank's collectives
     reduce_s: float = 0.0
+    # the global rank of this group's rank 0 (a pipeline stage's data
+    # group is a subgroup of the world)
+    root: int = 0
 
     def make_subgroups(self, counts) -> None:
         """Create the subgroups of the last ``c`` ranks for each ``c`` of
@@ -135,7 +139,7 @@ class DataGroup:
                             self.size * t.numel() * t.element_size()):
             return torch.cat(out, dim) if out is not None else None
         t0 = time.perf_counter()
-        dist.gather(t.contiguous(), out, dst=0, group=self.pg)
+        dist.gather(t.contiguous(), out, dst=self.root, group=self.pg)
         self.reduce_s += time.perf_counter() - t0
         return torch.cat(out, dim) if out is not None else None
 
@@ -176,7 +180,7 @@ class DataGroup:
         dev = self.device if self.backend == "nccl" else "cpu"
         t = torch.tensor([-1 if value is None else value], dtype=torch.int64,
                          device=dev)
-        dist.broadcast(t, src=0, group=self.pg)
+        dist.broadcast(t, src=self.root, group=self.pg)
         got = int(t.item())
         return None if got < 0 else got
 
@@ -186,3 +190,149 @@ class DataGroup:
             dist.destroy_process_group()
         self.pg = None
         self.subgroups.clear()
+
+
+# tags of a pipeline's point-to-point messages: activations go right,
+# cotangents left, whole tensors (the tied table, a checkpoint's leaves)
+# either way
+TAG_ACT, TAG_COT, TAG_TENSOR = 1, 2, 3
+
+
+@dataclasses.dataclass
+class PipeGroup:
+    """One rank's view of a pipeline's ``(stage, data)`` grid: rank
+    ``stage * D + d``, row-major as the reference's mesh lays out its
+    devices.  ``data`` is the :class:`DataGroup` of this stage's D ranks
+    (the ``data`` axis), ``pipe_pg`` the process group of the S ranks of
+    this data index (the ``stage`` axis; the world when D is 1).
+
+    Activations and cotangents move between neighbouring stages of one
+    data index by point-to-point messages (:meth:`exchange`).  Gloo's
+    send and receive work on host tensors only, so a CUDA payload is
+    copied to the host before it is sent and to the card after it
+    arrives, explicitly.  Each tick's sends and receives are posted
+    together and then waited on, so two neighbours that send to each other
+    at one tick do not wait on each other.  A failed message raises;
+    nothing retries it.
+
+    ``p2p_s`` counts the host seconds inside the messages, ``reduce_s``
+    the host seconds inside the collectives over the stage axis (the data
+    axis's are ``data.reduce_s``), ``p2p_by_tag`` the bytes this rank
+    sent, by kind (:data:`TAG_ACT`, :data:`TAG_COT`, :data:`TAG_TENSOR`),
+    and ``busy_s`` the host seconds of the schedule's items on this rank
+    (``dist/pipeline/runtime.run_schedule``).  On the meta device nothing
+    moves: a dry run's ``analysis/cost.CostMode`` counts each send from
+    :data:`META_SINKS` (kind ``send``), and a receive gives an empty meta
+    tensor."""
+    stage: int = 0
+    num_stages: int = 1
+    data: DataGroup = dataclasses.field(default_factory=DataGroup)
+    rank: int = 0
+    size: int = 1
+    local_rank: int = 0
+    device: torch.device = torch.device("cpu")
+    backend: Optional[str] = None
+    pg: Any = None                  # the world; None at size 1
+    pipe_pg: Any = None             # this data index's stages
+    timeout_s: float = DEFAULT_TIMEOUT_S
+    p2p_s: float = 0.0
+    p2p_by_tag: Dict[int, int] = dataclasses.field(default_factory=dict)
+    reduce_s: float = 0.0
+    busy_s: float = 0.0
+
+    @property
+    def data_index(self) -> int:
+        return self.data.rank
+
+    def peer(self, stage: int) -> int:
+        """The global rank of ``stage`` at this rank's data index."""
+        if not 0 <= stage < self.num_stages:
+            raise ValueError(f"no stage {stage} in a pipeline of "
+                             f"{self.num_stages}")
+        return stage * self.data.size + self.data.rank
+
+    def exchange(self, sends=(), recvs=(), *, on_host: bool = False
+                 ) -> List[torch.Tensor]:
+        """Post every send ``(tensor, to_stage, tag)`` and every receive
+        ``(shape, dtype, from_stage, tag)`` of one tick together, wait on
+        all of them, and return the received tensors on this rank's
+        device (on the host with ``on_host``), in the order of
+        ``recvs``."""
+        sends, recvs = list(sends), list(recvs)
+        if not sends and not recvs:
+            return []
+        if any(t.is_meta for t, _s, _g in sends) or \
+                self.device.type == "meta":
+            for t, stage, _tag in sends:
+                _counted_on_meta("send", 2, t, t.numel() * t.element_size())
+            return [torch.empty(shape, dtype=dtype, device="meta")
+                    for shape, dtype, _s, _g in recvs]
+        t0 = time.perf_counter()
+        works, held, got = [], [], []
+        for t, stage, tag in sends:
+            host = t.detach().to("cpu").contiguous()
+            held.append(host)
+            self.p2p_by_tag[tag] = self.p2p_by_tag.get(tag, 0) + \
+                host.numel() * host.element_size()
+            works.append(dist.isend(host, self.peer(stage), tag=tag))
+        for shape, dtype, stage, tag in recvs:
+            host = torch.empty(tuple(shape), dtype=dtype)
+            got.append(host)
+            works.append(dist.irecv(host, self.peer(stage), tag=tag))
+        for w in works:
+            w.wait()
+        out = got if on_host else [h.to(self.device) for h in got]
+        self.p2p_s += time.perf_counter() - t0
+        return out
+
+    def send(self, t: torch.Tensor, stage: int, tag: int = TAG_TENSOR
+             ) -> None:
+        """Send one tensor to ``stage`` (at this data index) and wait."""
+        self.exchange(sends=[(t, stage, tag)])
+
+    def recv(self, shape, dtype, stage: int, tag: int = TAG_TENSOR, *,
+             on_host: bool = False) -> torch.Tensor:
+        """Receive one tensor from ``stage`` (at this data index)."""
+        return self.exchange(recvs=[(shape, dtype, stage, tag)],
+                             on_host=on_host)[0]
+
+    def pipe_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` in place over the stages of this data index."""
+        if self.num_stages == 1:
+            return t
+        if _counted_on_meta("all-reduce", self.num_stages, t,
+                            t.numel() * t.element_size()):
+            return t
+        t0 = time.perf_counter()
+        dist.all_reduce(t, group=self.pipe_pg)
+        self.reduce_s += time.perf_counter() - t0
+        return t
+
+    def shard(self, batch: Dict[str, torch.Tensor], chunks: int = 1
+              ) -> Dict[str, torch.Tensor]:
+        """This data index's rows of a global batch that splits into
+        ``chunks`` microbatches (``DataGroup.shard``): the same on every
+        stage."""
+        return self.data.shard(batch, chunks)
+
+    def broadcast_int(self, value: Optional[int]) -> Optional[int]:
+        """Rank 0's ``value`` (an int or None) on every rank."""
+        if self.size == 1:
+            return value
+        t = torch.tensor([-1 if value is None else value], dtype=torch.int64)
+        dist.broadcast(t, src=0, group=self.pg)
+        got = int(t.item())
+        return None if got < 0 else got
+
+    def barrier(self) -> None:
+        if self.size == 1:
+            return
+        t0 = time.perf_counter()
+        dist.barrier(group=self.pg)
+        self.reduce_s += time.perf_counter() - t0
+
+    def close(self) -> None:
+        """Tear down the process groups (a no-op at size 1)."""
+        if self.pg is not None and dist.is_initialized():
+            dist.destroy_process_group()
+        self.pg = self.pipe_pg = self.data.pg = None

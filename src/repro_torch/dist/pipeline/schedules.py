@@ -21,9 +21,9 @@ Because the table is data, analyses read it directly
 :func:`bubble_fraction_of` measures idle slots per tick (the quantity
 the old closed form ``(S-1)/(M+S-1)`` only approximated for GPipe), and
 :func:`max_in_flight` gives the activation-stash watermark that
-separates 1F1B from GPipe.  The runtime that interprets a table over a
-process group and the per-stage model slices come with the multi-GPU
-slice (ROADMAP.md Queue 1 B item 11).
+separates 1F1B from GPipe.  ``runtime.run_schedule`` interprets a table
+on each stage's rank of a ``dist/group.PipeGroup``, and ``stage`` cuts the
+model into the stages' slices.
 """
 from __future__ import annotations
 

@@ -463,3 +463,34 @@ def opt_slices(state_shapes: Any, state_specs: Any, mesh: Mesh,
                           mesh, rank)
     held = tree_map(lambda part: part is not None, slices, is_leaf=is_slice)
     return slices if any(tree_leaves(held)) else None
+
+
+def pipeline_opt_slices(local_specs: Any, local_shapes: Any, mesh: Mesh,
+                        data_index: int) -> Any:
+    """A pipeline rank's ZeRO-1 slice of each optimizer leaf of its stage:
+    ``local_specs`` are :func:`pipeline_state_pspec`'s specs of the
+    leaves the stage holds (one optimizer key), ``local_shapes`` those
+    leaves as the rank holds them (its rows of a group).  The ``stage``
+    entry is already resolved by the rank holding its rows; the ``data``
+    entry becomes a :func:`shard_slices` entry on the rank's leaf.  None
+    when the rank holds every leaf whole (a data axis of one)."""
+    n = mesh.shape.get("data", 1)
+    if n <= 1:
+        return None
+
+    def one(spec, leaf):
+        shape = _shape(leaf)
+        if not math.prod(shape):
+            return None
+        for i, e in enumerate(spec):
+            if e is not None and "data" in (e if isinstance(e, tuple)
+                                            else (e,)):
+                if shape[i] % n:
+                    raise NotImplementedError(
+                        f"a stage's leaf of shape {shape} does not split "
+                        f"over {n} data ranks on dim {i}")
+                length = shape[i] // n
+                return (i, data_index * length, length)
+        return None
+
+    return tree_map(one, local_specs, local_shapes, is_leaf=_is_spec)

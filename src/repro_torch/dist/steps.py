@@ -1,6 +1,5 @@
 """Depth-specialized SPB training steps (the counterpart of
-``repro/dist/steps.py`` without its pipeline, tensor-parallel and sharded
-steps).
+``repro/dist/steps.py`` without its tensor-parallel and ZeRO-2 steps).
 
 For temporal SPB, :func:`build_spb_train_steps` makes one step per
 snapped suffix depth; for ``temporal-mb`` one step that runs the whole
@@ -53,6 +52,13 @@ does not follow a step into another thread.  The eager steps run it as
 saved-tensor hooks cannot run under ``torch.func``, so the functional
 steps take 'full' as ``lm.swept_grads``, a sweep of ``torch.func.vjp``
 over the live repeats; 'dots' has no such form yet and raises there.
+
+:func:`make_pipeline_train_step` runs the stack as a pipeline: each rank
+of a ``dist/group.PipeGroup`` is a stage, interpreting a
+``dist/pipeline/schedules`` table (GPipe or 1F1B) with
+``dist/pipeline/runtime.run_schedule``; the SPB depth becomes a stage
+truncation point, and the stages below it run forward only.
+:func:`build_pipeline_train_steps` is its per-depth table.
 """
 from __future__ import annotations
 
@@ -486,3 +492,212 @@ def build_spb_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
             else make_train_step(cfg, tcfg, spb_cfg, depth=k, remat=remat,
                                  group=group)
             for k in spb_step_keys(cfg, spb_cfg)}
+
+
+# ---------------------------------------------------------------------------
+# Pipelined SPB: the schedule-driven pipeline-parallel step
+# ---------------------------------------------------------------------------
+
+def _refuse_pipeline_knobs(tensor_parallel: int, sequence_parallel: bool,
+                           zero2: bool) -> None:
+    for name, on in (("tensor_parallel > 1", (tensor_parallel or 1) > 1),
+                     ("sequence_parallel", sequence_parallel),
+                     ("zero2", zero2)):
+        if on:
+            raise NotImplementedError(
+                f"{name} under a pipeline is not ported (ROADMAP.md Queue 1 "
+                f"B item 11)")
+
+
+def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                             spb_cfg: Optional[SPBConfig] = None, *,
+                             num_stages: int, depth: Optional[int] = None,
+                             schedule: str = "1f1b", group=None,
+                             tensor_parallel: int = 1,
+                             sequence_parallel: bool = False,
+                             zero2: bool = False,
+                             remat: Optional[str] = None,
+                             shards=None) -> Callable:
+    """A (state, batch) -> (state, metrics) step of this rank's stage of
+    the pipeline ``group`` (a ``dist/group.PipeGroup``; None: one rank,
+    ``num_stages`` 1), interpreting a ``dist/pipeline/schedules`` table
+    (``"1f1b"`` or ``"gpipe"`` over ``tcfg.microbatches``) with
+    ``dist/pipeline/runtime.run_schedule``.
+
+    ``depth`` is the SPB suffix depth, mapped to a stage truncation point
+    (``config.depth_to_bwd_stages``): the stages below it get no backward
+    items, so they compute no weight gradients, send no cotangents and
+    keep no cotangent stash, and launch no backward kernel.  ``state`` is
+    the rank's share (``stage.local_tree``): stage 0 embeds the tokens
+    (live only when every stage is), the last stage runs the head.  With
+    tied embeddings the head's gradient of the table goes back to stage 0
+    and is summed there with the embedding's own; after the update stage
+    0 sends the table to the last stage, which keeps it as
+    ``state["head"]["tok"]``.  The gradient norm is taken over every
+    stage; ``_apply``'s optimizer then runs on the stage's leaves with the
+    SPB scales of its rows, on this rank's ZeRO-1 slices with ``shards``
+    (all-gathered over the stage's data group after).  ``batch`` holds
+    this data index's rows (``PipeGroup.shard(batch, microbatches)``).
+
+    ``spb_cfg`` is stamped with ``pipeline_stages``, as the engine does,
+    so the per-block scales count the stage-snapped depths.  Compression,
+    tensor and sequence parallelism and ZeRO-2 raise."""
+    from repro_torch.config import depth_to_bwd_stages
+    from repro_torch.dist.group import PipeGroup
+    from repro_torch.dist.pipeline import runtime, schedules
+    from repro_torch.dist.pipeline import stage as stage_lib
+
+    stage_lib.check_pipeline_compatible(cfg, num_stages)
+    _refuse_pipeline_knobs(tensor_parallel, sequence_parallel, zero2)
+    if tcfg.compression != "none":
+        raise NotImplementedError(
+            f"compression={tcfg.compression!r} under a pipeline: the "
+            f"compressors pick per leaf, and a stage holds part of each "
+            f"group's leaf (ROADMAP.md Queue 1 B item 11)")
+    group = group or PipeGroup()
+    if group.num_stages != num_stages:
+        raise ValueError(f"num_stages={num_stages} but the pipeline group "
+                         f"has {group.num_stages} stages")
+    if spb_cfg is not None and spb_cfg.pipeline_stages != num_stages:
+        spb_cfg = dataclasses.replace(spb_cfg, pipeline_stages=num_stages)
+    remat = lm.resolve_remat(remat)
+    m = max(1, tcfg.microbatches)
+    bwd_stages = depth_to_bwd_stages(cfg, depth, num_stages)
+    table = schedules.build(schedule, num_stages, m, bwd_stages=bwd_stages)
+    smap = stage_lib.build_stage_map(cfg, num_stages)
+    fns = stage_lib.make_stage_fns(cfg, smap, remat=remat)
+    aux_weight = 0.01 if cfg.moe is not None else 0.0   # lm.loss_fn's
+    head_loss = stage_lib.make_head_loss(cfg)
+    embed_live = bwd_stages == num_stages
+    s = group.stage
+    first, last = s == 0, s == num_stages - 1
+    tied = cfg.tie_embeddings
+    rows = smap.rows(s)
+    dtype = lm._dtype(cfg)
+
+    def step(state: State, batch, *, sched=None, update: bool = True
+             ) -> Tuple[State, Dict[str, torch.Tensor]]:
+        params = state["params"]
+        tokens, labels = batch["tokens"], batch["labels"]
+        b = tokens.shape[0]
+        if b % m:
+            raise ValueError(f"batch size {b} not divisible by {m} "
+                             f"microbatches")
+        mb = b // m
+        xs = x = None
+        if first:
+            with torch.set_grad_enabled(embed_live):
+                x = stage_lib.embed_tokens(params["embed"], tokens, cfg)
+            xs = x.reshape((m, mb) + tuple(x.shape[1:]))
+        head = ys = None
+        if last:
+            ys = labels.reshape((m, mb) + tuple(labels.shape[1:]))
+            embed = params["embed"] if first or not tied else state["head"]
+            head = {"final_norm": params["final_norm"],
+                    "embed": {k: embed[k] for k in
+                              (("tok",) if tied else ("unembed",))}}
+        res = runtime.run_schedule(
+            table, fns, stage_lib.stage_weights(params["groups"], smap), xs,
+            group=group, loss_fn=head_loss, ys=ys, head_params=head,
+            capture_input_grads=embed_live, stage_aux=True,
+            aux_weight=aux_weight,
+            act_shape=((mb, tokens.shape[1], cfg.d_model), dtype))
+        dw = res["stage_grads"]
+        grads = {"groups": [dw] if smap.trivial else
+                 [dw[f"g{g}"] for g in range(len(smap.caps))]}
+        if first:
+            d_tok = None
+            if embed_live:
+                (d_tok,) = torch.autograd.grad(
+                    x, params["embed"]["tok"],
+                    res["input_grads"].reshape(x.shape))
+                # each data rank's rows: the table's gradient is their sum
+                group.data.all_reduce(d_tok)
+            if tied and last:
+                d_tok = _sum(d_tok, res["head_grads"]["embed"]["tok"])
+            elif tied:
+                d_tok = _sum(d_tok, group.recv(params["embed"]["tok"].shape,
+                                               dtype, num_stages - 1))
+            grads["embed"] = {"tok": d_tok}
+        if last:
+            hg = res["head_grads"]
+            grads["final_norm"] = hg["final_norm"]
+            if not tied:
+                grads.setdefault("embed", {})["unembed"] = \
+                    hg["embed"]["unembed"]
+            elif not first:
+                group.send(hg["embed"]["tok"], 0)
+        metrics = {"loss": res["loss"] + aux_weight * res["aux"],
+                   "xent": res["loss"], "moe_aux": res["aux"]}
+        if not update:
+            return state, metrics
+        gnorm = _pipeline_norm(grads, group, res["loss"].device)
+        _, _, opt_metrics = optimizers.apply_updates(
+            params, grads, state["opt"], state["step"], tcfg, cfg=cfg,
+            spb_cfg=spb_cfg, sched=sched, shards=shards, gnorm=gnorm,
+            rows=rows)
+        if shards is not None:
+            with torch.no_grad():
+                for p, part in zip(tree_leaves(params),
+                                   tree_leaves(shards,
+                                               is_leaf=sharding.is_slice)):
+                    if part is not None:
+                        group.data.all_gather(p.detach(), part[0])
+        if tied and num_stages > 1:
+            with torch.no_grad():
+                if first:
+                    group.send(params["embed"]["tok"], num_stages - 1)
+                elif last:
+                    state["head"]["tok"].copy_(group.recv(
+                        state["head"]["tok"].shape, dtype, 0))
+        state["step"] += 1
+        return state, {**metrics, **opt_metrics}
+
+    step.bwd_stages = bwd_stages
+    step.table = table
+    return step
+
+
+def _sum(a, b):
+    return b if a is None else a + b
+
+
+def _pipeline_norm(grads, group, device) -> torch.Tensor:
+    """The gradient norm over every stage: this rank's sum of squares,
+    summed over the stage axis (the data ranks of a stage hold the same
+    averaged gradients)."""
+    sq = torch.zeros((), dtype=torch.float32, device=device)
+    for g in tree_leaves(grads):
+        if g is not None:
+            sq = sq + g.float().square().sum()
+    return torch.sqrt(group.pipe_all_reduce(sq.reshape(1))[0])
+
+
+def build_pipeline_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
+                               spb_cfg: SPBConfig, *, num_stages: int,
+                               schedule: str = "1f1b", group=None,
+                               tensor_parallel: int = 1,
+                               sequence_parallel: bool = False,
+                               zero2: bool = False,
+                               remat: Optional[str] = None,
+                               shards=None) -> Dict[Any, Callable]:
+    """The per-depth pipeline step table: ``None`` (full backprop) plus,
+    for temporal SPB, one entry per distinct stage-snapped cycle depth.
+    ``spatial`` and ``temporal-mb`` raise, as in the reference."""
+    if spb_cfg.mode in ("spatial", "temporal-mb"):
+        raise ValueError(f"SPB mode {spb_cfg.mode!r} is not supported "
+                         f"under pipeline parallelism (use 'temporal' "
+                         f"or 'off')")
+    if spb_cfg.pipeline_stages != num_stages:
+        spb_cfg = dataclasses.replace(spb_cfg, pipeline_stages=num_stages)
+    kw = dict(num_stages=num_stages, schedule=schedule, group=group,
+              tensor_parallel=tensor_parallel,
+              sequence_parallel=sequence_parallel, zero2=zero2,
+              remat=remat, shards=shards)
+    steps: Dict[Any, Callable] = {
+        None: make_pipeline_train_step(cfg, tcfg, spb_cfg, **kw)}
+    if spb_cfg.mode == "temporal":
+        for d in sorted(set(spb_lib.snapped_depths(cfg, spb_cfg))):
+            steps[d] = make_pipeline_train_step(cfg, tcfg, spb_cfg,
+                                                depth=d, **kw)
+    return steps

@@ -44,9 +44,27 @@ directly, ``attach_state`` keeps this rank's slice of a whole state, and
 :meth:`gathered_state` gathers the whole state to rank 0 (a checkpoint's
 view).  At group size 1 there is no plan: the state and the steps are
 those of one device.  The step-cache key carries ``zero1``.
+
+``parallelism="pipeline"`` (with ``group=`` a ``dist/group.PipeGroup``,
+one stage a rank; none: a pipeline of one stage) makes the engine one
+stage of a pipeline, as the reference's ``parallelism="pipeline"`` does
+over its ``(stage, data)`` mesh: ``spb.pipeline_stages`` is stamped, so
+the policy's depths snap to stage boundaries, the step table comes from
+``dist/steps.build_pipeline_train_steps`` (``pipeline_schedule``: "1f1b"
+or "gpipe"), and ``temporal-mb`` and ``spatial`` raise.  The rank holds
+its stage's share of the state (``dist/pipeline/stage.local_tree``);
+``init_state`` draws the whole tree and keeps that share, and
+``attach_state`` takes it from a whole state.  Over a data axis of more
+than one rank the optimizer state is ZeRO-1-sharded over ``data`` by
+``dist/sharding.pipeline_state_pspec``; :meth:`gathered_state` gives rank
+0 the whole state in the one-process format.  ``tensor_parallel`` above
+1, ``sequence_parallel`` and ``zero2`` raise (ROADMAP.md Queue 1 B item
+11), as do ``compile_table`` and ``load_aot``: a pipeline's messages go
+through the host.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import time
@@ -56,17 +74,20 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.config import ModelConfig, SPBConfig, TrainConfig, snap_depth
+from repro_torch.config import (ModelConfig, SPBConfig, TrainConfig,
+                                snap_depth, snap_depth_to_stages)
 from repro_torch.core import spb as spb_lib
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding
 from repro_torch.dist import steps as steps_lib
 from repro_torch.engine import aot, graphs, stepcache
 from repro_torch.engine.policies import DepthPolicy, make_policy
-from repro_torch.dist.group import DataGroup
+from repro_torch.dist.group import DataGroup, PipeGroup
+from repro_torch.dist.pipeline import stage as pp_stage
+from repro_torch.launch.mesh import make_pipeline_mesh
 from repro_torch.models import lm
 from repro_torch.optim import optimizers
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 State = Dict[str, Any]
 
@@ -155,28 +176,50 @@ class SPBEngine:
                  spb_cfg: Optional[SPBConfig] = None, *,
                  policy: Optional[DepthPolicy] = None, device=None,
                  shared_cache: bool = True, remat: Optional[str] = None,
-                 group: Optional[DataGroup] = None, zero1: bool = True):
+                 group=None, zero1: bool = True,
+                 parallelism: str = "spmd",
+                 pipeline_schedule: str = "1f1b",
+                 tensor_parallel: Optional[int] = None,
+                 sequence_parallel: bool = False, zero2: bool = False):
+        if parallelism not in ("spmd", "pipeline"):
+            raise ValueError(f"unknown parallelism {parallelism!r}; "
+                             f"known: spmd, pipeline")
         self.cfg = cfg
         self.tcfg = tcfg
         self.spb = spb_cfg or SPBConfig()
         self.remat = lm.resolve_remat(remat)
+        self.parallelism = parallelism
+        self.pipeline_schedule = pipeline_schedule
+        pipeline = parallelism == "pipeline"
         if group is None:
             self.device = resolve_device(device)
-            group = DataGroup(device=self.device)
+            group = PipeGroup(device=self.device, data=DataGroup(
+                device=self.device)) if pipeline else \
+                DataGroup(device=self.device)
         elif device is not None and \
                 resolve_device(device).type != group.device.type:
-            raise ValueError(f"device={device!r} disagrees with the data "
+            raise ValueError(f"device={device!r} disagrees with the "
                              f"group's {group.device}")
         else:
             self.device = group.device
+        if pipeline != isinstance(group, PipeGroup):
+            raise ValueError(f"parallelism={parallelism!r} takes a "
+                             f"{'PipeGroup' if pipeline else 'DataGroup'}")
         self.group = group
         self.zero1 = zero1
-        self.mesh = sharding.mesh_for(group)
         self.state_shapes = steps_lib.train_state_shapes(cfg, tcfg)
-        self.state_specs = sharding.state_pspec(self.state_shapes, self.mesh,
-                                                zero1=zero1)
-        self.shards = sharding.opt_slices(self.state_shapes, self.state_specs,
-                                          self.mesh, group.rank)
+        if pipeline:
+            self._init_pipeline(tensor_parallel, sequence_parallel, zero2)
+        else:
+            steps_lib._refuse_pipeline_knobs(tensor_parallel,
+                                             sequence_parallel, zero2)
+            self.pipeline_stages = 0
+            self._stage_map = None
+            self.mesh = sharding.mesh_for(group)
+            self.state_specs = sharding.state_pspec(
+                self.state_shapes, self.mesh, zero1=zero1)
+            self.shards = sharding.opt_slices(
+                self.state_shapes, self.state_specs, self.mesh, group.rank)
         self.policy = policy or make_policy("cycle", cfg, self.spb)
         self.shared_cache = shared_cache
         self._steps: Dict[Any, Callable] = {}
@@ -191,6 +234,73 @@ class SPBEngine:
         self.last_depth: Any = None
         self._auto_step = 0
 
+    def _init_pipeline(self, tensor_parallel, sequence_parallel,
+                       zero2) -> None:
+        """A pipeline rank's layout: the stage map, ``spb.pipeline_stages``
+        stamped (depths snap to stage boundaries), the grid's specs
+        (``pipeline_state_pspec``, ZeRO-1 over ``data``) and this rank's
+        slices of its stage's optimizer leaves."""
+        steps_lib._refuse_pipeline_knobs(tensor_parallel, sequence_parallel,
+                                         zero2)
+        cfg, group = self.cfg, self.group
+        n_stages = self.pipeline_stages = group.num_stages
+        if self.spb.mode in ("spatial", "temporal-mb"):
+            raise ValueError(f"SPB mode {self.spb.mode!r} is not supported "
+                             f"under pipeline parallelism (use 'temporal' "
+                             f"or 'off')")
+        if self.spb.pipeline_stages != n_stages:
+            self.spb = dataclasses.replace(self.spb,
+                                           pipeline_stages=n_stages)
+        pp_stage.check_pipeline_compatible(cfg, n_stages)
+        self._stage_map = smap = pp_stage.build_stage_map(cfg, n_stages)
+        self.mesh = make_pipeline_mesh(n_stages,
+                                       data_parallel=group.data.size)
+        self.state_specs = sharding.pipeline_state_pspec(
+            self.state_shapes, self.mesh, zero1=self.zero1,
+            uniform_groups=smap.uniform)
+        key = sorted(self.state_shapes["opt"])[0]
+        specs = pp_stage.local_tree(     # the stage's leaves' specs
+            self.state_specs["opt"][key], cfg, smap, group.stage,
+            take=lambda spec, st, cnt: spec,
+            is_leaf=lambda x: isinstance(x, sharding.P))
+        self.shards = sharding.pipeline_opt_slices(
+            specs, self._local(self.state_shapes["opt"][key]), self.mesh,
+            group.data_index) if self.zero1 else None
+
+    def _local(self, tree, stage: Optional[int] = None):
+        """A stage's share of a whole params-shaped tree (this rank's stage
+        by default)."""
+        return pp_stage.local_tree(
+            tree, self.cfg, self._stage_map,
+            self.group.stage if stage is None else stage)
+
+    def _pipeline_state(self, params, opt=None, step: int = 0) -> State:
+        """This rank's state from whole ``params`` (and a whole ``opt``):
+        its stage's leaves copied out (so the whole tree can go), its
+        ZeRO-1 slices of the optimizer leaves, and on the last stage of a
+        tied model the head's copy of the token table."""
+        dev = self.device
+
+        def own(t, part=None):
+            if part is not None and t.shape[part[0]] != part[2]:
+                t = t.narrow(*part)
+            return t.detach().to(dev, copy=True,
+                                 memory_format=torch.contiguous_format)
+
+        local = tree_map(lambda t: own(t).requires_grad_(True),
+                         self._local(params))
+        if opt is None:
+            state = steps_lib.state_from_params(local, self.tcfg, self.shards)
+        else:
+            state = {"params": local, "step": int(step), "opt": {
+                k: tree_map(own, self._local(sub), self.shards)
+                if self.shards else tree_map(own, self._local(sub))
+                for k, sub in opt.items()}}
+        if self.cfg.tie_embeddings and self.pipeline_stages > 1 and \
+                self.group.stage == self.pipeline_stages - 1:
+            state["head"] = {"tok": own(params["embed"]["tok"])}
+        return state
+
     # -- state lifecycle ---------------------------------------------------
 
     def init_state(self, seed: int) -> State:
@@ -198,6 +308,10 @@ class SPBEngine:
         session's device, fresh optimizer state (this rank's slices under
         ZeRO-1)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self.pipeline_stages:    # every rank draws the whole, keeps its
+            self.state = self._pipeline_state(     # stage's share
+                lm.init_lm(gen, self.cfg, self.device))
+            return self.state
         return self._adopt(steps_lib.init_train_state(
             gen, self.cfg, self.tcfg, self.device, self.shards))
 
@@ -205,7 +319,12 @@ class SPBEngine:
         """Adopt an externally built state, moved to the session's device
         (params become leaves that require grad).  Under ZeRO-1 a whole
         optimizer leaf is cut to this rank's slice (a copy); a leaf that
-        already has the slice's shape is taken as it is."""
+        already has the slice's shape is taken as it is.  A pipeline rank
+        takes its stage's share of the whole state."""
+        if self.pipeline_stages:
+            self.state = self._pipeline_state(state["params"], state["opt"],
+                                              state["step"])
+            return self.state
         if self._bound() is not None:
             return self._adopt(state)
 
@@ -235,6 +354,8 @@ class SPBEngine:
         copied to the host there, one leaf at a time."""
         if self.state is None:
             raise RuntimeError("call init_state()/attach_state() first")
+        if self.pipeline_stages:
+            return self._gathered_pipeline_state()
         root = self.group.rank == 0
 
         def host(t):
@@ -252,6 +373,42 @@ class SPBEngine:
         if not root:
             return None
         return {"params": tree_map(host, self.state["params"]), "opt": opt,
+                "step": int(self.state["step"])}
+
+    def _gathered_pipeline_state(self) -> Optional[State]:
+        """:meth:`gathered_state` of a pipeline: each stage's data rank 0
+        gathers its stage's ZeRO-1 slices, sends its share, leaf by leaf,
+        to rank 0, which assembles the one-process layout."""
+        group, data = self.group, self.group.data
+        held = {"params": self.state["params"], **self.state["opt"]}
+
+        def whole(t, part):
+            if part is None:
+                return t.detach().to("cpu", copy=True) if data.rank == 0 \
+                    else None
+            full = data.gather(t, part[0])
+            return full.cpu() if data.rank == 0 else None
+
+        mine = {k: tree_map(whole, v, self.shards)
+                if self.shards and k != "params"
+                else tree_map(lambda t: whole(t, None), v)
+                for k, v in held.items()}
+        if data.rank != 0:
+            return None
+        if group.stage != 0:
+            for t in tree_leaves(mine):
+                group.send(t, 0)
+            return None
+        shapes = {"params": self.state_shapes["params"],
+                  **self.state_shapes["opt"]}
+        parts = [mine]
+        for s in range(1, self.pipeline_stages):
+            parts.append({k: tree_map(
+                lambda m, s=s: group.recv(m.shape, m.dtype, s, on_host=True),
+                self._local(v, s)) for k, v in shapes.items()})
+        out = {k: pp_stage.assemble([p[k] for p in parts], self.cfg,
+                                    self._stage_map) for k in shapes}
+        return {"params": out.pop("params"), "opt": out,
                 "step": int(self.state["step"])}
 
     def _bound(self) -> Optional[State]:
@@ -286,6 +443,12 @@ class SPBEngine:
 
     def _make_step(self, key: Any) -> Callable:
         """The (state, batch) -> (state, metrics) step of one table key."""
+        if self.pipeline_stages:
+            return steps_lib.make_pipeline_train_step(
+                self.cfg, self.tcfg, self.spb, depth=key,
+                num_stages=self.pipeline_stages,
+                schedule=self.pipeline_schedule, group=self.group,
+                remat=self.remat, shards=self.shards)
         if self.spb.mode == "spatial":
             return steps_lib.make_spatial_step(self.cfg, self.tcfg, self.spb,
                                                remat=self.remat,
@@ -325,7 +488,10 @@ class SPBEngine:
         out = (self._step_sig, aot._depth_tag(key),
                stepcache.device_fingerprint(self.device))
         n = self.group.size
-        if self.spb.mode == "spatial":
+        if self.pipeline_stages:
+            out += (("pipeline", self.pipeline_schedule, self.pipeline_stages,
+                     self.group.data.size, self.group.stage),)
+        elif self.spb.mode == "spatial":
             out += (("group", n, self.group.rank % self.spb.k),)
         elif n > 1:
             out += (("group", n),)
@@ -355,7 +521,8 @@ class SPBEngine:
         failure."""
         if depth is None:
             return None
-        depth = snap_depth(self.cfg, depth)
+        depth = snap_depth_to_stages(self.cfg, depth, self.pipeline_stages) \
+            if self.pipeline_stages else snap_depth(self.cfg, depth)
         if not self._frozen or depth in self._steps:
             return depth
         deeper = sorted(k for k in self._steps
@@ -458,6 +625,11 @@ class SPBEngine:
         return dict(self._compiled)
 
     def _refuse_group(self, what: str) -> None:
+        if self.pipeline_stages:
+            raise NotImplementedError(
+                f"{what} under a pipeline: its point-to-point messages and "
+                f"collectives go through the host (gloo), which a CUDA "
+                f"graph cannot capture; run the pipeline's steps eagerly")
         if self.group.size > 1:
             raise NotImplementedError(
                 f"{what} under a data group of {self.group.size} ranks: "

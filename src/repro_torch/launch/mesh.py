@@ -25,9 +25,18 @@ fails ends the group (:func:`spawn` ends the others, as torchrun does), so
 a group restarts only as a whole, from its last checkpoint
 (``launch/train.py``).
 
+The pipeline's grid (the counterpart of the reference's
+``make_pipeline_mesh``): :func:`make_pipeline_mesh` gives its axes,
+``("stage", "data")`` of ``(S, D)``, and :func:`init_pipe_group` makes this
+process's rank of it, a ``dist/group.PipeGroup`` (rank ``s * D + d``), from
+torchrun's environment or from :func:`spawn`'s store (``spawn(...,
+grid=(S, D))``).  A pipeline always takes ``gloo``: its activations move
+by point-to-point messages through the host, which NCCL would not take
+from host tensors, and its ranks share a card.
+
 The reference's submeshes (``split_devices``, ``make_submeshes``,
-``assert_disjoint``) and its pipeline mesh are not ported yet (ROADMAP.md
-Queue 1 B item 11).
+``assert_disjoint``) and its tensor-parallel ``model`` axis are not ported
+yet (ROADMAP.md Queue 1 B item 11).
 """
 from __future__ import annotations
 
@@ -45,7 +54,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.group import DEFAULT_TIMEOUT_S, DataGroup
+from repro_torch.dist import sharding
+from repro_torch.dist.group import DEFAULT_TIMEOUT_S, DataGroup, PipeGroup
 
 
 def pick_backend(device: torch.device, local_world: int) -> str:
@@ -57,22 +67,17 @@ def pick_backend(device: torch.device, local_world: int) -> str:
     return "gloo"
 
 
-def init_data_group(size: Optional[int] = None, *, rank: Optional[int] = None,
-                    device=None, store_dir=None,
-                    timeout_s: float = DEFAULT_TIMEOUT_S) -> DataGroup:
-    """This process's rank of the data group.
-
-    Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) the group comes
-    from the environment and ``size``, if given, must agree with it.
-    Otherwise ``size`` ranks meet in a ``file://`` store under
-    ``store_dir`` (:func:`spawn` passes its temporary directory), this one
-    as ``rank``.  ``device``: ``cuda`` (default; raises without a card) or
-    ``cpu``."""
+def _rank_env(size: Optional[int], rank: Optional[int], device, store_dir,
+              flag: str):
+    """(size, rank, local rank, init method, device) of this process:
+    torchrun's environment when it set one (``size``, if given, must
+    agree), else ``size`` ranks meeting in a ``file://`` store under
+    ``store_dir``.  Rank r takes ``cuda:{local_rank % device_count}``."""
     base = resolve_device(device)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         env_size = int(os.environ["WORLD_SIZE"])
         if size is not None and size != env_size:
-            raise ValueError(f"--data-parallel {size} disagrees with "
+            raise ValueError(f"{flag} {size} disagrees with "
                              f"torchrun's WORLD_SIZE={env_size}")
         size, rank = env_size, int(os.environ["RANK"])
         local_rank = int(os.environ.get("LOCAL_RANK", rank))
@@ -88,6 +93,22 @@ def init_data_group(size: Optional[int] = None, *, rank: Optional[int] = None,
         torch.cuda.set_device(dev)
     else:
         dev = base
+    return size, rank, local_rank, init_method, dev
+
+
+def init_data_group(size: Optional[int] = None, *, rank: Optional[int] = None,
+                    device=None, store_dir=None,
+                    timeout_s: float = DEFAULT_TIMEOUT_S) -> DataGroup:
+    """This process's rank of the data group.
+
+    Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) the group comes
+    from the environment and ``size``, if given, must agree with it.
+    Otherwise ``size`` ranks meet in a ``file://`` store under
+    ``store_dir`` (:func:`spawn` passes its temporary directory), this one
+    as ``rank``.  ``device``: ``cuda`` (default; raises without a card) or
+    ``cpu``."""
+    size, rank, local_rank, init_method, dev = _rank_env(
+        size, rank, device, store_dir, "--data-parallel")
     group = DataGroup(rank=rank, size=size, local_rank=local_rank,
                       device=dev, timeout_s=timeout_s)
     if size == 1:
@@ -110,6 +131,77 @@ def init_data_group(size: Optional[int] = None, *, rank: Optional[int] = None,
     return group
 
 
+def make_pipeline_mesh(num_stages: int, *, data_parallel: int = 1,
+                       model_parallel: int = 1) -> sharding.Mesh:
+    """The pipeline's axes, ``("stage", "data")`` of ``(num_stages,
+    data_parallel)``: microbatches stream along ``stage`` while each
+    microbatch's rows split over ``data``, and each stage's optimizer state
+    ZeRO-1-shards over ``data`` (``dist/sharding.pipeline_state_pspec``).
+    A ``model`` axis (``model_parallel > 1``) is not ported."""
+    if data_parallel < 1 or model_parallel < 1 or num_stages < 1:
+        raise ValueError(f"pipeline mesh of {num_stages} stages x "
+                         f"{data_parallel} x {model_parallel}: every factor "
+                         f"must be >= 1")
+    if model_parallel > 1:
+        raise NotImplementedError(
+            f"a pipeline mesh with a model axis (tensor parallelism "
+            f"{model_parallel}) is not ported (ROADMAP.md Queue 1 B item 11)")
+    return sharding.Mesh((num_stages, data_parallel), ("stage", "data"))
+
+
+def init_pipe_group(num_stages: int, data_parallel: int = 1, *,
+                    rank: Optional[int] = None, device=None, store_dir=None,
+                    timeout_s: float = DEFAULT_TIMEOUT_S) -> PipeGroup:
+    """This process's rank of a pipeline of ``num_stages`` stages x
+    ``data_parallel`` data ranks (``dist/group.PipeGroup``), from
+    torchrun's environment (whose ``WORLD_SIZE`` must be their product) or
+    from the store under ``store_dir``; the backend is ``gloo``.  Every
+    rank makes the subgroups of the two axes, in one order."""
+    n = num_stages * data_parallel
+    n, rank, local_rank, init_method, dev = _rank_env(
+        n, rank, device, store_dir, "--pipeline-stages x "
+        "--pipeline-data-parallel =")
+    s, d = divmod(rank, data_parallel)
+    group = PipeGroup(stage=s, num_stages=num_stages, rank=rank, size=n,
+                      local_rank=local_rank, device=dev, timeout_s=timeout_s,
+                      data=DataGroup(rank=d, size=data_parallel,
+                                     local_rank=local_rank, device=dev,
+                                     timeout_s=timeout_s,
+                                     root=s * data_parallel))
+    if n == 1:
+        return group
+    if init_method is None:
+        raise ValueError("a pipeline of several ranks outside torchrun "
+                         "needs the store directory its ranks meet in")
+    group.backend = group.data.backend = "gloo"
+    timeout = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                            world_size=n, timeout=timeout)
+    group.pg = dist.group.WORLD
+    # new_group is collective: every rank makes every subgroup, in order
+    for ss in range(num_stages):
+        pg = dist.new_group(ranks=[ss * data_parallel + dd
+                                   for dd in range(data_parallel)],
+                            backend="gloo", timeout=timeout) \
+            if data_parallel > 1 else None
+        if ss == s:
+            group.data.pg = pg
+    for dd in range(data_parallel):
+        pg = dist.new_group(ranks=[ss * data_parallel + dd
+                                   for ss in range(num_stages)],
+                            backend="gloo", timeout=timeout) \
+            if data_parallel > 1 else group.pg
+        if dd == d:
+            group.pipe_pg = pg
+    if rank == 0:
+        cards = f" over {torch.cuda.device_count()} card(s)" \
+            if dev.type == "cuda" else ""
+        print(f"[mesh] pipeline of {num_stages} stages x {data_parallel} "
+              f"data ranks{cards}: backend=gloo device={dev.type}",
+              flush=True)
+    return group
+
+
 def _resolve_target(target: str) -> Callable:
     """The function named ``"module:function"``."""
     module, _, name = target.partition(":")
@@ -119,13 +211,16 @@ def _resolve_target(target: str) -> Callable:
 
 
 def _rank_main(target: str, rank: int, n: int, device, tmp: str,
-               threads: Optional[int], args, kwargs) -> None:
-    """One spawned rank: join the group, run ``target(group, *args,
-    **kwargs)``, leave its result (or its traceback) in ``tmp``."""
+               threads: Optional[int], args, kwargs, grid=None) -> None:
+    """One spawned rank: join the group (a pipeline's when ``grid`` is
+    ``(S, D)``), run ``target(group, *args, **kwargs)``, leave its result
+    (or its traceback) in ``tmp``."""
     if threads:
         torch.set_num_threads(threads)
     try:
-        group = init_data_group(n, rank=rank, device=device, store_dir=tmp)
+        group = init_data_group(n, rank=rank, device=device, store_dir=tmp) \
+            if grid is None else init_pipe_group(
+                *grid, rank=rank, device=device, store_dir=tmp)
         try:
             out = _resolve_target(target)(group, *args, **kwargs)
         finally:
@@ -139,7 +234,7 @@ def _rank_main(target: str, rank: int, n: int, device, tmp: str,
 
 def spawn(target: str, n: int, *args, device=None,
           timeout_s: float = 1800.0, threads: Optional[int] = None,
-          **kwargs) -> List[Any]:
+          grid=None, **kwargs) -> List[Any]:
     """Run ``target(group, *args, **kwargs)`` on ``n`` ranks of a data
     group on this machine, each a fresh process (start method ``spawn``:
     never a fork of a process that may hold a CUDA context), and return
@@ -150,14 +245,18 @@ def spawn(target: str, n: int, *args, device=None,
     traceback; ranks still running after ``timeout_s`` are ended and
     ``TimeoutError`` is raised.  ``threads``: each rank's intra-op threads
     (default: the CPU's cores shared out on the CPU, torch's default on
-    the card)."""
+    the card).  ``grid=(S, D)`` makes the ranks a pipeline's
+    (``init_pipe_group``; ``n`` must be ``S * D``) instead of a data
+    group."""
+    if grid is not None and grid[0] * grid[1] != n:
+        raise ValueError(f"a pipeline grid {grid} is not {n} ranks")
     if threads is None and resolve_device(device).type == "cpu":
         threads = max(1, (os.cpu_count() or 1) // n)
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="data_group_") as tmp:
         procs = [ctx.Process(target=_rank_main,
                              args=(target, r, n, device, tmp, threads, args,
-                                   kwargs))
+                                   kwargs, grid))
                  for r in range(n)]
         for p in procs:
             p.start()

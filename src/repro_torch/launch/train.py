@@ -20,6 +20,9 @@ checkpointing and restart (the one-device surface of
       --data-parallel 4 --device cpu   # 4 ranks, a depth each, over gloo
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --spb-mode temporal --data-parallel 4   # the group from torchrun
+  python -m repro_torch.launch.train --parallelism pipeline \\
+      --pipeline-stages 2 --microbatches 4 --spb-mode temporal \\
+      --device cpu          # 2 stage ranks, 1F1B, SPB-truncated stages
 
 Prints the JAX driver's ``[train] step=... depth=... loss=...`` lines.  The
 engine owns the state and the step table; this driver owns the loop: data,
@@ -54,9 +57,21 @@ and keeps its slice.  ``--fail-at`` is raised by every rank at the same
 step, and the supervision loop restarts them together; any other failure
 of a rank is raised, which ends the group (``mesh.spawn`` ends the other
 ranks, as torchrun does), and a rerun with ``--resume`` continues.  The
-step table (``--aot-cache``) is refused under a group of several ranks,
-and the pipeline and the other mesh flags are not ported (ROADMAP.md
-Queue 1 B item 11).
+step table (``--aot-cache``) is refused under a group of several ranks.
+
+``--parallelism pipeline`` runs the stack as a pipeline of
+``--pipeline-stages`` S stage ranks times ``--pipeline-data-parallel`` D
+data ranks (``launch/mesh.init_pipe_group``; spawned on this machine, or
+torchrun's S x D ranks), interpreting the ``--pipeline-schedule`` table
+(``1f1b`` or ``gpipe``) over ``--microbatches`` M.  SPB depths snap to
+stage boundaries, and the stages below the depth run forward only.  Every
+rank draws the seeded global batch and takes its data index's rows of
+each microbatch (``--batch`` must divide by M x D); only rank 0 logs.
+Checkpoints, ``--resume`` and ``--fail-at`` work as under a data group
+(the checkpoint is the one-process format).  ``temporal-mb`` and
+``spatial`` raise under a pipeline, as in the reference, and
+``--tensor-parallel`` above 1, ``--sequence-parallel`` and ``--zero2``
+raise: they are not ported (ROADMAP.md Queue 1 B item 11).
 """
 from __future__ import annotations
 
@@ -70,7 +85,7 @@ from repro_torch.config import SPBConfig, TrainConfig
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.device import device_fault
-from repro_torch.dist.group import DataGroup
+from repro_torch.dist import steps as steps_lib
 from repro_torch.engine import stepcache
 from repro_torch.engine.engine import SPBEngine
 from repro_torch.engine.policies import make_policy
@@ -80,11 +95,17 @@ from repro_torch.models import lm
 
 def build_engine(cfg, tcfg, spb_cfg, *, depth_policy: str = "cycle",
                  time_budget: float = 0.75, device=None,
-                 remat: str = "none", group=None) -> SPBEngine:
+                 remat: str = "none", group=None,
+                 parallelism: str = "spmd",
+                 pipeline_schedule: str = "1f1b") -> SPBEngine:
     """The one construction path every entry point shares."""
+    if parallelism == "pipeline":   # the policy snaps to stage boundaries
+        spb_cfg = dataclasses.replace(spb_cfg,
+                                      pipeline_stages=group.num_stages)
     return SPBEngine(cfg, tcfg, spb_cfg,
                      device=None if group is not None else device,
-                     remat=remat, group=group,
+                     remat=remat, group=group, parallelism=parallelism,
+                     pipeline_schedule=pipeline_schedule,
                      policy=make_policy(depth_policy, cfg, spb_cfg,
                                         time_budget_frac=time_budget,
                                         remat=remat))
@@ -111,6 +132,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="ranks of the data group (default: torchrun's "
                          "WORLD_SIZE, else 1); spawned on this machine "
                          "unless torchrun started them")
+    ap.add_argument("--parallelism", default="spmd",
+                    choices=["spmd", "pipeline"],
+                    help="pipeline: run the layer stack as a schedule-"
+                         "driven pipeline, one stage a rank")
+    ap.add_argument("--pipeline-stages", type=int, default=0,
+                    help="pipeline stage count (default: torchrun's "
+                         "WORLD_SIZE over --pipeline-data-parallel, else 2)")
+    ap.add_argument("--pipeline-schedule", default="1f1b",
+                    choices=["1f1b", "gpipe"])
+    ap.add_argument("--pipeline-data-parallel", type=int, default=1,
+                    help="ranks on the pipeline's data axis: each "
+                         "microbatch's rows split over them, and each "
+                         "stage's optimizer state ZeRO-1-shards over them")
+    ap.add_argument("--tensor-parallel", type=int, default=1,
+                    help="not ported (ROADMAP.md Queue 1 B item 11)")
+    ap.add_argument("--sequence-parallel", action="store_true",
+                    help="not ported (ROADMAP.md Queue 1 B item 11)")
+    ap.add_argument("--zero2", action="store_true",
+                    help="not ported (ROADMAP.md Queue 1 B item 11)")
     ap.add_argument("--depth-policy", default="cycle",
                     choices=["cycle", "costmodel", "hook"],
                     help="who picks the per-step backprop depth")
@@ -168,10 +208,48 @@ def _check_group_args(args, n: int) -> None:
                              else ""))
 
 
+def _check_pipeline_args(args, under_torchrun: bool):
+    """The pipeline's grid ``(S, D)``, raised on what a pipeline refuses
+    before any rank starts."""
+    steps_lib._refuse_pipeline_knobs(args.tensor_parallel,
+                                     args.sequence_parallel, args.zero2)
+    d = args.pipeline_data_parallel
+    s = args.pipeline_stages or (
+        int(os.environ["WORLD_SIZE"]) // d if under_torchrun else 2)
+    if args.spb_mode in ("spatial", "temporal-mb"):
+        raise ValueError(f"SPB mode {args.spb_mode!r} is not supported "
+                         f"under pipeline parallelism (use 'temporal' or "
+                         f"'off')")
+    if args.data_parallel not in (None, 1):
+        raise ValueError("--data-parallel is the spmd group's; a pipeline "
+                         "takes --pipeline-data-parallel")
+    if args.aot_cache:
+        raise NotImplementedError(
+            "--aot-cache under a pipeline: its messages go through the "
+            "host, which a CUDA graph cannot capture")
+    m = max(1, args.microbatches)
+    if args.batch % (m * d):
+        raise ValueError(f"--batch {args.batch} does not split into "
+                         f"{m} microbatches x {d} data ranks")
+    return s, d
+
+
 def train(argv=None):
     """Parse ``argv`` and train; returns rank 0's per-step xent."""
     args = parse_args(argv)
     under_torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if args.parallelism == "pipeline":
+        s, d = _check_pipeline_args(args, under_torchrun)
+        if s * d > 1 and not under_torchrun:
+            return mesh.spawn("repro_torch.launch.train:rank_main", s * d,
+                              args, device=args.device, grid=(s, d))[0]
+        group = mesh.init_pipe_group(s, d, device=args.device)
+        try:
+            return rank_main(group, args)
+        finally:
+            group.close()
+    steps_lib._refuse_pipeline_knobs(args.tensor_parallel,
+                                     args.sequence_parallel, args.zero2)
     n = int(os.environ["WORLD_SIZE"]) if under_torchrun and \
         args.data_parallel is None else (args.data_parallel or 1)
     _check_group_args(args, n)
@@ -185,7 +263,7 @@ def train(argv=None):
         group.close()
 
 
-def rank_main(group: DataGroup, args: argparse.Namespace) -> list:
+def rank_main(group, args: argparse.Namespace) -> list:
     """One rank's training run (the whole run on a group of one); returns
     its per-step xent."""
     cc_before = None
@@ -206,7 +284,9 @@ def rank_main(group: DataGroup, args: argparse.Namespace) -> list:
     # is no step failure
     engine = build_engine(cfg, tcfg, spb_cfg, depth_policy=args.depth_policy,
                           time_budget=args.time_budget, device=args.device,
-                          remat=args.remat, group=group)
+                          remat=args.remat, group=group,
+                          parallelism=args.parallelism,
+                          pipeline_schedule=args.pipeline_schedule)
     mgr = (CheckpointManager(tcfg.checkpoint_dir, keep=3)
            if tcfg.checkpoint_dir else None)
 
@@ -278,6 +358,8 @@ def _run(engine: SPBEngine, args, mgr, history):
             print(f"[train] AOT step table compiled + exported to {path}",
                   flush=True)
     chunks = args.spb_k if args.spb_mode == "temporal-mb" else 1
+    if engine.pipeline_stages:      # a data index's rows of each microbatch
+        chunks = max(1, tcfg.microbatches)
     t0 = time.time()
     for step in range(start_step, tcfg.num_steps):
         if step == args.fail_at:

@@ -93,7 +93,8 @@ def global_norm(tree) -> torch.Tensor:
 def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
                   cfg: Optional[ModelConfig] = None,
                   spb_cfg: Optional[SPBConfig] = None, *,
-                  sched: Optional[torch.Tensor] = None, shards=None
+                  sched: Optional[torch.Tensor] = None, shards=None,
+                  gnorm: Optional[torch.Tensor] = None, rows=None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One optimizer step, in place.  ``grads`` matches ``params`` with
     ``None`` for a parameter that got no gradient.  Returns (params,
@@ -103,8 +104,14 @@ def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
     ``sched``: a device tensor holding :func:`schedule_values` of ``step``
     (a CUDA graph's static input, refilled before each replay), read in
     place of the host scalars a capture would bake in; the card gives the
-    same bits either way."""
-    gnorm = global_norm(grads)
+    same bits either way.
+
+    A pipeline stage's rank holds part of the model (``rows``: the first
+    unit and count of its rows of each group, ``stage.StageMap.rows``):
+    its ``gnorm`` is the norm over every stage, and the SPB scales of its
+    rows are those rows' (``core/spb.scale_params_tree``)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     updated = params
     if shards is not None:          # views: the update writes through them
         grads = tree_map(local, grads, shards)
@@ -119,7 +126,7 @@ def apply_updates(params, grads, opt_state, step: int, tcfg: TrainConfig,
 
     # SPB weighted-average / per-block LR scaling (paper §2)
     if spb_cfg is not None and cfg is not None and spb_cfg.mode != "off":
-        grads = spb_lib.scale_params_tree(grads, cfg, spb_cfg, shards)
+        grads = spb_lib.scale_params_tree(grads, cfg, spb_cfg, shards, rows)
 
     if sched is None:
         lr = lr_at(tcfg, step)

@@ -41,6 +41,11 @@ from repro_torch.jigsaw import costmodel
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 ALL_ARCHS = sorted(ARCHS)
 
 

@@ -33,6 +33,11 @@ from repro_torch.optim import optimizers
 from repro_torch.serve import ServeEngine, default_geometry
 from repro_torch.tree import tree_leaves
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PROMPT = [3, 1, 4, 1, 5, 9, 2, 6]
 

@@ -29,6 +29,11 @@ from repro_torch import bridge
 from repro_torch.configs import reduced_config as t_reduced
 from repro_torch.models import lm as tlm
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 # a snapped temporal SPB depth of each reduced config (k = 4)
 DEPTH = {"yi-6b": 2, "mamba2-2.7b": 2, "recurrentgemma-2b": 3,
          "qwen3-moe-235b-a22b": 2}

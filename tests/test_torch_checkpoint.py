@@ -33,6 +33,11 @@ from repro_torch.kernels import _build
 from repro_torch.launch import train as train_mod
 from repro_torch.tree import tree_leaves
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 
 def _state(arch="yi-6b", dtype=None, seed=0):
     cfg = reduced_config(arch)

@@ -14,9 +14,15 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro.launch import cluster as j_cluster
 from repro_torch.launch import cluster as cluster_mod
+
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FLAGS = ["--jobs", "2", "--machines", "2", "--iters", "2", "--workers", "2",

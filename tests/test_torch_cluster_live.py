@@ -47,6 +47,11 @@ from repro_torch.kernels import _build
 from repro_torch.optim import optimizers
 from repro_torch.tree import tree_leaves
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 EPS = 1e-9
 MACHINES, GAMMA = 2, 0.05
 # scripted step seconds: a deeper worker's step is not always the slower

@@ -7,6 +7,7 @@ the trace generator and the ``simulate`` shim equal to the reference's."""
 import dataclasses
 
 import pytest
+import torch
 
 from repro.cluster import (ClusterRuntime as JRuntime,
                            DegradePolicy as JDegrade, FaultPlan as JPlan,
@@ -22,6 +23,11 @@ from repro_torch.jigsaw.costmodel import v100_profiles
 from repro_torch.jigsaw.schedulers import ALL_SCHEDULERS
 from repro_torch.jigsaw.simulator import simulate
 from repro_torch.jigsaw.trace import generate_trace
+
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
 
 MACHINES, GAMMA, HORIZON = 8, 2.0, 5.0
 # short jobs arriving every second on average: the queue stays full, so

@@ -28,6 +28,11 @@ from repro_torch.data.pipeline import Pipeline
 from repro_torch.dist import steps as steps_lib
 from repro_torch.engine.engine import SPBEngine
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 
 def _normal(shape, seed=0):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)

@@ -19,6 +19,11 @@ from repro_torch.configs import get_config as t_get, reduced_config as t_reduced
 from repro_torch.core import spb as tspb
 from repro_torch.models import lm as tlm
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 CFGS = [("full", None), ("full", 8), ("reduced", None), ("reduced", 1),
         ("reduced", 3), ("reduced", 8)]
 

@@ -54,6 +54,11 @@ from repro_torch.launch import dryrun
 from repro_torch.models import lm
 from repro_torch.tree import tree_map
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 aten = torch.ops.aten
 PRODUCTS = (aten.mm, aten.bmm, aten.addmm, aten.baddbmm)
 

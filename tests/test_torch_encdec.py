@@ -56,6 +56,11 @@ from repro_torch.launch import train as train_mod
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as tlm
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 ARCH = "seamless-m4t-medium"
 TOL = 1e-5
 DEPTHS = sorted(set(jspb.snapped_depths(j_reduced(ARCH),

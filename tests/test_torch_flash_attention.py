@@ -21,6 +21,11 @@ from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 SHAPES = pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,window", [
     (2, 128, 128, 4, 2, 32, True, 0),      # GQA causal

@@ -52,6 +52,11 @@ from repro_torch.models import layers, ssm
 from repro_torch.optim import optimizers
 from repro_torch.tree import tree_leaves
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 J = 2
 ARCHS = ["yi-6b", "mamba2-2.7b", "recurrentgemma-2b"]
 VMAP_TOL = dict(rtol=1e-6, atol=1e-6)

@@ -22,6 +22,11 @@ from repro_torch.kernels import rglru_bwd
 from repro_torch.kernels import ssd
 from repro_torch.kernels import ssd_bwd
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-3, 2e-2)}
 

@@ -19,6 +19,11 @@ from repro_torch.configs import reduced_config as t_reduced
 from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 ATTN_TOL = dict(rtol=2e-4, atol=2e-4)
 

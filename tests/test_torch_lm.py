@@ -27,6 +27,11 @@ from repro_torch import bridge
 from repro_torch.configs import reduced_config as t_reduced
 from repro_torch.models import lm as tlm
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 

@@ -25,6 +25,11 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models import layers as tL
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 MLA_ARCHS = ("deepseek-v2-lite-16b", "minicpm3-4b")
 TOL = 1e-5
 

@@ -24,6 +24,11 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 ARCHS = ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b")
 

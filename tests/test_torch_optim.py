@@ -26,6 +26,11 @@ from repro_torch.engine.engine import SPBEngine
 from repro_torch.optim import optimizers as topt
 from repro_torch.tree import tree_leaves, tree_map
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-6, atol=1e-9)
 
 

@@ -24,6 +24,11 @@ from repro_torch.engine.policies import (CostModelPolicy, CyclePolicy,
 from repro_torch.analysis import roofline
 from repro_torch.jigsaw import costmodel
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 ARCH = "yi-6b"
 TOY = dict(name="toy", fwd_s=1.0, bwd_s=3.0, mem_fwd_gb=1, mem_peak_gb=2,
            model_size_gb=1, grad_gb=1)

@@ -42,6 +42,11 @@ from repro_torch.launch import train as train_launch
 from repro_torch.models import lm
 from repro_torch.tree import tree_leaves, tree_map
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 REF_TOL = 1e-5          # the reference's f32 gradient tolerance
 SWEEP_TOL = 1e-6
 B, S = 2, 32
@@ -109,15 +114,15 @@ def _reference(jcfg, params, batch, depth, remat):
     return float(loss), [np.asarray(x) for x in jax.tree.leaves(g)]
 
 
-def _exempt(jcfg, depth):
-    """The leaf index of seamless's ``enc.final_norm`` where the boundary
-    lies in the decoder (the reference backpropagates through frozen
-    decoder layers into it), else None."""
+def _exempt(jcfg, params, depth):
+    """The leaf index of seamless's ``enc.final_norm`` in ``params`` (the
+    module's shared reference params) where the boundary lies in the
+    decoder (the reference backpropagates through frozen decoder layers
+    into it), else None."""
     if not jcfg.enc_layers or depth is None or depth >= jcfg.num_layers:
         return None
     names = [jax.tree_util.keystr(k) for k, _ in
-             jax.tree_util.tree_flatten_with_path(
-                 jlm.init_lm(jax.random.key(0), jcfg))[0]]
+             jax.tree_util.tree_flatten_with_path(params)[0]]
     (i,) = [i for i, n in enumerate(names)
             if n == "['enc']['final_norm']"]
     return i
@@ -160,7 +165,7 @@ def test_recompute_matches_the_reference_under_its_remat(arch_setup, arch,
     want_loss, want = _reference(jcfg, params, batch, depth, remat)
     assert abs(float(loss) - want_loss) <= REF_TOL * max(abs(want_loss), 1)
     assert len(want) == len(grads)
-    skip = _exempt(jcfg, depth)
+    skip = _exempt(jcfg, params, depth)
     for i, (g, w) in enumerate(zip(grads, want)):
         if i != skip:
             assert _rel_err(g.numpy(), w) <= REF_TOL, i

@@ -23,6 +23,11 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rglru
 from repro_torch.kernels import rglru_bwd
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 # the package's __init__ binds ``rglru`` to the op, so reach the modules
 jrglru = importlib.import_module("repro.kernels.rglru")
 jrglru_bwd = importlib.import_module("repro.kernels.rglru_bwd")

@@ -26,6 +26,11 @@ from repro_torch.serve import (BlockAllocator, PageGeometry, Request,
                                cache_bytes, default_geometry, engine,
                                supports)
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 PROMPT_A = [3, 1, 4, 1, 5, 9, 2, 6]
 PROMPT_B = [2, 7, 1, 8, 2, 8]
 SERVE_ARCHS = ["yi-6b", "gemma3-4b", "deepseek-v2-lite-16b"]

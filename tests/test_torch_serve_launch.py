@@ -12,6 +12,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import reduced_config as j_reduced
 from repro.data.pipeline import MarkovLM as JMarkovLM
@@ -20,6 +21,11 @@ from repro_torch.configs import reduced_config
 from repro_torch.launch import serve as serve_mod
 from repro_torch.serve import ServeEngine, default_geometry
 from repro_torch.serve import kvcache
+
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 

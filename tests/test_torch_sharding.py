@@ -37,6 +37,11 @@ from repro_torch.dist.group import DataGroup
 from repro_torch.dist.sharding import Mesh, P
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 MESHES = {       # name: (sizes, axis names)
     "data2": ((2, 1), ("data", "model")),
     "data4": ((4, 1), ("data", "model")),

@@ -28,6 +28,11 @@ from repro_torch.launch import mesh
 from repro_torch.models import lm
 from repro_torch.tree import tree_leaves, tree_map
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 LOSS_TOL = 1e-3         # phase 4's card against CPU

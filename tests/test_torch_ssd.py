@@ -23,6 +23,11 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd
 from repro_torch.kernels import ssd_bwd
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 F32_TOL, BF16_TOL = 1e-5, 2e-2
 # At the main path's chunk of 256 the port (csum and ddA's reverse sum
 # accumulated in float64, rounded once) and the Pallas kernels (float32

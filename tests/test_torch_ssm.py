@@ -21,6 +21,11 @@ from repro_torch import bridge
 from repro_torch.configs import reduced_config as t_reduced
 from repro_torch.models import ssm as tssm
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 F32_TOL, BF16_TOL = 1e-5, 2e-2
 
 

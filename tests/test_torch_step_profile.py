@@ -12,6 +12,11 @@ from repro_torch.analysis.step_profile import kernel_class, range_device_ms
 from repro_torch.configs import reduced_config
 from repro_torch.models import layers, lm, moe, ssm
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("name,cls", [
     ("void flash::dq_wgmma_kernel<128>(__nv_bfloat16 const*, "

@@ -19,6 +19,11 @@ from repro_torch.configs import make_batch, reduced_config
 from repro_torch.engine import FusedEngine, SPBEngine, aot, stepcache
 from repro_torch.kernels import _build
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 
 def _engine(seed, *, k=2, shared=True, arch="yi-6b", device="cpu"):
     return SPBEngine(reduced_config(arch),

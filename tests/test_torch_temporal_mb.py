@@ -43,6 +43,11 @@ from repro_torch.dist import steps as steps_lib
 from repro_torch.engine.engine import SPBEngine
 from repro_torch.tree import tree_leaves
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 STEPS, BATCH, SEQ = 3, 4, 64
 ARCHS = ["yi-6b", "mamba2-2.7b", "recurrentgemma-2b"]
 TOL = {"yi-6b": 1e-6, "mamba2-2.7b": 1e-4, "recurrentgemma-2b": 1e-4}

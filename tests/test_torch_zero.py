@@ -51,6 +51,11 @@ from repro_torch.engine.engine import SPBEngine
 from repro_torch.launch import mesh, train
 from repro_torch.tree import tree_leaves, tree_map
 
+# one intra-op thread in each test process: pytest-xdist runs several
+# workers on the machine's CPUs, and torch's default of a thread a CPU
+# in each of them oversubscribes the CPUs many times over
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 B, S, STEPS = 4, 32, 2
 JOIN_S = 150.0
