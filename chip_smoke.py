@@ -286,6 +286,9 @@ MC3_MAIN = dict(MAIN, H=40, K=40, D=128, mla=(96, 64))
 # 8 kv heads (G 6) over 1024 patch and 1024 text positions
 SM4T_MAIN = dict(MAIN, H=16, K=16, D=64)
 IV2_MAIN = dict(MAIN, H=48, K=8)
+# yi-6b's attention on a tensor-parallel stage of 2 model ranks (phase
+# 21): the local heads, 16 q over 2 kv (G 8), one row of 2048
+TP_MAIN = dict(MAIN, B=1, H=16, K=2)
 CASES = {
     "main": MAIN,
     "window": dict(B=1, Sq=1024, Sk=1024, H=8, K=2, D=64, causal=True,
@@ -301,11 +304,13 @@ CASES = {
     "mc3_mla": MC3_MAIN,
     "sm4t_main": SM4T_MAIN,
     "iv2_main": IV2_MAIN,
+    "tp_main": TP_MAIN,
 }
 TIMED = {"main": "yi-6b", "rg_main": "recurrentgemma-2b",   # case: arch
          "g3_main": "gemma3-4b", "q3_main": "qwen3-moe-235b-a22b",
          "ds2_mla": "deepseek-v2-lite-16b", "mc3_mla": "minicpm3-4b",
-         "sm4t_main": "seamless-m4t-medium", "iv2_main": "internvl2-26b"}
+         "sm4t_main": "seamless-m4t-medium", "iv2_main": "internvl2-26b",
+         "tp_main": "yi-6b/tp2"}
 # SSD cases: (B, S, H, P, N, chunk, dtype of x/B/C, B/C broadcast over
 # heads); dA is f32 -U(0.05, 2.0) as in tests/test_kernel_grads.py.  Every
 # SSD and RG-LRU output is f32, held at that suite's measure:
@@ -3669,16 +3674,17 @@ def _pipe_engine(cfg, group, steps: int):
                      parallelism="pipeline", shared_cache=False)
 
 
-def _pipe_steps(eng, group, batches) -> list:
-    """Each step of a pipeline rank: ms (host clock, synchronized), host
-    ms inside the point-to-point messages and inside the collectives, the
-    items' busy ms, bytes sent by kind, depth, bwd_stages, metrics and
+def _pipe_steps(eng, group, batches, start: int = 0) -> list:
+    """Each step of a pipeline rank (steps ``start``, ``start + 1``, ...):
+    ms (host clock, synchronized), host ms inside the point-to-point
+    messages and inside the stage and data axes' collectives, the items'
+    busy ms, bytes sent by kind, depth, bwd_stages, metrics and
     launches."""
     import torch
     from repro_torch.dist.group import TAG_ACT, TAG_COT, TAG_TENSOR
     kinds = {TAG_ACT: "act", TAG_COT: "cot", TAG_TENSOR: "table"}
     out = []
-    for s, batch in enumerate(batches):
+    for s, batch in enumerate(batches, start):
         before = launches_now()
         p0, sent0 = group.p2p_s, dict(group.p2p_by_tag)
         r0, b0 = group.reduce_s + group.data.reduce_s, group.busy_s
@@ -3910,6 +3916,349 @@ def phase_pipeline(smi: str) -> dict:
     return {"launches": launches, "figures": figures}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: tensor parallelism inside the pipeline's stages
+# ---------------------------------------------------------------------------
+
+TP_T = 2                 # the model axis
+TP_FULL_LAYERS = 8       # part (a): yi-6b's 8-layer cut on (2, 1, 2)
+TP_FULL_STEPS = 4        # two cycles: bwd_stages 2, 1, 2, 1
+TP_ZERO_LAYERS = 4       # part (b): yi-6b's 4-layer cut on (2, 2, 2)
+TP_ZERO_STEPS = 2
+TP_REDUCED_STEPS = 4
+# the reckoning of a rank's peak: bf16 params and grads (2 + 2 B a
+# parameter), the f32 master and AdamW's two moments (12 B, over the data
+# axis under ZeRO-1), and the optimizer's two f32 passes over the
+# gradient (the clipped and the SPB-scaled copies, 8 B)
+TP_BYTES_A_PARAM = lambda d: 2 + 2 + 12 / d + 8     # noqa: E731
+
+
+def tp_config(what: str):
+    """Phase 21's configs: ``"full"`` (yi-6b's 8-layer cut), ``"zero"``
+    (its 4-layer cut), else reduced yi-6b on the kernels."""
+    from repro_torch.configs import full_width_config, reduced_config
+    layers = {"full": TP_FULL_LAYERS, "zero": TP_ZERO_LAYERS}.get(what)
+    if layers:
+        return dataclasses.replace(full_width_config("yi-6b"),
+                                   num_layers=layers)
+    return dataclasses.replace(reduced_config("yi-6b"), use_pallas=True)
+
+
+def _tp_engine(cfg, group, steps: int, **kw):
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.engine.engine import SPBEngine
+    return SPBEngine(cfg, TrainConfig(num_steps=steps, microbatches=PIPE_M),
+                     SPBConfig(mode="temporal", k=4), group=group,
+                     parallelism="pipeline", tensor_parallel=TP_T,
+                     shared_cache=False, **kw)
+
+
+def _tp_steps(eng, group, batches) -> list:
+    """:func:`_pipe_steps`, and each step's host ms inside the model
+    group's collectives and its calls and bytes by kind."""
+    model = group.model
+    out = []
+    for s, batch in enumerate(batches):
+        m0, c0, b0 = model.reduce_s, dict(model.calls), dict(model.bytes)
+        st = _pipe_steps(eng, group, [batch], start=s)[0]
+        st["model_ms"] = (model.reduce_s - m0) * 1e3
+        st["model_calls"] = {k: [model.calls[k] - c0.get(k, 0),
+                                 model.bytes[k] - b0.get(k, 0)]
+                             for k in model.calls
+                             if model.calls[k] - c0.get(k, 0)}
+        out.append(st)
+    return out
+
+
+def _tp_reduced(group, sp: bool, zero2: bool, rows: int) -> dict:
+    """Reduced yi-6b on this grid from CPU-drawn weights, one cycle twice."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.models import lm
+    cfg = tp_config("reduced")
+    eng = _tp_engine(cfg, group, TP_REDUCED_STEPS, sequence_parallel=sp,
+                     zero2=zero2)
+    eng.attach_state(steps_lib.state_from_params(
+        lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu"),
+        TrainConfig()))
+    pipe = Pipeline(cfg, rows, 64, seed=0)
+    return {"steps": _tp_steps(eng, group, [pipe.get_batch(s) for s in
+                                            range(TP_REDUCED_STEPS)])}
+
+
+def tp_rank(group, part: str) -> dict:
+    """Phase 21, one rank of the grid.  Part ``"a"`` on (2, 1, 2): the
+    8-layer cut from ``init_state(0)`` on the card's generator, sequence
+    parallelism off then on, then reduced yi-6b both ways.  Part ``"b"``
+    on (2, 2, 2), sequence parallelism on: the 4-layer cut under ZeRO-2
+    then ZeRO-1, this rank's updated parameters compared (bit for bit, or
+    the largest difference), then reduced yi-6b under ZeRO-2."""
+    import gc
+    import torch
+    from repro_torch.configs import make_batch
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    D = group.data.size
+    out = {}
+    if part == "a":
+        cfg = tp_config("full")
+        runs = [(f"full/sp{int(sp)}", dict(sequence_parallel=sp))
+                for sp in (False, True)]
+        steps = TP_FULL_STEPS
+    else:
+        cfg = tp_config("zero")
+        runs = [(f"zero/zero{2 if z2 else 1}",
+                 dict(sequence_parallel=True, zero2=z2))
+                for z2 in (True, False)]
+        steps = TP_ZERO_STEPS
+    batches = [make_batch(cfg, PIPE_M * D, 2048, seed=s, device="cuda")
+               for s in range(steps)]
+    kept = None
+    for label, kw in runs:
+        eng = _tp_engine(cfg, group, steps, **kw)
+        eng.init_state(0)
+        n_params = sum(t.numel() for t in tree_leaves(eng.state["params"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = {"steps": _tp_steps(eng, group, batches),
+               "max_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "params": n_params}
+        if part == "b":     # the f32 masters (this rank's ZeRO-1 slices)
+            # and the bf16 parameters the step wrote
+            mine = [[t.detach().cpu() for t in tree_leaves(tree)]
+                    for tree in (eng.state["opt"]["master"],
+                                 eng.state["params"])]
+            if kept is None:
+                kept = mine
+            else:
+                (m2, p2), (m1, p1) = kept, mine
+                run["vs_zero2_equal"] = all(torch.equal(a, b)
+                                            for a, b in zip(m2 + p2, m1 + p1))
+                run["vs_zero2_max_abs"] = max(
+                    float((a - b).abs().max()) for a, b in zip(m2, m1))
+                run["vs_zero2_params_differing"] = sum(
+                    int((a != b).sum()) for a, b in zip(p2, p1))
+        out[label] = run
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batches, kept
+    if part == "a":
+        for sp in (False, True):
+            out[f"reduced/sp{int(sp)}"] = _tp_reduced(group, sp, False,
+                                                      PIPE_M)
+    else:
+        out["reduced/zero2"] = _tp_reduced(group, True, True, PIPE_M * D)
+    return out
+
+
+def _tp_calls_want(cfg, stage: int, b: int, sp: bool, seq: int) -> dict:
+    """``roofline.pipeline_tp_calls`` of one step on ``stage``'s rank at
+    bwd_stages ``b``: one row a microbatch on each data rank."""
+    from repro_torch.analysis import roofline
+    from repro_torch.config import stage_layer_counts
+    want = roofline.pipeline_tp_calls(
+        cfg, stage_layer_counts(cfg, PIPE_STAGES)[stage], PIPE_M, 1, seq,
+        model_parallel=TP_T,
+        live=stage >= PIPE_STAGES - b,
+        need_dx=(b == PIPE_STAGES) if stage == 0
+        else stage - 1 >= PIPE_STAGES - b, sequence_parallel=sp)
+    return {k: list(v) for k, v in want.items()}
+
+
+def phase_tensor_parallel(smi: str) -> dict:
+    """Phase 21: tensor parallelism inside the pipeline's stages, the
+    ranks sharing the card over gloo (``launch/mesh.spawn(grid=(S, D,
+    T))``).  (a) yi-6b's 8-layer cut at published widths on (stage 2,
+    data 1, model 2): 1F1B over 4 microbatches of one row of 2048, the k 4
+    cycle (bwd_stages 2 and 1), sequence parallelism off and on; (b) its
+    4-layer cut on (2, 2, 2) with sequence parallelism under ZeRO-2 and
+    ZeRO-1.  Every rank's launches a step :func:`expected_stage_launches`
+    (a launch count does not depend on the heads: the kernels run at the
+    local H 16 over K 2), its point-to-point bytes by kind and its
+    model-group calls and bytes ``analysis/roofline.pipeline_tp_calls``,
+    finite losses, the first full-width xent within :data:`PIPE_TOL` of
+    one process's forward on the card, each rank's peak beside the
+    reckoning (:data:`TP_BYTES_A_PARAM`), ZeRO-2's updated f32 parameters
+    (the masters) within 1e-6 of ZeRO-1's, bit for bit or not (its gradient
+    norm sums the data shards' squares in another order), and reduced yi-6b on each grid within
+    :data:`PIPE_TOL` of one CPU process, every step.  Returns each run's
+    launches a rank, and the figures."""
+    import torch
+    from repro_torch.configs import make_batch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist.pipeline import stage as pp_stage
+    from repro_torch.launch import mesh
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    failed, launches, figures = [], {}, {}
+    t0 = time.perf_counter()
+    grids = {"a": (PIPE_STAGES, 1, TP_T), "b": (PIPE_STAGES, 2, TP_T)}
+    cfgs = {"a": tp_config("full"), "b": tp_config("zero")}
+    # the reckonings, before the runs: what each stage's rank holds
+    reckon = {}
+    for part, (S, D, T) in grids.items():
+        cfg = cfgs[part]
+        smap = pp_stage.build_stage_map(cfg, S)
+        table = cfg.padded_vocab * cfg.d_model
+        for stage in range(S):
+            n = sum(t.numel() for t in tree_leaves(pp_stage.local_tree(
+                lm.param_shapes(cfg), cfg, smap, stage, model=(0, T))))
+            gb = (n * TP_BYTES_A_PARAM(D)
+                  + (2 * table if stage == S - 1 else 0)) / 1e9
+            reckon[(part, stage)] = (n, gb)
+            log(f"[tensor-parallel] reckoning {part} grid={grids[part]} "
+                f"stage={stage}: {n} parameters held, {gb:.3f} GB of state "
+                f"(with the table's copy on the last stage) card={smi}")
+    with torch.no_grad():
+        cfg = cfgs["a"]
+        params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+        _, mm = lm.loss_fn(params, make_batch(cfg, PIPE_M, 2048, seed=0,
+                                              device="cuda"), cfg)
+        one_xent = float(mm["xent"])
+    del params
+    torch.cuda.empty_cache()
+    act = 1 * 2048 * cfgs["a"].d_model * 2          # one row of 2048, bf16
+    table = cfgs["a"].padded_vocab * cfgs["a"].d_model * 2
+    for part, grid in grids.items():
+        S, D, T = grid
+        n = S * D * T
+        tp = time.perf_counter()
+        ranks = mesh.spawn("chip_smoke:tp_rank", n, part, device="cuda",
+                           grid=grid, timeout_s=DP_JOIN_S)
+        log(f"[tensor-parallel] part {part} grid={grid}: "
+            f"{time.perf_counter() - tp:.1f}s")
+        cfg = cfgs[part]
+        for r, out in enumerate(ranks):
+            stage, d, t = r // (D * T), r // T % D, r % T
+            for label, run in out.items():
+                if label.startswith("reduced"):
+                    continue
+                key = f"{label}/stage{stage}/d{d}/t{t}"
+                sp = "sp1" in label or part == "b"
+                launches[key] = {k: sum(st["launches"][k]
+                                        for st in run["steps"])
+                                 for k in KERNELS}
+                for i, st in enumerate(run["steps"]):
+                    b = st["bwd_stages"]
+                    want = expected_stage_launches(cfg, stage, b)
+                    if st["launches"] != want:
+                        failed.append(f"{key} step {i}: launches "
+                                      f"{st['launches']} != {want}")
+                    if not math.isfinite(st["loss"]):
+                        failed.append(f"{key} step {i}: loss not finite")
+                    sent = {"act": PIPE_M * act if stage < S - 1 else 0,
+                            "cot": PIPE_M * act if stage > 0 and
+                            stage - 1 >= S - b else 0,
+                            "table": table}
+                    if st["sent"] != sent:
+                        failed.append(f"{key} step {i}: sent {st['sent']} "
+                                      f"!= {sent}")
+                    calls = _tp_calls_want(cfg, stage, b, sp, 2048)
+                    if st["model_calls"] != calls:
+                        failed.append(f"{key} step {i}: model-group calls "
+                                      f"{st['model_calls']} != {calls}")
+                if part == "a":
+                    rel = abs(run["steps"][0]["xent"] - one_xent) / \
+                        abs(one_xent)
+                    if not rel <= PIPE_TOL:
+                        failed.append(f"{key}: first xent "
+                                      f"{run['steps'][0]['xent']} vs one "
+                                      f"process {one_xent}: {rel:.3e}")
+                if "vs_zero2_equal" in run and not (
+                        run["vs_zero2_equal"]
+                        or run["vs_zero2_max_abs"] <= 1e-6):
+                    failed.append(f"{key}: ZeRO-1's f32 parameters differ "
+                                  f"from ZeRO-2's by "
+                                  f"{run['vs_zero2_max_abs']}")
+                n_held, gb = reckon[(part, stage)]
+                for b in sorted({st["bwd_stages"] for st in run["steps"]}):
+                    warm = [st for st in run["steps"][len(run["steps"]) // 2:]
+                            if st["bwd_stages"] == b] or \
+                        [st for st in run["steps"] if st["bwd_stages"] == b]
+                    mean = lambda k: sum(st[k] for st in warm) / len(warm)
+                    fig = {"step_ms": round(mean("ms"), 2),
+                           "p2p_host_ms": round(mean("p2p_ms"), 2),
+                           "model_host_ms": round(mean("model_ms"), 2),
+                           "stage_data_collective_host_ms":
+                               round(mean("collective_ms"), 2),
+                           "busy_ms": round(mean("busy_ms"), 2),
+                           "sent_bytes": warm[0]["sent"],
+                           "model_calls": warm[0]["model_calls"],
+                           "model_calls_counted": _tp_calls_want(
+                               cfg, stage, b, sp, 2048),
+                           "max_mem_gb": round(run["max_mem_gb"], 3),
+                           "reckoned_gb": round(gb, 3),
+                           "params_held": run["params"],
+                           "params_reckoned": n_held,
+                           "launches": {k: c for k, c in
+                                        warm[0]["launches"].items() if c}}
+                    if "vs_zero2_equal" in run:
+                        fig["zero1_vs_zero2_bit_equal"] = \
+                            run["vs_zero2_equal"]
+                        fig["zero1_vs_zero2_master_max_abs"] = \
+                            run["vs_zero2_max_abs"]
+                        fig["zero1_vs_zero2_bf16_params_differing"] = \
+                            run["vs_zero2_params_differing"]
+                    figures[f"{key}/bwd_stages{b}"] = fig
+                    log(f"[tensor-parallel] {label} yi-6b/{cfg.num_layers} "
+                        f"grid={grid} M={PIPE_M} 1f1b stage={stage} d={d} "
+                        f"t={t} bwd_stages={b} depths="
+                        f"{[st['depth'] for st in run['steps']]} "
+                        + " ".join(f"{k}={v}" for k, v in fig.items())
+                        + f" first_xent={run['steps'][0]['xent']:.6f} "
+                        f"card={smi}")
+        # the reduced runs against one process on the CPU
+        for label in [k for k in ranks[0] if k.startswith("reduced")]:
+            rows = PIPE_M * D
+            rcfg = tp_config("reduced")
+            pipe = Pipeline(rcfg, rows, 64, seed=0)
+            want = _pipe_one_process(rcfg, "cpu", TP_REDUCED_STEPS,
+                                     [pipe.get_batch(s)
+                                      for s in range(TP_REDUCED_STEPS)])
+            sp = "sp1" in label or part == "b"
+            for r, out in enumerate(ranks):
+                stage = r // (D * T)
+                run = out[label]["steps"]
+                key = f"{label}/grid{''.join(map(str, grid))}/rank{r}"
+                launches[key] = {k: sum(st["launches"][k] for st in run)
+                                 for k in KERNELS}
+                rel = max(abs(st["xent"] - w) / abs(w)
+                          for st, (w, _d) in zip(run, want))
+                if not rel <= PIPE_TOL:
+                    failed.append(f"{key}: xent card vs one CPU process "
+                                  f"{rel:.3e} > {PIPE_TOL:g}")
+                for i, st in enumerate(run):
+                    b = st["bwd_stages"]
+                    exp = expected_stage_launches(rcfg, stage, b)
+                    if st["launches"] != exp:
+                        failed.append(f"{key} step {i}: launches "
+                                      f"{st['launches']} != {exp}")
+                    calls = _tp_calls_want(rcfg, stage, b, sp, 64)
+                    if st["model_calls"] != calls:
+                        failed.append(f"{key} step {i}: model-group calls "
+                                      f"{st['model_calls']} != {calls}")
+                if r == 0:
+                    log(f"[tensor-parallel] {label} grid={grid} "
+                        f"depths={[st['depth'] for st in run]} "
+                        f"xent_card={[round(st['xent'], 6) for st in run]} "
+                        f"xent_cpu_one_process="
+                        f"{[round(w, 6) for w, _ in want]} "
+                        f"card_vs_cpu={rel:.3e} (tol {PIPE_TOL:g}) "
+                        f"step_ms={[round(st['ms'], 2) for st in run]} "
+                        f"card={smi}")
+    log(f"[tensor-parallel] phase {time.perf_counter() - t0:.1f}s")
+    if failed:
+        raise AssertionError("tensor-parallel: " + "; ".join(failed))
+    return {"launches": launches, "figures": figures}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4031,6 +4380,13 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels the pipeline ranks never launched: "
                              f"{idle}")
+    tensor_parallel = phase_tensor_parallel(smi)
+    idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
+            if not any(g.get(n) for g in
+                       tensor_parallel["launches"].values())]
+    if idle:
+        raise AssertionError(f"kernels the tensor-parallel ranks never "
+                             f"launched: {idle}")
     # host only, so it runs last: every timed phase then runs as it did
     # before the dry run existed, without its modules (~100k more Python
     # objects) and its own garbage collections
@@ -4078,6 +4434,9 @@ def main() -> int:
                  "launches_pipeline": {k: g[name]
                                        for k, g in pipeline["launches"].items()
                                        if g.get(name)},
+                 "launches_tensor_parallel": {
+                     k: g[name] for k, g in
+                     tensor_parallel["launches"].items() if g.get(name)},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],
@@ -4123,7 +4482,8 @@ def main() -> int:
                     "remat_dryrun": remat_dryrun,
                     "data_parallel": dp_full["figures"],
                     "zero": zero1_full["figures"],
-                    "pipeline": pipeline["figures"]}))
+                    "pipeline": pipeline["figures"],
+                    "tensor_parallel": tensor_parallel["figures"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -297,6 +297,59 @@ def pipeline_tp_collective_bytes(cfg: ModelConfig, microbatch: int,
     return total
 
 
+def pipeline_tp_calls(cfg: ModelConfig, stage_layers: int,
+                      num_microbatches: int, rows: int, seq_len: int, *,
+                      model_parallel: int, live: bool,
+                      need_dx: bool = True,
+                      sequence_parallel: bool = False,
+                      update: bool = True) -> Dict[str, Tuple[int, int]]:
+    """What one pipeline step calls on one rank's model group
+    (``dist/group.ModelGroup``), ``{kind: (calls, payload bytes)}``: a
+    stage of ``stage_layers`` dense layers, ``num_microbatches``
+    microbatches of ``rows`` rows (this data rank's) by ``seq_len``.
+
+    The port's own count, not the reference's: every microbatch's forward
+    runs on its forward tick (under ``no_grad``) and again on a live
+    stage's backward tick, which recomputes it before its backward, so a
+    live stage calls its forward joins twice where
+    :func:`pipeline_tp_collective_bytes` counts them once (and prices the
+    wire on a ring, where this counts each call's payload: an all-reduce's
+    and a reduce-scatter's input, an all-gather's output).  Without
+    sequence parallelism a layer all-reduces its two joins (``tp_psum``)
+    and, in the backward, its two entries' cotangents (``tp_enter``).
+    With it, a layer all-gathers its two entries and reduce-scatters its
+    two joins, the stage's outlet gathers the sequence (``sp_unslice``),
+    the backward mirrors each (the inlet's ``sp_slice`` gathers the input
+    cotangent when ``need_dx``), and after the schedule each norm scale's
+    gradient is all-reduced once (two stacked leaves, ``ln1`` and
+    ``ln2``).  A step that updates (``update``) all-reduces its
+    model-sharded leaves' f32 sum of squares once, for the gradient norm,
+    on every rank.  The count is the recompute policy ``none``'s: under
+    ``full`` or ``dots`` a live layer also runs its entries and its
+    attention join again in its backward (torch's checkpoint stops the
+    recompute at the FFN's down product, the last tensor the backward
+    keeps)."""
+    t = int(model_parallel)
+    if t <= 1:
+        return {}
+    elem = 2 if cfg.dtype in ("bfloat16", "float16") else 4
+    act = rows * seq_len * cfg.d_model * elem
+    passes = 2 if live else 1          # the forward tick, the recompute
+    L, M = stage_layers, num_microbatches
+    norm = (1, 4) if update else (0, 0)
+    if not sequence_parallel:
+        n = M * (2 * L * passes + (2 * L if live else 0))
+        return {"all-reduce": (n + norm[0], n * act + norm[1])}
+    ag = M * (passes * (2 * L + 1)
+              + ((2 * L + (1 if need_dx else 0)) if live else 0))
+    rs = M * (passes * 2 * L + (2 * L if live else 0))
+    out = {"all-gather": (ag, ag * act), "reduce-scatter": (rs, rs * act)}
+    ar = (2, 2 * L * cfg.d_model * elem) if live else (0, 0)
+    if ar[0] + norm[0]:
+        out["all-reduce"] = (ar[0] + norm[0], ar[1] + norm[1])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Roofline table
 # ---------------------------------------------------------------------------

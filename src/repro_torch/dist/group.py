@@ -1,7 +1,8 @@
-"""The data-parallel group and the pipeline's ``(stage, data)`` grid at
-run time: one rank's view of each and its collectives (what the steps and
-the engine use; ``launch/mesh.py`` makes the groups and spawns their
-ranks).  :class:`PipeGroup` is the pipeline's (below).
+"""The data-parallel group and the pipeline's ``(stage, data, model)``
+grid at run time: one rank's view of each and its collectives (what the
+steps and the engine use; ``launch/mesh.py`` makes the groups and spawns
+their ranks).  :class:`PipeGroup` is the pipeline's and
+:class:`ModelGroup` its tensor-parallel axis (below).
 
 A :class:`DataGroup` holds its rank, the group's size, its local rank, its
 device, the backend, the ``ProcessGroup``, and the subgroups of the last
@@ -10,8 +11,9 @@ device, the backend, the ``ProcessGroup``, and the subgroups of the last
 no process group: every collective is then the identity.  A failed
 collective raises.
 
-Its collectives: the all-reduce of the gradients and metrics, the
-all-gather that rebuilds each parameter from the ranks' ZeRO-1 slices
+Its collectives: the all-reduce of the gradients and metrics, a
+pipeline's ZeRO-2 reduce-scatter of a stage gradient onto a rank's slice,
+the all-gather that rebuilds each parameter from the ranks' ZeRO-1 slices
 (``optim/optimizers.apply_updates`` updates a rank's slice only), the
 gather of a sharded optimizer leaf to rank 0 for a checkpoint, an int's
 broadcast and a barrier.  Each runs on the tensors where they lie: gloo
@@ -46,6 +48,26 @@ def _counted_on_meta(kind: str, n: int, t: torch.Tensor,
     if META_SINKS:
         META_SINKS[-1](kind, n, payload, f"{t.dtype} {tuple(t.shape)}")
     return True
+
+
+def _moved_gather(pg, t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """Every rank's ``t`` joined along ``dim`` in rank order (one
+    ``all_gather_into_tensor`` on dim 0 of a contiguous copy)."""
+    src = t.movedim(dim, 0).contiguous()
+    buf = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(buf, src, group=pg)
+    return buf.movedim(0, dim)
+
+
+def _moved_scatter(pg, t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of every rank's ``t`` (one
+    ``reduce_scatter_tensor`` on dim 0 of a contiguous copy)."""
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    dist.reduce_scatter_tensor(out, src, group=pg)
+    return out.movedim(0, dim)
 
 
 @dataclasses.dataclass
@@ -125,6 +147,22 @@ class DataGroup:
         self.reduce_s += time.perf_counter() - t0
         return t
 
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice along ``dim`` (:func:`dist.sharding.
+        shard_slices`'s) of the sum of every rank's ``t``, a new contiguous
+        tensor: ZeRO-2's gradient reduce (gloo's ``reduce_scatter_tensor``
+        on a copy with ``dim`` first)."""
+        n = self.size
+        if n == 1:
+            return t
+        if _counted_on_meta("reduce-scatter", n, t,
+                            t.numel() * t.element_size()):
+            return t.narrow(dim, 0, t.shape[dim] // n).contiguous()
+        t0 = time.perf_counter()
+        out = _moved_scatter(self.pg, t, dim, n).contiguous()
+        self.reduce_s += time.perf_counter() - t0
+        return out
+
     def gather(self, t: torch.Tensor, dim: int = 0
                ) -> Optional[torch.Tensor]:
         """Every rank's slice ``t`` (all of one shape), joined along
@@ -192,6 +230,82 @@ class DataGroup:
         self.subgroups.clear()
 
 
+@dataclasses.dataclass
+class ModelGroup:
+    """One rank's view of a pipeline's ``model`` axis: the T ranks of one
+    ``(stage, data)`` index, over which a stage's attention and FFN weights
+    are column/row-sharded (``models/layers.py``'s collective pairs run
+    on it).  A group of one needs no process group: every collective is
+    then the identity.
+
+    Each collective is out of place (an autograd Function's forward and
+    backward call it) and runs on the tensors where they lie: gloo takes
+    CUDA tensors for all three, staging them through the host itself.  A
+    reduce-scatter is gloo's own ``reduce_scatter_tensor``.  ``reduce_s``
+    counts the host seconds inside them, ``calls`` and ``bytes`` the calls
+    and the payload bytes (the input's; an all-gather's output) by kind.
+    On the meta device nothing moves: a dry run's ``analysis/cost.CostMode``
+    counts the collective from :data:`META_SINKS`."""
+    rank: int = 0
+    size: int = 1
+    pg: Any = None                  # the ProcessGroup; None at size 1
+    reduce_s: float = 0.0
+    calls: Dict[str, int] = dataclasses.field(default_factory=dict)
+    bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def _count(self, kind: str, nbytes: int) -> None:
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        self.bytes[kind] = self.bytes.get(kind, 0) + nbytes
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``t`` (a new tensor)."""
+        if self.size == 1:
+            return t
+        nbytes = t.numel() * t.element_size()
+        out = t.clone(memory_format=torch.contiguous_format)
+        if _counted_on_meta("all-reduce", self.size, t, nbytes):
+            return out
+        t0 = time.perf_counter()
+        dist.all_reduce(out, group=self.pg)
+        self.reduce_s += time.perf_counter() - t0
+        self._count("all-reduce", nbytes)
+        return out
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` joined along ``dim`` in rank order."""
+        if self.size == 1:
+            return t
+        n = self.size
+        nbytes = n * t.numel() * t.element_size()
+        if _counted_on_meta("all-gather", n, t, nbytes):
+            shape = list(t.shape)
+            shape[dim] *= n
+            return t.new_empty(shape)
+        t0 = time.perf_counter()
+        out = _moved_gather(self.pg, t, dim, n)
+        self.reduce_s += time.perf_counter() - t0
+        self._count("all-gather", nbytes)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice along ``dim`` (``t.shape[dim] / n`` long, at
+        ``rank``) of the sum of every rank's ``t``."""
+        if self.size == 1:
+            return t
+        n = self.size
+        nbytes = t.numel() * t.element_size()
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {n} ranks")
+        if _counted_on_meta("reduce-scatter", n, t, nbytes):
+            return t.narrow(dim, 0, t.shape[dim] // n).clone()
+        t0 = time.perf_counter()
+        out = _moved_scatter(self.pg, t, dim, n)
+        self.reduce_s += time.perf_counter() - t0
+        self._count("reduce-scatter", nbytes)
+        return out
+
+
 # tags of a pipeline's point-to-point messages: activations go right,
 # cotangents left, whole tensors (the tied table, a checkpoint's leaves)
 # either way
@@ -200,14 +314,18 @@ TAG_ACT, TAG_COT, TAG_TENSOR = 1, 2, 3
 
 @dataclasses.dataclass
 class PipeGroup:
-    """One rank's view of a pipeline's ``(stage, data)`` grid: rank
-    ``stage * D + d``, row-major as the reference's mesh lays out its
-    devices.  ``data`` is the :class:`DataGroup` of this stage's D ranks
-    (the ``data`` axis), ``pipe_pg`` the process group of the S ranks of
-    this data index (the ``stage`` axis; the world when D is 1).
+    """One rank's view of a pipeline's ``(stage, data, model)`` grid: rank
+    ``(stage * D + d) * T + t``, row-major as the reference's
+    ``jax.make_mesh((S, D, T), ("stage", "data", "model"))`` lays out its
+    devices.  ``data`` is the :class:`DataGroup` of the D ranks of this
+    ``(stage, t)`` (the ``data`` axis), ``model`` the :class:`ModelGroup`
+    of the T ranks of this ``(stage, d)`` (the ``model`` axis), and
+    ``pipe_pg`` the process group of the S ranks of this ``(d, t)`` (the
+    ``stage`` axis; the world when D and T are 1).
 
     Activations and cotangents move between neighbouring stages of one
-    data index by point-to-point messages (:meth:`exchange`).  Gloo's
+    ``(d, t)`` index by point-to-point messages (:meth:`exchange`), so
+    each model index runs its own stage-to-stage messages.  Gloo's
     send and receive work on host tensors only, so a CUDA payload is
     copied to the host before it is sent and to the card after it
     arrives, explicitly.  Each tick's sends and receives are posted
@@ -227,13 +345,14 @@ class PipeGroup:
     stage: int = 0
     num_stages: int = 1
     data: DataGroup = dataclasses.field(default_factory=DataGroup)
+    model: ModelGroup = dataclasses.field(default_factory=ModelGroup)
     rank: int = 0
     size: int = 1
     local_rank: int = 0
     device: torch.device = torch.device("cpu")
     backend: Optional[str] = None
     pg: Any = None                  # the world; None at size 1
-    pipe_pg: Any = None             # this data index's stages
+    pipe_pg: Any = None             # this (d, t) index's stages
     timeout_s: float = DEFAULT_TIMEOUT_S
     p2p_s: float = 0.0
     p2p_by_tag: Dict[int, int] = dataclasses.field(default_factory=dict)
@@ -244,12 +363,20 @@ class PipeGroup:
     def data_index(self) -> int:
         return self.data.rank
 
+    @property
+    def model_index(self) -> int:
+        return self.model.rank
+
+    def rank_at(self, stage: int, data: int, model: int) -> int:
+        """The global rank of grid index ``(stage, data, model)``."""
+        return (stage * self.data.size + data) * self.model.size + model
+
     def peer(self, stage: int) -> int:
-        """The global rank of ``stage`` at this rank's data index."""
+        """The global rank of ``stage`` at this rank's ``(d, t)`` index."""
         if not 0 <= stage < self.num_stages:
             raise ValueError(f"no stage {stage} in a pipeline of "
                              f"{self.num_stages}")
-        return stage * self.data.size + self.data.rank
+        return self.rank_at(stage, self.data.rank, self.model.rank)
 
     def exchange(self, sends=(), recvs=(), *, on_host: bool = False
                  ) -> List[torch.Tensor]:
@@ -257,28 +384,34 @@ class PipeGroup:
         ``(shape, dtype, from_stage, tag)`` of one tick together, wait on
         all of them, and return the received tensors on this rank's
         device (on the host with ``on_host``), in the order of
-        ``recvs``."""
+        ``recvs``.  The stages are this ``(d, t)``'s."""
+        return self._post([(t, self.peer(s), g) for t, s, g in sends],
+                          [(sh, dt, self.peer(s), g)
+                           for sh, dt, s, g in recvs], on_host)
+
+    def _post(self, sends, recvs, on_host: bool) -> List[torch.Tensor]:
+        """:meth:`exchange` with global ranks for stages."""
         sends, recvs = list(sends), list(recvs)
         if not sends and not recvs:
             return []
-        if any(t.is_meta for t, _s, _g in sends) or \
+        if any(t.is_meta for t, _r, _g in sends) or \
                 self.device.type == "meta":
-            for t, stage, _tag in sends:
+            for t, _rank, _tag in sends:
                 _counted_on_meta("send", 2, t, t.numel() * t.element_size())
             return [torch.empty(shape, dtype=dtype, device="meta")
-                    for shape, dtype, _s, _g in recvs]
+                    for shape, dtype, _r, _g in recvs]
         t0 = time.perf_counter()
         works, held, got = [], [], []
-        for t, stage, tag in sends:
+        for t, rank, tag in sends:
             host = t.detach().to("cpu").contiguous()
             held.append(host)
             self.p2p_by_tag[tag] = self.p2p_by_tag.get(tag, 0) + \
                 host.numel() * host.element_size()
-            works.append(dist.isend(host, self.peer(stage), tag=tag))
-        for shape, dtype, stage, tag in recvs:
+            works.append(dist.isend(host, rank, tag=tag))
+        for shape, dtype, rank, tag in recvs:
             host = torch.empty(tuple(shape), dtype=dtype)
             got.append(host)
-            works.append(dist.irecv(host, self.peer(stage), tag=tag))
+            works.append(dist.irecv(host, rank, tag=tag))
         for w in works:
             w.wait()
         out = got if on_host else [h.to(self.device) for h in got]
@@ -287,17 +420,28 @@ class PipeGroup:
 
     def send(self, t: torch.Tensor, stage: int, tag: int = TAG_TENSOR
              ) -> None:
-        """Send one tensor to ``stage`` (at this data index) and wait."""
+        """Send one tensor to ``stage`` (at this ``(d, t)``) and wait."""
         self.exchange(sends=[(t, stage, tag)])
 
     def recv(self, shape, dtype, stage: int, tag: int = TAG_TENSOR, *,
              on_host: bool = False) -> torch.Tensor:
-        """Receive one tensor from ``stage`` (at this data index)."""
+        """Receive one tensor from ``stage`` (at this ``(d, t)``)."""
         return self.exchange(recvs=[(shape, dtype, stage, tag)],
                              on_host=on_host)[0]
 
+    def send_to_rank(self, t: torch.Tensor, rank: int,
+                     tag: int = TAG_TENSOR) -> None:
+        """Send one tensor to global ``rank`` and wait (a checkpoint's
+        gather of the model shards)."""
+        self._post([(t, rank, tag)], [], False)
+
+    def recv_from_rank(self, shape, dtype, rank: int, tag: int = TAG_TENSOR,
+                       *, on_host: bool = False) -> torch.Tensor:
+        """Receive one tensor from global ``rank``."""
+        return self._post([], [(shape, dtype, rank, tag)], on_host)[0]
+
     def pipe_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` in place over the stages of this data index."""
+        """Sum ``t`` in place over the stages of this ``(d, t)``."""
         if self.num_stages == 1:
             return t
         if _counted_on_meta("all-reduce", self.num_stages, t,
@@ -335,4 +479,4 @@ class PipeGroup:
         """Tear down the process groups (a no-op at size 1)."""
         if self.pg is not None and dist.is_initialized():
             dist.destroy_process_group()
-        self.pg = self.pipe_pg = self.data.pg = None
+        self.pg = self.pipe_pg = self.data.pg = self.model.pg = None

@@ -37,7 +37,14 @@ between ticks.
 * **Data axis.**  Under a ``data`` axis of D ranks each rank gets its rows
   of every microbatch; the loss, aux, weight and head gradients are
   averaged over the stage's data group and the input cotangents scaled
-  by ``1 / D``.
+  by ``1 / D``.  With ``zero2_dims`` (ZeRO-2) a stage-weight gradient is
+  reduce-scattered over the data group on the dim its ZeRO-1 moments
+  shard instead, so the rank keeps its slice alone.
+* **Model axis.**  Tensor-sharded stages (``group.model`` of T ranks) run
+  their joins inside the stage fns.  Under ``sequence_parallel`` a stage
+  sees its slice of the sequence alone, so the gradient of a leaf every
+  model rank holds whole (a norm's scale; ``model_sharded`` False) is a
+  partial sum and is summed over the model group.
 
 The loss and aux are summed over the stages (an all-reduce over the stage
 axis), so every rank returns them.  A stage's weight gradients stay on
@@ -75,7 +82,8 @@ def run_schedule(sched: Schedule,
                  loss_fn: Optional[Callable] = None, ys=None,
                  head_params=None, capture_input_grads: bool = False,
                  stage_aux: bool = False, aux_weight: float = 0.0,
-                 act_shape=None) -> Dict[str, Any]:
+                 act_shape=None, sequence_parallel: bool = False,
+                 model_sharded=None, zero2_dims=None) -> Dict[str, Any]:
     """Interpret ``sched`` on this rank's stage of ``group`` (None: a
     pipeline of one rank).
 
@@ -93,8 +101,14 @@ def run_schedule(sched: Schedule,
     (this stage's, shaped as ``stage_params``, ``None`` leaves on a frozen
     stage), ``head_grads`` (last stage), ``input_grads`` (stage 0 with
     ``capture_input_grads``), ``stash_slots`` (the table's ``(act, cot)``
-    watermark) and ``busy_s``."""
+    watermark) and ``busy_s``.  ``model_sharded`` (a tree like
+    ``stage_params`` of bools) marks the leaves the model axis shards, and
+    ``zero2_dims`` (ints or None) the dim each leaf's gradient
+    reduce-scatters on over the data axis."""
     group = group or PipeGroup()
+    if sequence_parallel and group.model.size > 1 and model_sharded is None:
+        raise ValueError("sequence_parallel over a model axis needs "
+                         "model_sharded: which leaves' gradients to sum")
     head_params = {} if head_params is None else head_params
     s_, m_ = sched.num_stages, sched.num_microbatches
     if group.num_stages != s_:
@@ -247,10 +261,23 @@ def run_schedule(sched: Schedule,
     if train:
         group.pipe_all_reduce(both)
     loss, aux = both[0] * inv_m, both[1]
-    data = group.data
+    model, data = group.model, group.data
+    if sequence_parallel and model.size > 1:
+        sharded = tree_leaves(model_sharded)
+        dw = [g if g is None or sh else model.all_reduce(g)
+              for g, sh in zip(dw, sharded)]
     if data.size > 1:
         inv_d = 1.0 / data.size
-        for g in dw + head_dw:
+        dims = tree_leaves(zero2_dims) if zero2_dims is not None \
+            else [None] * len(dw)
+        for i, (g, dim) in enumerate(zip(dw, dims)):
+            if g is None:
+                continue
+            if dim is None:
+                data.all_reduce(g).mul_(inv_d)
+            else:
+                dw[i] = data.reduce_scatter(g, dim).mul_(inv_d)
+        for g in head_dw:
             if g is not None:
                 data.all_reduce(g).mul_(inv_d)
         both = data.all_reduce(torch.stack([loss, aux])) * inv_d
@@ -293,7 +320,9 @@ def pipeline_train_grads(sched: Schedule,
                          head_params=None,
                          capture_input_grads: bool = False,
                          stage_aux: bool = False, aux_weight: float = 0.0,
-                         act_shape=None) -> Dict[str, Any]:
+                         act_shape=None, sequence_parallel: bool = False,
+                         model_sharded=None,
+                         zero2_dims=None) -> Dict[str, Any]:
     """One pipelined forward and backward pass per the table on this
     rank's stage (:func:`run_schedule` with a loss): ``loss`` is the mean
     of ``loss_fn(head_params, y_m, ys[m])`` over microbatches, and
@@ -303,7 +332,9 @@ def pipeline_train_grads(sched: Schedule,
                         loss_fn=loss_fn, ys=ys, head_params=head_params,
                         capture_input_grads=capture_input_grads,
                         stage_aux=stage_aux, aux_weight=aux_weight,
-                        act_shape=act_shape)
+                        act_shape=act_shape,
+                        sequence_parallel=sequence_parallel,
+                        model_sharded=model_sharded, zero2_dims=zero2_dims)
 
 
 def sequential_reference(stage_fn: Callable, stage_params, xs):

@@ -20,9 +20,19 @@ replicates the embedding and the head over every stage instead.
 
 Every stage fn returns ``(x, aux)`` (:func:`make_stage_fns`), so an MoE
 layer's router loss rides the schedule runtime's aux channel.
-Tensor-parallel stages are not ported (ROADMAP.md Queue 1 B item 11):
-:func:`check_tensor_parallel_compatible` is the reference's check alone,
-and :func:`stage_param_specs` its index logic.
+
+Tensor-parallel stages (a ``model`` axis of T ranks,
+``dist/group.ModelGroup``): a rank also holds only its model shard of each
+column- or row-sharded group leaf (``wq``, ``wk``, ``wv``, ``wg``, ``wu``
+on their last dim, ``wo``, ``wd`` on the one before;
+:func:`model_shard_dim`, the rule :func:`stage_param_specs` composes after
+the stage axis), and the stage fns join the layers' partial sums over the
+group (``models/layers.py``'s collective pairs).  Every other leaf -- the
+norms, the token table, the head -- is whole on each model rank: the
+reference's shard_map also sees the head's parameters replicated.  Under
+sequence parallelism a stage slices its input over the sequence at the
+inlet (``sp_slice``) and gathers it at the outlet (``sp_unslice``), so
+what crosses to the next stage is whole.
 """
 from __future__ import annotations
 
@@ -37,9 +47,6 @@ from repro_torch.dist import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.tree import tree_map, tree_map_with_path
-
-ITEM_11 = "ROADMAP.md Queue 1 B item 11"
-
 
 # ---------------------------------------------------------------------------
 # Stage maps: contiguous slices of possibly-heterogeneous layer groups
@@ -154,8 +161,7 @@ def check_pipeline_compatible(cfg: ModelConfig, num_stages: int) -> None:
 def check_tensor_parallel_compatible(cfg: ModelConfig,
                                      model_parallel: int) -> None:
     """The reference's check for column/row-sharded stages: head counts
-    and the FFN width divide, and only dense GQA stacks qualify.  The
-    check alone: tensor-parallel stages themselves are not ported."""
+    and the FFN width divide, and only dense GQA stacks qualify."""
     if model_parallel <= 1:
         return
     problems = []
@@ -191,6 +197,29 @@ def stage_param_specs(stacked: Any, mesh=None, *, axis_name: str = "stage"):
         return shd.P(*entries)
 
     return tree_map_with_path(one, stacked)
+
+
+def model_shard_dim(path, shape) -> Union[int, None]:
+    """The dim of a group's stacked leaf ``(count, ...)`` that the
+    ``model`` axis shards (the column/row rule of the per-layer view, one
+    dim on from the stack's), or None for a leaf every model rank holds
+    whole."""
+    spec = shd.param_leaf_spec(path, tuple(shape[1:]))
+    for i, e in enumerate(spec):
+        if e is not None and "model" in (e if isinstance(e, tuple) else (e,)):
+            return i + 1
+    return None
+
+
+def model_shard(t, path, model: Tuple[int, int]):
+    """Model rank ``model[0]``'s shard (of ``model[1]``) of a group's
+    stacked leaf ``t`` (a view), ``t`` itself for a leaf held whole."""
+    index, size = model
+    dim = model_shard_dim(path, t.shape) if size > 1 else None
+    if dim is None:
+        return t
+    n = t.shape[dim] // size
+    return t.narrow(dim, index * n, n)
 
 
 def layers_per_stage(cfg: ModelConfig, num_stages: int) -> int:
@@ -285,11 +314,21 @@ def _rows_of(t, st: int, cnt: int):
 
 
 def local_groups(groups: List[Any], smap: StageMap, stage: int, *,
-                 take: Callable = _rows_of, is_leaf=None) -> List[Any]:
+                 take: Callable = _rows_of, is_leaf=None,
+                 model: Tuple[int, int] = (0, 1)) -> List[Any]:
     """``stage``'s rows of each group (views; zero rows of a group it does
-    not touch): ``take(leaf, first unit, count)`` of each leaf."""
-    return [tree_map(lambda t, st=st, cnt=cnt: take(t, st, cnt), gp,
-                     is_leaf=is_leaf)
+    not touch): ``take(leaf, first unit, count)`` of each leaf, then, of a
+    tensor, model rank ``model[0]``'s shard of ``model[1]``
+    (:func:`model_shard`)."""
+
+    def one(path, t, st, cnt):
+        t = take(t, st, cnt)
+        return model_shard(t, path, model) if isinstance(t, torch.Tensor) \
+            else t
+
+    return [tree_map_with_path(
+        lambda path, t, st=st, cnt=cnt: one(path, t, st, cnt), gp,
+        is_leaf=is_leaf)
             for gp, (st, cnt) in zip(groups, smap.rows(stage))]
 
 
@@ -311,30 +350,42 @@ def owned_head(cfg: ModelConfig, num_stages: int, stage: int
 
 def local_tree(tree: Dict[str, Any], cfg: ModelConfig, smap: StageMap,
                stage: int, *, take: Callable = _rows_of,
-               is_leaf=None) -> Dict[str, Any]:
+               is_leaf=None, model: Tuple[int, int] = (0, 1)
+               ) -> Dict[str, Any]:
     """``stage``'s share of a whole params-shaped tree (the params, one
     optimizer key, their specs): its rows of the groups (``take``, as
-    :func:`local_groups`) and the leaves :func:`owned_head` gives it."""
+    :func:`local_groups`; model rank ``model[0]``'s shard of ``model[1]``)
+    and the leaves :func:`owned_head` gives it, whole."""
     out: Dict[str, Any] = {"groups": local_groups(
-        tree["groups"], smap, stage, take=take, is_leaf=is_leaf)}
+        tree["groups"], smap, stage, take=take, is_leaf=is_leaf,
+        model=model)}
     for key, sub in owned_head(cfg, smap.num_stages, stage).items():
         out[key] = {k: tree[key][k] for k in sub} if sub else tree[key]
     return out
 
 
 def assemble(parts: Sequence[Dict[str, Any]], cfg: ModelConfig,
-             smap: StageMap) -> Dict[str, Any]:
-    """The whole tree back from every stage's :func:`local_tree` (stage
-    order): each group's rows concatenated, each head leaf from its
-    owner.  Inverse of :func:`local_tree`."""
+             smap: StageMap, model_parallel: int = 1) -> Dict[str, Any]:
+    """The whole tree back from every ``(stage, model rank)``'s
+    :func:`local_tree`, in that order (``parts[s * T + t]``): each group
+    leaf's model shards joined on their dim and the stages' rows
+    concatenated, each head leaf from its owner's model rank 0.  Inverse
+    of :func:`local_tree`."""
+    T = model_parallel
+
+    def join(path, *ts):
+        dim = model_shard_dim(path, ts[0].shape) if T > 1 else None
+        return ts[0] if dim is None else torch.cat(ts, dim)
+
     out: Dict[str, Any] = {"embed": {}}
     groups = []
     for g in range(len(smap.caps)):
-        held = [p["groups"][g] for s, p in enumerate(parts)
-                if smap.rows(s)[g][1]]
+        held = [tree_map_with_path(join, *(parts[s * T + t]["groups"][g]
+                                           for t in range(T)))
+                for s in range(smap.num_stages) if smap.rows(s)[g][1]]
         groups.append(tree_map(lambda *ts: torch.cat(ts), *held))
     out["groups"] = groups
-    for s, p in enumerate(parts):
+    for s, p in enumerate(parts[::T]):
         for key, sub in owned_head(cfg, smap.num_stages, s).items():
             if sub:
                 out[key].update({k: p[key][k] for k in sub})
@@ -347,40 +398,49 @@ def assemble(parts: Sequence[Dict[str, Any]], cfg: ModelConfig,
 # Stage functions and the head
 # ---------------------------------------------------------------------------
 
-def _refuse_tp(tp_axis, sequence_parallel: bool) -> None:
-    if tp_axis is not None or sequence_parallel:
-        raise NotImplementedError(
-            f"tensor-parallel / sequence-parallel stages are not ported "
-            f"({ITEM_11})")
+def _sp_inlet(x, tp, sequence_parallel: bool):
+    return L.sp_slice(x, tp, 1) if tp is not None and sequence_parallel \
+        else x
 
 
-def make_stage_fn(cfg: ModelConfig, *, tp_axis: str = None,
+def _sp_outlet(x, tp, sequence_parallel: bool):
+    return L.sp_unslice(x, tp, 1) if tp is not None and sequence_parallel \
+        else x
+
+
+def make_stage_fn(cfg: ModelConfig, *, tp_group=None,
                   sequence_parallel: bool = False,
                   remat: str = "none") -> Callable:
     """One stage of a trivial (single homogeneous group) map: run this
     stage's rows of the group.  ``w`` is the stage's group tree
-    (``(count/S, ...)`` leaves), ``x`` is ``(mb, seq, d_model)``."""
-    _refuse_tp(tp_axis, sequence_parallel)
+    (``(count/S, ...)`` leaves), ``x`` is ``(mb, seq, d_model)``.
+
+    ``tp_group`` (a ``dist/group.ModelGroup``): ``w`` holds this model
+    rank's shards and the layers join over the group; with
+    ``sequence_parallel`` the stage slices its whole input over the
+    sequence at the inlet and gathers it at the outlet."""
     (unit, _count) = layer_groups(cfg)[0]
 
     def stage_fn(w, x):
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = _sp_inlet(x, tp_group, sequence_parallel)
         x, _aux = lm._run_group_train(x, aux, w, unit, cfg, positions,
-                                      remat=remat)
-        return x
+                                      remat=remat, tp=tp_group,
+                                      sequence_parallel=sequence_parallel)
+        return _sp_outlet(x, tp_group, sequence_parallel)
 
     return stage_fn
 
 
 def make_stage_fns(cfg: ModelConfig, stages: Union[int, StageMap], *,
-                   tp_axis: str = None, sequence_parallel: bool = False,
+                   tp_group=None, sequence_parallel: bool = False,
                    remat: str = "none") -> List[Callable]:
     """Per-stage callables of a (possibly heterogeneous) stage map: stage
     ``s`` slices its rows of each group (``w["g<g>"][:count]``; ``w`` is
     the group tree itself for a trivial map) and runs them in stack order
-    under the recompute policy ``remat``; each returns ``(x, aux)``."""
-    _refuse_tp(tp_axis, sequence_parallel)
+    under the recompute policy ``remat``; each returns ``(x, aux)``.
+    ``tp_group`` and ``sequence_parallel`` as :func:`make_stage_fn`'s."""
     smap = _as_stage_map(cfg, stages)
     groups = layer_groups(cfg)
 
@@ -391,12 +451,14 @@ def make_stage_fns(cfg: ModelConfig, stages: Union[int, StageMap], *,
             positions = torch.arange(x.shape[1], device=x.device)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             wg = {"g0": w} if smap.trivial else w
+            x = _sp_inlet(x, tp_group, sequence_parallel)
             for g, _start, cnt in segs:
                 unit, _count = groups[g]
                 gp = tree_map(lambda t: t[:cnt], wg[f"g{g}"])
-                x, aux = lm._run_group_train(x, aux, gp, unit, cfg,
-                                             positions, remat=remat)
-            return x, aux
+                x, aux = lm._run_group_train(
+                    x, aux, gp, unit, cfg, positions, remat=remat,
+                    tp=tp_group, sequence_parallel=sequence_parallel)
+            return _sp_outlet(x, tp_group, sequence_parallel), aux
 
         return stage_fn
 

@@ -470,7 +470,10 @@ def pipeline_opt_slices(local_specs: Any, local_shapes: Any, mesh: Mesh,
     """A pipeline rank's ZeRO-1 slice of each optimizer leaf of its stage:
     ``local_specs`` are :func:`pipeline_state_pspec`'s specs of the
     leaves the stage holds (one optimizer key), ``local_shapes`` those
-    leaves as the rank holds them (its rows of a group).  The ``stage``
+    leaves as the rank holds them (its rows of a group, its model shard
+    of a tensor-parallel leaf).  The plan picked the data dim among the
+    dims no other axis claims (stage, then model, then data), so it is
+    the same on the rank's model-sliced shape.  The ``stage``
     entry is already resolved by the rank holding its rows; the ``data``
     entry becomes a :func:`shard_slices` entry on the rank's leaf.  None
     when the rank holds every leaf whole (a data axis of one)."""

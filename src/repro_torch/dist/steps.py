@@ -1,5 +1,5 @@
 """Depth-specialized SPB training steps (the counterpart of
-``repro/dist/steps.py`` without its tensor-parallel and ZeRO-2 steps).
+``repro/dist/steps.py``).
 
 For temporal SPB, :func:`build_spb_train_steps` makes one step per
 snapped suffix depth; for ``temporal-mb`` one step that runs the whole
@@ -30,7 +30,7 @@ parameters are then all-gathered (``DataGroup.all_gather``), one call a
 sharded leaf.  Every rank ends the step with the parameters a replicated
 group computes, bit for bit.  The gradients are not reduce-scattered: the
 reference's plain step keeps them replicated too (its ZeRO-2 is a
-pipeline knob).
+pipeline knob, :func:`make_pipeline_train_step`'s ``zero2``).
 
 :func:`make_functional_train_step` and
 :func:`make_functional_temporal_mb_step` are the same steps as pure
@@ -54,11 +54,11 @@ steps take 'full' as ``lm.swept_grads``, a sweep of ``torch.func.vjp``
 over the live repeats; 'dots' has no such form yet and raises there.
 
 :func:`make_pipeline_train_step` runs the stack as a pipeline: each rank
-of a ``dist/group.PipeGroup`` is a stage, interpreting a
-``dist/pipeline/schedules`` table (GPipe or 1F1B) with
-``dist/pipeline/runtime.run_schedule``; the SPB depth becomes a stage
-truncation point, and the stages below it run forward only.
-:func:`build_pipeline_train_steps` is its per-depth table.
+of a ``dist/group.PipeGroup`` is a stage (or, with tensor parallelism, a
+model shard of one), interpreting a ``dist/pipeline/schedules`` table
+(GPipe or 1F1B) with ``dist/pipeline/runtime.run_schedule``; the SPB
+depth becomes a stage truncation point, and the stages below it run
+forward only.  :func:`build_pipeline_train_steps` is its per-depth table.
 """
 from __future__ import annotations
 
@@ -75,7 +75,7 @@ from repro_torch.dist import sharding
 from repro_torch.dist.group import DataGroup
 from repro_torch.models import lm
 from repro_torch.optim import optimizers
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 State = Dict[str, Any]
 
@@ -498,15 +498,26 @@ def build_spb_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
 # Pipelined SPB: the schedule-driven pipeline-parallel step
 # ---------------------------------------------------------------------------
 
-def _refuse_pipeline_knobs(tensor_parallel: int, sequence_parallel: bool,
-                           zero2: bool) -> None:
-    for name, on in (("tensor_parallel > 1", (tensor_parallel or 1) > 1),
-                     ("sequence_parallel", sequence_parallel),
-                     ("zero2", zero2)):
-        if on:
-            raise NotImplementedError(
-                f"{name} under a pipeline is not ported (ROADMAP.md Queue 1 "
-                f"B item 11)")
+def check_pipeline_knobs(cfg: ModelConfig, tensor_parallel: int,
+                         sequence_parallel: bool) -> int:
+    """The reference's checks of a pipeline step's tensor-parallel knobs,
+    with its texts; returns the tensor-parallel degree (1 for off)."""
+    from repro_torch.dist.pipeline import stage as stage_lib
+    tp = int(tensor_parallel) if tensor_parallel else 1
+    if tp > 1:
+        stage_lib.check_tensor_parallel_compatible(cfg, tp)
+    if sequence_parallel and tp <= 1:
+        raise ValueError("sequence_parallel requires tensor_parallel > 1")
+    return tp
+
+
+def refuse_pipeline_knobs(tensor_parallel, sequence_parallel: bool,
+                          zero2: bool) -> None:
+    """The reference's refusal of the pipeline's knobs outside a pipeline
+    session."""
+    if tensor_parallel not in (None, 0, 1) or sequence_parallel or zero2:
+        raise ValueError("tensor_parallel / sequence_parallel / zero2 are "
+                         "pipeline-session knobs")
 
 
 def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -533,31 +544,50 @@ def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     tied embeddings the head's gradient of the table goes back to stage 0
     and is summed there with the embedding's own; after the update stage
     0 sends the table to the last stage, which keeps it as
-    ``state["head"]["tok"]``.  The gradient norm is taken over every
-    stage; ``_apply``'s optimizer then runs on the stage's leaves with the
-    SPB scales of its rows, on this rank's ZeRO-1 slices with ``shards``
-    (all-gathered over the stage's data group after).  ``batch`` holds
-    this data index's rows (``PipeGroup.shard(batch, microbatches)``).
+    ``state["head"]["tok"]`` (each model index sends its own).  The
+    gradient norm counts each element once over the whole grid
+    (:func:`_pipeline_norm`); ``_apply``'s optimizer then runs on the
+    stage's leaves with the SPB scales of its rows, on this rank's ZeRO-1
+    slices with ``shards`` (all-gathered over the stage's data group
+    after).  ``batch`` holds this data index's rows
+    (``PipeGroup.shard(batch, microbatches)``).
+
+    ``tensor_parallel`` above 1 column/row-shards the stage weights over
+    the group's model axis (its size must agree), with the joins'
+    collectives inside the stage; ``sequence_parallel`` also shards the
+    in-stage residual stream over it on the sequence dim.  ``zero2``
+    reduce-scatters each stage gradient over the data axis on the dim its
+    ZeRO-1 moments shard (``shards``), so the optimizer's update runs on
+    the slice alone.  With ``tcfg.compression`` each rank gathers the
+    whole gradient tree of its data index (over the stage and model axes),
+    compresses it with the one-process draw (:func:`compression_generator`)
+    and keeps its part.
 
     ``spb_cfg`` is stamped with ``pipeline_stages``, as the engine does,
-    so the per-block scales count the stage-snapped depths.  Compression,
-    tensor and sequence parallelism and ZeRO-2 raise."""
+    so the per-block scales count the stage-snapped depths."""
     from repro_torch.config import depth_to_bwd_stages
     from repro_torch.dist.group import PipeGroup
     from repro_torch.dist.pipeline import runtime, schedules
     from repro_torch.dist.pipeline import stage as stage_lib
 
     stage_lib.check_pipeline_compatible(cfg, num_stages)
-    _refuse_pipeline_knobs(tensor_parallel, sequence_parallel, zero2)
-    if tcfg.compression != "none":
-        raise NotImplementedError(
-            f"compression={tcfg.compression!r} under a pipeline: the "
-            f"compressors pick per leaf, and a stage holds part of each "
-            f"group's leaf (ROADMAP.md Queue 1 B item 11)")
+    tp = check_pipeline_knobs(cfg, tensor_parallel, sequence_parallel)
     group = group or PipeGroup()
     if group.num_stages != num_stages:
         raise ValueError(f"num_stages={num_stages} but the pipeline group "
                          f"has {group.num_stages} stages")
+    msize = group.model.size
+    if tp > 1 and msize != tp:
+        raise ValueError(f"tensor_parallel={tp} but the mesh's model axis "
+                         f"has size {msize}")
+    zero2 = zero2 and group.data.size > 1     # a no-op without a data axis
+    if zero2 and shards is None:
+        raise ValueError("zero2 shards the gradients as ZeRO-1 shards the "
+                         "moments: it needs the ZeRO-1 slices (zero1=True)")
+    if zero2 and tcfg.compression != "none":
+        raise ValueError("compression under zero2: the compressors pick "
+                         "over whole leaves, which zero2 leaves sharded "
+                         "over the data axis")
     if spb_cfg is not None and spb_cfg.pipeline_stages != num_stages:
         spb_cfg = dataclasses.replace(spb_cfg, pipeline_stages=num_stages)
     remat = lm.resolve_remat(remat)
@@ -565,7 +595,10 @@ def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     bwd_stages = depth_to_bwd_stages(cfg, depth, num_stages)
     table = schedules.build(schedule, num_stages, m, bwd_stages=bwd_stages)
     smap = stage_lib.build_stage_map(cfg, num_stages)
-    fns = stage_lib.make_stage_fns(cfg, smap, remat=remat)
+    tp_group = group.model if tp > 1 else None
+    fns = stage_lib.make_stage_fns(cfg, smap, tp_group=tp_group,
+                                   sequence_parallel=sequence_parallel,
+                                   remat=remat)
     aux_weight = 0.01 if cfg.moe is not None else 0.0   # lm.loss_fn's
     head_loss = stage_lib.make_head_loss(cfg)
     embed_live = bwd_stages == num_stages
@@ -574,6 +607,14 @@ def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     tied = cfg.tie_embeddings
     rows = smap.rows(s)
     dtype = lm._dtype(cfg)
+    # per group leaf: sharded over the model axis; its ZeRO-2 dim
+    model_sharded = None if tp_group is None else [
+        tree_map_with_path(lambda path, t: stage_lib.model_shard_dim(
+            path, t.shape) is not None, gp)
+        for gp in lm.param_shapes(cfg)["groups"]]
+    zero2_dims = None if not zero2 else [
+        tree_map(lambda part: None if part is None else part[0], gp,
+                 is_leaf=sharding.is_slice) for gp in shards["groups"]]
 
     def step(state: State, batch, *, sched=None, update: bool = True
              ) -> Tuple[State, Dict[str, torch.Tensor]]:
@@ -583,6 +624,9 @@ def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         if b % m:
             raise ValueError(f"batch size {b} not divisible by {m} "
                              f"microbatches")
+        if sequence_parallel and tokens.shape[1] % tp:
+            raise ValueError(f"sequence length {tokens.shape[1]} not "
+                             f"divisible by tensor_parallel={tp}")
         mb = b // m
         xs = x = None
         if first:
@@ -596,12 +640,17 @@ def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             head = {"final_norm": params["final_norm"],
                     "embed": {k: embed[k] for k in
                               (("tok",) if tied else ("unembed",))}}
+        weights = stage_lib.stage_weights(params["groups"], smap)
         res = runtime.run_schedule(
-            table, fns, stage_lib.stage_weights(params["groups"], smap), xs,
-            group=group, loss_fn=head_loss, ys=ys, head_params=head,
-            capture_input_grads=embed_live, stage_aux=True,
+            table, fns, weights, xs, group=group, loss_fn=head_loss, ys=ys,
+            head_params=head, capture_input_grads=embed_live, stage_aux=True,
             aux_weight=aux_weight,
-            act_shape=((mb, tokens.shape[1], cfg.d_model), dtype))
+            act_shape=((mb, tokens.shape[1], cfg.d_model), dtype),
+            sequence_parallel=sequence_parallel,
+            model_sharded=None if model_sharded is None else
+            stage_lib.stage_weights(model_sharded, smap),
+            zero2_dims=None if zero2_dims is None else
+            stage_lib.stage_weights(zero2_dims, smap))
         dw = res["stage_grads"]
         grads = {"groups": [dw] if smap.trivial else
                  [dw[f"g{g}"] for g in range(len(smap.caps))]}
@@ -631,7 +680,11 @@ def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                    "xent": res["loss"], "moe_aux": res["aux"]}
         if not update:
             return state, metrics
-        gnorm = _pipeline_norm(grads, group, res["loss"].device)
+        if tcfg.compression != "none":
+            grads = _compressed_share(grads, cfg, tcfg, smap, group, tp,
+                                      state["step"])
+        gnorm = _pipeline_norm(grads, group, res["loss"].device,
+                               model_sharded, zero2_dims)
         _, _, opt_metrics = optimizers.apply_updates(
             params, grads, state["opt"], state["step"], tcfg, cfg=cfg,
             spb_cfg=spb_cfg, sched=sched, shards=shards, gnorm=gnorm,
@@ -662,15 +715,93 @@ def _sum(a, b):
     return b if a is None else a + b
 
 
-def _pipeline_norm(grads, group, device) -> torch.Tensor:
-    """The gradient norm over every stage: this rank's sum of squares,
-    summed over the stage axis (the data ranks of a stage hold the same
-    averaged gradients)."""
-    sq = torch.zeros((), dtype=torch.float32, device=device)
-    for g in tree_leaves(grads):
+def _pipeline_norm(grads, group, device, model_sharded=None,
+                   zero2_dims=None) -> torch.Tensor:
+    """The gradient norm over the whole grid, each element counted once.
+    This rank's sums of squares are kept apart by how a leaf lies: one the
+    model axis shards (``model_sharded``) or that ZeRO-2 narrowed over the
+    data axis (``zero2_dims``) is summed over that axis, and one held whole
+    there counts once (the data ranks hold the same averaged gradients,
+    the model ranks the same norms, table and head).  The stages' totals
+    are then summed over the stage axis."""
+    n = len(tree_leaves(grads["groups"]))
+    on_model = tree_leaves(model_sharded) if model_sharded else [False] * n
+    on_data = [d is not None for d in tree_leaves(zero2_dims)] \
+        if zero2_dims else [False] * n
+    kinds = list(zip(on_model, on_data)) + [(False, False)] * (
+        len(tree_leaves(grads)) - n)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    sq = {(m, d): zero for m in (False, True) for d in (False, True)}
+    for g, kind in zip(tree_leaves(grads), kinds):     # the groups first
         if g is not None:
-            sq = sq + g.float().square().sum()
-    return torch.sqrt(group.pipe_all_reduce(sq.reshape(1))[0])
+            sq[kind] = sq[kind] + g.float().square().sum()
+    if zero2_dims:
+        both = group.data.all_reduce(torch.stack([sq[(True, True)],
+                                                  sq[(False, True)]]))
+        sq[(True, True)], sq[(False, True)] = both[0], both[1]
+    sharded = sq[(True, True)] + sq[(True, False)]
+    if model_sharded:
+        sharded = group.model.all_reduce(sharded.reshape(1))[0]
+    total = sharded + sq[(False, True)] + sq[(False, False)]
+    return torch.sqrt(group.pipe_all_reduce(total.reshape(1))[0])
+
+
+def _compressed_share(grads, cfg: ModelConfig, tcfg: TrainConfig, smap,
+                      group, tp: int, step: int):
+    """This rank's part of the whole gradient tree compressed as one
+    process compresses it.  Every rank sends its part, on the host, to
+    every other; each assembles its data index's whole tree from the
+    parts of every ``(stage, model rank)`` (``stage.assemble``: a frozen
+    stage's rows of a leaf are zeros, and a leaf no stage holds live stays
+    ``None``), compresses it with :func:`compression_generator`'s draw at
+    ``step`` and keeps its part (``stage.local_tree``; ``None`` where its
+    gradient was)."""
+    import torch.distributed as dist
+    from repro_torch.dist.pipeline import stage as stage_lib
+
+    T = max(tp, 1)
+    mine = tree_map(lambda g: None if g is None else g.detach().cpu(), grads)
+    parts = [(group.stage, group.data_index, group.model_index, mine)]
+    if group.size > 1:
+        parts = [None] * group.size
+        dist.all_gather_object(parts, (group.stage, group.data_index,
+                                       group.model_index, mine),
+                               group=group.pg)
+    ours = {(s, t): tree for s, d, t, tree in parts
+            if d == group.data_index and t < T}
+    shapes = lm.param_shapes(cfg)
+    S = smap.num_stages
+    held = [tree_map(lambda m, g: torch.zeros(m.shape, dtype=m.dtype)
+                     if g is None else g,
+                     stage_lib.local_tree(shapes, cfg, smap, s, model=(t, T)),
+                     ours[(s, t)])
+            for s in range(S) for t in range(T)]
+    whole = stage_lib.assemble(held, cfg, smap, T)
+    # live: a group leaf some stage holding its rows backpropagated, a
+    # head leaf its owner has a gradient of
+    live = {"groups": [tree_map(
+        lambda *gs: any(g is not None for g in gs),
+        *(ours[(s, 0)]["groups"][i] for s in range(S) if smap.rows(s)[i][1]))
+        for i in range(len(smap.caps))]}
+    for s in range(S):
+        got = ours[(s, 0)]
+        for key, sub in stage_lib.owned_head(cfg, S, s).items():
+            if sub:
+                live.setdefault(key, {}).update(
+                    {k: got[key][k] is not None for k in sub})
+            else:
+                live[key] = got[key] is not None
+    whole = tree_map(lambda g, on: g if on else None, whole,
+                     {k: live[k] for k in whole})
+    out = compress.compress_tree(whole, tcfg.compression,
+                                 tcfg.compression_ratio,
+                                 compression_generator(tcfg, step))
+    filled = tree_map(lambda g, m: torch.zeros(m.shape, dtype=m.dtype)
+                      if g is None else g, out, {k: shapes[k] for k in out})
+    share = stage_lib.local_tree(filled, cfg, smap, group.stage,
+                                 model=(group.model_index, T))
+    return tree_map(lambda g, c: None if g is None else c.to(g.device),
+                    grads, share)
 
 
 def build_pipeline_train_steps(cfg: ModelConfig, tcfg: TrainConfig,

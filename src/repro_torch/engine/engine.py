@@ -57,10 +57,18 @@ its stage's share of the state (``dist/pipeline/stage.local_tree``);
 ``attach_state`` takes it from a whole state.  Over a data axis of more
 than one rank the optimizer state is ZeRO-1-sharded over ``data`` by
 ``dist/sharding.pipeline_state_pspec``; :meth:`gathered_state` gives rank
-0 the whole state in the one-process format.  ``tensor_parallel`` above
-1, ``sequence_parallel`` and ``zero2`` raise (ROADMAP.md Queue 1 B item
-11), as do ``compile_table`` and ``load_aot``: a pipeline's messages go
-through the host.
+0 the whole state in the one-process format.  ``tensor_parallel``
+(default: the group's model-axis size, as the reference's default is its
+mesh's) above 1 column/row-shards the stages' weights over the grid's
+``model`` axis, and each rank then holds its model shard of them
+(``stage.local_tree(model=)``) and the norms, the table and the head
+whole; ``sequence_parallel`` shards the in-stage residual stream over
+that axis, and ``zero2`` reduce-scatters the stage gradients over
+``data`` into the ZeRO-1 moments' layout (``dist/steps.
+make_pipeline_train_step``).  :meth:`gathered_state` gathers the model
+shards too.  ``compile_table`` and ``load_aot`` raise: a pipeline's
+messages go through the host.  Outside a pipeline the three knobs raise
+with the reference's text.
 """
 from __future__ import annotations
 
@@ -211,8 +219,10 @@ class SPBEngine:
         if pipeline:
             self._init_pipeline(tensor_parallel, sequence_parallel, zero2)
         else:
-            steps_lib._refuse_pipeline_knobs(tensor_parallel,
-                                             sequence_parallel, zero2)
+            steps_lib.refuse_pipeline_knobs(tensor_parallel,
+                                            sequence_parallel, zero2)
+            self.tensor_parallel, self.sequence_parallel = 0, False
+            self.zero2 = False
             self.pipeline_stages = 0
             self._stage_map = None
             self.mesh = sharding.mesh_for(group)
@@ -237,12 +247,22 @@ class SPBEngine:
     def _init_pipeline(self, tensor_parallel, sequence_parallel,
                        zero2) -> None:
         """A pipeline rank's layout: the stage map, ``spb.pipeline_stages``
-        stamped (depths snap to stage boundaries), the grid's specs
-        (``pipeline_state_pspec``, ZeRO-1 over ``data``) and this rank's
-        slices of its stage's optimizer leaves."""
-        steps_lib._refuse_pipeline_knobs(tensor_parallel, sequence_parallel,
-                                         zero2)
+        stamped (depths snap to stage boundaries), the tensor-parallel
+        knobs checked as the reference's engine checks them, the grid's
+        specs (``pipeline_state_pspec``, ZeRO-1 over ``data``) and this
+        rank's slices of its stage's optimizer leaves (of its model
+        shards)."""
         cfg, group = self.cfg, self.group
+        msize = group.model.size
+        tp = msize if tensor_parallel is None else int(tensor_parallel)
+        if tp > 1 and tp != msize:
+            raise ValueError(
+                f"tensor_parallel={tp} but mesh ('stage', 'data', 'model')="
+                f"{(group.num_stages, group.data.size, msize)} has "
+                f"model-axis size {msize}")
+        self.tensor_parallel = tp
+        self.sequence_parallel = bool(sequence_parallel)
+        self.zero2 = bool(zero2)
         n_stages = self.pipeline_stages = group.num_stages
         if self.spb.mode in ("spatial", "temporal-mb"):
             raise ValueError(f"SPB mode {self.spb.mode!r} is not supported "
@@ -252,9 +272,11 @@ class SPBEngine:
             self.spb = dataclasses.replace(self.spb,
                                            pipeline_stages=n_stages)
         pp_stage.check_pipeline_compatible(cfg, n_stages)
+        steps_lib.check_pipeline_knobs(cfg, tp, self.sequence_parallel)
         self._stage_map = smap = pp_stage.build_stage_map(cfg, n_stages)
-        self.mesh = make_pipeline_mesh(n_stages,
-                                       data_parallel=group.data.size)
+        self.mesh = make_pipeline_mesh(
+            n_stages, data_parallel=group.data.size,
+            model_parallel=tp if tp > 1 else 1)
         self.state_specs = sharding.pipeline_state_pspec(
             self.state_shapes, self.mesh, zero1=self.zero1,
             uniform_groups=smap.uniform)
@@ -267,12 +289,20 @@ class SPBEngine:
             specs, self._local(self.state_shapes["opt"][key]), self.mesh,
             group.data_index) if self.zero1 else None
 
-    def _local(self, tree, stage: Optional[int] = None):
-        """A stage's share of a whole params-shaped tree (this rank's stage
-        by default)."""
+    def _local(self, tree, stage: Optional[int] = None,
+               model: Optional[int] = None):
+        """A ``(stage, model rank)``'s share of a whole params-shaped tree
+        (this rank's by default): its stage's rows, its model shards."""
         return pp_stage.local_tree(
             tree, self.cfg, self._stage_map,
-            self.group.stage if stage is None else stage)
+            self.group.stage if stage is None else stage,
+            model=(self.group.model_index if model is None else model,
+                   self._model_parallel))
+
+    @property
+    def _model_parallel(self) -> int:
+        """How many model shards a stage's weights are cut into."""
+        return self.tensor_parallel if self.tensor_parallel > 1 else 1
 
     def _pipeline_state(self, params, opt=None, step: int = 0) -> State:
         """This rank's state from whole ``params`` (and a whole ``opt``):
@@ -376,9 +406,10 @@ class SPBEngine:
                 "step": int(self.state["step"])}
 
     def _gathered_pipeline_state(self) -> Optional[State]:
-        """:meth:`gathered_state` of a pipeline: each stage's data rank 0
-        gathers its stage's ZeRO-1 slices, sends its share, leaf by leaf,
-        to rank 0, which assembles the one-process layout."""
+        """:meth:`gathered_state` of a pipeline: each ``(stage, model
+        rank)``'s data rank 0 gathers its ZeRO-1 slices and sends its share,
+        leaf by leaf, to rank 0, which assembles the one-process layout
+        (the model shards joined, ``stage.assemble``)."""
         group, data = self.group, self.group.data
         held = {"params": self.state["params"], **self.state["opt"]}
 
@@ -393,21 +424,28 @@ class SPBEngine:
                 if self.shards and k != "params"
                 else tree_map(lambda t: whole(t, None), v)
                 for k, v in held.items()}
-        if data.rank != 0:
+        T = self._model_parallel
+        if data.rank != 0 or (group.model_index >= T):
             return None
-        if group.stage != 0:
+        if group.rank != 0:
             for t in tree_leaves(mine):
-                group.send(t, 0)
+                group.send_to_rank(t, 0)
             return None
         shapes = {"params": self.state_shapes["params"],
                   **self.state_shapes["opt"]}
-        parts = [mine]
-        for s in range(1, self.pipeline_stages):
-            parts.append({k: tree_map(
-                lambda m, s=s: group.recv(m.shape, m.dtype, s, on_host=True),
-                self._local(v, s)) for k, v in shapes.items()})
+        parts = []
+        for s in range(self.pipeline_stages):
+            for m in range(T):
+                if (s, m) == (0, 0):
+                    parts.append(mine)
+                    continue
+                src = group.rank_at(s, 0, m)
+                parts.append({k: tree_map(
+                    lambda x, src=src: group.recv_from_rank(
+                        x.shape, x.dtype, src, on_host=True),
+                    self._local(v, s, m)) for k, v in shapes.items()})
         out = {k: pp_stage.assemble([p[k] for p in parts], self.cfg,
-                                    self._stage_map) for k in shapes}
+                                    self._stage_map, T) for k in shapes}
         return {"params": out.pop("params"), "opt": out,
                 "step": int(self.state["step"])}
 
@@ -448,6 +486,8 @@ class SPBEngine:
                 self.cfg, self.tcfg, self.spb, depth=key,
                 num_stages=self.pipeline_stages,
                 schedule=self.pipeline_schedule, group=self.group,
+                tensor_parallel=self.tensor_parallel,
+                sequence_parallel=self.sequence_parallel, zero2=self.zero2,
                 remat=self.remat, shards=self.shards)
         if self.spb.mode == "spatial":
             return steps_lib.make_spatial_step(self.cfg, self.tcfg, self.spb,
@@ -490,7 +530,10 @@ class SPBEngine:
         n = self.group.size
         if self.pipeline_stages:
             out += (("pipeline", self.pipeline_schedule, self.pipeline_stages,
-                     self.group.data.size, self.group.stage),)
+                     self.group.data.size, self.group.stage,
+                     self.group.model.size, self.group.model_index,
+                     self.tensor_parallel, self.sequence_parallel,
+                     self.zero2),)
         elif self.spb.mode == "spatial":
             out += (("group", n, self.group.rank % self.spb.k),)
         elif n > 1:

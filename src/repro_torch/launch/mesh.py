@@ -27,21 +27,23 @@ a group restarts only as a whole, from its last checkpoint
 
 The pipeline's grid (the counterpart of the reference's
 ``make_pipeline_mesh``): :func:`make_pipeline_mesh` gives its axes,
-``("stage", "data")`` of ``(S, D)``, and :func:`init_pipe_group` makes this
-process's rank of it, a ``dist/group.PipeGroup`` (rank ``s * D + d``), from
-torchrun's environment or from :func:`spawn`'s store (``spawn(...,
-grid=(S, D))``).  A pipeline always takes ``gloo``: its activations move
-by point-to-point messages through the host, which NCCL would not take
-from host tensors, and its ranks share a card.
+``("stage", "data")`` of ``(S, D)``, or ``("stage", "data", "model")`` of
+``(S, D, T)`` with a tensor-parallel axis, and :func:`init_pipe_group`
+makes this process's rank of it, a ``dist/group.PipeGroup`` (rank ``(s *
+D + d) * T + t``), from torchrun's environment or from :func:`spawn`'s
+store (``spawn(..., grid=(S, D, T))``).  A pipeline always takes
+``gloo``: its activations move by point-to-point messages through the
+host, which NCCL would not take from host tensors, and its ranks share a
+card.
 
 The reference's submeshes (``split_devices``, ``make_submeshes``,
-``assert_disjoint``) and its tensor-parallel ``model`` axis are not ported
-yet (ROADMAP.md Queue 1 B item 11).
+``assert_disjoint``) are not ported yet (ROADMAP.md Queue 1 B item 11).
 """
 from __future__ import annotations
 
 import datetime
 import importlib
+import math
 import os
 import pickle
 import tempfile
@@ -55,7 +57,8 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding
-from repro_torch.dist.group import DEFAULT_TIMEOUT_S, DataGroup, PipeGroup
+from repro_torch.dist.group import (DEFAULT_TIMEOUT_S, DataGroup,
+                                   ModelGroup, PipeGroup)
 
 
 def pick_backend(device: torch.device, local_world: int) -> str:
@@ -134,40 +137,43 @@ def init_data_group(size: Optional[int] = None, *, rank: Optional[int] = None,
 def make_pipeline_mesh(num_stages: int, *, data_parallel: int = 1,
                        model_parallel: int = 1) -> sharding.Mesh:
     """The pipeline's axes, ``("stage", "data")`` of ``(num_stages,
-    data_parallel)``: microbatches stream along ``stage`` while each
-    microbatch's rows split over ``data``, and each stage's optimizer state
-    ZeRO-1-shards over ``data`` (``dist/sharding.pipeline_state_pspec``).
-    A ``model`` axis (``model_parallel > 1``) is not ported."""
+    data_parallel)``, or ``("stage", "data", "model")`` when
+    ``model_parallel > 1``: microbatches stream along ``stage`` while each
+    microbatch's rows split over ``data``, each stage's optimizer state
+    ZeRO-1-shards over ``data`` (``dist/sharding.pipeline_state_pspec``),
+    and ``model`` carries the column/row roles of the stages' weights."""
     if data_parallel < 1 or model_parallel < 1 or num_stages < 1:
         raise ValueError(f"pipeline mesh of {num_stages} stages x "
                          f"{data_parallel} x {model_parallel}: every factor "
                          f"must be >= 1")
     if model_parallel > 1:
-        raise NotImplementedError(
-            f"a pipeline mesh with a model axis (tensor parallelism "
-            f"{model_parallel}) is not ported (ROADMAP.md Queue 1 B item 11)")
+        return sharding.Mesh((num_stages, data_parallel, model_parallel),
+                             ("stage", "data", "model"))
     return sharding.Mesh((num_stages, data_parallel), ("stage", "data"))
 
 
-def init_pipe_group(num_stages: int, data_parallel: int = 1, *,
-                    rank: Optional[int] = None, device=None, store_dir=None,
+def init_pipe_group(num_stages: int, data_parallel: int = 1,
+                    model_parallel: int = 1, *, rank: Optional[int] = None,
+                    device=None, store_dir=None,
                     timeout_s: float = DEFAULT_TIMEOUT_S) -> PipeGroup:
     """This process's rank of a pipeline of ``num_stages`` stages x
-    ``data_parallel`` data ranks (``dist/group.PipeGroup``), from
-    torchrun's environment (whose ``WORLD_SIZE`` must be their product) or
-    from the store under ``store_dir``; the backend is ``gloo``.  Every
-    rank makes the subgroups of the two axes, in one order."""
-    n = num_stages * data_parallel
+    ``data_parallel`` data ranks x ``model_parallel`` model ranks
+    (``dist/group.PipeGroup``), from torchrun's environment (whose
+    ``WORLD_SIZE`` must be their product) or from the store under
+    ``store_dir``; the backend is ``gloo``.  Every rank makes the subgroups
+    of the three axes, in one order (``new_group`` is collective)."""
+    S, D, T = num_stages, data_parallel, model_parallel
     n, rank, local_rank, init_method, dev = _rank_env(
-        n, rank, device, store_dir, "--pipeline-stages x "
-        "--pipeline-data-parallel =")
-    s, d = divmod(rank, data_parallel)
-    group = PipeGroup(stage=s, num_stages=num_stages, rank=rank, size=n,
+        S * D * T, rank, device, store_dir, "--pipeline-stages x "
+        "--pipeline-data-parallel x --tensor-parallel =")
+    s, d, t = rank // (D * T), rank // T % D, rank % T
+    at = lambda ss, dd, tt: (ss * D + dd) * T + tt     # noqa: E731
+    group = PipeGroup(stage=s, num_stages=S, rank=rank, size=n,
                       local_rank=local_rank, device=dev, timeout_s=timeout_s,
-                      data=DataGroup(rank=d, size=data_parallel,
-                                     local_rank=local_rank, device=dev,
-                                     timeout_s=timeout_s,
-                                     root=s * data_parallel))
+                      data=DataGroup(rank=d, size=D, local_rank=local_rank,
+                                     device=dev, timeout_s=timeout_s,
+                                     root=at(s, 0, t)),
+                      model=ModelGroup(rank=t, size=T))
     if n == 1:
         return group
     if init_method is None:
@@ -178,27 +184,32 @@ def init_pipe_group(num_stages: int, data_parallel: int = 1, *,
     dist.init_process_group("gloo", init_method=init_method, rank=rank,
                             world_size=n, timeout=timeout)
     group.pg = dist.group.WORLD
-    # new_group is collective: every rank makes every subgroup, in order
-    for ss in range(num_stages):
-        pg = dist.new_group(ranks=[ss * data_parallel + dd
-                                   for dd in range(data_parallel)],
-                            backend="gloo", timeout=timeout) \
-            if data_parallel > 1 else None
-        if ss == s:
-            group.data.pg = pg
-    for dd in range(data_parallel):
-        pg = dist.new_group(ranks=[ss * data_parallel + dd
-                                   for ss in range(num_stages)],
-                            backend="gloo", timeout=timeout) \
-            if data_parallel > 1 else group.pg
-        if dd == d:
-            group.pipe_pg = pg
+
+    def sub(ranks):
+        return dist.new_group(ranks=ranks, backend="gloo", timeout=timeout)
+
+    for ss in range(S):                 # the data axis: one per (s, t)
+        for tt in range(T):
+            pg = sub([at(ss, dd, tt) for dd in range(D)]) if D > 1 else None
+            if (ss, tt) == (s, t):
+                group.data.pg = pg
+    for dd in range(D):                 # the stage axis: one per (d, t)
+        for tt in range(T):
+            pg = sub([at(ss, dd, tt) for ss in range(S)]) \
+                if D * T > 1 else group.pg
+            if (dd, tt) == (d, t):
+                group.pipe_pg = pg
+    for ss in range(S):                 # the model axis: one per (s, d)
+        for dd in range(D):
+            pg = sub([at(ss, dd, tt) for tt in range(T)]) if T > 1 else None
+            if (ss, dd) == (s, d):
+                group.model.pg = pg
     if rank == 0:
         cards = f" over {torch.cuda.device_count()} card(s)" \
             if dev.type == "cuda" else ""
-        print(f"[mesh] pipeline of {num_stages} stages x {data_parallel} "
-              f"data ranks{cards}: backend=gloo device={dev.type}",
-              flush=True)
+        model = f" x {T} model ranks" if T > 1 else ""
+        print(f"[mesh] pipeline of {S} stages x {D} data ranks{model}"
+              f"{cards}: backend=gloo device={dev.type}", flush=True)
     return group
 
 
@@ -213,7 +224,7 @@ def _resolve_target(target: str) -> Callable:
 def _rank_main(target: str, rank: int, n: int, device, tmp: str,
                threads: Optional[int], args, kwargs, grid=None) -> None:
     """One spawned rank: join the group (a pipeline's when ``grid`` is
-    ``(S, D)``), run ``target(group, *args, **kwargs)``, leave its result
+    ``(S, D)`` or ``(S, D, T)``), run ``target(group, *args, **kwargs)``, leave its result
     (or its traceback) in ``tmp``."""
     if threads:
         torch.set_num_threads(threads)
@@ -245,10 +256,10 @@ def spawn(target: str, n: int, *args, device=None,
     traceback; ranks still running after ``timeout_s`` are ended and
     ``TimeoutError`` is raised.  ``threads``: each rank's intra-op threads
     (default: the CPU's cores shared out on the CPU, torch's default on
-    the card).  ``grid=(S, D)`` makes the ranks a pipeline's
-    (``init_pipe_group``; ``n`` must be ``S * D``) instead of a data
-    group."""
-    if grid is not None and grid[0] * grid[1] != n:
+    the card).  ``grid=(S, D)`` or ``(S, D, T)`` makes the ranks a
+    pipeline's (``init_pipe_group``; ``n`` must be the grid's product)
+    instead of a data group."""
+    if grid is not None and math.prod(grid) != n:
         raise ValueError(f"a pipeline grid {grid} is not {n} ranks")
     if threads is None and resolve_device(device).type == "cpu":
         threads = max(1, (os.cpu_count() or 1) // n)

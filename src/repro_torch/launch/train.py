@@ -61,17 +61,25 @@ step table (``--aot-cache``) is refused under a group of several ranks.
 
 ``--parallelism pipeline`` runs the stack as a pipeline of
 ``--pipeline-stages`` S stage ranks times ``--pipeline-data-parallel`` D
-data ranks (``launch/mesh.init_pipe_group``; spawned on this machine, or
-torchrun's S x D ranks), interpreting the ``--pipeline-schedule`` table
+data ranks times ``--tensor-parallel`` T model ranks
+(``launch/mesh.init_pipe_group``; spawned on this machine, or torchrun's
+S x D x T ranks), interpreting the ``--pipeline-schedule`` table
 (``1f1b`` or ``gpipe``) over ``--microbatches`` M.  SPB depths snap to
 stage boundaries, and the stages below the depth run forward only.  Every
 rank draws the seeded global batch and takes its data index's rows of
 each microbatch (``--batch`` must divide by M x D); only rank 0 logs.
 Checkpoints, ``--resume`` and ``--fail-at`` work as under a data group
-(the checkpoint is the one-process format).  ``temporal-mb`` and
-``spatial`` raise under a pipeline, as in the reference, and
-``--tensor-parallel`` above 1, ``--sequence-parallel`` and ``--zero2``
-raise: they are not ported (ROADMAP.md Queue 1 B item 11).
+(the checkpoint is the one-process format).  ``--tensor-parallel`` above
+1 column/row-shards the stages' weights over the T model ranks,
+``--sequence-parallel`` also shards the in-stage residual stream over
+them on the sequence dim, and ``--zero2`` reduce-scatters the stage
+gradients over the data ranks into the ZeRO-1 moments' layout, with the
+reference's meanings.  ``temporal-mb`` and ``spatial`` raise under a
+pipeline, as in the reference; so do a tensor-parallel degree the
+config's heads or FFN width do not divide, a stack other than dense
+attention, and ``--sequence-parallel`` without ``--tensor-parallel``
+above 1, with the reference's texts.  Outside a pipeline the three knobs
+raise, as in the reference.
 """
 from __future__ import annotations
 
@@ -79,6 +87,7 @@ import argparse
 import dataclasses
 import os
 import time
+from typing import Optional
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config import SPBConfig, TrainConfig
@@ -97,7 +106,10 @@ def build_engine(cfg, tcfg, spb_cfg, *, depth_policy: str = "cycle",
                  time_budget: float = 0.75, device=None,
                  remat: str = "none", group=None,
                  parallelism: str = "spmd",
-                 pipeline_schedule: str = "1f1b") -> SPBEngine:
+                 pipeline_schedule: str = "1f1b",
+                 tensor_parallel: Optional[int] = None,
+                 sequence_parallel: bool = False,
+                 zero2: bool = False) -> SPBEngine:
     """The one construction path every entry point shares."""
     if parallelism == "pipeline":   # the policy snaps to stage boundaries
         spb_cfg = dataclasses.replace(spb_cfg,
@@ -106,6 +118,8 @@ def build_engine(cfg, tcfg, spb_cfg, *, depth_policy: str = "cycle",
                      device=None if group is not None else device,
                      remat=remat, group=group, parallelism=parallelism,
                      pipeline_schedule=pipeline_schedule,
+                     tensor_parallel=tensor_parallel,
+                     sequence_parallel=sequence_parallel, zero2=zero2,
                      policy=make_policy(depth_policy, cfg, spb_cfg,
                                         time_budget_frac=time_budget,
                                         remat=remat))
@@ -146,11 +160,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "microbatch's rows split over them, and each "
                          "stage's optimizer state ZeRO-1-shards over them")
     ap.add_argument("--tensor-parallel", type=int, default=1,
-                    help="not ported (ROADMAP.md Queue 1 B item 11)")
+                    help="size of the pipeline's 'model' axis: stage "
+                         "weights column/row-shard over it with explicit "
+                         "collectives at the attention/MLP joins")
     ap.add_argument("--sequence-parallel", action="store_true",
-                    help="not ported (ROADMAP.md Queue 1 B item 11)")
+                    help="with --tensor-parallel > 1: shard the in-stage "
+                         "residual stream over 'model' on the sequence dim "
+                         "(all-gather/reduce-scatter at the joins)")
     ap.add_argument("--zero2", action="store_true",
-                    help="not ported (ROADMAP.md Queue 1 B item 11)")
+                    help="reduce-scatter pipeline stage grads over 'data' "
+                         "into the ZeRO-1 moments' layout")
     ap.add_argument("--depth-policy", default="cycle",
                     choices=["cycle", "costmodel", "hook"],
                     help="who picks the per-step backprop depth")
@@ -208,14 +227,19 @@ def _check_group_args(args, n: int) -> None:
                              else ""))
 
 
+def _config(args):
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    return dataclasses.replace(cfg, use_pallas=True) if args.use_pallas \
+        else cfg
+
+
 def _check_pipeline_args(args, under_torchrun: bool):
-    """The pipeline's grid ``(S, D)``, raised on what a pipeline refuses
-    before any rank starts."""
-    steps_lib._refuse_pipeline_knobs(args.tensor_parallel,
-                                     args.sequence_parallel, args.zero2)
-    d = args.pipeline_data_parallel
+    """The pipeline's grid ``(S, D, T)``, raised on what a pipeline
+    refuses before any rank starts."""
+    d, t = args.pipeline_data_parallel, max(1, args.tensor_parallel)
+    steps_lib.check_pipeline_knobs(_config(args), t, args.sequence_parallel)
     s = args.pipeline_stages or (
-        int(os.environ["WORLD_SIZE"]) // d if under_torchrun else 2)
+        int(os.environ["WORLD_SIZE"]) // (d * t) if under_torchrun else 2)
     if args.spb_mode in ("spatial", "temporal-mb"):
         raise ValueError(f"SPB mode {args.spb_mode!r} is not supported "
                          f"under pipeline parallelism (use 'temporal' or "
@@ -231,7 +255,10 @@ def _check_pipeline_args(args, under_torchrun: bool):
     if args.batch % (m * d):
         raise ValueError(f"--batch {args.batch} does not split into "
                          f"{m} microbatches x {d} data ranks")
-    return s, d
+    if args.sequence_parallel and args.seq % t:
+        raise ValueError(f"sequence length {args.seq} not divisible by "
+                         f"tensor_parallel={t}")
+    return s, d, t
 
 
 def train(argv=None):
@@ -239,17 +266,18 @@ def train(argv=None):
     args = parse_args(argv)
     under_torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     if args.parallelism == "pipeline":
-        s, d = _check_pipeline_args(args, under_torchrun)
-        if s * d > 1 and not under_torchrun:
-            return mesh.spawn("repro_torch.launch.train:rank_main", s * d,
-                              args, device=args.device, grid=(s, d))[0]
-        group = mesh.init_pipe_group(s, d, device=args.device)
+        s, d, t = _check_pipeline_args(args, under_torchrun)
+        if s * d * t > 1 and not under_torchrun:
+            return mesh.spawn("repro_torch.launch.train:rank_main",
+                              s * d * t, args, device=args.device,
+                              grid=(s, d, t))[0]
+        group = mesh.init_pipe_group(s, d, t, device=args.device)
         try:
             return rank_main(group, args)
         finally:
             group.close()
-    steps_lib._refuse_pipeline_knobs(args.tensor_parallel,
-                                     args.sequence_parallel, args.zero2)
+    steps_lib.refuse_pipeline_knobs(args.tensor_parallel,
+                                    args.sequence_parallel, args.zero2)
     n = int(os.environ["WORLD_SIZE"]) if under_torchrun and \
         args.data_parallel is None else (args.data_parallel or 1)
     _check_group_args(args, n)
@@ -270,9 +298,7 @@ def rank_main(group, args: argparse.Namespace) -> list:
     if args.compilation_cache_dir:
         cc_before = stepcache.enable_persistent_compilation_cache(
             args.compilation_cache_dir)
-    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    if args.use_pallas:
-        cfg = dataclasses.replace(cfg, use_pallas=True)
+    cfg = _config(args)
     tcfg = TrainConfig(learning_rate=args.lr, optimizer=args.optimizer,
                        num_steps=args.steps, microbatches=args.microbatches,
                        compression=args.compression,
@@ -286,7 +312,10 @@ def rank_main(group, args: argparse.Namespace) -> list:
                           time_budget=args.time_budget, device=args.device,
                           remat=args.remat, group=group,
                           parallelism=args.parallelism,
-                          pipeline_schedule=args.pipeline_schedule)
+                          pipeline_schedule=args.pipeline_schedule,
+                          tensor_parallel=args.tensor_parallel,
+                          sequence_parallel=args.sequence_parallel,
+                          zero2=args.zero2)
     mgr = (CheckpointManager(tcfg.checkpoint_dir, keep=3)
            if tcfg.checkpoint_dir else None)
 

@@ -1,7 +1,8 @@
 """Model layers of the port: norm, RoPE, embedding, SwiGLU FFN, GQA and
 MLA attention (train, dense-cache prefill/decode and the serving engine's
-paged prefill/decode), the encoder-decoder's cross-attention and the loss
-(``repro/models/layers.py`` without the tensor-parallel collectives).
+paged prefill/decode), the encoder-decoder's cross-attention, the loss
+(``repro/models/layers.py``), with the tensor-parallel collective pairs
+of a pipeline's tensor-sharded stages.
 
 Plain functions over parameter dictionaries of tensors, in the JAX
 package's layouts, so the two packages can be fed the same weights.
@@ -106,6 +107,148 @@ def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# Tensor-parallel collectives (Megatron f/g + sequence-parallel transitions)
+# ---------------------------------------------------------------------------
+# Inside a tensor-sharded pipeline stage (``dist/pipeline/stage.py``) the
+# attention and FFN weights are column/row-sharded over the stage's model
+# group (``dist/group.ModelGroup``), so the row products give partial sums
+# that are reduced explicitly.  Each Function pairs one forward collective
+# of the group with its exact adjoint, as the reference's ``custom_vjp``s
+# do; ``group`` is the ModelGroup and ``dim`` the sequence dim.
+
+class _TPPsum(torch.autograd.Function):
+    """All-reduce at a row-parallel join (Megatron 'g'): forward the sum;
+    backward the identity (the output cotangent is already replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TPEnter(torch.autograd.Function):
+    """Enter a column-parallel region (Megatron 'f'): forward the
+    identity; backward the all-reduce (each shard's input cotangent is a
+    partial sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g), None
+
+
+class _SPAllGather(torch.autograd.Function):
+    """Sequence-parallel block entry: gather the sequence shards; the
+    adjoint reduce-scatters the cotangent back to its shard."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.reduce_scatter(g, ctx.dim), None, None
+
+
+class _SPReduceScatter(torch.autograd.Function):
+    """Sequence-parallel block exit: reduce the row-parallel partial sums
+    and keep this shard's slice of the sequence; the adjoint all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g, ctx.dim), None, None
+
+
+def _shard_of(x: Tensor, group, dim: int) -> Tensor:
+    size = x.shape[dim] // group.size
+    return x.narrow(dim, group.rank * size, size).contiguous()
+
+
+class _SPSlice(torch.autograd.Function):
+    """Stage inlet under sequence parallelism: this shard's slice of the
+    replicated input; the adjoint all-gathers (each position has one
+    owner, so the gather reassembles the whole cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _shard_of(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g, ctx.dim), None, None
+
+
+class _SPUnslice(torch.autograd.Function):
+    """Stage outlet under sequence parallelism: all-gather the shards, so
+    the activation that crosses to the next stage is whole; the adjoint
+    takes this shard's slice of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shard_of(g, ctx.group, ctx.dim), None, None
+
+
+def tp_psum(x: Tensor, group) -> Tensor:
+    return _TPPsum.apply(x, group)
+
+
+def tp_enter(x: Tensor, group) -> Tensor:
+    return _TPEnter.apply(x, group)
+
+
+def sp_all_gather(x: Tensor, group, dim: int) -> Tensor:
+    return _SPAllGather.apply(x, group, dim)
+
+
+def sp_reduce_scatter(x: Tensor, group, dim: int) -> Tensor:
+    return _SPReduceScatter.apply(x, group, dim)
+
+
+def sp_slice(x: Tensor, group, dim: int) -> Tensor:
+    return _SPSlice.apply(x, group, dim)
+
+
+def sp_unslice(x: Tensor, group, dim: int) -> Tensor:
+    return _SPUnslice.apply(x, group, dim)
+
+
+def _tp_in(x: Tensor, tp, sequence_parallel: bool) -> Tensor:
+    """A column-parallel block's input: the whole sequence under sequence
+    parallelism, else ``x`` entered (``tp``: the model group or None)."""
+    if tp is None:
+        return x
+    return sp_all_gather(x, tp, 1) if sequence_parallel else tp_enter(x, tp)
+
+
+def _tp_out(y: Tensor, tp, sequence_parallel: bool) -> Tensor:
+    """A row-parallel block's joined output: this shard's sequence slice
+    of the sum under sequence parallelism, else the sum."""
+    if tp is None:
+        return y
+    return sp_reduce_scatter(y, tp, 1) if sequence_parallel \
+        else tp_psum(y, tp)
+
+
+# ---------------------------------------------------------------------------
 # GQA attention layer
 # ---------------------------------------------------------------------------
 
@@ -160,9 +303,17 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 
 def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
-                  positions: Tensor, causal: bool = True) -> Tensor:
+                  positions: Tensor, causal: bool = True, tp=None,
+                  sequence_parallel: bool = False) -> Tensor:
     """Train self-attention.  x: (B, S, D).  ``causal=False`` is an
-    encoder's: every position sees every other, on the blockwise path."""
+    encoder's: every position sees every other, on the blockwise path.
+
+    ``tp`` (a ``dist/group.ModelGroup``): wq/wk/wv are column- and wo
+    row-sharded over it, so the head counts are the local weights' and the
+    output is joined by :func:`tp_psum`; ``sequence_parallel`` enters by
+    :func:`sp_all_gather` and joins by :func:`sp_reduce_scatter`, so ``x``
+    and the output are this shard's slice of the sequence."""
+    x = _tp_in(x, tp, sequence_parallel)
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     if causal:
@@ -171,7 +322,7 @@ def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
         o = blockwise_attention(q, k, v, causal=False,
                                 q_block=cfg.attn_q_block,
                                 kv_block=cfg.attn_kv_block)
-    return o.reshape(B, S, -1) @ p["wo"]
+    return _tp_out(o.reshape(B, S, -1) @ p["wo"], tp, sequence_parallel)
 
 
 def decode_attention(q: Tensor, k: Tensor, v: Tensor, kpos: Tensor,
@@ -546,9 +697,13 @@ def cross_attention_decode(p: Params, x: Tensor, cfg: ModelConfig,
 # FFN
 # ---------------------------------------------------------------------------
 
-def ffn_fwd(p: Params, x: Tensor) -> Tensor:
-    """SwiGLU MLP."""
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+def ffn_fwd(p: Params, x: Tensor, *, tp=None,
+            sequence_parallel: bool = False) -> Tensor:
+    """SwiGLU MLP; ``tp``: wg/wu column- and wd row-sharded over the model
+    group, with :func:`attention_fwd`'s enter and join."""
+    x = _tp_in(x, tp, sequence_parallel)
+    y = (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    return _tp_out(y, tp, sequence_parallel)
 
 
 # ---------------------------------------------------------------------------

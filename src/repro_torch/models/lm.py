@@ -253,7 +253,8 @@ def _unbind(tree, count: int):
     return [{k: v[r] for k, v in parts.items()} for r in range(count)]
 
 
-def _apply_ffn(x: Tensor, up: Params, ffn: str, cfg: ModelConfig
+def _apply_ffn(x: Tensor, up: Params, ffn: str, cfg: ModelConfig, tp=None,
+               sequence_parallel: bool = False
                ) -> Tuple[Tensor, Optional[Tensor]]:
     """The FFN half of a layer: (x, the layer's MoE aux, or None for a
     dense FFN or none)."""
@@ -263,18 +264,31 @@ def _apply_ffn(x: Tensor, up: Params, ffn: str, cfg: ModelConfig
         if ffn == "moe":
             out, aux = M.moe_fwd(up["ffn"], h, cfg)
         else:
-            out = L.ffn_fwd(up["ffn"], h)
+            out = L.ffn_fwd(up["ffn"], h, tp=tp,
+                            sequence_parallel=sequence_parallel)
         x = x + out
     return x, aux
 
 
 def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
                  positions: Tensor, enc: Optional[Tensor] = None,
-                 causal: bool = True) -> Tuple[Tensor, Optional[Tensor]]:
+                 causal: bool = True, tp=None,
+                 sequence_parallel: bool = False
+                 ) -> Tuple[Tensor, Optional[Tensor]]:
     """Returns (x, the layer's MoE aux, or None for a dense FFN).  ``enc``:
     the encoder output an ``xdec`` layer cross-attends to; ``causal=False``:
-    an encoder layer's bidirectional self-attention."""
+    an encoder layer's bidirectional self-attention.
+
+    ``tp`` (a ``dist/group.ModelGroup``): the attention and FFN weights are
+    column/row-sharded over it, the tensor-sharded pipeline stage's path
+    (dense ``attn``/``local`` train layers only, as in the reference);
+    ``sequence_parallel`` shards the residual stream between the joins
+    over it on the sequence dim."""
     mixer, ffn = kinds
+    if tp is not None and (mixer not in ("attn", "local") or ffn == "moe"):
+        raise NotImplementedError(
+            f"tensor-parallel path covers dense attn/local train layers "
+            f"only, got mixer={mixer!r} ffn={ffn!r} mode='train'")
     h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
     if mixer == "ssd":
         o = S.mamba2_fwd(up["mixer"], h, cfg)
@@ -284,12 +298,13 @@ def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
         o = L.mla_fwd(up["mixer"], h, cfg, positions=positions)
     else:
         o = L.attention_fwd(up["mixer"], h, cfg, kind=mixer,
-                            positions=positions, causal=causal)
+                            positions=positions, causal=causal, tp=tp,
+                            sequence_parallel=sequence_parallel)
     x = x + o
     if mixer == "xdec":
         hx = L.rms_norm(x, up["lnx"], cfg.norm_eps)
         x = x + L.cross_attention_fwd(up["xattn"], hx, enc, cfg)
-    return _apply_ffn(x, up, ffn, cfg)
+    return _apply_ffn(x, up, ffn, cfg, tp, sequence_parallel)
 
 
 # the cached modes' mixer functions: dense per-slot caches ('prefill',
@@ -415,11 +430,13 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
 
 def _run_repeat(x: Tensor, aux: Tensor, rows, positions: Tensor,
                 enc: Optional[Tensor], *, unit, cfg: ModelConfig,
-                causal: bool) -> Tuple[Tensor, Tensor]:
+                causal: bool, tp=None, sequence_parallel: bool = False
+                ) -> Tuple[Tensor, Tensor]:
     """One repeat of a group's unit (the reference's scan body): ``rows``
     holds each layer's parameters; returns the (x, aux) carry."""
     for u in range(len(unit)):
-        x, a = _apply_layer(x, rows[u], unit[u], cfg, positions, enc, causal)
+        x, a = _apply_layer(x, rows[u], unit[u], cfg, positions, enc, causal,
+                            tp, sequence_parallel)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -428,11 +445,17 @@ def _run_repeat(x: Tensor, aux: Tensor, rows, positions: Tensor,
 def _run_group_train(x: Tensor, aux: Tensor, gparams, unit,
                      cfg: ModelConfig, positions: Tensor,
                      enc: Optional[Tensor] = None, causal: bool = True,
-                     remat: str = "none") -> Tuple[Tensor, Tensor]:
+                     remat: str = "none", tp=None,
+                     sequence_parallel: bool = False
+                     ) -> Tuple[Tensor, Tensor]:
+    """Every repeat of a group in turn under the policy ``remat``; ``tp``
+    and ``sequence_parallel`` as :func:`_apply_layer`'s (a recomputed
+    repeat runs its joins again)."""
     count = tree_leaves(gparams)[0].shape[0]
     per_unit = [_unbind(up, count) for up in gparams]
-    body = _maybe_remat(functools.partial(_run_repeat, unit=unit, cfg=cfg,
-                                          causal=causal), remat)
+    body = _maybe_remat(functools.partial(
+        _run_repeat, unit=unit, cfg=cfg, causal=causal, tp=tp,
+        sequence_parallel=sequence_parallel), remat)
     for r in range(count):
         x, aux = body(x, aux, [rows[r] for rows in per_unit], positions, enc)
     return x, aux

@@ -53,8 +53,12 @@ def schedule_values(tcfg: TrainConfig, step: int) -> np.ndarray:
 
 def local(t, part):
     """A rank's slice of ``t`` (``part``: a ``dist/sharding.shard_slices``
-    entry, ``(dim, start, length)``), a view; ``t`` itself for ``None``."""
-    return t if part is None or t is None else t.narrow(*part)
+    entry, ``(dim, start, length)``), a view; ``t`` itself for ``None`` and
+    for a ``t`` that is already the slice (its ``dim`` is ``length``
+    long: a whole leaf's is a multiple of it)."""
+    if part is None or t is None or t.shape[part[0]] == part[2]:
+        return t
+    return t.narrow(*part)
 
 
 def init_opt_state(params, tcfg: TrainConfig, shards=None) -> Dict[str, Any]:

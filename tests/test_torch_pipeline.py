@@ -34,7 +34,8 @@ reference on 4 virtual CPU devices.
 * A checkpoint written under the (2, 2) grid restores into one process
   and into a data group of 2, and one written by one process restores
   into the grid; the continued losses equal the uninterrupted run's.
-* The refused modes and flags raise with their texts; ``launch/train.py``
+* The refused modes and flags (the tensor-parallel knobs' refusals among
+  them) raise with their texts; ``launch/train.py``
   runs a pipeline and restarts it from a checkpoint after an injected
   failure; a send on the meta device is counted by
   ``analysis/cost.CostMode``.
@@ -646,26 +647,49 @@ def test_a_pipelines_checkpoint_restores_into_one_process_and_a_group(
 
 # -- refusals and the train entry point --------------------------------------
 
-ITEM_11 = "ROADMAP.md Queue 1 B item 11"
+# what the pipeline's tensor-parallel knobs still refuse, with the
+# reference's texts: (arch, knobs, the text, the model axis's size)
+KNOB_REFUSALS = [
+    ("yi-6b", dict(sequence_parallel=True),
+     "sequence_parallel requires tensor_parallel > 1", 1),
+    ("yi-6b", dict(tensor_parallel=3), "num_heads=4 not divisible", 3),
+    ("qwen3-moe-235b-a22b", dict(tensor_parallel=2),
+     "MoE FFNs shard over the expert axis", 2),
+    ("recurrentgemma-2b", dict(tensor_parallel=2),
+     "have no tensor-parallel path", 2),
+]
 
 
-@pytest.mark.parametrize("kw", [dict(tensor_parallel=2),
-                                dict(sequence_parallel=True),
-                                dict(zero2=True)])
-def test_item_11_knobs_raise(kw):
-    with pytest.raises(NotImplementedError, match=ITEM_11):
-        _engine("yi-6b", PipeGroup(data=DataGroup()), **kw)
-    with pytest.raises(NotImplementedError, match=ITEM_11):
+@pytest.mark.parametrize("case", KNOB_REFUSALS)
+def test_item_11_knobs_raise(case):
+    """The knobs run under a pipeline (``tests/test_torch_tensor_parallel
+    .py``); what they refuse raises from the engine and the step with the
+    reference's texts, and outside a pipeline session each raises."""
+    from repro_torch.dist.group import ModelGroup
+
+    arch, kw, text, t = case
+    with pytest.raises(ValueError, match=text):
+        _engine(arch, PipeGroup(data=DataGroup(), model=ModelGroup(size=t)),
+                **kw)
+    with pytest.raises(ValueError, match=text):
         steps_lib.make_pipeline_train_step(
-            _cfg("yi-6b"), TrainConfig(), SPBConfig(), num_stages=1, **kw)
+            _cfg(arch), TrainConfig(), SPBConfig(), num_stages=1, **kw)
+    with pytest.raises(ValueError, match="pipeline-session knobs"):
+        _engine(arch, **kw)
 
 
-@pytest.mark.parametrize("flags", [["--tensor-parallel", "2"],
-                                   ["--sequence-parallel"], ["--zero2"]])
-def test_item_11_flags_raise(flags):
+@pytest.mark.parametrize("flags,text", [
+    (["--tensor-parallel", "3"], "num_heads=4 not divisible"),
+    (["--sequence-parallel"], "sequence_parallel requires tensor_parallel"),
+    (["--parallelism", "spmd", "--zero2"], "pipeline-session knobs"),
+    (["--arch", "qwen3-moe-235b-a22b", "--reduced", "--tensor-parallel",
+      "2"], "MoE FFNs shard over the expert axis")])
+def test_item_11_flags_raise(flags, text):
+    """``launch/train.py``'s refusals, before any rank starts, with the
+    reference's texts."""
     argv = ["--device", "cpu", "--steps", "1", "--parallelism", "pipeline",
             *flags]
-    with pytest.raises(NotImplementedError, match=ITEM_11):
+    with pytest.raises(ValueError, match=text):
         train.train(argv)
 
 
@@ -681,15 +705,22 @@ def test_spatial_and_temporal_mb_raise_under_a_pipeline(mode):
 
 
 def test_the_step_table_and_compression_are_refused():
+    """The step table is refused under a pipeline; compression runs there
+    (``tests/test_torch_tensor_parallel.py`` holds it against one
+    process), but not with ZeRO-2's data-sharded gradients."""
     eng = SPBEngine(_cfg("yi-6b"), TrainConfig(), SPBConfig(), device="cpu",
                     parallelism="pipeline")
     for call in (lambda: eng.compile_table({}), lambda: eng.load_aot("x")):
         with pytest.raises(NotImplementedError, match="under a pipeline"):
             call()
-    with pytest.raises(NotImplementedError, match="compression"):
+    assert callable(steps_lib.make_pipeline_train_step(
+        _cfg("yi-6b"), TrainConfig(compression="topk"), SPBConfig(),
+        num_stages=1))
+    with pytest.raises(ValueError, match="compression under zero2"):
         steps_lib.make_pipeline_train_step(
             _cfg("yi-6b"), TrainConfig(compression="topk"), SPBConfig(),
-            num_stages=1)
+            num_stages=1, zero2=True, shards={},
+            group=PipeGroup(data=DataGroup(size=2)))
     with pytest.raises(ValueError, match="not pipeline-partitionable"):
         pp_stage.check_pipeline_compatible(
             reduced_config("seamless-m4t-medium"), 2)
