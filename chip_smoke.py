@@ -217,7 +217,26 @@ Phases, each printing a line; any failure exits non-zero:
      the dry run's count; (b) reduced yi-6b and mamba2-2.7b (f32, the
      kernels) for one cycle: xent within 1e-3 of one process on the CPU,
      launches exact (no SSD backward on a frozen stage);
-  15. (run last, after 20, on the host) the dry run of each phase-5 path:
+  21. (run after 20) tensor parallelism inside the stages on (stage 2,
+     data 1, model 2) and (2, 2, 2) grids, yi-6b cut to 8 and 4 layers
+     (``phase_tensor_parallel``);
+  22. (run after 21) expert parallelism (``models/moe.moe_fwd_ep``) on
+     ``(data, model)`` grids of ranks sharing the card over gloo
+     (``mesh.spawn(grid=(D, T))``,
+     ``SPBEngine(group=<GridGroup>)``): (a) reduced deepseek-v2-lite-16b
+     with ``impl="ep"``, f32, on (1, 2) and (2, 2), two steps at capacity
+     1.25 and 8, each grid also on the CPU: the losses card against CPU
+     (1e-3), the xent at capacity 8 against one dense process (1e-5),
+     the replicas' non-expert leaves bit-identical, the small path (4
+     tokens) against the CPU, calls, bytes and launches exact; (b)
+     deepseek-v2-lite-16b at published widths cut to 3 layers (the dense
+     layer 0 and 2 MoE layers, 32 of 64 experts a rank), bf16, on (1, 2),
+     batch 2 x 2048, two k 4 cycles: a line a rank and depth with the
+     warm step ms, the model group's host ms, calls and bytes by kind
+     (held exact against ``roofline.ep_calls``), each MoE layer's share
+     of slots dropped at capacity, launches and the peak beside the
+     reckoning;
+  15. (run last, after 22, on the host) the dry run of each phase-5 path:
      every depth of its cycle counted on the meta device at batch
      2 x 2048 with the kernels' meta entries (``launch/dryrun.py``):
      counted TFLOP and GB, the three H100 roofline terms
@@ -237,7 +256,8 @@ Phases, each printing a line; any failure exits non-zero:
      replays), ``launches_remat`` (phase 17's runs, by arch and policy),
      ``launches_data_parallel`` (phase 18's, by run and rank),
      ``launches_zero`` (phase 19's), ``launches_pipeline`` (phase 20's,
-     by run and stage),
+     by run and stage), ``launches_tensor_parallel`` and
+     ``launches_expert_parallel`` (phases 21's and 22's, by run and rank),
      the fused phase's ms by depth and peak, phase 17's and phase 18's
      figures,
      and phase 15's ``dryrun_by_arch``), the card's name and power
@@ -3782,7 +3802,7 @@ def _pipe_one_process(cfg, device: str, steps: int, batches) -> list:
 
 def phase_pipeline(smi: str) -> dict:
     """Phase 20: two stage ranks share the card over gloo
-    (``launch/mesh.spawn(grid=(2, 1))``, ``SPBEngine(parallelism=
+    (``launch/mesh.spawn(grid=(2, 1, 1))``, ``SPBEngine(parallelism=
     "pipeline")``): (a) yi-6b's 8-layer full-width cut, 1F1B over 4
     microbatches, temporal k 4 for two cycles: every rank's launches a
     step :func:`expected_stage_launches` (a frozen stage launches the
@@ -3817,7 +3837,7 @@ def phase_pipeline(smi: str) -> dict:
         f"{predicted_gb:.3f} card={smi}")
     t0 = time.perf_counter()
     ranks = mesh.spawn("chip_smoke:pipe_rank", PIPE_STAGES, device="cuda",
-                       grid=(PIPE_STAGES, 1), timeout_s=DP_JOIN_S)
+                       grid=(PIPE_STAGES, 1, 1), timeout_s=DP_JOIN_S)
     failed, launches, figures = [], {}, {}
     # (a) the full-width run
     act = 1 * 2048 * cfg.d_model * 2            # one row of 2048, bf16
@@ -4259,6 +4279,387 @@ def phase_tensor_parallel(smi: str) -> dict:
     return {"launches": launches, "figures": figures}
 
 
+EP_ARCH = "deepseek-v2-lite-16b"
+EP_GRIDS = ((1, 2), (2, 2))      # part (a): reduced, ranks sharing the card
+EP_STEPS = 2
+EP_ROWS, EP_SEQ = 4, 32          # part (a)'s global batch
+EP_TOL = 1e-3                    # card against CPU, as phase 4's
+EP_DENSE_TOL = 1e-5              # capacity 8 against one dense process
+EP_FULL_LAYERS = 3               # part (b): the dense layer 0 and 2 MoE
+EP_FULL_GRID = (1, 2)
+EP_FULL_STEPS = 8                # two k 4 cycles; the second is warm
+EP_ACT_GB = 4.0                  # part (b)'s activations over the state
+
+
+def ep_config(what: str, **moe_kw):
+    """Phase 22's configs: ``"full"`` (deepseek-v2-lite-16b at published
+    widths cut to 3 layers, every expert, bf16, the kernels), else its
+    reduced config in f32 on the kernels; ``impl="ep"`` both."""
+    from repro_torch.configs import full_width_config, reduced_config
+    if what == "full":
+        cfg = dataclasses.replace(full_width_config(EP_ARCH),
+                                  num_layers=EP_FULL_LAYERS)
+        moe = dataclasses.replace(cfg.moe, experts_held=None)
+    else:
+        cfg = dataclasses.replace(reduced_config(EP_ARCH), use_pallas=True)
+        moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, impl="ep", **moe_kw))
+
+
+def _ep_engine(cfg, group, steps: int):
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.engine.engine import SPBEngine
+    return SPBEngine(cfg, TrainConfig(num_steps=steps),
+                     SPBConfig(mode="temporal", k=4), group=group,
+                     shared_cache=False)
+
+
+def _replicated_digest(eng) -> str:
+    """sha256 of the rank's non-expert parameters' bits."""
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.tree import tree_leaves
+    return _params_digest([t for t, r in zip(
+        tree_leaves(eng.state["params"]),
+        tree_leaves(steps_lib.ep_roles(eng.cfg))) if r != "expert"])
+
+
+def _ep_steps(eng, group, batches) -> list:
+    """Each step of a grid rank: ms (host clock, synchronized), the model
+    group's host ms, calls and payload bytes by kind, each MoE layer's
+    dropped and routed slots, depth, metrics and launches."""
+    import torch
+    from repro_torch.models import moe
+    model = group.model
+    out = []
+    for s, batch in enumerate(batches):
+        before = launches_now()
+        c0, b0, t0s = dict(model.calls), dict(model.bytes), \
+            dict(model.seconds)
+        drops = []
+        moe.DROP_SINKS.append(lambda n, k: drops.append((n, k)))
+        try:
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = eng.train_step(group.shard(batch), s)
+            metrics = {k: float(v) for k, v in m.items()}
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            moe.DROP_SINKS.pop()
+        out.append({
+            "ms": ms, "depth": eng.last_depth,
+            "model_ms": {k: (model.seconds[k] - t0s.get(k, 0.0)) * 1e3
+                         for k in model.seconds},
+            "model_calls": {k: [model.calls[k] - c0.get(k, 0),
+                                model.bytes[k] - b0.get(k, 0)]
+                            for k in model.calls
+                            if model.calls[k] - c0.get(k, 0)},
+            "dropped": [[int(n), k] for n, k in drops],
+            "launches": launches_since(before), **metrics})
+    return out
+
+
+def _ep_small(group, device: str) -> dict:
+    """The small path on this grid: one MoE layer of the reduced config
+    (the seeded weights, this rank's experts) on 4 tokens (2 rows of 2),
+    forward and backward of ``sum(out * w) + aux``: the output and the
+    input's gradient on this rank."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm, moe
+    from repro_torch.tree import tree_map
+    cfg = ep_config("reduced")
+    D, T = group.data.size, group.model.size
+    d, t = group.data_index, group.model_index
+    # the first MoE layer: row 0 of the second group
+    layer = tree_map(lambda w: w[0], lm.init_lm(
+        torch.Generator().manual_seed(0), cfg, "cpu")["groups"][1][0]["ffn"])
+    held = cfg.moe.num_experts // T
+
+    def take(w):
+        if w.dim() == 3 and w.shape[0] == cfg.moe.num_experts:
+            w = w[t * held:(t + 1) * held]
+        return w.clone().to(device).requires_grad_(True)
+
+    p = tree_map(take, layer)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 2, cfg.d_model)).astype(np.float32)
+    w = rng.standard_normal((2, 2, cfg.d_model)).astype(np.float32)
+    rows = 2 // D
+    xd = torch.from_numpy(x[d * rows:(d + 1) * rows]).to(device
+                                                         ).requires_grad_()
+    y, aux = moe.moe_fwd_ep(p, xd, cfg, group=group.model)
+    wd = torch.from_numpy(w[d * rows:(d + 1) * rows]).to(device)
+    ((y * wd).sum() + aux / D).backward()
+    return {"y": y.detach().cpu().numpy(), "dx": xd.grad.cpu().numpy(),
+            "aux": float(aux)}
+
+
+def ep_rank(group, part: str, device: str) -> dict:
+    """Phase 22, one rank of a ``(data, model)`` grid.  Part ``"a"``:
+    reduced deepseek-v2-lite-16b (f32, the kernels, from the CPU-drawn
+    seeded weights) at capacity 1.25 and 8, two steps each, then the small
+    path; part ``"b"``: its 3-layer cut at published widths, bf16, from
+    ``init_state(0)`` on the card's generator, two k 4 cycles."""
+    import gc
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import make_batch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    if part == "a":
+        for cap in (1.25, 8.0):
+            cfg = ep_config("reduced", capacity_factor=cap)
+            eng = _ep_engine(cfg, group, EP_STEPS)
+            eng.attach_state(steps_lib.state_from_params(
+                lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu"),
+                TrainConfig()))
+            pipe = Pipeline(cfg, EP_ROWS, EP_SEQ, seed=0)
+            out[f"cap{cap}"] = {
+                "steps": _ep_steps(eng, group, [pipe.get_batch(s) for s in
+                                                range(EP_STEPS)]),
+                "replicated": _replicated_digest(eng)}
+        out["small"] = _ep_small(group, device)
+        return out
+    cfg = ep_config("full")
+    eng = _ep_engine(cfg, group, EP_FULL_STEPS)
+    eng.init_state(0)
+    held = sum(t.numel() for t in tree_leaves(eng.state["params"]))
+    batches = [make_batch(cfg, 2, 2048, seed=s, device="cuda")
+               for s in range(EP_FULL_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = _ep_steps(eng, group, batches)
+    out["full"] = {"steps": steps, "params": held,
+                   "max_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "replicated": _replicated_digest(eng)}
+    del eng, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_dense_one_process(cfg, device: str) -> list:
+    """Reduced deepseek's dense path in one process on ``device`` from the
+    same weights and batches: each step's xent."""
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.models import lm
+    dense = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl="dense"))
+    eng = SPBEngine(dense, TrainConfig(num_steps=EP_STEPS),
+                    SPBConfig(mode="temporal", k=4), device=device,
+                    shared_cache=False)
+    eng.attach_state(steps_lib.state_from_params(
+        lm.init_lm(torch.Generator().manual_seed(0), dense, "cpu"),
+        TrainConfig()))
+    pipe = Pipeline(dense, EP_ROWS, EP_SEQ, seed=0)
+    return [float(eng.train_step(pipe.get_batch(s), s)["xent"])
+            for s in range(EP_STEPS)]
+
+
+def phase_expert_parallel(smi: str) -> dict:
+    """Phase 22: expert parallelism on ``(data, model)`` grids of ranks
+    sharing the card over gloo (``launch/mesh.spawn(grid=(D, T))``,
+    ``SPBEngine(group=<GridGroup>)``,
+    ``models/moe.moe_fwd_ep``).  (a) reduced deepseek-v2-lite-16b with
+    ``impl="ep"``, f32 on the kernels, on (1, 2) and (2, 2), two temporal
+    steps, each grid also on the CPU: every step's loss within
+    :data:`EP_TOL` of the same grid's CPU run; at capacity 8 the xent
+    within :data:`EP_DENSE_TOL` of one process's dense step on the card
+    (the loss adds 0.01 x the aux, which under expert parallelism is the
+    mean of each rank's Switch loss over its own tokens, not the global
+    one, as in the reference); every
+    rank's non-expert parameters bit-identical; the small path (4 tokens)
+    within phase 3's f32 ``TOL`` of the CPU; the model group's calls and
+    bytes a step ``analysis/roofline.ep_calls``'s; launches exact.  (b)
+    deepseek-v2-lite-16b at published widths cut to 3 layers (the dense
+    layer 0 and 2 MoE layers of 64 experts of width 1408, 32 a rank),
+    bf16, on (1, 2), batch 2 x 2048, two k 4 cycles: a line a rank and
+    depth with the warm step ms, the model group's host ms, calls and
+    payload bytes by kind (held exact against the reckoning), each MoE
+    layer's share of routed slots dropped at capacity 1.25, the flash
+    kernels' launches against ``expected_launches`` (MLA's attention on
+    the padded D 256), and the peak beside the reckoning
+    (:data:`TP_BYTES_A_PARAM` a parameter held, plus
+    :data:`EP_ACT_GB`).  Returns each run's launches a rank, and the
+    figures."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from repro_torch.analysis import roofline
+    from repro_torch.config import layer_kinds
+    from repro_torch.launch import mesh
+    from repro_torch.models import lm
+    from repro_torch.models.moe import capacity
+    from repro_torch.tree import tree_leaves
+
+    failed, launches, figures = [], {}, {}
+    t0 = time.perf_counter()
+    full = ep_config("full")
+    # the reckoning, before the runs: what a rank of (b) holds
+    m = full.moe
+    D, T = EP_FULL_GRID
+    expert = 3 * full.d_model * m.d_ff_expert
+    whole = sum(t.numel() for t in tree_leaves(lm.param_shapes(full)))
+    moe_layers = sum(1 for _k, f in layer_kinds(full) if f == "moe")
+    n_held = whole - moe_layers * expert * m.num_experts * (T - 1) // T
+    reckoned_gb = n_held * TP_BYTES_A_PARAM(D) / 1e9
+    c = capacity(2 // D * 2048 // T * m.top_k, m.num_experts,
+                 m.capacity_factor)
+    log(f"[expert-parallel] reckoning full grid={EP_FULL_GRID}: {n_held} "
+        f"parameters a rank ({m.num_experts // T} of {m.num_experts} "
+        f"experts of width {m.d_ff_expert} in each of {moe_layers} MoE "
+        f"layers), {reckoned_gb:.3f} GB of state at "
+        f"{TP_BYTES_A_PARAM(D):g} B a parameter; capacity C={c}, an "
+        f"all-to-all sends E C D 2 = {m.num_experts * c * full.d_model * 2}"
+        f" B card={smi}")
+
+    def spawn(grid, part, device):
+        return mesh.spawn("chip_smoke:ep_rank", grid[0] * grid[1], part,
+                          device, device=device, grid=grid,
+                          timeout_s=DP_JOIN_S)
+
+    tp = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        runs = {(g, dev): pool.submit(spawn, g, "a", dev)
+                for g in EP_GRIDS for dev in ("cuda", "cpu")}
+        dense = _ep_dense_one_process(ep_config("reduced",
+                                                capacity_factor=8.0), "cuda")
+        runs = {k: f.result() for k, f in runs.items()}
+    log(f"[expert-parallel] part a grids={list(EP_GRIDS)} card and cpu: "
+        f"{time.perf_counter() - tp:.1f}s")
+    for grid in EP_GRIDS:
+        gd, gt = grid
+        card, cpu = runs[(grid, "cuda")], runs[(grid, "cpu")]
+        for cap in ("cap1.25", "cap8.0"):
+            ccfg = ep_config("reduced", capacity_factor=float(cap[3:]))
+            digests = {r[cap]["replicated"] for r in card}
+            if len(digests) != 1:
+                failed.append(f"{cap} grid={grid}: the ranks' non-expert "
+                              f"parameters differ ({len(digests)} digests)")
+            for r, (got, want) in enumerate(zip(card, cpu)):
+                key = f"reduced/{cap}/grid{gd}{gt}/rank{r}"
+                run = got[cap]["steps"]
+                launches[key] = {k: sum(st["launches"][k] for st in run)
+                                 for k in KERNELS}
+                rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                          for a, b in zip(run, want[cap]["steps"]))
+                if not rel <= EP_TOL:
+                    failed.append(f"{key}: loss card vs cpu {rel:.3e}")
+                if cap == "cap8.0":     # the aux differs by definition
+                    dr = max(abs(a["xent"] - b) / abs(b)
+                             for a, b in zip(run, dense))
+                    if not dr <= EP_DENSE_TOL:
+                        failed.append(f"{key}: xent vs one dense process "
+                                      f"{dr:.3e} > {EP_DENSE_TOL:g}")
+                for i, st in enumerate(run):
+                    want_l = expected_launches(ccfg, [st["depth"]])
+                    if st["launches"] != want_l:
+                        failed.append(f"{key} step {i}: launches "
+                                      f"{st['launches']} != {want_l}")
+                    calls = {k: list(v) for k, v in roofline.ep_calls(
+                        ccfg, EP_ROWS // gd, EP_SEQ, model_parallel=gt,
+                        depth=st["depth"]).items()}
+                    if st["model_calls"] != calls:
+                        failed.append(f"{key} step {i}: model-group calls "
+                                      f"{st['model_calls']} != {calls}")
+                if r == 0:
+                    log(f"[expert-parallel] reduced {cap} grid={grid} "
+                        f"depths={[st['depth'] for st in run]} "
+                        f"loss_card={[round(st['loss'], 6) for st in run]} "
+                        f"loss_cpu="
+                        f"{[round(st['loss'], 6) for st in want[cap]['steps']]}"
+                        f" card_vs_cpu={rel:.3e} (tol {EP_TOL:g})"
+                        + (f" xent_card="
+                           f"{[round(st['xent'], 6) for st in run]} "
+                           f"xent_dense_one_process="
+                           f"{[round(x, 6) for x in dense]} vs_dense={dr:.3e}"
+                           f" (tol {EP_DENSE_TOL:g})"
+                           if cap == "cap8.0" else "")
+                        + f" dropped={[st['dropped'] for st in run]} "
+                        f"replicas_bit_identical={len(digests) == 1} "
+                        f"card={smi}")
+        small = max(check_all(f"ep small grid={grid} rank {r} {k}",
+                              torch.from_numpy(a["small"][k]),
+                              torch.from_numpy(b["small"][k]))
+                    for r, (a, b) in enumerate(zip(card, cpu))
+                    for k in ("y", "dx"))
+        log(f"[expert-parallel] small path grid={grid} 4 tokens: "
+            f"max_abs_err={small:.3e} card={smi}")
+    # (b) the full-width cut
+    tp = time.perf_counter()
+    ranks = spawn(EP_FULL_GRID, "b", "cuda")
+    log(f"[expert-parallel] part b grid={EP_FULL_GRID}: "
+        f"{time.perf_counter() - tp:.1f}s")
+    if len({r["full"]["replicated"] for r in ranks}) != 1:
+        failed.append("full: the ranks' non-expert parameters differ")
+    for r, out in enumerate(ranks):
+        run = out["full"]
+        key = f"full/grid{D}{T}/rank{r}"
+        steps = run["steps"]
+        launches[key] = {k: sum(st["launches"][k] for st in steps)
+                         for k in KERNELS}
+        if run["params"] != n_held:
+            failed.append(f"{key}: {run['params']} parameters held, "
+                          f"reckoned {n_held}")
+        state_gb = n_held * (TP_BYTES_A_PARAM(D) - 8) / 1e9
+        if not state_gb <= run["max_mem_gb"] <= reckoned_gb + EP_ACT_GB:
+            failed.append(f"{key}: peak {run['max_mem_gb']:.3f} GB outside "
+                          f"[{state_gb:.3f}, {reckoned_gb + EP_ACT_GB:.3f}]")
+        for i, st in enumerate(steps):
+            want_l = expected_launches(full, [st["depth"]])
+            if st["launches"] != want_l:
+                failed.append(f"{key} step {i}: launches {st['launches']} "
+                              f"!= {want_l}")
+            calls = {k: list(v) for k, v in roofline.ep_calls(
+                full, 2 // D, 2048, model_parallel=T,
+                depth=st["depth"]).items()}
+            if st["model_calls"] != calls:
+                failed.append(f"{key} step {i}: model-group calls "
+                              f"{st['model_calls']} != {calls}")
+            if not math.isfinite(st["loss"]):
+                failed.append(f"{key} step {i}: loss not finite")
+        for depth in sorted({st["depth"] for st in steps}):
+            warm = [st for st in steps[len(steps) // 2:]
+                    if st["depth"] == depth]
+            mean = lambda f: sum(f(st) for st in warm) / len(warm)  # noqa
+            kinds = sorted(warm[0]["model_ms"])
+            fig = {"step_ms": round(mean(lambda st: st["ms"]), 2),
+                   "model_host_ms": {k: round(mean(
+                       lambda st: st["model_ms"][k]), 2) for k in kinds},
+                   "model_calls": warm[0]["model_calls"],
+                   "dropped_share_by_layer": [
+                       round(n / k, 5) for n, k in warm[0]["dropped"]],
+                   "max_mem_gb": round(run["max_mem_gb"], 3),
+                   "reckoned_gb": round(reckoned_gb, 3),
+                   "params_held": run["params"],
+                   "launches": {k: c for k, c in warm[0]["launches"].items()
+                                if c}}
+            figures[f"{key}/depth{depth}"] = fig
+            log(f"[expert-parallel] full deepseek-v2-lite-16b/"
+                f"{EP_FULL_LAYERS} grid={EP_FULL_GRID} rank={r} "
+                f"depth={depth} " + " ".join(f"{k}={v}" for k, v in
+                                              fig.items())
+                + f" losses={[round(st['loss'], 4) for st in steps]} "
+                f"card={smi}")
+    log(f"[expert-parallel] phase {time.perf_counter() - t0:.1f}s")
+    if failed:
+        raise AssertionError("expert-parallel: " + "; ".join(failed))
+    return {"launches": launches, "figures": figures}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4387,6 +4788,13 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels the tensor-parallel ranks never "
                              f"launched: {idle}")
+    expert_parallel = phase_expert_parallel(smi)
+    idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
+            if not any(g.get(n) for g in
+                       expert_parallel["launches"].values())]
+    if idle:
+        raise AssertionError(f"kernels the expert-parallel ranks never "
+                             f"launched: {idle}")
     # host only, so it runs last: every timed phase then runs as it did
     # before the dry run existed, without its modules (~100k more Python
     # objects) and its own garbage collections
@@ -4437,6 +4845,9 @@ def main() -> int:
                  "launches_tensor_parallel": {
                      k: g[name] for k, g in
                      tensor_parallel["launches"].items() if g.get(name)},
+                 "launches_expert_parallel": {
+                     k: g[name] for k, g in
+                     expert_parallel["launches"].items() if g.get(name)},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],
@@ -4483,7 +4894,8 @@ def main() -> int:
                     "data_parallel": dp_full["figures"],
                     "zero": zero1_full["figures"],
                     "pipeline": pipeline["figures"],
-                    "tensor_parallel": tensor_parallel["figures"]}))
+                    "tensor_parallel": tensor_parallel["figures"],
+                    "expert_parallel": expert_parallel["figures"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,8 +39,11 @@ Conventions (the reference's, at aten-op granularity):
     wire bytes, an all-gather (``c10d._allgather_base_``, ZeRO-1's
     parameters) and a gather (``c10d.gather_``, a checkpoint's) ``(n - 1)
     / n`` times theirs, their payload the gathered result's bytes as the
-    reference's ``analysis/hlo.py`` counts an all-gather, and a broadcast
-    (``c10d.broadcast_``) its payload (:func:`wire_bytes`).  The payload
+    reference's ``analysis/hlo.py`` counts an all-gather, an all-to-all
+    (``c10d.alltoall_base_``, expert parallelism's exchange over a
+    grid's model group) ``(n - 1) / n`` times its input, the part that
+    leaves the rank, and a broadcast (``c10d.broadcast_``) its payload
+    (:func:`wire_bytes`).  The payload
     counts under ``collective_payload``, the wire bytes under
     ``collective_bytes`` and ``collective_breakdown``, the calls under
     ``collective_counts`` and ``num_collectives``; the operands and
@@ -362,6 +365,7 @@ class CostMode(TorchDispatchMode):
 # a gather sends (times the group's size), the tensors of the others
 _COLLECTIVES = {"allreduce_": ("all-reduce", 0, 1),
                 "_allgather_base_": ("all-gather", 0, 2),
+                "alltoall_base_": ("all-to-all", 1, 2),
                 "gather_": ("gather", 1, 2),
                 "broadcast_": ("broadcast", 0, 1)}
 

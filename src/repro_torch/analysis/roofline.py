@@ -350,6 +350,77 @@ def pipeline_tp_calls(cfg: ModelConfig, stage_layers: int,
     return out
 
 
+def moe_layers_live(cfg: ModelConfig, depth: Optional[int]
+                    ) -> Tuple[int, int]:
+    """(live, frozen) MoE layers of the decoder at SPB suffix ``depth``
+    (None: every layer live)."""
+    total = total_layers(cfg)
+    boundary = total - (total if depth is None else depth)
+    live = frozen = 0
+    for i, (_mixer, ffn) in enumerate(layer_kinds(cfg)):
+        if ffn == "moe":
+            if cfg.enc_layers + i >= boundary:
+                live += 1
+            else:
+                frozen += 1
+    return live, frozen
+
+
+def ep_calls(cfg: ModelConfig, rows: int, seq_len: int, *,
+             model_parallel: int, depth: Optional[int]
+             ) -> Dict[str, Tuple[int, int]]:
+    """What one temporal step calls on a ``(data, model)`` grid rank's
+    model group (``dist/group.ModelGroup``), ``{kind: (calls, payload
+    bytes)}``: ``rows`` rows of this data index by ``seq_len``, at SPB
+    suffix ``depth``, the recompute policy 'none'.
+
+    Each MoE layer's forward (frozen or live) exchanges its dispatch and
+    its outputs (two all-to-alls of the ``(T, E/T, C, D)`` slot buffer,
+    ``E C D`` elements, ``C`` the capacity of ``N k / T`` routed slots),
+    all-gathers the tokens' outputs (``N D``, the result's bytes) and
+    all-reduces its aux (4 B); a live layer's backward exchanges twice
+    more and all-gathers the input's cotangent (``N D``).  With fewer than
+    ``4 T`` tokens a layer takes the small path instead: an all-reduce of
+    the partial outputs (``N D``) and of the aux forward, of the input's
+    cotangent in a live layer's backward.  The step then sums
+    the live layers' router and shared-expert gradients in one f32
+    all-reduce, and all-reduces the experts' f32 sum of squares for the
+    clip norm (4 B)."""
+    t = int(model_parallel)
+    if t <= 1 or cfg.moe is None:
+        return {}
+    m = cfg.moe
+    elem = 2 if cfg.dtype in ("bfloat16", "float16") else 4
+    live, frozen = moe_layers_live(cfg, depth)
+    n_tok = rows * seq_len
+    act = n_tok * cfg.d_model * elem
+    calls: Dict[str, List[int]] = {}
+
+    def add(kind: str, count: int, nbytes: int) -> None:
+        if count:
+            c = calls.setdefault(kind, [0, 0])
+            c[0] += count
+            c[1] += count * nbytes
+
+    layers = live + frozen
+    if n_tok < 4 * t:
+        add("all-reduce", layers + live, act)
+        add("all-reduce", layers, 4)
+    else:
+        from repro_torch.models.moe import capacity
+        c = capacity(n_tok // t * m.top_k, m.num_experts, m.capacity_factor)
+        add("all-to-all", 2 * layers + 2 * live,
+            m.num_experts * c * cfg.d_model * elem)
+        add("all-gather", layers + live, act)
+        add("all-reduce", layers, 4)
+    if live:
+        shared = 3 * cfg.d_model * m.num_shared * m.d_ff_expert
+        add("all-reduce", 1,
+            4 * live * (cfg.d_model * m.num_experts + shared))
+    add("all-reduce", 1, 4)
+    return {k: (v[0], v[1]) for k, v in calls.items()}
+
+
 # ---------------------------------------------------------------------------
 # Roofline table
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@ Random initializers cannot match across frameworks, so a parity check
 builds parameters with ``repro.models.lm.init_lm``, turns them into numpy
 (``jax.tree.map(np.asarray, params)``) and hands the tree here.  The two
 packages share one layout, so the bridge is a name-by-name copy that
-raises on any missing, extra or mis-shaped leaf.
+raises on any missing, extra or mis-shaped leaf.  A ``(data, model)``
+grid's rank holds its share of each MoE layer's experts
+(:func:`grid_params_from_numpy`).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.dist import sharding
 from repro_torch.models import lm
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -68,3 +71,25 @@ def stacked_params_from_numpy(trees: Any, cfg: ModelConfig,
         return _from_numpy(trees, cfg, device, (J,))
     return tree_map(lambda *ts: torch.stack(ts),
                     *(_from_numpy(t, cfg, device, ()) for t in trees))
+
+
+def grid_params_from_numpy(tree: Any, cfg: ModelConfig, model: tuple,
+                           device="cpu") -> Any:
+    """One ``(data, model)`` grid rank's params from the reference's whole
+    tree (numpy, the JAX layout): ``model = (t, T)``, the rank's index on
+    the ``model`` axis and its size; the rank takes its share of every
+    MoE layer's experts (experts ``[t E / T, (t + 1) E / T)``, as
+    ``dist/sharding.grid_state_pspec`` lays them out) and every other leaf
+    whole.  Leaf tensors that require grad, as :func:`params_from_numpy`
+    gives them; raises as it does on a missing, extra or mis-shaped
+    leaf."""
+    t, T = model
+    shapes = lm.param_shapes(cfg)
+    mesh = sharding.Mesh((1, T), ("data", "model"))
+    with sharding.rules(sharding.EXPERT_ONLY):
+        specs = sharding.params_pspec(shapes, mesh)
+    parts = sharding.axis_slices(specs, shapes, mesh, "model", t)
+    whole = _from_numpy(tree, cfg, "cpu", ())
+    return tree_map(
+        lambda w, part: (w if part is None else w.narrow(*part)).to(
+            device, copy=True).requires_grad_(True), whole, parts)

@@ -1,8 +1,10 @@
-"""The data-parallel group and the pipeline's ``(stage, data, model)``
-grid at run time: one rank's view of each and its collectives (what the
-steps and the engine use; ``launch/mesh.py`` makes the groups and spawns
-their ranks).  :class:`PipeGroup` is the pipeline's and
-:class:`ModelGroup` its tensor-parallel axis (below).
+"""The data-parallel group, the ``(data, model)`` grid of expert
+parallelism and the pipeline's ``(stage, data, model)`` grid at run time:
+one rank's view of each and its collectives (what the steps and the
+engine use; ``launch/mesh.py`` makes the groups and spawns their ranks).
+:class:`GridGroup` is the ``(data, model)`` grid's, :class:`PipeGroup`
+the pipeline's, and :class:`ModelGroup` the ``model`` axis of either
+(below).
 
 A :class:`DataGroup` holds its rank, the group's size, its local rank, its
 device, the backend, the ``ProcessGroup``, and the subgroups of the last
@@ -232,28 +234,41 @@ class DataGroup:
 
 @dataclasses.dataclass
 class ModelGroup:
-    """One rank's view of a pipeline's ``model`` axis: the T ranks of one
-    ``(stage, data)`` index, over which a stage's attention and FFN weights
-    are column/row-sharded (``models/layers.py``'s collective pairs run
-    on it).  A group of one needs no process group: every collective is
-    then the identity.
+    """One rank's view of a ``model`` axis: the T ranks of one ``(stage,
+    data)`` index of a pipeline, over which a stage's attention and FFN
+    weights are column/row-sharded, or of one data index of a ``(data,
+    model)`` grid, over which a MoE layer's experts are sharded
+    (``models/layers.py``'s collective pairs and ``models/moe.py``'s
+    exchange run on it).  A group of one needs no process group: every
+    collective is then the identity.
 
     Each collective is out of place (an autograd Function's forward and
     backward call it) and runs on the tensors where they lie: gloo takes
-    CUDA tensors for all three, staging them through the host itself.  A
-    reduce-scatter is gloo's own ``reduce_scatter_tensor``.  ``reduce_s``
-    counts the host seconds inside them, ``calls`` and ``bytes`` the calls
-    and the payload bytes (the input's; an all-gather's output) by kind.
-    On the meta device nothing moves: a dry run's ``analysis/cost.CostMode``
-    counts the collective from :data:`META_SINKS`."""
+    CUDA tensors for all four, staging them through the host itself.  A
+    reduce-scatter is gloo's own ``reduce_scatter_tensor``, an all-to-all
+    its ``all_to_all_single`` (probed once on an H100 under torch 2.11:
+    two ranks sharing the card exchanged CUDA chunks exactly, so no host
+    buffer is staged by hand, unlike a pipeline's sends; nothing switches
+    transport at run time, and a failed exchange raises).  ``reduce_s``
+    counts the host seconds inside them, and ``seconds``, ``calls`` and
+    ``bytes`` the host seconds, the calls and the payload bytes (the
+    input's; an all-gather's output) by kind: ``all-reduce``,
+    ``all-gather``, ``reduce-scatter`` and ``all-to-all``.  On the meta
+    device nothing moves: a dry run's ``analysis/cost.CostMode`` counts the
+    collective from :data:`META_SINKS`."""
     rank: int = 0
     size: int = 1
     pg: Any = None                  # the ProcessGroup; None at size 1
     reduce_s: float = 0.0
     calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
-    def _count(self, kind: str, nbytes: int) -> None:
+    def _count(self, kind: str, nbytes: int, t0: float) -> None:
+        """One call of ``kind`` that began at host time ``t0``."""
+        dt = time.perf_counter() - t0
+        self.reduce_s += dt
+        self.seconds[kind] = self.seconds.get(kind, 0.0) + dt
         self.calls[kind] = self.calls.get(kind, 0) + 1
         self.bytes[kind] = self.bytes.get(kind, 0) + nbytes
 
@@ -267,8 +282,7 @@ class ModelGroup:
             return out
         t0 = time.perf_counter()
         dist.all_reduce(out, group=self.pg)
-        self.reduce_s += time.perf_counter() - t0
-        self._count("all-reduce", nbytes)
+        self._count("all-reduce", nbytes, t0)
         return out
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -283,8 +297,7 @@ class ModelGroup:
             return t.new_empty(shape)
         t0 = time.perf_counter()
         out = _moved_gather(self.pg, t, dim, n)
-        self.reduce_s += time.perf_counter() - t0
-        self._count("all-gather", nbytes)
+        self._count("all-gather", nbytes, t0)
         return out
 
     def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -301,9 +314,100 @@ class ModelGroup:
             return t.narrow(dim, 0, t.shape[dim] // n).clone()
         t0 = time.perf_counter()
         out = _moved_scatter(self.pg, t, dim, n)
-        self.reduce_s += time.perf_counter() - t0
-        self._count("reduce-scatter", nbytes)
+        self._count("reduce-scatter", nbytes, t0)
         return out
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The exchange of equal chunks along dim 0: chunk j of ``t`` goes
+        to rank j, and chunk j of the result (a new tensor) came from
+        rank j.  Its own adjoint."""
+        if self.size == 1:
+            return t
+        n = self.size
+        if t.shape[0] % n:
+            raise ValueError(f"dim 0 of {tuple(t.shape)} does not split "
+                             f"over {n} ranks")
+        nbytes = t.numel() * t.element_size()
+        if _counted_on_meta("all-to-all", n, t, nbytes):
+            return torch.empty_like(t)
+        src = t.contiguous()
+        out = torch.empty_like(src)
+        t0 = time.perf_counter()
+        dist.all_to_all_single(out, src, group=self.pg)
+        self._count("all-to-all", nbytes, t0)
+        return out
+
+
+@dataclasses.dataclass
+class _Grid:
+    """What a ``(data, model)`` grid and a pipeline's ``(stage, data,
+    model)`` grid share: ``data`` is the :class:`DataGroup` of this rank's
+    data axis, ``model`` the :class:`ModelGroup` of its model axis, ``pg``
+    the world."""
+    data: DataGroup = dataclasses.field(default_factory=DataGroup)
+    model: ModelGroup = dataclasses.field(default_factory=ModelGroup)
+    rank: int = 0
+    size: int = 1
+    local_rank: int = 0
+    device: torch.device = torch.device("cpu")
+    backend: Optional[str] = None
+    pg: Any = None                  # the world; None at size 1
+    timeout_s: float = DEFAULT_TIMEOUT_S
+
+    @property
+    def data_index(self) -> int:
+        return self.data.rank
+
+    @property
+    def model_index(self) -> int:
+        return self.model.rank
+
+    def shard(self, batch: Dict[str, torch.Tensor], chunks: int = 1
+              ) -> Dict[str, torch.Tensor]:
+        """This data index's rows of a global batch that splits into
+        ``chunks`` microbatches (``DataGroup.shard``): the same on every
+        rank of the other axes."""
+        return self.data.shard(batch, chunks)
+
+    def broadcast_int(self, value: Optional[int]) -> Optional[int]:
+        """Rank 0's ``value`` (an int or None) on every rank."""
+        if self.size == 1:
+            return value
+        dev = self.device if self.backend == "nccl" else "cpu"
+        t = torch.tensor([-1 if value is None else value], dtype=torch.int64,
+                         device=dev)
+        dist.broadcast(t, src=0, group=self.pg)
+        got = int(t.item())
+        return None if got < 0 else got
+
+    def barrier(self) -> None:
+        """Wait until every rank has reached this call."""
+        if self.size == 1:
+            return
+        dist.barrier(group=self.pg)
+
+    def close(self) -> None:
+        """Tear down the process groups (a no-op at size 1)."""
+        if self.pg is not None and dist.is_initialized():
+            dist.destroy_process_group()
+        self.pg = self.data.pg = self.model.pg = None
+
+
+@dataclasses.dataclass
+class GridGroup(_Grid):
+    """One rank's view of a ``(data, model)`` grid of D x T ranks: rank
+    ``d * T + t``, row-major as the reference's ``jax.make_mesh((D, T),
+    ("data", "model"))`` lays out its devices.  ``data`` is the
+    :class:`DataGroup` of the D ranks of this model index (its ``rank`` is
+    the data index d, its ``root`` the global rank of ``(0, t)``), ``model``
+    the :class:`ModelGroup` of the T ranks of this data index, and ``pg``
+    the world.
+
+    The T ranks of a data index hold the same rows of the batch and the
+    same parameters, except a MoE layer's experts, of which rank t holds
+    ``[t E / T, (t + 1) E / T)``: everything outside the MoE layers runs
+    replicated over ``model`` (``models/moe.moe_fwd_ep`` exchanges the
+    tokens).  A grid of one rank needs no process group."""
 
 
 # tags of a pipeline's point-to-point messages: activations go right,
@@ -313,7 +417,7 @@ TAG_ACT, TAG_COT, TAG_TENSOR = 1, 2, 3
 
 
 @dataclasses.dataclass
-class PipeGroup:
+class PipeGroup(_Grid):
     """One rank's view of a pipeline's ``(stage, data, model)`` grid: rank
     ``(stage * D + d) * T + t``, row-major as the reference's
     ``jax.make_mesh((S, D, T), ("stage", "data", "model"))`` lays out its
@@ -344,28 +448,11 @@ class PipeGroup:
     tensor."""
     stage: int = 0
     num_stages: int = 1
-    data: DataGroup = dataclasses.field(default_factory=DataGroup)
-    model: ModelGroup = dataclasses.field(default_factory=ModelGroup)
-    rank: int = 0
-    size: int = 1
-    local_rank: int = 0
-    device: torch.device = torch.device("cpu")
-    backend: Optional[str] = None
-    pg: Any = None                  # the world; None at size 1
     pipe_pg: Any = None             # this (d, t) index's stages
-    timeout_s: float = DEFAULT_TIMEOUT_S
     p2p_s: float = 0.0
     p2p_by_tag: Dict[int, int] = dataclasses.field(default_factory=dict)
     reduce_s: float = 0.0
     busy_s: float = 0.0
-
-    @property
-    def data_index(self) -> int:
-        return self.data.rank
-
-    @property
-    def model_index(self) -> int:
-        return self.model.rank
 
     def rank_at(self, stage: int, data: int, model: int) -> int:
         """The global rank of grid index ``(stage, data, model)``."""
@@ -452,31 +539,11 @@ class PipeGroup:
         self.reduce_s += time.perf_counter() - t0
         return t
 
-    def shard(self, batch: Dict[str, torch.Tensor], chunks: int = 1
-              ) -> Dict[str, torch.Tensor]:
-        """This data index's rows of a global batch that splits into
-        ``chunks`` microbatches (``DataGroup.shard``): the same on every
-        stage."""
-        return self.data.shard(batch, chunks)
-
-    def broadcast_int(self, value: Optional[int]) -> Optional[int]:
-        """Rank 0's ``value`` (an int or None) on every rank."""
-        if self.size == 1:
-            return value
-        t = torch.tensor([-1 if value is None else value], dtype=torch.int64)
-        dist.broadcast(t, src=0, group=self.pg)
-        got = int(t.item())
-        return None if got < 0 else got
-
     def barrier(self) -> None:
-        if self.size == 1:
-            return
         t0 = time.perf_counter()
-        dist.barrier(group=self.pg)
+        super().barrier()
         self.reduce_s += time.perf_counter() - t0
 
     def close(self) -> None:
-        """Tear down the process groups (a no-op at size 1)."""
-        if self.pg is not None and dist.is_initialized():
-            dist.destroy_process_group()
-        self.pg = self.pipe_pg = self.data.pg = self.model.pg = None
+        super().close()
+        self.pipe_pg = None

@@ -64,8 +64,12 @@ class Mesh:
 
 
 def mesh_for(group) -> Mesh:
-    """A data group's mesh: ``("data", "model")`` of ``(n, 1)``, as the
-    reference's ``make_host_mesh`` lays out its devices."""
+    """A group's mesh, axes ``("data", "model")``: a data group's of
+    ``(n, 1)``, as the reference's ``make_host_mesh`` lays out its devices;
+    a ``(data, model)`` grid's (``dist/group.GridGroup``) of ``(D, T)``."""
+    model = getattr(group, "model", None)
+    if model is not None:
+        return Mesh((group.data.size, model.size), ("data", "model"))
     return Mesh((group.size, 1), ("data", "model"))
 
 
@@ -407,9 +411,49 @@ def pipeline_state_pspec(state_shapes: Any, mesh: Optional[Mesh] = None, *,
     return out
 
 
+# The ``(data, model)`` grid of expert parallelism shards a MoE layer's
+# experts over ``model`` (the ``"expert"`` rule) and nothing else: every
+# other leaf is replicated there, where GSPMD would also shard heads and
+# vocab over ``model`` (the port's tensor-parallel layers cover a
+# pipeline's dense attn/local stages only).  The rule overrides that say so:
+EXPERT_ONLY = {"heads": None, "vocab": None, "model": None}
+
+
+def grid_state_pspec(state_shapes: Any, mesh: Mesh, *,
+                     zero1: bool = False) -> Dict[str, Any]:
+    """Train-state specs on a ``(data, model)`` grid: :func:`state_pspec`
+    under :data:`EXPERT_ONLY`, so only the experts shard over ``model`` and
+    ZeRO-1 picks its data dim among every other dim."""
+    with rules(EXPERT_ONLY):
+        return state_pspec(state_shapes, mesh, zero1=zero1)
+
+
 # ---------------------------------------------------------------------------
 # A rank's slices (the port's placement by hand)
 # ---------------------------------------------------------------------------
+
+def axis_slices(specs: Any, shapes: Any, mesh: Mesh, axis: str,
+                index: int) -> Any:
+    """The slice of each leaf that index ``index`` of mesh axis ``axis``
+    holds, a :func:`shard_slices` entry ``(dim, start, length)`` on the
+    dim whose spec names ``axis`` alone, or ``None`` for a leaf that axis
+    leaves whole (a grid rank's experts: ``axis="model"``)."""
+    n = mesh.shape.get(axis, 1)
+
+    def one(spec, leaf):
+        if n <= 1:
+            return None
+        for i, e in enumerate(spec):
+            if e == axis:
+                length = _shape(leaf)[i] // n
+                return (i, index * length, length)
+            if isinstance(e, tuple) and axis in e:
+                raise NotImplementedError(f"a leaf sharded on {e} is not "
+                                          f"placed by hand")
+        return None
+
+    return tree_map(one, specs, shapes, is_leaf=_is_spec)
+
 
 def _coords(mesh: Mesh, rank: int) -> Dict[str, int]:
     """A rank's index on each mesh axis, devices laid out row-major."""

@@ -53,6 +53,19 @@ saved-tensor hooks cannot run under ``torch.func``, so the functional
 steps take 'full' as ``lm.swept_grads``, a sweep of ``torch.func.vjp``
 over the live repeats; 'dots' has no such form yet and raises there.
 
+On a ``(data, model)`` grid (``dist/group.GridGroup``; ``model=`` its
+``ModelGroup``, ``group=`` its ``DataGroup``) a MoE layer's experts are
+sharded over ``model`` and its tokens exchanged there
+(``models/moe.moe_fwd_ep``); everything else runs replicated on the T
+ranks of a data index.  The gradients of a MoE layer's router and shared
+expert are then each model rank's part, so the step sums them over the
+model group once (one all-reduce of their live parts, flattened, in f32),
+before it averages every gradient over the data group as above.  The
+clip norm counts the experts' squares summed over the model group and
+every other leaf's once (:func:`_grid_norm`), so it is the norm of the
+whole gradient; the model ranks of a data index then run the same update
+on the same numbers, and their replicated leaves stay bit-identical.
+
 :func:`make_pipeline_train_step` runs the stack as a pipeline: each rank
 of a ``dist/group.PipeGroup`` is a stage (or, with tensor parallelism, a
 model shard of one), interpreting a ``dist/pipeline/schedules`` table
@@ -63,7 +76,7 @@ forward only.  :func:`build_pipeline_train_steps` is its per-depth table.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,14 +128,17 @@ def _microbatches(batch: Dict[str, torch.Tensor], m: int):
 def _finish_step(state: State, metrics, tcfg: TrainConfig, cfg: ModelConfig,
                  spb_cfg: Optional[SPBConfig], scale: float = 1.0,
                  sched: Optional[torch.Tensor] = None, update: bool = True,
-                 group=None, depth: Optional[int] = None, shards=None
+                 group=None, depth: Optional[int] = None, shards=None,
+                 grid: Optional["_Grid"] = None
                  ) -> Tuple[State, Dict[str, torch.Tensor]]:
-    """Collect the gradients (``None`` where autograd left none), average
-    them and the metrics over ``group`` when it has several ranks (the
-    live part at suffix ``depth``, the deepest the step ran), then
-    :func:`_apply` them (to this rank's ZeRO-1 slices with ``shards``).
-    With ``update=False`` the gradients are dropped and the state is left
-    as it was: a CUDA graph's warm-up."""
+    """Collect the gradients (``None`` where autograd left none), sum the
+    MoE layers' partial ones over the ``grid``'s model group when there is
+    one, average them and the metrics over ``group`` when it has several
+    ranks (the live part at suffix ``depth``, the deepest the step ran),
+    then :func:`_apply` them (to this rank's ZeRO-1 slices with
+    ``shards``; on a grid with the grid's norm).  With ``update=False`` the
+    gradients are dropped and the state is left as it was: a CUDA graph's
+    warm-up."""
     params = state["params"]
     if not update:
         tree_map(lambda p: setattr(p, "grad", None), params)
@@ -133,13 +149,83 @@ def _finish_step(state: State, metrics, tcfg: TrainConfig, cfg: ModelConfig,
         return g if g is None or scale == 1.0 else g * scale
 
     grads = tree_map(take, params)
+    if grid is not None:
+        _sum_partials(_live_parts(grads, cfg, depth, grid.partial),
+                      grid.model)
     if group is not None and group.size > 1:
         metrics = _average(group, metrics)
         n = group.size
         for part in _live_parts(grads, cfg, depth):
             group.all_reduce(part).div_(n)
+    gnorm = None if grid is None else \
+        _grid_norm(grads, grid.roles, grid.model)
     return _apply(state, grads, metrics, tcfg, cfg, spb_cfg, sched,
-                  group=group, shards=shards)
+                  group=group, shards=shards, gnorm=gnorm)
+
+
+class _Grid(NamedTuple):
+    """A step's ``(data, model)`` grid: its model group of T > 1 ranks,
+    each param leaf's role (:func:`ep_roles`) and which leaves are
+    partial."""
+    model: Any
+    roles: Any
+    partial: Any
+
+
+def _grid(cfg: ModelConfig, model) -> Optional[_Grid]:
+    """The step's grid, or None without a model group of several ranks."""
+    if model is None or model.size <= 1:
+        return None
+    roles = ep_roles(cfg)
+    return _Grid(model, roles, tree_map(lambda r: r == "partial", roles))
+
+
+def ep_roles(cfg: ModelConfig):
+    """Per leaf of ``cfg``'s params, its role on a ``(data, model)`` grid:
+    ``"expert"`` (a MoE layer's ``wg``/``wu``/``wd``, sharded over
+    ``model``), ``"partial"`` (its router and shared expert, whose
+    gradients are each model rank's part) or ``None`` (replicated, whole
+    gradients on every rank)."""
+    def role(keys, t):
+        if "ffn" not in keys:
+            return None
+        rest = keys[keys.index("ffn") + 1:]
+        if rest[0] in ("router", "shared"):
+            return "partial"
+        if rest[0] in ("wg", "wu", "wd") and t.dim() >= 4:
+            return "expert"
+        return None
+    return tree_map_with_path(role, lm.param_shapes(cfg))
+
+
+def _sum_partials(parts: list, model) -> None:
+    """Sum ``parts`` (views of the gradients) over the model group in
+    place: one all-reduce of them flattened, in f32."""
+    if not parts:
+        return
+    flat = model.all_reduce(torch.cat([t.reshape(-1).float()
+                                       for t in parts]))
+    off = 0
+    for t in parts:
+        t.copy_(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+
+
+def _grid_norm(grads, roles, model) -> torch.Tensor:
+    """The norm of the whole gradient on a ``(data, model)`` grid: the
+    experts' sum of squares (each rank holds its share) summed over the
+    model group, plus every other leaf's once (every rank holds them
+    whole, alike)."""
+    leaves = tree_leaves(grads)
+    dev = next(g.device for g in leaves if g is not None)
+    sq = {"expert": torch.zeros((), device=dev),
+          None: torch.zeros((), device=dev)}
+    for g, role in zip(leaves, tree_leaves(roles)):
+        if g is not None:
+            key = "expert" if role == "expert" else None
+            sq[key] = sq[key] + g.float().square().sum()
+    experts = model.all_reduce(sq["expert"].reshape(1))[0]
+    return torch.sqrt(experts + sq[None])
 
 
 def _average(group, metrics: Dict[str, torch.Tensor]
@@ -151,50 +237,55 @@ def _average(group, metrics: Dict[str, torch.Tensor]
     return dict(zip(keys, both.unbind()))
 
 
-def _live_parts(grads, cfg: ModelConfig, depth: Optional[int]) -> list:
+def _live_parts(grads, cfg: ModelConfig, depth: Optional[int],
+                select=None) -> list:
     """The parts of ``grads`` that a step at suffix ``depth`` can make
     nonzero, in a fixed order: every leaf that has a gradient, and of a
     group's stacked leaf only the rows ``depth`` left live, after the
-    frozen ones (``lm.frozen_units``).  Views, so reducing them in place
-    reduces the gradients."""
+    frozen ones (``lm.frozen_units``); only the leaves ``select`` (a tree
+    of bools like ``grads``) marks, if given.  Views, so reducing them in
+    place reduces the gradients."""
     frozen = lm.frozen_units(cfg, depth)
+    if select is None:
+        select = tree_map(lambda _: True, grads)
     parts = []
 
-    def add(tree, lo: int = 0):
-        for t in tree_leaves(tree):
-            if t is not None and t.shape[0] > lo:
+    def add(tree, sel, lo: int = 0):
+        for t, on in zip(tree_leaves(tree), tree_leaves(sel)):
+            if on and t is not None and t.shape[0] > lo:
                 parts.append(t[lo:] if lo else t)
 
-    def stack(tree, key):
+    def stack(tree, sel, key):
         for key2, v in tree.items():
             if key2 == "groups":
-                for gp, q in zip(v, frozen[key]):
-                    add(gp, q)
+                for gp, sp, q in zip(v, sel[key2], frozen[key]):
+                    add(gp, sp, q)
             else:
-                add(v)
+                add(v, sel[key2])
 
-    stack({k: v for k, v in grads.items() if k != "enc"}, "groups")
+    stack({k: v for k, v in grads.items() if k != "enc"}, select, "groups")
     if "enc" in grads:
-        stack(grads["enc"], "enc")
+        stack(grads["enc"], select["enc"], "enc")
     return parts
 
 
 def _apply(state: State, grads, metrics, tcfg: TrainConfig,
            cfg: ModelConfig, spb_cfg: Optional[SPBConfig],
-           sched: Optional[torch.Tensor] = None, *, group=None, shards=None
+           sched: Optional[torch.Tensor] = None, *, group=None, shards=None,
+           gnorm: Optional[torch.Tensor] = None
            ) -> Tuple[State, Dict[str, torch.Tensor]]:
     """Compress ``grads`` if ``tcfg.compression`` asks, run the optimizer
-    (reading the schedule from ``sched`` when given,
-    ``optim.apply_updates``) and advance the step.  With ``shards`` the
-    optimizer updates this rank's slices, and each sharded parameter is
-    then all-gathered over ``group``."""
+    (reading the schedule from ``sched`` when given, the clip norm from
+    ``gnorm`` when given, ``optim.apply_updates``) and advance the step.
+    With ``shards`` the optimizer updates this rank's slices, and each
+    sharded parameter is then all-gathered over ``group``."""
     if tcfg.compression != "none":
         gen = compression_generator(tcfg, state["step"])
         grads = compress.compress_tree(grads, tcfg.compression,
                                        tcfg.compression_ratio, gen)
     _, _, opt_metrics = optimizers.apply_updates(
         state["params"], grads, state["opt"], state["step"], tcfg, cfg=cfg,
-        spb_cfg=spb_cfg, sched=sched, shards=shards)
+        spb_cfg=spb_cfg, sched=sched, shards=shards, gnorm=gnorm)
     if shards is not None:
         with torch.no_grad():
             for p, part in zip(tree_leaves(state["params"]),
@@ -216,13 +307,14 @@ def compression_generator(tcfg: TrainConfig, step: int) -> torch.Generator:
 
 
 def _accumulate(state: State, chunks, depths, cfg: ModelConfig,
-                remat: str = "none"):
-    """Backward of each chunk at its depth, the gradients accumulating in
-    ``.grad``; returns the chunks' mean metrics."""
+                remat: str = "none", ep=None):
+    """Backward of each chunk at its depth (the experts sharded over the
+    model group ``ep``, if any), the gradients accumulating in ``.grad``;
+    returns the chunks' mean metrics."""
     metrics = None
     for chunk, depth in zip(chunks, depths):
         loss, mm = lm.loss_fn(state["params"], chunk, cfg, bwd_layers=depth,
-                              remat=remat)
+                              remat=remat, ep=ep)
         loss.backward()
         mm = {k: v.detach() for k, v in mm.items()}
         metrics = mm if metrics is None else {
@@ -235,23 +327,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     spb_cfg: Optional[SPBConfig] = None, *,
                     depth: Optional[int] = None,
                     remat: Optional[str] = None, group=None,
-                    shards=None) -> Callable:
+                    shards=None, model=None) -> Callable:
     """A (state, batch) -> (state, metrics) step at SPB suffix ``depth``
     (None = full backprop), over ``tcfg.microbatches`` accumulated chunks,
     under the recompute policy ``remat``, averaged over the data group
     ``group`` when it has several ranks, the optimizer state this rank's
-    ZeRO-1 slices with ``shards``.  The state is updated in place;
+    ZeRO-1 slices with ``shards``, the experts sharded over the grid's
+    model group ``model`` when given.  The state is updated in place;
     ``sched`` and ``update`` as :func:`_finish_step` takes them."""
     remat = lm.resolve_remat(remat)
+    grid = _grid(cfg, model)
 
     def step(state: State, batch, *, sched=None, update: bool = True
              ) -> Tuple[State, Dict[str, torch.Tensor]]:
         m = max(1, tcfg.microbatches)
         chunks = _microbatches(batch, m) if m > 1 else [batch]
-        metrics = _accumulate(state, chunks, [depth] * m, cfg, remat)
+        metrics = _accumulate(state, chunks, [depth] * m, cfg, remat, model)
         return _finish_step(state, metrics, tcfg, cfg, spb_cfg,
                             scale=1.0 / m, sched=sched, update=update,
-                            group=group, depth=depth, shards=shards)
+                            group=group, depth=depth, shards=shards,
+                            grid=grid)
 
     return step
 
@@ -265,23 +360,25 @@ def _mb_cycle(cfg: ModelConfig, spb_cfg: SPBConfig) -> list:
 def make_temporal_mb_step(cfg: ModelConfig, tcfg: TrainConfig,
                           spb_cfg: SPBConfig, *,
                           remat: Optional[str] = None, group=None,
-                          shards=None) -> Callable:
+                          shards=None, model=None) -> Callable:
     """One step over the whole depth cycle: the batch splits into
     ``len(cycle)`` microbatches, microbatch j backprops suffix depth
     ``depths[order[j]]``, and one optimizer step takes the mean gradient
-    (``tcfg.microbatches`` is not used), averaged over ``group`` and
-    applied to ``shards`` as :func:`make_train_step` does."""
+    (``tcfg.microbatches`` is not used), averaged over ``group``, summed
+    over ``model`` and applied to ``shards`` as :func:`make_train_step`
+    does."""
     remat = lm.resolve_remat(remat)
     cycle = _mb_cycle(cfg, spb_cfg)
+    grid = _grid(cfg, model)
 
     def step(state: State, batch, *, sched=None, update: bool = True
              ) -> Tuple[State, Dict[str, torch.Tensor]]:
         chunks = _microbatches(batch, len(cycle))
-        metrics = _accumulate(state, chunks, cycle, cfg, remat)
+        metrics = _accumulate(state, chunks, cycle, cfg, remat, model)
         return _finish_step(state, metrics, tcfg, cfg, spb_cfg,
                             scale=1.0 / len(cycle), sched=sched,
                             update=update, group=group, depth=max(cycle),
-                            shards=shards)
+                            shards=shards, grid=grid)
 
     return step
 
@@ -474,23 +571,49 @@ def spb_step_keys(cfg: ModelConfig, spb_cfg: SPBConfig) -> list:
     return keys
 
 
+def refuse_on_grid(spb_cfg: SPBConfig, tcfg: TrainConfig, model) -> None:
+    """What a ``(data, model)`` grid of T > 1 model ranks refuses.
+    Spatial SPB: the reference's spatial step is a ``shard_map`` over
+    ``data`` around the whole loss, and ``moe_fwd_ep``'s ``shard_map`` over
+    ``model`` inside it does not lower there (a reshape of 2048 elements
+    into 4096 on a (2, 2) mesh).  Compression: the compressors pick over
+    whole leaves, and a grid rank holds a share of each MoE layer's
+    experts, so only a gather of the experts first would make it the
+    one-process draw."""
+    if model is None or model.size <= 1:
+        return
+    if spb_cfg.mode == "spatial":
+        raise NotImplementedError(
+            "SPB mode 'spatial' on a (data, model) grid: the reference's "
+            "per-worker step (a shard_map over 'data') does not lower with "
+            "moe_fwd_ep's shard_map over 'model' inside it; use "
+            "'temporal', 'temporal-mb' or 'off'")
+    if tcfg.compression != "none":
+        raise NotImplementedError(
+            f"compression={tcfg.compression!r} on a (data, model) grid: the "
+            f"compressors pick over whole leaves and a rank holds a share "
+            f"of the experts (ROADMAP.md Queue 1 B item 11)")
+
+
 def build_spb_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
                           spb_cfg: SPBConfig, *, remat: Optional[str] = None,
-                          group=None) -> Dict[Any, Callable]:
+                          group=None, model=None) -> Dict[Any, Callable]:
     """Step functions keyed by :func:`spb_step_keys`, each under the
     recompute policy ``remat`` over the data group ``group`` (None: one
-    rank): for ``spatial`` ``{None:`` :func:`make_spatial_step` ``}``;
-    otherwise ``"mb"`` runs :func:`make_temporal_mb_step`, a depth
+    rank) and the grid's model group ``model`` (None: none): for
+    ``spatial`` ``{None:`` :func:`make_spatial_step` ``}``; otherwise
+    ``"mb"`` runs :func:`make_temporal_mb_step`, a depth
     :func:`make_train_step`."""
     remat = lm.resolve_remat(remat)
+    refuse_on_grid(spb_cfg, tcfg, model)
     if spb_cfg.mode == "spatial":
         return {None: make_spatial_step(cfg, tcfg, spb_cfg, remat=remat,
                                         group=group or DataGroup())}
     return {k: make_temporal_mb_step(cfg, tcfg, spb_cfg, remat=remat,
-                                     group=group)
+                                     group=group, model=model)
             if k == "mb"
             else make_train_step(cfg, tcfg, spb_cfg, depth=k, remat=remat,
-                                 group=group)
+                                 group=group, model=model)
             for k in spb_step_keys(cfg, spb_cfg)}
 
 

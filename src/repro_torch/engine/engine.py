@@ -69,6 +69,26 @@ make_pipeline_train_step``).  :meth:`gathered_state` gathers the model
 shards too.  ``compile_table`` and ``load_aot`` raise: a pipeline's
 messages go through the host.  Outside a pipeline the three knobs raise
 with the reference's text.
+
+``group=`` a ``dist/group.GridGroup`` makes the engine one rank of a
+``(data, model)`` grid, the counterpart of the reference's
+``SPBEngine(mesh=<(data, model) mesh>)`` SPMD step: its MoE layers run
+``impl="ep"`` with their experts sharded over ``model``
+(``models/moe.moe_fwd_ep``), everything else replicated over ``model``
+(``dist/sharding.grid_state_pspec``: the ``"expert"`` rule alone; GSPMD
+would also shard heads and vocab there), and the steps sum the router's
+and the shared expert's gradients over ``model`` before they average
+over ``data`` (``dist/steps.py``).  The rank holds its experts
+(``experts``, from ``sharding.axis_slices``) and, under ZeRO-1, its data
+slices of every optimizer leaf; ``init_state`` draws the whole tree and
+keeps that share, ``attach_state`` takes it from a whole state (or a
+share of the same layout), and :meth:`gathered_state` gives rank 0 the
+whole state in the one-process format, so a checkpoint restores into one
+process or into a grid of another T.  Rank 0's depth is broadcast over
+the whole grid every step.  ``spatial`` raises on a grid with T > 1 (the
+reference's step does not lower there), as do compression (the
+compressors pick over whole leaves; ROADMAP.md Queue 1 B item 11),
+``compile_table`` and ``load_aot``.
 """
 from __future__ import annotations
 
@@ -90,7 +110,7 @@ from repro_torch.dist import sharding
 from repro_torch.dist import steps as steps_lib
 from repro_torch.engine import aot, graphs, stepcache
 from repro_torch.engine.policies import DepthPolicy, make_policy
-from repro_torch.dist.group import DataGroup, PipeGroup
+from repro_torch.dist.group import DataGroup, GridGroup, PipeGroup
 from repro_torch.dist.pipeline import stage as pp_stage
 from repro_torch.launch.mesh import make_pipeline_mesh
 from repro_torch.models import lm
@@ -211,9 +231,14 @@ class SPBEngine:
         else:
             self.device = group.device
         if pipeline != isinstance(group, PipeGroup):
-            raise ValueError(f"parallelism={parallelism!r} takes a "
-                             f"{'PipeGroup' if pipeline else 'DataGroup'}")
+            kinds = "PipeGroup" if pipeline else "DataGroup or GridGroup"
+            raise ValueError(f"parallelism={parallelism!r} takes a {kinds}")
         self.group = group
+        grid = isinstance(group, GridGroup)
+        # the data group the steps average over; the grid's model group
+        self._data = group.data if grid else group
+        self._model = group.model if grid else None
+        self.experts = None
         self.zero1 = zero1
         self.state_shapes = steps_lib.train_state_shapes(cfg, tcfg)
         if pipeline:
@@ -226,10 +251,14 @@ class SPBEngine:
             self.pipeline_stages = 0
             self._stage_map = None
             self.mesh = sharding.mesh_for(group)
-            self.state_specs = sharding.state_pspec(
-                self.state_shapes, self.mesh, zero1=zero1)
-            self.shards = sharding.opt_slices(
-                self.state_shapes, self.state_specs, self.mesh, group.rank)
+            if grid:
+                self._init_grid()
+            else:
+                self.state_specs = sharding.state_pspec(
+                    self.state_shapes, self.mesh, zero1=zero1)
+                self.shards = sharding.opt_slices(
+                    self.state_shapes, self.state_specs, self.mesh,
+                    group.rank)
         self.policy = policy or make_policy("cycle", cfg, self.spb)
         self.shared_cache = shared_cache
         self._steps: Dict[Any, Callable] = {}
@@ -243,6 +272,42 @@ class SPBEngine:
         self.state: Optional[State] = None
         self.last_depth: Any = None
         self._auto_step = 0
+
+    def _init_grid(self) -> None:
+        """A ``(data, model)`` grid rank's layout: the specs (experts over
+        ``model``, ZeRO-1 over ``data``), this rank's experts and its
+        ZeRO-1 slices of the optimizer leaves it holds."""
+        group, mesh = self.group, self.mesh
+        steps_lib.refuse_on_grid(self.spb, self.tcfg, group.model)
+        self.state_specs = sharding.grid_state_pspec(
+            self.state_shapes, mesh, zero1=self.zero1)
+        self.experts = sharding.axis_slices(
+            self.state_specs["params"], self.state_shapes["params"], mesh,
+            "model", group.model_index)
+        key = sorted(self.state_shapes["opt"])[0]
+        shards = sharding.pipeline_opt_slices(
+            self.state_specs["opt"][key],
+            self._expert_rows(self.state_shapes["opt"][key]), mesh,
+            group.data_index) if self.zero1 else None
+        held = tree_map(lambda part: part is not None, shards,
+                        is_leaf=sharding.is_slice) if shards else None
+        self.shards = shards if held and any(tree_leaves(held)) else None
+
+    def _expert_rows(self, tree, copy: bool = False):
+        """This grid rank's experts of a params-shaped tree (a leaf that
+        already has the share's shape is taken as it is); the rest whole.
+        ``copy``: the share as a tensor of its own."""
+        if self.experts is None:
+            return tree
+
+        def rows(t, part):
+            if part is None or t.shape[part[0]] == part[2]:
+                return t
+            t = t.narrow(*part)
+            return t.clone(memory_format=torch.contiguous_format) \
+                if copy else t
+
+        return tree_map(rows, tree, self.experts)
 
     def _init_pipeline(self, tensor_parallel, sequence_parallel,
                        zero2) -> None:
@@ -342,6 +407,13 @@ class SPBEngine:
             self.state = self._pipeline_state(     # stage's share
                 lm.init_lm(gen, self.cfg, self.device))
             return self.state
+        if self.experts is not None:    # a grid rank: the whole, its experts
+            params = tree_map(
+                lambda t: t.requires_grad_(True),
+                self._expert_rows(lm.init_lm(gen, self.cfg, self.device),
+                                  copy=True))
+            return self._adopt(steps_lib.state_from_params(
+                params, self.tcfg, self.shards))
         return self._adopt(steps_lib.init_train_state(
             gen, self.cfg, self.tcfg, self.device, self.shards))
 
@@ -368,9 +440,13 @@ class SPBEngine:
                                       memory_format=torch.contiguous_format)
 
         self.state = {
-            "params": tree_map(param, state["params"]),
-            "opt": {k: tree_map(own, sub, self.shards) if self.shards
-                    else tree_map(lambda t: t.to(self.device), sub)
+            "params": tree_map(param, self._expert_rows(state["params"],
+                                                        copy=True)),
+            "opt": {k: tree_map(own, self._expert_rows(sub, copy=True),
+                                self.shards)
+                    if self.shards
+                    else tree_map(lambda t: t.to(self.device),
+                                  self._expert_rows(sub, copy=True))
                     for k, sub in state["opt"].items()},
             "step": int(state["step"]),
         }
@@ -386,6 +462,8 @@ class SPBEngine:
             raise RuntimeError("call init_state()/attach_state() first")
         if self.pipeline_stages:
             return self._gathered_pipeline_state()
+        if self.experts is not None:
+            return self._gathered_grid_state()
         root = self.group.rank == 0
 
         def host(t):
@@ -403,6 +481,34 @@ class SPBEngine:
         if not root:
             return None
         return {"params": tree_map(host, self.state["params"]), "opt": opt,
+                "step": int(self.state["step"])}
+
+    def _gathered_grid_state(self) -> Optional[State]:
+        """:meth:`gathered_state` of a grid: each ZeRO-1 slice is gathered
+        over the data group to data index 0, whose ranks then all-gather
+        their experts over their model group; rank 0 keeps the result."""
+        data, model = self.group.data, self.group.model
+        root = self.group.rank == 0
+
+        def whole(t, zpart, epart):
+            if zpart is not None:
+                t = data.gather(t, zpart[0])
+            if data.rank != 0:
+                return None
+            t = t.detach()
+            if epart is not None:
+                t = model.all_gather(t.contiguous(), epart[0])
+            return t.to("cpu", copy=True) if root else None
+
+        none = lambda sub: tree_map(lambda _: None, sub)   # noqa: E731
+        params = tree_map(lambda t, e: whole(t, None, e),
+                          self.state["params"], self.experts)
+        opt = {k: tree_map(whole, sub, self.shards or none(sub),
+                           self.experts)
+               for k, sub in self.state["opt"].items()}
+        if not root:
+            return None
+        return {"params": params, "opt": opt,
                 "step": int(self.state["step"])}
 
     def _gathered_pipeline_state(self) -> Optional[State]:
@@ -492,16 +598,17 @@ class SPBEngine:
         if self.spb.mode == "spatial":
             return steps_lib.make_spatial_step(self.cfg, self.tcfg, self.spb,
                                                remat=self.remat,
-                                               group=self.group,
+                                               group=self._data,
                                                shards=self.shards)
-        group = self.group if self.group.size > 1 else None
+        group = self._data if self._data.size > 1 else None
         if key == "mb":
             return steps_lib.make_temporal_mb_step(
                 self.cfg, self.tcfg, self.spb, remat=self.remat, group=group,
-                shards=self.shards)
+                shards=self.shards, model=self._model)
         return steps_lib.make_train_step(self.cfg, self.tcfg, self.spb,
                                          depth=key, remat=self.remat,
-                                         group=group, shards=self.shards)
+                                         group=group, shards=self.shards,
+                                         model=self._model)
 
     def _eager_step(self, key: Any) -> Callable:
         if self.shared_cache:
@@ -534,6 +641,10 @@ class SPBEngine:
                      self.group.model.size, self.group.model_index,
                      self.tensor_parallel, self.sequence_parallel,
                      self.zero2),)
+        elif self._model is not None:
+            out += (("grid", self._data.size, self._model.size,
+                     self._data.rank % self.spb.k
+                     if self.spb.mode == "spatial" else None),)
         elif self.spb.mode == "spatial":
             out += (("group", n, self.group.rank % self.spb.k),)
         elif n > 1:
@@ -673,6 +784,12 @@ class SPBEngine:
                 f"{what} under a pipeline: its point-to-point messages and "
                 f"collectives go through the host (gloo), which a CUDA "
                 f"graph cannot capture; run the pipeline's steps eagerly")
+        if self._model is not None and self.group.size > 1:
+            raise NotImplementedError(
+                f"{what} under a (data, model) grid of {self._data.size} x "
+                f"{self._model.size} ranks: their collectives go through the "
+                f"host (gloo), which a CUDA graph cannot capture; run the "
+                f"grid's steps eagerly")
         if self.group.size > 1:
             raise NotImplementedError(
                 f"{what} under a data group of {self.group.size} ranks: "

@@ -13,6 +13,9 @@ record its work, memory and roofline inputs (the counterpart of
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k \
       --full-width --layers 4 --batch 2 --seq 2048 --depth 4 \
       --data-parallel 2         # one rank of two, ZeRO-1
+  python -m repro_torch.launch.dryrun --arch deepseek-v2-lite-16b \
+      --shape train_4k --full-width --layers 3 --batch 2 --seq 2048 \
+      --model-parallel 2        # one rank of a (1, 2) grid, experts over 2
 
 The step always runs on the meta device, as the reference's runs on fake
 host devices: nothing is computed or allocated, so it needs no card and
@@ -34,7 +37,14 @@ the group's collectives, which the group reports on the meta device
 instead of running them (``dist/group.META_SINKS``), by the ring model;
 the record then also holds the rank's state bytes both ways
 (``sharding.sharded_state_bytes``) and the predicted peak (state and
-batch plus the counted temporaries).
+batch plus the counted temporaries).  ``--model-parallel T`` counts one
+rank of the ``(N, T)`` grid (``dist/group.GridGroup``): a MoE config runs
+``impl="ep"`` with ``E / T`` experts a rank (``experts_held``), as the
+reference's ``lower_cell`` forces ``impl="ep"`` on its mesh, and the
+model group's collectives, the all-to-all among them (``(T - 1) / T`` of
+its payload on the wire), go into the collective bytes and so into the
+roofline's link term; the state is laid out by
+``sharding.grid_state_pspec``.  At T = 1 nothing changes.
 
 Records: one JSON a cell under ``results/dryrun_torch/``
 (``analysis/roofline.cell_path``; ``--force`` recomputes) with the
@@ -69,7 +79,7 @@ import torch
 
 from repro_torch.dist import sharding
 from repro_torch.dist import steps as steps_lib
-from repro_torch.dist.group import DataGroup
+from repro_torch.dist.group import DataGroup, ModelGroup
 from repro_torch.models import lm
 from repro_torch.tree import tree_map
 
@@ -101,18 +111,32 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
                seq_len: Optional[int] = None, multi_pod: bool = False,
                zero1: bool = True, rules_extra=None,
                remat: str = "none", data_parallel: int = 1,
-               layers: Optional[int] = None) -> dict:
+               layers: Optional[int] = None, model_parallel: int = 1
+               ) -> dict:
     """Count one cell on the meta device; returns its record (without
     ``ok``/``tag``).  ``batch``/``seq_len`` default to the shape's (the
     global batch); ``remat`` is a train step's recompute policy;
     ``data_parallel`` n > 1 counts one rank of a data group of n, its
     optimizer state ZeRO-1 sharded unless ``zero1`` is off; ``layers``
-    cuts the config's depth further (a dense decoder's)."""
+    cuts the config's depth further (a dense decoder's);
+    ``model_parallel`` T > 1 counts one rank of the ``(data_parallel, T)``
+    grid, a MoE config's experts sharded over T by expert parallelism."""
     one_card(multi_pod, zero1, rules_extra)
     remat = lm.resolve_remat(remat)
     cfg = cut_config(arch, cut)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    T = model_parallel
+    whole = cfg                 # the grid's layout: every expert
+    if T > 1 and cfg.moe is not None:
+        if cfg.moe.num_experts % T:
+            raise ValueError(f"--model-parallel {T} does not divide the "
+                             f"{cfg.moe.num_experts} experts of {arch}")
+        whole = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl="ep", experts_held=None))
+        cfg = dataclasses.replace(whole, moe=dataclasses.replace(
+            whole.moe, experts_held=cfg.moe.num_experts // T))
+    model = ModelGroup(rank=0, size=T) if T > 1 else None
     sh = SHAPES[shape_name]
     B = sh.global_batch if batch is None else batch
     S = sh.seq_len if seq_len is None else seq_len
@@ -133,7 +157,23 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
         tcfg = TrainConfig()
         group = DataGroup(rank=0, size=n, device=torch.device("meta"))
         shards = None
-        if n > 1:
+        if T > 1:
+            shapes = steps_lib.train_state_shapes(whole, tcfg)
+            mesh = sharding.Mesh((n, T), ("data", "model"))
+            specs = {z: sharding.grid_state_pspec(shapes, mesh, zero1=z)
+                     for z in (True, False)}
+            key = sorted(shapes["opt"])[0]
+            if zero1 and n > 1:
+                shards = sharding.pipeline_opt_slices(
+                    specs[True]["opt"][key],
+                    steps_lib.train_state_shapes(cfg, tcfg)["opt"][key],
+                    mesh, 0)
+            group_rec = {"state_bytes": {
+                "zero1": sharding.sharded_state_bytes(shapes, specs[True],
+                                                      mesh),
+                "replicated": sharding.sharded_state_bytes(
+                    shapes, specs[False], mesh)}}
+        elif n > 1:
             shapes = steps_lib.train_state_shapes(cfg, tcfg)
             mesh = sharding.mesh_for(group)
             specs = {z: sharding.state_pspec(shapes, mesh, zero1=z)
@@ -151,10 +191,10 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
                                          SPBConfig(mode="temporal", k=4),
                                          depth=depth, remat=remat,
                                          group=group if n > 1 else None,
-                                         shards=shards)
+                                         shards=shards, model=model)
         _, s = cost.count(step, state, input_specs(
             cfg, dataclasses.replace(shape, global_batch=B // n)))
-        if n > 1:
+        if n > 1 or T > 1:
             ma = s.memory_analysis
             group_rec["predicted_peak_bytes"] = \
                 ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
@@ -164,10 +204,11 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
         if shape.kind == "prefill":
             inputs = {k: v for k, v in input_specs(cfg, shape).items()
                       if k != "labels"}
-            _, s = cost.count(lm.prefill, params, inputs, cfg, cache)
+            _, s = cost.count(lm.prefill, params, inputs, cfg, cache,
+                              ep=model)
         else:
             _, s = cost.count(lm.decode_step, params, cache,
-                              decode_token_specs(cfg, shape), cfg)
+                              decode_token_specs(cfg, shape), cfg, ep=model)
     return {
         "arch": arch, "shape": shape_name, "mesh": roofline.MESH,
         "chips": 1, "depth": depth, "kind": shape.kind, "cut": cut,
@@ -176,6 +217,7 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
         "experts_held": cfg.moe.experts_held if cfg.moe else None,
         "batch": B, "seq_len": S,
         "use_pallas": cfg.use_pallas, "count_s": round(time.time() - t0, 2),
+        **({"model_parallel": T} if T > 1 else {}),
         "flops_per_device": s.flops,
         "bytes_per_device": s.bytes,
         "collective_bytes_per_device": s.collective_bytes,
@@ -203,6 +245,8 @@ def run_cell(arch: str, shape_name: str, *, cut: str = "published",
     n = kw.get("data_parallel", 1)
     if n > 1:       # one rank of a group: a record of its own
         tag = f"{tag}dp{n}" + ("" if kw.get("zero1", True) else "-nozero1")
+    if kw.get("model_parallel", 1) > 1:
+        tag = f"{tag}mp{kw['model_parallel']}"
     if kw.get("layers") is not None:
         tag = f"{tag}L{kw['layers']}"
     # the recompute is a train step's: the other shapes run no backward
@@ -264,6 +308,10 @@ def main(argv=None) -> int:
                     help="cut the config to this many layers")
     ap.add_argument("--data-parallel", type=int, default=1,
                     help="count one rank of a data group of N (train)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="count one rank of a (data, model) grid with T "
+                         "model ranks: MoE experts sharded over them "
+                         "(impl='ep')")
     ap.add_argument("--no-zero1", action="store_true",
                     help="with --data-parallel: replicate the optimizer "
                          "state instead of sharding it")
@@ -287,7 +335,8 @@ def main(argv=None) -> int:
                        tag=args.tag, out_dir=args.out, remat=args.remat,
                        multi_pod=args.multi_pod, zero1=not args.no_zero1,
                        data_parallel=args.data_parallel,
-                       layers=args.layers)
+                       layers=args.layers,
+                       model_parallel=args.model_parallel)
         if rec.get("ok"):
             ma = rec.get("memory_analysis", {})
             print(f"OK  {arch:24s} {shape:12s} {rec['mesh']:5s} "

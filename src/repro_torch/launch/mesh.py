@@ -31,18 +31,32 @@ The pipeline's grid (the counterpart of the reference's
 ``(S, D, T)`` with a tensor-parallel axis, and :func:`init_pipe_group`
 makes this process's rank of it, a ``dist/group.PipeGroup`` (rank ``(s *
 D + d) * T + t``), from torchrun's environment or from :func:`spawn`'s
-store (``spawn(..., grid=(S, D, T))``).  A pipeline always takes
-``gloo``: its activations move by point-to-point messages through the
-host, which NCCL would not take from host tensors, and its ranks share a
-card.
+store (``spawn(..., grid=(S, D, T))``, T 1 without tensor parallelism).
+A pipeline always takes ``gloo``: its activations move by point-to-point
+messages through the host, which NCCL would not take from host tensors,
+and its ranks share a card.
 
-The reference's submeshes (``split_devices``, ``make_submeshes``,
-``assert_disjoint``) are not ported yet (ROADMAP.md Queue 1 B item 11).
+The ``(data, model)`` grid of expert parallelism (the counterpart of the
+reference's ``jax.make_mesh((D, T), ("data", "model"))`` that
+``SPBEngine(mesh=)`` takes): :func:`init_grid_group` makes this process's
+rank of it, a ``dist/group.GridGroup`` (rank ``d * T + t``), from
+torchrun's environment or from :func:`spawn`'s store (``spawn(...,
+grid=(D, T))``); its ``data`` group holds the D
+ranks of one model index, its ``model`` group the T ranks of one data
+index.  The backend is picked as for a data group.
+:func:`make_mesh_from_config` and :func:`parallel_config_for` carry a
+``config.ParallelConfig`` to a ``dist/sharding.Mesh`` and back.
+
+What of the reference's mesh options is not ported (ROADMAP.md Queue 1 B
+item 11): the submeshes (``split_devices``, ``make_submeshes``,
+``assert_disjoint``), ``make_production_mesh`` (the 16 x 16 pod) and the
+multi-pod ``("pod", "data", "model")`` mesh.
 """
 from __future__ import annotations
 
 import datetime
 import importlib
+import itertools
 import math
 import os
 import pickle
@@ -55,11 +69,11 @@ from typing import Any, Callable, List, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.config import ParallelConfig
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding
 from repro_torch.dist.group import (DEFAULT_TIMEOUT_S, DataGroup,
-                                   ModelGroup, PipeGroup)
-
+                                   GridGroup, ModelGroup, PipeGroup)
 
 def pick_backend(device: torch.device, local_world: int) -> str:
     """``nccl`` when every rank of the machine (``local_world`` of them)
@@ -134,6 +148,89 @@ def init_data_group(size: Optional[int] = None, *, rank: Optional[int] = None,
     return group
 
 
+def make_mesh_from_config(pcfg: ParallelConfig) -> sharding.Mesh:
+    """The mesh a ``ParallelConfig`` names (axes and sizes)."""
+    return sharding.Mesh(pcfg.mesh_shape, pcfg.mesh_axes)
+
+
+def parallel_config_for(mesh: sharding.Mesh) -> ParallelConfig:
+    """A mesh's axis roles: ``pod`` and ``data`` shard the batch,
+    ``model`` the weights, ``stage`` (if any) pipelines the stack."""
+    axes = tuple(mesh.axis_names)
+    return ParallelConfig(
+        mesh_shape=tuple(mesh.shape[a] for a in axes), mesh_axes=axes,
+        dp_axes=tuple(a for a in axes if a in ("pod", "data")),
+        tp_axis="model", pp_axis="stage" if "stage" in axes else None)
+
+
+def _join_grid(what: str, shape, rank: int, init_method: Optional[str],
+               backend: str, timeout_s: float) -> List[Any]:
+    """Join the world of a row-major grid of ``shape`` as ``rank`` and
+    return, for each axis, the process group of the ranks that differ from
+    this one along that axis only: None where the axis has one rank, the
+    world where it has them all.  Every rank makes every group, in one
+    order (``new_group`` is collective)."""
+    if init_method is None:
+        raise ValueError(f"{what} of several ranks outside torchrun needs "
+                         f"the store directory its ranks meet in")
+    n = math.prod(shape)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=n, timeout=timeout)
+    strides = [math.prod(shape[a + 1:]) for a in range(len(shape))]
+    coord = [rank // st % m for st, m in zip(strides, shape)]
+    mine: List[Any] = []
+    for a, size in enumerate(shape):
+        mine.append(None if size == 1 else dist.group.WORLD)
+        if size in (1, n):
+            continue
+        others = [range(1) if b == a else range(m)
+                  for b, m in enumerate(shape)]
+        for at in itertools.product(*others):
+            first = sum(c * st for c, st in zip(at, strides))
+            pg = dist.new_group(ranks=[first + i * strides[a]
+                                       for i in range(size)],
+                                backend=backend, timeout=timeout)
+            if all(c == coord[b] for b, c in enumerate(at) if b != a):
+                mine[a] = pg
+    return mine
+
+
+def init_grid_group(data_parallel: int, model_parallel: int, *,
+                    rank: Optional[int] = None, device=None, store_dir=None,
+                    timeout_s: float = DEFAULT_TIMEOUT_S) -> GridGroup:
+    """This process's rank of a ``(data, model)`` grid of
+    ``data_parallel`` x ``model_parallel`` ranks (``dist/group.
+    GridGroup``; rank ``d * T + t``), from torchrun's environment (whose
+    ``WORLD_SIZE`` must be their product) or from the store under
+    ``store_dir``.  The backend as :func:`init_data_group` picks it."""
+    D, T = data_parallel, model_parallel
+    if D < 1 or T < 1:
+        raise ValueError(f"grid of {D} x {T}: every factor must be >= 1")
+    n, rank, local_rank, init_method, dev = _rank_env(
+        D * T, rank, device, store_dir, "the grid's data x model ranks =")
+    d, t = rank // T, rank % T
+    group = GridGroup(rank=rank, size=n, local_rank=local_rank, device=dev,
+                      timeout_s=timeout_s,
+                      data=DataGroup(rank=d, size=D, local_rank=local_rank,
+                                     device=dev, timeout_s=timeout_s,
+                                     root=t),
+                      model=ModelGroup(rank=t, size=T))
+    if n == 1:
+        return group
+    backend = pick_backend(dev, int(os.environ.get("LOCAL_WORLD_SIZE", n)))
+    group.backend = group.data.backend = backend
+    group.data.pg, group.model.pg = _join_grid(
+        "a grid", (D, T), rank, init_method, backend, timeout_s)
+    group.pg = dist.group.WORLD
+    if rank == 0:
+        cards = f" over {torch.cuda.device_count()} card(s)" \
+            if dev.type == "cuda" else ""
+        print(f"[mesh] grid of {D} data x {T} model ranks{cards}: "
+              f"backend={backend} device={dev.type}", flush=True)
+    return group
+
+
 def make_pipeline_mesh(num_stages: int, *, data_parallel: int = 1,
                        model_parallel: int = 1) -> sharding.Mesh:
     """The pipeline's axes, ``("stage", "data")`` of ``(num_stages,
@@ -160,8 +257,7 @@ def init_pipe_group(num_stages: int, data_parallel: int = 1,
     ``data_parallel`` data ranks x ``model_parallel`` model ranks
     (``dist/group.PipeGroup``), from torchrun's environment (whose
     ``WORLD_SIZE`` must be their product) or from the store under
-    ``store_dir``; the backend is ``gloo``.  Every rank makes the subgroups
-    of the three axes, in one order (``new_group`` is collective)."""
+    ``store_dir``; the backend is ``gloo``."""
     S, D, T = num_stages, data_parallel, model_parallel
     n, rank, local_rank, init_method, dev = _rank_env(
         S * D * T, rank, device, store_dir, "--pipeline-stages x "
@@ -176,34 +272,10 @@ def init_pipe_group(num_stages: int, data_parallel: int = 1,
                       model=ModelGroup(rank=t, size=T))
     if n == 1:
         return group
-    if init_method is None:
-        raise ValueError("a pipeline of several ranks outside torchrun "
-                         "needs the store directory its ranks meet in")
     group.backend = group.data.backend = "gloo"
-    timeout = datetime.timedelta(seconds=timeout_s)
-    dist.init_process_group("gloo", init_method=init_method, rank=rank,
-                            world_size=n, timeout=timeout)
+    group.pipe_pg, group.data.pg, group.model.pg = _join_grid(
+        "a pipeline", (S, D, T), rank, init_method, "gloo", timeout_s)
     group.pg = dist.group.WORLD
-
-    def sub(ranks):
-        return dist.new_group(ranks=ranks, backend="gloo", timeout=timeout)
-
-    for ss in range(S):                 # the data axis: one per (s, t)
-        for tt in range(T):
-            pg = sub([at(ss, dd, tt) for dd in range(D)]) if D > 1 else None
-            if (ss, tt) == (s, t):
-                group.data.pg = pg
-    for dd in range(D):                 # the stage axis: one per (d, t)
-        for tt in range(T):
-            pg = sub([at(ss, dd, tt) for ss in range(S)]) \
-                if D * T > 1 else group.pg
-            if (dd, tt) == (d, t):
-                group.pipe_pg = pg
-    for ss in range(S):                 # the model axis: one per (s, d)
-        for dd in range(D):
-            pg = sub([at(ss, dd, tt) for tt in range(T)]) if T > 1 else None
-            if (ss, dd) == (s, d):
-                group.model.pg = pg
     if rank == 0:
         cards = f" over {torch.cuda.device_count()} card(s)" \
             if dev.type == "cuda" else ""
@@ -223,15 +295,22 @@ def _resolve_target(target: str) -> Callable:
 
 def _rank_main(target: str, rank: int, n: int, device, tmp: str,
                threads: Optional[int], args, kwargs, grid=None) -> None:
-    """One spawned rank: join the group (a pipeline's when ``grid`` is
-    ``(S, D)`` or ``(S, D, T)``), run ``target(group, *args, **kwargs)``, leave its result
-    (or its traceback) in ``tmp``."""
+    """One spawned rank: join the group (a ``(data, model)`` grid's when
+    ``grid`` is ``(D, T)``, a pipeline's when it is ``(S, D, T)``), run
+    ``target(group, *args, **kwargs)``, leave its result (or its
+    traceback) in ``tmp``."""
     if threads:
         torch.set_num_threads(threads)
     try:
-        group = init_data_group(n, rank=rank, device=device, store_dir=tmp) \
-            if grid is None else init_pipe_group(
-                *grid, rank=rank, device=device, store_dir=tmp)
+        if grid is None:
+            group = init_data_group(n, rank=rank, device=device,
+                                    store_dir=tmp)
+        elif len(grid) == 2:
+            group = init_grid_group(*grid, rank=rank, device=device,
+                                    store_dir=tmp)
+        else:
+            group = init_pipe_group(*grid, rank=rank, device=device,
+                                    store_dir=tmp)
         try:
             out = _resolve_target(target)(group, *args, **kwargs)
         finally:
@@ -256,11 +335,14 @@ def spawn(target: str, n: int, *args, device=None,
     traceback; ranks still running after ``timeout_s`` are ended and
     ``TimeoutError`` is raised.  ``threads``: each rank's intra-op threads
     (default: the CPU's cores shared out on the CPU, torch's default on
-    the card).  ``grid=(S, D)`` or ``(S, D, T)`` makes the ranks a
-    pipeline's (``init_pipe_group``; ``n`` must be the grid's product)
-    instead of a data group."""
-    if grid is not None and math.prod(grid) != n:
-        raise ValueError(f"a pipeline grid {grid} is not {n} ranks")
+    the card).  ``grid=(D, T)`` makes the ranks a ``(data, model)``
+    grid's (:func:`init_grid_group`), ``grid=(S, D, T)`` a pipeline's
+    (:func:`init_pipe_group`), instead of a data group's; ``n`` must be
+    the grid's product."""
+    if grid is not None and (len(grid) not in (2, 3)
+                             or math.prod(grid) != n):
+        raise ValueError(f"a grid {grid} is not (D, T) or (S, D, T) of "
+                         f"{n} ranks")
     if threads is None and resolve_device(device).type == "cpu":
         threads = max(1, (os.cpu_count() or 1) // n)
     ctx = torch.multiprocessing.get_context("spawn")

@@ -114,7 +114,9 @@ def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
 # group (``dist/group.ModelGroup``), so the row products give partial sums
 # that are reduced explicitly.  Each Function pairs one forward collective
 # of the group with its exact adjoint, as the reference's ``custom_vjp``s
-# do; ``group`` is the ModelGroup and ``dim`` the sequence dim.
+# do; ``group`` is the ModelGroup and ``dim`` the sequence dim.  Expert
+# parallelism (``models/moe.moe_fwd_ep``) uses the slice, the gather and
+# the psum, plus its own exchange, the aux mean and the share below.
 
 class _TPPsum(torch.autograd.Function):
     """All-reduce at a row-parallel join (Megatron 'g'): forward the sum;
@@ -207,8 +209,68 @@ class _SPUnslice(torch.autograd.Function):
         return _shard_of(g, ctx.group, ctx.dim), None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    """Expert parallelism's exchange of equal chunks along dim 0 over the
+    model group (``ModelGroup.all_to_all``); the adjoint is the same
+    exchange of the cotangent, back to where each chunk came from."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_to_all(g), None
+
+
+class _ModelMean(torch.autograd.Function):
+    """The mean over the model group of a value each rank computed from its
+    own tokens (a MoE layer's aux loss, the reference's ``pmean``), whose
+    consumer runs replicated on every rank: forward the all-reduce over T;
+    backward the local ``g / T`` (each rank's copy of the loss stands for
+    one loss, so the T copies of its cotangent are not summed)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.size = group.size
+        return group.all_reduce(x) / group.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
+class _ModelShare(torch.autograd.Function):
+    """A value every rank of the model group computes alike, inside a
+    region whose input cotangent is summed over the group (``tp_enter``):
+    forward the identity; backward this rank's share ``g / T`` of the
+    cotangent, so that the sum restores it once."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.size = group.size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
 def tp_psum(x: Tensor, group) -> Tensor:
     return _TPPsum.apply(x, group)
+
+
+def ep_all_to_all(x: Tensor, group) -> Tensor:
+    return _AllToAll.apply(x, group)
+
+
+def model_mean(x: Tensor, group) -> Tensor:
+    return _ModelMean.apply(x, group)
+
+
+def model_share(x: Tensor, group) -> Tensor:
+    return _ModelShare.apply(x, group)
 
 
 def tp_enter(x: Tensor, group) -> Tensor:

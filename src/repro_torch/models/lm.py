@@ -254,15 +254,16 @@ def _unbind(tree, count: int):
 
 
 def _apply_ffn(x: Tensor, up: Params, ffn: str, cfg: ModelConfig, tp=None,
-               sequence_parallel: bool = False
+               sequence_parallel: bool = False, ep=None
                ) -> Tuple[Tensor, Optional[Tensor]]:
     """The FFN half of a layer: (x, the layer's MoE aux, or None for a
-    dense FFN or none)."""
+    dense FFN or none).  ``ep``: the model group a MoE layer's experts are
+    sharded over (``models/moe.moe_fwd``)."""
     aux = None
     if cfg.d_ff > 0:
         h = L.rms_norm(x, up["ln2"], cfg.norm_eps)
         if ffn == "moe":
-            out, aux = M.moe_fwd(up["ffn"], h, cfg)
+            out, aux = M.moe_fwd(up["ffn"], h, cfg, group=ep)
         else:
             out = L.ffn_fwd(up["ffn"], h, tp=tp,
                             sequence_parallel=sequence_parallel)
@@ -273,7 +274,7 @@ def _apply_ffn(x: Tensor, up: Params, ffn: str, cfg: ModelConfig, tp=None,
 def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
                  positions: Tensor, enc: Optional[Tensor] = None,
                  causal: bool = True, tp=None,
-                 sequence_parallel: bool = False
+                 sequence_parallel: bool = False, ep=None
                  ) -> Tuple[Tensor, Optional[Tensor]]:
     """Returns (x, the layer's MoE aux, or None for a dense FFN).  ``enc``:
     the encoder output an ``xdec`` layer cross-attends to; ``causal=False``:
@@ -283,7 +284,9 @@ def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
     column/row-sharded over it, the tensor-sharded pipeline stage's path
     (dense ``attn``/``local`` train layers only, as in the reference);
     ``sequence_parallel`` shards the residual stream between the joins
-    over it on the sequence dim."""
+    over it on the sequence dim.  ``ep`` (a ``ModelGroup``): a MoE
+    layer's experts are sharded over it (expert parallelism, everything
+    else replicated)."""
     mixer, ffn = kinds
     if tp is not None and (mixer not in ("attn", "local") or ffn == "moe"):
         raise NotImplementedError(
@@ -304,7 +307,7 @@ def _apply_layer(x: Tensor, up: Params, kinds, cfg: ModelConfig,
     if mixer == "xdec":
         hx = L.rms_norm(x, up["lnx"], cfg.norm_eps)
         x = x + L.cross_attention_fwd(up["xattn"], hx, enc, cfg)
-    return _apply_ffn(x, up, ffn, cfg, tp, sequence_parallel)
+    return _apply_ffn(x, up, ffn, cfg, tp, sequence_parallel, ep)
 
 
 # the cached modes' mixer functions: dense per-slot caches ('prefill',
@@ -325,7 +328,7 @@ _RECURRENT = {"ssd": {"prefill": S.mamba2_prefill,
 
 def _apply_layer_cached(x: Tensor, up: Params, kinds, cfg: ModelConfig,
                         cache: Params, mode: str, kw: Dict[str, Any],
-                        enc: Optional[Tensor] = None) -> Tensor:
+                        enc: Optional[Tensor] = None, ep=None) -> Tensor:
     """One layer of a cached mode; its cache is updated in place.  ``kw``:
     the mode's position arguments (``positions`` or ``pos``, plus the
     page table and the mask in the serve modes).  An ``xdec`` layer's
@@ -355,7 +358,7 @@ def _apply_layer_cached(x: Tensor, up: Params, kinds, cfg: ModelConfig,
             xo = L.cross_attention_decode(up["xattn"], hx, cfg,
                                           (cross["k"], cross["v"]))
         x = x + xo
-    return _apply_ffn(x, up, ffn, cfg)[0]
+    return _apply_ffn(x, up, ffn, cfg, ep=ep)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -430,13 +433,13 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
 
 def _run_repeat(x: Tensor, aux: Tensor, rows, positions: Tensor,
                 enc: Optional[Tensor], *, unit, cfg: ModelConfig,
-                causal: bool, tp=None, sequence_parallel: bool = False
-                ) -> Tuple[Tensor, Tensor]:
+                causal: bool, tp=None, sequence_parallel: bool = False,
+                ep=None) -> Tuple[Tensor, Tensor]:
     """One repeat of a group's unit (the reference's scan body): ``rows``
     holds each layer's parameters; returns the (x, aux) carry."""
     for u in range(len(unit)):
         x, a = _apply_layer(x, rows[u], unit[u], cfg, positions, enc, causal,
-                            tp, sequence_parallel)
+                            tp, sequence_parallel, ep)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -446,16 +449,16 @@ def _run_group_train(x: Tensor, aux: Tensor, gparams, unit,
                      cfg: ModelConfig, positions: Tensor,
                      enc: Optional[Tensor] = None, causal: bool = True,
                      remat: str = "none", tp=None,
-                     sequence_parallel: bool = False
+                     sequence_parallel: bool = False, ep=None
                      ) -> Tuple[Tensor, Tensor]:
-    """Every repeat of a group in turn under the policy ``remat``; ``tp``
-    and ``sequence_parallel`` as :func:`_apply_layer`'s (a recomputed
-    repeat runs its joins again)."""
+    """Every repeat of a group in turn under the policy ``remat``; ``tp``,
+    ``sequence_parallel`` and ``ep`` as :func:`_apply_layer`'s (a
+    recomputed repeat runs its joins and exchanges again)."""
     count = tree_leaves(gparams)[0].shape[0]
     per_unit = [_unbind(up, count) for up in gparams]
     body = _maybe_remat(functools.partial(
         _run_repeat, unit=unit, cfg=cfg, causal=causal, tp=tp,
-        sequence_parallel=sequence_parallel), remat)
+        sequence_parallel=sequence_parallel, ep=ep), remat)
     for r in range(count):
         x, aux = body(x, aux, [rows[r] for rows in per_unit], positions, enc)
     return x, aux
@@ -468,14 +471,14 @@ def _split_group(gparams, n_frozen_units: int):
 
 
 def _run_frozen(x: Tensor, aux: Tensor, gparams, unit, cfg, positions,
-                enc: Optional[Tensor] = None, causal: bool = True
+                enc: Optional[Tensor] = None, causal: bool = True, ep=None
                 ) -> Tuple[Tensor, Tensor]:
     """The frozen layers under ``no_grad``: their aux still counts in the
     loss, as a value with no graph (the reference's ``stop_gradient``);
     the encoder output ``enc`` is a value there too."""
     with torch.no_grad():
         return _run_group_train(x.detach(), aux.detach(), gparams, unit, cfg,
-                                positions, enc, causal)
+                                positions, enc, causal, ep=ep)
 
 
 def _frozen_units(cfg: ModelConfig, boundary: int, base: int) -> List[int]:
@@ -505,21 +508,22 @@ def frozen_units(cfg: ModelConfig, bwd_layers: Optional[int] = None
 def _run_stack(x: Tensor, aux: Tensor, groups, cfg: ModelConfig,
                positions: Tensor, boundary: int, base: int = 0,
                enc: Optional[Tensor] = None, causal: bool = True,
-               remat: str = "none") -> Tuple[Tensor, Tensor]:
+               remat: str = "none", ep=None) -> Tuple[Tensor, Tensor]:
     """Run all groups of a stack whose first layer is flat layer ``base``
     of the combined stack, freezing flat layers < boundary; the live
-    repeats run under the policy ``remat``."""
+    repeats run under the policy ``remat``; ``ep`` as
+    :func:`_apply_layer`'s."""
     for (unit, count), gparams, q in zip(layer_groups(cfg), groups,
                                          _frozen_units(cfg, boundary, base)):
         args = (unit, cfg, positions, enc, causal)
         if q == count:              # fully frozen group
-            x, aux = _run_frozen(x, aux, gparams, *args)
+            x, aux = _run_frozen(x, aux, gparams, *args, ep=ep)
         elif q == 0:                # fully differentiable
-            x, aux = _run_group_train(x, aux, gparams, *args, remat)
+            x, aux = _run_group_train(x, aux, gparams, *args, remat, ep=ep)
         else:                       # split at a unit boundary
             frozen, live = _split_group(gparams, q)
-            x, aux = _run_frozen(x, aux, frozen, *args)
-            x, aux = _run_group_train(x, aux, live, *args, remat)
+            x, aux = _run_frozen(x, aux, frozen, *args, ep=ep)
+            x, aux = _run_group_train(x, aux, live, *args, remat, ep=ep)
     return x, aux
 
 
@@ -550,13 +554,16 @@ def _decoder_input(params: Params, batch: Dict[str, Tensor],
 
 def forward_train(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
                   *, bwd_layers: Optional[int] = None,
-                  remat: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+                  remat: Optional[str] = None, ep=None
+                  ) -> Tuple[Tensor, Tensor]:
     """Returns (logits, moe_aux).  ``batch``: tokens (B, S_text), plus
     ``frames`` (B, T, d_model) for an encoder-decoder or ``frontend``
     (B, frontend_tokens, d_model) for a frontend config; the logits cover
     the text positions.  ``bwd_layers`` = SPB suffix depth over the
     combined stack (None = full backprop); ``remat`` the recompute policy
-    of the live repeats (None: :data:`REMAT`)."""
+    of the live repeats (None: :data:`REMAT`); ``ep`` the model group a MoE
+    layer's experts are sharded over (expert parallelism; None: one
+    rank holds them all)."""
     _check_supported(cfg)
     remat = resolve_remat(remat)
     boundary = total_layers(cfg) - _depth(cfg, bwd_layers)
@@ -570,7 +577,7 @@ def forward_train(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = _run_stack(x, aux, params["groups"], cfg, positions, boundary,
-                        cfg.enc_layers, enc, remat=remat)
+                        cfg.enc_layers, enc, remat=remat, ep=ep)
     return _logits(params, x, batch, cfg), aux
 
 
@@ -596,10 +603,10 @@ def _loss(logits: Tensor, aux: Tensor, batch: Dict[str, Tensor],
 
 def loss_fn(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
             bwd_layers: Optional[int] = None, aux_weight: float = 0.01,
-            remat: Optional[str] = None
+            remat: Optional[str] = None, ep=None
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     logits, aux = forward_train(params, batch, cfg, bwd_layers=bwd_layers,
-                                remat=remat)
+                                remat=remat, ep=ep)
     return _loss(logits, aux, batch, cfg, aux_weight)
 
 
@@ -826,39 +833,39 @@ def _select(tree: Params, r: int) -> Params:
 
 def _run_group_cached(x: Tensor, gparams, gcache, unit, cfg: ModelConfig,
                       mode: str, kw: Dict[str, Any],
-                      enc: Optional[Tensor]) -> Tensor:
+                      enc: Optional[Tensor], ep=None) -> Tensor:
     count = tree_leaves(gparams)[0].shape[0]
     per_unit = [_unbind(up, count) for up in gparams]
     for r in range(count):
         for u in range(len(unit)):
             x = _apply_layer_cached(x, per_unit[u][r], unit[u], cfg,
-                                    _select(gcache[u], r), mode, kw, enc)
+                                    _select(gcache[u], r), mode, kw, enc, ep)
     return x
 
 
 def _run_cached(x: Tensor, params: Params, groups, cfg: ModelConfig,
                 mode: str, kw: Dict[str, Any],
-                enc: Optional[Tensor] = None) -> Tensor:
+                enc: Optional[Tensor] = None, ep=None) -> Tensor:
     for (unit, _), gp, gc in zip(layer_groups(cfg), params["groups"], groups):
-        x = _run_group_cached(x, gp, gc, unit, cfg, mode, kw, enc)
+        x = _run_group_cached(x, gp, gc, unit, cfg, mode, kw, enc, ep)
     return x
 
 
 @torch.no_grad()
 def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
-            cache: Params) -> Tuple[Tensor, Params]:
+            cache: Params, *, ep=None) -> Tuple[Tensor, Params]:
     """Fill the cache from a prompt; returns (last-token logits (B, 1, V),
     cache).  ``batch`` as :func:`forward_train`'s: an encoder-decoder's
     ``frames`` run through the encoder into the ``cross`` caches; a
     frontend's embeddings come before the tokens and take the first
-    positions."""
+    positions.  ``ep`` as :func:`forward_train`'s."""
     _check_supported(cfg)
     enc = _encode(params["enc"], batch["frames"], cfg) if cfg.enc_layers \
         else None
     x = _decoder_input(params, batch, cfg)
     S_ = x.shape[1]
     x = _run_cached(x, params, cache["groups"], cfg, "prefill",
-                    {"positions": torch.arange(S_, device=x.device)}, enc)
+                    {"positions": torch.arange(S_, device=x.device)}, enc, ep)
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     pos = torch.full((), S_, dtype=torch.int64, device=x.device)
     return L.unembed(params["embed"], x, cfg), {"groups": cache["groups"],
@@ -867,12 +874,15 @@ def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
 
 @torch.no_grad()
 def decode_step(params: Params, cache: Params, tokens: Tensor,
-                cfg: ModelConfig) -> Tuple[Tensor, Params]:
-    """One-token decode.  tokens: (B, 1).  The position is cache['pos']."""
+                cfg: ModelConfig, *, ep=None) -> Tuple[Tensor, Params]:
+    """One-token decode.  tokens: (B, 1).  The position is cache['pos'];
+    ``ep`` as :func:`forward_train`'s (B < 4 T takes ``moe_fwd_ep``'s small
+    path)."""
     _check_supported(cfg)
     pos = cache["pos"]
     x = L.embed(params["embed"], tokens, cfg)
-    x = _run_cached(x, params, cache["groups"], cfg, "decode", {"pos": pos})
+    x = _run_cached(x, params, cache["groups"], cfg, "decode", {"pos": pos},
+                    ep=ep)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg), {"groups": cache["groups"],
                                                  "pos": pos + 1}

@@ -149,13 +149,47 @@ def test_share_layout_and_validation():
 
 
 def test_ep_impl_and_unported_mixers_raise():
+    """``impl="ep"`` at T = 1 (no group) against the reference's
+    ``moe_fwd_ep`` on its host mesh of one device: at capacity 1.25, which
+    drops slots here, the output, aux and the gradients of a linear
+    functional of the output plus aux with respect to x and every weight,
+    at 1e-5.  Then the mixers that once raised now build."""
+    from jax.sharding import PartitionSpec as P
     cfg = t_reduced("qwen3-moe-235b-a22b")
-    ep = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
-                                                          impl="ep"))
-    params = tlm.init_lm(torch.Generator().manual_seed(0), ep)
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tlm.forward_train(params, batch, ep)
+    j, p, x = _layer("deepseek-v2-lite-16b", tokens=32)
+    j = j.scaled(moe=dataclasses.replace(j.moe, impl="ep"))
+    w = np.random.default_rng(1).standard_normal(x.shape).astype(np.float32)
+
+    def f(pp, xx):
+        y, aux = jmoe.moe_fwd_ep(pp, xx, j, ep_axis="model",
+                                 dp_spec=P("data", None, None))
+        return jnp.sum(y * w) + aux, (y, aux)
+
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    with jax.sharding.set_mesh(mesh):
+        (_, (jy, jaux)), (gp, gx) = jax.jit(jax.value_and_grad(
+            f, argnums=(0, 1), has_aux=True))(p, x)
+    tp = jax.tree.map(lambda a: torch.tensor(np.asarray(a),
+                                             requires_grad=True), p)
+    tx = torch.tensor(x, requires_grad=True)
+    drops = []
+    tmoe.DROP_SINKS.append(lambda n, _k: drops.append(int(n)))
+    try:
+        ty, taux = tmoe.moe_fwd_ep(tp, tx, _port_cfg(
+            "deepseek-v2-lite-16b", impl="ep"))
+    finally:
+        tmoe.DROP_SINKS.pop()
+    ((ty * torch.from_numpy(w)).sum() + taux).backward()
+    assert sum(drops) > 0
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), **tol)
+    np.testing.assert_allclose(float(taux), float(jaux), **tol)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), **tol)
+    for got, want in zip(jax.tree.leaves(jax.tree.map(lambda t: t.grad, tp,
+                                                      is_leaf=torch.is_tensor)),
+                         jax.tree.leaves(gp)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
     # xdec layers (here with MoE FFNs), a frontend and an encoder now
     # build, as the reference's param trees
     for change in (dict(pattern=("xdec",)), dict(frontend="vision"),

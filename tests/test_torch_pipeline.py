@@ -3,7 +3,7 @@
 ``dist/steps.make_pipeline_train_step``, ``SPBEngine(parallelism=
 "pipeline")``, ``launch/train.py --parallelism pipeline``).
 
-Each stage is a spawned rank (``launch/mesh.spawn(..., grid=(S, D))``,
+Each stage is a spawned rank (``launch/mesh.spawn(..., grid=(S, D, 1))``,
 one intra-op thread each); the ranks' target is this module's
 :func:`_rank`, and the module imports JAX only inside the tests that call
 it, so a spawned rank does not load it.  Every run is started when the
@@ -357,12 +357,12 @@ def runs(reference, one_ckpt, tmp_path_factory):
     pipe_ckpt = tmp_path_factory.mktemp("pipe_ckpt")
     with ThreadPoolExecutor(3) as pool:
         out = {(S, M_, D): pool.submit(_spawn, S * D, "toy", M_,
-                                       grid=(S, D))
+                                       grid=(S, D, 1))
                for S, M_, D in ((2, 2, 1), (4, 4, 1), (2, 4, 2))}
-        out[(2, 8, 1)] = pool.submit(_spawn, 2, "toy", 8, grid=(2, 1))
-        out["lm"] = pool.submit(_spawn, 2, "lm", grid=(2, 1))
+        out[(2, 8, 1)] = pool.submit(_spawn, 2, "toy", 8, grid=(2, 1, 1))
+        out["lm"] = pool.submit(_spawn, 2, "lm", grid=(2, 1, 1))
         ckpt = pool.submit(_spawn, 4, "ckpt", str(pipe_ckpt),
-                           str(one_ckpt[0]), grid=(2, 2))
+                           str(one_ckpt[0]), grid=(2, 2, 1))
         out["ckpt"] = ckpt
         out["data"] = pool.submit(
             lambda: (ckpt.result(), _spawn(2, "data", str(pipe_ckpt)))[1])

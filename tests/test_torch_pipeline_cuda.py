@@ -82,7 +82,7 @@ def _rank(group, arch, params):
 
 def _ranks(device, arch, params):
     return mesh.spawn(f"{__name__}:_rank", 2, arch, params, device=device,
-                      grid=(2, 1), timeout_s=600)
+                      grid=(2, 1, 1), timeout_s=600)
 
 
 def _rel_l2(got, want) -> float:
