@@ -236,7 +236,20 @@ Phases, each printing a line; any failure exits non-zero:
      (held exact against ``roofline.ep_calls``), each MoE layer's share
      of slots dropped at capacity, launches and the peak beside the
      reckoning;
-  15. (run last, after 22, on the host) the dry run of each phase-5 path:
+  23. (run after 22) the training step's last knobs: (a) ``FusedEngine``
+     of two yi-6b tenants at phase 14's cut under 'none', 'dots' and
+     'full' from the same seeds: launches exact under each policy,
+     'dots' and 'full' held to 'none' bit for bit or within ``TOL``, warm
+     ms and peak by depth (``phase_fused_dots``); (b) compression under
+     ZeRO-2 on a (2, 2, 1) pipeline: reduced yi-6b under topk, randk and
+     lowrank against the CPU grid and one compressed process, then
+     yi-6b's 2-layer cut under topk; (c) compression on (1, 2) and (2, 2)
+     ``(data, model)`` grids: reduced deepseek under topk and randk
+     against the CPU grid, then phase 22's cut under topk on (1, 2); each
+     full-width step's ms split into the gather, the compressor and the
+     rest, its gathered bytes beside a world-wide gather's, and the peak
+     (``phase_compressed_grids``);
+  15. (run last, after 23, on the host) the dry run of each phase-5 path:
      every depth of its cycle counted on the meta device at batch
      2 x 2048 with the kernels' meta entries (``launch/dryrun.py``):
      counted TFLOP and GB, the three H100 roofline terms
@@ -258,6 +271,8 @@ Phases, each printing a line; any failure exits non-zero:
      ``launches_zero`` (phase 19's), ``launches_pipeline`` (phase 20's,
      by run and stage), ``launches_tensor_parallel`` and
      ``launches_expert_parallel`` (phases 21's and 22's, by run and rank),
+     ``launches_fused_dots`` (phase 23 (a)'s 'dots' run) and
+     ``launches_compressed`` (phase 23 (b) and (c)'s, by run and rank),
      the fused phase's ms by depth and peak, phase 17's and phase 18's
      figures,
      and phase 15's ``dryrun_by_arch``), the card's name and power
@@ -4660,6 +4675,441 @@ def phase_expert_parallel(smi: str) -> dict:
     return {"launches": launches, "figures": figures}
 
 
+# phase 23: the training step's last knobs
+FD_POLICIES = ("none", "dots", "full")   # (a): fused yi-6b under each
+CZ_GRID = (2, 2, 1)              # (b): a pipeline of 2 stages x 2 data
+CZ_METHODS = ("topk", "randk", "lowrank")
+CZ_STEPS = 2                     # depths 4 and 2 (bwd_stages 2 and 1)
+CZ_FULL_LAYERS = 2               # (b)'s full-width topk run: yi-6b cut
+CG_METHODS = ("topk", "randk")   # (c): reduced deepseek on EP_GRIDS
+CG_STEPS = 2
+CG_FULL_STEPS = 2                # (c)'s full-width topk run on (1, 2)
+
+
+def _fused_dots_run(cfg, stacked, remat: str) -> dict:
+    """``FusedEngine`` of ``FUSED_J`` tenants (seeds 0..J-1) under
+    ``remat`` over ``stacked``: each step's depth, ms, peak, launches
+    (held to :func:`expected_launches` under the policy), loss and grad
+    norm (J each, on the card), and the params after (copies on the
+    card).  The counts are zeroed just before the run."""
+    import gc
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.engine import FusedEngine
+    from repro_torch.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = FusedEngine(cfg, TrainConfig(num_steps=FUSED_STEPS),
+                      SPBConfig(mode="temporal", k=4), num_jobs=FUSED_J,
+                      device="cuda", remat=remat, shared_cache=False)
+    eng.init_states(list(range(FUSED_J)))
+    zero_launches()
+    rows = []
+    for s, batch in enumerate(stacked):
+        before = launches_now()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eng.train_step(batch, s)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        d = eng.last_depth
+        grew = check_launches(f"fused-dots {remat} step {s}", before, [d],
+                              cfg, remat)
+        rows.append({"depth": d, "ms": ms,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": {n: c for n, c in grew.items() if c},
+                     **{k: m[k].detach().clone()
+                        for k in ("loss", "grad_norm")}})
+        if not all(math.isfinite(x) for x in rows[-1]["loss"].tolist()):
+            raise AssertionError(f"fused-dots {remat}: loss not finite "
+                                 f"at step {s}")
+    out = {"rows": rows,
+           "launches": {n: c for n, c in launches_now().items() if c},
+           "params": [t.detach().clone() for t in tree_leaves(
+               eng.state["params"])],
+           "names": _leaf_names(eng.state["params"])}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fused_dots(smi: str) -> dict:
+    """Phase 23 (a): ``FusedEngine`` of ``FUSED_J`` tenants of yi-6b at
+    phase 14's cut (published widths, ``FUSED_LAYERS`` layers, batch 2 x
+    2048 each, temporal k 4, ``FUSED_STEPS`` steps) under 'none', 'dots'
+    and 'full' from the same seeds and batches: every step's launches
+    exactly :func:`expected_launches` under its policy (a live layer's
+    flash forward twice under the recompute), and 'dots''s and 'full''s
+    losses, grad norms and updated parameters held to 'none''s bit for
+    bit or within ``TOL`` (:func:`_hold_to`); a line a policy with the
+    warm ms and the peak by depth.  Returns the 'dots' run's launch
+    counts (zeroed just before it) and the figures."""
+    from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
+                                     make_batch)
+    from repro_torch.engine import stack_batches
+
+    t0 = time.perf_counter()
+    cfg = fused_config("yi-6b")
+    stacked = [stack_batches([make_batch(cfg, FULL_WIDTH_BATCH,
+                                         FULL_WIDTH_SEQ, seed=100 * j + s,
+                                         device="cuda")
+                              for j in range(FUSED_J)])
+               for s in range(FUSED_STEPS)]
+    runs, figures = {}, {}
+    for remat in FD_POLICIES:
+        run = _fused_dots_run(cfg, stacked, remat)
+        differ = {} if remat == "none" else _hold_to(
+            f"fused {remat}", run, runs["none"])
+        half = FUSED_STEPS // 2         # the second cycle: every depth warm
+        fig = {"warm_ms": {}, "peak_gb": {}, "launches_a_step": {}}
+        for r in run["rows"][half:]:
+            fig["warm_ms"].setdefault(r["depth"], []).append(
+                round(r["ms"], 2))
+            fig["peak_gb"][r["depth"]] = round(max(
+                r["peak_gb"], fig["peak_gb"].get(r["depth"], 0.0)), 3)
+            fig["launches_a_step"][r["depth"]] = r["launches"]
+        fig.update(launches=run["launches"], differ=differ)
+        figures[remat] = fig
+        log(f"[fused-dots] yi-6b/{cfg.num_layers} J={FUSED_J} "
+            f"{remat} depths={[r['depth'] for r in run['rows']]} "
+            f"warm_step_ms={fig['warm_ms']} max_mem_gb={fig['peak_gb']} "
+            f"launches_a_step={fig['launches_a_step']} "
+            f"bit_equal_to_none={not differ} differ={differ} "
+            f"losses={[[round(x, 4) for x in r['loss'].tolist()] for r in run['rows'][:2]]} "
+            f"card={smi}")
+        if remat == "none":
+            runs["none"] = run
+        del run
+    del runs, stacked
+    log(f"[fused-dots] phase {time.perf_counter() - t0:.1f}s")
+    return {"launches": figures["dots"]["launches"], "figures": figures}
+
+
+def cz_config(what: str):
+    """Phase 23 (b)'s configs: ``"full"`` (yi-6b's 2-layer cut), else
+    reduced yi-6b on the kernels."""
+    from repro_torch.configs import full_width_config, reduced_config
+    if what == "full":
+        return dataclasses.replace(full_width_config("yi-6b"),
+                                   num_layers=CZ_FULL_LAYERS)
+    return dataclasses.replace(reduced_config("yi-6b"), use_pallas=True)
+
+
+def _compressed_steps(eng, group, batches, chunks: int) -> list:
+    """Each step of a compressed rank: ms (host clock, the card
+    synchronized), the compression's gather and compressor ms and the
+    bytes it gathered (``dist/steps.COMPRESSION_SINKS``), depth, metrics
+    and launches."""
+    import torch
+    from repro_torch.dist import steps as steps_lib
+    cuda = eng.device.type == "cuda"
+    out = []
+    for s, batch in enumerate(batches):
+        before = launches_now()
+        got = []
+        steps_lib.COMPRESSION_SINKS.append(lambda *a: got.append(a))
+        try:
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = eng.train_step(group.shard(batch, chunks), s)
+            metrics = {k: float(v) for k, v in m.items()}
+            if cuda:
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            steps_lib.COMPRESSION_SINKS.pop()
+        (gather_s, compress_s, gathered, world), = got
+        fn = eng.step_fn(eng.last_depth)
+        out.append({"ms": ms,
+                    "bwd_stages": getattr(fn, "bwd_stages", None),
+                    "gather_ms": gather_s * 1e3,
+                    "compress_ms": compress_s * 1e3,
+                    "gathered_bytes": gathered, "world_bytes": world,
+                    "depth": eng.last_depth,
+                    "launches": launches_since(before), **metrics})
+    return out
+
+
+def cz_rank(group, parts: str, device: str) -> dict:
+    """Phase 23 (b), one rank of the ``(stage, data, model)`` grid under
+    ZeRO-2, running each of ``parts`` in turn.  Part ``"a"``: reduced
+    yi-6b (f32, from the CPU-drawn seeded weights) under each of
+    :data:`CZ_METHODS`, two steps; part ``"b"``: yi-6b's 2-layer cut at
+    published widths, bf16, ``topk``, from ``init_state(0)`` on the card's
+    generator."""
+    import gc
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import make_batch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    D = group.data.size
+
+    def engine(cfg, method):
+        return SPBEngine(cfg, TrainConfig(num_steps=CZ_STEPS,
+                                          microbatches=PIPE_M,
+                                          compression=method),
+                         SPBConfig(mode="temporal", k=4), group=group,
+                         parallelism="pipeline", zero2=True,
+                         shared_cache=False)
+
+    out = {}
+    if "a" in parts:
+        cfg = cz_config("reduced")
+        pipe = Pipeline(cfg, PIPE_M * D, 64, seed=0)
+        batches = [pipe.get_batch(s) for s in range(CZ_STEPS)]
+        for method in CZ_METHODS:
+            eng = engine(cfg, method)
+            eng.attach_state(steps_lib.state_from_params(
+                lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu"),
+                TrainConfig()))
+            out[method] = _compressed_steps(eng, group, batches, PIPE_M)
+        del eng
+    if "b" not in parts:
+        return out
+    cfg = cz_config("full")
+    eng = engine(cfg, "topk")
+    eng.init_state(0)
+    batches = [make_batch(cfg, PIPE_M * D, 2048, seed=s, device="cuda")
+               for s in range(CZ_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["full"] = {"steps": _compressed_steps(eng, group, batches, PIPE_M),
+                   "max_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del eng, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cz_one_process(method: str) -> list:
+    """Reduced yi-6b in one process on the card, compressed: each step's
+    metrics, the cycle snapped to the 2 stages."""
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.models import lm
+    cfg = cz_config("reduced")
+    eng = SPBEngine(cfg, TrainConfig(num_steps=CZ_STEPS, microbatches=PIPE_M,
+                                     compression=method),
+                    SPBConfig(mode="temporal", k=4,
+                              pipeline_stages=CZ_GRID[0]),
+                    device="cuda", shared_cache=False)
+    eng.attach_state(steps_lib.state_from_params(
+        lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu"),
+        TrainConfig()))
+    pipe = Pipeline(cfg, PIPE_M * CZ_GRID[1], 64, seed=0)
+    return [{k: float(v) for k, v in eng.train_step(
+        pipe.get_batch(s), s).items()} for s in range(CZ_STEPS)]
+
+
+def cg_rank(group, parts: str, device: str) -> dict:
+    """Phase 23 (c), one rank of a ``(data, model)`` grid, running each of
+    ``parts`` in turn.  Part ``"a"``: reduced deepseek-v2-lite-16b
+    (``impl="ep"``, f32, the kernels, from the CPU-drawn seeded weights)
+    under each of :data:`CG_METHODS`, two steps; part ``"b"``: phase 22's
+    3-layer cut at published widths, bf16, ``topk``, from
+    ``init_state(0)`` on the card's generator."""
+    import gc
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import make_batch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.engine.engine import SPBEngine
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def engine(cfg, method, steps):
+        return SPBEngine(cfg, TrainConfig(num_steps=steps,
+                                          compression=method),
+                         SPBConfig(mode="temporal", k=4), group=group,
+                         shared_cache=False)
+
+    out = {}
+    if "a" in parts:
+        cfg = ep_config("reduced")
+        pipe = Pipeline(cfg, EP_ROWS, EP_SEQ, seed=0)
+        batches = [pipe.get_batch(s) for s in range(CG_STEPS)]
+        for method in CG_METHODS:
+            eng = engine(cfg, method, CG_STEPS)
+            eng.attach_state(steps_lib.state_from_params(
+                lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu"),
+                TrainConfig()))
+            out[method] = _compressed_steps(eng, group, batches, 1)
+        del eng
+    if "b" not in parts:
+        return out
+    cfg = ep_config("full")
+    eng = engine(cfg, "topk", CG_FULL_STEPS)
+    eng.init_state(0)
+    batches = [make_batch(cfg, 2, 2048, seed=s, device="cuda")
+               for s in range(CG_FULL_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["full"] = {"steps": _compressed_steps(eng, group, batches, 1),
+                   "max_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del eng, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _split_line(st: dict) -> str:
+    """A compressed step's ms split into the gather, the compressor and
+    the rest, and its gathered bytes beside a world-wide gather's."""
+    rest = st["ms"] - st["gather_ms"] - st["compress_ms"]
+    return (f"step_ms={st['ms']:.2f} gather_ms={st['gather_ms']:.2f} "
+            f"compress_ms={st['compress_ms']:.2f} rest_ms={rest:.2f} "
+            f"gathered_bytes={st['gathered_bytes']} "
+            f"world_gather_bytes={st['world_bytes']}")
+
+
+def phase_compressed_grids(smi: str) -> dict:
+    """Phase 23 (b) and (c): compression where the ranks hold shares.
+    (b) ZeRO-2 on a pipeline of :data:`CZ_GRID` (ranks sharing the card
+    over gloo): reduced yi-6b under ``topk``, ``randk`` and ``lowrank``,
+    two steps at depths 4 and 2, each rank's loss, xent and grad norm
+    within :data:`PIPE_TOL` of the same grid on the CPU and of one
+    compressed process on the card, launches exact
+    (:func:`expected_stage_launches`); then yi-6b's
+    :data:`CZ_FULL_LAYERS`-layer cut at published widths under ``topk``,
+    two steps.  (c) reduced deepseek-v2-lite-16b on :data:`EP_GRIDS` under
+    ``topk`` and ``randk``, card against the same grid on the CPU within
+    :data:`EP_TOL`, launches exact; then phase 22's cut under ``topk`` on
+    (1, 2), two steps.  A line a full-width rank and step with the step's
+    ms split into the gather, the compressor and the rest, the gathered
+    bytes beside a world-wide gather's, and the peak.  Returns each run's
+    launches a rank, and the figures."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.launch import mesh
+
+    failed, launches, figures = [], {}, {}
+    t0 = time.perf_counter()
+    S, D, T = CZ_GRID
+
+    def spawn(target, grid, part, device):
+        return mesh.spawn(f"chip_smoke:{target}", math.prod(grid), part,
+                          device, device=device, grid=grid,
+                          timeout_s=DP_JOIN_S)
+
+    # the reduced runs on the CPU and the card's (2, 2) grid together;
+    # then the grids whose ranks also run a full-width part, one at a time
+    # (a full-width run shares the card with nothing else of this phase)
+    full = {("cz", CZ_GRID): "cz_rank", ("cg", EP_FULL_GRID): "cg_rank"}
+    with ThreadPoolExecutor(4) as pool:
+        cpu = {("cz", CZ_GRID): pool.submit(spawn, "cz_rank", CZ_GRID, "a",
+                                            "cpu")}
+        cpu.update({("cg", g): pool.submit(spawn, "cg_rank", g, "a", "cpu")
+                    for g in EP_GRIDS})
+        card = {("cg", g): pool.submit(spawn, "cg_rank", g, "a", "cuda")
+                for g in EP_GRIDS if ("cg", g) not in full}
+        one = {m: _cz_one_process(m) for m in CZ_METHODS}
+        cpu = {k: f.result() for k, f in cpu.items()}
+        card = {k: f.result() for k, f in card.items()}
+    log(f"[compressed] reduced runs on the cpu, and on the card's "
+        f"{[g for _, g in card]}: {time.perf_counter() - t0:.1f}s")
+    timed = {}
+    for (kind, grid), target in full.items():
+        tp = time.perf_counter()
+        ranks = spawn(target, grid, "ab", "cuda")
+        log(f"[compressed] {kind} grid={grid}, reduced then full: "
+            f"{time.perf_counter() - tp:.1f}s")
+        card[(kind, grid)] = ranks
+        timed[(kind, grid)] = ranks
+    rcfg = cz_config("reduced")
+    for (kind, grid), ranks in card.items():
+        methods = CZ_METHODS if kind == "cz" else CG_METHODS
+        tol = PIPE_TOL if kind == "cz" else EP_TOL
+        for method in methods:
+            worst = {"cpu": 0.0, "one_process": 0.0}
+            for r, (got, want) in enumerate(zip(ranks, cpu[(kind, grid)])):
+                run = got[method]
+                key = f"{kind}/{method}/grid{''.join(map(str, grid))}/rank{r}"
+                launches[key] = {k: sum(st["launches"][k] for st in run)
+                                 for k in KERNELS}
+                pairs = [("cpu", st, w) for st, w in
+                         zip(run, want[method])]
+                if kind == "cz":
+                    pairs += [("one_process", st, w) for st, w in
+                              zip(run, one[method])]
+                for what, st, w in pairs:
+                    for k in ("loss", "xent", "grad_norm"):
+                        rel = abs(st[k] - w[k]) / abs(w[k])
+                        worst[what] = max(worst[what], rel)
+                        if not rel <= tol:
+                            failed.append(f"{key}: {k} card vs {what} "
+                                          f"{rel:.3e} > {tol:g}")
+                for i, st in enumerate(run):
+                    if kind == "cz":
+                        want_l = expected_stage_launches(
+                            rcfg, r // (D * T), st["bwd_stages"])
+                    else:
+                        want_l = expected_launches(ep_config("reduced"),
+                                                   [st["depth"]])
+                    if st["launches"] != want_l:
+                        failed.append(f"{key} step {i}: launches "
+                                      f"{st['launches']} != {want_l}")
+            run = ranks[0][method]
+            log(f"[compressed] reduced {kind} {method} grid={grid} "
+                f"depths={[st['depth'] for st in run]} "
+                f"loss_card={[round(st['loss'], 6) for st in run]} "
+                f"loss_cpu="
+                f"{[round(st['loss'], 6) for st in cpu[(kind, grid)][0][method]]}"
+                f" max_rel_card_vs_cpu={worst['cpu']:.3e}"
+                + (f" max_rel_card_vs_one_process="
+                   f"{worst['one_process']:.3e}" if kind == "cz" else "")
+                + f" (tol {tol:g}) gathered_bytes="
+                f"{[st['gathered_bytes'] for st in run]} world_gather_bytes="
+                f"{[st['world_bytes'] for st in run]} card={smi}")
+    # the full-width runs
+    for (kind, grid), ranks in timed.items():
+        cfg = cz_config("full") if kind == "cz" else ep_config("full")
+        dd = grid[1] if kind == "cz" else grid[0]
+        tt = grid[2] if kind == "cz" else grid[1]
+        for r, out in enumerate(ranks):
+            run = out["full"]
+            key = f"full/{kind}/grid{''.join(map(str, grid))}/rank{r}"
+            launches[key] = {k: sum(st["launches"][k]
+                                    for st in run["steps"])
+                             for k in KERNELS}
+            for i, st in enumerate(run["steps"]):
+                if kind == "cz":
+                    want_l = expected_stage_launches(cfg, r // (dd * tt),
+                                                     st["bwd_stages"])
+                else:
+                    want_l = expected_launches(cfg, [st["depth"]])
+                if st["launches"] != want_l:
+                    failed.append(f"{key} step {i}: launches "
+                                  f"{st['launches']} != {want_l}")
+                if not math.isfinite(st["loss"]):
+                    failed.append(f"{key} step {i}: loss not finite")
+                figures[f"{key}/step{i}"] = {
+                    k: (round(v, 3) if isinstance(v, float) else v)
+                    for k, v in st.items() if k != "launches"}
+                log(f"[compressed] full {kind} {cfg.name}/"
+                    f"{cfg.num_layers} topk grid={grid} rank={r} step={i} "
+                    f"depth={st['depth']} {_split_line(st)} "
+                    f"loss={st['loss']:.4f} "
+                    f"max_mem_gb={run['max_mem_gb']:.3f} card={smi}")
+    log(f"[compressed] phase {time.perf_counter() - t0:.1f}s")
+    if failed:
+        raise AssertionError("compressed: " + "; ".join(failed))
+    return {"launches": launches, "figures": figures}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4795,6 +5245,19 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels the expert-parallel ranks never "
                              f"launched: {idle}")
+    fused_dots = phase_fused_dots(smi)
+    idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
+            if not fused_dots["launches"].get(n)]
+    if idle:
+        raise AssertionError(f"kernels the fused 'dots' step never "
+                             f"launched: {idle}")
+    torch.cuda.empty_cache()
+    compressed = phase_compressed_grids(smi)
+    idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
+            if not any(g.get(n) for g in compressed["launches"].values())]
+    if idle:
+        raise AssertionError(f"kernels the compressed ranks never "
+                             f"launched: {idle}")
     # host only, so it runs last: every timed phase then runs as it did
     # before the dry run existed, without its modules (~100k more Python
     # objects) and its own garbage collections
@@ -4848,6 +5311,10 @@ def main() -> int:
                  "launches_expert_parallel": {
                      k: g[name] for k, g in
                      expert_parallel["launches"].items() if g.get(name)},
+                 "launches_fused_dots": fused_dots["launches"].get(name, 0),
+                 "launches_compressed": {
+                     k: g[name] for k, g in compressed["launches"].items()
+                     if g.get(name)},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],
@@ -4895,7 +5362,11 @@ def main() -> int:
                     "zero": zero1_full["figures"],
                     "pipeline": pipeline["figures"],
                     "tensor_parallel": tensor_parallel["figures"],
-                    "expert_parallel": expert_parallel["figures"]}))
+                    "expert_parallel": expert_parallel["figures"],
+                    "fused_dots": {
+                        p: {k: v for k, v in f.items() if k != "launches"}
+                        for p, f in fused_dots["figures"].items()},
+                    "compressed": compressed["figures"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,8 +50,9 @@ closed over: a CUDA graph bakes it in at capture, and a context variable
 does not follow a step into another thread.  The eager steps run it as
 ``lm.loss_fn`` does (a checkpoint a live repeat).  A checkpoint's
 saved-tensor hooks cannot run under ``torch.func``, so the functional
-steps take 'full' as ``lm.swept_grads``, a sweep of ``torch.func.vjp``
-over the live repeats; 'dots' has no such form yet and raises there.
+steps take 'full' and 'dots' as ``lm.swept_grads``, a sweep of
+``torch.func.vjp`` over the live repeats ('dots' replaying the product
+outputs its forward kept).
 
 On a ``(data, model)`` grid (``dist/group.GridGroup``; ``model=`` its
 ``ModelGroup``, ``group=`` its ``DataGroup``) a MoE layer's experts are
@@ -65,6 +66,9 @@ clip norm counts the experts' squares summed over the model group and
 every other leaf's once (:func:`_grid_norm`), so it is the norm of the
 whole gradient; the model ranks of a data index then run the same update
 on the same numbers, and their replicated leaves stay bit-identical.
+With ``tcfg.compression`` the experts are all-gathered over the model
+group first, so the compressor sees the logical tree as one process does
+(:func:`_grid_compressed`), and the norm is the compressed tree's.
 
 :func:`make_pipeline_train_step` runs the stack as a pipeline: each rank
 of a ``dist/group.PipeGroup`` is a stage (or, with tensor parallelism, a
@@ -76,10 +80,12 @@ forward only.  :func:`build_pipeline_train_steps` is its per-depth table.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import ModelConfig, SPBConfig, TrainConfig
 from repro_torch.core import compress
@@ -157,19 +163,25 @@ def _finish_step(state: State, metrics, tcfg: TrainConfig, cfg: ModelConfig,
         n = group.size
         for part in _live_parts(grads, cfg, depth):
             group.all_reduce(part).div_(n)
-    gnorm = None if grid is None else \
-        _grid_norm(grads, grid.roles, grid.model)
+    if grid is None:
+        grads, gnorm = _compressed(grads, tcfg, state["step"]), None
+    elif tcfg.compression != "none":
+        grads, gnorm = _grid_compressed(grads, tcfg, grid, state["step"],
+                                        1 if group is None else group.size)
+    else:
+        gnorm = _grid_norm(grads, grid.roles, grid.model)
     return _apply(state, grads, metrics, tcfg, cfg, spb_cfg, sched,
                   group=group, shards=shards, gnorm=gnorm)
 
 
 class _Grid(NamedTuple):
     """A step's ``(data, model)`` grid: its model group of T > 1 ranks,
-    each param leaf's role (:func:`ep_roles`) and which leaves are
-    partial."""
+    each param leaf's role (:func:`ep_roles`), which leaves are partial,
+    and the params' whole shapes (meta tensors)."""
     model: Any
     roles: Any
     partial: Any
+    shapes: Any
 
 
 def _grid(cfg: ModelConfig, model) -> Optional[_Grid]:
@@ -177,7 +189,62 @@ def _grid(cfg: ModelConfig, model) -> Optional[_Grid]:
     if model is None or model.size <= 1:
         return None
     roles = ep_roles(cfg)
-    return _Grid(model, roles, tree_map(lambda r: r == "partial", roles))
+    return _Grid(model, roles, tree_map(lambda r: r == "partial", roles),
+                 lm.param_shapes(cfg))
+
+
+def _expert_dim(g: torch.Tensor, whole, T: int) -> int:
+    """The dim on which ``g`` holds a share of the expert leaf shaped
+    ``whole`` (the one dim where they differ, ``T`` shares long)."""
+    dims = [i for i in range(g.dim()) if g.shape[i] != whole.shape[i]]
+    if len(dims) != 1 or g.shape[dims[0]] * T != whole.shape[dims[0]]:
+        raise ValueError(f"an expert share {tuple(g.shape)} of "
+                         f"{tuple(whole.shape)} over {T} ranks")
+    return dims[0]
+
+
+def _grid_compressed(grads, tcfg: TrainConfig, grid: _Grid, step: int,
+                     n_data: int):
+    """Compression on a ``(data, model)`` grid, as one process compresses
+    the logical tree: the expert leaves (this rank's share of each MoE
+    layer's experts) are all-gathered over the model group, the whole
+    tree (the partial sums and the data average already taken) goes
+    through :func:`compression_generator`'s draw at ``step``, and the
+    rank keeps its experts of the result.  Returns (its share, the norm
+    of the whole compressed tree), the reference clipping the compressed
+    tree.  The costs go to :data:`COMPRESSION_SINKS` (a world-wide
+    gather: this rank's experts from every one of the ``n_data`` x T
+    ranks)."""
+    model = grid.model
+    T = model.size
+    device = next(g.device for g in tree_leaves(grads) if g is not None)
+    own = 0
+
+    def whole(g, role, shape):
+        nonlocal own
+        if g is None or role != "expert":
+            return g
+        own += g.numel() * g.element_size()
+        return model.all_gather(g.contiguous(), _expert_dim(g, shape, T))
+
+    _sync(device)
+    t0 = time.perf_counter()
+    tree = tree_map(whole, grads, grid.roles, grid.shapes)
+    _sync(device)
+    out = _compress_timed(tree, tcfg, step, device,
+                          time.perf_counter() - t0, own * (T - 1),
+                          own * (n_data * T - 1))
+    del tree
+
+    def share(c, g, role, shape):
+        if c is None or role != "expert":
+            return c
+        dim = _expert_dim(g, shape, T)
+        n = g.shape[dim]
+        return c.narrow(dim, model.rank * n, n).contiguous()
+
+    return (tree_map(share, out, grads, grid.roles, grid.shapes),
+            optimizers.global_norm(out))
 
 
 def ep_roles(cfg: ModelConfig):
@@ -274,15 +341,12 @@ def _apply(state: State, grads, metrics, tcfg: TrainConfig,
            sched: Optional[torch.Tensor] = None, *, group=None, shards=None,
            gnorm: Optional[torch.Tensor] = None
            ) -> Tuple[State, Dict[str, torch.Tensor]]:
-    """Compress ``grads`` if ``tcfg.compression`` asks, run the optimizer
-    (reading the schedule from ``sched`` when given, the clip norm from
-    ``gnorm`` when given, ``optim.apply_updates``) and advance the step.
-    With ``shards`` the optimizer updates this rank's slices, and each
-    sharded parameter is then all-gathered over ``group``."""
-    if tcfg.compression != "none":
-        gen = compression_generator(tcfg, state["step"])
-        grads = compress.compress_tree(grads, tcfg.compression,
-                                       tcfg.compression_ratio, gen)
+    """Run the optimizer on ``grads`` (compressed already, if
+    ``tcfg.compression`` asks: :func:`_compressed`), reading the schedule
+    from ``sched`` when given and the clip norm from ``gnorm`` when given
+    (``optim.apply_updates``), and advance the step.  With ``shards`` the
+    optimizer updates this rank's slices, and each sharded parameter is
+    then all-gathered over ``group``."""
     _, _, opt_metrics = optimizers.apply_updates(
         state["params"], grads, state["opt"], state["step"], tcfg, cfg=cfg,
         spb_cfg=spb_cfg, sched=sched, shards=shards, gnorm=gnorm)
@@ -295,6 +359,17 @@ def _apply(state: State, grads, metrics, tcfg: TrainConfig,
                     group.all_gather(p.detach(), part[0])
     state["step"] += 1
     return state, {**metrics, **opt_metrics}
+
+
+def _compressed(grads, tcfg: TrainConfig, step: int):
+    """``grads`` through ``tcfg.compression``'s compressor with the
+    one-process draw at ``step`` (:func:`compression_generator`); as they
+    are without one."""
+    if tcfg.compression == "none":
+        return grads
+    return compress.compress_tree(grads, tcfg.compression,
+                                  tcfg.compression_ratio,
+                                  compression_generator(tcfg, step))
 
 
 def compression_generator(tcfg: TrainConfig, step: int) -> torch.Generator:
@@ -432,8 +507,9 @@ def make_spatial_step(cfg: ModelConfig, tcfg: TrainConfig,
             grads = _subgroup_rereduce(grads, cfg, spb_cfg, group)
         metrics = {"loss": both[0], "xent": both[1],
                    "moe_aux": torch.zeros((), device=both.device)}
-        return _apply(state, grads, metrics, tcfg, cfg, no_rescale, sched,
-                      group=group, shards=shards)
+        return _apply(state, _compressed(grads, tcfg, state["step"]),
+                      metrics, tcfg, cfg, no_rescale, sched, group=group,
+                      shards=shards)
 
     return step
 
@@ -482,21 +558,15 @@ def _functional_step(cfg: ModelConfig, tcfg: TrainConfig,
     optimizer.  The optimizer updates ``params`` and ``opt`` in place and
     returns them; the metrics are 0-d tensors, so ``vmap`` stacks them.
     ``params`` are plain tensors (no ``requires_grad``).  ``sched`` and
-    ``update`` as :func:`_finish_step` takes them.  ``remat`` 'full'
-    takes the gradients from ``lm.swept_grads``; 'dots' raises."""
+    ``update`` as :func:`_finish_step` takes them.  ``remat`` 'full' or
+    'dots' takes the gradients from ``lm.swept_grads``."""
     n = len(depths)
     remat = lm.resolve_remat(remat)
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' in a functional (fused) step: the recompute runs "
-            "there as a sweep of torch.func.vjp, which keeps no product "
-            "outputs yet (ROADMAP.md Queue 1 B item 16); use 'full' or "
-            "'none'")
 
     def grad_at(depth):
-        if remat == "full":
+        if remat != "none":
             return lambda params, chunk: lm.swept_grads(
-                params, chunk, cfg, bwd_layers=depth)
+                params, chunk, cfg, bwd_layers=depth, remat=remat)
 
         def grad_fn(params, chunk):
             loss, vjp_fn, mm = torch.func.vjp(
@@ -524,13 +594,9 @@ def _functional_step(cfg: ModelConfig, tcfg: TrainConfig,
             metrics = {k: v * (1.0 / n) for k, v in metrics.items()}
         if not update:
             return params, opt, metrics
-        if tcfg.compression != "none":
-            grads = compress.compress_tree(
-                grads, tcfg.compression, tcfg.compression_ratio,
-                compression_generator(tcfg, step))
         _, _, opt_metrics = optimizers.apply_updates(
-            params, grads, opt, step, tcfg, cfg=cfg, spb_cfg=spb_cfg,
-            sched=sched)
+            params, _compressed(grads, tcfg, step), opt, step, tcfg,
+            cfg=cfg, spb_cfg=spb_cfg, sched=sched)
         return params, opt, {**metrics, **opt_metrics}
 
     return step
@@ -571,15 +637,12 @@ def spb_step_keys(cfg: ModelConfig, spb_cfg: SPBConfig) -> list:
     return keys
 
 
-def refuse_on_grid(spb_cfg: SPBConfig, tcfg: TrainConfig, model) -> None:
-    """What a ``(data, model)`` grid of T > 1 model ranks refuses.
-    Spatial SPB: the reference's spatial step is a ``shard_map`` over
+def refuse_on_grid(spb_cfg: SPBConfig, model) -> None:
+    """What a ``(data, model)`` grid of T > 1 model ranks refuses:
+    spatial SPB.  The reference's spatial step is a ``shard_map`` over
     ``data`` around the whole loss, and ``moe_fwd_ep``'s ``shard_map`` over
     ``model`` inside it does not lower there (a reshape of 2048 elements
-    into 4096 on a (2, 2) mesh).  Compression: the compressors pick over
-    whole leaves, and a grid rank holds a share of each MoE layer's
-    experts, so only a gather of the experts first would make it the
-    one-process draw."""
+    into 4096 on a (2, 2) mesh)."""
     if model is None or model.size <= 1:
         return
     if spb_cfg.mode == "spatial":
@@ -588,11 +651,6 @@ def refuse_on_grid(spb_cfg: SPBConfig, tcfg: TrainConfig, model) -> None:
             "per-worker step (a shard_map over 'data') does not lower with "
             "moe_fwd_ep's shard_map over 'model' inside it; use "
             "'temporal', 'temporal-mb' or 'off'")
-    if tcfg.compression != "none":
-        raise NotImplementedError(
-            f"compression={tcfg.compression!r} on a (data, model) grid: the "
-            f"compressors pick over whole leaves and a rank holds a share "
-            f"of the experts (ROADMAP.md Queue 1 B item 11)")
 
 
 def build_spb_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
@@ -605,7 +663,7 @@ def build_spb_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
     ``"mb"`` runs :func:`make_temporal_mb_step`, a depth
     :func:`make_train_step`."""
     remat = lm.resolve_remat(remat)
-    refuse_on_grid(spb_cfg, tcfg, model)
+    refuse_on_grid(spb_cfg, model)
     if spb_cfg.mode == "spatial":
         return {None: make_spatial_step(cfg, tcfg, spb_cfg, remat=remat,
                                         group=group or DataGroup())}
@@ -682,9 +740,11 @@ def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     reduce-scatters each stage gradient over the data axis on the dim its
     ZeRO-1 moments shard (``shards``), so the optimizer's update runs on
     the slice alone.  With ``tcfg.compression`` each rank gathers the
-    whole gradient tree of its data index (over the stage and model axes),
-    compresses it with the one-process draw (:func:`compression_generator`)
-    and keeps its part.
+    whole gradient tree of its data index (over the stage and model axes;
+    under ``zero2`` its slices over the data axis first), compresses it
+    with the one-process draw (:func:`compression_generator`) and keeps
+    its part (:func:`_compressed_share`); the norm then counts the
+    compressed part, as the reference clips the compressed tree.
 
     ``spb_cfg`` is stamped with ``pipeline_stages``, as the engine does,
     so the per-block scales count the stage-snapped depths."""
@@ -707,10 +767,6 @@ def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     if zero2 and shards is None:
         raise ValueError("zero2 shards the gradients as ZeRO-1 shards the "
                          "moments: it needs the ZeRO-1 slices (zero1=True)")
-    if zero2 and tcfg.compression != "none":
-        raise ValueError("compression under zero2: the compressors pick "
-                         "over whole leaves, which zero2 leaves sharded "
-                         "over the data axis")
     if spb_cfg is not None and spb_cfg.pipeline_stages != num_stages:
         spb_cfg = dataclasses.replace(spb_cfg, pipeline_stages=num_stages)
     remat = lm.resolve_remat(remat)
@@ -735,9 +791,10 @@ def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         tree_map_with_path(lambda path, t: stage_lib.model_shard_dim(
             path, t.shape) is not None, gp)
         for gp in lm.param_shapes(cfg)["groups"]]
+    zero2_parts = shards["groups"] if zero2 else None
     zero2_dims = None if not zero2 else [
         tree_map(lambda part: None if part is None else part[0], gp,
-                 is_leaf=sharding.is_slice) for gp in shards["groups"]]
+                 is_leaf=sharding.is_slice) for gp in zero2_parts]
 
     def step(state: State, batch, *, sched=None, update: bool = True
              ) -> Tuple[State, Dict[str, torch.Tensor]]:
@@ -805,7 +862,7 @@ def make_pipeline_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             return state, metrics
         if tcfg.compression != "none":
             grads = _compressed_share(grads, cfg, tcfg, smap, group, tp,
-                                      state["step"])
+                                      state["step"], zero2_parts)
         gnorm = _pipeline_norm(grads, group, res["loss"].device,
                                model_sharded, zero2_dims)
         _, _, opt_metrics = optimizers.apply_updates(
@@ -869,29 +926,103 @@ def _pipeline_norm(grads, group, device, model_sharded=None,
     return torch.sqrt(group.pipe_all_reduce(total.reshape(1))[0])
 
 
+# called once a compressed step of a grid or a pipeline with
+# (gather_s, compress_s, gathered_bytes, world_bytes): the host seconds of
+# the gathers that rebuild the whole tree and of the compressors (the
+# device synchronized around each while a sink listens), the bytes this
+# rank received in the gathers, and those a gather of the same parts from
+# every rank of the world would have delivered
+COMPRESSION_SINKS: List[Callable[[float, float, int, int], None]] = []
+
+
+def _sync(device) -> None:
+    if COMPRESSION_SINKS and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if t is not None)
+
+
+def _compress_timed(whole, tcfg: TrainConfig, step: int, device,
+                    gather_s: float, gathered: int, world: int):
+    """``compress.compress_tree`` of ``whole`` with the one-process draw
+    at ``step``; reports the step's costs to :data:`COMPRESSION_SINKS`."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = _compressed(whole, tcfg, step)
+    _sync(device)
+    for sink in COMPRESSION_SINKS:
+        sink(gather_s, time.perf_counter() - t0, gathered, world)
+    return out
+
+
+def _gather_objects(obj, pg, n: int) -> list:
+    """Every rank's ``obj`` of the process group ``pg`` (``n`` ranks; at
+    one rank no group), in group order, through the host."""
+    if n == 1:
+        return [obj]
+    out = [None] * n
+    dist.all_gather_object(out, obj, group=pg)
+    return out
+
+
+def _unsliced(g, part, data):
+    """The whole of a ZeRO-2 slice ``g`` (``part``: this rank's ``(dim,
+    start, length)``) over the data group; ``g`` itself when unsliced."""
+    if g is None or part is None:
+        return g
+    dim, start, length = part
+    shape = list(g.shape)
+    shape[dim] = length * data.size
+    whole = g.new_empty(shape)
+    whole.narrow(dim, start, length).copy_(g)
+    return data.all_gather(whole, dim)
+
+
 def _compressed_share(grads, cfg: ModelConfig, tcfg: TrainConfig, smap,
-                      group, tp: int, step: int):
+                      group, tp: int, step: int, zero2_parts=None):
     """This rank's part of the whole gradient tree compressed as one
-    process compresses it.  Every rank sends its part, on the host, to
-    every other; each assembles its data index's whole tree from the
-    parts of every ``(stage, model rank)`` (``stage.assemble``: a frozen
-    stage's rows of a leaf are zeros, and a leaf no stage holds live stays
-    ``None``), compresses it with :func:`compression_generator`'s draw at
-    ``step`` and keeps its part (``stage.local_tree``; ``None`` where its
-    gradient was)."""
-    import torch.distributed as dist
+    process compresses it.  Under ZeRO-2 (``zero2_parts``: this rank's
+    slice of each stage leaf, as ``shards["groups"]``) each slice is
+    first all-gathered over the data group.  The parts then go, on the
+    host, to the ranks of this data index alone: each ``(stage, model
+    rank)``'s over the model group, then those rows over the stage axis.
+    Each rank assembles its data index's whole tree (``stage.assemble``: a
+    frozen stage's rows of a leaf are zeros, and a leaf no stage holds
+    live stays ``None``), compresses it on its device with
+    :func:`compression_generator`'s draw at ``step`` and keeps its part
+    (``stage.local_tree``, narrowed to its ZeRO-2 slice; ``None`` where
+    its gradient was).  The costs go to :data:`COMPRESSION_SINKS`."""
     from repro_torch.dist.pipeline import stage as stage_lib
 
     T = max(tp, 1)
-    mine = tree_map(lambda g: None if g is None else g.detach().cpu(), grads)
-    parts = [(group.stage, group.data_index, group.model_index, mine)]
-    if group.size > 1:
-        parts = [None] * group.size
-        dist.all_gather_object(parts, (group.stage, group.data_index,
-                                       group.model_index, mine),
-                               group=group.pg)
-    ours = {(s, t): tree for s, d, t, tree in parts
-            if d == group.data_index and t < T}
+    device = next(g.device for g in tree_leaves(grads) if g is not None)
+    _sync(device)
+    t0 = time.perf_counter()
+    received = 0
+    whole_grads = grads
+    if zero2_parts is not None:
+        whole_grads = {**grads, "groups": tree_map(
+            lambda g, part: _unsliced(g, part, group.data),
+            grads["groups"], zero2_parts)}
+        sliced = [t for t, part in zip(
+            tree_leaves(whole_grads["groups"]),
+            tree_leaves(zero2_parts, is_leaf=sharding.is_slice))
+            if part is not None]
+        n = group.data.size
+        received = _tree_bytes(sliced) * (n - 1) // n
+    mine = tree_map(lambda g: None if g is None else g.detach().cpu(),
+                    whole_grads)
+    row = _gather_objects((group.stage, group.model_index, mine),
+                          group.model.pg, group.model.size)
+    rows = _gather_objects(row, group.pipe_pg, group.num_stages)
+    ours = {(s, t): tree for r in rows for s, t, tree in r}
+    sizes = {k: _tree_bytes(tree) for k, tree in ours.items()}
+    own = sizes[(group.stage, group.model_index)]
+    received += sum(sizes.values()) - own
+    world = group.data.size * sum(sizes.values()) - own
     shapes = lm.param_shapes(cfg)
     S = smap.num_stages
     held = [tree_map(lambda m, g: torch.zeros(m.shape, dtype=m.dtype)
@@ -914,15 +1045,22 @@ def _compressed_share(grads, cfg: ModelConfig, tcfg: TrainConfig, smap,
                     {k: got[key][k] is not None for k in sub})
             else:
                 live[key] = got[key] is not None
-    whole = tree_map(lambda g, on: g if on else None, whole,
+    whole = tree_map(lambda g, on: g.to(device) if on else None, whole,
                      {k: live[k] for k in whole})
-    out = compress.compress_tree(whole, tcfg.compression,
-                                 tcfg.compression_ratio,
-                                 compression_generator(tcfg, step))
-    filled = tree_map(lambda g, m: torch.zeros(m.shape, dtype=m.dtype)
+    del held, ours, rows, row, mine
+    _sync(device)
+    out = _compress_timed(whole, tcfg, step, device,
+                          time.perf_counter() - t0, received, world)
+    del whole
+    filled = tree_map(lambda g, m: torch.zeros(m.shape, dtype=m.dtype,
+                                               device=device)
                       if g is None else g, out, {k: shapes[k] for k in out})
     share = stage_lib.local_tree(filled, cfg, smap, group.stage,
                                  model=(group.model_index, T))
+    if zero2_parts is not None:
+        share["groups"] = tree_map(
+            lambda c, part: optimizers.local(c, part).contiguous(),
+            share["groups"], zero2_parts)
     return tree_map(lambda g, c: None if g is None else c.to(g.device),
                     grads, share)
 

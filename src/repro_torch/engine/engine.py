@@ -85,10 +85,11 @@ keeps that share, ``attach_state`` takes it from a whole state (or a
 share of the same layout), and :meth:`gathered_state` gives rank 0 the
 whole state in the one-process format, so a checkpoint restores into one
 process or into a grid of another T.  Rank 0's depth is broadcast over
-the whole grid every step.  ``spatial`` raises on a grid with T > 1 (the
-reference's step does not lower there), as do compression (the
-compressors pick over whole leaves; ROADMAP.md Queue 1 B item 11),
-``compile_table`` and ``load_aot``.
+the whole grid every step.  Compression gathers the experts over
+``model`` and compresses the whole tree with one process's draw
+(``dist/steps.py``).  ``spatial`` raises on a grid with T > 1 (the
+reference's step does not lower there), as do ``compile_table`` and
+``load_aot``.
 """
 from __future__ import annotations
 
@@ -278,7 +279,7 @@ class SPBEngine:
         ``model``, ZeRO-1 over ``data``), this rank's experts and its
         ZeRO-1 slices of the optimizer leaves it holds."""
         group, mesh = self.group, self.mesh
-        steps_lib.refuse_on_grid(self.spb, self.tcfg, group.model)
+        steps_lib.refuse_on_grid(self.spb, group.model)
         self.state_specs = sharding.grid_state_pspec(
             self.state_shapes, mesh, zero1=self.zero1)
         self.experts = sharding.axis_slices(

@@ -15,10 +15,11 @@ tree).  Every hand-written kernel's ``autograd.Function`` has a vmap rule
 that folds the jobs axis into the batch axis (``kernels/ops.py``), so a
 fused step launches each kernel as often as one solo step does, at J x B
 rows.  The optimizer updates the stacked state in place.  Under
-``remat="full"`` each step sweeps the live repeats with
+``remat="full"`` or ``"dots"`` each step sweeps the live repeats with
 ``torch.func.vjp`` (``lm.swept_grads``), which ``vmap`` batches as it
-batches the plain step; ``"dots"`` raises (ROADMAP.md Queue 1 B item
-16).  The group
+batches the plain step; under ``"dots"`` the sweep's forward keeps the
+product outputs of every job (J x B rows: J times one solo step's kept
+bytes) and the recompute replays them.  The group
 shares each iteration's SPB depth (one step runs all J jobs), so the
 scheduler degrades or deepens the group as a unit.  ``randomness="same"``:
 the compressors draw one stream for every job, as the reference's

@@ -34,8 +34,9 @@ policy is resolved once, when a step is built, and passed down as
 reference's is ``"full"``, chosen for a 16 GB TPU).  Frozen layers run
 under ``no_grad`` and are never recomputed.  :func:`swept_grads` is the
 recompute in the form ``torch.func`` can batch: the forward under
-``no_grad`` keeps each live repeat's carry, and a ``torch.func.vjp`` of
-each repeat, last first, recomputes it.
+``no_grad`` keeps each live repeat's carry (under 'dots' also its
+products' outputs), and a ``torch.func.vjp`` of each repeat, last first,
+recomputes it (replaying the kept products).
 
 An encoder-decoder's SPB depth counts over the combined stack, the
 encoder's layers first (``config.combined_layer_groups``): one boundary
@@ -55,12 +56,14 @@ are device tensors, so a decode step reads nothing back to the host.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.profiler import record_function
 from torch.utils import checkpoint as _checkpoint
 
@@ -614,12 +617,112 @@ def loss_fn(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
 # The recompute as a sweep (the functional steps under torch.func)
 # ---------------------------------------------------------------------------
 
+# the calls a 'dots' sweep keeps: ``x @ W`` with W a matrix and x of
+# two dims or more, which the eager step dispatches as ``aten.mm`` (the
+# live weight requires grad, so matmul always folds x's leading dims)
+_MATMULS = (torch.matmul, Tensor.matmul, Tensor.__matmul__)
+
+
+def _is_dot(func, args) -> bool:
+    return (func in _MATMULS and len(args) == 2
+            and isinstance(args[0], Tensor) and isinstance(args[1], Tensor)
+            and args[0].dim() >= 2 and args[1].dim() == 2)
+
+
+def _physical_numel(t: Tensor) -> int:
+    """The elements ``t`` holds under ``torch.func.vmap``: a batched
+    tensor's unwrapped (J, ...) value at every level, so a fused step's
+    kept bytes count its J jobs."""
+    from torch._C import _functorch
+    while _functorch.is_batchedtensor(t):
+        t = _functorch.get_unwrapped(t)
+    return t.numel()
+
+
+class _KeptProduct(torch.autograd.Function):
+    """``a @ b`` whose value ``out`` was kept in the forward: returns it
+    and pulls the cotangent back as the product's (the mm backward of a
+    folded ``a``).  ``vmap`` runs the rule it generates."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a, b, out):
+        return out.view_as(out)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b, _ = inputs
+        ctx.save_for_backward(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g2 @ b.mT).reshape(a.shape)
+        if ctx.needs_input_grad[1]:
+            gb = a.reshape(-1, a.shape[-1]).mT @ g2
+        return ga, gb, None
+
+
+class _DotsTape(TorchFunctionMode):
+    """The 'dots' policy of a sweep (:func:`swept_grads`), which a
+    checkpoint's dispatch hooks cannot give under ``torch.func``: while a
+    live repeat's forward runs under it, each product :func:`_is_dot`
+    picks is kept in ``kept`` in call order (its bytes reported to
+    :data:`KEPT_SINKS`); while the repeat's ``torch.func.vjp`` recompute
+    runs under it with ``replay``, each such call returns the kept output
+    in place of the product (:class:`_KeptProduct`), its inputs still
+    recomputed.  A function mode sees the calls as the model makes them,
+    above ``vmap``'s batching (a dispatch mode there sees a batched mm as
+    the bmm it becomes).  A replay whose call, shape or count differs
+    from the record raises."""
+
+    def __init__(self, kept: list, replay: bool = False):
+        super().__init__()
+        self.kept, self.replay, self.at = kept, replay, 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if not _is_dot(func, args):
+            return func(*args, **kwargs)
+        a, b = args
+        if not self.replay:
+            out = func(a, b, **kwargs)
+            self.kept.append((func, out))
+            nbytes = _physical_numel(out) * out.element_size()
+            for sink in KEPT_SINKS:
+                sink([], nbytes)
+            return out
+        if self.at >= len(self.kept):
+            raise RuntimeError(
+                f"dots replay: product {self.at + 1} of a repeat that kept "
+                f"{len(self.kept)}")
+        kfunc, out = self.kept[self.at]
+        shape = tuple(a.shape[:-1]) + (b.shape[-1],)
+        if kfunc is not func or tuple(out.shape) != shape:
+            raise RuntimeError(
+                f"dots replay: product {self.at + 1} is {func.__name__} "
+                f"to {shape}, but the record kept {kfunc.__name__} to "
+                f"{tuple(out.shape)}")
+        self.at += 1
+        return _KeptProduct.apply(a, b, out)
+
+    def finish(self) -> None:
+        if self.at != len(self.kept):
+            raise RuntimeError(
+                f"dots replay: the recompute ran {self.at} products, the "
+                f"record kept {len(self.kept)}")
+
+
 def _sweep_forward(x: Tensor, aux: Tensor, groups, cfg: ModelConfig,
                    positions: Tensor, boundary: int, base: int,
-                   enc: Optional[Tensor], causal: bool):
+                   enc: Optional[Tensor], causal: bool, dots: bool = False):
     """A stack's forward under ``no_grad``; returns (x, aux, tape), the
-    tape holding (group, repeat, x, aux) at the input of each live
-    repeat, in order."""
+    tape holding (group, repeat, x, aux, kept) at the input of each live
+    repeat, in order: ``kept`` the repeat's product outputs under
+    ``dots`` (:class:`_DotsTape`), else None."""
     tape = []
     for g, ((unit, count), gparams, q) in enumerate(zip(
             layer_groups(cfg), groups, _frozen_units(cfg, boundary, base))):
@@ -628,10 +731,13 @@ def _sweep_forward(x: Tensor, aux: Tensor, groups, cfg: ModelConfig,
             x, aux = _run_group_train(x, aux, frozen, unit, cfg, positions,
                                       enc, causal)
         for r in range(q, count):
-            tape.append((g, r, x, aux))
-            x, aux = _run_repeat(x, aux, [_select(up, r) for up in gparams],
-                                 positions, enc, unit=unit, cfg=cfg,
-                                 causal=causal)
+            kept = [] if dots else None
+            tape.append((g, r, x, aux, kept))
+            with _DotsTape(kept) if dots else contextlib.nullcontext():
+                x, aux = _run_repeat(x, aux,
+                                     [_select(up, r) for up in gparams],
+                                     positions, enc, unit=unit, cfg=cfg,
+                                     causal=causal)
     return x, aux, tape
 
 
@@ -646,7 +752,7 @@ def _sweep_backward(gx: Tensor, gaux: Tensor, tape, groups, cfg: ModelConfig,
     rows_grads, genc = {}, None
     units = [unit for unit, _ in layer_groups(cfg)]
     for i in range(len(tape) - 1, -1, -1):
-        g, r, x_in, aux_in = tape[i]
+        g, r, x_in, aux_in, kept = tape[i]
         unit = units[g]
         grad_x = i > 0 or x_needs_grad
         grad_enc = enc is not None and any(m == "xdec" for m, _ in unit)
@@ -660,8 +766,13 @@ def _sweep_backward(gx: Tensor, gaux: Tensor, tape, groups, cfg: ModelConfig,
                                cfg=cfg, causal=causal)
 
         primals = ([x_in] if grad_x else []) + ([enc] if grad_enc else [])
-        _, pull = torch.func.vjp(repeat, [_select(up, r) for up in groups[g]],
-                                 *primals)
+        with contextlib.nullcontext() if kept is None else \
+                _DotsTape(kept, replay=True) as replay:
+            _, pull = torch.func.vjp(
+                repeat, [_select(up, r) for up in groups[g]], *primals)
+        if replay is not None:
+            replay.finish()
+        tape[i] = None      # its carry and kept outputs go with the pull
         with torch.no_grad():
             cot = list(pull((gx, gaux), retain_graph=False))
         rows_grads[(g, r)] = cot.pop(0)
@@ -694,18 +805,24 @@ def _stack_grads(groups, cfg: ModelConfig, rows_grads) -> list:
 
 
 def swept_grads(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
-                *, bwd_layers: Optional[int] = None, aux_weight: float = 0.01
-                ) -> Tuple[Params, Dict[str, Tensor]]:
-    """The gradient of :func:`loss_fn` under the 'full' recompute, in a
-    form ``torch.func.vmap`` can batch (a checkpoint's saved-tensor hooks
-    cannot run under ``torch.func``): the forward runs under ``no_grad``,
-    keeping the (x, aux) carry at each live repeat; then a
-    ``torch.func.vjp`` of the head (final norm, unembedding, loss), of
-    each live repeat, last first, recomputing it, of the encoder's final
+                *, bwd_layers: Optional[int] = None, aux_weight: float = 0.01,
+                remat: str = "full") -> Tuple[Params, Dict[str, Tensor]]:
+    """The gradient of :func:`loss_fn` under the recompute ``remat``
+    ('full' or 'dots'), in a form ``torch.func.vmap`` can batch (a
+    checkpoint's saved-tensor hooks cannot run under ``torch.func``): the
+    forward runs under ``no_grad``, keeping the (x, aux) carry at each
+    live repeat, and under 'dots' its product outputs
+    (:class:`_DotsTape`); then a ``torch.func.vjp`` of the head (final
+    norm, unembedding, loss), of each live repeat, last first,
+    recomputing it (the kept products replayed), of the encoder's final
     norm and live repeats, whose output's cotangent sums over the live
     decoder layers, and of the embedding last.  A frozen leaf's gradient
     is zeros.  Returns (grads, the metrics of :func:`loss_fn`)."""
     _check_supported(cfg)
+    if remat not in ("full", "dots"):
+        raise ValueError(f"swept_grads recomputes under 'full' or 'dots', "
+                         f"not {remat!r}")
+    dots = remat == "dots"
     boundary = total_layers(cfg) - _depth(cfg, bwd_layers)
     grads: Params = {}
     with torch.no_grad():
@@ -717,7 +834,7 @@ def swept_grads(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
             zero = torch.zeros((), dtype=torch.float32, device=frames.device)
             enc_x, _, enc_tape = _sweep_forward(
                 frames, zero, params["enc"]["groups"], ecfg, enc_pos,
-                boundary, 0, None, False)
+                boundary, 0, None, False, dots)
             enc = L.rms_norm(enc_x, params["enc"]["final_norm"],
                              cfg.norm_eps)
         x = _decoder_input(params, batch, cfg)
@@ -725,7 +842,7 @@ def swept_grads(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x, aux, tape = _sweep_forward(x, aux, params["groups"], cfg,
                                       positions, boundary, cfg.enc_layers,
-                                      enc, True)
+                                      enc, True, dots)
 
     def head(final_norm, embed, x):
         p = {"final_norm": final_norm, "embed": embed}

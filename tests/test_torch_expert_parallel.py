@@ -26,7 +26,10 @@ virtual CPU devices.  f32 throughout.
   moe_aux, grad norms and the final f32 parameters against the
   reference's ``SPBEngine`` on the same mesh at 1e-5; the model group's
   calls and bytes a step equal ``analysis/roofline.ep_calls``; every
-  rank's non-expert leaves are bit-identical.  AdamW, the default, on
+  rank's non-expert leaves are bit-identical.  Compressed (``topk``,
+  ``randk``, ``lowrank``) on both grids: the same against the reference's
+  compressed step on the same mesh, ``randk`` and ``lowrank`` drawing
+  there from the port's generator.  AdamW, the default, on
   (1, 2) for qwen3-reduced (:data:`ADAMW_CASE`): losses, grad norms and
   both moments at 1e-5, the parameters at 1e-5 where the first gradient
   is not within rounding of zero and within AdamW's step elsewhere.
@@ -79,6 +82,7 @@ LAYER_CASES = ((1.25, False), (8.0, False), (8.0, True))
 XB, XS = 4, 16                            # the layer's x: 4 rows of 16
 STEP_ARCHS = ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b")
 STEP_GRIDS = ((1, 2), (2, 2))
+COMPRESSIONS = ("topk", "randk", "lowrank")
 B, SEQ, STEPS = 4, 32, 2
 # the steps' optimizer: SGD with momentum, whose update is linear in the
 # gradient, so the parameters show a gradient's rounding as it is.  AdamW's
@@ -200,9 +204,10 @@ def _layer_rank(group, path):
     return out
 
 
-def _engine(cfg, group=None, steps=STEPS, opt=OPT):
+def _engine(cfg, group=None, steps=STEPS, opt=OPT, compression="none"):
     spb = SPBConfig(mode="temporal", k=2)
-    tcfg = TrainConfig(num_steps=steps, optimizer=opt)
+    tcfg = TrainConfig(num_steps=steps, optimizer=opt,
+                       compression=compression)
     if group is None:
         return SPBEngine(cfg, tcfg, spb, device="cpu")
     return SPBEngine(cfg, tcfg, spb, group=group)
@@ -275,6 +280,22 @@ def _adamw_rank(group, path):
             {"params": _flat(whole["params"]), "opt": _flat(whole["opt"])}}
 
 
+def _compress_rank(group, path):
+    """On (D, T): each step arch under each compressor, two temporal
+    steps: the metrics and, on rank 0, the gathered whole parameters."""
+    inp = np.load(path)
+    out = {}
+    for arch in STEP_ARCHS:
+        for method in COMPRESSIONS:
+            eng = _engine(_ep_cfg(arch), group, compression=method)
+            eng.attach_state(_whole_state(arch))
+            hist = _run_steps(eng, group, inp, arch)
+            whole = eng.gathered_state()
+            out[(arch, method)] = {"hist": hist, "whole": None if whole is
+                                   None else _flat(whole["params"])}
+    return out
+
+
 def _serve_on_grid(group):
     """Prefill 12 positions of 2 rows and decode 2 tokens over the grid's
     model group, at capacity 8 (nothing dropped): the logits."""
@@ -318,7 +339,8 @@ def _restore_rank(group, ckpt_dir):
 def _rank(group, what, *args):
     """The spawned ranks' target."""
     return {"layer": _layer_rank, "step": _step_rank, "adamw": _adamw_rank,
-            "restore": _restore_rank}[what](group, *args)
+            "restore": _restore_rank, "compress": _compress_rank}[what](
+                group, *args)
 
 
 def _spawn(grid, what, *args):
@@ -423,10 +445,72 @@ _REFERENCE = textwrap.dedent("""
             leaves(eng.state["params"], tag + "/p")
             if opt == "adamw":
                 leaves(eng.state["opt"], tag + "/opt")
+
+    if part == "engine":
+        # compressed: the step the engine jits (make_train_step), its
+        # gradient jitted on the mesh and its _finish_step (the compressor,
+        # the optimizer) run eagerly, since the reference's topk does not
+        # jit; randk and lowrank take the port's draw at the step, which
+        # jax.random's cannot match
+        import torch
+        from repro.core import compress as jcompress
+        from repro.core import spb as jspb
+        from repro_torch.config import TrainConfig as TTrain
+        from repro_torch.core import compress as tcompress
+        from repro_torch.dist import steps as tsteps
+        real, at = jcompress.compress_tree, {}
+
+        def ported(grads, method, ratio, rng_key):
+            if method == "topk":
+                return real(grads, method, ratio, rng_key)
+            got = tcompress.compress_tree(
+                jax.tree.map(lambda g: torch.from_numpy(np.array(g)), grads),
+                method, ratio, tsteps.compression_generator(
+                    TTrain(seed=at["seed"]), at["step"]))
+            return jax.tree.map(lambda t: jnp.asarray(t.numpy()), got)
+
+        jcompress.compress_tree = ported
+        spb = SPBConfig(mode="temporal", k=2)
+        for arch in %(archs)r:
+            cfg = ep_cfg(arch)
+            shapes = jsteps.train_state_shapes(cfg, TrainConfig())["params"]
+            sched = jspb.make_schedule(cfg, spb)
+            for D, T in %(step_grids)r:
+                grad_fns = {}
+                for method in %(methods)r:
+                    tcfg = TrainConfig(num_steps=%(steps)d, optimizer=%(opt)r,
+                                       compression=method)
+                    params = jax.tree_util.tree_map_with_path(
+                        lambda q, x: jnp.asarray(inp[arch + "/p" + key(q)]),
+                        shapes)
+                    state = {"params": params,
+                             "opt": optimizers.init_opt_state(params, tcfg),
+                             "step": jnp.zeros((), jnp.int32)}
+                    tag = "%%s/%%d%%d/%%s" %% (arch, D, T, method)
+                    for s in range(%(steps)d):
+                        depth = sched.depth_at(s)
+                        if depth not in grad_fns:
+                            grad_fns[depth] = jax.jit(jsteps._grad_fn(cfg,
+                                                                      depth))
+                        with jax.sharding.set_mesh(grid_mesh(D, T)):
+                            (_, metrics), grads = grad_fns[depth](
+                                state["params"],
+                                {"tokens": inp[arch + "/tokens%%d" %% s],
+                                 "labels": inp[arch + "/labels%%d" %% s]})
+                        host = lambda t: jnp.asarray(np.asarray(t))
+                        at.update(seed=tcfg.seed, step=s)
+                        state, m = jsteps._finish_step(
+                            jax.tree.map(host, state), jax.tree.map(
+                                host, grads), jax.tree.map(host, metrics),
+                            tcfg, cfg, spb)
+                        out[tag + "/depth%%d" %% s] = np.asarray(depth)
+                        for kk, v in m.items():
+                            out[tag + "/m%%d/%%s" %% (s, kk)] = np.asarray(v)
+                    leaves(state["params"], tag + "/p")
     np.savez(sys.argv[3], **out)
 """) % {"arch": LAYER_ARCH, "grids": LAYER_GRIDS, "caps": CAPACITIES,
         "archs": STEP_ARCHS, "step_grids": STEP_GRIDS, "steps": STEPS,
-        "opt": OPT, "adamw": ADAMW_CASE}
+        "opt": OPT, "adamw": ADAMW_CASE, "methods": COMPRESSIONS}
 
 
 @pytest.fixture(scope="module")
@@ -477,6 +561,9 @@ def runs(reference, inputs, tmp_path_factory):
                for g in STEP_GRIDS}
         out["adamw"] = pool.submit(_spawn, ADAMW_CASE[1], "adamw",
                                    str(inputs))
+        for g in STEP_GRIDS:
+            out[("compress", g)] = pool.submit(_spawn, g, "compress",
+                                               str(inputs))
         for g in LAYER_GRIDS:
             if g == (1, 1):         # the host mesh: one process, no group
                 out[("layer", g)] = pool.submit(
@@ -604,6 +691,39 @@ def test_grid_adamw_steps_equal_the_references_engine(runs, reference):
                                 * np.abs(want[~far])) + 1e-5
         assert np.all(np.abs(v[~far] - want[~far]) <= bound), k
     assert compared > 0
+
+
+@pytest.mark.parametrize("method", COMPRESSIONS)
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+@pytest.mark.parametrize("grid", STEP_GRIDS,
+                         ids=[f"D{d}T{t}" for d, t in STEP_GRIDS])
+def test_grid_compressed_steps_equal_the_references_step(grid, arch, method,
+                                                         runs, reference):
+    """Compression on the grid: every rank's loss, xent, moe_aux and grad
+    norm a step, its depth, and rank 0's gathered final parameters,
+    against the reference's compressed step on the same (D, T) mesh at
+    1e-5 (its compressor sees the logical tree, the experts whole).  The
+    reference's step is the one its ``SPBEngine`` jits, its gradient
+    jitted on the mesh and its compressor and optimizer run eagerly (its
+    ``topk`` does not jit); ``randk`` and ``lowrank`` draw there from the
+    port's generator at the step (``compression_generator``), which
+    ``jax.random``'s key cannot match.  One process is no oracle here: on
+    a grid the MoE aux averages each model rank's Switch loss over its own
+    tokens, as the reference's does."""
+    D, T = grid
+    ranks = runs[("compress", grid)].result()
+    ref = reference()
+    tag = f"{arch}/{D}{T}/{method}"
+    for r, out in enumerate(ranks):
+        for s, m in enumerate(out[(arch, method)]["hist"]):
+            assert m["depth"] == int(ref[f"{tag}/depth{s}"])
+            for k in ("loss", "xent", "moe_aux", "grad_norm"):
+                _close(m[k], ref[f"{tag}/m{s}/{k}"], msg=f"rank {r} {s} {k}")
+    whole = ranks[0][(arch, method)]["whole"]
+    assert whole is not None and all(o[(arch, method)]["whole"] is None
+                                     for o in ranks[1:])
+    for k, v in whole.items():
+        _close(v, ref[f"{tag}/p{k}"], msg=k)
 
 
 @pytest.mark.parametrize("grid", STEP_GRIDS,
@@ -749,8 +869,8 @@ def test_collective_functions_are_their_own_adjoints_at_one_rank():
 def test_ep_refusals():
     """The dense path takes no group of several ranks, tokens that do not
     split over T raise, spatial SPB on a grid raises with the reference's
-    failure named, and compression naming item 11; so do a grid's step
-    table and AOT load."""
+    failure named (a compressed step builds); so do a grid's step table
+    and AOT load."""
     cfg = _ep_cfg(LAYER_ARCH)
     p = _layer_params()
     two = ModelGroup(size=2)
@@ -769,9 +889,9 @@ def test_ep_refusals():
     with pytest.raises(NotImplementedError, match="does not lower"):
         SPBEngine(cfg, TrainConfig(), SPBConfig(mode="spatial", k=2),
                   group=grid)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        SPBEngine(cfg, TrainConfig(compression="topk"),
-                  SPBConfig(mode="temporal", k=2), group=grid)
+    compressed = SPBEngine(cfg, TrainConfig(compression="topk"),
+                           SPBConfig(mode="temporal", k=2), group=grid)
+    assert set(compressed.depth_keys()) == {None, 2, 3}
     eng = SPBEngine(cfg, TrainConfig(), SPBConfig(mode="temporal", k=2),
                     group=grid)
     for what in (lambda: eng.compile_table({}), lambda: eng.load_aot("x")):

@@ -707,7 +707,7 @@ def test_spatial_and_temporal_mb_raise_under_a_pipeline(mode):
 def test_the_step_table_and_compression_are_refused():
     """The step table is refused under a pipeline; compression runs there
     (``tests/test_torch_tensor_parallel.py`` holds it against one
-    process), but not with ZeRO-2's data-sharded gradients."""
+    process), and a compressed step builds under ZeRO-2 too."""
     eng = SPBEngine(_cfg("yi-6b"), TrainConfig(), SPBConfig(), device="cpu",
                     parallelism="pipeline")
     for call in (lambda: eng.compile_table({}), lambda: eng.load_aot("x")):
@@ -716,11 +716,11 @@ def test_the_step_table_and_compression_are_refused():
     assert callable(steps_lib.make_pipeline_train_step(
         _cfg("yi-6b"), TrainConfig(compression="topk"), SPBConfig(),
         num_stages=1))
-    with pytest.raises(ValueError, match="compression under zero2"):
-        steps_lib.make_pipeline_train_step(
-            _cfg("yi-6b"), TrainConfig(compression="topk"), SPBConfig(),
-            num_stages=1, zero2=True, shards={},
-            group=PipeGroup(data=DataGroup(size=2)))
+    zero2 = SPBEngine(_cfg("yi-6b"), TrainConfig(compression="topk"),
+                      SPBConfig(), parallelism="pipeline", zero2=True,
+                      group=PipeGroup(data=DataGroup(size=2), size=2))
+    assert zero2.zero2 and zero2.shards is not None
+    assert all(callable(zero2.step_fn(k)) for k in zero2.depth_keys())
     with pytest.raises(ValueError, match="not pipeline-partitionable"):
         pp_stage.check_pipeline_compatible(
             reduced_config("seamless-m4t-medium"), 2)

@@ -15,7 +15,8 @@ dots / full) on every train path of the port, on the CPU, f32:
     group (seamless: depth 1, inside its decoder group); seamless's
     ``enc.final_norm`` keeps its exemption where the boundary lies in the
     decoder (ROADMAP.md Queue 3, ``tests/test_torch_encdec.py``);
-  * the fused step under 'full' equals 'none''s, and 'dots' raises there;
+  * the fused step under 'full' equals 'none''s, and one under 'dots'
+    builds and steps (``tests/test_torch_fused_dots.py`` holds it);
   * the policy is part of the step-cache key, ``aot.step_ident`` and a
     stored table's key, and a table stored under 'none' misses under
     'full';
@@ -236,10 +237,13 @@ def test_fused_step_under_full_equals_none(arch, mode):
         assert _rel_err(b.numpy(), a.numpy()) <= SWEEP_TOL
     for a, b in zip(out["none"][1], out["full"][1]):
         assert _rel_err(b.numpy(), a.numpy()) <= SWEEP_TOL
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 B item 16"):
-        FusedEngine(cfg, TrainConfig(), spb, num_jobs=2, device="cpu",
-                    remat="dots")
+    dots = FusedEngine(cfg, TrainConfig(), spb, num_jobs=2, device="cpu",
+                       remat="dots", shared_cache=False)
+    dots.init_states([0, 1])
+    loss = dots.train_step(stack_batches([
+        make_batch(cfg, 4, 16, seed=j, device="cpu") for j in range(2)]),
+        0)["loss"]
+    assert torch.equal(loss, out["none"][0][0])
 
 
 def test_the_policy_keys_the_step_cache_and_the_table(tmp_path):

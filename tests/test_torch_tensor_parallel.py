@@ -34,11 +34,13 @@ Reduced yi-6b, f32, the kernels on (their plain versions here).
 * A checkpoint written under ``(2, 1, 2)`` restores into one process, and
   one written by one process restores into ``(2, 1, 2)``.
 * Compression under a pipeline: ``topk``, ``randk`` and ``lowrank`` over 2
-  stage ranks, 1F1B and GPipe, and ``topk`` on ``(2, 1, 2)``, each within
-  1e-5 of the one-process compressed step, at full and truncated depth.
+  stage ranks, 1F1B and GPipe, ``topk`` on ``(2, 1, 2)``, and all three
+  under ZeRO-2 on ``(2, 2, 1)`` and ``(2, 2, 2)``, each within 1e-5 of the
+  one-process compressed step, at full and truncated depth.
 * ``launch/train.py --parallelism pipeline --tensor-parallel 2`` with and
   without ``--sequence-parallel`` and with ``--pipeline-data-parallel 2
-  --zero2``: one process's xent, and the checkpoint restores into one
+  --zero2``, and ``--pipeline-data-parallel 2 --zero2 --compression
+  topk``: one process's xent, and the checkpoint restores into one
   process.
 """
 import dataclasses
@@ -89,6 +91,8 @@ FN_SEQ = {"tp_psum": 8, "tp_enter": 8, "sp_all_gather": 16,
 # the schedules held against the reference: (kind, bwd_stages)
 TABLES = (("1f1b", 2), ("gpipe", 2), ("1f1b", 1))
 COMPRESSIONS = ("topk", "randk", "lowrank")
+# the grids compression runs on under ZeRO-2
+ZERO2_GRIDS = ((2, 2, 1), (2, 2, 2))
 
 
 def _cfg():
@@ -276,13 +280,26 @@ def _ckpt_rank(group, where, one_dir):
     return cont, from_one
 
 
-def _compress_rank(group, methods, schedule):
+def _compressed_tcfg(method, zero2=False):
+    """A compressed run's train-config fields.  ``lowrank`` under ZeRO-2
+    trains with SGD momentum: its projection fills a frozen stage's zero
+    rows with rounding noise (~1e-9), which AdamW's first update, lr g /
+    (|g| + eps), turns into moves of a tenth of lr that differ with the
+    data ranks' order of sums; SGD's update is linear in the gradient."""
+    out = {"compression": method}
+    if zero2 and method == "lowrank":
+        out["optimizer"] = "sgdm"
+    return out
+
+
+def _compress_rank(group, methods, schedule, zero2=False):
     """Each method's run (2 steps: depths 4 and 2) of a pipeline engine on
-    this grid; metrics and, on rank 0, the gathered parameters."""
+    this grid (under ZeRO-2 with ``zero2``); metrics and, on rank 0, the
+    gathered parameters."""
     out = {}
     for method in methods:
         eng = _engine(group, steps=2, pipeline_schedule=schedule,
-                      tcfg={"compression": method})
+                      tcfg=_compressed_tcfg(method, zero2), zero2=zero2)
         eng.init_state(0)
         hist = _train(eng, group, 2)
         whole = eng.gathered_state()
@@ -498,6 +515,9 @@ def runs(reference, inputs, one_ckpt, tmp_path_factory):
         for kind in ("1f1b", "gpipe"):
             out[f"compress_{kind}"] = pool.submit(
                 _spawn, (2, 1, 1), "compress", COMPRESSIONS, kind)
+        for grid in ZERO2_GRIDS:
+            out["compress_zero2_%d%d%d" % grid] = pool.submit(
+                _spawn, grid, "compress", COMPRESSIONS, "1f1b", True)
         out["pipe_ckpt"] = pipe_ckpt
         yield out
 
@@ -678,24 +698,31 @@ def test_a_tp_pipelines_checkpoint_restores_into_one_process_and_back(
 
 # -- compression under a pipeline -------------------------------------------------
 
-def _one_compressed(method):
-    eng = _engine(steps=2, tcfg={"compression": method})
+def _one_compressed(method, zero2=False):
+    eng = _engine(steps=2, tcfg=_compressed_tcfg(method, zero2))
     eng.init_state(0)
     return _train(eng, None, 2), _flat(eng.state["params"])
 
 
 @pytest.mark.parametrize("case", [(m, k, (2, 1, 1)) for m in COMPRESSIONS
                                   for k in ("1f1b", "gpipe")]
-                         + [("topk", "1f1b", (2, 1, 2))],
-                         ids=lambda c: "%s_%s_%d%d%d" % ((c[0], c[1]) + c[2]))
+                         + [("topk", "1f1b", (2, 1, 2))]
+                         + [(m, "1f1b", g, True) for g in ZERO2_GRIDS
+                            for m in COMPRESSIONS],
+                         ids=lambda c: "%s_%s_%d%d%d" % ((c[0], c[1]) + c[2])
+                         + ("_zero2" if c[3:] else ""))
 def test_compression_under_a_pipeline_equals_one_process(case, runs):
     """Two steps (depths 4 and 2: the second truncates the first stage)
     of a compressed pipeline against one process's compressed step:
-    metrics and parameters within 1e-5."""
-    method, kind, grid = case
-    key = "compress_tp" if grid[2] == 2 else f"compress_{kind}"
+    metrics and parameters within 1e-5.  Under ZeRO-2 the stage
+    gradients are gathered over the data axis before the compressor."""
+    method, kind, grid = case[:3]
+    if case[3:]:
+        key = "compress_zero2_%d%d%d" % grid
+    else:
+        key = "compress_tp" if grid[2] == 2 else f"compress_{kind}"
     hist, params = runs[key].result()[0][method]
-    want_hist, want = _one_compressed(method)
+    want_hist, want = _one_compressed(method, bool(case[3:]))
     assert [m["depth"] for m in hist] == [4, 2]
     for s, m in enumerate(hist):
         for k in ("loss", "xent", "grad_norm"):
@@ -705,6 +732,28 @@ def test_compression_under_a_pipeline_equals_one_process(case, runs):
 
 
 # -- the train entry point ---------------------------------------------------------
+
+def test_train_entry_compresses_under_zero2(tmp_path):
+    """``--pipeline-data-parallel 2 --zero2 --compression topk`` over 2
+    stages: one process's compressed xent, and the final checkpoint
+    restores into one process with its parameters."""
+    argv = ["--parallelism", "pipeline", "--pipeline-stages", "2",
+            "--pipeline-data-parallel", "2", "--zero2",
+            "--compression", "topk", "--microbatches", str(M),
+            "--spb-mode", "temporal", "--device", "cpu", "--steps", "2",
+            "--batch", str(B), "--seq", str(SEQ), "--use-pallas",
+            "--log-every", "100", "--checkpoint-dir", str(tmp_path),
+            "--checkpoint-every", "2"]
+    got = train.train(argv)
+    one = _engine(steps=2, tcfg={"compression": "topk"})
+    one.init_state(0)
+    _close(got, [m["xent"] for m in _train(one, None, 2)])
+    state, step = CheckpointManager(tmp_path).restore(one.state_shapes, 2)
+    assert step == 2
+    want = _flat(one.state["params"])
+    for k, v in _flat(state["params"]).items():
+        _close(v, want[k], msg=k)
+
 
 @pytest.mark.parametrize("flags", [[], ["--sequence-parallel"],
                                    ["--sequence-parallel",
