@@ -176,7 +176,7 @@ Phases, each printing a line; any failure exits non-zero:
      against CPU within 1e-4 relative and the parameters' change within
      1e-3, each card step's launches ``expected_launches`` at the rank's
      depth; (b) two ranks
-     of yi-6b at published widths cut to 4 layers (one row of 2048
+     of yi-6b at published widths cut to 2 layers (one row of 2048
      each), bf16, k 2, in temporal (a cycle), spatial and spatial with
      the re-reduce, one state carried through: the replicas bit-identical
      after each mode, every step's launches exact, a line a rank and
@@ -191,11 +191,12 @@ Phases, each printing a line; any failure exits non-zero:
      ZeRO-1's parameters and gathered moments bit-identical to the
      replicated group's and across ranks, ZeRO-1 card against CPU within
      phase 18's limits, launches exact; (b) two ranks of phase 18's
-     4-layer cut, temporal k 2 for 3 steps, replicated then ZeRO-1 from
+     2-layer cut, temporal k 2 for 2 steps, replicated then ZeRO-1 from
      one seed: bit-identical across ranks and runs, launches exact, the
      last step's all-reduces and all-gathers counted exactly as
      ``dp_reckoning`` and ``dp_gather_reckoning`` with the ring model's
-     wire bytes, ZeRO-1's peak at least 5 GB under the replicated one, a
+     wire bytes, ZeRO-1's peak under the replicated one by at least 0.87
+     of the state's reckoned fall (6 B a parameter), a
      line a rank and run with step ms, host ms inside the collectives and
      the peak beside the dry run's count; (c) four ranks of that cut with
      ZeRO-1 (batch 4 x 2048, 2 steps), the same checks; (d)
@@ -206,8 +207,8 @@ Phases, each printing a line; any failure exits non-zero:
      parallelism="pipeline")``, one stage a rank, ``mesh.spawn(grid=)``),
      two stage ranks sharing the card over gloo: (a) yi-6b at published
      widths cut to 8 layers over 2 stages, bf16, 1F1B over 4 microbatches
-     of one row of 2048, temporal k 4 (bwd_stages 2, 1, 2, 1) for two
-     cycles: every step's launches on each rank exact (a frozen stage
+     of one row of 2048, temporal k 4 (bwd_stages 2, 1, 2, 1) for one
+     cycle: every step's launches on each rank exact (a frozen stage
      launches its forward kernels alone, a live one its forward twice and
      the backward kernels), finite losses, the first xent within 1e-3 of
      one process's forward on the card, the bytes a rank sends a step
@@ -218,7 +219,7 @@ Phases, each printing a line; any failure exits non-zero:
      kernels) for one cycle: xent within 1e-3 of one process on the CPU,
      launches exact (no SSD backward on a frozen stage);
   21. (run after 20) tensor parallelism inside the stages on (stage 2,
-     data 1, model 2) and (2, 2, 2) grids, yi-6b cut to 8 and 4 layers
+     data 1, model 2) and (2, 2, 2) grids, yi-6b cut to 2 layers
      (``phase_tensor_parallel``);
   22. (run after 21) expert parallelism (``models/moe.moe_fwd_ep``) on
      ``(data, model)`` grids of ranks sharing the card over gloo
@@ -231,8 +232,9 @@ Phases, each printing a line; any failure exits non-zero:
      tokens) against the CPU, calls, bytes and launches exact; (b)
      deepseek-v2-lite-16b at published widths cut to 3 layers (the dense
      layer 0 and 2 MoE layers, 32 of 64 experts a rank), bf16, on (1, 2),
-     batch 2 x 2048, two k 4 cycles: a line a rank and depth with the
-     warm step ms, the model group's host ms, calls and bytes by kind
+     batch 2 x 2048, one k 4 cycle: a line a rank and depth with the
+     step ms (a depth's step in the cycle's second half, else its one),
+     the model group's host ms, calls and bytes by kind
      (held exact against ``roofline.ep_calls``), each MoE layer's share
      of slots dropped at capacity, launches and the peak beside the
      reckoning;
@@ -249,7 +251,33 @@ Phases, each printing a line; any failure exits non-zero:
      full-width step's ms split into the gather, the compressor and the
      rest, its gathered bytes beside a world-wide gather's, and the peak
      (``phase_compressed_grids``);
-  15. (run last, after 23, on the host) the dry run of each phase-5 path:
+  24. (run after 23) spatial co-location on the card
+     (``launch/mesh.make_submeshes(count=2)``: two disjoint partitions of
+     its SMs, each a green context with a stream of its own,
+     ``device.CardShare``): (a) the units (the driver's smallest SM
+     partition) and SMs of each submesh; a port kernel (the RG-LRU scan)
+     and a bf16 product on each share read and write the primary
+     context's memory (the scan bit-equal to the whole card's); one bf16
+     8192^3 product's ms on the whole card and on each share (at least
+     0.7 of card SMs / share SMs times slower, or the partition is not
+     real); ten products on each share at once overlap and each runs at
+     its alone speed (disjoint SMs); torch's own green contexts of as many
+     SMs, at once, for comparison; (b) the reference's resize script at
+     published widths: yi-6b at phase 14's cut, batch 2 x 2048, temporal
+     k 2, one engine moved to submesh 1 at step 2 and back at step 4, one
+     staying on submesh 0, the same seed and batches: each loss within
+     1e-3 relative, bit-equality printed, launches exact a step, 2
+     resizes; (c) a JigSaw session of phase 14's yi-6b and mamba2-2.7b
+     tenants (two workers, 3 iterations) on the two submeshes
+     (``LiveBackend(submeshes=)``, concurrent rounds): both done with a
+     finite xent, ``max_concurrent_tasks`` 2, the resizes equal to the
+     moves seen and to the engines' own counts, the session's launches
+     the sum of its tasks' at their depths; each task's measured ms
+     beside its depth's warm ms alone on the whole card and on the half
+     share, the session's wall time beside the same session
+     time-multiplexed on the whole card, and the card's peak
+     (``phase_spatial``);
+  15. (run last, after 24, on the host) the dry run of each phase-5 path:
      every depth of its cycle counted on the meta device at batch
      2 x 2048 with the kernels' meta entries (``launch/dryrun.py``):
      counted TFLOP and GB, the three H100 roofline terms
@@ -273,6 +301,7 @@ Phases, each printing a line; any failure exits non-zero:
      ``launches_expert_parallel`` (phases 21's and 22's, by run and rank),
      ``launches_fused_dots`` (phase 23 (a)'s 'dots' run) and
      ``launches_compressed`` (phase 23 (b) and (c)'s, by run and rank),
+     ``launches_spatial`` (phase 24 (b)'s and (c)'s),
      the fused phase's ms by depth and peak, phase 17's and phase 18's
      figures,
      and phase 15's ``dryrun_by_arch``), the card's name and power
@@ -421,6 +450,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# each phase's wall seconds, in the order run (the whole script must end
+# well inside its 1200 s limit on a card that may run below 700 W)
+PHASE_S: dict = {}
+_T_START = time.perf_counter()
+
+
+def clocked(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds logged and kept in
+    :data:`PHASE_S` under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t0, 1)
+        log(f"[clock] {name} {PHASE_S[name]:.1f}s "
+            f"({time.perf_counter() - _T_START:.1f}s since start)")
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -540,16 +587,23 @@ def phase_tensor_cores() -> dict:
     number of tensor-core instructions in the SASS of each library whose
     bf16 kernels run on the tensor cores.  Raises when one of those has
     none.  Returns {library: {"HGMMA": n, "HMMA": n}}."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
+
+    def dump(lib: str) -> str:
+        return subprocess.run(
+            [_build.nvcc_tool("cuobjdump"), "-sass",
+             str(_build.lib_path(lib))], check=True, capture_output=True,
+            text=True).stdout
+
+    with ThreadPoolExecutor(len(TENSOR_CORE_LIBS)) as pool:   # one a library
+        dumps = dict(zip(TENSOR_CORE_LIBS, pool.map(dump, TENSOR_CORE_LIBS)))
     counts = {}
     log_resources("rglru")
     log_resources("flash_delta")
     for lib in TENSOR_CORE_LIBS:
         log_resources(lib)
-        sass = subprocess.run(
-            [_build.nvcc_tool("cuobjdump"), "-sass",
-             str(_build.lib_path(lib))], check=True, capture_output=True,
-            text=True).stdout
+        sass = dumps[lib]
         counts[lib] = {op: len(re.findall(rf"\b{op}\b", sass))
                        for op in ("HGMMA", "HMMA")}
         log(f"[build] {lib} tensor-core instructions in SASS: "
@@ -1465,8 +1519,6 @@ def _task_log_backend(feed_random: bool):
     yi-6b's vocabulary."""
     import torch
     from repro_torch.cluster.live import LiveBackend
-    from repro_torch.configs import make_batch
-    from repro_torch.engine import stack_batches
 
     class TaskLogBackend(LiveBackend):
         def __init__(self, *a, **kw):
@@ -1494,14 +1546,21 @@ def _task_log_backend(feed_random: bool):
         def _stacked_batch(self, jid, step):
             if not feed_random:
                 return super()._stacked_batch(jid, step)
-            lj = self.jobs[jid]
-            batches = [make_batch(lj.cfg, lj.batch, lj.seq,
-                                  seed=1000 * m + step, device=self.device)
-                       for m in self._members(jid)]
-            return (batches[0] if len(batches) == 1
-                    else stack_batches(batches))
+            return _card_batch(self, jid, step)
 
     return TaskLogBackend
+
+
+def _card_batch(backend, jid: int, step: int):
+    """The batch one task of ``jid`` takes from ``configs.make_batch`` on
+    the card (a fused group's stacked, one a member)."""
+    from repro_torch.configs import make_batch
+    from repro_torch.engine import stack_batches
+    lj = backend.jobs[jid]
+    batches = [make_batch(lj.cfg, lj.batch, lj.seq, seed=1000 * m + step,
+                          device=backend.device)
+               for m in backend._members(jid)]
+    return batches[0] if len(batches) == 1 else stack_batches(batches)
 
 
 def check_task_launches(phase: str, backend) -> dict:
@@ -2578,7 +2637,7 @@ def _run_child(code: str, *args: str, env=None, timeout: int = 300) -> dict:
                          cwd=Path(__file__).resolve().parent,
                          capture_output=True, text=True, timeout=timeout)
     if res.returncode:
-        raise AssertionError(f"graphs: child failed ({res.returncode}):\n"
+        raise AssertionError(f"child failed ({res.returncode}):\n"
                              f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
     return json.loads(res.stdout.strip().splitlines()[-1])
 
@@ -2596,21 +2655,51 @@ def phase_graphs() -> dict:
     kept.  Returns the launches of the graphed runs by part."""
     import os
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
     tmp = tempfile.TemporaryDirectory(prefix="graphs_")
     root = Path(tmp.name)
-    serve = phase_graphs_serve()
-    train = phase_graphs_train(root / "table")
-    torch.cuda.empty_cache()
-
     env = {k: v for k, v in os.environ.items()
            if k not in ("CUDA_HOME", "CUDA_PATH")}
     env["PATH"] = os.pathsep.join(p for p in env.get("PATH", "").split(
         os.pathsep) if "cuda" not in p.lower())
-    got = _run_child(_FRESH_LOAD, str(root / "table"), str(GRAPH_STEPS),
-                     env=env)
+    cc = root / "cc"
+    flags = ["-m", "repro_torch.launch.train", "--arch", "yi-6b", "--steps",
+             "1", "--batch", "2", "--seq", "64", "--spb-mode", "temporal",
+             "--use-pallas", "--compilation-cache-dir", str(cc)]
+
+    def cc_runs() -> list:
+        lines = []
+        for _ in range(2):
+            res = subprocess.run(
+                [sys.executable, *flags], capture_output=True, text=True,
+                timeout=600, cwd=Path(__file__).resolve().parent,
+                env=dict(os.environ, PYTHONPATH=str(
+                    Path(__file__).resolve().parent / "src")))
+            cc_line = [ln for ln in res.stdout.splitlines()
+                       if ln.startswith("[cc]")]
+            if res.returncode or len(cc_line) != 1:
+                raise AssertionError(f"graphs: --compilation-cache-dir run "
+                                     f"failed:\n{res.stdout[-2000:]}\n"
+                                     f"{res.stderr[-2000:]}")
+            lines.append(cc_line[0])
+        return lines
+
+    # (c), (d) and (e) are processes of their own that share nothing with
+    # this one but the card: (d) (its builds, then two reduced steps) and
+    # (e) (a reduced engine) start first and run beside (a) and (b); (c)
+    # needs (b)'s stored table
+    with ThreadPoolExecutor(3) as pool:
+        cached = pool.submit(cc_runs)
+        capture = pool.submit(_run_child, _CAPTURE_FAILS)
+        serve = phase_graphs_serve()
+        train = phase_graphs_train(root / "table")
+        torch.cuda.empty_cache()
+        fresh = pool.submit(_run_child, _FRESH_LOAD, str(root / "table"),
+                            str(GRAPH_STEPS), env=env)
+        got, lines, fails = (f.result() for f in (fresh, cached, capture))
     stray = {n: p for n, p in got["libs"].items()
              if Path(p).parent != root / "table"}
     if not got["loaded"] or stray or got["loss"] != train["first_loss"]:
@@ -2620,31 +2709,11 @@ def phase_graphs() -> dict:
     log(f"[graphs] fresh_process load_aot=True nvcc_reachable=False "
         f"builds=0 keys={got['keys']} libs={sorted(got['libs'])} "
         f"first_loss_equal=True")
-
-    cc = root / "cc"
-    flags = ["-m", "repro_torch.launch.train", "--arch", "yi-6b", "--steps",
-             "1", "--batch", "2", "--seq", "64", "--spb-mode", "temporal",
-             "--use-pallas", "--compilation-cache-dir", str(cc)]
-    lines = []
-    for _ in range(2):
-        res = subprocess.run(
-            [sys.executable, *flags], capture_output=True, text=True,
-            timeout=600, cwd=Path(__file__).resolve().parent,
-            env=dict(os.environ, PYTHONPATH=str(
-                Path(__file__).resolve().parent / "src")))
-        cc_line = [ln for ln in res.stdout.splitlines()
-                   if ln.startswith("[cc]")]
-        if res.returncode or len(cc_line) != 1:
-            raise AssertionError(f"graphs: --compilation-cache-dir run "
-                                 f"failed:\n{res.stdout[-2000:]}\n"
-                                 f"{res.stderr[-2000:]}")
-        lines.append(cc_line[0])
-        log(f"[graphs] {cc_line[0]}")
+    for line in lines:
+        log(f"[graphs] {line}")
     if "(miss)" not in lines[0] or "(hit" not in lines[1]:
         raise AssertionError(f"graphs: the compilation cache went {lines}, "
                              f"not a miss then a hit")
-
-    fails = _run_child(_CAPTURE_FAILS)
     if not fails.get("raised") or fails["compiled"] or \
             not fails["eager_kept"]:
         raise AssertionError(f"graphs: a failed capture gave {fails}")
@@ -2892,13 +2961,14 @@ DP_REDUCED_RUNS = (("spatial_k4", "spatial", 4, False),
                    ("spatial_k2", "spatial", 2, False),
                    ("spatial_k2_sub", "spatial", 2, True),
                    ("temporal_k2", "temporal", 2, False))
-# phase 18 (b): yi-6b at published widths cut to 4 layers, bf16, 2 ranks of
-# one row of 2048 each, k 2: (run, mode, subgroup_reduce).  The dry run
-# counts a rank's peak at 24.33 GB (state 13.36 GB and 10.97 GB of
-# temporaries), so two ranks and their contexts fit under 72 GB and three
-# do not (PERF.md, the data group's prediction).
+# phase 18 (b): yi-6b at published widths cut to 2 layers, bf16, 2 ranks of
+# one row of 2048 each, k 2: (run, mode, subgroup_reduce).  At 4 layers the
+# dry run counted a rank's peak at 24.33 GB (state 13.36 GB and 10.97 GB of
+# temporaries); at 2 (608,194,560 parameters) two ranks leave the card room
+# for phase 19 (d) and the reduced grids of phases 22 and 23, which run
+# beside phases 18 (b) and 19 (b, c) (``main``)
 DP_FULL_RANKS = 2
-DP_FULL_LAYERS = 4
+DP_FULL_LAYERS = 2
 DP_FULL_K = 2
 DP_FULL_RUNS = (("temporal", "temporal", False), ("spatial", "spatial", False),
                 ("spatial_sub", "spatial", True))
@@ -3093,7 +3163,7 @@ def dp_full_config():
 
 
 def dp_rank_full(group) -> dict:
-    """Phase 18 (b), one rank: yi-6b's 4-layer cut in each mode of
+    """Phase 18 (b), one rank: yi-6b's 2-layer cut in each mode of
     :data:`DP_FULL_RUNS` (one state carried through them), 2 timed steps
     then the counted ones (one cycle of ``temporal``, one ``spatial``
     step) under ``analysis/cost.CostMode``; each step's ms, host ms inside
@@ -3189,7 +3259,7 @@ def dp_reckoning(cfg, mode: str, depth, sub: bool) -> dict:
 
 
 def phase_data_parallel_full() -> dict:
-    """Phase 18 (b) and (c): two ranks of yi-6b's 4-layer cut share the
+    """Phase 18 (b) and (c): two ranks of yi-6b's 2-layer cut share the
     card over gloo in each mode of :data:`DP_FULL_RUNS`: the replicas'
     parameters bit-identical after every mode, every step's launches
     ``expected_launches`` at the rank's depth, finite losses, and each
@@ -3271,14 +3341,14 @@ def phase_data_parallel_full() -> dict:
 ZERO_REDUCED_RANKS = 2
 ZERO_REDUCED_RUNS = (("temporal_k2", "temporal", 2),
                      ("spatial_k2", "spatial", 2))
-# phase 19 (b): phase 18's 4-layer cut, bf16, temporal k 2, 2 ranks of one
-# row of 2048, ZeRO-1 off then on; (c) 4 ranks of it with ZeRO-1 (a
-# replicated rank's 24.4 GB four times would not fit on the card)
+# phase 19 (b): phase 18's 2-layer cut, bf16, temporal k 2, 2 ranks of one
+# row of 2048, ZeRO-1 off then on; (c) 4 ranks of it with ZeRO-1
 ZERO_FULL_K = 2
 ZERO_FOUR_RANKS = 4
 # the least a ZeRO-1 rank's peak must fall under the replicated rank's at
-# n 2 (the state falls by 5.7 GB: 12 of its 14 bytes a parameter halve)
-ZERO_PEAK_DROP_GB = 5.0
+# n 2, as a share of the state's fall (12 of its 14 bytes a parameter
+# halve: 6 B a parameter, 5.7 GB at 4 layers, where the bound was 5.0 GB)
+ZERO_PEAK_DROP_SHARE = 0.87
 
 
 def zero1_rank_reduced(group) -> dict:
@@ -3428,7 +3498,7 @@ def phase_zero1_reduced() -> dict:
 
 
 def zero1_rank_full(group, zero1_runs, steps: int) -> dict:
-    """Phase 19 (b) and (c), one rank: yi-6b's 4-layer cut, temporal k 2,
+    """Phase 19 (b) and (c), one rank: yi-6b's 2-layer cut, temporal k 2,
     once a value of ``zero1_runs`` (ZeRO-1 off, then on), each from the
     same seeded weights (``init_state(0)``) for ``steps`` steps, the last
     under ``analysis/cost.CostMode``: each step's ms, host ms inside the
@@ -3534,18 +3604,22 @@ def _check_zero1_run(cfg, what: str, run: dict, zero1: bool, n: int) -> list:
 
 
 def phase_zero1_full() -> dict:
-    """Phase 19 (b) and (c): two ranks of yi-6b's 4-layer cut share the
-    card over gloo, temporal k 2 for 3 steps, replicated and then with
+    """Phase 19 (b) and (c): two ranks of yi-6b's 2-layer cut share the
+    card over gloo, temporal k 2 for 2 steps, replicated and then with
     ZeRO-1: the parameters bit-identical across ranks and runs, launches
     and counted collectives exact (:func:`_check_zero1_run`), ZeRO-1's
-    peak at least :data:`ZERO_PEAK_DROP_GB` under the replicated one; then
+    peak under the replicated one by at least
+    :data:`ZERO_PEAK_DROP_SHARE` of the state's reckoned fall; then
     four ranks of it with ZeRO-1 for 2 steps (batch 4 x 2048), the same
     checks.  Prints, a rank and run, step ms, host ms inside the
     collectives and the peak beside the dry run's count
     (``launch/dryrun.count_cell(data_parallel=n)``), made first."""
     from repro_torch.launch import dryrun, mesh
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
 
     cfg = dp_full_config()
+    n_params = sum(t.numel() for t in tree_leaves(lm.param_shapes(cfg)))
     predicted = {}
     for n, zero1 in ((DP_FULL_RANKS, False), (DP_FULL_RANKS, True),
                      (ZERO_FOUR_RANKS, True)):
@@ -3558,12 +3632,13 @@ def phase_zero1_full() -> dict:
                                            else "replicated"] / 1e9,
             "collectives": rec["collective_breakdown"]}
         log(f"[zero] dry run yi-6b/{DP_FULL_LAYERS} n={n} zero1={zero1} "
-            f"depth=4: predicted_peak_gb={predicted[n, zero1]['peak_gb']:.3f}"
-            f" state_gb={predicted[n, zero1]['state_gb']:.3f} "
+            f"depth={DP_FULL_LAYERS}: predicted_peak_gb="
+            f"{predicted[n, zero1]['peak_gb']:.3f} "
+            f"state_gb={predicted[n, zero1]['state_gb']:.3f} "
             f"wire_bytes={rec['collective_breakdown']}")
     t0 = time.perf_counter()
     two = mesh.spawn("chip_smoke:zero1_rank_full", DP_FULL_RANKS,
-                     (False, True), 3, device="cuda", timeout_s=DP_JOIN_S)
+                     (False, True), 2, device="cuda", timeout_s=DP_JOIN_S)
     four = mesh.spawn("chip_smoke:zero1_rank_full", ZERO_FOUR_RANKS,
                       (True,), 2, device="cuda", timeout_s=DP_JOIN_S)
     launches, figures = {}, {}
@@ -3607,13 +3682,14 @@ def phase_zero1_full() -> dict:
                     f"{ {k: c for k, c in launches[key].items() if c} } "
                     f"replicas=bit-identical")
         if n == DP_FULL_RANKS:
+            least = ZERO_PEAK_DROP_SHARE * 6 * n_params / 1e9
             for r, out in enumerate(ranks):
                 drop = out[False]["max_mem_gb"] - out[True]["max_mem_gb"]
-                if drop < ZERO_PEAK_DROP_GB:
+                if drop < least:
                     raise AssertionError(
                         f"zero rank {r}: ZeRO-1's peak is {drop:.3f} GB "
-                        f"under the replicated one, not "
-                        f"{ZERO_PEAK_DROP_GB} GB")
+                        f"under the replicated one, not {least:.3f} GB "
+                        f"({ZERO_PEAK_DROP_SHARE} of the state's fall)")
     log(f"[zero] full phase {time.perf_counter() - t0:.1f}s")
     return {"launches": launches, "figures": figures}
 
@@ -3678,14 +3754,14 @@ def phase_zero1_restart() -> None:
 # sharing the card over gloo: yi-6b at published widths cut to 8 layers over
 # 2 stages of 4, 1F1B over 4 microbatches of one row of 2048, temporal k 4
 # (the cycle 8, 2, 6, 4 snaps to the stages as 8, 4, 8, 4: bwd_stages 2, 1,
-# 2, 1), two cycles; then reduced yi-6b and mamba2-2.7b (f32, the kernels)
+# 2, 1), one cycle; then reduced yi-6b and mamba2-2.7b (f32, the kernels)
 # over 2 stages for one cycle, held against one process on the CPU.  A
 # rank holds 4 layers and the table or the head: the dry run counts a
 # 4-layer cut of one row at 24.3 GB, so the two ranks fit the card.
 PIPE_STAGES = 2
 PIPE_M = 4
 PIPE_FULL_LAYERS = 8
-PIPE_FULL_STEPS = 8
+PIPE_FULL_STEPS = 4
 PIPE_REDUCED = ("yi-6b", "mamba2-2.7b")
 PIPE_REDUCED_STEPS = 4
 PIPE_TOL = 1e-3         # phase 4's card against CPU
@@ -3819,7 +3895,7 @@ def phase_pipeline(smi: str) -> dict:
     """Phase 20: two stage ranks share the card over gloo
     (``launch/mesh.spawn(grid=(2, 1, 1))``, ``SPBEngine(parallelism=
     "pipeline")``): (a) yi-6b's 8-layer full-width cut, 1F1B over 4
-    microbatches, temporal k 4 for two cycles: every rank's launches a
+    microbatches, temporal k 4 for one cycle: every rank's launches a
     step :func:`expected_stage_launches` (a frozen stage launches the
     forward kernels alone: no delta, dq or dkv), finite losses, the first
     step's xent within :data:`PIPE_TOL` of one process's forward on the
@@ -3956,9 +4032,9 @@ def phase_pipeline(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 TP_T = 2                 # the model axis
-TP_FULL_LAYERS = 8       # part (a): yi-6b's 8-layer cut on (2, 1, 2)
-TP_FULL_STEPS = 4        # two cycles: bwd_stages 2, 1, 2, 1
-TP_ZERO_LAYERS = 4       # part (b): yi-6b's 4-layer cut on (2, 2, 2)
+TP_FULL_LAYERS = 2       # part (a): yi-6b's 2-layer cut on (2, 1, 2)
+TP_FULL_STEPS = 2        # the cycle's first two steps: bwd_stages 2, 1
+TP_ZERO_LAYERS = 2       # part (b): yi-6b's 2-layer cut on (2, 2, 2)
 TP_ZERO_STEPS = 2
 TP_REDUCED_STEPS = 4
 # the reckoning of a rank's peak: bf16 params and grads (2 + 2 B a
@@ -3969,8 +4045,8 @@ TP_BYTES_A_PARAM = lambda d: 2 + 2 + 12 / d + 8     # noqa: E731
 
 
 def tp_config(what: str):
-    """Phase 21's configs: ``"full"`` (yi-6b's 8-layer cut), ``"zero"``
-    (its 4-layer cut), else reduced yi-6b on the kernels."""
+    """Phase 21's configs: ``"full"`` and ``"zero"`` (yi-6b's 2-layer
+    cut), else reduced yi-6b on the kernels."""
     from repro_torch.configs import full_width_config, reduced_config
     layers = {"full": TP_FULL_LAYERS, "zero": TP_ZERO_LAYERS}.get(what)
     if layers:
@@ -4025,9 +4101,9 @@ def _tp_reduced(group, sp: bool, zero2: bool, rows: int) -> dict:
 
 def tp_rank(group, part: str) -> dict:
     """Phase 21, one rank of the grid.  Part ``"a"`` on (2, 1, 2): the
-    8-layer cut from ``init_state(0)`` on the card's generator, sequence
+    2-layer cut from ``init_state(0)`` on the card's generator, sequence
     parallelism off then on, then reduced yi-6b both ways.  Part ``"b"``
-    on (2, 2, 2), sequence parallelism on: the 4-layer cut under ZeRO-2
+    on (2, 2, 2), sequence parallelism on: the 2-layer cut under ZeRO-2
     then ZeRO-1, this rank's updated parameters compared (bit for bit, or
     the largest difference), then reduced yi-6b under ZeRO-2."""
     import gc
@@ -4108,10 +4184,11 @@ def _tp_calls_want(cfg, stage: int, b: int, sp: bool, seq: int) -> dict:
 def phase_tensor_parallel(smi: str) -> dict:
     """Phase 21: tensor parallelism inside the pipeline's stages, the
     ranks sharing the card over gloo (``launch/mesh.spawn(grid=(S, D,
-    T))``).  (a) yi-6b's 8-layer cut at published widths on (stage 2,
+    T))``).  (a) yi-6b's 2-layer cut at published widths on (stage 2,
     data 1, model 2): 1F1B over 4 microbatches of one row of 2048, the k 4
-    cycle (bwd_stages 2 and 1), sequence parallelism off and on; (b) its
-    4-layer cut on (2, 2, 2) with sequence parallelism under ZeRO-2 and
+    cycle's first two steps (bwd_stages 2 and 1), sequence parallelism
+    off and on; (b) its 2-layer cut on (2, 2, 2) with sequence
+    parallelism under ZeRO-2 and
     ZeRO-1.  Every rank's launches a step :func:`expected_stage_launches`
     (a launch count does not depend on the heads: the kernels run at the
     local H 16 over K 2), its point-to-point bytes by kind and its
@@ -4302,7 +4379,7 @@ EP_TOL = 1e-3                    # card against CPU, as phase 4's
 EP_DENSE_TOL = 1e-5              # capacity 8 against one dense process
 EP_FULL_LAYERS = 3               # part (b): the dense layer 0 and 2 MoE
 EP_FULL_GRID = (1, 2)
-EP_FULL_STEPS = 8                # two k 4 cycles; the second is warm
+EP_FULL_STEPS = 4                # one k 4 cycle; its second half is warm
 EP_ACT_GB = 4.0                  # part (b)'s activations over the state
 
 
@@ -4418,7 +4495,7 @@ def ep_rank(group, part: str, device: str) -> dict:
     reduced deepseek-v2-lite-16b (f32, the kernels, from the CPU-drawn
     seeded weights) at capacity 1.25 and 8, two steps each, then the small
     path; part ``"b"``: its 3-layer cut at published widths, bf16, from
-    ``init_state(0)`` on the card's generator, two k 4 cycles."""
+    ``init_state(0)`` on the card's generator, one k 4 cycle."""
     import gc
     import torch
     from repro_torch.config import TrainConfig
@@ -4485,7 +4562,32 @@ def _ep_dense_one_process(cfg, device: str) -> list:
             for s in range(EP_STEPS)]
 
 
-def phase_expert_parallel(smi: str) -> dict:
+def _ep_spawn(grid, part: str, device: str) -> list:
+    """:func:`ep_rank`'s ``part`` on the ``(data, model)`` ``grid``."""
+    from repro_torch.launch import mesh
+    return mesh.spawn("chip_smoke:ep_rank", grid[0] * grid[1], part, device,
+                      device=device, grid=grid, timeout_s=DP_JOIN_S)
+
+
+def ep_reduced_runs() -> tuple:
+    """Phase 22 (a)'s runs, held by :func:`phase_expert_parallel`: each
+    grid of :data:`EP_GRIDS` on the card and on the CPU, and one process's
+    dense steps on the card at capacity 8.  Reduced and small on the card,
+    they run beside phases 18 (b) and 19 (b, c) (``main``)."""
+    from concurrent.futures import ThreadPoolExecutor
+    tp = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        runs = {(g, dev): pool.submit(_ep_spawn, g, "a", dev)
+                for g in EP_GRIDS for dev in ("cuda", "cpu")}
+        dense = _ep_dense_one_process(ep_config("reduced",
+                                                capacity_factor=8.0), "cuda")
+        runs = {k: f.result() for k, f in runs.items()}
+    log(f"[expert-parallel] part a grids={list(EP_GRIDS)} card and cpu: "
+        f"{time.perf_counter() - tp:.1f}s")
+    return runs, dense
+
+
+def phase_expert_parallel(smi: str, reduced: tuple) -> dict:
     """Phase 22: expert parallelism on ``(data, model)`` grids of ranks
     sharing the card over gloo (``launch/mesh.spawn(grid=(D, T))``,
     ``SPBEngine(group=<GridGroup>)``,
@@ -4502,20 +4604,19 @@ def phase_expert_parallel(smi: str) -> dict:
     bytes a step ``analysis/roofline.ep_calls``'s; launches exact.  (b)
     deepseek-v2-lite-16b at published widths cut to 3 layers (the dense
     layer 0 and 2 MoE layers of 64 experts of width 1408, 32 a rank),
-    bf16, on (1, 2), batch 2 x 2048, two k 4 cycles: a line a rank and
-    depth with the warm step ms, the model group's host ms, calls and
-    payload bytes by kind (held exact against the reckoning), each MoE
+    bf16, on (1, 2), batch 2 x 2048, one k 4 cycle: a line a rank and
+    depth with the step ms (warm where the cycle's second half ran the
+    depth), the model group's host ms, calls and payload bytes by kind
+    (held exact against the reckoning), each MoE
     layer's share of routed slots dropped at capacity 1.25, the flash
     kernels' launches against ``expected_launches`` (MLA's attention on
     the padded D 256), and the peak beside the reckoning
     (:data:`TP_BYTES_A_PARAM` a parameter held, plus
-    :data:`EP_ACT_GB`).  Returns each run's launches a rank, and the
-    figures."""
-    from concurrent.futures import ThreadPoolExecutor
+    :data:`EP_ACT_GB`).  ``reduced``: (a)'s runs (:func:`ep_reduced_runs`).
+    Returns each run's launches a rank, and the figures."""
     import torch
     from repro_torch.analysis import roofline
     from repro_torch.config import layer_kinds
-    from repro_torch.launch import mesh
     from repro_torch.models import lm
     from repro_torch.models.moe import capacity
     from repro_torch.tree import tree_leaves
@@ -4541,20 +4642,7 @@ def phase_expert_parallel(smi: str) -> dict:
         f"all-to-all sends E C D 2 = {m.num_experts * c * full.d_model * 2}"
         f" B card={smi}")
 
-    def spawn(grid, part, device):
-        return mesh.spawn("chip_smoke:ep_rank", grid[0] * grid[1], part,
-                          device, device=device, grid=grid,
-                          timeout_s=DP_JOIN_S)
-
-    tp = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        runs = {(g, dev): pool.submit(spawn, g, "a", dev)
-                for g in EP_GRIDS for dev in ("cuda", "cpu")}
-        dense = _ep_dense_one_process(ep_config("reduced",
-                                                capacity_factor=8.0), "cuda")
-        runs = {k: f.result() for k, f in runs.items()}
-    log(f"[expert-parallel] part a grids={list(EP_GRIDS)} card and cpu: "
-        f"{time.perf_counter() - tp:.1f}s")
+    runs, dense = reduced
     for grid in EP_GRIDS:
         gd, gt = grid
         card, cpu = runs[(grid, "cuda")], runs[(grid, "cpu")]
@@ -4615,7 +4703,7 @@ def phase_expert_parallel(smi: str) -> dict:
             f"max_abs_err={small:.3e} card={smi}")
     # (b) the full-width cut
     tp = time.perf_counter()
-    ranks = spawn(EP_FULL_GRID, "b", "cuda")
+    ranks = _ep_spawn(EP_FULL_GRID, "b", "cuda")
     log(f"[expert-parallel] part b grid={EP_FULL_GRID}: "
         f"{time.perf_counter() - tp:.1f}s")
     if len({r["full"]["replicated"] for r in ranks}) != 1:
@@ -4648,7 +4736,8 @@ def phase_expert_parallel(smi: str) -> dict:
                 failed.append(f"{key} step {i}: loss not finite")
         for depth in sorted({st["depth"] for st in steps}):
             warm = [st for st in steps[len(steps) // 2:]
-                    if st["depth"] == depth]
+                    if st["depth"] == depth] or \
+                [st for st in steps if st["depth"] == depth]
             mean = lambda f: sum(f(st) for st in warm) / len(warm)  # noqa
             kinds = sorted(warm[0]["model_ms"])
             fig = {"step_ms": round(mean(lambda st: st["ms"]), 2),
@@ -4977,7 +5066,41 @@ def _split_line(st: dict) -> str:
             f"world_gather_bytes={st['world_bytes']}")
 
 
-def phase_compressed_grids(smi: str) -> dict:
+# phase 23's grids whose ranks run the reduced part, then the full-width one
+CZ_FULL_RUNS = {("cz", CZ_GRID): "cz_rank", ("cg", EP_FULL_GRID): "cg_rank"}
+
+
+def _cz_spawn(target: str, grid, parts: str, device: str) -> list:
+    """``target`` (:func:`cz_rank` or :func:`cg_rank`) on ``grid``."""
+    from repro_torch.launch import mesh
+    return mesh.spawn(f"chip_smoke:{target}", math.prod(grid), parts,
+                      device, device=device, grid=grid, timeout_s=DP_JOIN_S)
+
+
+def compressed_reduced_runs() -> tuple:
+    """Phase 23 (b) and (c)'s reduced runs, held by
+    :func:`phase_compressed_grids`: every grid on the CPU, the card's
+    (2, 2) ``(data, model)`` grid, and one compressed process on the card
+    a method.  Reduced and small on the card, they run beside phases
+    18 (b) and 19 (b, c) (``main``)."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        cpu = {("cz", CZ_GRID): pool.submit(_cz_spawn, "cz_rank", CZ_GRID,
+                                            "a", "cpu")}
+        cpu.update({("cg", g): pool.submit(_cz_spawn, "cg_rank", g, "a",
+                                           "cpu") for g in EP_GRIDS})
+        card = {("cg", g): pool.submit(_cz_spawn, "cg_rank", g, "a", "cuda")
+                for g in EP_GRIDS if ("cg", g) not in CZ_FULL_RUNS}
+        one = {m: _cz_one_process(m) for m in CZ_METHODS}
+        cpu = {k: f.result() for k, f in cpu.items()}
+        card = {k: f.result() for k, f in card.items()}
+    log(f"[compressed] reduced runs on the cpu, and on the card's "
+        f"{[g for _, g in card]}: {time.perf_counter() - t0:.1f}s")
+    return cpu, card, one
+
+
+def phase_compressed_grids(smi: str, reduced: tuple) -> dict:
     """Phase 23 (b) and (c): compression where the ranks hold shares.
     (b) ZeRO-2 on a pipeline of :data:`CZ_GRID` (ranks sharing the card
     over gloo): reduced yi-6b under ``topk``, ``randk`` and ``lowrank``,
@@ -4991,40 +5114,20 @@ def phase_compressed_grids(smi: str) -> dict:
     :data:`EP_TOL`, launches exact; then phase 22's cut under ``topk`` on
     (1, 2), two steps.  A line a full-width rank and step with the step's
     ms split into the gather, the compressor and the rest, the gathered
-    bytes beside a world-wide gather's, and the peak.  Returns each run's
+    bytes beside a world-wide gather's, and the peak.  ``reduced``: the
+    reduced runs (:func:`compressed_reduced_runs`).  Returns each run's
     launches a rank, and the figures."""
-    from concurrent.futures import ThreadPoolExecutor
-    from repro_torch.launch import mesh
-
     failed, launches, figures = [], {}, {}
     t0 = time.perf_counter()
     S, D, T = CZ_GRID
-
-    def spawn(target, grid, part, device):
-        return mesh.spawn(f"chip_smoke:{target}", math.prod(grid), part,
-                          device, device=device, grid=grid,
-                          timeout_s=DP_JOIN_S)
-
-    # the reduced runs on the CPU and the card's (2, 2) grid together;
-    # then the grids whose ranks also run a full-width part, one at a time
-    # (a full-width run shares the card with nothing else of this phase)
-    full = {("cz", CZ_GRID): "cz_rank", ("cg", EP_FULL_GRID): "cg_rank"}
-    with ThreadPoolExecutor(4) as pool:
-        cpu = {("cz", CZ_GRID): pool.submit(spawn, "cz_rank", CZ_GRID, "a",
-                                            "cpu")}
-        cpu.update({("cg", g): pool.submit(spawn, "cg_rank", g, "a", "cpu")
-                    for g in EP_GRIDS})
-        card = {("cg", g): pool.submit(spawn, "cg_rank", g, "a", "cuda")
-                for g in EP_GRIDS if ("cg", g) not in full}
-        one = {m: _cz_one_process(m) for m in CZ_METHODS}
-        cpu = {k: f.result() for k, f in cpu.items()}
-        card = {k: f.result() for k, f in card.items()}
-    log(f"[compressed] reduced runs on the cpu, and on the card's "
-        f"{[g for _, g in card]}: {time.perf_counter() - t0:.1f}s")
+    cpu, card, one = reduced
+    card = dict(card)
+    # the grids whose ranks also run a full-width part, one at a time (a
+    # full-width run shares the card with nothing else of this phase)
     timed = {}
-    for (kind, grid), target in full.items():
+    for (kind, grid), target in CZ_FULL_RUNS.items():
         tp = time.perf_counter()
-        ranks = spawn(target, grid, "ab", "cuda")
+        ranks = _cz_spawn(target, grid, "ab", "cuda")
         log(f"[compressed] {kind} grid={grid}, reduced then full: "
             f"{time.perf_counter() - tp:.1f}s")
         card[(kind, grid)] = ranks
@@ -5110,7 +5213,429 @@ def phase_compressed_grids(smi: str) -> dict:
     return {"launches": launches, "figures": figures}
 
 
+# -- phase 24: spatial co-location on one card -----------------------------
+
+SPATIAL_ARCHS = ("yi-6b", "mamba2-2.7b")    # phase 14's cuts, one a job
+SPATIAL_STEPS = 6       # (b): moved at step 2, back at step 4
+SPATIAL_TOL = 1e-3      # (b): phase 14's relative check
+PRODUCT_N = 8192        # (a): one bf16 N^3 product
+# (a): a share's product takes at least this share of (the card's SMs
+# over the share's) times the whole card's time: a partition that is not
+# real runs at the whole card's speed
+SLOWDOWN_MIN = 0.7
+# (a): two shares' products at once each within this factor of alone, and
+# overlapping for at least this share of the shorter run
+CONCURRENT_MAX = 1.3
+OVERLAP_MIN = 0.5
+
+
+def _stream_ms(fn, stream, iters: int = 10, warmup: int = 2) -> float:
+    """``fn``'s ms by CUDA events on ``stream`` (waited on by its end
+    event: a share's stream is not the primary context's)."""
+    import torch
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# the route not taken, in a process of its own: a green context that
+# torch made current leaves the allocator blocks it mapped in that context,
+# which cannot be freed once the context is gone
+_TORCH_GREEN = """
+import json, sys, threading, time
+import torch
+from torch.cuda.green_contexts import GreenContext
+sms, n, iters = map(int, sys.argv[1:4])
+A = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+B = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+torch.cuda.synchronize()
+ctxs = [GreenContext.create(num_sms=sms, device_id=0) for _ in range(2)]
+out = [None, None]
+
+def run(i):
+    ctxs[i].set_context()
+    try:
+        stream = ctxs[i].Stream()
+        with torch.cuda.stream(stream):
+            A @ B                       # warm
+        stream.synchronize()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            for _ in range(iters):
+                A @ B
+        stream.synchronize()
+        out[i] = (time.perf_counter() - t0) * 1e3
+    finally:
+        ctxs[i].pop_context()
+
+threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(120)
+print(json.dumps(out))
+"""
+
+
+def _torch_green_contexts_ms(sms: int, iters: int = 10) -> list:
+    """The route not taken: two ``torch.cuda.green_contexts`` of ``sms``
+    SMs each, ``iters`` bf16 products on each from two threads at once;
+    the wall ms of each thread."""
+    out = _run_child(_TORCH_GREEN, str(sms), str(PRODUCT_N), str(iters),
+                     timeout=180)
+    if None in out:
+        raise AssertionError(f"spatial: torch's green contexts did not "
+                             f"finish: {out}")
+    return out
+
+
+def phase_spatial_share(subs) -> dict:
+    """Phase 24 (a): the shares themselves (see the module docstring)."""
+    import torch
+    from repro_torch.device import card_units, on_share
+    from repro_torch.kernels import rglru
+
+    units = card_units("cuda")
+    if [len(s.units) * units.unit_sms for s in subs] != [s.sms for s in subs]:
+        raise AssertionError(f"spatial: submeshes {subs} against "
+                             f"{units.unit_sms} SMs a unit")
+    log(f"[spatial] units={units.count} unit_sms={units.unit_sms} "
+        f"leftover_sms={units.leftover_sms} card_sms={units.total_sms} "
+        f"submeshes={[(s.index, s.units, s.sms) for s in subs]}")
+    # a tensor of the primary context's allocator, read and written by a
+    # port kernel and by a bf16 product on each share
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand(2, 2048, 2560, device="cuda", generator=gen) * 0.9
+    b = torch.randn(2, 2048, 2560, device="cuda", generator=gen)
+    n = PRODUCT_N
+    A = torch.randn(n, n, device="cuda", dtype=torch.bfloat16, generator=gen)
+    B = torch.randn(n, n, device="cuda", dtype=torch.bfloat16, generator=gen)
+    h_card, c_card = rglru.rglru_scan(a, b), A[:256] @ B
+    for sub in subs:
+        with on_share(sub.share):
+            h, c = rglru.rglru_scan(a, b), A[:256] @ B
+            w = a.clone()
+            w.mul_(2.0)
+        sub.share.stream.synchronize()
+        err = (c.float() - c_card.float()).abs().max().item()
+        if not torch.equal(h, h_card) or not torch.equal(w, a * 2.0) or \
+                err > TOL["bfloat16"][1] * c_card.float().abs().max().item():
+            raise AssertionError(f"spatial: submesh {sub.index}: rglru "
+                                 f"equal {torch.equal(h, h_card)}, write "
+                                 f"{torch.equal(w, a * 2.0)}, product err "
+                                 f"{err}")
+        log(f"[spatial] submesh={sub.index} rglru_bit_equal=True "
+            f"write_ok=True product_max_abs_err={err} "
+            f"product_bit_equal={torch.equal(c, c_card)}")
+    card = torch.cuda.current_stream()
+    whole = _stream_ms(lambda: A @ B, card)
+    alone = [_stream_ms(lambda: A @ B, s.share.stream) for s in subs]
+    for sub, ms in zip(subs, alone):
+        ratio, want = ms / whole, units.total_sms / sub.sms
+        log(f"[spatial] product {n}^3 bf16 submesh={sub.index} "
+            f"sms={sub.sms} ms={ms:.4f} whole_card_ms={whole:.4f} "
+            f"slowdown={ratio:.3f} card_sms/sms={want:.3f}")
+        if ratio < SLOWDOWN_MIN * want:
+            raise AssertionError(f"spatial: submesh {sub.index} of {sub.sms} "
+                                 f"SMs runs the product {ratio:.2f}x the "
+                                 f"whole card's time, not ~{want:.2f}x: "
+                                 f"the partition is not real")
+    # both shares at once: each alone's speed (disjoint SMs), overlapping
+    iters = 10
+    t0 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    marks = []
+    for sub in subs:
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        with on_share(sub.share):
+            s0.record()
+            for _ in range(iters):
+                A @ B
+            s1.record()
+        marks.append((s0, s1))
+    for _, s1 in marks:
+        s1.synchronize()
+    spans = [(t0.elapsed_time(s0), t0.elapsed_time(s1)) for s0, s1 in marks]
+    both = [(e - s) / iters for s, e in spans]
+    overlap = min(e for _, e in spans) - max(s for s, _ in spans)
+    shorter = min(e - s for s, e in spans)
+    log(f"[spatial] concurrent {iters} products a submesh: spans_ms="
+        f"{[(round(s, 3), round(e, 3)) for s, e in spans]} "
+        f"overlap_ms={overlap:.3f} ms_a_product={[round(x, 4) for x in both]}"
+        f" alone_ms={[round(x, 4) for x in alone]}")
+    if overlap < OVERLAP_MIN * shorter or any(
+            x > CONCURRENT_MAX * y for x, y in zip(both, alone)):
+        raise AssertionError(f"spatial: the shares' products overlapped "
+                             f"{overlap:.2f} of {shorter:.2f} ms at "
+                             f"{both} ms against {alone} alone")
+    torch_ms = _torch_green_contexts_ms(subs[-1].sms, iters)
+    log(f"[spatial] torch.cuda.green_contexts (not used): two contexts of "
+        f"{subs[-1].sms} SMs, {iters} products each at once: "
+        f"wall_ms={[round(x, 3) for x in torch_ms]} against "
+        f"{alone[-1] * iters:.3f} ms alone on submesh {subs[-1].index}")
+    return {"units": units._asdict(),
+            "submesh_sms": [s.sms for s in subs],
+            "product_ms": {"whole_card": whole, "submeshes": alone,
+                           "concurrent": both},
+            "overlap_ms": overlap,
+            "torch_green_contexts_wall_ms": torch_ms}
+
+
+def phase_spatial_resize(subs) -> dict:
+    """Phase 24 (b): the reference's ``_RESIZE_SCRIPT`` at published
+    widths (see the module docstring).  Returns the launches, zeroed just
+    before and read just after."""
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
+                                     make_batch)
+    from repro_torch.engine import SPBEngine
+
+    cfg = fused_config("yi-6b")
+    tcfg = TrainConfig(num_steps=SPATIAL_STEPS)
+    spb = SPBConfig(mode="temporal", k=2)
+    moved = SPBEngine(cfg, tcfg, spb, submesh=subs[0])
+    stay = SPBEngine(cfg, tcfg, spb, submesh=subs[0])
+    moved.init_state(0)
+    stay.init_state(0)
+    zero_launches()
+    rows, bit_equal = [], True
+    for s in range(SPATIAL_STEPS):
+        if s in (2, 4):
+            moved.resize(subs[1] if s == 2 else subs[0])
+        batch = make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=s,
+                           device="cuda")
+        got = {}
+        for label, eng in (("moved", moved), ("stay", stay)):
+            before = launches_now()
+            t0 = time.perf_counter()
+            m = eng.train_step(batch, s)        # returns when its share ran
+            ms = (time.perf_counter() - t0) * 1e3
+            check_launches(f"spatial resize {label} step {s}", before,
+                           [eng.last_depth], cfg)
+            got[label] = (float(m["loss"]), ms, eng.submesh.index)
+        (lm_, mms, msub), (ls, sms_, _) = got["moved"], got["stay"]
+        rel = abs(lm_ / ls - 1)
+        bit_equal &= lm_ == ls
+        rows.append(rel)
+        log(f"[spatial-resize] step={s} depth={moved.last_depth} "
+            f"submesh={msub} loss={lm_} stay_loss={ls} rel={rel:.3e} "
+            f"ms={mms:.1f} stay_ms={sms_:.1f}")
+        if not math.isfinite(lm_) or rel > SPATIAL_TOL:
+            raise AssertionError(f"spatial resize step {s}: loss {lm_} "
+                                 f"against {ls} (rel tol {SPATIAL_TOL})")
+    grew = launches_now()
+    if moved.resizes != 2 or moved.submesh is not subs[0]:
+        raise AssertionError(f"spatial resize: {moved.resizes} resizes, "
+                             f"on submesh {moved.submesh.index}")
+    log(f"[spatial-resize] yi-6b layers={cfg.num_layers} resizes="
+        f"{moved.resizes} bit_equal={bit_equal} max_rel={max(rows):.3e} "
+        f"(held at {SPATIAL_TOL})")
+    del moved, stay
+    torch.cuda.empty_cache()
+    return {"launches": {n: c for n, c in grew.items() if c},
+            "bit_equal": bit_equal, "max_rel": max(rows)}
+
+
+def _spatial_alone_ms(subs) -> dict:
+    """Phase 24 (c)'s yardsticks: each arch's warm step ms at each depth
+    of its cycle, alone on the whole card and alone on the half share
+    (``subs[-1]``): {arch: {depth: [whole ms, half ms]}}."""
+    import torch
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import (FULL_WIDTH_BATCH, FULL_WIDTH_SEQ,
+                                     make_batch)
+    from repro_torch.engine import SPBEngine
+
+    out = {}
+    for arch in SPATIAL_ARCHS:
+        cfg = fused_config(arch)
+        batch = make_batch(cfg, FULL_WIDTH_BATCH, FULL_WIDTH_SEQ, seed=0,
+                           device="cuda")
+        out[arch] = {}
+        for where in (dict(device="cuda"), dict(submesh=subs[-1])):
+            eng = SPBEngine(cfg, TrainConfig(num_steps=8),
+                            SPBConfig(mode="temporal", k=2), **where)
+            eng.init_state(0)
+            for d in [k for k in eng.depth_keys() if k is not None]:
+                times = []
+                for _ in range(3):          # the first warms
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.train_step(batch, depth=d)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                out[arch].setdefault(d, []).append(sum(times[1:]) / 2)
+            del eng
+            torch.cuda.empty_cache()
+    return out
+
+
+def _spatial_backend():
+    """A ``LiveBackend`` that logs each task's (job, worker, iteration,
+    depth, measured s) from inside the job's lock, and counts the moves
+    ``_ensure_submesh`` sees; its batches come from
+    ``configs.make_batch`` on the card, as phase 9's."""
+    from repro_torch.cluster.live import LiveBackend
+
+    class SpatialBackend(LiveBackend):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.task_log, self.moves = [], {}
+
+        def _ensure_submesh(self, jid, machine):
+            if self.submeshes and self.engines[jid].submesh is not \
+                    self.submeshes[machine]:
+                self.moves[jid] = self.moves.get(jid, 0) + 1
+            super()._ensure_submesh(jid, machine)
+
+        def _attempt(self, job, task, ctx):
+            measured, metrics = super()._attempt(job, task, ctx)
+            self.task_log.append(dict(
+                job=task.job_id, worker=task.worker_id, it=task.iteration,
+                depth=self.engines[task.job_id].last_depth, s=measured))
+            return measured, metrics
+
+        def _stacked_batch(self, jid, step):
+            return _card_batch(self, jid, step)
+
+    return SpatialBackend
+
+
+def _spatial_session(label: str, where: dict, count: bool):
+    """One JigSaw session of ``SPATIAL_ARCHS`` (phase 24 (c)); ``where``:
+    ``submeshes=`` or ``device=``.  With ``count`` the launches are zeroed
+    just before ``run()`` and read just after.  Returns (result, backend,
+    wall s, launches, peak GB, each engine's own resize count)."""
+    import torch
+    from repro_torch.cluster import ClusterRuntime, make_live_job
+    from repro_torch.config import SPBConfig, TrainConfig
+    from repro_torch.configs import FULL_WIDTH_BATCH, FULL_WIDTH_SEQ
+    from repro_torch.jigsaw.schedulers import JigsawScheduler
+
+    iters, workers = 3, 2
+    jobs = [make_live_job(
+        jid, arrival=0.0, cfg=fused_config(arch), iterations=iters,
+        num_workers=workers, batch=FULL_WIDTH_BATCH, seq=FULL_WIDTH_SEQ,
+        est_step_s=JIGSAW_JOBS[arch][0] / 2, est_mem_gb=20.0,
+        model_size_gb=0.01,
+        tcfg=TrainConfig(num_steps=iters * workers, seed=jid),
+        spb=SPBConfig(mode="temporal", k=workers))
+        for jid, arch in enumerate(SPATIAL_ARCHS)]
+    backend = _spatial_backend()(jobs, **where)
+    runtime = ClusterRuntime(backend.specs(), JigsawScheduler(), backend,
+                             num_machines=2, machine_mem_gb=40.0, gamma=0.1,
+                             horizon=60.0, record_schedule=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if count:
+        zero_launches()
+    t0 = time.perf_counter()
+    res = runtime.run()
+    wall = time.perf_counter() - t0
+    grew = launches_now()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    summary = backend.summary()
+    if len(res.jct) != len(jobs) or res.failed_jobs or any(
+            s["steps_run"] != iters * workers
+            or not math.isfinite(s["final_xent"])
+            for s in summary.values()):
+        raise AssertionError(f"spatial {label}: jobs done {sorted(res.jct)}"
+                             f", summary {summary}")
+    log(f"[spatial-jigsaw] {label} jobs_done={len(res.jct)}/{len(jobs)} "
+        f"final_xent={ {j: round(s['final_xent'], 4) for j, s in summary.items()} } "
+        f"max_concurrent_tasks={backend.max_concurrent_tasks} "
+        f"resizes={backend.resizes} makespan={res.makespan:.3f}s "
+        f"wall_s={wall:.3f} peak_gb={peak:.3f}")
+    moved = {j: e.resizes for j, e in backend.engines.items() if e.resizes}
+    backend.close()
+    return res, backend, wall, grew, peak, moved
+
+
+def phase_spatial(smi: str) -> dict:
+    """Phase 24: spatial co-location on one card (see the module
+    docstring).  Returns the launches of (b) and (c), each zeroed just
+    before its run and read just after, and the figures."""
+    import torch
+    from repro_torch.launch.mesh import assert_disjoint, make_submeshes
+
+    t_phase = time.perf_counter()
+    subs = make_submeshes(count=2, device="cuda")
+    assert_disjoint(subs)
+    share = phase_spatial_share(subs)
+    resize = phase_spatial_resize(subs)
+    alone = _spatial_alone_ms(subs)
+    res, backend, wall, grew, peak, moved = _spatial_session(
+        "submeshes", dict(submeshes=subs), count=True)
+    want = dict.fromkeys(grew, 0)
+    for t in backend.task_log:
+        cfg = backend.jobs[t["job"]].cfg
+        for n, c in expected_launches(cfg, [t["depth"]]).items():
+            want[n] += c
+        whole, half = alone[SPATIAL_ARCHS[t["job"]]][t["depth"]]
+        log(f"[spatial-jigsaw] job={t['job']} worker={t['worker']} "
+            f"iter={t['it']} depth={t['depth']} measured_ms="
+            f"{t['s'] * 1e3:.1f} alone_whole_card_ms={whole:.1f} "
+            f"alone_half_share_ms={half:.1f}")
+    if grew != want:
+        raise AssertionError(f"spatial session: launches {grew} != the sum "
+                             f"of its tasks' {want}")
+    if backend.max_concurrent_tasks != 2:
+        raise AssertionError(f"spatial session: max_concurrent_tasks "
+                             f"{backend.max_concurrent_tasks}, not 2")
+    if not backend.resizes == backend.moves == moved:
+        raise AssertionError(f"spatial session: resizes {backend.resizes} "
+                             f"against the moves seen {backend.moves} and "
+                             f"the engines' own counts {moved}")
+    torch.cuda.empty_cache()
+    _, _, wall_tm, _, peak_tm, _ = _spatial_session(
+        "time-multiplexed", dict(device="cuda"), count=False)
+    secs = time.perf_counter() - t_phase
+    log(f"[spatial] session wall_s={wall:.3f} time_multiplexed_wall_s="
+        f"{wall_tm:.3f} ratio={wall / wall_tm:.3f} peak_gb={peak:.3f} "
+        f"time_multiplexed_peak_gb={peak_tm:.3f} phase_s={secs:.1f} "
+        f"launches={ {n: c for n, c in grew.items() if c} } {smi}")
+    torch.cuda.empty_cache()
+    return {"launches": {"resize": resize["launches"],
+                         "session": {n: c for n, c in grew.items() if c}},
+            "figures": {
+                **share, "resize_bit_equal": resize["bit_equal"],
+                "resize_max_rel": resize["max_rel"],
+                "alone_ms_by_depth": {a: {str(d): v for d, v in r.items()}
+                                      for a, r in alone.items()},
+                "task_ms": [dict(t, s=round(t["s"] * 1e3, 3))
+                            for t in backend.task_log],
+                "session_wall_s": wall, "time_multiplexed_wall_s": wall_tm,
+                "peak_gb": peak, "time_multiplexed_peak_gb": peak_tm,
+                "resizes": backend.resizes, "phase_s": secs}}
+
+
+def _dryruns(phase5: dict, peaks: dict, bounds: dict, remat: dict):
+    """:func:`phase_dryrun` and :func:`phase_remat_dryrun`, in a process of
+    their own (started by ``main``); their lines go to the same output."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    t0 = time.perf_counter()
+    dry = phase_dryrun(phase5, peaks, bounds)
+    t1 = time.perf_counter()
+    remat_dry = phase_remat_dryrun(remat)
+    return dry, remat_dry, {"dryrun": round(t1 - t0, 1),
+                            "remat_dryrun": round(time.perf_counter() - t1,
+                                                  1)}
+
+
 def main() -> int:
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5129,28 +5654,31 @@ def main() -> int:
     secs = _build.build()
     log(f"[build] {len(_build.SOURCES)} kernels built in {secs:.1f}s "
         f"(phase {time.perf_counter() - t0:.1f}s)")
-    tensor_cores = phase_tensor_cores()
+    tensor_cores = clocked("tensor_cores", phase_tensor_cores)
 
-    timed = phase_kernels()
+    timed = clocked("kernels", phase_kernels)
     records = dict(timed["main"])
-    records.update(phase_ssd_kernels())
-    records.update(phase_rglru_kernels())
+    records.update(clocked("ssd_kernels", phase_ssd_kernels))
+    records.update(clocked("rglru_kernels", phase_rglru_kernels))
     torch.cuda.empty_cache()
     from repro_torch.configs import ARCHS as REGISTERED
-    decode_by_arch = {arch: phase_decode(arch) for arch in REGISTERED}
+    decode_by_arch = {arch: clocked(f"decode/{arch}", phase_decode, arch)
+                      for arch in REGISTERED}
     torch.cuda.empty_cache()
     # the serving path's own launches: counted from each arch's runs
-    serve_by_arch = {arch: phase_serve(arch) for arch in SERVE_ARCHS}
+    serve_by_arch = {arch: clocked(f"serve/{arch}", phase_serve, arch)
+                     for arch in SERVE_ARCHS}
     if not all(g.get("flash_fwd") for g in serve_by_arch.values()):
         raise AssertionError(f"a serve path never launched the flash "
                              f"forward: {serve_by_arch}")
     for arch in CARD_VS_CPU_ARCHS:
-        phase_card_vs_cpu(arch)
+        clocked(f"card_vs_cpu/{arch}", phase_card_vs_cpu, arch)
         torch.cuda.empty_cache()
     # each path's own launches: its kernels' counts from its own run
     by_arch, temporal_ms, phase5, peaks = {}, {}, {}, {}
     for arch in FULL_WIDTH_ARCHS:
-        grew, temporal_ms[arch], depths, peaks[arch] = phase_full_width(arch)
+        grew, temporal_ms[arch], depths, peaks[arch] = clocked(
+            f"full_width/{arch}", phase_full_width, arch)
         phase5[arch] = (temporal_ms[arch], depths)
         by_arch[arch] = {n: c for n, c in grew.items() if c}
         torch.cuda.empty_cache()
@@ -5161,7 +5689,8 @@ def main() -> int:
         raise AssertionError(f"kernels the main paths never launched: {idle}")
     mb_by_arch = {}
     for arch in ARCHS:
-        grew = phase_temporal_mb(arch, temporal_ms[arch])
+        grew = clocked(f"temporal_mb/{arch}", phase_temporal_mb, arch,
+                       temporal_ms[arch])
         mb_by_arch[arch] = {n: c for n, c in grew.items() if c}
         torch.cuda.empty_cache()
     idle = [n for n in KERNELS
@@ -5170,35 +5699,44 @@ def main() -> int:
         raise AssertionError(f"kernels the temporal-mb paths never "
                              f"launched: {idle}")
     for arch in ARCHS:
-        phase_card_vs_cpu_compressed(arch)
-    phase_restart()
+        clocked(f"card_vs_cpu_compressed/{arch}",
+                phase_card_vs_cpu_compressed, arch)
+    clocked("restart", phase_restart)
     torch.cuda.empty_cache()
-    jigsaw_by_arch = phase_jigsaw(phase5)
+    jigsaw_by_arch = clocked("jigsaw", phase_jigsaw, phase5)
     torch.cuda.empty_cache()
     idle = [n for n in KERNELS if not n.startswith("rglru")
             and not any(g.get(n) for g in jigsaw_by_arch.values())]
     if idle:
         raise AssertionError(f"kernels the JigSaw session never launched: "
                              f"{idle}")
-    phase_cluster_faults()
+    clocked("cluster_faults", phase_cluster_faults)
     torch.cuda.empty_cache()
     # the fused paths' own launches: zeroed before each arch's fused run
-    fused_by_arch = {arch: phase_fused(arch) for arch in ARCHS}
+    fused_by_arch = {arch: clocked(f"fused/{arch}", phase_fused, arch)
+                     for arch in ARCHS}
     idle = [n for n in KERNELS
             if not any(g["launches"].get(n) for g in fused_by_arch.values())]
     if idle:
         raise AssertionError(f"kernels the fused paths never launched: "
                              f"{idle}")
-    fused_jigsaw = phase_fused_jigsaw()
+    fused_jigsaw = clocked("fused_jigsaw", phase_fused_jigsaw)
     torch.cuda.empty_cache()
-    graphs_by_path = phase_graphs()
+    # phases 18 (a) and 19 (a), reduced ranks in processes of their own
+    # whose parent side touches no card (so no capture or sync check of
+    # this process sees them), run beside the graphs and recompute phases
+    early = ThreadPoolExecutor(1)
+    reduced_groups = early.submit(lambda: (
+        clocked("data_parallel_reduced", phase_data_parallel_reduced),
+        clocked("zero_reduced", phase_zero1_reduced)))
+    graphs_by_path = clocked("graphs", phase_graphs)
     idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
             if not graphs_by_path["train_yi-6b"].get(n)]
     if idle or not graphs_by_path["serve_yi-6b"].get("flash_fwd"):
         raise AssertionError(f"graph replays never launched {idle}: "
                              f"{graphs_by_path}")
     torch.cuda.empty_cache()
-    remat_by_arch = phase_remat()
+    remat_by_arch = clocked("remat", phase_remat)
     idle = [n for n in KERNELS if not any(
         f["launches"].get(n) for runs in remat_by_arch.values()
         for f in runs.values())]
@@ -5206,64 +5744,91 @@ def main() -> int:
         raise AssertionError(f"kernels the recompute runs never launched: "
                              f"{idle}")
     torch.cuda.empty_cache()
-    # the ranks run in processes of their own: the parent holds nothing
-    dp_launches = phase_data_parallel_reduced()
-    dp_full = phase_data_parallel_full()
+    # the dry runs are host only and launch nothing: a process of their own
+    # runs them beside the rank phases, so no timed phase of this process
+    # carries their modules (~100k more Python objects) or their garbage
+    # collections, and their minute is off the script's time
+    dry_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"))
+    dryruns = dry_pool.submit(_dryruns, phase5, peaks,
+                              {n: records[n]["work"] for n in KERNELS},
+                              remat_by_arch)
+    dp_launches, zero1_by_run = clocked("reduced_groups_waited",
+                                        reduced_groups.result)
+    early.shutdown()
+    # the ranks run in processes of their own: the parent holds nothing.
+    # The restart and the reduced grids of phases 22 and 23 (a few GB of
+    # the card together; their parent side launches kernels, but no phase
+    # beside them reads this process's counts) run in a second lane beside
+    # the two full-width phases: each check reads only its own ranks
+    with ThreadPoolExecutor(1) as lane:
+        small = lane.submit(lambda: (
+            clocked("zero_restart", phase_zero1_restart),
+            clocked("expert_parallel_reduced", ep_reduced_runs),
+            clocked("compressed_reduced", compressed_reduced_runs)))
+        dp_full = clocked("data_parallel_full", phase_data_parallel_full)
+        zero1_full = clocked("zero_full", phase_zero1_full)
+        _, ep_reduced, cz_reduced = small.result()
     dp_launches.update(dp_full["launches"])
     idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
             if not any(g.get(n) for g in dp_launches.values())]
     if idle:
         raise AssertionError(f"kernels the data-parallel ranks never "
                              f"launched: {idle}")
-    zero1_by_run = phase_zero1_reduced()
-    zero1_full = phase_zero1_full()
     zero1_by_run.update(zero1_full["launches"])
     idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
             if not any(g.get(n) for g in zero1_by_run.values())]
     if idle:
         raise AssertionError(f"kernels the ZeRO-1 ranks never launched: "
                              f"{idle}")
-    phase_zero1_restart()
-    pipeline = phase_pipeline(smi)
+    pipeline = clocked("pipeline", phase_pipeline, smi)
     idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv",
                         "ssd_fwd", "ssd_fwd_res", "ssd_bwd")
             if not any(g.get(n) for g in pipeline["launches"].values())]
     if idle:
         raise AssertionError(f"kernels the pipeline ranks never launched: "
                              f"{idle}")
-    tensor_parallel = phase_tensor_parallel(smi)
+    tensor_parallel = clocked("tensor_parallel", phase_tensor_parallel,
+                              smi)
     idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
             if not any(g.get(n) for g in
                        tensor_parallel["launches"].values())]
     if idle:
         raise AssertionError(f"kernels the tensor-parallel ranks never "
                              f"launched: {idle}")
-    expert_parallel = phase_expert_parallel(smi)
+    expert_parallel = clocked("expert_parallel", phase_expert_parallel,
+                              smi, ep_reduced)
     idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
             if not any(g.get(n) for g in
                        expert_parallel["launches"].values())]
     if idle:
         raise AssertionError(f"kernels the expert-parallel ranks never "
                              f"launched: {idle}")
-    fused_dots = phase_fused_dots(smi)
+    fused_dots = clocked("fused_dots", phase_fused_dots, smi)
     idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
             if not fused_dots["launches"].get(n)]
     if idle:
         raise AssertionError(f"kernels the fused 'dots' step never "
                              f"launched: {idle}")
     torch.cuda.empty_cache()
-    compressed = phase_compressed_grids(smi)
+    compressed = clocked("compressed", phase_compressed_grids, smi,
+                         cz_reduced)
     idle = [n for n in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
             if not any(g.get(n) for g in compressed["launches"].values())]
     if idle:
         raise AssertionError(f"kernels the compressed ranks never "
                              f"launched: {idle}")
-    # host only, so it runs last: every timed phase then runs as it did
-    # before the dry run existed, without its modules (~100k more Python
-    # objects) and its own garbage collections
-    dryrun_by_arch = phase_dryrun(phase5, peaks,
-                                  {n: records[n]["work"] for n in KERNELS})
-    remat_dryrun = phase_remat_dryrun(remat_by_arch)
+    torch.cuda.empty_cache()
+    spatial = clocked("spatial", phase_spatial, smi)
+    idle = [n for n in KERNELS if not n.startswith("rglru")
+            and not spatial["launches"]["session"].get(n)]
+    if idle:
+        raise AssertionError(f"kernels the spatial session never "
+                             f"launched: {idle}")
+    dryrun_by_arch, remat_dryrun, dry_s = clocked("dryruns_waited",
+                                                  dryruns.result)
+    dry_pool.shutdown()
+    PHASE_S.update(dry_s)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -5314,6 +5879,9 @@ def main() -> int:
                  "launches_fused_dots": fused_dots["launches"].get(name, 0),
                  "launches_compressed": {
                      k: g[name] for k, g in compressed["launches"].items()
+                     if g.get(name)},
+                 "launches_spatial": {
+                     k: g[name] for k, g in spatial["launches"].items()
                      if g.get(name)},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
@@ -5366,7 +5934,9 @@ def main() -> int:
                     "fused_dots": {
                         p: {k: v for k, v in f.items() if k != "launches"}
                         for p, f in fused_dots["figures"].items()},
-                    "compressed": compressed["figures"]}))
+                    "compressed": compressed["figures"],
+                    "spatial": spatial["figures"],
+                    "phase_s": PHASE_S}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

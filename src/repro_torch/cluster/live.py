@@ -39,8 +39,12 @@ allocator expandable segments (:func:`~repro_torch.device.share_card`),
 so a warm task grows the one segment it has instead of mapping new ones
 mid-step.
 
-Not ported: spatial submeshes (several GPUs); the argument raises
-``NotImplementedError``.
+Spatial co-location (``submeshes=``, ``launch/mesh.make_submeshes``):
+machine slot ``i`` is submesh ``i``, a disjoint share of the device — on
+a card a partition of its SMs with a stream of its own (a green context),
+on the CPU a virtual slot — and the runtime runs each round's placements
+on different machines as concurrent train steps, one thread a machine.
+A job's engine follows its placements (``SPBEngine.resize``).
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -65,6 +70,7 @@ from repro_torch.engine.aot import step_ident
 from repro_torch.engine.engine import SPBEngine
 from repro_torch.engine.fused import FusedEngine, stack_batches
 from repro_torch.engine.policies import CyclePolicy, SchedulerHookPolicy
+from repro_torch.launch.mesh import assert_disjoint
 
 
 @dataclass
@@ -112,9 +118,25 @@ class LiveBackend(ExecutionBackend):
     Every engine lives on ``device`` (``cuda`` unless the caller asks for
     another; without a card the default raises, as
     :func:`~repro_torch.device.resolve_device` does).  A task's measured
-    time ends after ``torch.cuda.synchronize``: PyTorch returns before the
-    card has run the step, and the EMA must learn the card's time, not
-    the host's dispatch time.
+    time ends when the card has run the step (``torch.cuda.synchronize``;
+    on a submesh, a wait on its share's stream alone): PyTorch returns
+    before the card has run it, and the EMA must learn the card's time,
+    not the host's dispatch time.
+
+    **Spatial co-location** (``submeshes=``, in place of ``device=``):
+    pass a list of disjoint submeshes (``launch/mesh.make_submeshes``) and
+    machine slot ``i`` maps to ``submeshes[i]`` — accepted placements on
+    different machines run as concurrent train steps on separate shares
+    of the device (the backend sets ``concurrent_rounds`` so the runtime
+    overlaps per-machine chains).  Arrivals start round-robin over the
+    submeshes; a job's engine follows its placements: when a task lands
+    on a machine whose submesh differs from the engine's current one, the
+    engine ``resize()``s onto it (``resizes[jid]`` counts the moves).  The
+    process-wide step cache makes the bounce cheap: a return to a
+    submesh builds nothing.  ``run_task`` is safe across threads: a lock a
+    job (two workers of one job may land on two machines in one round;
+    the engine, one state, takes them in turn), and one lock over the
+    count of tasks in flight (``max_concurrent_tasks``).
 
     **Horizontal fusion** (``fuse=True``): jobs with identical
     (config, train, SPB, batch, workers, iterations) signatures stack
@@ -144,9 +166,8 @@ class LiveBackend(ExecutionBackend):
     simulate a step failure.
 
     ``aot_cache``: as the module docstring says; ``aot_events[jid]`` is
-    ``"loaded"`` or ``"exported"``.  ``submeshes=`` (spatial co-location,
-    several GPUs: ROADMAP.md Queue 1 B item 11) is not ported and raises
-    ``NotImplementedError``.
+    ``"loaded"`` or ``"exported"``.  A rollback restores onto the engine's
+    current submesh.
     """
     name = "live"
 
@@ -159,11 +180,6 @@ class LiveBackend(ExecutionBackend):
                  sleeper: Callable[[float], None] = time.sleep,
                  fault_hook: Optional[Callable[[int, Task, int],
                                                None]] = None):
-        if submeshes is not None:
-            raise NotImplementedError(
-                "spatial submeshes (a disjoint set of devices a job, "
-                "resized between rounds) are not ported: the cluster part "
-                "of ROADMAP.md Queue 1 B item 11")
         if not 0.0 < ema <= 1.0:
             raise ValueError(f"ema must be in (0, 1], got {ema}")
         if max_retries < 0:
@@ -171,7 +187,17 @@ class LiveBackend(ExecutionBackend):
         self.jobs: Dict[int, LiveJob] = {lj.spec.job_id: lj for lj in jobs}
         if len(self.jobs) != len(jobs):
             raise ValueError("duplicate job_id in LiveJob list")
-        self.device = resolve_device(device)
+        if submeshes is not None:
+            if device is not None:
+                raise ValueError("pass device= or submeshes=, not both")
+            submeshes = list(submeshes)
+            if not submeshes:
+                raise ValueError("submeshes= must be non-empty")
+            assert_disjoint(submeshes)
+        self.submeshes = submeshes
+        self.concurrent_rounds = submeshes is not None
+        self.device = (submeshes[0].device if submeshes is not None
+                       else resolve_device(device))
         if self.device.type == "cuda":
             share_card()
         self.aot_cache = aot_cache
@@ -195,7 +221,7 @@ class LiveBackend(ExecutionBackend):
         self.engines: Dict[int, SPBEngine] = {}
         self.hooks: Dict[int, SchedulerHookPolicy] = {}
         self._pipes: Dict[int, Pipeline] = {}
-        self._warmed: set = set()                  # (job_id, depth_key)
+        self._warmed: set = set()       # (job_id, depth_key, submesh fp)
         self.steps_run: Dict[int, int] = {}
         self.observed_depths: Dict[int, set] = {}
         self.last_xent: Dict[int, float] = {}
@@ -203,10 +229,14 @@ class LiveBackend(ExecutionBackend):
         # the measured wall-clock — the feedback loop's paper trail
         self.task_estimates: Dict[Tuple[int, int, int], float] = {}
         self.task_measured: Dict[Tuple[int, int, int], float] = {}
-        # the high-water mark of overlapping tasks: the runtime calls
-        # run_task from one thread (concurrent_rounds is False), so 1
+        # spatial bookkeeping: a lock a scheduled job (concurrent rounds
+        # may run two workers of one job at once), elastic resize counts,
+        # and the high-water mark of overlapping tasks
+        self._job_locks: Dict[int, threading.Lock] = {}
+        self._active_lock = threading.Lock()
         self._active = 0
         self.max_concurrent_tasks = 0
+        self.resizes: Dict[int, int] = {}
         # horizontal fusion: leader jid -> ordered member jids
         self.fused: Dict[int, List[int]] = {}
         self._leader: Dict[int, int] = {}         # member jid -> leader
@@ -270,23 +300,40 @@ class LiveBackend(ExecutionBackend):
         return [lj.spec for jid, lj in self.jobs.items()
                 if self._leader.get(jid, jid) == jid]
 
+    def _arrival_submesh(self, jid: int):
+        """Initial placement: arrivals round-robin over the submeshes (the
+        first accepted task resizes the engine wherever the scheduler
+        actually put it); None without submeshes."""
+        if self.submeshes is None:
+            return None
+        return self.submeshes[jid % len(self.submeshes)]
+
+    @staticmethod
+    def _placement(engine: SPBEngine):
+        """The engine's submesh fingerprint (None on the whole device):
+        the third part of a warm key."""
+        return engine.submesh.fingerprint() if engine.submesh else None
+
     def job_arrived(self, job: JobSpec, now: float) -> None:
         jid = job.job_id
         lj = self.jobs[jid]
         members = self._members(jid)
         hook = SchedulerHookPolicy(lj.cfg, lj.spb,
                                    default=CyclePolicy(lj.cfg, lj.spb))
+        sub = self._arrival_submesh(jid)
+        where = dict(submesh=sub) if sub is not None else \
+            dict(device=self.device)
         if len(members) > 1:
             engine = FusedEngine(lj.cfg, lj.tcfg, lj.spb, policy=hook,
-                                 device=self.device, num_jobs=len(members))
+                                 num_jobs=len(members), **where)
         else:
-            engine = SPBEngine(lj.cfg, lj.tcfg, lj.spb, policy=hook,
-                               device=self.device)
+            engine = SPBEngine(lj.cfg, lj.tcfg, lj.spb, policy=hook, **where)
         self.engines[jid] = engine
         self._init(jid)
         if self.aot_cache:
             self._step_table(jid, engine)
         self.hooks[jid] = hook
+        self._job_locks[jid] = threading.Lock()
         for m in members:
             self.steps_run[m] = 0
             self.observed_depths[m] = set()
@@ -302,7 +349,9 @@ class LiveBackend(ExecutionBackend):
             fused = f" fused={members}" if len(members) > 1 else ""
             print(f"[live] job={jid} model={lj.cfg.name} "
                   f"workers={job.num_workers} arrived t={now:.2f}s "
-                  f"device={self.device}{fused}", flush=True)
+                  f"device={self.device}"
+                  f"{f' submesh={sub.index}' if sub is not None else ''}"
+                  f"{fused}", flush=True)
 
     def _step_table(self, jid: int, engine: SPBEngine) -> None:
         """Load the job's stored step table, or build and store it on a
@@ -315,18 +364,42 @@ class LiveBackend(ExecutionBackend):
             engine.compile_table(specs)
             engine.export_aot(path)
             self.aot_events[jid] = "exported"
-        self._warmed.update((jid, k) for k in engine.depth_keys())
+        fp = self._placement(engine)
+        self._warmed.update((jid, k, fp) for k in engine.depth_keys())
         if self.verbose:
             print(f"[live] job={jid} AOT step table loaded"
                   if self.aot_events[jid] == "loaded" else
                   f"[live] job={jid} AOT step table compiled + exported "
                   f"to {path}", flush=True)
 
+    def _ensure_submesh(self, jid: int, machine: int) -> None:
+        """Spatial mode: the engine follows its placement — machine slot
+        ``i`` IS submesh ``i``, so a task accepted on another machine
+        resizes the job onto that submesh (on one card no bytes move; the
+        shared step cache makes a return visit free)."""
+        if self.submeshes is None:
+            return
+        if machine >= len(self.submeshes):
+            raise ValueError(f"machine {machine} has no submesh (have "
+                             f"{len(self.submeshes)}); run with "
+                             f"num_machines == len(submeshes)")
+        target = self.submeshes[machine]
+        engine = self.engines[jid]
+        if engine.submesh is not target:
+            engine.resize(target)
+            self.resizes[jid] = self.resizes.get(jid, 0) + 1
+            if self.verbose:
+                what = (f"{target.sms} SMs" if target.sms is not None
+                        else f"{len(target.units)} unit(s)")
+                print(f"[live] job={jid} resized onto submesh {machine} "
+                      f"({what})", flush=True)
+
     def run_task(self, job: JobSpec, task: Task, machine: int,
                  start: float, migrated: bool,
                  ctx: Optional[TaskContext] = None) -> float:
         jid = task.job_id
         engine, hook = self.engines[jid], self.hooks[jid]
+        members = self._members(jid)
         self.task_estimates[(jid, task.worker_id, task.iteration)] = \
             task.duration
         # the scheduler's depth decision for this worker-task, enacted —
@@ -335,23 +408,30 @@ class LiveBackend(ExecutionBackend):
         if ctx is not None and ctx.degraded_frac < frac:
             frac = ctx.degraded_frac
             self.degraded_steps[jid] = self.degraded_steps.get(jid, 0) + 1
-        hook.request_fraction(frac)
-        self._active += 1
-        self.max_concurrent_tasks = max(self.max_concurrent_tasks,
-                                        self._active)
-        try:
-            measured, metrics = self._attempt(job, task, ctx)
-        finally:
-            self._active -= 1
-        members = self._members(jid)
-        per_job = (engine.per_job_metrics(metrics) if len(members) > 1
-                   else [metrics])
-        for m, mm in zip(members, per_job):
-            self.steps_run[m] += 1
-            self.observed_depths[m].add(engine.last_depth)
-            self.last_xent[m] = float(mm["xent"])
+        # concurrent rounds may run two workers of one job on different
+        # machines at once; the engine (one state) takes them in turn, and
+        # its step count and last depth are read before the other's step
+        with self._job_locks[jid]:
+            self._ensure_submesh(jid, machine)
+            hook.request_fraction(frac)
+            with self._active_lock:
+                self._active += 1
+                self.max_concurrent_tasks = max(self.max_concurrent_tasks,
+                                                self._active)
+            try:
+                measured, metrics = self._attempt(job, task, ctx)
+            finally:
+                with self._active_lock:
+                    self._active -= 1
+            depth = engine.last_depth
+            per_job = (engine.per_job_metrics(metrics) if len(members) > 1
+                       else [metrics])
+            for m, mm in zip(members, per_job):
+                self.steps_run[m] += 1
+                self.observed_depths[m].add(depth)
+                self.last_xent[m] = float(mm["xent"])
+            warm_key = (jid, depth, self._placement(engine))
         self.task_measured[(jid, task.worker_id, task.iteration)] = measured
-        warm_key = (jid, engine.last_depth)
         if warm_key in self._warmed:
             # feedback: the measurement displaces the WorkerSpec estimate,
             # so tasks spawned for later iterations carry real costs into
@@ -359,14 +439,15 @@ class LiveBackend(ExecutionBackend):
             w = job.workers[task.worker_id]
             w.duration = (1 - self.ema) * w.duration + self.ema * measured
         else:
-            self._warmed.add(warm_key)      # the first run at this depth
-            #                                 may pay the kernels' build and
-            #                                 the allocator's growth; don't
+            self._warmed.add(warm_key)      # the first run at this depth on
+            #                                 this submesh may pay the
+            #                                 kernels' build and the
+            #                                 allocator's growth; don't
             #                                 poison the EMA
         if self.verbose:
             print(f"[live] t={start:8.2f}s machine={machine} job={jid} "
                   f"worker={task.worker_id} iter={task.iteration} "
-                  f"depth={engine.last_depth!s:>4} "
+                  f"depth={depth!s:>4} "
                   f"xent={self.last_xent[jid]:.4f} "
                   f"{measured*1e3:7.1f}ms{' MIG' if migrated else ''}",
                   flush=True)
@@ -392,7 +473,11 @@ class LiveBackend(ExecutionBackend):
                 if self.fault_hook is not None:
                     self.fault_hook(jid, task, attempt)
                 metrics = engine.train_step(batch, step)
-                if engine.device.type == "cuda":
+                if engine.submesh is not None and engine.submesh.share:
+                    # the step's end on its own share: the other shares'
+                    # steps are not this task's
+                    engine.submesh.share.stream.synchronize()
+                elif engine.device.type == "cuda":
                     # the host returns before the card runs the step: the
                     # measurement ends where the step ends on the card
                     torch.cuda.synchronize(engine.device)
@@ -456,7 +541,7 @@ class LiveBackend(ExecutionBackend):
                 raise RuntimeError(f"job {jid}: restored the snapshot of "
                                    f"iteration {step}, not {to_iteration}")
             engine.state = None     # free the lost state before the copy
-            engine.attach_state(state)
+            engine.attach_state(state)      # onto its current submesh
         else:
             # no durable checkpoints: restart the job (a fused group
             # whole) from its members' initial states
@@ -510,9 +595,9 @@ class LiveBackend(ExecutionBackend):
                               for m in members])
 
     def summary(self) -> Dict[int, dict]:
-        """Per job: the reference's summary less its resize entry (one
-        device).  A fused member's task-level stats live under its leader
-        (the only job the scheduler saw)."""
+        """Per job: the reference's summary.  A fused member's task-level
+        stats (and its resizes) live under its leader (the only job the
+        scheduler saw)."""
         out = {}
         for jid, lj in self.jobs.items():
             leader = self._leader.get(jid, jid)
@@ -533,6 +618,7 @@ class LiveBackend(ExecutionBackend):
                 "degraded_steps": self.degraded_steps.get(leader, 0),
                 "failed": self.failed.get(leader),
                 "fused_with": self.fused.get(leader),
+                "resizes": self.resizes.get(leader, 0),
                 "aot": self.aot_events.get(leader),
             }
         return out

@@ -22,6 +22,16 @@ closed over by every step; it is part of the step-cache key and of a
 stored table's key, so a table captured under one policy is a miss under
 another.
 
+``submesh=`` (a ``launch/mesh.Submesh``) places the session on a share of
+its device: on a card every call that launches work (``init_state``,
+``attach_state``, ``train_step``, ``compile_table``, ``load_aot``) runs on
+the share's stream, so on its SMs alone, and returns once that stream has
+run it (a wait on the share, not the card: another submesh's job runs on
+meanwhile).  The step-cache key and a stored table's path carry the
+submesh's fingerprint.  :meth:`SPBEngine.resize` moves the session to
+another submesh (on one card no bytes move).  With ``group=`` or under a
+pipeline it raises.
+
 ``group=`` (a ``dist/group.DataGroup``) makes the engine one rank of a
 data group: its device is the group's, each ``train_step`` takes this
 rank's rows of the global batch, and the steps average the gradients
@@ -94,6 +104,7 @@ reference's step does not lower there), as do ``compile_table`` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import time
@@ -106,7 +117,7 @@ import torch
 from repro_torch.config import (ModelConfig, SPBConfig, TrainConfig,
                                 snap_depth, snap_depth_to_stages)
 from repro_torch.core import spb as spb_lib
-from repro_torch.device import resolve_device
+from repro_torch.device import device_fingerprint, on_share, resolve_device
 from repro_torch.dist import sharding
 from repro_torch.dist import steps as steps_lib
 from repro_torch.engine import aot, graphs, stepcache
@@ -119,6 +130,21 @@ from repro_torch.optim import optimizers
 from repro_torch.tree import tree_leaves, tree_map
 
 State = Dict[str, Any]
+
+
+def _placed(method: Callable) -> Callable:
+    """Run an engine method on the engine's submesh (its card share's
+    stream; nothing on the CPU) and return once the share has run it, so
+    what it made can be read from any stream."""
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        share = self.submesh.share if self.submesh is not None else None
+        with on_share(share):
+            out = method(self, *args, **kw)
+        if share is not None:
+            share.stream.synchronize()
+        return out
+    return run
 
 
 class TensorSpec(NamedTuple):
@@ -164,7 +190,9 @@ class _GraphedTrainStep:
 
         self.graph = graphs.capture(
             lambda: fn(view(), self.batch, sched=self.sched)[1],
-            device=dev, pool=engine._graph_pool(), warmup=warmup)
+            device=dev, pool=engine._graph_pool(), warmup=warmup,
+            stream=engine.submesh.share.stream if engine.submesh is not None
+            else None)
 
     def __call__(self, state: State, batch) -> tuple:
         if state is not self.state:
@@ -209,10 +237,23 @@ class SPBEngine:
                  parallelism: str = "spmd",
                  pipeline_schedule: str = "1f1b",
                  tensor_parallel: Optional[int] = None,
-                 sequence_parallel: bool = False, zero2: bool = False):
+                 sequence_parallel: bool = False, zero2: bool = False,
+                 submesh=None):
         if parallelism not in ("spmd", "pipeline"):
             raise ValueError(f"unknown parallelism {parallelism!r}; "
                              f"known: spmd, pipeline")
+        if submesh is not None:
+            if group is not None or parallelism == "pipeline":
+                raise ValueError("submesh= places a session of one process "
+                                 "on a share of one device; a group's or a "
+                                 "pipeline's ranks are processes")
+            if device is not None and device_fingerprint(device) != \
+                    device_fingerprint(submesh.device):
+                raise ValueError(f"device={device!r} disagrees with the "
+                                 f"submesh's {submesh.device}")
+            device = submesh.device
+        self.submesh = submesh
+        self.resizes = 0
         self.cfg = cfg
         self.tcfg = tcfg
         self.spb = spb_cfg or SPBConfig()
@@ -399,6 +440,7 @@ class SPBEngine:
 
     # -- state lifecycle ---------------------------------------------------
 
+    @_placed
     def init_state(self, seed: int) -> State:
         """Random params from a generator seeded with ``seed`` on the
         session's device, fresh optimizer state (this rank's slices under
@@ -418,6 +460,7 @@ class SPBEngine:
         return self._adopt(steps_lib.init_train_state(
             gen, self.cfg, self.tcfg, self.device, self.shards))
 
+    @_placed
     def attach_state(self, state: State) -> State:
         """Adopt an externally built state, moved to the session's device
         (params become leaves that require grad).  Under ZeRO-1 a whole
@@ -628,13 +671,17 @@ class SPBEngine:
 
     def step_cache_key(self, key: Any):
         """The process-wide step-cache key of one depth entry: (config
-        digest, depth tag, device fingerprint), and under a data group of
-        several ranks its size (and for spatial SPB the rank's level, which
-        picks the step's depth)."""
+        digest, depth tag, device fingerprint), on a submesh its
+        fingerprint (``launch/mesh.Submesh.fingerprint``: the device, the
+        units, the SMs), and under a data group of several ranks its size
+        (and for spatial SPB the rank's level, which picks the step's
+        depth)."""
         if not hasattr(self, "_step_sig"):
             self._step_sig = self._step_signature()
         out = (self._step_sig, aot._depth_tag(key),
                stepcache.device_fingerprint(self.device))
+        if self.submesh is not None:
+            out += (self.submesh.fingerprint(),)
         n = self.group.size
         if self.pipeline_stages:
             out += (("pipeline", self.pipeline_schedule, self.pipeline_stages,
@@ -703,8 +750,65 @@ class SPBEngine:
         return self.resolve_depth(
             self.group.broadcast_int(self.policy.depth_for_step(step)))
 
+    # -- elastic resizing ---------------------------------------------------
+
+    def resize(self, submesh) -> "SPBEngine":
+        """Re-place this session onto another submesh
+        (``launch/mesh.make_submeshes``) at an iteration boundary — the
+        burst-parallel knob of the reference's ``resize``.
+
+        Returns at once when ``submesh`` is the current one.  Otherwise
+        the engine's step entries are dropped and re-resolve through the
+        process-wide step cache under the new submesh's fingerprint (a
+        return visit builds nothing), a captured or loaded step table is
+        abandoned (its graphs were captured on the old share's stream, as
+        the reference's frozen executables are placement-specific), and
+        :attr:`resizes` counts the move.  What moves:
+
+        * between shares of one card, no bytes: memory is the card's one
+          pool.  The new share's stream waits for the old one's, and every
+          state tensor is recorded on the new stream, so the caching
+          allocator never hands a block of the old stream to new work
+          while the new stream still reads it;
+        * onto another card, every state tensor (``.to(device)``);
+        * on the CPU, nothing.
+
+        A session under a group or a pipeline raises: its ranks are
+        processes, not shares of one device."""
+        if submesh is self.submesh:
+            return self
+        if self.pipeline_stages or self.group.size > 1 or \
+                self._model is not None:
+            raise NotImplementedError(
+                "resize: a session under a group or a pipeline has ranks "
+                "that are processes; only a session of one process moves "
+                "between submeshes")
+        old = self.submesh
+        old_stream = old.share.stream if old is not None and old.share \
+            else (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        self.submesh = submesh
+        self._steps, self._compiled, self._graphs = {}, {}, {}
+        self._pool, self._frozen, self._warned_depths = None, False, set()
+        same_device = device_fingerprint(submesh.device) == \
+            device_fingerprint(self.device)
+        self.device = submesh.device
+        if self.state is not None and not same_device:
+            self.attach_state(self.state)
+        elif self.state is not None and submesh.share is not None:
+            new = submesh.share.stream
+            new.wait_stream(old_stream)
+            for t in tree_leaves({"params": self.state["params"],
+                                  "opt": self.state["opt"]}):
+                t.record_stream(new)
+        for k in steps_lib.spb_step_keys(self.cfg, self.spb):
+            self.step_fn(k)
+        self.resizes += 1
+        return self
+
     # -- training ----------------------------------------------------------
 
+    @_placed
     def train_step(self, batch, step: Optional[int] = None, *,
                    depth: Any = _POLICY) -> Dict[str, torch.Tensor]:
         """Run one step on the session state; the policy picks the depth
@@ -723,9 +827,13 @@ class SPBEngine:
         if getattr(self.policy, "needs_step_time", False) and \
                 self.device.type == "cuda":
             # the card runs the step after the host returns: a policy fed
-            # by step times needs the step's end, at the cost of the
-            # host running ahead
-            torch.cuda.synchronize(self.device)
+            # by step times needs the step's end (on a submesh, its share's:
+            # the other shares' work is not this step's), at the cost of
+            # the host running ahead
+            if self.submesh is not None:
+                self.submesh.share.stream.synchronize()
+            else:
+                torch.cuda.synchronize(self.device)
         self.policy.observe(step, time.perf_counter() - t0)
         self.last_depth = key
         self._auto_step = step + 1
@@ -744,6 +852,7 @@ class SPBEngine:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
+    @_placed
     def compile_table(self, batch_specs, *, depths=None) -> Dict[Any, Any]:
         """Build the step table for batches of ``batch_specs``: on a CUDA
         device one CUDA graph per depth key, captured on the session's
@@ -817,9 +926,11 @@ class SPBEngine:
 
     def aot_cache_path(self, batch_specs, cache_root=None) -> Path:
         root = Path(cache_root) if cache_root else aot.DEFAULT_CACHE
+        extra = None if self.submesh is None else \
+            {"submesh": self.submesh.fingerprint()}
         return root / aot.cache_key(self.cfg, self.tcfg, self.spb,
                                     self.device, batch_specs,
-                                    remat=self.remat)
+                                    remat=self.remat, extra=extra)
 
     def export_aot(self, path, batch_specs=None) -> Path:
         """Store the step table at ``path`` (building it first if needed,
@@ -840,6 +951,7 @@ class SPBEngine:
             meta={"arch": self.cfg.name, "spb_mode": self.spb.mode,
                   "remat": self.remat})
 
+    @_placed
     def load_aot(self, path) -> bool:
         """Restore a stored step table: its kernel libraries load from the
         table (no ``nvcc``), and on a CUDA device each entry is captured

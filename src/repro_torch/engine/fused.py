@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.dist import steps as steps_lib
-from repro_torch.engine.engine import SPBEngine, State
+from repro_torch.engine.engine import SPBEngine, State, _placed
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -57,7 +57,9 @@ def stack_batches(batches: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
 
 class FusedEngine(SPBEngine):
     """One training session running ``num_jobs`` stacked tenants on one
-    device."""
+    device, or on one submesh (``submesh=``; :meth:`~SPBEngine.resize`
+    moves the stacked state as it moves a solo one, the counterpart of the
+    reference's ``_bind_mesh`` override)."""
 
     def __init__(self, cfg, tcfg, spb_cfg=None, *, num_jobs: int, **kw):
         if num_jobs < 1:
@@ -96,6 +98,7 @@ class FusedEngine(SPBEngine):
         seeds = np.random.SeedSequence(seed).generate_state(self.num_jobs)
         return self.init_states([int(s) for s in seeds])
 
+    @_placed
     def init_states(self, seeds: Sequence[int]) -> State:
         """Initialize the J tenants: member j equals
         ``SPBEngine.init_state(seeds[j])``.  Each solo state is built and
@@ -118,6 +121,7 @@ class FusedEngine(SPBEngine):
             del solo
         return self._adopt({**stacked, "step": 0})
 
+    @_placed
     def attach_state(self, state: State) -> State:
         """Adopt a stacked state, moved to the session's device.  The
         params are plain tensors: the functional step takes their

@@ -80,17 +80,27 @@ class Graph:
 
 def capture(body: Callable[[], Any], *, device, pool,
             warmup: Optional[Callable[[], None]] = None,
-            generators: Sequence[torch.Generator] = ()) -> Graph:
-    """Capture ``body`` on ``device`` (a CUDA device) into ``pool``."""
+            generators: Sequence[torch.Generator] = (),
+            stream: Optional[torch.cuda.Stream] = None) -> Graph:
+    """Capture ``body`` on ``device`` (a CUDA device) into ``pool``.
+
+    ``stream``: a card share's stream (``device.CardShare``), on which the
+    warmup runs and the capture is made, so the graph's kernels run on the
+    share's SMs.  The capture waits for the whole card and empties the
+    allocator's cache, so it is made while no other share's work is in
+    flight (``cluster/live.py`` builds tables on arrival, between
+    rounds)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
     if warmup is not None:
-        side = torch.cuda.Stream(device)
+        side = stream if stream is not None else torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             warmup()
         torch.cuda.current_stream(device).wait_stream(side)
+    if stream is not None:
+        stream.synchronize()
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
@@ -101,7 +111,8 @@ def capture(body: Callable[[], Any], *, device, pool,
     counters = launch_counters()
     before = launch_counts()
     try:
-        with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool):
+        with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool,
+                                                        stream=stream):
             outputs = body()
     finally:
         grew = {n: fn.launches - before[n] for n, fn in counters.items()}

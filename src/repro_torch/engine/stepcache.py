@@ -5,7 +5,7 @@ Every ``SPBEngine(shared_cache=True)`` takes its step functions from
 :data:`GLOBAL`, keyed on everything that determines what a step runs:
 
     (digest of aot.step_ident + the engine kind, depth tag,
-     device fingerprint)
+     device fingerprint[, submesh fingerprint])
 
 ``step_ident`` drops the knobs that never reach a step (checkpoint and
 log cadence, and the seed when compression is off), so two tenants that
@@ -37,10 +37,9 @@ from __future__ import annotations
 
 import threading
 from pathlib import Path
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict
 
-import torch
-
+from repro_torch.device import device_fingerprint  # noqa: F401 (the key's)
 from repro_torch.kernels import _build
 
 
@@ -91,18 +90,6 @@ class StepCache:
 
 #: The process-wide table every ``SPBEngine(shared_cache=True)`` consults.
 GLOBAL = StepCache()
-
-
-def device_fingerprint(device) -> Tuple:
-    """Hashable, stable identity of a device: its type, index and name
-    (the counterpart of ``mesh_fingerprint``).  A CUDA device without an
-    index is the current one."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        index = dev.index if dev.index is not None else \
-            torch.cuda.current_device()
-        return ("cuda", int(index), torch.cuda.get_device_name(index))
-    return (dev.type, 0 if dev.index is None else int(dev.index), dev.type)
 
 
 # -- the persistent half: the kernel libraries (cross-process) --------------

@@ -22,9 +22,20 @@ scheduled as one job and ``fused_groups=`` counts the groups.
 ``--aot-cache DIR`` gives every job a step table from ``DIR`` (loaded, or
 built and stored there); ``--compilation-cache-dir DIR`` builds and loads
 the kernel libraries in ``DIR`` and reports what it found (``[cc] ...``).
-``--spatial`` and ``--round-quantum`` need several GPUs and raise
-``NotImplementedError``.  ``--reduced`` is the default:
-``--full`` asks for the published depth as well as the published widths.
+``--spatial`` makes machine slot ``i`` the disjoint submesh ``i`` of
+``--device`` (``launch/mesh.make_submeshes``: on a card a partition of
+its SMs with a stream of its own, on the CPU a virtual slot): placements
+on different machines run as concurrent train steps and jobs resize
+between submeshes as the scheduler moves them; ``--round-quantum`` is the
+width of a placement round then (ignored without ``--spatial``).  The
+summary line prints ``resizes=`` and the JSON ``spatial``, ``resizes``,
+``max_concurrent_tasks`` and ``stepcache``:
+
+  python -m repro_torch.launch.cluster --jobs 2 --machines 2 --workers 2 \\
+      --iters 2 --arrival 0.0 --spatial [--device cpu]
+
+``--reduced`` is the default: ``--full`` asks for the published depth as
+well as the published widths.
 """
 from __future__ import annotations
 
@@ -40,23 +51,11 @@ from repro_torch.config import SPBConfig, TrainConfig
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.engine import stepcache
 from repro_torch.jigsaw.schedulers import ALL_SCHEDULERS
-
-# flag: why it raises (the ROADMAP.md item that brings it)
-_NOT_PORTED = {
-    "spatial": "--spatial (disjoint submeshes, one a job) is not ported: "
-               "the cluster part of ROADMAP.md Queue 1 B item 11",
-    "round_quantum": "--round-quantum batches the rounds of a backend that "
-                     "runs tasks concurrently (disjoint submeshes); the "
-                     "one-device backend runs them one after another: the "
-                     "cluster part of ROADMAP.md Queue 1 B item 11",
-}
+from repro_torch.launch.mesh import make_submeshes
 
 
 def build_session(args):
     """The CLI's construction path: args -> (ClusterRuntime, backend)."""
-    for flag, why in _NOT_PORTED.items():
-        if getattr(args, flag, None) is not None:
-            raise NotImplementedError(why)
     fault_spec = getattr(args, "fault_plan", "")
     plan = (FaultPlan.parse(fault_spec,
                             restore_s=getattr(args, "restore_s", 0.0))
@@ -85,8 +84,11 @@ def build_session(args):
         backend = SimBackend()
         specs = [lj.spec for lj in live_jobs]
     else:
-        backend = LiveBackend(live_jobs, device=args.device,
-                              verbose=not args.quiet,
+        where = (dict(submeshes=make_submeshes(count=args.machines,
+                                               device=args.device))
+                 if getattr(args, "spatial", False)
+                 else dict(device=args.device))
+        backend = LiveBackend(live_jobs, verbose=not args.quiet, **where,
                               fuse=getattr(args, "fuse", False),
                               aot_cache=getattr(args, "aot_cache", "") or None,
                               ckpt_dir=getattr(args, "ckpt_dir", "") or None,
@@ -98,7 +100,8 @@ def build_session(args):
         machine_mem_gb=args.mem_gb, gamma=args.gamma, horizon=args.horizon,
         record_schedule=True, faults=plan,
         ckpt_every=getattr(args, "ckpt_every", 0),
-        health=health, degrade=degrade)
+        health=health, degrade=degrade,
+        round_quantum=getattr(args, "round_quantum", 0.0))
     return runtime, backend
 
 
@@ -130,12 +133,17 @@ def main(argv=None):
     ap.add_argument("--mem-gb", type=float, default=16.0)
     ap.add_argument("--horizon", type=float, default=60.0)
     ap.add_argument("--seed", type=int, default=0)
-    # the flags that are not ported default to None and raise when given
-    ap.add_argument("--spatial", action="store_true", default=None,
-                    help="not ported (several GPUs): raises")
-    ap.add_argument("--round-quantum", type=float, default=None,
-                    help="not ported (concurrent rounds, several GPUs): "
-                         "raises")
+    ap.add_argument("--spatial", action="store_true",
+                    help="machine slot i = disjoint submesh i of --device "
+                         "(launch.mesh.make_submeshes: on a card a "
+                         "partition of its SMs): accepted placements run "
+                         "as concurrent train steps; jobs resize between "
+                         "submeshes as the scheduler moves them")
+    ap.add_argument("--round-quantum", type=float, default=0.05,
+                    help="scheduler-tick width (virtual seconds) for "
+                         "spatial mode: events within one quantum join "
+                         "the same placement round so submeshes keep "
+                         "overlapping (ignored without --spatial)")
     ap.add_argument("--fuse", action="store_true",
                     help="HFTA-style horizontal fusion: same-shaped jobs "
                          "stack into one vmapped train step scheduled as "
@@ -214,12 +222,13 @@ def main(argv=None):
           f"util={res.util:.3f} goodput={res.goodput:.3f} "
           f"migrations={sum(res.migrations.values())} wall={wall:.1f}s",
           flush=True)
+    cache_stats = stepcache.GLOBAL.stats()
     if live:
-        cache_stats = stepcache.GLOBAL.stats()
         print(f"[cluster] stepcache hits={cache_stats['hits']} "
               f"misses={cache_stats['misses']} "
               f"entries={cache_stats['entries']}", flush=True)
         print(f"[cluster] max_concurrent={backend.max_concurrent_tasks} "
+              f"resizes={sum(backend.resizes.values())} "
               f"fused_groups={len(backend.fused)}", flush=True)
     if cc_before is not None:
         print(stepcache.persistent_cache_report(
@@ -243,11 +252,14 @@ def main(argv=None):
                "recovery_s": res.recovery_s,
                "failed_jobs": res.failed_jobs,
                "degraded_steps": res.degraded_steps, "summary": summary,
-               "wall_s": wall}
+               "wall_s": wall, "spatial": bool(args.spatial),
+               "stepcache": cache_stats}
         if live:
             rec.update(device=str(backend.device),
                        max_concurrent_tasks=backend.max_concurrent_tasks,
-                       fused={str(k): v for k, v in backend.fused.items()})
+                       resizes=backend.resizes,
+                       fused={str(k): v for k, v in backend.fused.items()},
+                       aot_events=backend.aot_events)
         with open(args.json_out, "w") as f:
             json.dump(rec, f, indent=2, default=str)
     backend.close()

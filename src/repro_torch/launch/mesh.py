@@ -47,13 +47,24 @@ index.  The backend is picked as for a data group.
 :func:`make_mesh_from_config` and :func:`parallel_config_for` carry a
 ``config.ParallelConfig`` to a ``dist/sharding.Mesh`` and back.
 
+The submeshes of spatial co-location (the counterpart of the reference's
+``split_devices``, ``make_submeshes`` and ``assert_disjoint``):
+:func:`make_submeshes` cuts a device's units into disjoint
+:class:`Submesh` values, one a machine slot of ``cluster/live.py``'s spatial
+mode.  On a card a unit is the driver's smallest partition of its SMs
+(``device.card_units``: 8 SMs on an H100, 15 units and 12 SMs left over)
+and a submesh holds a ``device.CardShare``, a green context over its SMs
+with a stream of its own; memory stays the card's one pool.  On the CPU a
+unit is a virtual slot of the one ``cpu`` device.  ``model_parallel > 1``
+raises: one job over several shares in one process is not done.
+
 What of the reference's mesh options is not ported (ROADMAP.md Queue 1 B
-item 11): the submeshes (``split_devices``, ``make_submeshes``,
-``assert_disjoint``), ``make_production_mesh`` (the 16 x 16 pod) and the
-multi-pod ``("pod", "data", "model")`` mesh.
+item 11): ``make_production_mesh`` (the 16 x 16 pod) and the multi-pod
+``("pod", "data", "model")`` mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import importlib
 import itertools
@@ -64,13 +75,14 @@ import tempfile
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.config import ParallelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import (CardShare, card_units, device_fingerprint,
+                                resolve_device)
 from repro_torch.dist import sharding
 from repro_torch.dist.group import (DEFAULT_TIMEOUT_S, DataGroup,
                                    GridGroup, ModelGroup, PipeGroup)
@@ -161,6 +173,132 @@ def parallel_config_for(mesh: sharding.Mesh) -> ParallelConfig:
         mesh_shape=tuple(mesh.shape[a] for a in axes), mesh_axes=axes,
         dp_axes=tuple(a for a in axes if a in ("pod", "data")),
         tp_axis="model", pp_axis="stage" if "stage" in axes else None)
+
+
+# -- spatial submeshes: disjoint shares of one device ----------------------
+
+def split_devices(sizes: Sequence[int],
+                  devices: Optional[Sequence] = None) -> List[list]:
+    """Partition ``devices`` (default: the units of the default device,
+    :func:`device_units`) into disjoint contiguous groups of the given
+    sizes.  Pure bookkeeping over any sequence — the submesh invariants
+    are testable with plain ints:
+
+    >>> split_devices([1, 3], devices=list(range(4)))
+    [[0], [1, 2, 3]]
+    >>> split_devices([2, 2], devices=list(range(3)))
+    Traceback (most recent call last):
+        ...
+    ValueError: submesh sizes [2, 2] need 4 devices, have 3
+    """
+    if devices is None:
+        devices = device_units()
+    sizes = list(sizes)
+    if not sizes or any(s < 1 for s in sizes):
+        raise ValueError(f"submesh sizes must be >= 1, got {sizes}")
+    need = sum(sizes)
+    if need > len(devices):
+        raise ValueError(f"submesh sizes {sizes} need {need} devices, "
+                         f"have {len(devices)}")
+    groups, at = [], 0
+    for s in sizes:
+        groups.append(list(devices[at:at + s]))
+        at += s
+    return groups
+
+
+def device_units(device=None, need: int = 1) -> List[int]:
+    """The units a device's submeshes are cut from: on a card the
+    driver's smallest SM partitions (``device.card_units``), on the CPU
+    ``need`` virtual slots of the one ``cpu`` device (the counterpart of
+    the reference's ``--xla_force_host_platform_device_count`` devices,
+    which are virtual too)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return list(range(card_units(dev).count))
+    return list(range(need))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Submesh:
+    """One machine slot of the spatial cluster: ``units`` of ``device``,
+    disjoint from every other submesh's.  On a card the units are SM
+    partitions and ``share`` the :class:`~repro_torch.device.CardShare`
+    (a green context over their ``sms`` SMs and its stream) that every
+    step placed here runs on; on the CPU they are virtual slots and
+    ``sms`` and ``share`` are None."""
+    index: int
+    device: torch.device
+    units: Tuple[int, ...]
+    sms: Optional[int] = None
+    share: Optional[CardShare] = None
+
+    def fingerprint(self) -> Tuple:
+        """Hashable identity of the placement (the counterpart of the
+        reference's ``mesh_fingerprint``): the device, the sorted units
+        and the SMs.  A submesh rebuilt over the same units fingerprints
+        equal; disjoint submeshes never collide."""
+        return ("submesh", device_fingerprint(self.device),
+                tuple(sorted(self.units)), self.sms)
+
+
+def make_submeshes(sizes: Optional[Sequence[int]] = None, *,
+                   count: Optional[int] = None, device=None,
+                   model_parallel: int = 1) -> List[Submesh]:
+    """Disjoint submeshes for spatial multi-job co-location: each machine
+    slot of the cluster runtime maps to one submesh, so co-located jobs
+    run concurrent train steps on separate shares of the device (on a
+    card: separate SMs, each share with a stream of its own).
+
+    Pass explicit per-submesh ``sizes`` (in units), or ``count`` to split
+    the units as evenly as possible (earlier submeshes take the
+    remainder).  Each size must divide by ``model_parallel``; above 1 it
+    raises ``NotImplementedError``: a ``(data, model)`` submesh would
+    spread one job over several shares in one process, which the port
+    does not do (a job spans ranks through its data group instead)."""
+    if (sizes is None) == (count is None):
+        raise ValueError("pass exactly one of sizes= or count=")
+    dev = resolve_device(device)
+    units = device_units(dev, count if sizes is None else sum(sizes))
+    if sizes is None:
+        if count < 1 or count > len(units):
+            raise ValueError(f"count={count} submeshes from "
+                             f"{len(units)} devices")
+        base, extra = divmod(len(units), count)
+        sizes = [base + (1 if i < extra else 0) for i in range(count)]
+    for s in sizes:
+        if s % model_parallel:
+            raise ValueError(f"submesh size {s} not divisible by "
+                             f"model_parallel={model_parallel}")
+    if model_parallel > 1:
+        raise NotImplementedError(
+            f"model_parallel={model_parallel}: a (data, model) submesh "
+            f"spreads one job over several shares of the device in one "
+            f"process, which the port does not do; a job spans ranks "
+            f"through its data group (launch/mesh.init_grid_group)")
+    subs = []
+    for i, group in enumerate(split_devices(sizes, devices=units)):
+        if dev.type == "cuda":
+            share = CardShare(dev, group)
+            subs.append(Submesh(i, share.device, tuple(group), share.sms,
+                                share))
+        else:
+            subs.append(Submesh(i, dev, tuple(group)))
+    assert_disjoint(subs)
+    return subs
+
+
+def assert_disjoint(submeshes) -> None:
+    """The spatial invariant: no unit of a device belongs to two
+    submeshes."""
+    seen: dict = {}
+    for i, sub in enumerate(submeshes):
+        dev = device_fingerprint(sub.device)
+        for u in sub.units:
+            if (dev, u) in seen:
+                raise ValueError(f"unit {u} of {sub.device} appears in "
+                                 f"submesh {seen[dev, u]} and {i}")
+            seen[dev, u] = i
 
 
 def _join_grid(what: str, shape, rank: int, init_method: Optional[str],

@@ -4,7 +4,8 @@ summary line, ``--sim --json-out`` writes the reference's makespan,
 utilization, completion times and migrations, ``--fuse`` fuses the same
 jobs as the reference's (both driven by one scripted clock, so their
 completion times agree), ``--aot-cache`` and ``--compilation-cache-dir``
-work, and the flags that are not ported raise."""
+work, and ``--spatial`` and ``--round-quantum``, refused before the
+submeshes were ported, run."""
 import itertools
 import json
 import os
@@ -69,9 +70,21 @@ def test_sim_json_equals_reference(tmp_path, capsys, scheduler):
 
 @pytest.mark.parametrize("flag", [["--spatial"], ["--round-quantum", "0"]],
                          ids=["spatial", "round-quantum"])
-def test_flags_that_are_not_ported_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 B"):
-        cluster_mod.main(["--device", "cpu", *FLAGS, *flag])
+def test_flags_that_are_not_ported_raise(flag, tmp_path):
+    """The flags refused before the port had submeshes now run:
+    ``--spatial`` over two CPU submeshes (concurrent rounds), and
+    ``--round-quantum``, which the runtime ignores without it."""
+    out = tmp_path / "session.json"
+    res = cluster_mod.main(["--device", "cpu", *FLAGS, *flag, "--quiet",
+                            "--json-out", str(out)])
+    rec = json.loads(out.read_text())
+    assert len(res.jct) == 2
+    assert rec["spatial"] is (flag == ["--spatial"])
+    # jobs arrive 0.5 s apart here, and a job's two workers take its
+    # engine in turn: tasks overlap only in tests/test_torch_submesh.py's
+    # sessions
+    assert rec["max_concurrent_tasks"] == 1
+    assert set(rec) >= {"resizes", "stepcache"}
 
 
 @pytest.mark.parametrize("flag", ["--aot-cache", "--compilation-cache-dir"])

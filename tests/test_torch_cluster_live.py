@@ -8,8 +8,8 @@ parity tests).  Then the port alone: the shared runtime invariants, EMA
 feedback into later placements, one retry for a transient error, a
 graceful job failure when the retries run out, a device fault that
 leaves ``run()`` unretried, a rollback that restores the checkpoint
-exactly, a restore of another snapshot raising, the arguments that are
-not ported, and the default device.
+exactly, a restore of another snapshot raising, the submeshes that were
+refused before they were ported, and the default device.
 
 Horizontal fusion (``fuse=True``) against the reference's: two
 same-shaped yi-6b-reduced jobs fuse into one ``FusedEngine`` beside a
@@ -44,6 +44,7 @@ from repro_torch.engine.engine import SPBEngine
 from repro_torch.engine.fused import FusedEngine
 from repro_torch.jigsaw.schedulers import JigsawScheduler
 from repro_torch.kernels import _build
+from repro_torch.launch.mesh import make_submeshes
 from repro_torch.optim import optimizers
 from repro_torch.tree import tree_leaves
 
@@ -356,11 +357,20 @@ def test_a_rollback_to_another_snapshot_raises(tmp_path, monkeypatch):
     backend.close()
 
 
-@pytest.mark.parametrize("kw", [dict(submeshes=[object()])],
-                         ids=["submeshes"])
+@pytest.mark.parametrize("kw", [dict(submeshes=2)], ids=["submeshes"])
 def test_what_is_not_ported_raises(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 B"):
-        LiveBackend(_port_jobs(), device="cpu", **kw)
+    """What this refused before the port had submeshes now runs: the
+    backend over two CPU submeshes asks for concurrent rounds and
+    finishes the session (``tests/test_torch_submesh.py`` holds it to
+    the reference's)."""
+    backend = LiveBackend(_port_jobs(), submeshes=make_submeshes(
+        count=kw["submeshes"], device="cpu"),
+        timer=_ScriptedTimer(itertools.repeat(0.1)))
+    assert backend.concurrent_rounds
+    res = _run(backend, horizon=1e9)
+    assert len(res.jct) == 2 and backend.max_concurrent_tasks >= 1
+    assert all(s["steps_run"] == 4 and "resizes" in s
+               for s in backend.summary().values())
 
 
 def test_aot_cache_loads_or_exports_each_job(tmp_path):
