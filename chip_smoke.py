@@ -23,7 +23,9 @@ Phases, each printing a line; any failure exits non-zero:
      deepseek-v2-lite-16b's (H = K = 16, 192 / 128 in D 256) and
      minicpm3-4b's (H = K = 40, 96 / 64 in D 128), at seamless-m4t-medium's
      decoder self-attention (H = K = 16, D 64) and internvl2-26b's (H 48
-     over K 8, D 128), then the backward
+     over K 8, D 128), at a tensor-parallel rank's yi-6b heads (H 16 over
+     K 2) at S 2048 and at phase 25's serving prefill (S 64, bf16 and
+     f32), then the backward
      kernels on the forward kernel's own outputs against the plain chain,
      and two dq calls and two dkv calls bitwise equal; max errors against
      the stated tolerance, and the kernel's (CUDA events over 5 calls, and
@@ -277,7 +279,30 @@ Phases, each printing a line; any failure exits non-zero:
      share, the session's wall time beside the same session
      time-multiplexed on the whole card, and the card's peak
      (``phase_spatial``);
-  15. (run last, after 24, on the host) the dry run of each phase-5 path:
+  25. (run after 24) sharded serving (``ServeEngine(group=)``) on a
+     (data 1, model 2) grid of two ranks that share the card over gloo
+     (``launch/mesh.spawn(grid=(1, 2))``): yi-6b at published widths and
+     full depth, bf16, the kernels on, each rank drawing phase 12's seed-0
+     params leaf by leaf and keeping its share; 4 slots of 16-token pages,
+     2048 context, four greedy prompts in the 64 bucket, 16 new tokens,
+     each alone, then staggered: every request completes, staggered equals
+     solo, the two ranks' outputs and prefill logits are bit-identical,
+     the prefill logits of the same widths at ``SHARD_F32_LAYERS`` layers
+     in f32 within ``PIPE_TOL`` (relative L2) of one process's and the
+     bf16 ones within twice one process's own bf16-vs-f32 spread at full
+     depth, the first token one process's wherever its top-2
+     margin exceeds ``PIPE_TOL``, reduced yi-6b in f32 on the grid one
+     process's tokens token for token, each step's model-group calls and
+     bytes ``roofline.serve_tp_calls``, the flash forward once a prefill
+     and attention layer at the local H 16 over K 2, the rank's pool half
+     the one-process pool and its params the reckoning; prefill ms, the
+     decode step's ms and host ms in the model group by slots live, params
+     held, pool bytes and peak, beside the card's name and power limit
+     (``phase_sharded_serve``; the one-process references run while the
+     ranks start and draw their weights, and the ranks wait for them to
+     end before the timed trace, so the card runs only the two ranks
+     there);
+  15. (run last, after 25, on the host) the dry run of each phase-5 path:
      every depth of its cycle counted on the meta device at batch
      2 x 2048 with the kernels' meta entries (``launch/dryrun.py``):
      counted TFLOP and GB, the three H100 roofline terms
@@ -302,6 +327,7 @@ Phases, each printing a line; any failure exits non-zero:
      ``launches_fused_dots`` (phase 23 (a)'s 'dots' run) and
      ``launches_compressed`` (phase 23 (b) and (c)'s, by run and rank),
      ``launches_spatial`` (phase 24 (b)'s and (c)'s),
+     ``launches_sharded_serve`` (phase 25's, by rank),
      the fused phase's ms by depth and peak, phase 17's and phase 18's
      figures,
      and phase 15's ``dryrun_by_arch``), the card's name and power
@@ -353,6 +379,10 @@ IV2_MAIN = dict(MAIN, H=48, K=8)
 # yi-6b's attention on a tensor-parallel stage of 2 model ranks (phase
 # 21): the local heads, 16 q over 2 kv (G 8), one row of 2048
 TP_MAIN = dict(MAIN, B=1, H=16, K=2)
+# the same heads at phase 25's serving prefill: one right-padded prompt of
+# the 64 bucket, causal, in bf16 (the wgmma kernel) and in f32 (the simple
+# kernel, phase 25's f32 check), held against the plain version here
+SERVE_TP = dict(TP_MAIN, Sq=64, Sk=64)
 CASES = {
     "main": MAIN,
     "window": dict(B=1, Sq=1024, Sk=1024, H=8, K=2, D=64, causal=True,
@@ -369,6 +399,8 @@ CASES = {
     "sm4t_main": SM4T_MAIN,
     "iv2_main": IV2_MAIN,
     "tp_main": TP_MAIN,
+    "serve_tp": SERVE_TP,
+    "serve_tp_f32": dict(SERVE_TP, dtype="float32"),
 }
 TIMED = {"main": "yi-6b", "rg_main": "recurrentgemma-2b",   # case: arch
          "g3_main": "gemma3-4b", "q3_main": "qwen3-moe-235b-a22b",
@@ -5619,6 +5651,393 @@ def phase_spatial(smi: str) -> dict:
                 "resizes": backend.resizes, "phase_s": secs}}
 
 
+# Phase 25: sharded serving.  yi-6b at published widths and full depth,
+# bf16, the kernels on, on a (data 1, model 2) grid of ranks that share
+# the card over gloo; 4 slots of 16-token pages, 2048 context, prompts in
+# the 64 bucket, greedy, SERVE_MAX_NEW new tokens
+SHARD_ARCH = "yi-6b"
+SHARD_GRID = (1, 2)
+SHARD_BUCKET = 64
+# (prompt length, arrival in engine steps): every prompt in the 64 bucket
+SHARD_TRACE = ((60, 0), (17, 2), (41, 4), (33, 6))
+# the f32 check's depth: it holds the row-parallel joins against one
+# process at published widths, which a few layers show as well as 32
+SHARD_F32_LAYERS = 4
+# the most a rank waits for the one-process references before its trace
+SHARD_GATE_S = 600.0
+
+
+def shard_config(what: str):
+    """Phase 25's configs: ``"full"`` (phase 12's yi-6b, bf16),
+    ``"f32_full"`` (the same in f32), ``"f32"`` (its published widths at
+    ``SHARD_F32_LAYERS`` layers, f32) or ``"reduced"`` (reduced yi-6b,
+    f32), all on the kernels."""
+    from repro_torch.configs import get_config, reduced_config
+    cfg = reduced_config(SHARD_ARCH) if what == "reduced" else \
+        get_config(SHARD_ARCH)
+    if what.startswith("f32"):
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    if what == "f32":
+        cfg = dataclasses.replace(cfg, num_layers=SHARD_F32_LAYERS)
+    return dataclasses.replace(cfg, use_pallas=True)
+
+
+def shard_geometry():
+    from repro_torch.serve import default_geometry
+    return default_geometry(num_slots=4, page_size=16, max_context=2048)
+
+
+class _HeadsSpy(_RowsSpy):
+    """:class:`_RowsSpy` recording each call's (query heads, KV heads)."""
+
+    def __call__(self, *a, **kw):
+        self._rows.append((a[0].shape[1], a[1].shape[1]))
+        return self._real(*a, **kw)
+
+
+def _serve_trace(eng, prompts) -> dict:
+    """Each prompt alone, then all of them staggered by ``SHARD_TRACE``'s
+    arrivals, to the end: the outputs of each, in trace order."""
+    import collections
+
+    def run(trace):
+        start, pending, reqs = eng.clock, collections.deque(trace), []
+        while pending or eng._live or eng.scheduler.queue:
+            while pending and pending[0][0] <= eng.clock - start:
+                reqs.append(eng.submit(pending.popleft()[1],
+                                       max_new=SERVE_MAX_NEW))
+            eng.step(1)
+            eng.poll()
+        return reqs
+
+    solo = [run([(0, p)])[0] for p in prompts]
+    stag = run([(at, p) for (_, at), p in zip(SHARD_TRACE, prompts)])
+    return {"solo": [r.output for r in solo],
+            "staggered": [r.output for r in stag],
+            "done": all(r.done for r in solo + stag)}
+
+
+def _prefill_logits(params, cfg, pool, prompts, tp) -> list:
+    """Each prompt's prefill logits (f32, on the host), its K/V written to
+    the trash page only (a page row of page 0)."""
+    import torch
+    from repro_torch.models import lm
+    dev = pool[0][0]["self"]["k"].device
+    row = torch.zeros(shard_geometry().pages_per_slot, dtype=torch.int64,
+                      device=dev)
+    out = []
+    for p in prompts:
+        tokens = torch.zeros((1, SHARD_BUCKET), dtype=torch.int64,
+                             device=dev)
+        tokens[0, :len(p)] = torch.tensor(p, device=dev)
+        lg, _ = lm.serve_prefill(params, tokens, cfg, pool, page_row=row,
+                                 prompt_len=torch.tensor([len(p)],
+                                                         device=dev), tp=tp)
+        out.append(lg[0, :cfg.vocab_size].float().cpu())
+    return out
+
+
+def _wait_gate(path: str) -> float:
+    """Wait until the file ``path`` exists; the seconds waited."""
+    t0 = time.perf_counter()
+    while not Path(path).exists():
+        if time.perf_counter() - t0 > SHARD_GATE_S:
+            raise TimeoutError(f"no {path} after {SHARD_GATE_S:g} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def shard_rank(group, prompts, rprompts, gate) -> dict:
+    """Phase 25, one rank of the (1, 2) grid: the engine from phase 12's
+    seed-0 params drawn leaf by leaf (this rank's share kept), the prefill
+    logits of each prompt; once the file ``gate`` exists (the parent's
+    references are done), the traces with every step function's
+    model-group calls and host seconds, its CUDA events, the slots live at
+    the call and the flash forward's heads a call; then the f32 model's
+    prefill logits and reduced yi-6b in f32 on the same grid, and the
+    seconds of each part."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import ServeEngine
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = group.model
+    cfg = shard_config("full")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, geom=shard_geometry(), group=group, seed=0)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "held": eng.held_bytes(),
+           "params": sum(t.numel() for t in tree_leaves(eng.params)),
+           "local_heads": (eng.params["groups"][0][0]["mixer"]["wq"].shape[-1]
+                           // cfg.head_dim,
+                           eng.params["groups"][0][0]["mixer"]["wk"].shape[-1]
+                           // cfg.head_dim)}
+    out["logits"] = _prefill_logits(eng.params, cfg, eng.state["groups"],
+                                    prompts, eng.tp)
+    out["gate_s"] = _wait_gate(gate)
+    calls = []
+    raw = dict(eng._steps)
+    for key, fn in raw.items():
+        def counted(*a, key=key, fn=fn):
+            c0, b0 = dict(model.calls), dict(model.bytes)
+            s0 = sum(model.seconds.values())
+            live = len(eng._live)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "01"]
+            ev[0].record()
+            fn(*a)
+            ev[1].record()
+            calls.append((key, {k: [model.calls[k] - c0.get(k, 0),
+                                    model.bytes[k] - b0.get(k, 0)]
+                                for k in model.calls
+                                if model.calls[k] - c0.get(k, 0)}, ev,
+                          live, sum(model.seconds.values()) - s0))
+        eng._steps[key] = counted
+    heads = []
+    real = fa.fwd_kernel_layout
+    fa.fwd_kernel_layout = _HeadsSpy(real, heads)
+    try:
+        before = real.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["trace"] = _serve_trace(eng, prompts)
+        torch.cuda.synchronize()
+        out["trace_s"] = time.perf_counter() - t0
+        out["flash_fwd"] = real.launches - before
+    finally:
+        fa.fwd_kernel_layout = real
+    out["heads"] = sorted(set(heads))
+    torch.cuda.synchronize()
+    # (key, calls, CUDA-event ms, slots live, host ms in the model group)
+    out["calls"] = [(k, c, round(ev[0].elapsed_time(ev[1]), 4), live,
+                     round(host * 1e3, 4))
+                    for k, c, ev, live, host in calls]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del eng, raw, calls
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    f32 = ServeEngine(shard_config("f32"), geom=shard_geometry(),
+                      group=group, seed=0)
+    out["logits_f32"] = _prefill_logits(f32.params, f32.cfg,
+                                        f32.state["groups"], prompts, f32.tp)
+    del f32
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    small = ServeEngine(shard_config("reduced"), geom=shard_geometry(),
+                        group=group, seed=0)
+    out["reduced"] = _serve_trace(small, rprompts)
+    out["f32_s"], out["reduced_s"] = t1 - t0, time.perf_counter() - t1
+    return out
+
+
+def _one_process_serve(prompts, rprompts) -> dict:
+    """Phase 25's one-process references on the card: the prefill logits
+    of phase 12's seed-0 yi-6b in bf16 and in f32 (the same draws), and of
+    the f32 cut, and reduced yi-6b's traces in f32."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine, cache_bytes, init_paged_cache
+    out = {"pool": cache_bytes(shard_config("full"), shard_geometry())}
+    for what, key in (("full", "logits"), ("f32_full", "logits_f32_full"),
+                      ("f32", "logits_f32")):
+        cfg = shard_config(what)
+        params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+        pool = init_paged_cache(cfg, shard_geometry(), "cuda")
+        out[key] = _prefill_logits(params, cfg, pool, prompts, None)
+        del params, pool
+        torch.cuda.empty_cache()
+    small = ServeEngine(shard_config("reduced"), geom=shard_geometry(),
+                        device="cuda", seed=0)
+    out["reduced"] = _serve_trace(small, rprompts)
+    return out
+
+
+def _shard_figures(calls) -> dict:
+    """A rank's step figures from its trace's calls: each prefill's ms and
+    host ms in the model group, and the decode step's (median, min, max)
+    of both by the slots live at the call."""
+    def stats(xs):
+        xs = sorted(xs)
+        return [xs[len(xs) // 2], xs[0], xs[-1]]
+
+    live = sorted({n for k, *_, n, _h in calls if k == "decode"})
+    return {"prefill_ms": [ms for k, _, ms, *_ in calls if k != "decode"],
+            "prefill_model_host_ms": [h for k, *_, h in calls
+                                      if k != "decode"],
+            "decode_ms_by_live": {n: stats([ms for k, _, ms, m, _h in calls
+                                            if k == "decode" and m == n])
+                                  for n in live},
+            "decode_model_host_ms_by_live": {
+                n: stats([h for k, _, _ms, m, h in calls
+                          if k == "decode" and m == n]) for n in live}}
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| of two f32 host tensors."""
+    return float((a - b).norm() / b.norm())
+
+
+def phase_sharded_serve(smi: str) -> dict:
+    """Phase 25: sharded serving on the card (``ServeEngine(group=)``,
+    ``launch/mesh.spawn(grid=(1, 2))``; see the module docstring).  The
+    one-process references run in this process while the ranks start and
+    draw their weights; the ranks start their timed trace once they are
+    done.  Returns each rank's launches and the figures."""
+    import tempfile
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.analysis import roofline
+    from repro_torch.config import layer_kinds
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    cfg, rcfg = shard_config("full"), shard_config("reduced")
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n, _ in SHARD_TRACE]
+    rprompts = [[t % rcfg.vocab_size for t in p] for p in prompts]
+    with tempfile.TemporaryDirectory(prefix="shard_gate_") as tmp, \
+            ThreadPoolExecutor(1) as lane:
+        gate = str(Path(tmp) / "references_done")
+        ranks = lane.submit(mesh.spawn, "chip_smoke:shard_rank", 2, prompts,
+                            rprompts, gate, device="cuda", grid=SHARD_GRID,
+                            timeout_s=DP_JOIN_S)
+        try:
+            t1 = time.perf_counter()
+            one = _one_process_serve(prompts, rprompts)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            refs_s = time.perf_counter() - t1
+        finally:
+            Path(gate).touch()      # a failure above still lets the ranks end
+        ranks = ranks.result()
+    failed = []
+    T = SHARD_GRID[1]
+    grid = sharding.Mesh(SHARD_GRID, ("data", "model"))
+    shapes = lm.param_shapes(cfg)
+    reckoned = sharding.sharded_state_bytes(
+        shapes, sharding.serve_params_pspec(shapes, cfg, grid), grid)
+    want = {"prefill": {k: list(v) for k, v in roofline.serve_tp_calls(
+                cfg, T, 1, SHARD_BUCKET).items()},
+            "decode": {k: list(v) for k, v in roofline.serve_tp_calls(
+                cfg, T, shard_geometry().num_slots, 1).items()}}
+    attn = sum(m in ("attn", "local") for m, _ in layer_kinds(cfg))
+    n_prefill = 2 * len(prompts)
+    for r, got in enumerate(ranks):
+        tr = got["trace"]
+        if not tr["done"] or any(len(o) != SERVE_MAX_NEW
+                                 for o in tr["solo"] + tr["staggered"]):
+            failed.append(f"rank {r}: not every request completed")
+        if tr["staggered"] != tr["solo"]:
+            failed.append(f"rank {r}: staggered outputs differ from solo")
+        if r and (tr != ranks[0]["trace"]
+                  or got["reduced"] != ranks[0]["reduced"]):
+            failed.append(f"rank {r}: outputs differ from rank 0's")
+        if r and not all(torch.equal(a, b) for a, b in
+                         zip(got["logits"], ranks[0]["logits"])):
+            failed.append(f"rank {r}: prefill logits differ from rank 0's")
+        if got["reduced"]["solo"] != one["reduced"]["solo"] or \
+                got["reduced"]["staggered"] != one["reduced"]["staggered"]:
+            failed.append(f"rank {r}: reduced f32 tokens differ from one "
+                          f"process's")
+        # f32 at full width: the sharded sums against one process's, to
+        # PIPE_TOL; bf16: within twice one process's own bf16-vs-f32
+        # spread (tests/test_torch_bf16_parity.py's rule), since a bf16
+        # join rounds each partial sum where one product rounds once
+        rel32 = [_rel(a, b) for a, b in zip(got["logits_f32"],
+                                             one["logits_f32"])]
+        rel = [_rel(a, b) for a, b in zip(got["logits"], one["logits"])]
+        spread = [_rel(a, b) for a, b in zip(one["logits"],
+                                             one["logits_f32_full"])]
+        if not max(rel32) <= PIPE_TOL:
+            failed.append(f"rank {r}: f32 prefill logits' relative L2 "
+                          f"distance at {SHARD_F32_LAYERS} layers "
+                          f"distance to one process {max(rel32):.3e} > "
+                          f"{PIPE_TOL:g}")
+        if not all(x <= 2 * sp for x, sp in zip(rel, spread)):
+            failed.append(f"rank {r}: bf16 prefill logits' relative L2 "
+                          f"distance to one process {rel} over twice its "
+                          f"bf16-vs-f32 spread {spread}")
+        for i, (a, b) in enumerate(zip(got["logits"], one["logits"])):
+            top = torch.topk(b, 2).values
+            if float(top[0] - top[1]) > PIPE_TOL and \
+                    tr["solo"][i][0] != int(b.argmax()):
+                failed.append(f"rank {r} prompt {i}: first token "
+                              f"{tr['solo'][i][0]} != one process's "
+                              f"{int(b.argmax())} (margin "
+                              f"{float(top[0] - top[1]):.4f})")
+        for key, c, *_ in got["calls"]:
+            w = want["decode" if key == "decode" else "prefill"]
+            if c != w:
+                failed.append(f"rank {r} {key}: model-group calls {c} != "
+                              f"{w}")
+        if got["flash_fwd"] != n_prefill * attn or \
+                got["heads"] != [(cfg.num_heads // T, cfg.num_kv_heads // T)]:
+            failed.append(f"rank {r}: flash forward {got['flash_fwd']} "
+                          f"launches at heads {got['heads']}, not "
+                          f"{n_prefill * attn} at "
+                          f"{(cfg.num_heads // T, cfg.num_kv_heads // T)}")
+        if got["held"]["pool"] * T != one["pool"]:
+            failed.append(f"rank {r}: pool {got['held']['pool']} B is not "
+                          f"1/{T} of one process's {one['pool']}")
+        if got["held"]["params"] != reckoned:
+            failed.append(f"rank {r}: params {got['held']['params']} B != "
+                          f"the reckoning's {reckoned}")
+        fig = _shard_figures(got["calls"])
+        log(f"[sharded-serve] {SHARD_ARCH}/{cfg.num_layers} bf16 grid="
+            f"{SHARD_GRID} rank={r} params_held={got['params']} "
+            f"param_bytes={got['held']['params']} (reckoned {reckoned}) "
+            f"pool_bytes={got['held']['pool']} (one process {one['pool']}) "
+            f"init_s={got['init_s']:.2f} init_peak_gb="
+            f"{got['init_peak_gb']:.3f} peak_gb={got['peak_gb']:.3f} "
+            f"local_heads={got['local_heads']} card={smi}")
+        log(f"[sharded-serve] rank={r} prefill_ms (bucket {SHARD_BUCKET}, "
+            f"CUDA events) {fig['prefill_ms']} prefill_model_group_host_ms "
+            f"{fig['prefill_model_host_ms']} decode_step_ms by slots live "
+            f"(median, min, max over the trace's steps) "
+            f"{fig['decode_ms_by_live']} model_group_host_ms_a_decode_step "
+            f"{fig['decode_model_host_ms_by_live']} trace_s="
+            f"{got['trace_s']:.2f} waited_for_references_s="
+            f"{got['gate_s']:.2f} f32_s={got['f32_s']:.2f} reduced_s="
+            f"{got['reduced_s']:.2f} card={smi}")
+        log(f"[sharded-serve] rank={r} prefill_logits_rel_l2_vs_one_process "
+            f"f32 at {SHARD_F32_LAYERS} layers="
+            f"{[f'{x:.3e}' for x in rel32]} (tol {PIPE_TOL:g}) "
+            f"bf16={[f'{x:.3e}' for x in rel]} (tol twice the one "
+            f"process's bf16-vs-f32 {[f'{x:.3e}' for x in spread]}) "
+            f"first_tokens={[o[0] for o in tr['solo']]} one_process="
+            f"{[int(b.argmax()) for b in one['logits']]} "
+            f"model_calls_prefill={want['prefill']} "
+            f"model_calls_decode={want['decode']} flash_fwd="
+            f"{got['flash_fwd']} at heads {got['heads']} reduced_f32_equal="
+            f"{got['reduced'] == one['reduced']} card={smi}")
+    secs = time.perf_counter() - t0
+    log(f"[sharded-serve] phase {secs:.1f}s (one-process references "
+        f"{refs_s:.1f}s, while the ranks started)")
+    if failed:
+        raise AssertionError("sharded-serve: " + "; ".join(failed))
+    return {"launches": {f"rank{r}": {"flash_fwd": got["flash_fwd"]}
+                         for r, got in enumerate(ranks)},
+            "figures": {f"rank{r}": {
+                **_shard_figures(got["calls"]),
+                "param_bytes": got["held"]["params"],
+                "pool_bytes": got["held"]["pool"],
+                "params_held": got["params"],
+                "peak_gb": round(got["peak_gb"], 3),
+                "logits_rel_l2_bf16": [_rel(a, b) for a, b in zip(
+                    got["logits"], one["logits"])],
+                "logits_rel_l2_f32": [_rel(a, b) for a, b in zip(
+                    got["logits_f32"], one["logits_f32"])]}
+                for r, got in enumerate(ranks)} | {"phase_s": secs}}
+
+
 def _dryruns(phase5: dict, peaks: dict, bounds: dict, remat: dict):
     """:func:`phase_dryrun` and :func:`phase_remat_dryrun`, in a process of
     their own (started by ``main``); their lines go to the same output."""
@@ -5825,6 +6244,11 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels the spatial session never "
                              f"launched: {idle}")
+    torch.cuda.empty_cache()
+    sharded = clocked("sharded_serve", phase_sharded_serve, smi)
+    if not all(g.get("flash_fwd") for g in sharded["launches"].values()):
+        raise AssertionError(f"a sharded serving rank never launched the "
+                             f"flash forward: {sharded['launches']}")
     dryrun_by_arch, remat_dryrun, dry_s = clocked("dryruns_waited",
                                                   dryruns.result)
     dry_pool.shutdown()
@@ -5883,6 +6307,9 @@ def main() -> int:
                  "launches_spatial": {
                      k: g[name] for k, g in spatial["launches"].items()
                      if g.get(name)},
+                 "launches_sharded_serve": {
+                     k: g[name] for k, g in sharded["launches"].items()
+                     if g.get(name)},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"],
@@ -5936,6 +6363,7 @@ def main() -> int:
                         for p, f in fused_dots["figures"].items()},
                     "compressed": compressed["figures"],
                     "spatial": spatial["figures"],
+                    "sharded_serve": sharded["figures"],
                     "phase_s": PHASE_S}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

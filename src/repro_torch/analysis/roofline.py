@@ -19,7 +19,7 @@ import dataclasses
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.config import (SHAPES, ModelConfig, ShapeConfig,
                                 layer_kinds, total_layers)
@@ -366,6 +366,65 @@ def moe_layers_live(cfg: ModelConfig, depth: Optional[int]
     return live, frozen
 
 
+def _ep_layer_calls(cfg: ModelConfig, n_tok: int, t: int, layers: int,
+                    live: int, add: Callable[[str, int, int], None]) -> None:
+    """``moe_fwd_ep``'s calls in ``layers`` MoE layers' forwards over
+    ``n_tok`` tokens, and in the backwards of ``live`` of them
+    (:func:`ep_calls`)."""
+    m = cfg.moe
+    elem = 2 if cfg.dtype in ("bfloat16", "float16") else 4
+    act = n_tok * cfg.d_model * elem
+    if n_tok < 4 * t:
+        add("all-reduce", layers + live, act)
+        add("all-reduce", layers, 4)
+    else:
+        from repro_torch.models.moe import capacity
+        c = capacity(n_tok // t * m.top_k, m.num_experts, m.capacity_factor)
+        add("all-to-all", 2 * layers + 2 * live,
+            m.num_experts * c * cfg.d_model * elem)
+        add("all-gather", layers + live, act)
+        add("all-reduce", layers, 4)
+
+
+def serve_tp_calls(cfg: ModelConfig, model_parallel: int, rows: int,
+                   seq_len: int) -> Dict[str, Tuple[int, int]]:
+    """What one model rank of the serving grid calls on its model group
+    (``dist/group.ModelGroup``) in one prefill or one decode step of
+    ``rows`` rows by ``seq_len`` positions (``lm.prefill``,
+    ``decode_step``, ``serve_prefill``, ``serve_decode`` with ``tp=``),
+    ``{kind: (calls, payload bytes)}``: each attn/local layer all-reduces
+    its ``wo`` join once and each dense FFN its ``wd`` join, a payload of
+    ``rows x seq_len x d_model x itemsize``; a MoE layer under
+    ``impl="dense"`` all-reduces its experts' partial outputs once (the
+    same payload), under ``impl="ep"`` calls what ``moe_fwd_ep``'s forward
+    does (:func:`ep_calls`); an MLA, SSD, RG-LRU or ``xdec`` mixer runs
+    whole and calls nothing.  A serve prefill runs the whole bucket:
+    ``rows`` 1, ``seq_len`` the bucket."""
+    t = int(model_parallel)
+    if t <= 1:
+        return {}
+    elem = 2 if cfg.dtype in ("bfloat16", "float16") else 4
+    n_tok = rows * seq_len
+    act = n_tok * cfg.d_model * elem
+    kinds = layer_kinds(cfg)
+    calls: Dict[str, List[int]] = {}
+
+    def add(kind: str, count: int, nbytes: int) -> None:
+        if count:
+            c = calls.setdefault(kind, [0, 0])
+            c[0] += count
+            c[1] += count * nbytes
+
+    ffn = [f for _, f in kinds] if cfg.d_ff > 0 else []
+    add("all-reduce", sum(m in ("attn", "local") for m, _ in kinds)
+        + ffn.count("dense"), act)
+    if ffn.count("moe") and cfg.moe.impl == "dense":
+        add("all-reduce", ffn.count("moe"), act)
+    elif ffn.count("moe"):
+        _ep_layer_calls(cfg, n_tok, t, ffn.count("moe"), 0, add)
+    return {k: (v[0], v[1]) for k, v in calls.items()}
+
+
 def ep_calls(cfg: ModelConfig, rows: int, seq_len: int, *,
              model_parallel: int, depth: Optional[int]
              ) -> Dict[str, Tuple[int, int]]:
@@ -390,10 +449,8 @@ def ep_calls(cfg: ModelConfig, rows: int, seq_len: int, *,
     if t <= 1 or cfg.moe is None:
         return {}
     m = cfg.moe
-    elem = 2 if cfg.dtype in ("bfloat16", "float16") else 4
     live, frozen = moe_layers_live(cfg, depth)
     n_tok = rows * seq_len
-    act = n_tok * cfg.d_model * elem
     calls: Dict[str, List[int]] = {}
 
     def add(kind: str, count: int, nbytes: int) -> None:
@@ -402,17 +459,7 @@ def ep_calls(cfg: ModelConfig, rows: int, seq_len: int, *,
             c[0] += count
             c[1] += count * nbytes
 
-    layers = live + frozen
-    if n_tok < 4 * t:
-        add("all-reduce", layers + live, act)
-        add("all-reduce", layers, 4)
-    else:
-        from repro_torch.models.moe import capacity
-        c = capacity(n_tok // t * m.top_k, m.num_experts, m.capacity_factor)
-        add("all-to-all", 2 * layers + 2 * live,
-            m.num_experts * c * cfg.d_model * elem)
-        add("all-gather", layers + live, act)
-        add("all-reduce", layers, 4)
+    _ep_layer_calls(cfg, n_tok, t, live + frozen, live, add)
     if live:
         shared = 3 * cfg.d_model * m.num_shared * m.d_ff_expert
         add("all-reduce", 1,

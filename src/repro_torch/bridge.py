@@ -4,9 +4,9 @@ Random initializers cannot match across frameworks, so a parity check
 builds parameters with ``repro.models.lm.init_lm``, turns them into numpy
 (``jax.tree.map(np.asarray, params)``) and hands the tree here.  The two
 packages share one layout, so the bridge is a name-by-name copy that
-raises on any missing, extra or mis-shaped leaf.  A ``(data, model)``
-grid's rank holds its share of each MoE layer's experts
-(:func:`grid_params_from_numpy`).
+raises on any missing, extra or mis-shaped leaf.  A serving grid's rank
+holds its shards of the tensor-parallel layers and its share of each MoE
+layer's experts (:func:`serve_params_from_numpy`).
 """
 from __future__ import annotations
 
@@ -73,23 +73,18 @@ def stacked_params_from_numpy(trees: Any, cfg: ModelConfig,
                     *(_from_numpy(t, cfg, device, ()) for t in trees))
 
 
-def grid_params_from_numpy(tree: Any, cfg: ModelConfig, model: tuple,
-                           device="cpu") -> Any:
-    """One ``(data, model)`` grid rank's params from the reference's whole
-    tree (numpy, the JAX layout): ``model = (t, T)``, the rank's index on
-    the ``model`` axis and its size; the rank takes its share of every
-    MoE layer's experts (experts ``[t E / T, (t + 1) E / T)``, as
-    ``dist/sharding.grid_state_pspec`` lays them out) and every other leaf
-    whole.  Leaf tensors that require grad, as :func:`params_from_numpy`
-    gives them; raises as it does on a missing, extra or mis-shaped
-    leaf."""
+def serve_params_from_numpy(tree: Any, cfg: ModelConfig, model: tuple,
+                            device="cpu") -> Any:
+    """One serving grid rank's params from the reference's whole tree
+    (numpy, the JAX layout): ``model = (t, T)``; the rank takes its
+    column/row shard of each attn/local mixer and dense FFN and its share
+    of each MoE layer's experts, and every other leaf whole
+    (``dist/sharding.serve_params_pspec``).  Plain tensors (serving runs
+    no backward); raises as :func:`params_from_numpy` does on a missing,
+    extra or mis-shaped leaf."""
     t, T = model
-    shapes = lm.param_shapes(cfg)
     mesh = sharding.Mesh((1, T), ("data", "model"))
-    with sharding.rules(sharding.EXPERT_ONLY):
-        specs = sharding.params_pspec(shapes, mesh)
-    parts = sharding.axis_slices(specs, shapes, mesh, "model", t)
-    whole = _from_numpy(tree, cfg, "cpu", ())
-    return tree_map(
-        lambda w, part: (w if part is None else w.narrow(*part)).to(
-            device, copy=True).requires_grad_(True), whole, parts)
+    specs = sharding.serve_params_pspec(lm.param_shapes(cfg), cfg, mesh)
+    share = sharding.grid_share(_from_numpy(tree, cfg, "cpu", ()), specs,
+                                mesh, {"model": t})
+    return tree_map(lambda w: w.to(device, copy=True), share)

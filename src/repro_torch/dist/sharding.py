@@ -27,6 +27,7 @@ import contextvars
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
+from repro_torch.config import layer_groups
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 Role = Union[str, None]
@@ -58,6 +59,13 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Mesh) and \
+            (self.axis_names, self.shape) == (other.axis_names, other.shape)
+
+    def __hash__(self) -> int:
+        return hash((self.axis_names, tuple(self.shape.values())))
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
@@ -426,6 +434,133 @@ def grid_state_pspec(state_shapes: Any, mesh: Mesh, *,
     ZeRO-1 picks its data dim among every other dim."""
     with rules(EXPERT_ONLY):
         return state_pspec(state_shapes, mesh, zero1=zero1)
+
+
+# The serving grid (``serve/engine.ServeEngine(group=)``,
+# ``dist/steps.shard_decode_step``) keeps the reference's rule table for the
+# layers the port runs tensor-parallel -- an attn/local mixer's heads and a
+# dense FFN's columns over ``model``, a MoE layer's experts there too -- and
+# departs from it where the port has no sharded path: an MLA, SSD, RG-LRU or
+# cross-attending (``xdec``) mixer runs whole on every model rank, as do a MoE
+# layer's router and shared expert, the token table, the head, the norms and
+# an encoder (the reference shards ``vocab``, the MLA projections and the
+# shared expert over ``model`` too).  Only the leaves the rule left
+# sharded are kept: a rank's weights, dense caches and paged pools then hold
+# ``1 / T`` of each attention layer's KV heads.
+_TP_MIXERS = ("attn", "local")
+
+
+def _layer_route(keys: Tuple[str, ...], cfg) -> Optional[Tuple[str, str]]:
+    """The ``(mixer, ffn)`` kinds of the decoder layer a param or cache
+    leaf belongs to (its path under ``groups``), or None outside the
+    decoder's groups (the embedding, the head, an encoder, ``pos``)."""
+    if len(keys) < 3 or keys[0] != "groups":
+        return None
+    unit, _ = layer_groups(cfg)[int(keys[1])]
+    return unit[int(keys[2])]
+
+
+def _grid_keeps(keys: Tuple[str, ...], cfg) -> bool:
+    """Whether a leaf keeps its rule-table spec on the serving grid (else
+    it is whole on every model rank)."""
+    route = _layer_route(keys, cfg)
+    if route is None:
+        return False
+    mixer, ffn = route
+    if keys[3] in ("mixer", "self"):
+        return mixer in _TP_MIXERS
+    if keys[3] == "ffn":
+        # a MoE layer: its experts' stacked (count, E, D, F) leaves only
+        return ffn != "moe" or (keys[-1] in ("wg", "wu", "wd")
+                                and "shared" not in keys)
+    return False
+
+
+def _on_grid(specs: Any, shapes: Any, cfg, keep_data: bool) -> Any:
+    """``specs`` with every leaf the serving grid keeps whole over
+    ``model`` replicated there (its ``batch`` entry stays when
+    ``keep_data``)."""
+    def one(keys, spec, leaf):
+        if _grid_keeps(keys, cfg):
+            return spec
+        if not keep_data:
+            return P()
+        entries = [e if e is not None and "model" not in (
+            e if isinstance(e, tuple) else (e,)) else None for e in spec]
+        while entries and entries[-1] is None:
+            entries.pop()
+        return P(*entries)
+
+    return tree_map_with_path(one, specs, shapes, is_leaf=_is_spec)
+
+
+def serve_params_pspec(params_shapes: Any, cfg, mesh: Mesh) -> Any:
+    """Param specs on the serving grid (``(data, model)``, a data index's
+    T ranks a model group): the rule table's column/row specs for the
+    attn/local mixers and dense FFNs, the experts over ``model``, every
+    other leaf whole (the departures above).  Nothing shards over
+    ``data``: data replicas serve the same slots."""
+    return _on_grid(params_pspec(params_shapes, mesh=mesh), params_shapes,
+                    cfg, keep_data=False)
+
+
+def serve_grid_state_pspec(state_shapes: Any, cfg, mesh: Mesh) -> Any:
+    """A serve engine's state specs on the serving grid: an attn/local
+    layer's paged K/V pool over ``model`` on its KV-head dim (the
+    reference's ``_paged_spec``: the page dim never shards over ``data``),
+    an MLA layer's latent pool and the slot bookkeeping whole."""
+    specs = serve_state_pspec(state_shapes, mesh=mesh)
+    specs["groups"] = _on_grid({"groups": specs["groups"]},
+                               {"groups": state_shapes["groups"]}, cfg,
+                               keep_data=False)["groups"]
+    return specs
+
+
+def grid_cache_pspec(cache_shapes: Any, cfg, mesh: Mesh) -> Any:
+    """Dense decode-cache specs on the serving grid: :func:`cache_pspec`'s
+    (the batch over the DP axes, an attn/local layer's KV heads over
+    ``model``), with every other layer's cache whole over ``model``."""
+    return _on_grid(cache_pspec(cache_shapes, mesh=mesh), cache_shapes, cfg,
+                    keep_data=True)
+
+
+def _axis_sizes(spec: P, mesh: Mesh) -> list:
+    """Each dim's number of shards under ``spec``."""
+    return [math.prod(mesh.shape.get(a, 1) for a in (
+        () if e is None else e if isinstance(e, tuple) else (e,)))
+        for e in spec]
+
+
+def local_shapes(specs: Any, shapes: Any, mesh: Mesh) -> Any:
+    """Meta tensors of the block one rank holds of each leaf under
+    ``specs`` (each sharded dim divided by its axes' sizes); raises where
+    a dim does not divide."""
+    import torch
+
+    def one(spec, leaf):
+        shape = list(_shape(leaf))
+        for i, n in enumerate(_axis_sizes(spec, mesh)):
+            if shape[i] % n:
+                raise ValueError(f"dim {i} of {tuple(_shape(leaf))} does "
+                                 f"not split over {n} ranks ({spec})")
+            shape[i] //= n
+        return torch.empty(shape, dtype=leaf.dtype, device="meta")
+
+    return tree_map(one, specs, shapes, is_leaf=_is_spec)
+
+
+def grid_share(tree: Any, specs: Any, mesh: Mesh, coords: Dict[str, int]
+               ) -> Any:
+    """A rank's block of each tensor of ``tree`` (whole leaves) under
+    ``specs``: narrowed on each axis of ``coords`` (``{axis: index}``) by
+    :func:`axis_slices`, a view of the whole leaf (``.clone()`` it to let
+    the whole go)."""
+    out = tree
+    for axis, index in coords.items():
+        parts = axis_slices(specs, out, mesh, axis, index)
+        out = tree_map(lambda t, part: t if part is None
+                       else t.narrow(*part), out, parts)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1093,3 +1093,85 @@ def build_pipeline_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
             steps[d] = make_pipeline_train_step(cfg, tcfg, spb_cfg,
                                                 depth=d, **kw)
     return steps
+
+
+# ---------------------------------------------------------------------------
+# The sharded decode step (the serving grid)
+# ---------------------------------------------------------------------------
+
+def _check_decode_overrides(overrides: Optional[Dict[str, Any]]) -> None:
+    """Raise for a rule override the serving grid has no path for: any
+    role moved off its default axis, ``kv_seq`` on any axis (the
+    sequence-sharded decode with its cross-rank softmax combine).  The
+    table held whole (``vocab``: None) is the port's own layout."""
+    norm = lambda a: (a,) if isinstance(a, str) else (  # noqa: E731
+        None if a is None else tuple(a))
+    for role, axes in (overrides or {}).items():
+        if role == "vocab" and axes is None:
+            continue
+        if norm(axes) != norm(sharding.DEFAULT_RULES.get(role)):
+            raise NotImplementedError(
+                f"sharding-rule override {role!r}: {axes!r} needs a path "
+                f"the port does not have yet (the sequence-sharded decode "
+                f"and the production meshes, ROADMAP.md Queue 1 B item 11)")
+
+
+def shard_decode_step(mesh: sharding.Mesh, cfg: ModelConfig,
+                      global_batch: int, max_len: int, *, enc_len: int = 0,
+                      rules_overrides: Optional[Dict[str, Any]] = None,
+                      group=None):
+    """One-token decode on one rank of the ``(data, model)`` serving grid
+    ``mesh`` (the counterpart of ``repro/dist/steps.shard_decode_step``).
+
+    Returns ``(fn, params_shapes, cache_shapes, specs)``: the whole
+    model's parameter and dense-cache shapes (meta tensors), the specs
+    that lay them out (``specs["params"]``:
+    ``dist/sharding.serve_params_pspec``; ``"cache"``:
+    ``grid_cache_pspec``, the batch over ``("pod", "data")`` and an
+    attn/local layer's KV heads over ``model``; ``"tokens"``,
+    ``"logits"``), and ``fn(params, cache, tokens) -> (logits, cache)``,
+    this rank's decode step on its blocks (``sharding.grid_share`` of the
+    whole trees, ``sharding.local_shapes`` of the cache), the cache
+    updated in place (the port's counterpart of the reference's donation).
+    The logits are this data index's rows, the vocab whole on every model
+    rank.  ``group``: this rank's ``dist/group.GridGroup``, whose model
+    group the row-parallel joins all-reduce over (needed when the model
+    axis has several ranks).  ``rules_overrides`` the port has no path
+    for raise ``NotImplementedError`` naming Queue 1 B item 11, as does a
+    mesh with axes beyond ``("data", "model")`` (the multi-pod mesh)."""
+    from repro_torch.serve import kvcache
+    _check_decode_overrides(rules_overrides)
+    if set(mesh.axis_names) - {"data", "model"}:
+        raise NotImplementedError(
+            f"shard_decode_step on {mesh}: only a (data, model) grid has a "
+            f"path; the multi-pod and production meshes come with ROADMAP.md "
+            f"Queue 1 B item 11")
+    D, T = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    if global_batch % D:
+        raise ValueError(f"global batch {global_batch} does not split over "
+                         f"{D} data ranks")
+    kvcache.check_model_parallel(cfg, T)
+    if group is not None:
+        if sharding.mesh_for(group) != mesh:
+            raise ValueError(f"shard_decode_step on {mesh} by a rank of "
+                             f"{sharding.mesh_for(group)}")
+    elif T > 1:
+        raise ValueError(f"shard_decode_step on {mesh}: {T} model ranks "
+                         f"need this rank's group=")
+    tp = group.model if group is not None and T > 1 else None
+    with sharding.rules(rules_overrides):
+        params_shapes = lm.param_shapes(cfg)
+        cache_shapes = lm.cache_shapes(cfg, global_batch, max_len,
+                                       enc_len=enc_len)
+        specs = {"params": sharding.serve_params_pspec(params_shapes, cfg,
+                                                       mesh),
+                 "cache": sharding.grid_cache_pspec(cache_shapes, cfg,
+                                                    mesh),
+                 "tokens": sharding.spec_for(("batch", None), mesh=mesh),
+                 "logits": sharding.spec_for(("batch", None, None),
+                                             mesh=mesh)}
+
+    def fn(params, cache, tokens):
+        return lm.decode_step(params, cache, tokens, cfg, tp=tp)
+
+    return fn, params_shapes, cache_shapes, specs

@@ -44,7 +44,15 @@ reference's ``lower_cell`` forces ``impl="ep"`` on its mesh, and the
 model group's collectives, the all-to-all among them (``(T - 1) / T`` of
 its payload on the wire), go into the collective bytes and so into the
 roofline's link term; the state is laid out by
-``sharding.grid_state_pspec``.  At T = 1 nothing changes.
+``sharding.grid_state_pspec``.  At T = 1 nothing changes.  A prefill or
+decode cell under ``--model-parallel T`` and ``--data-parallel n`` counts
+one rank of the ``(n, T)`` serving grid (``dist/steps.shard_decode_step``):
+its ``B / n`` rows, an attn/local layer's ``H / T`` heads and a dense
+FFN's ``d_ff / T`` columns (``sharding.serve_params_pspec``), its share of
+the dense cache (``sharding.grid_cache_pspec``), and the model group's
+all-reduces of the row-parallel joins (``roofline.serve_tp_calls``) in
+the collective bytes; the record holds the rank's ``param_bytes`` and
+``cache_bytes``.
 
 Records: one JSON a cell under ``results/dryrun_torch/``
 (``analysis/roofline.cell_path``; ``--force`` recomputes) with the
@@ -81,6 +89,7 @@ from repro_torch.dist import sharding
 from repro_torch.dist import steps as steps_lib
 from repro_torch.dist.group import DataGroup, ModelGroup
 from repro_torch.models import lm
+from repro_torch.serve import kvcache
 from repro_torch.tree import tree_map
 
 
@@ -94,8 +103,8 @@ def one_card(multi_pod: bool = False, zero1: bool = True,
     if what:
         raise NotImplementedError(
             f"{what} needs a mesh the port does not build yet; it comes "
-            f"with the rest of the multi-GPU slice (ROADMAP.md Queue 1 B "
-            f"item 11)")
+            f"with the production meshes, the next slice of ROADMAP.md "
+            f"Queue 1 B item 11")
 
 
 def spb_depth(cfg, depth: Optional[int]) -> Optional[int]:
@@ -120,7 +129,9 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
     optimizer state ZeRO-1 sharded unless ``zero1`` is off; ``layers``
     cuts the config's depth further (a dense decoder's);
     ``model_parallel`` T > 1 counts one rank of the ``(data_parallel, T)``
-    grid, a MoE config's experts sharded over T by expert parallelism."""
+    grid, a MoE config's experts sharded over T by expert parallelism, and
+    in a prefill or decode cell an attn/local layer's heads and a dense
+    FFN's columns too (the serving grid's layout)."""
     one_card(multi_pod, zero1, rules_extra)
     remat = lm.resolve_remat(remat)
     cfg = cut_config(arch, cut)
@@ -147,10 +158,9 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
     depth = spb_depth(cfg, depth)
     params = lm.param_shapes(cfg)
     n = data_parallel
-    if n > 1 and (shape.kind != "train" or B % n):
-        raise ValueError(f"--data-parallel {n} counts a train step whose "
-                         f"batch splits over the ranks ({shape_name}, "
-                         f"batch {B})")
+    if n > 1 and B % n:
+        raise ValueError(f"--data-parallel {n} counts a step whose batch "
+                         f"splits over the ranks ({shape_name}, batch {B})")
     group_rec: dict = {}
     t0 = time.time()
     if shape.kind == "train":
@@ -201,14 +211,30 @@ def count_cell(arch: str, shape_name: str, *, cut: str = "published",
     else:
         enc_len = S if cfg.enc_layers else 0
         cache = lm.init_cache(cfg, B, S, enc_len=enc_len, device="meta")
+        if n > 1 or T > 1:
+            # one rank of the (n, T) serving grid: its rows, its heads and
+            # FFN columns, its experts (dist/steps.shard_decode_step)
+            kvcache.check_model_parallel(whole, T)
+            mesh = sharding.Mesh((n, T), ("data", "model"))
+            shapes = lm.param_shapes(whole)
+            pspec = sharding.serve_params_pspec(shapes, whole, mesh)
+            cspec = sharding.grid_cache_pspec(cache, whole, mesh)
+            params = sharding.local_shapes(pspec, shapes, mesh)
+            group_rec = {
+                "param_bytes": sharding.sharded_state_bytes(shapes, pspec,
+                                                            mesh),
+                "cache_bytes": sharding.sharded_state_bytes(cache, cspec,
+                                                            mesh)}
+            cache = sharding.local_shapes(cspec, cache, mesh)
+        local = dataclasses.replace(shape, global_batch=B // n)
         if shape.kind == "prefill":
-            inputs = {k: v for k, v in input_specs(cfg, shape).items()
+            inputs = {k: v for k, v in input_specs(cfg, local).items()
                       if k != "labels"}
             _, s = cost.count(lm.prefill, params, inputs, cfg, cache,
-                              ep=model)
+                              tp=model)
         else:
             _, s = cost.count(lm.decode_step, params, cache,
-                              decode_token_specs(cfg, shape), cfg, ep=model)
+                              decode_token_specs(cfg, local), cfg, tp=model)
     return {
         "arch": arch, "shape": shape_name, "mesh": roofline.MESH,
         "chips": 1, "depth": depth, "kind": shape.kind, "cut": cut,

@@ -58,9 +58,16 @@ with a stream of its own; memory stays the card's one pool.  On the CPU a
 unit is a virtual slot of the one ``cpu`` device.  ``model_parallel > 1``
 raises: one job over several shares in one process is not done.
 
+The host mesh (the counterpart of the reference's ``make_host_mesh``):
+:func:`make_host_mesh` gives ``("data", "model")`` of ``(n, 1)`` over this
+process's devices, the visible cards or the one CPU.  A process is one
+rank, so a mesh of several devices is a grid of ranks
+(``serve/engine.ServeEngine(group=)`` takes the group, whose mesh is
+``dist/sharding.mesh_for(group)``).
+
 What of the reference's mesh options is not ported (ROADMAP.md Queue 1 B
-item 11): ``make_production_mesh`` (the 16 x 16 pod) and the multi-pod
-``("pod", "data", "model")`` mesh.
+item 11, its next slice, the production meshes): ``make_production_mesh``
+(the 16 x 16 pod) and the multi-pod ``("pod", "data", "model")`` mesh.
 """
 from __future__ import annotations
 
@@ -158,6 +165,15 @@ def init_data_group(size: Optional[int] = None, *, rank: Optional[int] = None,
         print(f"[mesh] data group of {size} ranks{cards}: "
               f"backend={group.backend} device={dev.type}", flush=True)
     return group
+
+
+def make_host_mesh(device=None) -> sharding.Mesh:
+    """Whatever fits this process's devices, one data axis: ``("data",
+    "model")`` of ``(n, 1)``, n the visible cards on a card (``device``:
+    ``cuda``, the default, raises without one) or 1 on the CPU."""
+    dev = resolve_device(device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return sharding.Mesh((n, 1), ("data", "model"))
 
 
 def make_mesh_from_config(pcfg: ParallelConfig) -> sharding.Mesh:

@@ -414,10 +414,17 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, kpos: Tensor,
 # ---------------------------------------------------------------------------
 
 def attention_prefill(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
-                      positions: Tensor, cache: Params):
+                      positions: Tensor, cache: Params, tp=None):
     """Prefill: run attention and fill the layer cache in place.  A cache
     shorter than the prompt (a local layer's ring buffer of W slots) keeps
-    the last W positions, position t in slot t mod W."""
+    the last W positions, position t in slot t mod W.
+
+    ``tp`` (a ``dist/group.ModelGroup``), here and in the three cached
+    functions below, as :func:`attention_fwd`'s: the weights are this
+    rank's column/row shards, so the head counts are the local ones, the
+    cache holds this rank's KV heads and the output is joined by
+    :func:`tp_psum` (forward only: the cached modes run under
+    ``no_grad``)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     o = _attend(q, k, v, cfg, _window(cfg, kind))
@@ -429,11 +436,11 @@ def attention_prefill(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
         slots = positions[-W:] % W
         cache["k"][:, slots] = k[:, -W:].to(cache["k"].dtype)
         cache["v"][:, slots] = v[:, -W:].to(cache["v"].dtype)
-    return o.reshape(B, S, -1) @ p["wo"], cache
+    return _tp_out(o.reshape(B, S, -1) @ p["wo"], tp, False), cache
 
 
 def attention_decode(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
-                     pos: Tensor, cache: Params):
+                     pos: Tensor, cache: Params, tp=None):
     """One-token decode.  x: (B, 1, D); pos: 0-dim int64 absolute position
     (a device tensor: nothing here reads it on the host)."""
     B = x.shape[0]
@@ -448,7 +455,7 @@ def attention_decode(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
     kpos = (pos - (pos - j) % W).expand(B, W)
     o = decode_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                          kpos, pos.expand(B), window=_window(cfg, kind))
-    return o.reshape(B, 1, -1) @ p["wo"], cache
+    return _tp_out(o.reshape(B, 1, -1) @ p["wo"], tp, False), cache
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -639,7 +646,7 @@ def _paged_scatter(pages: Tensor, rows: Tensor, positions: Tensor,
 
 def attention_prefill_paged(p: Params, x: Tensor, cfg: ModelConfig, *,
                             kind: str, positions: Tensor, cache: Params,
-                            page_row: Tensor, valid_len: Tensor):
+                            page_row: Tensor, valid_len: Tensor, tp=None):
     """Single-slot prefill into a paged cache.  x: (1, S, D), the prompt
     right-padded to S; ``valid_len`` ((1,) device tensor) marks how many
     leading positions are real -- pad positions are computed (causally
@@ -651,7 +658,7 @@ def attention_prefill_paged(p: Params, x: Tensor, cfg: ModelConfig, *,
     valid = positions < valid_len
     _paged_scatter(cache["k"], rows, positions, valid, k[0])
     _paged_scatter(cache["v"], rows, positions, valid, v[0])
-    return o.reshape(B, S, -1) @ p["wo"], cache
+    return _tp_out(o.reshape(B, S, -1) @ p["wo"], tp, False), cache
 
 
 def _page_rows(page_table: Tensor, pos: Tensor, ps: int) -> Tensor:
@@ -661,15 +668,15 @@ def _page_rows(page_table: Tensor, pos: Tensor, ps: int) -> Tensor:
 
 def attention_decode_paged(p: Params, x: Tensor, cfg: ModelConfig, *,
                            kind: str, pos: Tensor, cache: Params,
-                           page_table: Tensor, active: Tensor):
+                           page_table: Tensor, active: Tensor, tp=None):
     """Slot-batched one-token decode over a paged cache.
 
     x: (N, 1, D); pos: (N,) per-slot absolute positions; page_table:
     (N, Pmax) physical page ids (0 = unallocated); active: (N,) bool --
     inactive slots compute (and are discarded) but write only to the trash
-    page."""
+    page.  The pool's KV heads are this rank's (``tp``)."""
     N = x.shape[0]
-    K, Dh = cfg.num_kv_heads, cfg.head_dim
+    K, Dh = cache["k"].shape[-2:]
     q, k, v = _qkv(p, x, cfg, pos[:, None])
     rows = _page_rows(page_table, pos, cache["k"].shape[1])
     _paged_scatter(cache["k"], rows, pos, active, k[:, 0])
@@ -680,7 +687,7 @@ def attention_decode_paged(p: Params, x: Tensor, cfg: ModelConfig, *,
     kpos = torch.arange(kview.shape[1], device=x.device).expand(N, -1)
     o = decode_attention(q, kview.to(q.dtype), vview.to(q.dtype), kpos, pos,
                          window=_window(cfg, kind))
-    return o.reshape(N, 1, -1) @ p["wo"], cache
+    return _tp_out(o.reshape(N, 1, -1) @ p["wo"], tp, False), cache
 
 
 def mla_prefill_paged(p: Params, x: Tensor, cfg: ModelConfig, *,

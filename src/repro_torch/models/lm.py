@@ -224,19 +224,25 @@ def _init_leaf(gen: torch.Generator, name: str, like: Tensor, device):
     return t.to(dtype)
 
 
-def init_lm(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+def init_lm(gen: torch.Generator, cfg: ModelConfig, device=None, *,
+            keep: Optional[Callable[[Tuple[str, ...], Tensor], Tensor]] = None
+            ) -> Params:
     """Random parameters drawn from ``gen`` (on ``gen``'s device).  The
     layout and leaf dtypes equal ``repro.models.lm.init_lm``'s; the numbers
-    differ."""
+    differ.  ``keep(path, leaf)``, if given, makes what is kept of each
+    leaf as it is drawn (a grid rank's share, ``serve/engine.py``), so
+    only one whole leaf is held at a time; the draws are the same."""
 
-    def init(tree, name):
+    def init(tree, name, path):
         if isinstance(tree, dict):
-            return {k: init(v, k) for k, v in tree.items()}
+            return {k: init(v, k, path + (k,)) for k, v in tree.items()}
         if isinstance(tree, list):
-            return [init(v, name) for v in tree]
-        return _init_leaf(gen, name, tree, device)
+            return [init(v, name, path + (str(i),))
+                    for i, v in enumerate(tree)]
+        leaf = _init_leaf(gen, name, tree, device)
+        return leaf if keep is None else keep(path, leaf)
 
-    return init(param_shapes(cfg), "")
+    return init(param_shapes(cfg), "", ())
 
 
 # ---------------------------------------------------------------------------
@@ -329,14 +335,34 @@ _RECURRENT = {"ssd": {"prefill": S.mamba2_prefill,
                         "decode": S.rglru_decode}}
 
 
+def _cached_ffn(x: Tensor, up: Params, ffn: str, cfg: ModelConfig,
+                tp) -> Tensor:
+    """The FFN half of a cached layer: a dense FFN column/row-sharded
+    over ``tp``; a MoE layer's experts over it, by ``moe_fwd_ep`` under
+    ``impl="ep"`` and by ``moe_fwd_held`` under ``impl="dense"`` on a
+    group of several ranks."""
+    if ffn == "moe" and cfg.d_ff > 0 and cfg.moe.impl == "dense" \
+            and tp is not None and tp.size > 1:
+        h = L.rms_norm(x, up["ln2"], cfg.norm_eps)
+        return x + M.moe_fwd_held(up["ffn"], h, cfg, group=tp)
+    return _apply_ffn(x, up, ffn, cfg, tp=None if ffn == "moe" else tp,
+                      ep=tp)[0]
+
+
 def _apply_layer_cached(x: Tensor, up: Params, kinds, cfg: ModelConfig,
                         cache: Params, mode: str, kw: Dict[str, Any],
-                        enc: Optional[Tensor] = None, ep=None) -> Tensor:
+                        enc: Optional[Tensor] = None, tp=None) -> Tensor:
     """One layer of a cached mode; its cache is updated in place.  ``kw``:
     the mode's position arguments (``positions`` or ``pos``, plus the
     page table and the mask in the serve modes).  An ``xdec`` layer's
     prefill fills its ``cross`` cache from the encoder output ``enc``; its
-    decode reads it."""
+    decode reads it.
+
+    ``tp``: the model group of the serving grid (``dist/sharding.
+    serve_params_pspec``).  Each layer takes its route from its kinds: an
+    attn/local mixer and a dense FFN run column/row-sharded over it, a MoE
+    layer's experts are sharded over it, and an MLA, SSD, RG-LRU or
+    ``xdec`` mixer runs whole on every rank."""
     mixer, ffn = kinds
     h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
     if mode.startswith("serve_") and mixer in ("ssd", "rglru", "xdec"):
@@ -348,7 +374,8 @@ def _apply_layer_cached(x: Tensor, up: Params, kinds, cfg: ModelConfig,
         o, _ = _MLA[mode](up["mixer"], h, cfg, cache=cache["self"], **kw)
     else:
         o, _ = _ATTN[mode](up["mixer"], h, cfg, kind=mixer,
-                           cache=cache["self"], **kw)
+                           cache=cache["self"],
+                           tp=tp if mixer != "xdec" else None, **kw)
     x = x + o
     if mixer == "xdec":
         hx = L.rms_norm(x, up["lnx"], cfg.norm_eps)
@@ -361,7 +388,7 @@ def _apply_layer_cached(x: Tensor, up: Params, kinds, cfg: ModelConfig,
             xo = L.cross_attention_decode(up["xattn"], hx, cfg,
                                           (cross["k"], cross["v"]))
         x = x + xo
-    return _apply_ffn(x, up, ffn, cfg, ep=ep)[0]
+    return _cached_ffn(x, up, ffn, cfg, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -950,39 +977,42 @@ def _select(tree: Params, r: int) -> Params:
 
 def _run_group_cached(x: Tensor, gparams, gcache, unit, cfg: ModelConfig,
                       mode: str, kw: Dict[str, Any],
-                      enc: Optional[Tensor], ep=None) -> Tensor:
+                      enc: Optional[Tensor], tp=None) -> Tensor:
     count = tree_leaves(gparams)[0].shape[0]
     per_unit = [_unbind(up, count) for up in gparams]
     for r in range(count):
         for u in range(len(unit)):
             x = _apply_layer_cached(x, per_unit[u][r], unit[u], cfg,
-                                    _select(gcache[u], r), mode, kw, enc, ep)
+                                    _select(gcache[u], r), mode, kw, enc, tp)
     return x
 
 
 def _run_cached(x: Tensor, params: Params, groups, cfg: ModelConfig,
                 mode: str, kw: Dict[str, Any],
-                enc: Optional[Tensor] = None, ep=None) -> Tensor:
+                enc: Optional[Tensor] = None, tp=None) -> Tensor:
     for (unit, _), gp, gc in zip(layer_groups(cfg), params["groups"], groups):
-        x = _run_group_cached(x, gp, gc, unit, cfg, mode, kw, enc, ep)
+        x = _run_group_cached(x, gp, gc, unit, cfg, mode, kw, enc, tp)
     return x
 
 
 @torch.no_grad()
 def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
-            cache: Params, *, ep=None) -> Tuple[Tensor, Params]:
+            cache: Params, *, tp=None) -> Tuple[Tensor, Params]:
     """Fill the cache from a prompt; returns (last-token logits (B, 1, V),
     cache).  ``batch`` as :func:`forward_train`'s: an encoder-decoder's
     ``frames`` run through the encoder into the ``cross`` caches; a
     frontend's embeddings come before the tokens and take the first
-    positions.  ``ep`` as :func:`forward_train`'s."""
+    positions.  ``tp``: the serving grid's model group
+    (:func:`_apply_layer_cached`): params and cache are then this rank's
+    shards (``dist/steps.shard_decode_step``), and the logits whole on
+    every model rank."""
     _check_supported(cfg)
     enc = _encode(params["enc"], batch["frames"], cfg) if cfg.enc_layers \
         else None
     x = _decoder_input(params, batch, cfg)
     S_ = x.shape[1]
     x = _run_cached(x, params, cache["groups"], cfg, "prefill",
-                    {"positions": torch.arange(S_, device=x.device)}, enc, ep)
+                    {"positions": torch.arange(S_, device=x.device)}, enc, tp)
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     pos = torch.full((), S_, dtype=torch.int64, device=x.device)
     return L.unembed(params["embed"], x, cfg), {"groups": cache["groups"],
@@ -991,15 +1021,15 @@ def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
 
 @torch.no_grad()
 def decode_step(params: Params, cache: Params, tokens: Tensor,
-                cfg: ModelConfig, *, ep=None) -> Tuple[Tensor, Params]:
+                cfg: ModelConfig, *, tp=None) -> Tuple[Tensor, Params]:
     """One-token decode.  tokens: (B, 1).  The position is cache['pos'];
-    ``ep`` as :func:`forward_train`'s (B < 4 T takes ``moe_fwd_ep``'s small
-    path)."""
+    ``tp`` as :func:`prefill`'s (a MoE layer under ``impl="ep"`` at
+    B < 4 T takes ``moe_fwd_ep``'s small path)."""
     _check_supported(cfg)
     pos = cache["pos"]
     x = L.embed(params["embed"], tokens, cfg)
     x = _run_cached(x, params, cache["groups"], cfg, "decode", {"pos": pos},
-                    ep=ep)
+                    tp=tp)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg), {"groups": cache["groups"],
                                                  "pos": pos + 1}
@@ -1011,8 +1041,8 @@ def decode_step(params: Params, cache: Params, tokens: Tensor,
 
 @torch.no_grad()
 def serve_prefill(params: Params, tokens: Tensor, cfg: ModelConfig,
-                  cache_groups, *, page_row: Tensor, prompt_len: Tensor
-                  ) -> Tuple[Tensor, Any]:
+                  cache_groups, *, page_row: Tensor, prompt_len: Tensor,
+                  tp=None) -> Tuple[Tensor, Any]:
     """Prefill ONE slot of a paged cache from a right-padded prompt.
 
     tokens: (1, bucket) with the real prompt in the first ``prompt_len``
@@ -1021,13 +1051,15 @@ def serve_prefill(params: Params, tokens: Tensor, cfg: ModelConfig,
     physical page list.  Returns (logits (1, V) at position prompt_len - 1,
     the cache groups, updated in place).  Pad positions are computed but
     masked everywhere it matters: causal attention keeps them out of real
-    positions' context, and their K/V goes to the trash page.
+    positions' context, and their K/V goes to the trash page.  ``tp``: the
+    serving grid's model group (:func:`_apply_layer_cached`); params and
+    pool are then this rank's shares, the logits whole.
     """
     x = L.embed(params["embed"], tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     x = _run_cached(x, params, cache_groups, cfg, "serve_prefill",
                     {"positions": positions, "page_row": page_row,
-                     "valid_len": prompt_len})
+                     "valid_len": prompt_len}, tp=tp)
     x_last = x.index_select(1, prompt_len.reshape(1) - 1)         # (1, 1, D)
     x_last = L.rms_norm(x_last, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], x_last, cfg)[:, 0], cache_groups
@@ -1036,7 +1068,7 @@ def serve_prefill(params: Params, tokens: Tensor, cfg: ModelConfig,
 @torch.no_grad()
 def serve_decode(params: Params, cache_groups, tokens: Tensor,
                  cfg: ModelConfig, *, pos: Tensor, page_table: Tensor,
-                 active: Tensor) -> Tuple[Tensor, Any]:
+                 active: Tensor, tp=None) -> Tuple[Tensor, Any]:
     """One slot-batched decode step over a paged cache.
 
     tokens: (N, 1) last emitted token per slot; pos: (N,) absolute write
@@ -1044,10 +1076,11 @@ def serve_decode(params: Params, cache_groups, tokens: Tensor,
     slot computes (the batch shape is fixed, so requests come and go
     without a new shape); inactive slots write only to the trash page and
     their logits are discarded by the engine.  Returns (logits (N, V), the
-    cache groups, updated in place).
+    cache groups, updated in place).  ``tp`` as :func:`serve_prefill`'s.
     """
     x = L.embed(params["embed"], tokens, cfg)
     x = _run_cached(x, params, cache_groups, cfg, "serve_decode",
-                    {"pos": pos, "page_table": page_table, "active": active})
+                    {"pos": pos, "page_table": page_table, "active": active},
+                    tp=tp)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg)[:, 0], cache_groups

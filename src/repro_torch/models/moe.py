@@ -255,6 +255,20 @@ def moe_fwd_ep(p: Params, x: Tensor, cfg: ModelConfig, *,
     return out.reshape(B, S, D), aux
 
 
+def moe_fwd_held(p: Params, x: Tensor, cfg: ModelConfig, *,
+                 group: ModelGroup) -> Tensor:
+    """The dense layer (``impl="dense"``) with its experts split over
+    ``group``, forward only (the serving grid's; ``lm``'s cached modes): at
+    any row count every rank runs its held experts on every token and the
+    partial outputs are summed, :func:`moe_fwd_ep`'s small path, so the
+    layer is the one-device dense layer's, with no slot dropped.  x:
+    (B, S, D), the same rows on every rank; the router and the shared
+    expert whole.  The aux is not reduced (the cached modes drop it)."""
+    B, S, D = x.shape
+    out, _ = _moe_ep_small(x.reshape(-1, D), p, cfg.moe, group)
+    return out.reshape(B, S, D)
+
+
 def moe_fwd(p: Params, x: Tensor, cfg: ModelConfig, *,
             group: Optional[ModelGroup] = None) -> Tuple[Tensor, Tensor]:
     """The config's path: ``impl="ep"`` runs :func:`moe_fwd_ep` over

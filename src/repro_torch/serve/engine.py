@@ -29,8 +29,23 @@ registered with the graph -- so one host call replays the step's few
 thousand launches.  The prefill's packed ``desc`` is then a static buffer
 of its bucket's size that :meth:`ServeEngine._to_device` fills without a
 sync.  ``export_aot`` / ``load_aot`` store and restore the table
-(``engine/aot.py``).  On the CPU the table holds the eager functions.  A
-device mesh waits for the multi-GPU slice (ROADMAP.md Queue 1 B item 11).
+(``engine/aot.py``).  On the CPU the table holds the eager functions.
+
+Sharded serving (``group=``, a ``dist/group.GridGroup`` of D x T ranks, one
+process each; ``mesh=`` names the same grid, ``dist/sharding.mesh_for``):
+each rank keeps its share of the params (``dist/sharding.
+serve_params_pspec``: an attn/local layer's heads and a dense FFN's columns
+over ``model``, a MoE layer's experts there too, MLA, the table and the head
+whole) and a paged pool of its ``Hkv / T`` KV heads, and runs the same
+step functions with the model group (``lm.serve_prefill`` / ``serve_decode``
+``tp=``), whose all-reduces join the row-parallel products.  Every model
+rank then holds bit-identical logits, and every rank draws from a generator
+of the same seed, so the T ranks pick the same tokens; the D data indices
+serve the same slots (nothing of the serving state shards over ``data``, as
+in the reference).  Under such a group each step syncs inside gloo: a
+collective of a CUDA tensor stages through the host, so "no host sync in
+``step()``" holds for the one-device engine only, and no step table is
+built (``compile_table``, ``export_aot`` and ``load_aot`` raise).
 
 Determinism: greedy slots (temperature 0) consume no randomness, so
 their outputs are the same token for token whether a request runs solo
@@ -51,11 +66,13 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.engine import aot, graphs
 from repro_torch.models import lm
 from repro_torch.serve import kvcache
 from repro_torch.serve.kvcache import TRASH_PAGE, PageGeometry
 from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 State = Dict[str, Any]
 Tensor = torch.Tensor
@@ -89,8 +106,8 @@ def _pick(logits: Tensor, temp: Tensor,
     return torch.where(temp > 0, draw(probs, generator), greedy)
 
 
-def _make_decode_fn(cfg: ModelConfig, *, eos_id: int, out_cap: int
-                    ) -> Callable[..., None]:
+def _make_decode_fn(cfg: ModelConfig, *, eos_id: int, out_cap: int,
+                    tp=None) -> Callable[..., None]:
     V = cfg.vocab_size
 
     def step(params, state: State,
@@ -98,7 +115,7 @@ def _make_decode_fn(cfg: ModelConfig, *, eos_id: int, out_cap: int
         logits, _ = lm.serve_decode(
             params, state["groups"], state["tokens"], cfg,
             pos=state["pos"], page_table=state["page_table"],
-            active=state["active"])
+            active=state["active"], tp=tp)
         active = state["active"]
         tok = torch.where(active, _pick(logits[..., :V], state["temp"],
                                         generator), 0)
@@ -117,7 +134,7 @@ def _make_decode_fn(cfg: ModelConfig, *, eos_id: int, out_cap: int
 
 
 def _make_admit_fn(cfg: ModelConfig, *, eos_id: int, bucket: int,
-                   pages_per_slot: int) -> Callable[..., None]:
+                   pages_per_slot: int, tp=None) -> Callable[..., None]:
     V = cfg.vocab_size
     P = pages_per_slot
 
@@ -140,7 +157,8 @@ def _make_admit_fn(cfg: ModelConfig, *, eos_id: int, bucket: int,
         temp = desc[bucket + P + 3:bucket + P + 4].view(torch.float32)
         state["page_table"].index_copy_(0, slot, page_row[None])
         logits, _ = lm.serve_prefill(params, prompt, cfg, state["groups"],
-                                     page_row=page_row, prompt_len=prompt_len)
+                                     page_row=page_row, prompt_len=prompt_len,
+                                     tp=tp)
         tok = _pick(logits[:, :V], temp, generator)               # (1,)
         state["tokens"].index_copy_(0, slot, tok[:, None])
         state["pos"].index_copy_(0, slot, prompt_len)
@@ -152,6 +170,38 @@ def _make_admit_fn(cfg: ModelConfig, *, eos_id: int, bucket: int,
         state["out_len"].index_fill_(0, slot, 1)
 
     return admit
+
+
+def _serving_mesh(mesh, group) -> sharding.Mesh:
+    """The engine's mesh: ``group``'s (``mesh``, if given, must equal it),
+    else ``mesh`` of one device, else the one-device mesh."""
+    if mesh is not None and not isinstance(mesh, sharding.Mesh):
+        raise TypeError(f"ServeEngine(mesh=): a dist/sharding.Mesh, not "
+                        f"{type(mesh).__name__}")
+    if group is not None:
+        want = sharding.mesh_for(group)
+        if mesh is not None and mesh != want:
+            raise ValueError(f"ServeEngine(mesh={mesh}) under a group whose "
+                             f"mesh is {want}")
+        return want
+    if mesh is not None and mesh.size > 1:
+        raise ValueError(
+            f"ServeEngine(mesh={mesh}): a process serves as one rank; a "
+            f"mesh of {mesh.size} devices is a grid of ranks, so pass this "
+            f"rank's group= (launch/mesh.init_grid_group)")
+    return mesh if mesh is not None else sharding.Mesh((1, 1),
+                                                       ("data", "model"))
+
+
+def _share_keeper(specs, shapes, mesh, t: int):
+    """``lm.init_lm``'s ``keep``: model index t's block of each drawn leaf,
+    a copy, so the whole leaf goes."""
+    parts = {}
+    tree_map_with_path(lambda path, part: parts.__setitem__(path, part),
+                       sharding.axis_slices(specs, shapes, mesh, "model", t),
+                       is_leaf=sharding.is_slice)
+    return lambda path, leaf: leaf if parts[path] is None else \
+        leaf.narrow(*parts[path]).clone()
 
 
 class _GraphedServeStep:
@@ -214,23 +264,42 @@ class ServeEngine:
 
     ``device``: ``cuda`` unless the caller asks for another; ``params``
     must lie on it (default: :func:`lm.init_lm` from ``seed`` there).
+
+    ``group``: this process's rank of a serving grid (a
+    ``dist/group.GridGroup``; its device is the engine's).  ``params``
+    are then the whole model's, of which the rank keeps its share, or are
+    drawn from ``seed`` leaf by leaf, each leaf's share kept as it is
+    drawn (``lm.init_lm(keep=)``), so no rank holds the whole model.
+    ``mesh``: a ``dist/sharding.Mesh``; with a group it must be
+    ``sharding.mesh_for(group)``, without one a mesh of one device (a
+    process is one rank).
     """
 
     def __init__(self, cfg: ModelConfig, *, geom: Optional[PageGeometry]
                  = None, mesh=None, params=None, seed: int = 0,
                  eos_id: int = -1, max_new_cap: Optional[int] = None,
                  buckets: Optional[Sequence[int]] = None,
-                 watermark: float = 1.0, chunk: int = 1, device=None):
+                 watermark: float = 1.0, chunk: int = 1, device=None,
+                 group=None):
         reason = kvcache.supports(cfg)
         if reason:
             raise NotImplementedError(f"serve: {cfg.name}: {reason}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServeEngine(mesh=...): the port serves on one device; "
-                "sharded serving comes with the multi-GPU slice (ROADMAP.md "
-                "Queue 1 B item 11)")
+        self.mesh = _serving_mesh(mesh, group)
+        self.group = group
+        model = getattr(group, "model", None)
+        t, T = (model.rank, model.size) if model is not None else (0, 1)
+        kvcache.check_model_parallel(cfg, T)
+        # the model group the row-parallel joins all-reduce over
+        self.tp = model if T > 1 else None
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if group is not None:
+            if device is not None and \
+                    torch.device(device).type != group.device.type:
+                raise ValueError(f"ServeEngine(device={device!r}) under a "
+                                 f"group on {group.device}")
+            self.device = group.device
+        else:
+            self.device = resolve_device(device)
         self.geom = geom or kvcache.default_geometry()
         self.eos_id = eos_id
         self.max_new_cap = max_new_cap or self.geom.max_context
@@ -246,14 +315,23 @@ class ServeEngine:
 
         N, Pmax = self.geom.num_slots, self.geom.pages_per_slot
         dev = self.device
+        shapes = lm.param_shapes(cfg)
+        self.params_specs = sharding.serve_params_pspec(shapes, cfg,
+                                                        self.mesh)
         if params is None:
             params = lm.init_lm(torch.Generator(device=dev).manual_seed(seed),
-                                cfg, dev)
+                                cfg, dev, keep=None if T == 1 else
+                                _share_keeper(self.params_specs, shapes,
+                                              self.mesh, t))
+        elif T > 1:
+            params = sharding.grid_share(params, self.params_specs,
+                                         self.mesh, {"model": t})
+            params = tree_map(lambda p: p.clone(), params)
         self.params = params
         zeros = lambda *shape, dtype=torch.int64: torch.zeros(
             shape, dtype=dtype, device=dev)
         self.state: State = {
-            "groups": kvcache.init_paged_cache(cfg, self.geom, dev),
+            "groups": kvcache.init_paged_cache(cfg, self.geom, dev, T),
             "page_table": torch.full((N, Pmax), TRASH_PAGE, dtype=torch.int64,
                                      device=dev),
             "pos": zeros(N),
@@ -269,10 +347,11 @@ class ServeEngine:
 
         self._raw: Dict[str, Callable] = {
             "decode": _make_decode_fn(cfg, eos_id=eos_id,
-                                      out_cap=self.max_new_cap)}
+                                      out_cap=self.max_new_cap, tp=self.tp)}
         for b in self.buckets:
             self._raw[f"prefill_{b}"] = _make_admit_fn(
-                cfg, eos_id=eos_id, bucket=b, pages_per_slot=Pmax)
+                cfg, eos_id=eos_id, bucket=b, pages_per_slot=Pmax,
+                tp=self.tp)
         self._steps: Dict[str, Callable] = dict(self._raw)
         self._compiled: Dict[str, Callable] = {}
         self._pool = None
@@ -407,6 +486,13 @@ class ServeEngine:
         """Host copy of the (num_slots, pages_per_slot) block table."""
         return self.state["page_table"].cpu().numpy()
 
+    def held_bytes(self) -> Dict[str, int]:
+        """The bytes this rank holds: its params and its paged pool."""
+        count = lambda tree: sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(tree))
+        return {"params": count(self.params),
+                "pool": count(self.state["groups"])}
+
     # -- step table --------------------------------------------------------
 
     def step_fn(self, key: str) -> Callable:
@@ -427,12 +513,21 @@ class ServeEngine:
             return self._raw[key]
         return _GraphedServeStep(self, key)
 
+    def _refuse_group(self, what: str) -> None:
+        if self.group is not None and self.group.size > 1:
+            raise NotImplementedError(
+                f"{what} under a serving grid of {self.mesh.shape['data']} "
+                f"x {self.mesh.shape['model']} ranks: their collectives go "
+                f"through the host (gloo), which a CUDA graph cannot "
+                f"capture; serve the grid's steps eagerly")
+
     def compile_table(self) -> Dict[str, Any]:
         """Build the step table: on a CUDA device, CUDA graphs of decode
         and of every prefill bucket (greedy and sampled each), which
         replace the eager entries; on the CPU the eager functions.  The
         capture warms each step up on the idle slots, so no request may be
-        in flight."""
+        in flight.  Raises under a group of several ranks."""
+        self._refuse_group("compile_table")
         if self._live:
             raise RuntimeError("compile_table: requests are in flight; "
                                "build the table on an idle engine")
@@ -450,6 +545,7 @@ class ServeEngine:
                                     self.state, extra=extra)
 
     def export_aot(self, path) -> Path:
+        self._refuse_group("export_aot")
         if not self._compiled:
             self.compile_table()
         records = {}
@@ -466,7 +562,9 @@ class ServeEngine:
         """Restore a stored serve table (its kernel libraries load without
         ``nvcc``; on a CUDA device every entry is captured, its launches
         checked against the stored ones).  False on a miss or a damaged
-        table, ``AOTCompatError`` for a table of another env."""
+        table, ``AOTCompatError`` for a table of another env.  Raises under
+        a group of several ranks."""
+        self._refuse_group("load_aot")
         if not aot.table_exists(path):
             return False
         try:

@@ -30,8 +30,9 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.config import ModelConfig, layer_groups
+from repro_torch.dist import sharding
 from repro_torch.models.lm import DTYPES, stacked_zeros
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
@@ -148,6 +149,29 @@ def supports(cfg: ModelConfig) -> Optional[str]:
     return None
 
 
+def check_model_parallel(cfg: ModelConfig, T: int) -> None:
+    """Raise ``ValueError`` naming the arch when the serving grid's ``T``
+    model ranks do not split what it shards over them: an attn/local
+    layer's query and KV heads, a dense FFN's ``d_ff``, a MoE layer's
+    experts.  (KV heads replicated where T exceeds them come with the
+    production meshes, ROADMAP.md Queue 1 B item 11.)"""
+    if T <= 1:
+        return
+    kinds = {k for unit, _ in layer_groups(cfg) for k in unit}
+    need = {}
+    if any(m in ("attn", "local") for m, _ in kinds):
+        need.update(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
+    if cfg.d_ff > 0 and any(f == "dense" for _, f in kinds):
+        need["d_ff"] = cfg.d_ff
+    if cfg.moe is not None and any(f == "moe" for _, f in kinds):
+        need["num_experts"] = cfg.moe.num_experts
+    bad = {k: v for k, v in need.items() if v % T}
+    if bad:
+        raise ValueError(f"{cfg.name}: {T} model ranks do not divide "
+                         f"{bad}; the serving grid shards them over "
+                         f"'model'")
+
+
 def _layer_pages(kinds, cfg: ModelConfig, geom: PageGeometry,
                  dtype: torch.dtype) -> Params:
     """One layer's page pools, as meta tensors."""
@@ -164,24 +188,39 @@ def _layer_pages(kinds, cfg: ModelConfig, geom: PageGeometry,
 
 
 def init_paged_cache(cfg: ModelConfig, geom: PageGeometry,
-                     device=None) -> list:
+                     device=None, model_parallel: int = 1) -> list:
     """Paged cache groups, laid out exactly like ``lm.init_cache``'s (a
     leading per-group ``count`` dim), so the group loops can zip params
-    and cache."""
+    and cache.  ``model_parallel`` T > 1: the pool of one of the serving
+    grid's T model ranks, its block under
+    ``dist/sharding.serve_grid_state_pspec`` (every model rank's has the
+    same shape): an attn/local pool holds ``Hkv / T`` KV heads, an MLA
+    pool is whole."""
     reason = supports(cfg)
     if reason:
         raise NotImplementedError(f"serve: {cfg.name}: {reason}")
+    check_model_parallel(cfg, model_parallel)
     dtype = DTYPES[cfg.dtype]
-    return [[stacked_zeros(_layer_pages(kinds, cfg, geom, dtype), count,
-                           device) for kinds in unit]
+    pool = [[stacked_zeros(_layer_pages(kinds, cfg, geom, dtype), count,
+                           "meta") for kinds in unit]
             for unit, count in layer_groups(cfg)]
+    if model_parallel > 1:
+        mesh = sharding.Mesh((1, model_parallel), ("data", "model"))
+        specs = sharding.serve_grid_state_pspec({"groups": pool}, cfg, mesh)
+        pool = sharding.local_shapes(specs["groups"], pool, mesh)
+    return tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                          device=device), pool)
 
 
-def paged_cache_shapes(cfg: ModelConfig, geom: PageGeometry) -> list:
-    return init_paged_cache(cfg, geom, device="meta")
+def paged_cache_shapes(cfg: ModelConfig, geom: PageGeometry,
+                       model_parallel: int = 1) -> list:
+    return init_paged_cache(cfg, geom, device="meta",
+                            model_parallel=model_parallel)
 
 
-def cache_bytes(cfg: ModelConfig, geom: PageGeometry) -> int:
-    """Total bytes of the paged pool (for sizing / roofline reporting)."""
-    return sum(t.numel() * t.element_size()
-               for t in tree_leaves(paged_cache_shapes(cfg, geom)))
+def cache_bytes(cfg: ModelConfig, geom: PageGeometry,
+                model_parallel: int = 1) -> int:
+    """Bytes of the paged pool (for sizing / roofline reporting): one of
+    ``model_parallel`` model ranks' pool."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(
+        paged_cache_shapes(cfg, geom, model_parallel)))

@@ -3,7 +3,8 @@
 ``dist/group.ModelGroup.all_to_all`` and ``GridGroup``,
 ``launch/mesh.init_grid_group``, ``dist/sharding.grid_state_pspec``,
 ``dist/steps.py``'s model-group sums and grid norm, ``SPBEngine(group=
-<GridGroup>)``, ``bridge.grid_params_from_numpy`` and the dry run's
+<GridGroup>)``, the cached modes' expert route on the serving grid's
+layout (``bridge.serve_params_from_numpy``) and the dry run's
 ``--model-parallel``).
 
 The ranks are spawned (``launch/mesh.spawn(..., grid=(D, T))``, one
@@ -298,12 +299,14 @@ def _compress_rank(group, path):
 
 def _serve_on_grid(group):
     """Prefill 12 positions of 2 rows and decode 2 tokens over the grid's
-    model group, at capacity 8 (nothing dropped): the logits."""
+    model group, at capacity 8 (nothing dropped), with the serving grid's
+    layout (the experts and the dense FFN's columns over ``model``): the
+    logits."""
     arch = STEP_ARCHS[0]
     cfg = _ep_cfg(arch, capacity_factor=8.0)
     t, T = group.model_index, group.model.size
     whole = tree_map(lambda v: v.detach(), _params(arch))
-    params = bridge.grid_params_from_numpy(
+    params = bridge.serve_params_from_numpy(
         tree_map(lambda v: v.numpy(), whole), cfg, (t, T))
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 14)))
@@ -311,11 +314,11 @@ def _serve_on_grid(group):
     logits = []
     with torch.no_grad():
         lg, cache = lm.prefill(params, {"tokens": tokens[:, :12]}, cfg,
-                               cache, ep=group.model)
+                               cache, tp=group.model)
         logits.append(lg.numpy())
         for i in (12, 13):
             lg, cache = lm.decode_step(params, cache, tokens[:, i:i + 1],
-                                       cfg, ep=group.model)
+                                       cfg, tp=group.model)
             logits.append(lg.numpy())
     return logits
 

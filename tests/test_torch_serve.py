@@ -6,8 +6,9 @@ pages return to the free list, FCFS + watermark admission, the chunked
 decode step; and the port's ``ServeEngine`` gives the reference's greedy
 outputs token for token on bridged weights.  The AOT methods store and
 restore the step table (on the CPU the eager functions; the round trip
-and the key are in tests/test_torch_aot.py); a device mesh raises naming
-ROADMAP.md Queue 1 B item 11."""
+and the key are in tests/test_torch_aot.py); a mesh that is not a
+``dist/sharding.Mesh``, or one of several devices without the rank's
+group, raises."""
 import jax
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from repro.serve import default_geometry as j_geometry
 from repro.serve import kvcache as jkv
 from repro_torch import bridge
 from repro_torch.configs import reduced_config
+from repro_torch.dist import sharding
 from repro_torch.models import lm
 from repro_torch.serve import (BlockAllocator, PageGeometry, Request,
                                Scheduler, ServeEngine, TRASH_PAGE,
@@ -312,8 +314,11 @@ def test_unsupported_arch_raises():
 
 def test_aot_methods_work_and_mesh_raises(yi, tmp_path):
     """The four AOT methods run (on the CPU the table is the eager
-    functions, and the loaded one answers as they do); a mesh still
-    raises naming its item."""
+    functions, and the loaded one answers as they do); a mesh that is not
+    a ``dist/sharding.Mesh`` raises ``TypeError``, and one of several
+    devices without a ``group=`` raises ``ValueError`` naming it (a
+    process serves as one rank; sharded serving is
+    tests/test_torch_sharded_serve.py's)."""
     cfg, params = yi
     eng = _engine(cfg, geom=_geom(), params=params)
     assert set(eng.compile_table()) == {"decode", "prefill_16"}
@@ -323,5 +328,8 @@ def test_aot_methods_work_and_mesh_raises(yi, tmp_path):
     other = _engine(cfg, geom=_geom(), params=params)
     assert other.load_aot(path) and other._frozen
     assert not other.load_aot(tmp_path / "absent")
-    with pytest.raises(NotImplementedError, match="Queue 1 B item 11"):
+    with pytest.raises(TypeError, match="sharding.Mesh"):
         _engine(cfg, geom=_geom(), params=params, mesh=object())
+    with pytest.raises(ValueError, match="group="):
+        _engine(cfg, geom=_geom(), params=params,
+                mesh=sharding.Mesh((1, 2), ("data", "model")))
