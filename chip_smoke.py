@@ -301,7 +301,20 @@ Phases, each printing a line; any failure exits non-zero:
      (``phase_sharded_serve``; the one-process references run while the
      ranks start and draw their weights, and the ranks wait for them to
      end before the timed trace, so the card runs only the two ranks
-     there);
+     there); then, yi-6b freed, the same ranks decode gemma3-4b at
+     published widths and full depth (34 layers), bf16, seed-0 params
+     drawn leaf by leaf, 4 tokens from position 524,284 of a long_500k
+     cache filled from a seed, under the reference's small-batch
+     override ``{"batch": None, "kv_seq": ("data", "model")}``
+     (``shard_decode_step``: the batch on both ranks, the cache's
+     sequence halved, the attention whole, one combine gather a layer):
+     the ranks bit-identical, the logits at ``LONG_F32_LAYERS`` layers in
+     f32 within ``PIPE_TOL`` of one process's and the bf16 ones within
+     twice one process's bf16-vs-f32 spread, one gather a layer a step,
+     params and cache k/v bytes the reckoning's; decode step ms and the
+     seq and model groups' gloo ms a step (``[sharded-serve-long]``
+     lines; the one-process references, f32 at full depth freed before
+     bf16, run with yi-6b's while the ranks start);
   15. (run last, after 25, on the host) the dry run of each phase-5 path:
      every depth of its cycle counted on the meta device at batch
      2 x 2048 with the kernels' meta entries (``launch/dryrun.py``):
@@ -315,7 +328,10 @@ Phases, each printing a line; any failure exits non-zero:
      directory); then the JigSaw cost model's profile of yi-6b's cut from
      those records, its forward:backward split fitted over the cycle's
      depths (no resnet50 fallback, no assumed split), beside the measured
-     steps;
+     steps; last, one rank of each production mesh (``phase_pod_dryrun``,
+     ``[pod-dryrun]`` lines): gemma3-4b long_500k on the 16 x 16 pod and
+     the (2, 16, 16) mesh, its bytes and collectives the reckoning's, and
+     yi-6b decode_32k on the pod an error record;
   13. a ``{"kernels": [...]}`` line (launches by path, among them
      ``launches_decode``, ``launches_serve``, ``launches_fused`` and
      ``launches_fused_jigsaw``, ``launches_graphs`` (phase 16's graph
@@ -330,7 +346,8 @@ Phases, each printing a line; any failure exits non-zero:
      ``launches_sharded_serve`` (phase 25's, by rank),
      the fused phase's ms by depth and peak, phase 17's and phase 18's
      figures,
-     and phase 15's ``dryrun_by_arch``), the card's name and power
+     and phase 15's ``dryrun_by_arch`` and ``pod_dryrun``), the card's
+     name and power
      limit, and last the
      ``{"ok": true, ...}`` line.
 
@@ -5747,7 +5764,7 @@ def _wait_gate(path: str) -> float:
     return time.perf_counter() - t0
 
 
-def shard_rank(group, prompts, rprompts, gate) -> dict:
+def shard_rank(group, prompts, rprompts, gate, ltokens) -> dict:
     """Phase 25, one rank of the (1, 2) grid: the engine from phase 12's
     seed-0 params drawn leaf by leaf (this rank's share kept), the prefill
     logits of each prompt; once the file ``gate`` exists (the parent's
@@ -5755,7 +5772,8 @@ def shard_rank(group, prompts, rprompts, gate) -> dict:
     model-group calls and host seconds, its CUDA events, the slots live at
     the call and the flash forward's heads a call; then the f32 model's
     prefill logits and reduced yi-6b in f32 on the same grid, and the
-    seconds of each part."""
+    seconds of each part; last, yi-6b freed, the long-context decode of
+    gemma3-4b (:func:`long_rank`) on the same ranks."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serve import ServeEngine
@@ -5831,6 +5849,12 @@ def shard_rank(group, prompts, rprompts, gate) -> dict:
                         group=group, seed=0)
     out["reduced"] = _serve_trace(small, rprompts)
     out["f32_s"], out["reduced_s"] = t1 - t0, time.perf_counter() - t1
+    del small
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out["long"] = long_rank(group, ltokens)
+    out["long_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5882,6 +5906,177 @@ def _rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+# Phase 25's long-context decode: gemma3-4b at published widths and full
+# depth, bf16, on the same (1, 2) grid, the small-batch override of the
+# reference's dry run (the batch on every rank, the cache's sequence
+# sharded over ("data", "model"), the attention whole), LONG_STEPS tokens
+# from the end of a long_500k cache filled from a seed
+LONG_ARCH, LONG_SHAPE, LONG_STEPS = "gemma3-4b", "long_500k", 4
+# the f32 check's cut: one superblock of 5 local and 1 global layer, at the
+# shape's full 524,288 positions
+LONG_F32_LAYERS = 6
+# what a rank of the (1, 2) grid holds of the full-depth bf16 cache's k and
+# v, reckoned by hand: 5 global layers of (1, 262144, 4, 256) and 29 local
+# rings of (1, 512, 4, 256), two tensors each, 2 B an element
+LONG_CACHE_KV_BYTES = 2 * 2 * 4 * 256 * (5 * 262144 + 29 * 512)
+
+
+def long_config(what: str):
+    """The long-context configs: ``"bf16"`` (gemma3-4b as published),
+    ``"f32_full"`` (the same in f32, the same draws) or ``"f32"`` (its
+    first ``LONG_F32_LAYERS`` layers in f32)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(LONG_ARCH)
+    if what.startswith("f32"):
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    if what == "f32":
+        cfg = dataclasses.replace(cfg, num_layers=LONG_F32_LAYERS)
+    return cfg
+
+
+def long_tokens() -> list:
+    """The LONG_STEPS tokens decoded, from seed 11."""
+    import torch
+    gen = torch.Generator().manual_seed(11)
+    return torch.randint(0, long_config("bf16").vocab_size, (LONG_STEPS,),
+                         generator=gen).tolist()
+
+
+def _fill_long_cache(cache, shares: int, share=None) -> None:
+    """Fill a dense cache's k and v from seeded generators, N(0, 1) drawn
+    in f32 and cast, one generator a (leaf, layer row, block of the
+    sequence) with ``shares`` blocks: the whole cache (``share`` None) or
+    block ``share`` of it (a rank's, whose leaves hold only that block),
+    so a rank's share equals its block of one process's whole cache in
+    either dtype.  The position is set to the last LONG_STEPS."""
+    import torch
+    from repro_torch.config import SHAPES
+    from repro_torch.tree import tree_leaves
+    for i, t in enumerate(tree_leaves(cache["groups"])):
+        W = t.shape[2] if share is not None else t.shape[2] // shares
+        blocks = range(shares) if share is None else [share]
+        for row in range(t.shape[0]):
+            for b in blocks:
+                gen = torch.Generator(device=t.device).manual_seed(
+                    (i * 1000 + row) * 16 + b)
+                at = 0 if share is not None else b * W
+                part = torch.empty(t[row].narrow(1, at, W).shape,
+                                   dtype=torch.float32, device=t.device)
+                part.normal_(generator=gen)
+                t[row].narrow(1, at, W).copy_(part)
+                del part
+    cache["pos"].fill_(SHAPES[LONG_SHAPE].seq_len - LONG_STEPS)
+
+
+def _long_decode(fn, params, cache, tokens) -> list:
+    """The LONG_STEPS tokens' logits (f32, on the host) of ``fn(params,
+    cache, tokens)`` on the card."""
+    import torch
+    out = []
+    for tok in tokens:
+        lg, cache = fn(params, cache, torch.tensor([[tok]], device="cuda"))
+        out.append(lg[0, 0].float().cpu())
+    return out
+
+
+def _one_process_long(tokens) -> dict:
+    """Phase 25's one-process long-context references on the card: the
+    logits of gemma3-4b's seed-0 draws in f32 at full depth (freed before
+    the next), bf16 at full depth and f32 at the LONG_F32_LAYERS cut, each
+    from the whole seeded cache."""
+    import torch
+    from repro_torch.config import SHAPES
+    from repro_torch.models import lm
+    out = {}
+    S = SHAPES[LONG_SHAPE].seq_len
+    for what in ("f32_full", "bf16", "f32"):
+        cfg = long_config(what)
+        params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+        cache = lm.init_cache(cfg, 1, S, device="cuda")
+        _fill_long_cache(cache, SHARD_GRID[1])
+        out[what] = _long_decode(
+            lambda p, c, t: lm.decode_step(p, c, t, cfg), params, cache,
+            tokens)
+        del params, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_rank(group, tokens) -> dict:
+    """Phase 25's long-context decode on one rank of the (1, 2) grid:
+    gemma3-4b's seed-0 params drawn leaf by leaf (the rank's block kept:
+    the attention whole, the FFN halved), its block of the seeded
+    long_500k cache, LONG_STEPS tokens by ``shard_decode_step`` under the
+    small-batch override, each step's CUDA-event ms and host seconds in
+    the seq and the model group; then the same at the f32 cut; the bytes
+    held and the reckoning's."""
+    import torch
+    from repro_torch.config import SHAPES
+    from repro_torch.dist import sharding
+    from repro_torch.dist import steps as steps_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    grid = sharding.Mesh(SHARD_GRID, ("data", "model"))
+    at = sharding.mesh_coords(grid, group.rank)
+    S = SHAPES[LONG_SHAPE].seq_len
+    out = {}
+    for what in ("bf16", "f32"):
+        cfg = long_config(what)
+        t0 = time.perf_counter()
+        fn, pshapes, cshapes, specs = steps_lib.shard_decode_step(
+            grid, cfg, 1, S, rules_overrides=dryrun.SMALL_BATCH_DECODE,
+            group=group)
+        with sharding.rules(dryrun.SMALL_BATCH_DECODE):
+            seq = group.seq_group(grid, sharding.seq_axes(grid))
+        params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda", keep=sharding.share_keeper(
+                                specs["params"], pshapes, grid, at))
+        cache = tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype,
+                                               device="cuda"),
+                         sharding.local_shapes(specs["cache"], cshapes, grid))
+        _fill_long_cache(cache, seq.size, seq.rank)
+        torch.cuda.synchronize()
+        run = {"setup_s": time.perf_counter() - t0, "share": seq.rank,
+               "shares": seq.size,
+               "param_bytes": sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(params)),
+               "cache_kv_bytes": sum(t.numel() * t.element_size()
+                                     for t in tree_leaves(cache["groups"])),
+               "reckoned_params": sharding.sharded_state_bytes(
+                   pshapes, specs["params"], grid),
+               "reckoned_cache": sharding.sharded_state_bytes(
+                   cshapes, specs["cache"], grid)}
+        steps = []
+
+        def timed(p, c, t):
+            s0 = sum(seq.seconds.values())
+            m0 = sum(group.model.seconds.values())
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "01"]
+            ev[0].record()
+            res = fn(p, c, t)
+            ev[1].record()
+            steps.append((ev, sum(seq.seconds.values()) - s0,
+                          sum(group.model.seconds.values()) - m0))
+            return res
+
+        run["logits"] = _long_decode(timed, params, cache, tokens)
+        torch.cuda.synchronize()
+        run["step_ms"] = [round(ev[0].elapsed_time(ev[1]), 3)
+                          for ev, _, _ in steps]
+        run["seq_gloo_ms"] = [round(s * 1e3, 3) for _, s, _ in steps]
+        run["model_gloo_ms"] = [round(m * 1e3, 3) for _, _, m in steps]
+        run["seq_calls"] = dict(seq.calls)
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[what] = run
+        seq.calls.clear()
+        del params, cache, fn
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_sharded_serve(smi: str) -> dict:
     """Phase 25: sharded serving on the card (``ServeEngine(group=)``,
     ``launch/mesh.spawn(grid=(1, 2))``; see the module docstring).  The
@@ -5903,18 +6098,24 @@ def phase_sharded_serve(smi: str) -> dict:
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
                for n, _ in SHARD_TRACE]
     rprompts = [[t % rcfg.vocab_size for t in p] for p in prompts]
+    ltokens = long_tokens()
     with tempfile.TemporaryDirectory(prefix="shard_gate_") as tmp, \
             ThreadPoolExecutor(1) as lane:
         gate = str(Path(tmp) / "references_done")
         ranks = lane.submit(mesh.spawn, "chip_smoke:shard_rank", 2, prompts,
-                            rprompts, gate, device="cuda", grid=SHARD_GRID,
-                            timeout_s=DP_JOIN_S)
+                            rprompts, gate, ltokens, device="cuda",
+                            grid=SHARD_GRID, timeout_s=DP_JOIN_S)
         try:
             t1 = time.perf_counter()
             one = _one_process_serve(prompts, rprompts)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
+            t2 = time.perf_counter()
+            long_one = _one_process_long(ltokens)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
             refs_s = time.perf_counter() - t1
+            long_refs_s = time.perf_counter() - t2
         finally:
             Path(gate).touch()      # a failure above still lets the ranks end
         ranks = ranks.result()
@@ -6018,9 +6219,12 @@ def phase_sharded_serve(smi: str) -> dict:
             f"model_calls_decode={want['decode']} flash_fwd="
             f"{got['flash_fwd']} at heads {got['heads']} reduced_f32_equal="
             f"{got['reduced'] == one['reduced']} card={smi}")
+    failed += _long_checks(ranks, long_one, smi)
     secs = time.perf_counter() - t0
     log(f"[sharded-serve] phase {secs:.1f}s (one-process references "
-        f"{refs_s:.1f}s, while the ranks started)")
+        f"{refs_s:.1f}s, of them the long-context ones {long_refs_s:.1f}s, "
+        f"while the ranks started; the ranks' long-context decode "
+        f"{[round(g['long_s'], 1) for g in ranks]}s)")
     if failed:
         raise AssertionError("sharded-serve: " + "; ".join(failed))
     return {"launches": {f"rank{r}": {"flash_fwd": got["flash_fwd"]}
@@ -6034,21 +6238,162 @@ def phase_sharded_serve(smi: str) -> dict:
                 "logits_rel_l2_bf16": [_rel(a, b) for a, b in zip(
                     got["logits"], one["logits"])],
                 "logits_rel_l2_f32": [_rel(a, b) for a, b in zip(
-                    got["logits_f32"], one["logits_f32"])]}
+                    got["logits_f32"], one["logits_f32"])],
+                "long_decode_step_ms": got["long"]["bf16"]["step_ms"],
+                "long_seq_gloo_ms": got["long"]["bf16"]["seq_gloo_ms"],
+                "long_model_gloo_ms": got["long"]["bf16"]["model_gloo_ms"],
+                "long_param_bytes": got["long"]["bf16"]["param_bytes"],
+                "long_cache_kv_bytes": got["long"]["bf16"]["cache_kv_bytes"]}
                 for r, got in enumerate(ranks)} | {"phase_s": secs}}
 
 
+def _long_checks(ranks, one, smi) -> list:
+    """Phase 25's long-context checks and lines: the ranks' logits
+    bit-identical at every step, the f32 cut's within ``PIPE_TOL``
+    (relative L2) of one process's, the bf16 ones within twice one
+    process's own bf16-vs-f32 spread, one combine gather a layer a step,
+    and the bytes held the reckoning's.  Returns what failed."""
+    import torch
+    from repro_torch.config import SHAPES, total_layers
+    failed = []
+    layers = total_layers(long_config("bf16"))
+    pos = SHAPES[LONG_SHAPE].seq_len - LONG_STEPS
+    spread = [_rel(a, b) for a, b in zip(one["bf16"], one["f32_full"])]
+    for r, got in enumerate(ranks):
+        run, cut = got["long"]["bf16"], got["long"]["f32"]
+        same = all(torch.equal(a, b) for what in ("bf16", "f32")
+                   for a, b in zip(got["long"][what]["logits"],
+                                   ranks[0]["long"][what]["logits"]))
+        if not same:
+            failed.append(f"rank {r}: long-context logits differ from "
+                          f"rank 0's")
+        rel32 = [_rel(a, b) for a, b in zip(cut["logits"], one["f32"])]
+        rel = [_rel(a, b) for a, b in zip(run["logits"], one["bf16"])]
+        if not max(rel32) <= PIPE_TOL:
+            failed.append(f"rank {r}: long-context f32 logits' relative L2 "
+                          f"distance at {LONG_F32_LAYERS} layers to one "
+                          f"process {max(rel32):.3e} > {PIPE_TOL:g}")
+        if not all(x <= 2 * sp for x, sp in zip(rel, spread)):
+            failed.append(f"rank {r}: long-context bf16 logits' relative "
+                          f"L2 distance {rel} over twice one process's "
+                          f"bf16-vs-f32 spread {spread}")
+        if run["seq_calls"] != {"all-gather": LONG_STEPS * layers}:
+            failed.append(f"rank {r}: combine gathers {run['seq_calls']}, "
+                          f"not {LONG_STEPS * layers}")
+        if run["param_bytes"] != run["reckoned_params"] or \
+                run["cache_kv_bytes"] != LONG_CACHE_KV_BYTES or \
+                run["reckoned_cache"] != LONG_CACHE_KV_BYTES + 8:
+            failed.append(f"rank {r}: long-context bytes held params "
+                          f"{run['param_bytes']} (reckoned "
+                          f"{run['reckoned_params']}) cache k/v "
+                          f"{run['cache_kv_bytes']} (reckoned "
+                          f"{LONG_CACHE_KV_BYTES}, with the position "
+                          f"{run['reckoned_cache']})")
+        log(f"[sharded-serve-long] {LONG_ARCH}/{layers} bf16 {LONG_SHAPE} "
+            f"grid={SHARD_GRID} rank={r} share={run['share']}/"
+            f"{run['shares']} override={{'batch': None, 'kv_seq': "
+            f"('data', 'model')}} param_bytes={run['param_bytes']} "
+            f"(reckoned {run['reckoned_params']}) cache_kv_bytes="
+            f"{run['cache_kv_bytes']} (reckoned {LONG_CACHE_KV_BYTES}) "
+            f"setup_s={run['setup_s']:.2f} peak_gb={run['peak_gb']:.3f} "
+            f"card={smi}")
+        log(f"[sharded-serve-long] rank={r} decode_step_ms (CUDA events, "
+            f"{LONG_STEPS} steps from position {pos}) {run['step_ms']} "
+            f"seq_group_gloo_ms_a_step {run['seq_gloo_ms']} "
+            f"model_group_gloo_ms_a_step {run['model_gloo_ms']} "
+            f"f32_cut_step_ms {cut['step_ms']} card={smi}")
+        log(f"[sharded-serve-long] rank={r} logits_rel_l2_vs_one_process "
+            f"f32 at {LONG_F32_LAYERS} layers="
+            f"{[f'{x:.3e}' for x in rel32]} (tol {PIPE_TOL:g}) "
+            f"bf16={[f'{x:.3e}' for x in rel]} (tol twice the one "
+            f"process's bf16-vs-f32 {[f'{x:.3e}' for x in spread]}) "
+            f"bit_identical_to_rank0={same} card={smi}")
+    return failed
+
+
+# phase 25's dry runs on the production meshes: (arch, shape, multi-pod,
+# whether the reference's rule table lays it out)
+POD_CELLS = (("gemma3-4b", "long_500k", False, True),
+             ("gemma3-4b", "long_500k", True, True),
+             ("yi-6b", "decode_32k", False, False))
+
+
+def phase_pod_dryrun() -> dict:
+    """With phase 15 (host only): one rank of each production mesh counted
+    on the meta device (``launch/dryrun.py --pod``/``--multi-pod``):
+    gemma3-4b ``long_500k`` on the 16 x 16 pod and the (2, 16, 16) mesh
+    under the small-batch override (256 sequence shards), and yi-6b
+    ``decode_32k`` on the pod, an error record (4 KV heads over 16 model
+    ranks, the reference's refusal).  Fails where a record's outcome is
+    not that, where gemma3's bytes are not the reckoning's or its
+    collective bytes not ``roofline.serve_tp_calls``'s, or when a kernel
+    was launched."""
+    import tempfile
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    before = launches_now()
+    tmp = tempfile.TemporaryDirectory(prefix="dryrun_pod_")
+    failed, out = [], {}
+    for arch, shape, multi, ok in POD_CELLS:
+        rec = dryrun.run_cell(arch, shape, pod=not multi, multi_pod=multi,
+                              force=True, out_dir=tmp.name)
+        name = f"{arch}/{shape}/{dryrun.mesh_name(multi)}"
+        if rec["ok"] != ok:
+            failed.append(f"{name}: ok={rec['ok']} "
+                          f"{rec.get('error', '')[:200]}")
+            continue
+        if not ok:
+            log(f"[pod-dryrun] {name} error record (as the reference "
+                f"refuses it): {rec['error'][:160]}")
+            out[name] = {"ok": False}
+            continue
+        calls = roofline.serve_tp_calls(
+            get_config(arch), 16, 1, 1, seq_shards=rec["seq_shards"],
+            whole=frozenset({"attn"}))
+        want = roofline.serve_wire_bytes(calls, 16, rec["seq_shards"])
+        if rec["collective_breakdown"] != want or \
+                rec["param_bytes"] != 2746311680 or \
+                rec["cache_bytes"] != 42418176 + 8:
+            failed.append(f"{name}: collectives "
+                          f"{rec['collective_breakdown']} (reckoned {want}) "
+                          f"param_bytes {rec['param_bytes']} cache_bytes "
+                          f"{rec['cache_bytes']}")
+        out[name] = {k: rec[k] for k in (
+            "chips", "seq_shards", "param_bytes", "cache_bytes",
+            "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "num_collectives", "count_s")}
+        log(f"[pod-dryrun] {name} chips={rec['chips']} rank of "
+            f"{rec['data_parallel']} x {rec['model_parallel']}, override "
+            f"{rec['rules_overrides']}: seq_shards={rec['seq_shards']} "
+            f"param_bytes={rec['param_bytes']} cache_bytes="
+            f"{rec['cache_bytes']} GFLOP={rec['flops_per_device'] / 1e9:.3f}"
+            f" GB={rec['bytes_per_device'] / 1e9:.3f} collective_GB="
+            f"{rec['collective_bytes_per_device'] / 1e9:.4f} "
+            f"({rec['num_collectives']} calls) count_s={rec['count_s']}")
+    if any(launches_since(before).values()):
+        failed.append(f"a kernel launched: {launches_since(before)}")
+    tmp.cleanup()
+    if failed:
+        raise AssertionError("pod-dryrun: " + "; ".join(failed))
+    return out
+
+
 def _dryruns(phase5: dict, peaks: dict, bounds: dict, remat: dict):
-    """:func:`phase_dryrun` and :func:`phase_remat_dryrun`, in a process of
-    their own (started by ``main``); their lines go to the same output."""
+    """:func:`phase_dryrun`, :func:`phase_remat_dryrun` and
+    :func:`phase_pod_dryrun`, in a process of their own (started by
+    ``main``); their lines go to the same output."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     t0 = time.perf_counter()
     dry = phase_dryrun(phase5, peaks, bounds)
     t1 = time.perf_counter()
     remat_dry = phase_remat_dryrun(remat)
-    return dry, remat_dry, {"dryrun": round(t1 - t0, 1),
-                            "remat_dryrun": round(time.perf_counter() - t1,
-                                                  1)}
+    t2 = time.perf_counter()
+    pod = phase_pod_dryrun()
+    return dry, remat_dry, pod, {
+        "dryrun": round(t1 - t0, 1), "remat_dryrun": round(t2 - t1, 1),
+        "pod_dryrun": round(time.perf_counter() - t2, 1)}
 
 
 def main() -> int:
@@ -6249,8 +6594,8 @@ def main() -> int:
     if not all(g.get("flash_fwd") for g in sharded["launches"].values()):
         raise AssertionError(f"a sharded serving rank never launched the "
                              f"flash forward: {sharded['launches']}")
-    dryrun_by_arch, remat_dryrun, dry_s = clocked("dryruns_waited",
-                                                  dryruns.result)
+    dryrun_by_arch, remat_dryrun, pod_dryrun, dry_s = clocked(
+        "dryruns_waited", dryruns.result)
     dry_pool.shutdown()
     PHASE_S.update(dry_s)
 
@@ -6353,6 +6698,7 @@ def main() -> int:
                                   for label, f in runs.items()}
                               for a, runs in remat_by_arch.items()},
                     "remat_dryrun": remat_dryrun,
+                    "pod_dryrun": pod_dryrun,
                     "data_parallel": dp_full["figures"],
                     "zero": zero1_full["figures"],
                     "pipeline": pipeline["figures"],

@@ -387,7 +387,9 @@ def _ep_layer_calls(cfg: ModelConfig, n_tok: int, t: int, layers: int,
 
 
 def serve_tp_calls(cfg: ModelConfig, model_parallel: int, rows: int,
-                   seq_len: int) -> Dict[str, Tuple[int, int]]:
+                   seq_len: int, *, seq_shards: int = 1,
+                   whole: frozenset = frozenset()
+                   ) -> Dict[str, Tuple[int, int]]:
     """What one model rank of the serving grid calls on its model group
     (``dist/group.ModelGroup``) in one prefill or one decode step of
     ``rows`` rows by ``seq_len`` positions (``lm.prefill``,
@@ -398,15 +400,19 @@ def serve_tp_calls(cfg: ModelConfig, model_parallel: int, rows: int,
     ``impl="dense"`` all-reduces its experts' partial outputs once (the
     same payload), under ``impl="ep"`` calls what ``moe_fwd_ep``'s forward
     does (:func:`ep_calls`); an MLA, SSD, RG-LRU or ``xdec`` mixer runs
-    whole and calls nothing.  A serve prefill runs the whole bucket:
-    ``rows`` 1, ``seq_len`` the bucket."""
+    whole and calls nothing, as do the kinds of ``whole``
+    (``dist/sharding.grid_whole``: ``"attn"``, ``"ffn"``, ``"moe"``).  A
+    serve prefill runs the whole bucket: ``rows`` 1, ``seq_len`` the
+    bucket.
+
+    ``seq_shards`` n > 1: a decode step over a cache whose sequence is
+    sharded n ways (a ``kv_seq`` override).  Then the key ``"combine"``
+    holds the calls of the ``dist/group.SeqGroup``, another group of n
+    ranks: each attn/local/MLA layer all-gathers its packed partial
+    attention once (an ``xdec`` layer twice, self and cross), a payload of
+    ``n x rows x H x (Dv + 2) x 4`` (f32; Dv is ``head_dim``, an MLA's
+    ``kv_lora_rank``).  :func:`serve_wire_bytes` totals the wire bytes."""
     t = int(model_parallel)
-    if t <= 1:
-        return {}
-    elem = 2 if cfg.dtype in ("bfloat16", "float16") else 4
-    n_tok = rows * seq_len
-    act = n_tok * cfg.d_model * elem
-    kinds = layer_kinds(cfg)
     calls: Dict[str, List[int]] = {}
 
     def add(kind: str, count: int, nbytes: int) -> None:
@@ -415,14 +421,47 @@ def serve_tp_calls(cfg: ModelConfig, model_parallel: int, rows: int,
             c[0] += count
             c[1] += count * nbytes
 
-    ffn = [f for _, f in kinds] if cfg.d_ff > 0 else []
-    add("all-reduce", sum(m in ("attn", "local") for m, _ in kinds)
-        + ffn.count("dense"), act)
-    if ffn.count("moe") and cfg.moe.impl == "dense":
-        add("all-reduce", ffn.count("moe"), act)
-    elif ffn.count("moe"):
-        _ep_layer_calls(cfg, n_tok, t, ffn.count("moe"), 0, add)
+    kinds = layer_kinds(cfg)
+    n = int(seq_shards)
+    if n > 1:
+        H = cfg.num_heads
+        for mixer, _ in kinds:
+            if mixer in ("attn", "local", "xdec"):
+                add("combine", 2 if mixer == "xdec" else 1,
+                    n * rows * H * (cfg.head_dim + 2) * 4)
+            elif mixer == "mla":
+                add("combine", 1, n * rows * H * (cfg.mla.kv_lora_rank + 2)
+                    * 4)
+    if t > 1:
+        elem = 2 if cfg.dtype in ("bfloat16", "float16") else 4
+        n_tok = rows * seq_len
+        act = n_tok * cfg.d_model * elem
+        ffn = [f for _, f in kinds] if cfg.d_ff > 0 else []
+        add("all-reduce",
+            (0 if "attn" in whole else
+             sum(m in ("attn", "local") for m, _ in kinds))
+            + (0 if "ffn" in whole else ffn.count("dense")), act)
+        moe = 0 if "moe" in whole else ffn.count("moe")
+        if moe and cfg.moe.impl == "dense":
+            add("all-reduce", moe, act)
+        elif moe:
+            _ep_layer_calls(cfg, n_tok, t, moe, 0, add)
     return {k: (v[0], v[1]) for k, v in calls.items()}
+
+
+def serve_wire_bytes(calls: Dict[str, Tuple[int, int]], model_parallel: int,
+                     seq_shards: int = 1) -> Dict[str, float]:
+    """The wire bytes a rank sends, by collective kind, for
+    :func:`serve_tp_calls`'s ``calls`` (``analysis/cost.wire_bytes``'s ring
+    model): the model group's over ``model_parallel`` ranks, the
+    ``"combine"`` gathers over ``seq_shards``."""
+    from repro_torch.analysis.cost import wire_bytes
+    out: Dict[str, float] = {}
+    for kind, (_, nbytes) in calls.items():
+        k, n = ("all-gather", seq_shards) if kind == "combine" \
+            else (kind, model_parallel)
+        out[k] = out.get(k, 0.0) + wire_bytes(k, n, nbytes)
+    return out
 
 
 def ep_calls(cfg: ModelConfig, rows: int, seq_len: int, *,

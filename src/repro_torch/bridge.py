@@ -74,17 +74,20 @@ def stacked_params_from_numpy(trees: Any, cfg: ModelConfig,
 
 
 def serve_params_from_numpy(tree: Any, cfg: ModelConfig, model: tuple,
-                            device="cpu") -> Any:
+                            device="cpu", rules_overrides=None) -> Any:
     """One serving grid rank's params from the reference's whole tree
     (numpy, the JAX layout): ``model = (t, T)``; the rank takes its
     column/row shard of each attn/local mixer and dense FFN and its share
     of each MoE layer's experts, and every other leaf whole
-    (``dist/sharding.serve_params_pspec``).  Plain tensors (serving runs
-    no backward); raises as :func:`params_from_numpy` does on a missing,
-    extra or mis-shaped leaf."""
+    (``dist/sharding.serve_params_pspec`` under ``rules_overrides``: an
+    attn/local mixer is whole where a ``kv_seq`` override takes
+    ``model``).  Plain tensors (serving runs no backward); raises as
+    :func:`params_from_numpy` does on a missing, extra or mis-shaped
+    leaf."""
     t, T = model
     mesh = sharding.Mesh((1, T), ("data", "model"))
-    specs = sharding.serve_params_pspec(lm.param_shapes(cfg), cfg, mesh)
+    with sharding.rules(rules_overrides):
+        specs = sharding.serve_params_pspec(lm.param_shapes(cfg), cfg, mesh)
     share = sharding.grid_share(_from_numpy(tree, cfg, "cpu", ()), specs,
                                 mesh, {"model": t})
     return tree_map(lambda w: w.to(device, copy=True), share)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -339,6 +340,19 @@ class ModelGroup:
 
 
 @dataclasses.dataclass
+class SeqGroup(ModelGroup):
+    """One rank's view of the ranks a dense decode cache's sequence
+    shards over (the serving grid's ``kv_seq`` axes,
+    ``dist/sharding.seq_axes``): ``rank`` is this rank's share of the
+    sequence, numbered row-major over the axes as the override lists them
+    (``dist/sharding.grid_share``'s blocks), and ``size`` the number of
+    shares.  Its :meth:`all_gather` joins the ranks' partial attentions
+    (``models/layers.seq_combine``) in the process group's order, the same
+    on every rank, and is counted by kind as a :class:`ModelGroup`'s (on
+    the meta device through :data:`META_SINKS`)."""
+
+
+@dataclasses.dataclass
 class _Grid:
     """What a ``(data, model)`` grid and a pipeline's ``(stage, data,
     model)`` grid share: ``data`` is the :class:`DataGroup` of this rank's
@@ -408,6 +422,60 @@ class GridGroup(_Grid):
     ``[t E / T, (t + 1) E / T)``: everything outside the MoE layers runs
     replicated over ``model`` (``models/moe.moe_fwd_ep`` exchanges the
     tokens).  A grid of one rank needs no process group."""
+
+    # (mesh axes, kv_seq axes) -> this rank's SeqGroup (seq_group)
+    seq_groups: Dict[Any, "SeqGroup"] = dataclasses.field(
+        default_factory=dict)
+
+    def seq_group(self, mesh, axes) -> SeqGroup:
+        """This rank's :class:`SeqGroup` over the ``axes`` of ``mesh`` (a
+        ``dist/sharding.Mesh`` whose DP axes hold ``data.size`` ranks and
+        whose ``model`` axis ``model.size``, laid out row-major as the
+        grid's ranks are): the ranks that agree on every other axis.  The
+        world, the model group or the data group where the members are
+        theirs; else a process group of its own, made the first time:
+        ``new_group`` is collective, so every rank calls this with the
+        same arguments at the same point (when its decode step is built)."""
+        from repro_torch.dist.sharding import mesh_coords
+        key = (tuple(mesh.axis_names), tuple(mesh.shape.values()),
+               tuple(axes))
+        if key in self.seq_groups:
+            return self.seq_groups[key]
+        at = mesh_coords(mesh, self.rank)
+        index = 0
+        for a in axes:
+            index = index * mesh.shape[a] + at[a]
+        n = math.prod(mesh.shape[a] for a in axes)
+        others = [a for a in mesh.axis_names if a not in axes]
+        members: Dict[tuple, List[int]] = {}
+        for r in range(self.size):
+            c = mesh_coords(mesh, r)
+            members.setdefault(tuple(c[a] for a in others), []).append(r)
+        mine = members[tuple(at[a] for a in others)]
+        T = self.model.size
+        d, t = divmod(self.rank, T)
+        pg = None
+        if n > 1:
+            if mine == list(range(self.size)):
+                pg = self.pg
+            elif mine == [d * T + j for j in range(T)]:
+                pg = self.model.pg
+            elif mine == [i * T + t for i in range(self.data.size)]:
+                pg = self.data.pg
+            else:
+                for ranks in (members[k] for k in sorted(members)):
+                    made = dist.new_group(
+                        ranks=ranks, backend=self.backend,
+                        timeout=datetime.timedelta(seconds=self.timeout_s))
+                    if ranks == mine:
+                        pg = made
+        group = SeqGroup(rank=index, size=n, pg=pg)
+        self.seq_groups[key] = group
+        return group
+
+    def close(self) -> None:
+        super().close()
+        self.seq_groups.clear()
 
 
 # tags of a pipeline's point-to-point messages: activations go right,

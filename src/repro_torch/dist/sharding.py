@@ -447,7 +447,85 @@ def grid_state_pspec(state_shapes: Any, mesh: Mesh, *,
 # shared expert over ``model`` too).  Only the leaves the rule left
 # sharded are kept: a rank's weights, dense caches and paged pools then hold
 # ``1 / T`` of each attention layer's KV heads.
+#
+# An attn/local mixer also runs whole where its cache does not shard the KV
+# heads over ``model``: under a ``kv_seq`` override that takes ``model``
+# (:func:`spec_for`'s first user wins, so the reference's cache holds every
+# head on every rank there, and each rank attends all heads over its share
+# of the sequence instead of gathering q), or under ``heads: None``.  Under
+# ``model: None`` the attention and the dense FFNs run whole, under
+# ``expert: None`` the experts (:func:`grid_whole`).
 _TP_MIXERS = ("attn", "local")
+
+# the data-parallel axes, which ``batch`` spans by default
+DP_AXES = ("pod", "data")
+# the axes of a serving grid: ``kv_seq`` may take any of them
+GRID_AXES = ("pod", "data", "model")
+
+
+def axes_of(entry) -> Tuple[str, ...]:
+    """The mesh axes a spec entry names, as a tuple."""
+    return () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+
+
+def check_overrides(overrides: Optional[Dict[str, Any]]) -> None:
+    """Raise for a rule override the serving grid has no path for.  Paths:
+    any role set to None, ``batch`` on a subset of :data:`DP_AXES`,
+    ``kv_seq`` on any tuple of :data:`GRID_AXES` (the axes ``batch`` takes
+    first are dropped, as :func:`spec_for` drops them), and a role left on
+    its default axis.  A role moved onto another axis (``{"heads":
+    "data"}``, ``{"expert": "data"}``) raises ``NotImplementedError``: the
+    port's tensor-parallel and expert-parallel layers shard over the model
+    group only (ROADMAP.md Queue 3, deliberate differences)."""
+    for role, axes in (overrides or {}).items():
+        names = axes_of(axes)
+        if (axes is None
+                or (role == "batch" and set(names) <= set(DP_AXES))
+                or (role == "kv_seq" and set(names) <= set(GRID_AXES))
+                or names == axes_of(DEFAULT_RULES.get(role))):
+            continue
+        raise NotImplementedError(
+            f"sharding-rule override {role!r}: {axes!r} moves a role onto "
+            f"another axis; the port's tensor- and expert-parallel layers "
+            f"shard over the model group only (ROADMAP.md Queue 3, "
+            f"deliberate differences)")
+
+
+def seq_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
+    """The mesh axes a dense cache's sequence dim shards over under the
+    rules in force: ``kv_seq``'s axes that ``batch`` leaves free, in its
+    order (``()`` without a ``kv_seq`` override)."""
+    spec = spec_for((None, "batch", "kv_seq"), mesh=mesh)
+    return axes_of(spec[2] if len(spec) > 2 else None)
+
+
+def batch_ranks(mesh: Mesh) -> int:
+    """The ranks a batch's rows split over on ``mesh`` under the rules in
+    force (the product of ``batch``'s axes; 1 under ``batch: None``)."""
+    spec = spec_for(("batch",), mesh=mesh)
+    return math.prod(mesh.shape.get(a, 1)
+                     for a in axes_of(spec[0] if spec else None))
+
+
+def grid_whole(mesh: Optional[Mesh]) -> frozenset:
+    """The layer kinds the serving grid runs whole on every model rank
+    under the rules in force, of ``"attn"`` (an attn/local mixer: where the
+    cache's KV-head dim does not shard over ``model``), ``"ffn"`` (a dense
+    FFN: ``model: None``) and ``"moe"`` (the experts: ``expert: None``)."""
+    def on_model(roles, at):
+        spec = spec_for(roles, mesh=mesh)
+        return len(spec) > at and spec[at] == "model"
+
+    whole = set()
+    if not (on_model((None, "batch", "kv_seq", "heads"), 3)
+            and on_model(("model",), 0)):
+        whole.add("attn")
+    if not on_model(("model",), 0):
+        whole.add("ffn")
+    if not on_model(("expert",), 0):
+        whole.add("moe")
+    return frozenset(whole)
 
 
 def _layer_route(keys: Tuple[str, ...], cfg) -> Optional[Tuple[str, str]]:
@@ -460,48 +538,41 @@ def _layer_route(keys: Tuple[str, ...], cfg) -> Optional[Tuple[str, str]]:
     return unit[int(keys[2])]
 
 
-def _grid_keeps(keys: Tuple[str, ...], cfg) -> bool:
+def _grid_keeps(keys: Tuple[str, ...], cfg, whole: frozenset) -> bool:
     """Whether a leaf keeps its rule-table spec on the serving grid (else
-    it is whole on every model rank)."""
+    it is whole on every model rank); ``whole`` as :func:`grid_whole`'s."""
     route = _layer_route(keys, cfg)
     if route is None:
         return False
     mixer, ffn = route
     if keys[3] in ("mixer", "self"):
-        return mixer in _TP_MIXERS
+        return mixer in _TP_MIXERS and "attn" not in whole
     if keys[3] == "ffn":
+        if ffn != "moe":
+            return "ffn" not in whole
         # a MoE layer: its experts' stacked (count, E, D, F) leaves only
-        return ffn != "moe" or (keys[-1] in ("wg", "wu", "wd")
-                                and "shared" not in keys)
+        return "moe" not in whole and keys[-1] in ("wg", "wu", "wd") \
+            and "shared" not in keys
     return False
 
 
-def _on_grid(specs: Any, shapes: Any, cfg, keep_data: bool) -> Any:
-    """``specs`` with every leaf the serving grid keeps whole over
-    ``model`` replicated there (its ``batch`` entry stays when
-    ``keep_data``)."""
-    def one(keys, spec, leaf):
-        if _grid_keeps(keys, cfg):
-            return spec
-        if not keep_data:
-            return P()
-        entries = [e if e is not None and "model" not in (
-            e if isinstance(e, tuple) else (e,)) else None for e in spec]
-        while entries and entries[-1] is None:
-            entries.pop()
-        return P(*entries)
-
-    return tree_map_with_path(one, specs, shapes, is_leaf=_is_spec)
+def _kept_or_whole(specs: Any, shapes: Any, cfg, mesh) -> Any:
+    """``specs`` with every leaf the serving grid holds whole replaced by
+    ``P()``."""
+    whole = grid_whole(mesh)
+    return tree_map_with_path(
+        lambda keys, spec, leaf: spec if _grid_keeps(keys, cfg, whole)
+        else P(), specs, shapes, is_leaf=_is_spec)
 
 
 def serve_params_pspec(params_shapes: Any, cfg, mesh: Mesh) -> Any:
     """Param specs on the serving grid (``(data, model)``, a data index's
-    T ranks a model group): the rule table's column/row specs for the
-    attn/local mixers and dense FFNs, the experts over ``model``, every
-    other leaf whole (the departures above).  Nothing shards over
-    ``data``: data replicas serve the same slots."""
-    return _on_grid(params_pspec(params_shapes, mesh=mesh), params_shapes,
-                    cfg, keep_data=False)
+    T ranks a model group; ``(pod, data, model)``): the rule table's
+    column/row specs for the attn/local mixers and dense FFNs, the experts
+    over ``model``, every other leaf whole (the departures above).
+    Nothing shards over a DP axis: data replicas serve the same slots."""
+    return _kept_or_whole(params_pspec(params_shapes, mesh=mesh),
+                          params_shapes, cfg, mesh)
 
 
 def serve_grid_state_pspec(state_shapes: Any, cfg, mesh: Mesh) -> Any:
@@ -510,25 +581,48 @@ def serve_grid_state_pspec(state_shapes: Any, cfg, mesh: Mesh) -> Any:
     reference's ``_paged_spec``: the page dim never shards over ``data``),
     an MLA layer's latent pool and the slot bookkeeping whole."""
     specs = serve_state_pspec(state_shapes, mesh=mesh)
-    specs["groups"] = _on_grid({"groups": specs["groups"]},
-                               {"groups": state_shapes["groups"]}, cfg,
-                               keep_data=False)["groups"]
+    specs["groups"] = _kept_or_whole(
+        {"groups": specs["groups"]}, {"groups": state_shapes["groups"]},
+        cfg, mesh)["groups"]
     return specs
 
 
 def grid_cache_pspec(cache_shapes: Any, cfg, mesh: Mesh) -> Any:
     """Dense decode-cache specs on the serving grid: :func:`cache_pspec`'s
-    (the batch over the DP axes, an attn/local layer's KV heads over
-    ``model``), with every other layer's cache whole over ``model``."""
-    return _on_grid(cache_pspec(cache_shapes, mesh=mesh), cache_shapes, cfg,
-                    keep_data=True)
+    (the batch over the DP axes, the sequence over ``kv_seq``'s axes, an
+    attn/local layer's KV heads over ``model``), with the KV-head dim of
+    every other layer's cache whole (an MLA layer's latents keep their
+    sequence entry: they resolve as the reference's)."""
+    whole = grid_whole(mesh)
+    kept = cache_pspec(cache_shapes, mesh=mesh)
+    with rules({"heads": None}):
+        headless = cache_pspec(cache_shapes, mesh=mesh)
+    return tree_map_with_path(
+        lambda keys, k, h: k if _grid_keeps(keys, cfg, whole) else h,
+        kept, headless, is_leaf=_is_spec)
 
 
 def _axis_sizes(spec: P, mesh: Mesh) -> list:
     """Each dim's number of shards under ``spec``."""
-    return [math.prod(mesh.shape.get(a, 1) for a in (
-        () if e is None else e if isinstance(e, tuple) else (e,)))
-        for e in spec]
+    return [math.prod(mesh.shape.get(a, 1) for a in axes_of(e))
+            for e in spec]
+
+
+def check_divides(specs: Any, shapes: Any, mesh: Mesh, what: str) -> None:
+    """Raise ``ValueError`` naming the first leaf of ``shapes`` (``what``:
+    the tree's name) whose dim does not split over the mesh axes its spec
+    names (the refusal GSPMD makes when a layout is placed)."""
+    def one(keys, spec, leaf):
+        shape = _shape(leaf)
+        for i, n in enumerate(_axis_sizes(spec, mesh)):
+            if shape[i] % n:
+                raise ValueError(
+                    f"{what} leaf {'/'.join(keys)} {tuple(shape)}: dim {i} "
+                    f"({shape[i]}) should be divisible by {n}, the size of "
+                    f"{spec[i]!r} ({spec})")
+        return spec
+
+    tree_map_with_path(one, specs, shapes, is_leaf=_is_spec)
 
 
 def local_shapes(specs: Any, shapes: Any, mesh: Mesh) -> Any:
@@ -549,18 +643,68 @@ def local_shapes(specs: Any, shapes: Any, mesh: Mesh) -> Any:
     return tree_map(one, specs, shapes, is_leaf=_is_spec)
 
 
+def _narrowing(spec: P, shape, mesh: Mesh, coords: Dict[str, int]) -> list:
+    """``(dim, start, length)`` of each dim of a leaf that ``coords``
+    (``{axis: index}``) narrows.  A dim sharded over the axes of its entry
+    is cut into their product of blocks, numbered row-major over the axes
+    as listed (the first major, as GSPMD orders a mesh's devices); the
+    rank's block is the one its coords name.  An axis of the entry left out
+    of ``coords`` keeps all its blocks, so it must follow every axis given
+    (else the blocks are not one slice)."""
+    out = []
+    for i, e in enumerate(spec):
+        axes = [a for a in axes_of(e) if mesh.shape.get(a, 1) > 1]
+        given = [a for a in axes if a in coords]
+        if not given:
+            continue
+        if axes[:len(given)] != given:
+            raise ValueError(f"{sorted(coords)} of {e!r}: an axis left out "
+                             f"precedes one given, so the blocks are not "
+                             f"one slice")
+        if shape[i] % math.prod(mesh.shape[a] for a in axes):
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                             f"over {e!r} ({spec})")
+        index = 0
+        for a in given:
+            index = index * mesh.shape[a] + coords[a]
+        length = shape[i] // math.prod(mesh.shape[a] for a in given)
+        out.append((i, index * length, length))
+    return out
+
+
 def grid_share(tree: Any, specs: Any, mesh: Mesh, coords: Dict[str, int]
                ) -> Any:
     """A rank's block of each tensor of ``tree`` (whole leaves) under
-    ``specs``: narrowed on each axis of ``coords`` (``{axis: index}``) by
-    :func:`axis_slices`, a view of the whole leaf (``.clone()`` it to let
-    the whole go)."""
-    out = tree
-    for axis, index in coords.items():
-        parts = axis_slices(specs, out, mesh, axis, index)
-        out = tree_map(lambda t, part: t if part is None
-                       else t.narrow(*part), out, parts)
-    return out
+    ``specs``: narrowed on each dim its coords (``{axis: index}``) shard,
+    a dim over several axes row-major over them (:func:`_narrowing`), a
+    view of the whole leaf (``.clone()`` it to let the whole go)."""
+    def one(spec, t):
+        for dim, start, length in _narrowing(spec, _shape(t), mesh, coords):
+            t = t.narrow(dim, start, length)
+        return t
+
+    return tree_map(one, specs, tree, is_leaf=_is_spec)
+
+
+def share_keeper(specs: Any, shapes: Any, mesh: Mesh,
+                 coords: Dict[str, int]):
+    """``lm.init_lm``'s ``keep``: the block of each drawn leaf that a rank
+    at ``coords`` holds under ``specs`` (:func:`grid_share`'s), a copy, so
+    the whole leaf goes."""
+    parts = {}
+    tree_map_with_path(
+        lambda keys, spec, leaf: parts.__setitem__(
+            keys, _narrowing(spec, _shape(leaf), mesh, coords)),
+        specs, shapes, is_leaf=_is_spec)
+
+    def keep(path, leaf):
+        if not parts[tuple(path)]:
+            return leaf
+        for dim, start, length in parts[tuple(path)]:
+            leaf = leaf.narrow(dim, start, length)
+        return leaf.clone()
+
+    return keep
 
 
 # ---------------------------------------------------------------------------
@@ -571,26 +715,17 @@ def axis_slices(specs: Any, shapes: Any, mesh: Mesh, axis: str,
                 index: int) -> Any:
     """The slice of each leaf that index ``index`` of mesh axis ``axis``
     holds, a :func:`shard_slices` entry ``(dim, start, length)`` on the
-    dim whose spec names ``axis`` alone, or ``None`` for a leaf that axis
-    leaves whole (a grid rank's experts: ``axis="model"``)."""
-    n = mesh.shape.get(axis, 1)
-
+    dim whose spec names ``axis`` (alone, or first of a tuple of axes:
+    the others' blocks then all lie in the slice), or ``None`` for a leaf
+    that axis leaves whole (a grid rank's experts: ``axis="model"``)."""
     def one(spec, leaf):
-        if n <= 1:
-            return None
-        for i, e in enumerate(spec):
-            if e == axis:
-                length = _shape(leaf)[i] // n
-                return (i, index * length, length)
-            if isinstance(e, tuple) and axis in e:
-                raise NotImplementedError(f"a leaf sharded on {e} is not "
-                                          f"placed by hand")
-        return None
+        parts = _narrowing(spec, _shape(leaf), mesh, {axis: index})
+        return parts[0] if parts else None
 
     return tree_map(one, specs, shapes, is_leaf=_is_spec)
 
 
-def _coords(mesh: Mesh, rank: int) -> Dict[str, int]:
+def mesh_coords(mesh: Mesh, rank: int) -> Dict[str, int]:
     """A rank's index on each mesh axis, devices laid out row-major."""
     out = {}
     for name in reversed(mesh.axis_names):
@@ -605,7 +740,7 @@ def shard_slices(specs: Any, shapes: Any, mesh: Mesh, rank: int) -> Any:
     1 shards nothing).  A leaf may shard on one dim only, which is all
     ZeRO-1 over a data group makes.  The entries are tuples: walk the tree
     with ``is_leaf=``:func:`is_slice`."""
-    at = _coords(mesh, rank)
+    at = mesh_coords(mesh, rank)
 
     def one(spec, leaf):
         dims = [(i, axes) for i, axes in (
@@ -646,33 +781,41 @@ def opt_slices(state_shapes: Any, state_specs: Any, mesh: Mesh,
 
 def pipeline_opt_slices(local_specs: Any, local_shapes: Any, mesh: Mesh,
                         data_index: int) -> Any:
-    """A pipeline rank's ZeRO-1 slice of each optimizer leaf of its stage:
-    ``local_specs`` are :func:`pipeline_state_pspec`'s specs of the
-    leaves the stage holds (one optimizer key), ``local_shapes`` those
-    leaves as the rank holds them (its rows of a group, its model shard
-    of a tensor-parallel leaf).  The plan picked the data dim among the
-    dims no other axis claims (stage, then model, then data), so it is
-    the same on the rank's model-sliced shape.  The ``stage``
-    entry is already resolved by the rank holding its rows; the ``data``
-    entry becomes a :func:`shard_slices` entry on the rank's leaf.  None
-    when the rank holds every leaf whole (a data axis of one)."""
-    n = mesh.shape.get("data", 1)
-    if n <= 1:
+    """A pipeline or grid rank's ZeRO-1 slice of each optimizer leaf:
+    ``local_specs`` are :func:`pipeline_state_pspec`'s (or
+    :func:`grid_state_pspec`'s) specs of the leaves the rank's stage holds
+    (one optimizer key), ``local_shapes`` those leaves as the rank holds
+    them (its rows of a group, its model shard of a tensor-parallel leaf,
+    its experts).  The plan picked the DP dim among the dims no other axis
+    claims (stage, then model, then data), so it is the same on the rank's
+    model-sliced shape.  The ``stage`` entry is already resolved by the
+    rank holding its rows; the DP entry (``data``, or ``("pod", "data")``
+    on a multi-pod mesh) becomes a :func:`shard_slices` entry on the
+    rank's leaf.  ``data_index`` is the rank's index over the mesh's DP
+    axes, row-major.  None when the rank holds every leaf whole (DP axes
+    of one)."""
+    dp = [a for a in DP_AXES if a in mesh.shape]
+    if math.prod(mesh.shape[a] for a in dp) <= 1:
         return None
+    at = mesh_coords(Mesh([mesh.shape[a] for a in dp], dp), data_index)
 
     def one(spec, leaf):
         shape = _shape(leaf)
         if not math.prod(shape):
             return None
         for i, e in enumerate(spec):
-            if e is not None and "data" in (e if isinstance(e, tuple)
-                                            else (e,)):
+            axes = axes_of(e)
+            if set(axes) & set(dp):
+                n = math.prod(mesh.shape[a] for a in axes)
                 if shape[i] % n:
                     raise NotImplementedError(
                         f"a stage's leaf of shape {shape} does not split "
                         f"over {n} data ranks on dim {i}")
+                index = 0
+                for a in axes:
+                    index = index * mesh.shape[a] + at[a]
                 length = shape[i] // n
-                return (i, data_index * length, length)
+                return (i, index * length, length)
         return None
 
     return tree_map(one, local_specs, local_shapes, is_leaf=_is_spec)

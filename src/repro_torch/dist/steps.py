@@ -80,6 +80,7 @@ forward only.  :func:`build_pipeline_train_steps` is its per-depth table.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -1099,67 +1100,52 @@ def build_pipeline_train_steps(cfg: ModelConfig, tcfg: TrainConfig,
 # The sharded decode step (the serving grid)
 # ---------------------------------------------------------------------------
 
-def _check_decode_overrides(overrides: Optional[Dict[str, Any]]) -> None:
-    """Raise for a rule override the serving grid has no path for: any
-    role moved off its default axis, ``kv_seq`` on any axis (the
-    sequence-sharded decode with its cross-rank softmax combine).  The
-    table held whole (``vocab``: None) is the port's own layout."""
-    norm = lambda a: (a,) if isinstance(a, str) else (  # noqa: E731
-        None if a is None else tuple(a))
-    for role, axes in (overrides or {}).items():
-        if role == "vocab" and axes is None:
-            continue
-        if norm(axes) != norm(sharding.DEFAULT_RULES.get(role)):
-            raise NotImplementedError(
-                f"sharding-rule override {role!r}: {axes!r} needs a path "
-                f"the port does not have yet (the sequence-sharded decode "
-                f"and the production meshes, ROADMAP.md Queue 1 B item 11)")
-
-
 def shard_decode_step(mesh: sharding.Mesh, cfg: ModelConfig,
                       global_batch: int, max_len: int, *, enc_len: int = 0,
                       rules_overrides: Optional[Dict[str, Any]] = None,
                       group=None):
-    """One-token decode on one rank of the ``(data, model)`` serving grid
-    ``mesh`` (the counterpart of ``repro/dist/steps.shard_decode_step``).
+    """One-token decode on one rank of the serving grid ``mesh``, axes
+    ``("data", "model")`` or ``("pod", "data", "model")`` (the counterpart
+    of ``repro/dist/steps.shard_decode_step``).
 
     Returns ``(fn, params_shapes, cache_shapes, specs)``: the whole
     model's parameter and dense-cache shapes (meta tensors), the specs
-    that lay them out (``specs["params"]``:
+    that lay them out under ``rules_overrides`` (``specs["params"]``:
     ``dist/sharding.serve_params_pspec``; ``"cache"``:
-    ``grid_cache_pspec``, the batch over ``("pod", "data")`` and an
-    attn/local layer's KV heads over ``model``; ``"tokens"``,
-    ``"logits"``), and ``fn(params, cache, tokens) -> (logits, cache)``,
-    this rank's decode step on its blocks (``sharding.grid_share`` of the
-    whole trees, ``sharding.local_shapes`` of the cache), the cache
-    updated in place (the port's counterpart of the reference's donation).
-    The logits are this data index's rows, the vocab whole on every model
-    rank.  ``group``: this rank's ``dist/group.GridGroup``, whose model
-    group the row-parallel joins all-reduce over (needed when the model
-    axis has several ranks).  ``rules_overrides`` the port has no path
-    for raise ``NotImplementedError`` naming Queue 1 B item 11, as does a
-    mesh with axes beyond ``("data", "model")`` (the multi-pod mesh)."""
+    ``grid_cache_pspec``, the batch over ``("pod", "data")``, the sequence
+    over ``kv_seq``'s axes and an attn/local layer's KV heads over
+    ``model``; ``"tokens"``, ``"logits"``), and ``fn(params, cache,
+    tokens) -> (logits, cache)``, this rank's decode step on its blocks
+    (``sharding.grid_share`` of the whole trees at the rank's
+    ``sharding.mesh_coords``, ``sharding.local_shapes`` of the cache), the
+    cache updated in place (the port's counterpart of the reference's
+    donation).  The logits are this rank's rows, the vocab whole.
+
+    ``group``: this rank's ``dist/group.GridGroup``, whose data group
+    holds the mesh's pod x data ranks and whose model group its model
+    ranks (needed when either the model axis or the ``kv_seq`` axes have
+    several ranks): the row-parallel joins all-reduce over its model
+    group, and under a ``kv_seq`` override the partial attentions are
+    joined over the ranks of its axes (``GridGroup.seq_group``,
+    ``models/layers.seq_combine``).  The small-batch override of the
+    reference's dry run, ``{"batch": None, "kv_seq": ("data", "model")}``,
+    holds the batch on every rank and shards the sequence over the whole
+    grid; ``kv_seq`` takes ``model`` first there, so an attn/local layer
+    runs whole on every rank (``sharding.grid_whole``).  An override the
+    port has no path for raises (``sharding.check_overrides``), as does a
+    layout that does not divide (the reference's refusal)."""
     from repro_torch.serve import kvcache
-    _check_decode_overrides(rules_overrides)
-    if set(mesh.axis_names) - {"data", "model"}:
-        raise NotImplementedError(
-            f"shard_decode_step on {mesh}: only a (data, model) grid has a "
-            f"path; the multi-pod and production meshes come with ROADMAP.md "
-            f"Queue 1 B item 11")
-    D, T = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
-    if global_batch % D:
-        raise ValueError(f"global batch {global_batch} does not split over "
-                         f"{D} data ranks")
-    kvcache.check_model_parallel(cfg, T)
-    if group is not None:
-        if sharding.mesh_for(group) != mesh:
-            raise ValueError(f"shard_decode_step on {mesh} by a rank of "
-                             f"{sharding.mesh_for(group)}")
-    elif T > 1:
-        raise ValueError(f"shard_decode_step on {mesh}: {T} model ranks "
-                         f"need this rank's group=")
-    tp = group.model if group is not None and T > 1 else None
+    sharding.check_overrides(rules_overrides)
+    extra = set(mesh.axis_names) - set(sharding.GRID_AXES)
+    if extra:
+        raise ValueError(f"shard_decode_step on {mesh}: a serving grid's "
+                         f"axes are {sharding.GRID_AXES}, not {sorted(extra)}")
+    D = math.prod(mesh.shape.get(a, 1) for a in sharding.DP_AXES)
+    T = mesh.shape.get("model", 1)
     with sharding.rules(rules_overrides):
+        whole = sharding.grid_whole(mesh)
+        axes = sharding.seq_axes(mesh)
+        rows = sharding.batch_ranks(mesh)
         params_shapes = lm.param_shapes(cfg)
         cache_shapes = lm.cache_shapes(cfg, global_batch, max_len,
                                        enc_len=enc_len)
@@ -1170,8 +1156,25 @@ def shard_decode_step(mesh: sharding.Mesh, cfg: ModelConfig,
                  "tokens": sharding.spec_for(("batch", None), mesh=mesh),
                  "logits": sharding.spec_for(("batch", None, None),
                                              mesh=mesh)}
+    if global_batch % rows:
+        raise ValueError(f"global batch {global_batch} does not split over "
+                         f"{rows} data ranks")
+    kvcache.check_model_parallel(cfg, T, whole)
+    sharding.check_divides(specs["cache"], cache_shapes, mesh, "cache")
+    n_seq = math.prod(mesh.shape[a] for a in axes)
+    if group is not None:
+        if (group.data.size, group.model.size) != (D, T):
+            raise ValueError(f"shard_decode_step on {mesh} by a rank of "
+                             f"{sharding.mesh_for(group)}")
+    elif T > 1 or n_seq > 1:
+        raise ValueError(f"shard_decode_step on {mesh}: {T} model ranks "
+                         f"and {n_seq} sequence shards need this rank's "
+                         f"group=")
+    tp = group.model if group is not None and T > 1 else None
+    seq = group.seq_group(mesh, axes) if n_seq > 1 else None
 
     def fn(params, cache, tokens):
-        return lm.decode_step(params, cache, tokens, cfg, tp=tp)
+        return lm.decode_step(params, cache, tokens, cfg, tp=tp, seq=seq,
+                              whole=whole)
 
     return fn, params_shapes, cache_shapes, specs

@@ -65,9 +65,15 @@ rank, so a mesh of several devices is a grid of ranks
 (``serve/engine.ServeEngine(group=)`` takes the group, whose mesh is
 ``dist/sharding.mesh_for(group)``).
 
-What of the reference's mesh options is not ported (ROADMAP.md Queue 1 B
-item 11, its next slice, the production meshes): ``make_production_mesh``
-(the 16 x 16 pod) and the multi-pod ``("pod", "data", "model")`` mesh.
+The production meshes (the counterpart of the reference's
+``make_production_mesh``): :func:`make_production_mesh` gives the pod,
+``("data", "model")`` of ``(16, 16)``, or with ``multi_pod`` ``("pod",
+"data", "model")`` of ``(2, 16, 16)``, whose ``pod`` axis is an outer
+data-parallel axis (:func:`parallel_config_for` gives ``dp_axes=("pod",
+"data")``).  They are axes and sizes only: the dry run counts one rank of
+them on the meta device (``launch/dryrun.py --pod``, ``--multi-pod``),
+and a grid of ranks serves a mesh with a ``pod`` axis when its data group
+holds pod x data ranks (``dist/steps.shard_decode_step``).
 """
 from __future__ import annotations
 
@@ -174,6 +180,17 @@ def make_host_mesh(device=None) -> sharding.Mesh:
     dev = resolve_device(device)
     n = torch.cuda.device_count() if dev.type == "cuda" else 1
     return sharding.Mesh((n, 1), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> sharding.Mesh:
+    """The production mesh: one pod, ``("data", "model")`` of ``(16,
+    16)`` = 256 devices, or two pods, ``("pod", "data", "model")`` of
+    ``(2, 16, 16)`` = 512, the ``pod`` axis an outer data-parallel axis
+    whose collectives cross between pods.  A function that touches no
+    device: the axes and sizes only."""
+    if multi_pod:
+        return sharding.Mesh((2, 16, 16), ("pod", "data", "model"))
+    return sharding.Mesh((16, 16), ("data", "model"))
 
 
 def make_mesh_from_config(pcfg: ParallelConfig) -> sharding.Mesh:

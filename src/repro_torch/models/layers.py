@@ -387,14 +387,33 @@ def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
     return _tp_out(o.reshape(B, S, -1) @ p["wo"], tp, sequence_parallel)
 
 
+def _partial_softmax(s: Tensor):
+    """``(w, m, l)`` of scores ``s`` (..., S) masked with -inf: ``w =
+    exp(s - m) / l`` over the row, ``m`` its max and ``l`` its sum of
+    ``exp(s - m)``.  A row with no valid position (a rank's share of the
+    sequence early in a sequence or in a ring) gives ``w = 0``, ``m =
+    -inf``, ``l = 0``, where ``torch.softmax`` would give NaN."""
+    m = s.amax(-1)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = p.sum(-1)
+    return p / torch.where(l > 0, l, 1.0)[..., None], m, l
+
+
 def decode_attention(q: Tensor, k: Tensor, v: Tensor, kpos: Tensor,
-                     qpos: Tensor, *, window: int = 0) -> Tensor:
+                     qpos: Tensor, *, window: int = 0,
+                     partial: bool = False):
     """Single-step decode attention over a (possibly ring-buffered) cache.
 
     q: (B, 1, H, D); k, v: (B, W, K, D); kpos: (B, W) absolute positions of
     the cache slots (negative or beyond ``qpos`` = masked to -inf); qpos:
     (B,) absolute query positions.  f32 scores and softmax, weights in v's
-    dtype, f32 sums."""
+    dtype, f32 sums.
+
+    ``partial``: k, v are one rank's share of a sequence-sharded cache;
+    returns ``(o, m, l)``, the f32 output (B, 1, H, Dv) normalized over the
+    share, the row max ``m`` (B, H) of the scores and the row sum ``l``
+    (B, H) of ``exp(s - m)`` (:func:`_partial_softmax`), which
+    :func:`seq_combine` joins across the ranks."""
     B, _, H, D = q.shape
     K = k.shape[2]
     qv = q.reshape(B, K, H // K, D)
@@ -404,9 +423,48 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, kpos: Tensor,
     if window > 0:
         mask &= kpos > (qpos[:, None] - window)
     s = torch.where(mask[:, None, None], s, -math.inf)
-    w = torch.softmax(s, dim=-1)
+    if partial:
+        w, m, l = _partial_softmax(s)
+    else:
+        w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w.to(v.dtype).float(), v.float())
-    return out.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
+    out = out.reshape(B, 1, H, v.shape[-1])
+    if partial:
+        return out, m.reshape(B, H), l.reshape(B, H)
+    return out.to(q.dtype)
+
+
+def seq_combine(o: Tensor, m: Tensor, l: Tensor, seq) -> Tensor:
+    """Join the ranks' partial attentions over their shares of the
+    sequence (:func:`decode_attention`'s ``partial`` form): o (B, 1, H, Dv)
+    f32, m and l (B, H).  One all-gather over ``seq`` (a
+    ``dist/group.SeqGroup``) of the packed (B, H, Dv + 2) f32 parts, then
+    on every rank, in the gather's order: ``M = max_r m_r``, ``c_r =
+    exp(m_r - M) l_r`` and ``o = sum_r c_r o_r / sum_r c_r``, so the ranks
+    stay bit-identical.  A share with no valid position (``m = -inf``,
+    ``l = 0``, ``o = 0``) weighs ``exp(-inf) = 0``.  Returns the f32
+    output (B, 1, H, Dv)."""
+    B, _, H, Dv = o.shape
+    packed = torch.cat([o.reshape(B, H, Dv), m[..., None], l[..., None]],
+                       dim=-1)
+    parts = seq.all_gather(packed[None], 0)          # (n, B, H, Dv + 2)
+    po, pm, pl = parts[..., :Dv], parts[..., Dv], parts[..., Dv + 1]
+    c = torch.exp(pm - pm.amax(0)) * pl
+    out = (c[..., None] * po).sum(0) / c.sum(0)[..., None]
+    return out.reshape(B, 1, H, Dv)
+
+
+def _seq_write(buf: Tensor, slot: Tensor, value: Tensor, seq) -> None:
+    """Write ``value`` (B, 1, ...) at slot ``slot`` ((1,) device tensor) of
+    a cache whose dim 1 is sharded over ``seq``'s ranks in blocks, this
+    rank holding block ``seq.rank``: the rank that owns the slot writes it;
+    the others write back what they hold (no host sync decides)."""
+    Ws = buf.shape[1]
+    local = slot - seq.rank * Ws
+    mine = ((local >= 0) & (local < Ws)).reshape((1,) * value.dim())
+    idx = local.clamp(0, Ws - 1)
+    buf.index_copy_(1, idx, torch.where(mine, value.to(buf.dtype),
+                                        buf.index_select(1, idx)))
 
 
 # ---------------------------------------------------------------------------
@@ -440,21 +498,39 @@ def attention_prefill(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
 
 
 def attention_decode(p: Params, x: Tensor, cfg: ModelConfig, *, kind: str,
-                     pos: Tensor, cache: Params, tp=None):
+                     pos: Tensor, cache: Params, tp=None, seq=None):
     """One-token decode.  x: (B, 1, D); pos: 0-dim int64 absolute position
-    (a device tensor: nothing here reads it on the host)."""
+    (a device tensor: nothing here reads it on the host).
+
+    ``seq`` (a ``dist/group.SeqGroup``): the cache holds this rank's share
+    of the slots, block ``seq.rank`` of ``seq.size``; a local layer's ring
+    buffer is sharded by slot too, so the owner of slot ``pos % W`` moves
+    with ``pos``.  The owner writes the new k and v, every rank attends
+    its share (each slot's position from its global index) and
+    :func:`seq_combine` joins the shares."""
     B = x.shape[0]
     posv = pos.reshape(1)
     q, k, v = _qkv(p, x, cfg, posv)
-    W = cache["k"].shape[1]
+    Ws = cache["k"].shape[1]
+    n, off = (1, 0) if seq is None else (seq.size, seq.rank * Ws)
+    W = Ws * n
     slot = posv % W
-    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    if seq is None:
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    else:
+        _seq_write(cache["k"], slot, k, seq)
+        _seq_write(cache["v"], slot, v, seq)
     # the absolute position each slot j holds: pos - ((pos - j) mod W)
-    j = torch.arange(W, device=x.device)
-    kpos = (pos - (pos - j) % W).expand(B, W)
-    o = decode_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                         kpos, pos.expand(B), window=_window(cfg, kind))
+    j = torch.arange(off, off + Ws, device=x.device)
+    kpos = (pos - (pos - j) % W).expand(B, Ws)
+    args = (q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), kpos,
+            pos.expand(B))
+    if seq is None:
+        o = decode_attention(*args, window=_window(cfg, kind))
+    else:
+        o = seq_combine(*decode_attention(*args, window=_window(cfg, kind),
+                                          partial=True), seq).to(q.dtype)
     return _tp_out(o.reshape(B, 1, -1) @ p["wo"], tp, False), cache
 
 
@@ -567,13 +643,15 @@ def mla_prefill(p: Params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
 
 def _mla_absorbed(p: Params, qn: Tensor, qr: Tensor, cview: Tensor,
                   rview: Tensor, pos: Tensor, cfg: ModelConfig,
-                  dtype: torch.dtype) -> Tensor:
+                  dtype: torch.dtype, seq=None) -> Tensor:
     """Absorbed-matrix MLA decode: W_uk folds into the query, so the
     scores are taken against the latent cache itself, and W_uv is applied
     to the attended latent.  qn (N, 1, H, dn), qr (N, 1, H, dr); cview
     (N, W, r), rview (N, W, dr); pos (N,): cache positions beyond it are
     masked to -inf.  The einsums are f32.  Returns (N, 1, D) in
-    ``dtype``."""
+    ``dtype``.  ``seq``: the views are this rank's share of the positions
+    (block ``seq.rank``), and the attended latents of the shares are
+    joined by :func:`seq_combine` before W_uv."""
     m = cfg.mla
     N = qn.shape[0]
     H, dn, dr, dv, r = (cfg.num_heads, m.qk_nope_head_dim,
@@ -584,28 +662,39 @@ def _mla_absorbed(p: Params, qn: Tensor, qr: Tensor, cview: Tensor,
     s = (torch.einsum("bhr,bsr->bhs", q_lat, cf)
          + torch.einsum("bhd,bsd->bhs", qr[:, 0].float(), rview.float()))
     s = s / math.sqrt(dn + dr)
-    kpos = torch.arange(cview.shape[1], device=cview.device)
+    Ws = cview.shape[1]
+    off = 0 if seq is None else seq.rank * Ws
+    kpos = torch.arange(off, off + Ws, device=cview.device)
     s = torch.where(kpos[None, None] <= pos[:, None, None], s, -math.inf)
-    w = torch.softmax(s, dim=-1)
-    lat = torch.einsum("bhs,bsr->bhr", w, cf)
+    if seq is None:
+        lat = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), cf)
+    else:
+        w, mx, l = _partial_softmax(s)
+        lat = seq_combine(torch.einsum("bhs,bsr->bhr", w, cf)[:, None],
+                          mx, l, seq)[:, 0]
     o = torch.einsum("bhr,rhd->bhd", lat,
                      p["wuv"].reshape(r, H, dv).float())
     return o.reshape(N, 1, H * dv).to(dtype) @ p["wo"]
 
 
 def mla_decode(p: Params, x: Tensor, cfg: ModelConfig, *, pos: Tensor,
-               cache: Params):
+               cache: Params, seq=None):
     """One-token absorbed-matrix MLA decode: it attends in the latent
     space, so the cache is r + dr a token instead of 2 H Dh.  pos: 0-dim
-    int64 device tensor."""
+    int64 device tensor.  ``seq`` as :func:`attention_decode`'s: the
+    latent cache holds this rank's share of the positions."""
     B = x.shape[0]
     posv = pos.reshape(1)
     qn, qr = _mla_q(p, x, cfg, posv)
     ckv, kr = _mla_latent(p, x, cfg, posv)
-    cache["ckv"].index_copy_(1, posv, ckv.to(cache["ckv"].dtype))
-    cache["kr"].index_copy_(1, posv, kr.to(cache["kr"].dtype))
+    if seq is None:
+        cache["ckv"].index_copy_(1, posv, ckv.to(cache["ckv"].dtype))
+        cache["kr"].index_copy_(1, posv, kr.to(cache["kr"].dtype))
+    else:
+        _seq_write(cache["ckv"], posv, ckv, seq)
+        _seq_write(cache["kr"], posv, kr, seq)
     o = _mla_absorbed(p, qn, qr, cache["ckv"], cache["kr"], pos.expand(B),
-                      cfg, x.dtype)
+                      cfg, x.dtype, seq=seq)
     return o, cache
 
 
@@ -749,16 +838,23 @@ def cross_attention_fwd(p: Params, x: Tensor, enc: Tensor,
 
 
 def cross_attention_decode(p: Params, x: Tensor, cfg: ModelConfig,
-                           kv) -> Tensor:
+                           kv, seq=None) -> Tensor:
     """Decode-time cross-attention of x (B, 1, D) over the cached encoder
-    k, v (B, T, K, Dh), every position visible."""
+    k, v (B, T, K, Dh), every position visible.  ``seq``: k, v hold this
+    rank's share of the encoder positions (:func:`attention_decode`'s)."""
     B = x.shape[0]
     k, v = kv
     T = k.shape[1]
+    n, off = (1, 0) if seq is None else (seq.size, seq.rank * T)
     q = (x @ p["wq"]).reshape(B, 1, -1, cfg.head_dim)
-    kpos = torch.arange(T, device=x.device).expand(B, T)
-    o = decode_attention(q, k.to(q.dtype), v.to(q.dtype), kpos,
-                         torch.full((B,), T, device=x.device))
+    kpos = torch.arange(off, off + T, device=x.device).expand(B, T)
+    args = (q, k.to(q.dtype), v.to(q.dtype), kpos,
+            torch.full((B,), n * T, device=x.device))
+    if seq is None:
+        o = decode_attention(*args)
+    else:
+        o = seq_combine(*decode_attention(*args, partial=True),
+                        seq).to(q.dtype)
     return o.reshape(B, 1, -1) @ p["wo"]
 
 

@@ -336,33 +336,38 @@ _RECURRENT = {"ssd": {"prefill": S.mamba2_prefill,
 
 
 def _cached_ffn(x: Tensor, up: Params, ffn: str, cfg: ModelConfig,
-                tp) -> Tensor:
+                tp, whole: frozenset = frozenset()) -> Tensor:
     """The FFN half of a cached layer: a dense FFN column/row-sharded
     over ``tp``; a MoE layer's experts over it, by ``moe_fwd_ep`` under
     ``impl="ep"`` and by ``moe_fwd_held`` under ``impl="dense"`` on a
-    group of several ranks."""
+    group of several ranks.  ``whole``: the kinds (``"ffn"``, ``"moe"``)
+    whose weights the rank holds whole despite ``tp``
+    (``dist/sharding.grid_whole``)."""
+    ep = None if "moe" in whole else tp
     if ffn == "moe" and cfg.d_ff > 0 and cfg.moe.impl == "dense" \
-            and tp is not None and tp.size > 1:
+            and ep is not None and ep.size > 1:
         h = L.rms_norm(x, up["ln2"], cfg.norm_eps)
-        return x + M.moe_fwd_held(up["ffn"], h, cfg, group=tp)
-    return _apply_ffn(x, up, ffn, cfg, tp=None if ffn == "moe" else tp,
-                      ep=tp)[0]
+        return x + M.moe_fwd_held(up["ffn"], h, cfg, group=ep)
+    dense = None if ffn == "moe" or "ffn" in whole else tp
+    return _apply_ffn(x, up, ffn, cfg, tp=dense, ep=ep)[0]
 
 
 def _apply_layer_cached(x: Tensor, up: Params, kinds, cfg: ModelConfig,
                         cache: Params, mode: str, kw: Dict[str, Any],
-                        enc: Optional[Tensor] = None, tp=None) -> Tensor:
+                        enc: Optional[Tensor] = None, tp=None,
+                        whole: frozenset = frozenset()) -> Tensor:
     """One layer of a cached mode; its cache is updated in place.  ``kw``:
     the mode's position arguments (``positions`` or ``pos``, plus the
-    page table and the mask in the serve modes).  An ``xdec`` layer's
-    prefill fills its ``cross`` cache from the encoder output ``enc``; its
-    decode reads it.
+    page table and the mask in the serve modes, and ``seq`` in a decode
+    over a sequence-sharded cache).  An ``xdec`` layer's prefill fills its
+    ``cross`` cache from the encoder output ``enc``; its decode reads it.
 
     ``tp``: the model group of the serving grid (``dist/sharding.
     serve_params_pspec``).  Each layer takes its route from its kinds: an
     attn/local mixer and a dense FFN run column/row-sharded over it, a MoE
     layer's experts are sharded over it, and an MLA, SSD, RG-LRU or
-    ``xdec`` mixer runs whole on every rank."""
+    ``xdec`` mixer runs whole on every rank, as do the kinds of ``whole``
+    (``"attn"``, ``"ffn"``, ``"moe"``; ``dist/sharding.grid_whole``)."""
     mixer, ffn = kinds
     h = L.rms_norm(x, up["ln1"], cfg.norm_eps)
     if mode.startswith("serve_") and mixer in ("ssd", "rglru", "xdec"):
@@ -373,9 +378,9 @@ def _apply_layer_cached(x: Tensor, up: Params, kinds, cfg: ModelConfig,
     elif mixer == "mla":
         o, _ = _MLA[mode](up["mixer"], h, cfg, cache=cache["self"], **kw)
     else:
+        attn_tp = None if mixer == "xdec" or "attn" in whole else tp
         o, _ = _ATTN[mode](up["mixer"], h, cfg, kind=mixer,
-                           cache=cache["self"],
-                           tp=tp if mixer != "xdec" else None, **kw)
+                           cache=cache["self"], tp=attn_tp, **kw)
     x = x + o
     if mixer == "xdec":
         hx = L.rms_norm(x, up["lnx"], cfg.norm_eps)
@@ -386,9 +391,10 @@ def _apply_layer_cached(x: Tensor, up: Params, kinds, cfg: ModelConfig,
             xo = L.cross_attention_fwd(up["xattn"], hx, enc, cfg)
         else:
             xo = L.cross_attention_decode(up["xattn"], hx, cfg,
-                                          (cross["k"], cross["v"]))
+                                          (cross["k"], cross["v"]),
+                                          seq=kw.get("seq"))
         x = x + xo
-    return _cached_ffn(x, up, ffn, cfg, tp)
+    return _cached_ffn(x, up, ffn, cfg, tp, whole)
 
 
 # ---------------------------------------------------------------------------
@@ -977,21 +983,24 @@ def _select(tree: Params, r: int) -> Params:
 
 def _run_group_cached(x: Tensor, gparams, gcache, unit, cfg: ModelConfig,
                       mode: str, kw: Dict[str, Any],
-                      enc: Optional[Tensor], tp=None) -> Tensor:
+                      enc: Optional[Tensor], tp=None,
+                      whole: frozenset = frozenset()) -> Tensor:
     count = tree_leaves(gparams)[0].shape[0]
     per_unit = [_unbind(up, count) for up in gparams]
     for r in range(count):
         for u in range(len(unit)):
             x = _apply_layer_cached(x, per_unit[u][r], unit[u], cfg,
-                                    _select(gcache[u], r), mode, kw, enc, tp)
+                                    _select(gcache[u], r), mode, kw, enc, tp,
+                                    whole)
     return x
 
 
 def _run_cached(x: Tensor, params: Params, groups, cfg: ModelConfig,
                 mode: str, kw: Dict[str, Any],
-                enc: Optional[Tensor] = None, tp=None) -> Tensor:
+                enc: Optional[Tensor] = None, tp=None,
+                whole: frozenset = frozenset()) -> Tensor:
     for (unit, _), gp, gc in zip(layer_groups(cfg), params["groups"], groups):
-        x = _run_group_cached(x, gp, gc, unit, cfg, mode, kw, enc, tp)
+        x = _run_group_cached(x, gp, gc, unit, cfg, mode, kw, enc, tp, whole)
     return x
 
 
@@ -1021,15 +1030,23 @@ def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
 
 @torch.no_grad()
 def decode_step(params: Params, cache: Params, tokens: Tensor,
-                cfg: ModelConfig, *, tp=None) -> Tuple[Tensor, Params]:
+                cfg: ModelConfig, *, tp=None, seq=None,
+                whole: frozenset = frozenset()) -> Tuple[Tensor, Params]:
     """One-token decode.  tokens: (B, 1).  The position is cache['pos'];
     ``tp`` as :func:`prefill`'s (a MoE layer under ``impl="ep"`` at
-    B < 4 T takes ``moe_fwd_ep``'s small path)."""
+    B < 4 T takes ``moe_fwd_ep``'s small path).  ``seq`` (a
+    ``dist/group.SeqGroup``): the caches whose sequence the ``kv_seq``
+    rule shards -- an attn/local/xdec layer's k and v, an MLA layer's
+    latents -- hold this rank's share of it, and those mixers attend
+    their share and combine across the ranks (``models/layers.
+    seq_combine``); an SSD or RG-LRU state is whole.  ``whole``: the
+    layer kinds run whole despite ``tp`` (:func:`_apply_layer_cached`)."""
     _check_supported(cfg)
     pos = cache["pos"]
     x = L.embed(params["embed"], tokens, cfg)
-    x = _run_cached(x, params, cache["groups"], cfg, "decode", {"pos": pos},
-                    tp=tp)
+    kw = {"pos": pos} if seq is None else {"pos": pos, "seq": seq}
+    x = _run_cached(x, params, cache["groups"], cfg, "decode", kw, tp=tp,
+                    whole=whole)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg), {"groups": cache["groups"],
                                                  "pos": pos + 1}

@@ -72,7 +72,7 @@ from repro_torch.models import lm
 from repro_torch.serve import kvcache
 from repro_torch.serve.kvcache import TRASH_PAGE, PageGeometry
 from repro_torch.serve.scheduler import Request, Scheduler
-from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+from repro_torch.tree import tree_leaves, tree_map
 
 State = Dict[str, Any]
 Tensor = torch.Tensor
@@ -193,17 +193,6 @@ def _serving_mesh(mesh, group) -> sharding.Mesh:
                                                        ("data", "model"))
 
 
-def _share_keeper(specs, shapes, mesh, t: int):
-    """``lm.init_lm``'s ``keep``: model index t's block of each drawn leaf,
-    a copy, so the whole leaf goes."""
-    parts = {}
-    tree_map_with_path(lambda path, part: parts.__setitem__(path, part),
-                       sharding.axis_slices(specs, shapes, mesh, "model", t),
-                       is_leaf=sharding.is_slice)
-    return lambda path, leaf: leaf if parts[path] is None else \
-        leaf.narrow(*parts[path]).clone()
-
-
 class _GraphedServeStep:
     """One step-table key as two CUDA graphs, greedy and sampled, bound to
     the engine's params and state; called as the eager step is.  The
@@ -321,8 +310,9 @@ class ServeEngine:
         if params is None:
             params = lm.init_lm(torch.Generator(device=dev).manual_seed(seed),
                                 cfg, dev, keep=None if T == 1 else
-                                _share_keeper(self.params_specs, shapes,
-                                              self.mesh, t))
+                                sharding.share_keeper(self.params_specs,
+                                                      shapes, self.mesh,
+                                                      {"model": t}))
         elif T > 1:
             params = sharding.grid_share(params, self.params_specs,
                                          self.mesh, {"model": t})

@@ -149,21 +149,27 @@ def supports(cfg: ModelConfig) -> Optional[str]:
     return None
 
 
-def check_model_parallel(cfg: ModelConfig, T: int) -> None:
+def check_model_parallel(cfg: ModelConfig, T: int,
+                         whole: frozenset = frozenset()) -> None:
     """Raise ``ValueError`` naming the arch when the serving grid's ``T``
     model ranks do not split what it shards over them: an attn/local
     layer's query and KV heads, a dense FFN's ``d_ff``, a MoE layer's
-    experts.  (KV heads replicated where T exceeds them come with the
-    production meshes, ROADMAP.md Queue 1 B item 11.)"""
+    experts.  The reference refuses the same layouts (GSPMD cannot place
+    4 KV heads over a 16-wide ``model`` axis).  ``whole``: the kinds the
+    grid runs whole under the rules in force (``dist/sharding.
+    grid_whole``), which shard nothing: the heads where a ``kv_seq``
+    override takes ``model``."""
     if T <= 1:
         return
     kinds = {k for unit, _ in layer_groups(cfg) for k in unit}
     need = {}
-    if any(m in ("attn", "local") for m, _ in kinds):
+    if "attn" not in whole and any(m in ("attn", "local") for m, _ in kinds):
         need.update(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
-    if cfg.d_ff > 0 and any(f == "dense" for _, f in kinds):
+    if "ffn" not in whole and cfg.d_ff > 0 \
+            and any(f == "dense" for _, f in kinds):
         need["d_ff"] = cfg.d_ff
-    if cfg.moe is not None and any(f == "moe" for _, f in kinds):
+    if "moe" not in whole and cfg.moe is not None \
+            and any(f == "moe" for _, f in kinds):
         need["num_experts"] = cfg.moe.num_experts
     bad = {k: v for k, v in need.items() if v % T}
     if bad:

@@ -31,6 +31,7 @@
     its memory the counted peak clamped at the card's 80 GB.
 """
 import dataclasses
+import json
 import warnings
 
 import jax
@@ -416,8 +417,23 @@ def test_cli_record_renders_and_feeds_the_cost_model(tmp_path, monkeypatch,
         make_policy("costmodel", dataclasses.replace(cfg, num_layers=32),
                     spb)
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        dryrun.main(argv + ["--multi-pod"])
+    # --multi-pod writes a record of one rank of the (2, 16, 16) mesh: an
+    # error record where the batch does not split over its 32 DP ranks, a
+    # counted one where it does; neither feeds the one-card cost model
+    assert dryrun.main(argv + ["--multi-pod"]) == 0
+    bad = json.loads((tmp_path / "yi-6b__train_4k__pod2x16x16__reduced__"
+                      "b2x64__d2.json").read_text())
+    assert not bad["ok"] and "divisible by 32" in bad["error"]
+    batch = argv.index("--batch") + 1
+    assert dryrun.main(argv[:batch] + ["64"] + argv[batch + 1:]
+                       + ["--multi-pod"]) == 0
+    good = json.loads((tmp_path / "yi-6b__train_4k__pod2x16x16__reduced__"
+                       "b64x64__d2.json").read_text())
+    assert good["ok"] and (good["chips"], good["data_parallel"],
+                           good["model_parallel"]) == (512, 32, 16)
+    assert "ERR yi-6b" in capsys.readouterr().out
+    assert vars(make_policy("costmodel", cfg, spb).profile) == vars(
+        pol.profile)
     with pytest.raises(ValueError, match="SPB suffix"):
         dryrun.count_cell("yi-6b", "decode_32k", cut="reduced", depth=2,
                           batch=2, seq_len=64)

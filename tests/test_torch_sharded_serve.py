@@ -32,10 +32,12 @@ it, so a spawned rank does not load it.
   equal ``roofline.serve_tp_calls``.
 * (f) ``shard_decode_step`` on ``(2, 2)`` matches the reference's on a
   4-device mesh within 1e-5, in logits and in the updated cache.
-* (g) A ``kv_seq`` override and the multi-pod mesh raise naming Queue 1 B
-  item 11; (h) the step table raises under the grid; (i) the dry run's
+* (g) The rule overrides with a path build (``kv_seq``, roles set to
+  None, ``batch`` on the DP axes, a ``pod`` axis); a moved role raises;
+  (h) the step table raises under the grid; (i) the dry run's
   reduced ``decode_32k`` cell under ``--model-parallel 2 --data-parallel
-  2`` records the reckoned collective bytes.
+  2`` records the reckoned collective bytes, and ``--multi-pod`` an error
+  record where the KV heads do not split.
 """
 import os
 import subprocess
@@ -537,27 +539,36 @@ def test_shard_decode_step_matches_the_reference(runs):
 
 
 def test_overrides_without_a_path_raise_naming_item_11():
-    """(g) A ``kv_seq`` override (on any axis), a role moved off its
-    default axis and the multi-pod mesh raise ``NotImplementedError``
-    naming Queue 1 B item 11; the table held whole is the port's own
-    layout and builds."""
+    """(g) The overrides with a path build: ``kv_seq`` on the grid's axes
+    (the reference's small-batch override among them), any role set to
+    None, ``batch`` on a subset of the DP axes, and a mesh with a ``pod``
+    axis served by a grid whose data group holds pod x data ranks; a role
+    moved onto another axis still raises ``NotImplementedError``, naming
+    the deliberate difference (the port's parallel layers shard over the
+    model group only)."""
     cfg = reduced_config(DECODE_ARCH)
     grid = sharding.Mesh((2, 2), ("data", "model"))
     group = GridGroup(data=DataGroup(size=2), model=ModelGroup(size=2),
                       size=4)
-    for over in ({"kv_seq": ("data", "model")}, {"kv_seq": "model"},
-                 {"batch": None, "kv_seq": ("data", "model")},
-                 {"heads": "data"}):
-        with pytest.raises(NotImplementedError, match="Queue 1 B item 11"):
+    for over in ({"heads": "data"}, {"expert": "data"},
+                 {"vocab": "data"}):
+        with pytest.raises(NotImplementedError, match="model group only"):
             steps_lib.shard_decode_step(grid, cfg, 4, 16,
                                         rules_overrides=over, group=group)
-    with pytest.raises(NotImplementedError, match="Queue 1 B item 11"):
+    for over in ({"kv_seq": ("data", "model")}, {"kv_seq": "model"},
+                 {"batch": None, "kv_seq": ("data", "model")},
+                 {"vocab": None}, {"heads": None}, {"batch": "data"}):
+        fn, _, _, specs = steps_lib.shard_decode_step(
+            grid, cfg, 4, 16, rules_overrides=over, group=group)
+        assert callable(fn)
+    pod = sharding.Mesh((2, 1, 2), ("pod", "data", "model"))
+    fn, _, _, specs = steps_lib.shard_decode_step(pod, cfg, 4, 16,
+                                                  group=group)
+    assert tuple(specs["tokens"]) == (("pod", "data"),)
+    with pytest.raises(ValueError, match="by a rank of"):
         steps_lib.shard_decode_step(
-            sharding.Mesh((2, 2, 2), ("pod", "data", "model")), cfg, 4, 16)
-    fn, *_ = steps_lib.shard_decode_step(grid, cfg, 4, 16,
-                                         rules_overrides={"vocab": None},
-                                         group=group)
-    assert callable(fn)
+            sharding.Mesh((2, 2, 2), ("pod", "data", "model")), cfg, 4, 16,
+            group=group)
     with pytest.raises(ValueError, match="does not split"):
         steps_lib.shard_decode_step(grid, cfg, 3, 16, group=group)
     with pytest.raises(ValueError, match="group="):
@@ -632,7 +643,8 @@ def test_dryrun_serving_cell_records_the_reckoned_collective_bytes(tmp_path):
     under ``--model-parallel 2 --data-parallel 2``: the record's
     collective bytes are the ring's wire bytes of
     ``roofline.serve_tp_calls`` at the rank's 2 rows; the rank's param and
-    cache bytes are the reckoning's; ``--multi-pod`` still raises."""
+    cache bytes are the reckoning's; ``--multi-pod`` records the KV heads'
+    refusal."""
     cfg = reduced_config("yi-6b")
     grid = sharding.Mesh((2, 2), ("data", "model"))
     for shape, seq in (("decode_32k", 1), ("prefill_32k", 64)):
@@ -653,6 +665,10 @@ def test_dryrun_serving_cell_records_the_reckoned_collective_bytes(tmp_path):
                           seq_len=64, data_parallel=2, model_parallel=2,
                           out_dir=tmp_path)
     assert got["ok"] and got["tag"] == "dp2mp2"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        dryrun.count_cell("yi-6b", "decode_32k", cut="reduced", batch=4,
-                          seq_len=64, multi_pod=True)
+    # --multi-pod counts one rank of the (2, 16, 16) mesh, where the 4 KV
+    # heads of yi-6b do not split over 16 model ranks (the reference's
+    # refusal), recorded as an error
+    bad = dryrun.run_cell("yi-6b", "decode_32k", cut="reduced", batch=32,
+                          seq_len=64, multi_pod=True, out_dir=tmp_path)
+    assert not bad["ok"] and bad["mesh"] == "pod2x16x16"
+    assert "divisible by 16" in bad["error"]
